@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``rca_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py              # the check: exit 0 and a last-line verdict
+    python3 chip_smoke.py --profile    # also profile the analysis per tier
+    python3 chip_smoke.py --out DIR    # also write the full record to DIR
+
+Phases, each printing one line; any failure exits non-zero before the
+verdict line:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from ``rca_tpu_torch/csrc`` (one ``nvcc``);
+3. each kernel against its plain PyTorch version, on the card, at the
+   shapes the main path gives it at both tiers (2047 services: ``n_pad``
+   2048, ``e_pad`` 4096; 49,999 services: ``n_pad`` 53,248, ``e_pad``
+   106,496): the evidence pair allclose at rtol 1e-6 / atol 1e-7, the
+   segmented max bitwise, the segmented sum allclose at rtol 1e-5 /
+   atol 1e-6, and every kernel bitwise-equal to itself over two runs;
+4. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
+   both tiers with the launch counters set to 0 just before; each
+   analysis must launch the kernels exactly 1 / 8 / 8 times.  Each result
+   is held against the port's own CPU run (plain versions) of the same
+   case — top-k and ``sanitized_rows`` identical, ``u`` bitwise, scores
+   allclose at rtol 1e-5 / atol 1e-6 — and against itself (two card runs
+   give a bitwise-equal ``[4, n_pad]`` stack); a poisoned copy of the
+   2047 case checks the NaN/Inf sanitize the same way, and the flagship
+   ``entry()`` step must reproduce the engine's scores;
+5. times from CUDA events (median of 20 samples after warm-up): each
+   kernel's device time (``ms``, launches queued behind a sleep kernel so
+   the host's per-call cost is hidden) and its per-call cost to a caller
+   (``call_ms``) beside its bound, its plain version and, where one
+   PyTorch call computes the same reduction, that call (``library_ms``;
+   the port never calls it); the end-to-end ``analyze_arrays`` wall time
+   at both tiers.
+
+The line before the last is the ``{"kernels": [...]}`` JSON; the last line
+is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
+goes to ``DIR/chip_smoke.json`` and each profile table to
+``DIR/profile_<services>.txt``.  Imports nothing of JAX or ``rca_tpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+# published peaks of one H100 SXM (data sheet, dense): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+TIERS = ((2047, 3, 0), (49999, 3, 0))   # (services, roots, seed)
+C = 13
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def phase(name: str, **fields) -> None:
+    print(json.dumps({"phase": name, **fields}, default=float), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, inner: int = 10, queued: bool = True):
+    """Median over ``reps`` CUDA-event samples of ``inner`` calls each, in
+    ms per call.  ``queued``: the card first spins on a sleep kernel long
+    enough for the host to enqueue all ``inner`` calls, so the events time
+    the device work alone, back to back, without the host's per-call cost
+    (Python, the wrapper's checks, the launch); unqueued, a sample is the
+    per-call cost as a caller pays it."""
+    import numpy as np
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # 2 GHz is above the card's clock, so the sleep lasts at least this long
+    spin_cycles = int(max(4 * enqueue_s, 1e-3) * 2e9)
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return float(np.median(samples))
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host wall of ``fn`` (which must end in a device sync)."""
+    import numpy as np
+
+    for _ in range(3):
+        fn()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(samples))
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="profile the analysis at each tier")
+    parser.add_argument("--out", default=None,
+                        help="directory for the full record and profiles")
+    args = parser.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; the port's kernels run "
+              "only on the card", file=sys.stderr)
+        return 1
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.evidence import noisy_or_pair, noisy_or_pair_plain
+    from rca_tpu_torch.engine.segscan import (
+        build_seg_layouts,
+        segscan_max,
+        segscan_plain,
+        segscan_sum,
+    )
+    from rca_tpu_torch.entry import entry
+    from rca_tpu_torch.kernels import LAUNCHES, build, reset_launches
+
+    record = {"argv": list(argv)}
+    dev = torch.device("cuda")
+    smi = smi_line()
+    record["nvidia_smi"] = smi
+    print(smi, flush=True)
+
+    # -- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    build.library(verbose=True)
+    record["build_s"] = time.perf_counter() - t0
+    phase("build", seconds=record["build_s"],
+          nvcc_seconds=build.BUILD_SECONDS)
+
+    # -- inputs: both tiers, generated once --------------------------------
+    cases, shapes, padded = {}, {}, {}
+    for n, roots, seed in TIERS:
+        t0 = time.perf_counter()
+        cases[n] = synthetic_cascade_arrays(n, n_roots=roots, seed=seed)
+        eng = GraphEngine(device="cpu")
+        f, s, d = eng._pad(cases[n].features, cases[n].dep_src,
+                           cases[n].dep_dst)
+        shapes[n] = (f.shape[0], len(s))
+        padded[n] = (s, d)
+        phase("generate", services=n, edges=len(cases[n].dep_src),
+              n_pad=f.shape[0], e_pad=len(s),
+              seconds=time.perf_counter() - t0)
+
+    # -- 3. each kernel against its plain version, on the card -------------
+    rng = np.random.default_rng(20260)
+    params = GraphEngine(device="cpu").params
+    aw = torch.tensor(params.anomaly_weights, dtype=torch.float32, device=dev)
+    hw = torch.tensor(params.hard_weights, dtype=torch.float32, device=dev)
+    kin = {}   # per tier: kernel inputs on the card, for timing
+    errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0}
+    for n in cases:
+        n_pad, e_pad = shapes[n]
+        feats = np.zeros((n_pad, C), np.float32)
+        feats[:n] = cases[n].features
+        # half the rows from the cascade, half uniform past [0, 1] so the
+        # clip is exercised
+        feats[::2] = rng.uniform(-0.2, 1.2, feats[::2].shape)
+        ft = torch.from_numpy(feats).to(dev)
+        a_k, h_k = noisy_or_pair(ft, aw, hw)
+        a_k2, h_k2 = noisy_or_pair(ft, aw, hw)
+        a_p, h_p = noisy_or_pair_plain(ft, aw, hw)
+        torch.cuda.synchronize()
+        if not (torch.equal(a_k, a_k2) and torch.equal(h_k, h_k2)):
+            fail(f"noisy_or_pair not deterministic at n_pad {n_pad}")
+        for got, want in ((a_k, a_p), (h_k, h_p)):
+            if not torch.allclose(got, want, rtol=1e-6, atol=1e-7):
+                fail(f"noisy_or_pair disagrees with plain at n_pad {n_pad}")
+        err = max(float((a_k - a_p).abs().max()), float((h_k - h_p).abs().max()))
+        errs["noisy_or_pair"] = max(errs["noisy_or_pair"], err)
+        phase("check", kernel="noisy_or_pair", n_pad=n_pad,
+              max_abs_err=err, h_bitwise=bool(torch.equal(h_k, h_p)))
+
+        down, up = build_seg_layouts(n_pad, e_pad, cases[n].dep_src,
+                                     cases[n].dep_dst)
+        kin[n] = {"features": ft, "seg": {}}
+        src_pad, dst_pad = padded[n]
+        for op, layout, seg_of_edge, fn in (
+                ("sum", down, dst_pad, segscan_sum),
+                ("max", up, src_pad, segscan_max)):
+            x = torch.from_numpy(
+                rng.uniform(0.0, 1.0, e_pad).astype(np.float32)).to(dev)
+            flags = torch.from_numpy(layout.flags).to(dev)
+            # edges per segment, in sorted-segment order: the lengths the
+            # library's segment reduce takes
+            counts = np.bincount(seg_of_edge, minlength=n_pad)
+            lengths = torch.from_numpy(counts.astype(np.int64)).to(dev)
+            k1 = fn(x, flags)
+            k2 = fn(x, flags)
+            plain = segscan_plain(x, flags, op)
+            torch.cuda.synchronize()
+            name = f"segscan_{op}"
+            if not torch.equal(k1, k2):
+                fail(f"{name} not deterministic at e_pad {e_pad}")
+            if op == "max" and not torch.equal(k1, plain):
+                fail(f"segscan_max not bitwise equal to plain at {e_pad}")
+            if not torch.allclose(k1, plain, rtol=1e-5, atol=1e-6):
+                fail(f"{name} disagrees with plain at e_pad {e_pad}")
+            err = float((k1 - plain).abs().max())
+            errs[name] = max(errs[name], err)
+            kin[n]["seg"][op] = (x, flags, lengths)
+            phase("check", kernel=name, e_pad=e_pad, max_abs_err=err,
+                  longest_segment=int(counts.max()))
+
+    # -- 4. the main path, through the kernels -----------------------------
+    engine = GraphEngine()
+    if engine.plan != "kernels":
+        fail(f"engine plan {engine.plan!r} on the card")
+    reset_launches()
+    results = {}
+    for i, n in enumerate(cases, start=1):
+        results[n] = engine.analyze_case(cases[n])
+        want = {"noisy_or_pair": i, "segscan_sum": 8 * i, "segscan_max": 8 * i}
+        if LAUNCHES != want:
+            fail(f"launch counts {LAUNCHES} after {i} analyses, want {want}")
+    main_launches = dict(LAUNCHES)
+    phase("main_path", launches=main_launches,
+          per_analysis={"noisy_or_pair": 1, "segscan_sum": 8,
+                        "segscan_max": 8})
+
+    cpu = GraphEngine(device="cpu")
+    checks = []
+    for n in cases:
+        case = cases[n]
+        variants = [("clean", case.features)]
+        if n == 2047:
+            bad = case.features.copy()
+            bad[[5, 77, 901], [1, 4, 12]] = (np.nan, np.inf, -np.inf)
+            variants.append(("nan_inf", bad))
+        for label, feats in variants:
+            got = (results[n] if label == "clean" else
+                   engine.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                         case.names))
+            again = engine.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                          case.names)
+            ref = cpu.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                     case.names)
+            gs, rs = got.full_diagnostics(), ref.full_diagnostics()
+            if not np.array_equal(gs, again.full_diagnostics()):
+                fail(f"two card runs differ at {n} ({label})")
+            if got.top_components() != ref.top_components():
+                fail(f"top-k differs from the CPU run at {n} ({label}): "
+                     f"{got.top_components()} vs {ref.top_components()}")
+            if got.sanitized_rows != ref.sanitized_rows:
+                fail(f"sanitized_rows {got.sanitized_rows} vs "
+                     f"{ref.sanitized_rows} at {n} ({label})")
+            if not np.array_equal(gs[1], rs[1]):
+                fail(f"u not bitwise equal to the CPU run at {n} ({label})")
+            if not np.allclose(gs[3], rs[3], rtol=1e-5, atol=1e-6):
+                fail(f"scores disagree with the CPU run at {n} ({label})")
+            if not np.isfinite(gs).all():
+                fail(f"non-finite diagnostics at {n} ({label})")
+            roots = set(case.roots.tolist())
+            names = list(case.names) if case.names else None
+            top = [names.index(c) if names else int(c.split("-")[1])
+                   for c in got.top_components()]
+            checks.append({
+                "services": n, "input": label,
+                "top": got.top_components(),
+                "sanitized_rows": got.sanitized_rows,
+                "score_max_abs_err": float(np.abs(gs[3] - rs[3]).max()),
+                "hit_at_1": top[0] in roots,
+                "roots_in_top_k": len(roots & set(top)),
+            })
+            phase("compare", **checks[-1])
+            if label == "clean" and top[0] not in roots:
+                fail(f"top-1 {got.top_components()[0]} is not a fault root "
+                     f"at {n}")
+
+    fn, example = entry()
+    score = fn(*example)[: 2047].cpu().numpy()
+    if not np.allclose(score, results[2047].score, rtol=1e-5, atol=1e-6):
+        fail("entry() scores disagree with the engine's")
+    phase("entry", n_pad=int(example[0].shape[0]),
+          e_pad=int(example[1].shape[0]))
+
+    # -- 5. times ----------------------------------------------------------
+    times = {}
+    for n in cases:
+        n_pad, e_pad = shapes[n]
+        ft = kin[n]["features"]
+        t = {"noisy_or_pair": {
+            "ms": cuda_ms(lambda: noisy_or_pair(ft, aw, hw)),
+            "call_ms": cuda_ms(lambda: noisy_or_pair(ft, aw, hw),
+                               queued=False),
+            "plain_ms": cuda_ms(lambda: noisy_or_pair_plain(ft, aw, hw)),
+            "library_ms": None,
+            "bound": bound_ms(n_pad * C * 4 + 2 * C * 4 + 2 * n_pad * 4,
+                              n_pad * (C * 2 * 3 + 2 * 2 + 2)),
+        }}
+        for op, fn_k in (("sum", segscan_sum), ("max", segscan_max)):
+            x, flags, lengths = kin[n]["seg"][op]
+            t[f"segscan_{op}"] = {
+                "ms": cuda_ms(lambda: fn_k(x, flags)),
+                "call_ms": cuda_ms(lambda: fn_k(x, flags), queued=False),
+                "plain_ms": cuda_ms(lambda: segscan_plain(x, flags, op)),
+                "library_ms": cuda_ms(
+                    lambda: torch.segment_reduce(x, op, lengths=lengths)),
+                "bound": bound_ms(3 * e_pad * 4, e_pad),
+            }
+        case = cases[n]
+
+        def analyze():
+            engine.analyze_arrays(case.features, case.dep_src,
+                                  case.dep_dst, case.names)
+
+        t["analyze_arrays_ms"] = host_ms(analyze)
+        t["analyze_timed_latency_ms"] = engine.analyze_case(
+            case, timed=True).latency_ms
+        times[n] = t
+        phase("times", services=n, **t)
+
+    if args.profile:
+        for n in cases:
+            profile(engine, cases[n], times[n]["analyze_arrays_ms"], args.out)
+
+    big = TIERS[-1][0]
+    sources = {
+        "noisy_or_pair": ("rca_tpu_torch/csrc/evidence.cu",
+                          "rca_tpu/engine/pallas_kernels.py:52"),
+        "segscan_sum": ("rca_tpu_torch/csrc/segscan.cu",
+                        "rca_tpu/engine/segscan.py:136"),
+        "segscan_max": ("rca_tpu_torch/csrc/segscan.cu",
+                        "rca_tpu/engine/segscan.py:141"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        t = times[big][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": main_launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "tier_services": big, "at_2047": times[2047][name],
+        })
+
+    for mod in list(sys.modules):
+        if mod == "jax" or mod.startswith("jax.") or mod == "rca_tpu" \
+                or mod.startswith("rca_tpu."):
+            fail(f"{mod} was imported")
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    record.update(kernels=kernels, checks=checks, times={
+        str(n): t for n, t in times.items()}, device=device,
+        torch=torch.__version__, cuda=torch.version.cuda)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(record, f, indent=1, default=float)
+    print(json.dumps({"kernels": kernels}, default=float))
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+def profile(engine, case, host_ms_per_analysis: float, out=None) -> None:
+    """Device time by kernel over 5 analyses (torch.profiler), the table
+    written to ``out/profile_<n>.txt`` when ``out`` is given.  The busy
+    share divides the device time of one analysis by its unprofiled host
+    wall time (the profiler's own start-up would swamp a profiled wall
+    clock)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    for _ in range(3):
+        engine.analyze_case(case)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            engine.analyze_case(case)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    device_us = sum(
+        getattr(e, "self_device_time_total", 0) or
+        getattr(e, "self_cuda_time_total", 0)
+        for e in events if e.device_type == DeviceType.CUDA) / 5
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / 5
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, f"profile_{case.n}.txt"), "w") as f:
+            f.write(table)
+    phase("profile", services=case.n, device_us_per_analysis=device_us,
+          launches_per_analysis=launches,
+          host_ms_per_analysis=host_ms_per_analysis,
+          device_busy_share=device_us / 1e3 / host_ms_per_analysis)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,153 @@
+"""Explain-away propagation over the service graph, in PyTorch.
+
+Counterpart of the JAX package's ``engine/propagate.py`` for the seg-step
+path (S services, E dependency edges ``(s -> d)``, "s depends on d"):
+
+    a  = 1 - prod_c (1 - w_c f_c)            anomaly evidence (noisy-OR)
+    h  = 1 - prod_c (1 - v_c f_c)            hard "I am broken" evidence
+    u_s = max_{(s,d)} max(h_d, g*u_d)        upstream explanation (K steps)
+    m_d = (1/deg_d) sum_{(s,d)} (a~_s + g*m_s)   downstream impact (K steps)
+    score = a * (1 + b*tanh(m)) * (1 - mu*u*(1-h))
+
+where a~ is the anomaly excess over the live-median background.  The
+evidence pair and both scans go through the port's kernels on the card
+(:mod:`.evidence`, :mod:`.segscan`); every other op is plain PyTorch.
+The JAX ``lax.scan`` over steps is a Python loop here.
+
+No float SUM on this path depends on the order of atomics: ``deg`` sums
+integer-valued ones (exact in any order), and the error-source scatter
+takes a max.  Two runs on one device give the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from rca_tpu_torch.engine.evidence import noisy_or_pair
+from rca_tpu_torch.engine.segscan import SegLayout, down_seg_step, up_seg_step
+from rca_tpu_torch.features.schema import SvcF
+
+
+def finite_mask_rows(features: torch.Tensor):
+    """Zero every feature row carrying a NaN/Inf; return ``(clean, n_bad)``
+    with ``n_bad`` a 0-dim int tensor on the features' device (fetched with
+    the top-k, so the sanitize costs no extra sync)."""
+    ok = torch.isfinite(features).all(dim=-1, keepdim=True)
+    clean = torch.where(ok, features, torch.zeros_like(features))
+    n_bad = (~ok).sum()
+    return clean, n_bad
+
+
+def background_excess(a: torch.Tensor, n_live: Optional[int] = None):
+    """Anomaly excess over the MEDIAN of the live services (slots
+    ``0..n_live-1``; later slots are shape padding and get 0).  The median
+    is the midpoint of the two middle values, as ``jnp.nanmedian`` takes it
+    (``torch.median`` would return the lower one); 0 when nothing is live."""
+    if n_live is None:
+        n_live = a.shape[0]
+    if n_live > 0:
+        a_bg = torch.quantile(a[:n_live], 0.5, interpolation="midpoint")
+    else:
+        a_bg = a.new_zeros(())
+    live = torch.arange(a.shape[0], device=a.device) < n_live
+    return torch.where(live, torch.clamp(a - a_bg, min=0.0), 0.0)
+
+
+def error_source_excess(features: torch.Tensor, dep_src: torch.Tensor,
+                        dep_dst: torch.Tensor) -> torch.Tensor:
+    """Per-node error rate in excess of its dependencies' max,
+    ``relu(e - max over edges (s, d) of e[d])``.  Padded edges self-loop on
+    the dummy slot whose error rate is 0 (the max's identity here)."""
+    e = features[:, SvcF.ERROR_RATE].clamp(0.0, 1.0)
+    dep_max = torch.zeros_like(e).scatter_reduce_(
+        0, dep_src, e[dep_dst], reduce="amax", include_self=True,
+    )
+    return torch.clamp(e - dep_max, min=0.0)
+
+
+def fold_error_contrast(a, err_src, weight: float):
+    """Noisy-OR the error-source contrast into the anomaly evidence."""
+    return 1.0 - (1.0 - a) * (1.0 - weight * err_src)
+
+
+def combine_score(a, h, u, m, explain_strength: float, impact_bonus: float):
+    """Final root-cause score: impact amplifies own evidence, an anomalous
+    upstream explains away soft symptoms (damped by own hard evidence)."""
+    return (
+        a
+        * (1.0 + impact_bonus * torch.tanh(m))
+        * (1.0 - explain_strength * u * (1.0 - h))
+    )
+
+
+def propagate_core(a, h, dep_dst, steps: int, decay: float,
+                   explain_strength: float, impact_bonus: float,
+                   n_live: Optional[int], down_seg: SegLayout,
+                   up_seg: SegLayout):
+    """Propagation from precomputed evidence over the seg-step layouts.
+    Returns ``(a, h, u, m, score)``, all ``[S]``."""
+    u = torch.zeros_like(a)
+    for _ in range(steps):
+        u = up_seg_step(u, h, decay, up_seg)
+
+    a_ex = background_excess(a, n_live)
+    # dependent count per service for the impact MEAN (padded edges point
+    # at the dummy slot, so live degrees come from real edges only)
+    deg = torch.zeros_like(a).index_add_(0, dep_dst, torch.ones_like(
+        dep_dst, dtype=a.dtype))
+    inv_deg = 1.0 / torch.clamp(deg, min=1.0)
+
+    m = torch.zeros_like(a)
+    for _ in range(steps):
+        m = down_seg_step(m, a_ex, decay, down_seg, inv_deg)
+
+    score = combine_score(a, h, u, m, explain_strength, impact_bonus)
+    return a, h, u, m, score
+
+
+def propagate(features, dep_src, dep_dst, anomaly_w, hard_w, steps: int,
+              decay: float, explain_strength: float, impact_bonus: float,
+              n_live: Optional[int], down_seg: SegLayout, up_seg: SegLayout,
+              error_contrast: float = 0.0):
+    """Evidence pair (one kernel), error-source contrast, then the core.
+    ``features`` is the padded ``[n_pad, C]`` float32 matrix, already
+    sanitized; edges are int64 ``[e_pad]``.  Returns ``(a, h, u, m,
+    score)``."""
+    a, h = noisy_or_pair(features, anomaly_w, hard_w)
+    if error_contrast:
+        a = fold_error_contrast(
+            a, error_source_excess(features, dep_src, dep_dst),
+            error_contrast,
+        )
+    return propagate_core(
+        a, h, dep_dst, steps, decay, explain_strength, impact_bonus,
+        n_live, down_seg, up_seg,
+    )
+
+
+class Propagation(nn.Module):
+    """The propagation as a module: the two weight vectors are buffers (so
+    ``.to(device)`` moves them) and the scalars are attributes."""
+
+    def __init__(self, params):
+        super().__init__()
+        aw, hw = params.weight_arrays()
+        self.register_buffer("anomaly_w", torch.from_numpy(aw))
+        self.register_buffer("hard_w", torch.from_numpy(hw))
+        self.steps = int(params.steps)
+        self.decay = float(params.decay)
+        self.explain_strength = float(params.explain_strength)
+        self.impact_bonus = float(params.impact_bonus)
+        self.error_contrast = float(params.error_contrast)
+
+    def forward(self, features, dep_src, dep_dst, n_live: int,
+                down_seg: SegLayout, up_seg: SegLayout):
+        return propagate(
+            features, dep_src, dep_dst, self.anomaly_w, self.hard_w,
+            self.steps, self.decay, self.explain_strength,
+            self.impact_bonus, n_live, down_seg, up_seg,
+            error_contrast=self.error_contrast,
+        )

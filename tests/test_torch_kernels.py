@@ -1,0 +1,248 @@
+"""The PyTorch port's kernels against the JAX package's.
+
+On the CPU each kernel wrapper of ``rca_tpu_torch`` computes its plain
+PyTorch version; these tests hold those plain versions to the JAX
+package's Pallas kernels (run in interpret mode, as that package's own
+tests run them on the CPU) on the same numpy inputs.  The CUDA kernels
+themselves run only on the card: the tests marked ``cuda`` hold them to
+the plain versions there and skip elsewhere.
+
+Tolerances: the evidence pair allclose at rtol 1e-6 / atol 1e-7 (one
+product of 13 float32 factors); the segmented max bitwise (float32 max
+does not depend on order); the segmented sum allclose at rtol 1e-5 /
+atol 1e-6, the repo's segscan-vs-scatter tolerance (the sum is taken in
+another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rca_tpu.cluster.generator import synthetic_cascade_arrays
+from rca_tpu.engine import segscan as ref_segscan
+from rca_tpu.engine.pallas_kernels import (
+    noisy_or_pair_pallas,
+    noisy_or_pair_xla,
+)
+from rca_tpu.engine.train import packaged_params
+from rca_tpu_torch.engine import segscan as port_segscan
+from rca_tpu_torch.engine.evidence import noisy_or_pair, noisy_or_pair_plain
+from rca_tpu_torch.kernels import LAUNCHES
+
+C = 13
+
+
+def _weights():
+    aw, hw = packaged_params().weight_arrays()
+    return np.array(aw), np.array(hw)
+
+
+def _features(n_rows: int, seed: int) -> np.ndarray:
+    # past [0, 1] on purpose: the clip is part of the kernel
+    return np.random.default_rng(seed).uniform(
+        -0.2, 1.2, (n_rows, C)).astype(np.float32)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the port's CUDA kernels run only on "
+                    "the card (python3 chip_smoke.py runs them there)")
+    return torch.device("cuda")
+
+
+# -- K1: the noisy-OR evidence pair -------------------------------------------
+
+@pytest.mark.parametrize("n_rows,seed", [(64, 0), (1024, 1), (2048, 2)])
+def test_noisy_or_plain_matches_pallas_and_xla(n_rows, seed):
+    f = _features(n_rows, seed)
+    aw, hw = _weights()
+    ref_pallas = noisy_or_pair_pallas(
+        jnp.asarray(f.T), jnp.asarray(aw), jnp.asarray(hw), interpret=True)
+    ref_xla = noisy_or_pair_xla(jnp.asarray(f), jnp.asarray(aw),
+                                jnp.asarray(hw))
+    a, h = noisy_or_pair_plain(torch.from_numpy(f), torch.from_numpy(aw),
+                               torch.from_numpy(hw))
+    for ref in (ref_pallas, ref_xla):
+        np.testing.assert_allclose(a.numpy(), np.asarray(ref[0]),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(h.numpy(), np.asarray(ref[1]),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_noisy_or_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
+    f = torch.from_numpy(_features(256, 3))
+    aw, hw = (torch.from_numpy(w) for w in _weights())
+    before = dict(LAUNCHES)
+    a, h = noisy_or_pair(f, aw, hw)
+    pa, ph = noisy_or_pair_plain(f, aw, hw)
+    assert torch.equal(a, pa) and torch.equal(h, ph)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "rank", "device"])
+def test_noisy_or_wrapper_rejects_bad_inputs(bad):
+    f = torch.from_numpy(_features(64, 4))
+    aw, hw = (torch.from_numpy(w) for w in _weights())
+    if bad == "dtype":
+        f, err = f.double(), TypeError
+    elif bad == "shape":
+        aw, err = aw[:-1], ValueError
+    elif bad == "rank":
+        f, err = f.reshape(-1), ValueError
+    else:
+        f, aw, hw, err = f.to("meta"), aw.to("meta"), hw.to("meta"), ValueError
+    with pytest.raises(err):
+        noisy_or_pair(f, aw, hw)
+
+
+@pytest.mark.cuda
+def test_noisy_or_kernel_matches_plain_on_card(cuda_device):
+    f = torch.from_numpy(_features(53248, 5)).to(cuda_device)
+    aw, hw = (torch.from_numpy(w).to(cuda_device) for w in _weights())
+    a, h = noisy_or_pair(f, aw, hw)
+    pa, ph = noisy_or_pair_plain(f, aw, hw)
+    torch.testing.assert_close(a, pa, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(h, ph, rtol=1e-6, atol=1e-7)
+
+
+# -- K2/K3: the flagged segmented scans ---------------------------------------
+
+def _cascade_flags(e_pad_tier: int):
+    """Segment flags of a real layout: the dst-sorted (down) and
+    src-sorted (up) edges of a cascade padded to ``e_pad_tier``."""
+    n, seed, n_pad = {4096: (2047, 0, 2048), 512: (200, 11, 256)}[e_pad_tier]
+    case = synthetic_cascade_arrays(n, n_roots=2, seed=seed)
+    down = ref_segscan.build_down_seg(n_pad, e_pad_tier, case.dep_src,
+                                      case.dep_dst)
+    up = ref_segscan.build_up_seg(n_pad, e_pad_tier, case.dep_src,
+                                  case.dep_dst)
+    return {"down": np.array(down.flags), "up": np.array(up.flags)}
+
+
+def _edge_case_flags(name: str) -> np.ndarray:
+    if name == "one_segment":
+        flags = np.zeros(1024, np.float32)
+        flags[0] = 1.0
+    elif name == "all_singletons":
+        flags = np.ones(1024, np.float32)
+    else:  # a 2,000-long hub run between short segments
+        flags = np.zeros(4096, np.float32)
+        flags[[0, 3, 10, 2010, 2011, 2500]] = 1.0
+    return flags
+
+
+def _flag_cases():
+    cases = []
+    for tier in (4096, 512):
+        for direction in ("down", "up"):
+            cases.append(pytest.param(("layout", tier, direction),
+                                      id=f"e_pad{tier}-{direction}"))
+    for name in ("one_segment", "all_singletons", "hub_run_2000"):
+        cases.append(pytest.param(("edge", name), id=name))
+    return cases
+
+
+def _flags_for(spec) -> np.ndarray:
+    if spec[0] == "layout":
+        return _cascade_flags(spec[1])[spec[2]]
+    return _edge_case_flags(spec[1])
+
+
+@pytest.mark.parametrize("spec", _flag_cases())
+def test_segscan_plain_matches_pallas(spec, monkeypatch):
+    monkeypatch.setenv("SEGSCAN_INTERPRET", "1")
+    flags = _flags_for(spec)
+    x = np.random.default_rng(len(flags)).uniform(
+        0.0, 1.0, len(flags)).astype(np.float32)
+    xt, ft = torch.from_numpy(x), torch.from_numpy(flags)
+
+    ref_max = np.asarray(ref_segscan.pallas_segscan_max(
+        jnp.asarray(x), jnp.asarray(flags)))
+    port_max = port_segscan.segscan_max(xt, ft).numpy()
+    assert np.array_equal(port_max, ref_max)
+
+    ref_sum = np.asarray(ref_segscan.pallas_segscan(
+        jnp.asarray(x), jnp.asarray(flags)))
+    port_sum = port_segscan.segscan_sum(xt, ft).numpy()
+    np.testing.assert_allclose(port_sum, ref_sum, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 1000, 1025])
+def test_segscan_plain_matches_a_python_loop(n):
+    """Any length (the TPU kernel took multiples of 128 only), checked
+    against the obvious sequential definition."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    flags = (rng.random(n) < 0.1).astype(np.float32)
+    want_sum, want_max = np.zeros(n, np.float64), np.zeros(n, np.float32)
+    for i in range(n):
+        start = i == 0 or flags[i]
+        want_sum[i] = x[i] + (0.0 if start else want_sum[i - 1])
+        want_max[i] = x[i] if start else max(x[i], want_max[i - 1])
+    xt, ft = torch.from_numpy(x), torch.from_numpy(flags)
+    assert np.array_equal(port_segscan.segscan_max(xt, ft).numpy(), want_max)
+    np.testing.assert_allclose(port_segscan.segscan_sum(xt, ft).numpy(),
+                               want_sum, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "device"])
+def test_segscan_wrapper_rejects_bad_inputs(bad):
+    x = torch.rand(256)
+    flags = torch.zeros(256)
+    if bad == "dtype":
+        x, err = x.double(), TypeError
+    elif bad == "shape":
+        flags, err = flags[:-1], ValueError
+    else:
+        x, flags, err = x.to("meta"), flags.to("meta"), ValueError
+    with pytest.raises(err):
+        port_segscan.segscan_sum(x, flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_segscan_kernel_matches_plain_on_card(op, cuda_device):
+    flags = np.zeros(106496, np.float32)
+    flags[np.sort(np.random.default_rng(7).choice(106496, 40000,
+                                                  replace=False))] = 1.0
+    flags[0] = 1.0
+    x = np.random.default_rng(8).uniform(0, 1, 106496).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda_device)
+    ft = torch.from_numpy(flags).to(cuda_device)
+    fn = port_segscan.segscan_sum if op == "sum" else port_segscan.segscan_max
+    got = fn(xt, ft)
+    want = port_segscan.segscan_plain(xt, ft, op)
+    assert torch.equal(got, fn(xt, ft))
+    if op == "max":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# -- the host-side layout builders --------------------------------------------
+
+@pytest.mark.parametrize("n,seed", [(50, 7), (700, 3), (2047, 0)])
+def test_layout_builders_match_reference(n, seed):
+    case = synthetic_cascade_arrays(n, n_roots=2, seed=seed)
+    n_pad = {50: 64, 700: 1024, 2047: 2048}[n]
+    e_pad = 4096 if n == 2047 else (128 if n == 50 else 2048)
+    for name in ("build_down_seg", "build_up_seg"):
+        ref = getattr(ref_segscan, name)(n_pad, e_pad, case.dep_src,
+                                         case.dep_dst)
+        port = getattr(port_segscan, name)(n_pad, e_pad, case.dep_src,
+                                           case.dep_dst)
+        for field in ref._fields:
+            want = np.asarray(getattr(ref, field))
+            got = getattr(port, field)
+            assert got.dtype == want.dtype, (name, field)
+            assert np.array_equal(got, want), (name, field)
+    down, up = port_segscan.build_seg_layouts(n_pad, e_pad, case.dep_src,
+                                              case.dep_dst)
+    assert np.array_equal(down.flags, port_segscan.build_down_seg(
+        n_pad, e_pad, case.dep_src, case.dep_dst).flags)
+    moved = up.to("cpu")
+    assert moved.other_sorted.dtype == torch.int64
+    assert np.array_equal(moved.ends.numpy(), up.ends)
