@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # the check: exit 0 and a last-line verdict
     python3 chip_smoke.py --profile    # also profile the analysis per tier
     python3 chip_smoke.py --out DIR    # also write the full record to DIR
+    python3 chip_smoke.py --sweep      # also time the seg steps per bin cut
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line:
@@ -14,11 +15,15 @@ verdict line:
    shapes the main path gives it at both tiers (2047 services: ``n_pad``
    2048, ``e_pad`` 4096; 49,999 services: ``n_pad`` 53,248, ``e_pad``
    106,496): the evidence pair allclose at rtol 1e-6 / atol 1e-7, the
-   segmented max bitwise, the segmented sum allclose at rtol 1e-5 /
-   atol 1e-6, and every kernel bitwise-equal to itself over two runs;
+   segmented max and the up-step bitwise, the segmented sum and the
+   down-step allclose at rtol 1e-5 / atol 1e-6, and every kernel
+   bitwise-equal to itself over two runs.  The steps run over the tier's
+   real layouts and over a star layout (all 4096 edges in one segment,
+   longer than a block);
 4. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
    both tiers with the launch counters set to 0 just before; each
-   analysis must launch the kernels exactly 1 / 8 / 8 times.  Each result
+   analysis must launch ``noisy_or_pair`` once, ``seg_up_step`` and
+   ``seg_down_step`` 8 times each and the flagged scans never.  Each result
    is held against the port's own CPU run (plain versions) of the same
    case — top-k and ``sanitized_rows`` identical, ``u`` bitwise, scores
    allclose at rtol 1e-5 / atol 1e-6 — and against itself (two card runs
@@ -30,8 +35,11 @@ verdict line:
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
    PyTorch call computes the same reduction, that call (``library_ms``;
-   the port never calls it); the end-to-end ``analyze_arrays`` wall time
-   at both tiers.
+   the port never calls it); for each seg-step kernel also the step as
+   composed around the flagged-scan kernel (gather, scan, ``s[ends]``,
+   ``where``, epilogue: ``scan_step_ms`` / ``scan_step_call_ms``, timed
+   the same way); the end-to-end ``analyze_arrays`` wall time at both
+   tiers.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
@@ -137,6 +145,9 @@ def main(argv) -> int:
                         help="profile the analysis at each tier")
     parser.add_argument("--out", default=None,
                         help="directory for the full record and profiles")
+    parser.add_argument("--sweep", action="store_true",
+                        help="time the seg-step kernels at each tier for "
+                             "several short/long bin cuts")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -147,10 +158,15 @@ def main(argv) -> int:
     from rca_tpu_torch.engine import GraphEngine
     from rca_tpu_torch.engine.evidence import noisy_or_pair, noisy_or_pair_plain
     from rca_tpu_torch.engine.segscan import (
+        build_seg_layout,
         build_seg_layouts,
+        down_seg_step,
+        down_seg_step_plain,
         segscan_max,
         segscan_plain,
         segscan_sum,
+        up_seg_step,
+        up_seg_step_plain,
     )
     from rca_tpu_torch.entry import entry
     from rca_tpu_torch.kernels import LAUNCHES, build, reset_launches
@@ -188,7 +204,48 @@ def main(argv) -> int:
     aw = torch.tensor(params.anomaly_weights, dtype=torch.float32, device=dev)
     hw = torch.tensor(params.hard_weights, dtype=torch.float32, device=dev)
     kin = {}   # per tier: kernel inputs on the card, for timing
-    errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0}
+    errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0,
+            "seg_up_step": 0.0, "seg_down_step": 0.0}
+    decay = params.decay
+
+    def check_steps(label, seg, inv_deg, names):
+        """The step kernels ``names`` against their plain versions over
+        ``seg`` (on the card), on random nonnegative vectors; returns the
+        inputs."""
+        n_pad = seg.offsets.shape[0] - 1
+
+        def vec():
+            return torch.from_numpy(
+                rng.uniform(0.0, 1.0, n_pad).astype(np.float32)).to(dev)
+
+        u, h, m, a_ex = vec(), vec(), vec(), vec()
+        runs = {
+            "seg_up_step": (lambda: up_seg_step(u, h, decay, seg),
+                            lambda: up_seg_step_plain(u, h, decay, seg)),
+            "seg_down_step": (
+                lambda: down_seg_step(m, a_ex, decay, seg, inv_deg),
+                lambda: down_seg_step_plain(m, a_ex, decay, seg, inv_deg)),
+        }
+        for name in names:
+            kernel, plain = runs[name]
+            k1, k2, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(k1, k2):
+                fail(f"{name} not deterministic ({label})")
+            if name == "seg_up_step" and not torch.equal(k1, want):
+                fail(f"seg_up_step not bitwise equal to plain ({label})")
+            if not torch.allclose(k1, want, rtol=1e-5, atol=1e-6):
+                fail(f"{name} disagrees with plain ({label})")
+            err = float((k1 - want).abs().max())
+            errs[name] = max(errs[name], err)
+            phase("check", kernel=name, layout=label, n_pad=n_pad,
+                  longest_segment=int(
+                      (seg.offsets[1:] - seg.offsets[:-1]).max()),
+                  long_segments=int(seg.long_ids.shape[0]),
+                  max_abs_err=err, bitwise=bool(torch.equal(k1, want)))
+        return {"u": u, "h": h, "m": m, "a_ex": a_ex, "inv_deg": inv_deg,
+                "seg": seg}
+
     for n in cases:
         n_pad, e_pad = shapes[n]
         feats = np.zeros((n_pad, C), np.float32)
@@ -242,6 +299,27 @@ def main(argv) -> int:
             phase("check", kernel=name, e_pad=e_pad, max_abs_err=err,
                   longest_segment=int(counts.max()))
 
+        # the seg steps over the tier's layouts as the engine uploads them,
+        # with the engine's inverse in-degree (padded edges included)
+        down_d, up_d = build_seg_layouts(n_pad, e_pad, cases[n].dep_src,
+                                         cases[n].dep_dst, device=dev)
+        inv_deg = torch.from_numpy((1.0 / np.maximum(np.bincount(
+            dst_pad, minlength=n_pad), 1)).astype(np.float32)).to(dev)
+        kin[n]["step"] = {
+            "seg_up_step": check_steps(f"up, {n} services", up_d, inv_deg,
+                                       ["seg_up_step"]),
+            "seg_down_step": check_steps(f"down, {n} services", down_d,
+                                         inv_deg, ["seg_down_step"]),
+        }
+
+    # a star: every edge in one segment (id 7, past empty ones), so the
+    # block path reduces a run 16 times its width
+    star = build_seg_layout(2048, 4096, np.full(4096, 7, np.int32),
+                            rng.integers(0, 2047, 4096).astype(np.int32))
+    check_steps("star, 4096 edges in one segment", star.to(dev),
+                torch.full((2048,), 1.0 / 4096, dtype=torch.float32,
+                           device=dev), ["seg_up_step", "seg_down_step"])
+
     # -- 4. the main path, through the kernels -----------------------------
     engine = GraphEngine()
     if engine.plan != "kernels":
@@ -250,13 +328,15 @@ def main(argv) -> int:
     results = {}
     for i, n in enumerate(cases, start=1):
         results[n] = engine.analyze_case(cases[n])
-        want = {"noisy_or_pair": i, "segscan_sum": 8 * i, "segscan_max": 8 * i}
+        want = {"noisy_or_pair": i, "segscan_sum": 0, "segscan_max": 0,
+                "seg_up_step": 8 * i, "seg_down_step": 8 * i}
         if LAUNCHES != want:
             fail(f"launch counts {LAUNCHES} after {i} analyses, want {want}")
     main_launches = dict(LAUNCHES)
     phase("main_path", launches=main_launches,
-          per_analysis={"noisy_or_pair": 1, "segscan_sum": 8,
-                        "segscan_max": 8})
+          per_analysis={"noisy_or_pair": 1, "seg_up_step": 8,
+                        "seg_down_step": 8, "segscan_sum": 0,
+                        "segscan_max": 0})
 
     cpu = GraphEngine(device="cpu")
     checks = []
@@ -338,6 +418,41 @@ def main(argv) -> int:
                     lambda: torch.segment_reduce(x, op, lengths=lengths)),
                 "bound": bound_ms(3 * e_pad * 4, e_pad),
             }
+        st = kin[n]["step"]
+        up, down = st["seg_up_step"], st["seg_down_step"]
+        out = torch.empty(n_pad, dtype=torch.float32, device=dev)
+        # bytes: other (int32 per edge) + offsets + the node vectors read
+        # once + the output; operations: 3 per edge, 1 per node
+        csr_bytes = e_pad * 4 + (n_pad + 1) * 4
+        steps = {
+            "seg_up_step": (
+                lambda: up_seg_step(up["u"], up["h"], decay, up["seg"],
+                                    out=out),
+                lambda: up_seg_step_plain(up["u"], up["h"], decay,
+                                          up["seg"]),
+                lambda: up_seg_step_plain(up["u"], up["h"], decay,
+                                          up["seg"], scan=segscan_max),
+                csr_bytes + 3 * n_pad * 4),
+            "seg_down_step": (
+                lambda: down_seg_step(down["m"], down["a_ex"], decay,
+                                      down["seg"], down["inv_deg"], out=out),
+                lambda: down_seg_step_plain(down["m"], down["a_ex"], decay,
+                                            down["seg"], down["inv_deg"]),
+                lambda: down_seg_step_plain(down["m"], down["a_ex"], decay,
+                                            down["seg"], down["inv_deg"],
+                                            scan=segscan_sum),
+                csr_bytes + 4 * n_pad * 4),
+        }
+        for name, (kernel, plain, scan_step, n_bytes) in steps.items():
+            t[name] = {
+                "ms": cuda_ms(kernel),
+                "call_ms": cuda_ms(kernel, queued=False),
+                "plain_ms": cuda_ms(plain),
+                "scan_step_ms": cuda_ms(scan_step),
+                "scan_step_call_ms": cuda_ms(scan_step, queued=False),
+                "library_ms": None,
+                "bound": bound_ms(n_bytes, 3 * e_pad + n_pad),
+            }
         case = cases[n]
 
         def analyze():
@@ -349,6 +464,9 @@ def main(argv) -> int:
             case, timed=True).latency_ms
         times[n] = t
         phase("times", services=n, **t)
+
+    if args.sweep:
+        record["sweep"] = sweep(cases, shapes, kin, decay)
 
     if args.profile:
         for n in cases:
@@ -362,6 +480,12 @@ def main(argv) -> int:
                         "rca_tpu/engine/segscan.py:136"),
         "segscan_max": ("rca_tpu_torch/csrc/segscan.cu",
                         "rca_tpu/engine/segscan.py:141"),
+        "seg_up_step": ("rca_tpu_torch/csrc/segstep.cu",
+                        "rca_tpu/engine/segscan.py:141 "
+                        "(step up_seg_step :206)"),
+        "seg_down_step": ("rca_tpu_torch/csrc/segstep.cu",
+                          "rca_tpu/engine/segscan.py:136 "
+                          "(step down_seg_step :197)"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -373,6 +497,8 @@ def main(argv) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "tier_services": big, "at_2047": times[2047][name],
+            **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
+               if key in t},
         })
 
     for mod in list(sys.modules):
@@ -392,6 +518,40 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels}, default=float))
     print(json.dumps({"ok": True, "device": device}))
     return 0
+
+
+def sweep(cases, shapes, kin, decay, cuts=(8, 16, 32, 64, 128, 256)):
+    """Device time of each seg-step kernel per tier over layouts binned at
+    each cut (the longest segment one thread reduces), on the check
+    phase's inputs."""
+    import torch
+    from rca_tpu_torch.engine.segscan import (
+        build_down_seg,
+        build_up_seg,
+        down_seg_step,
+        up_seg_step,
+    )
+
+    rows = []
+    for n in cases:
+        n_pad, e_pad = shapes[n]
+        up, down = kin[n]["step"]["seg_up_step"], kin[n]["step"]["seg_down_step"]
+        out = torch.empty(n_pad, dtype=torch.float32, device=up["u"].device)
+        for cut in cuts:
+            args = (n_pad, e_pad, cases[n].dep_src, cases[n].dep_dst)
+            up_seg = build_up_seg(*args, short_max=cut).to(out.device)
+            down_seg = build_down_seg(*args, short_max=cut).to(out.device)
+            row = {"services": n, "cut": cut,
+                   "up_long": int(up_seg.long_ids.shape[0]),
+                   "down_long": int(down_seg.long_ids.shape[0]),
+                   "seg_up_step_ms": cuda_ms(lambda: up_seg_step(
+                       up["u"], up["h"], decay, up_seg, out=out)),
+                   "seg_down_step_ms": cuda_ms(lambda: down_seg_step(
+                       down["m"], down["a_ex"], decay, down_seg,
+                       down["inv_deg"], out=out))}
+            rows.append(row)
+            phase("sweep", **row)
+    return rows
 
 
 def profile(engine, case, host_ms_per_analysis: float, out=None) -> None:
@@ -414,18 +574,24 @@ def profile(engine, case, host_ms_per_analysis: float, out=None) -> None:
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    # device-side events: kernels, copies and memsets; the profiler's own
+    # buffer request shows up there too and is left out
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and e.key != "Activity Buffer Request"]
     device_us = sum(
         getattr(e, "self_device_time_total", 0) or
-        getattr(e, "self_cuda_time_total", 0)
-        for e in events if e.device_type == DeviceType.CUDA) / 5
+        getattr(e, "self_cuda_time_total", 0) for e in on_device) / 5
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / 5
+    kernels = sum(e.count for e in on_device
+                  if not e.key.startswith(("Memcpy", "Memset"))) / 5
     if out:
         os.makedirs(out, exist_ok=True)
         with open(os.path.join(out, f"profile_{case.n}.txt"), "w") as f:
             f.write(table)
     phase("profile", services=case.n, device_us_per_analysis=device_us,
           launches_per_analysis=launches,
+          device_kernels_per_analysis=kernels,
           host_ms_per_analysis=host_ms_per_analysis,
           device_busy_share=device_us / 1e3 / host_ms_per_analysis)
 

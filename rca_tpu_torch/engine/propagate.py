@@ -10,9 +10,9 @@ path (S services, E dependency edges ``(s -> d)``, "s depends on d"):
     score = a * (1 + b*tanh(m)) * (1 - mu*u*(1-h))
 
 where a~ is the anomaly excess over the live-median background.  The
-evidence pair and both scans go through the port's kernels on the card
-(:mod:`.evidence`, :mod:`.segscan`); every other op is plain PyTorch.
-The JAX ``lax.scan`` over steps is a Python loop here.
+evidence pair and every seg step go through the port's kernels on the card
+(:mod:`.evidence`, :mod:`.segscan`: one launch per step); every other op is
+plain PyTorch.  The JAX ``lax.scan`` over steps is a Python loop here.
 
 No float SUM on this path depends on the order of atomics: ``deg`` sums
 integer-valued ones (exact in any order), and the error-source scatter
@@ -89,9 +89,11 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
                    up_seg: SegLayout):
     """Propagation from precomputed evidence over the seg-step layouts.
     Returns ``(a, h, u, m, score)``, all ``[S]``."""
-    u = torch.zeros_like(a)
+    # each step reads its input at other segments' nodes, so it writes a
+    # fresh vector: two buffers per recursion, alternating
+    u, spare = torch.zeros_like(a), torch.empty_like(a)
     for _ in range(steps):
-        u = up_seg_step(u, h, decay, up_seg)
+        u, spare = up_seg_step(u, h, decay, up_seg, out=spare), u
 
     a_ex = background_excess(a, n_live)
     # dependent count per service for the impact MEAN (padded edges point
@@ -100,9 +102,10 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
         dep_dst, dtype=a.dtype))
     inv_deg = 1.0 / torch.clamp(deg, min=1.0)
 
-    m = torch.zeros_like(a)
+    m, spare = torch.zeros_like(a), torch.empty_like(a)
     for _ in range(steps):
-        m = down_seg_step(m, a_ex, decay, down_seg, inv_deg)
+        m, spare = down_seg_step(m, a_ex, decay, down_seg, inv_deg,
+                                 out=spare), m
 
     score = combine_score(a, h, u, m, explain_strength, impact_bonus)
     return a, h, u, m, score

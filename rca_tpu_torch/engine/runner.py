@@ -5,7 +5,7 @@ analysis.  The host pads node/edge arrays to shape buckets, builds the
 seg-step layouts, moves everything to the engine's device, and runs one
 ranked analysis (:func:`propagate_ranked`): finite-mask sanitize, the
 evidence kernel, the error-source contrast, 8 up-steps and 8 down-steps
-through the segmented-scan kernel, the score, top-k, and the ``[4, k]``
+(one seg-step kernel launch each), the score, top-k, and the ``[4, k]``
 diagnostic gather.  Only top-k-sized values cross to the host; the full
 ``[4, n_pad]`` stack stays on the device behind the result's lazy
 diagnostics.

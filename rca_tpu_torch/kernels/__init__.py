@@ -7,7 +7,8 @@ the main path went through the kernels (the plain versions used on CPU
 tensors do not count).
 """
 
-LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0}
+LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
+            "seg_up_step": 0, "seg_down_step": 0}
 
 
 def reset_launches() -> None:

@@ -38,10 +38,13 @@ BUILD_SECONDS = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float   # without it ctypes passes a double
 _SIGNATURES = {
     "rca_noisy_or_pair": (_P, _P, _P, _P, _P, _I, _I, _P),
     "rca_segscan": (_P, _P, _P, _P, _P, _I, _I, _P),
     "rca_segscan_block_size": (),
+    "rca_seg_up_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
+    "rca_seg_down_step": (_P, _P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
 }
 
 

@@ -26,6 +26,9 @@ from rca_tpu.engine import GraphEngine as RefEngine
 from rca_tpu.engine.propagate import (
     background_excess as ref_background_excess,
 )
+from rca_tpu.engine.propagate import propagate_core as ref_propagate_core
+from rca_tpu.engine.segscan import build_down_seg as ref_build_down_seg
+from rca_tpu.engine.segscan import build_up_seg as ref_build_up_seg
 from rca_tpu.engine.train import PACKAGED_WEIGHTS as REF_WEIGHTS_FILE
 from rca_tpu.engine.train import packaged_params as ref_packaged_params
 from rca_tpu.features.extract import extract_features
@@ -33,7 +36,8 @@ from rca_tpu.graph.build import service_dependency_edges
 from rca_tpu_torch import GraphEngine, params_from_jax
 from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
 from rca_tpu_torch.engine import params as port_params
-from rca_tpu_torch.engine.propagate import background_excess
+from rca_tpu_torch.engine.propagate import background_excess, propagate_core
+from rca_tpu_torch.engine.segscan import build_seg_layouts
 from rca_tpu_torch.engine.runner import top_k
 
 
@@ -242,3 +246,41 @@ def test_analyze_batch_is_the_loop_of_single_analyses():
         solo = engine.analyze_arrays(feats, case.dep_src, case.dep_dst,
                                      case.names)
         assert np.array_equal(res.full_diagnostics(), solo.full_diagnostics())
+
+
+@pytest.mark.parametrize("steps", [1, 2, 8])
+def test_propagate_core_matches_reference_over_seg_layouts(steps,
+                                                          monkeypatch):
+    """The core's steps, which alternate between two output buffers, give
+    the reference core's ``u`` bit for bit and its ``m`` and scores
+    within the contract, over the same seg layouts."""
+    monkeypatch.setenv("SEGSCAN_INTERPRET", "1")
+    case = ref_cascade(700, n_roots=2, seed=3)
+    n_pad, e_pad = 1024, 2048
+    dummy = n_pad - 1
+    src = np.full(e_pad, dummy, np.int32)
+    dst = np.full(e_pad, dummy, np.int32)
+    src[: len(case.dep_src)] = case.dep_src
+    dst[: len(case.dep_dst)] = case.dep_dst
+    rng = np.random.default_rng(steps)
+    a, h = (rng.uniform(0.0, 1.0, n_pad).astype(np.float32)
+            for _ in range(2))
+    a[case.n:] = h[case.n:] = 0.0
+    args = (steps, 0.6, 0.7, 0.5, case.n)
+
+    down, up = build_seg_layouts(n_pad, e_pad, case.dep_src, case.dep_dst,
+                                 device="cpu")
+    port = propagate_core(torch.from_numpy(a), torch.from_numpy(h),
+                          torch.from_numpy(dst.astype(np.int64)), *args,
+                          down, up)
+    ref = ref_propagate_core(
+        jax.numpy.asarray(a), jax.numpy.asarray(h), jax.numpy.asarray(src),
+        jax.numpy.asarray(dst), *args,
+        down_seg=ref_build_down_seg(n_pad, e_pad, case.dep_src,
+                                    case.dep_dst),
+        up_seg=ref_build_up_seg(n_pad, e_pad, case.dep_src, case.dep_dst),
+    )
+    assert np.array_equal(port[2].numpy(), np.asarray(ref[2]))
+    for i in (3, 4):
+        np.testing.assert_allclose(port[i].numpy(), np.asarray(ref[i]),
+                                   rtol=1e-5, atol=1e-6)

@@ -131,7 +131,7 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
     monkeypatch.delenv("CUDA_HOME", raising=False)
     sources = [p.name for p in build.sources()]
-    assert sources == ["evidence.cu", "segscan.cu"]
+    assert sources == ["evidence.cu", "segscan.cu", "segstep.cu"]
     assert build.BUILD_DIR.name == "_build"
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("nvcc is present: the missing-compiler error does not "
@@ -152,8 +152,9 @@ def test_engine_on_card_runs_the_kernels_and_matches_cpu():
     case = synthetic_cascade_arrays(2047, n_roots=3, seed=0)
     reset_launches()
     got = GraphEngine().analyze_case(case)
-    assert LAUNCHES == {"noisy_or_pair": 1, "segscan_sum": 8,
-                        "segscan_max": 8}
+    assert LAUNCHES == {"noisy_or_pair": 1, "segscan_sum": 0,
+                        "segscan_max": 0, "seg_up_step": 8,
+                        "seg_down_step": 8}
     ref = GraphEngine(device="cpu").analyze_case(case)
     assert got.top_components() == ref.top_components()
     assert np.array_equal(got.upstream, ref.upstream)

@@ -246,3 +246,150 @@ def test_layout_builders_match_reference(n, seed):
     moved = up.to("cpu")
     assert moved.other_sorted.dtype == torch.int64
     assert np.array_equal(moved.ends.numpy(), up.ends)
+
+
+# -- the seg steps: CSR layout fields, plain versions, wrappers ----------------
+
+def _layout_case(n):
+    case = synthetic_cascade_arrays(n, n_roots=2, seed={50: 7, 700: 3,
+                                                         2047: 0}[n])
+    n_pad = {50: 64, 700: 1024, 2047: 2048}[n]
+    e_pad = 4096 if n == 2047 else (128 if n == 50 else 2048)
+    return case, n_pad, e_pad
+
+
+@pytest.mark.parametrize("n", [50, 700, 2047])
+def test_layout_csr_fields_and_length_bins(n):
+    case, n_pad, e_pad = _layout_case(n)
+    for name in ("build_down_seg", "build_up_seg"):
+        seg = getattr(port_segscan, name)(n_pad, e_pad, case.dep_src,
+                                          case.dep_dst)
+        for field in ("offsets", "other32", "long_ids", "short_ids"):
+            assert getattr(seg, field).dtype == np.int32, (name, field)
+        offsets = seg.offsets.astype(np.int64)
+        assert offsets.shape == (n_pad + 1,)
+        assert offsets[0] == 0 and offsets[-1] == e_pad
+        has = seg.has_edges > 0
+        assert np.array_equal(offsets[1:][has] - 1, seg.ends[has])
+        assert np.array_equal(np.diff(offsets) > 0, has)
+        assert np.array_equal(seg.other32, seg.other_sorted)
+        lengths = np.diff(offsets)
+        ids = np.concatenate([seg.long_ids, seg.short_ids])
+        assert np.array_equal(np.sort(ids), np.arange(n_pad)), name
+        limit = port_segscan.SHORT_SEGMENT_MAX
+        assert (lengths[seg.long_ids] > limit).all()
+        assert (lengths[seg.short_ids] <= limit).all()
+        # the dummy slot's padding run is binned by its length like any
+        # other run
+        assert (n_pad - 1 in seg.long_ids) == (lengths[-1] > limit)
+
+
+def _step_layouts():
+    """(id, n_pad, e_pad, seg_idx, other_idx) of the step tests: both
+    directions of a 2047-service cascade, and a star whose one segment
+    holds every edge (longer than a block of the kernel)."""
+    case, n_pad, e_pad = _layout_case(2047)
+    star_other = np.random.default_rng(12).integers(0, 2047, 4096)
+    return {
+        "down_2047": (n_pad, e_pad, case.dep_dst, case.dep_src),
+        "up_2047": (n_pad, e_pad, case.dep_src, case.dep_dst),
+        "star_4096": (2048, 4096, np.full(4096, 7, np.int32),
+                      star_other.astype(np.int32)),
+    }
+
+
+def _step_inputs(n_pad, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0.0, 1.0, n_pad).astype(np.float32)
+            for _ in range(3)]
+
+
+DECAY = 0.6
+
+
+@pytest.mark.parametrize("layout", ["down_2047", "up_2047", "star_4096"])
+def test_seg_step_plain_versions_match_reference(layout, monkeypatch):
+    monkeypatch.setenv("SEGSCAN_INTERPRET", "1")
+    n_pad, e_pad, seg_idx, other_idx = _step_layouts()[layout]
+    ref_seg = ref_segscan.build_seg_layout(n_pad, e_pad, seg_idx, other_idx)
+    seg = port_segscan.build_seg_layout(n_pad, e_pad, seg_idx,
+                                        other_idx).to("cpu")
+    x, y, inv_deg = _step_inputs(n_pad, e_pad + len(layout))
+    xt, yt, dt = (torch.from_numpy(v) for v in (x, y, inv_deg))
+
+    ref_up = ref_segscan.up_seg_step(jnp.asarray(x), jnp.asarray(y), DECAY,
+                                     ref_seg)
+    port_up = port_segscan.up_seg_step_plain(xt, yt, DECAY, seg)
+    assert np.array_equal(port_up.numpy(), np.asarray(ref_up))
+
+    ref_down = ref_segscan.down_seg_step(jnp.asarray(x), jnp.asarray(y),
+                                         DECAY, ref_seg, jnp.asarray(inv_deg))
+    port_down = port_segscan.down_seg_step_plain(xt, yt, DECAY, seg, dt)
+    np.testing.assert_allclose(port_down.numpy(), np.asarray(ref_down),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_seg_step_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
+    n_pad, e_pad, seg_idx, other_idx = _step_layouts()["down_2047"]
+    seg = port_segscan.build_seg_layout(n_pad, e_pad, seg_idx,
+                                        other_idx).to("cpu")
+    u, h, inv_deg = (torch.from_numpy(v) for v in _step_inputs(n_pad, 5))
+    before = dict(LAUNCHES)
+    out = torch.empty(n_pad)
+    got = port_segscan.up_seg_step(u, h, DECAY, seg, out=out)
+    assert got is out
+    assert torch.equal(got, port_segscan.up_seg_step_plain(u, h, DECAY, seg))
+    down = port_segscan.down_seg_step(u, h, DECAY, seg, inv_deg)
+    assert torch.equal(down, port_segscan.down_seg_step_plain(
+        u, h, DECAY, seg, inv_deg))
+    assert LAUNCHES == before
+
+
+def _bad_step_call(bad):
+    n_pad, e_pad, seg_idx, other_idx = _step_layouts()["up_2047"]
+    host = port_segscan.build_seg_layout(n_pad, e_pad, seg_idx, other_idx)
+    seg = host.to("cpu")
+    u, h = (torch.from_numpy(v) for v in _step_inputs(n_pad, 6)[:2])
+    out = None
+    if bad == "dtype":
+        h, err = h.double(), TypeError
+    elif bad == "length":
+        u, err = u[:-1].clone(), ValueError
+    elif bad == "contiguity":
+        h, err = torch.stack([h, h], dim=1)[:, 0], ValueError
+    elif bad == "device":
+        u, h, err = u.to("meta"), h.to("meta"), ValueError
+    elif bad == "host_layout":
+        seg, err = host, TypeError
+    elif bad == "layout_device":
+        seg, err = host.to("meta"), ValueError
+    else:  # in place
+        out, err = u, ValueError
+    return lambda: port_segscan.up_seg_step(u, h, DECAY, seg, out=out), err
+
+
+@pytest.mark.parametrize("bad", ["dtype", "length", "contiguity", "device",
+                                 "host_layout", "layout_device", "in_place"])
+def test_seg_step_wrappers_reject_bad_inputs(bad):
+    call, err = _bad_step_call(bad)
+    with pytest.raises(err):
+        call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["down_2047", "up_2047", "star_4096"])
+def test_seg_step_kernels_match_plain_on_card(layout, cuda_device):
+    n_pad, e_pad, seg_idx, other_idx = _step_layouts()[layout]
+    seg = port_segscan.build_seg_layout(n_pad, e_pad, seg_idx,
+                                        other_idx).to(cuda_device)
+    x, y, inv_deg = (torch.from_numpy(v).to(cuda_device)
+                     for v in _step_inputs(n_pad, 9))
+    up = port_segscan.up_seg_step(x, y, DECAY, seg)
+    assert torch.equal(up, port_segscan.up_seg_step(x, y, DECAY, seg))
+    assert torch.equal(up, port_segscan.up_seg_step_plain(x, y, DECAY, seg))
+    down = port_segscan.down_seg_step(x, y, DECAY, seg, inv_deg)
+    assert torch.equal(down, port_segscan.down_seg_step(x, y, DECAY, seg,
+                                                        inv_deg))
+    torch.testing.assert_close(
+        down, port_segscan.down_seg_step_plain(x, y, DECAY, seg, inv_deg),
+        rtol=1e-5, atol=1e-6)
