@@ -10,20 +10,24 @@ Phases, each printing one line; any failure exits non-zero before the
 verdict line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``rca_tpu_torch/csrc`` (one ``nvcc``);
+2. build the CUDA kernels from ``rca_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together, then one link);
 3. each kernel against its plain PyTorch version, on the card, at the
    shapes the main path gives it at both tiers (2047 services: ``n_pad``
    2048, ``e_pad`` 4096; 49,999 services: ``n_pad`` 53,248, ``e_pad``
    106,496): the evidence pair allclose at rtol 1e-6 / atol 1e-7, the
-   segmented max and the up-step bitwise, the segmented sum and the
-   down-step allclose at rtol 1e-5 / atol 1e-6, and every kernel
-   bitwise-equal to itself over two runs.  The steps run over the tier's
-   real layouts and over a star layout (all 4096 edges in one segment,
-   longer than a block);
+   evidence front (``evidence_front`` row pass, ``seg_contrast_step``,
+   and the two as the engine calls them) bitwise on raw features with
+   NaN/Inf rows and on an all-NaN input, the segmented max and the
+   up-step bitwise, the segmented sum and the down-step allclose at rtol
+   1e-5 / atol 1e-6, and every kernel bitwise-equal to itself over two
+   runs.  The steps run over the tier's real layouts and over a star
+   layout (all 4096 edges in one segment, longer than a block);
 4. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
    both tiers with the launch counters set to 0 just before; each
-   analysis must launch ``noisy_or_pair`` once, ``seg_up_step`` and
-   ``seg_down_step`` 8 times each and the flagged scans never.  Each result
+   analysis must launch ``evidence_front`` and ``seg_contrast_step`` once,
+   ``seg_up_step`` and ``seg_down_step`` 8 times each, and
+   ``noisy_or_pair`` and the flagged scans never.  Each result
    is held against the port's own CPU run (plain versions) of the same
    case — top-k and ``sanitized_rows`` identical, ``u`` bitwise, scores
    allclose at rtol 1e-5 / atol 1e-6 — and against itself (two card runs
@@ -38,8 +42,11 @@ verdict line:
    the port never calls it); for each seg-step kernel also the step as
    composed around the flagged-scan kernel (gather, scan, ``s[ends]``,
    ``where``, epilogue: ``scan_step_ms`` / ``scan_step_call_ms``, timed
-   the same way); the end-to-end ``analyze_arrays`` wall time at both
-   tiers.
+   the same way); the whole front (both launches: ``front_ms`` /
+   ``front_call_ms`` and its bound) beside the front it replaces, the
+   sanitize's torch ops, the ``noisy_or_pair`` kernel, the error-source
+   scatter and the fold (``plain_front_ms`` / ``plain_front_call_ms``);
+   the end-to-end ``analyze_arrays`` wall time at both tiers.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
@@ -156,7 +163,20 @@ def main(argv) -> int:
         return 1
     from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
     from rca_tpu_torch.engine import GraphEngine
-    from rca_tpu_torch.engine.evidence import noisy_or_pair, noisy_or_pair_plain
+    from rca_tpu_torch.engine.evidence import (
+        error_rate,
+        error_source_excess,
+        evidence_front,
+        evidence_front_plain,
+        evidence_front_rows,
+        evidence_front_rows_plain,
+        finite_mask_rows,
+        fold_error_contrast,
+        noisy_or_pair,
+        noisy_or_pair_plain,
+        seg_contrast_step,
+        seg_contrast_step_plain,
+    )
     from rca_tpu_torch.engine.segscan import (
         build_seg_layout,
         build_seg_layouts,
@@ -169,6 +189,7 @@ def main(argv) -> int:
         up_seg_step_plain,
     )
     from rca_tpu_torch.entry import entry
+    from rca_tpu_torch.features.schema import SvcF
     from rca_tpu_torch.kernels import LAUNCHES, build, reset_launches
 
     record = {"argv": list(argv)}
@@ -205,8 +226,41 @@ def main(argv) -> int:
     hw = torch.tensor(params.hard_weights, dtype=torch.float32, device=dev)
     kin = {}   # per tier: kernel inputs on the card, for timing
     errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0,
-            "seg_up_step": 0.0, "seg_down_step": 0.0}
+            "seg_up_step": 0.0, "seg_down_step": 0.0, "evidence_front": 0.0,
+            "seg_contrast_step": 0.0}
     decay = params.decay
+    contrast = params.error_contrast
+
+    def check_front(label, ft, up_d):
+        """The front's kernels against their plain versions on raw
+        features ``ft`` over the up layout ``up_d``: each launch and the
+        pair of them, at the packaged contrast weight and at 0, bitwise
+        and bitwise over two runs.  Returns the bad-row count."""
+        def same(got, again, want, what):
+            for g, a, w in zip(got, again, want):
+                if not torch.equal(g, a):
+                    fail(f"{what} not deterministic ({label})")
+                if not torch.equal(g, w):
+                    fail(f"{what} not bitwise equal to plain ({label})")
+
+        rows = evidence_front_rows(ft, aw, hw)
+        same(rows, evidence_front_rows(ft, aw, hw),
+             evidence_front_rows_plain(ft, aw, hw), "evidence_front")
+        a_raw, _, e, n_bad = rows
+        same([seg_contrast_step(a_raw, e, contrast, up_d)],
+             [seg_contrast_step(a_raw, e, contrast, up_d)],
+             [seg_contrast_step_plain(a_raw, e, contrast, up_d)],
+             "seg_contrast_step")
+        for weight in (contrast, 0.0):
+            same(evidence_front(ft, aw, hw, weight, up_d),
+                 evidence_front(ft, aw, hw, weight, up_d),
+                 evidence_front_plain(ft, aw, hw, weight, up_d),
+                 f"evidence_front + seg_contrast_step at weight {weight}")
+        torch.cuda.synchronize()
+        phase("check", kernel="evidence_front + seg_contrast_step",
+              input=label, n_pad=int(ft.shape[0]), bad_rows=int(n_bad),
+              max_abs_err=0.0, bitwise=True)
+        return int(n_bad)
 
     def check_steps(label, seg, inv_deg, names):
         """The step kernels ``names`` against their plain versions over
@@ -312,6 +366,32 @@ def main(argv) -> int:
                                          inv_deg, ["seg_down_step"]),
         }
 
+        # the front on raw features: a row whose only non-finite value is
+        # its error rate, a NaN beside a finite error rate (its e must
+        # come out 0), +Inf and -Inf
+        err_col = SvcF.ERROR_RATE
+        poisoned = feats.copy()
+        poisoned[3, err_col] = np.nan
+        poisoned[11, [err_col, 4]] = (0.9, np.nan)
+        poisoned[[20, 2001], [7, 12]] = (np.inf, -np.inf)
+        pt = torch.from_numpy(poisoned).to(dev)
+        if check_front(f"{n} services, 4 poisoned rows", pt, up_d) != 4:
+            fail(f"the front counted the wrong bad rows at {n}")
+        if evidence_front_rows(pt, aw, hw)[2][11] != 0.0:
+            fail(f"a poisoned row kept its error rate at {n}")
+        kin[n]["front"] = {"features": pt, "up": up_d,
+                           "src": torch.from_numpy(padded[n][0].astype(
+                               np.int64)).to(dev),
+                           "dst": torch.from_numpy(padded[n][1].astype(
+                               np.int64)).to(dev)}
+        if n == TIERS[0][0]:
+            nan_all = torch.full_like(pt, float("nan"))
+            if check_front("every row NaN", nan_all, up_d) != n_pad:
+                fail("the front did not count every row of an all-NaN input")
+            a_all, h_all, _ = evidence_front(nan_all, aw, hw, contrast, up_d)
+            if a_all.any() or h_all.any():
+                fail("an all-NaN input left evidence")
+
     # a star: every edge in one segment (id 7, past empty ones), so the
     # block path reduces a run 16 times its width
     star = build_seg_layout(2048, 4096, np.full(4096, 7, np.int32),
@@ -328,14 +408,16 @@ def main(argv) -> int:
     results = {}
     for i, n in enumerate(cases, start=1):
         results[n] = engine.analyze_case(cases[n])
-        want = {"noisy_or_pair": i, "segscan_sum": 0, "segscan_max": 0,
-                "seg_up_step": 8 * i, "seg_down_step": 8 * i}
+        want = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
+                "seg_up_step": 8 * i, "seg_down_step": 8 * i,
+                "evidence_front": i, "seg_contrast_step": i}
         if LAUNCHES != want:
             fail(f"launch counts {LAUNCHES} after {i} analyses, want {want}")
     main_launches = dict(LAUNCHES)
     phase("main_path", launches=main_launches,
-          per_analysis={"noisy_or_pair": 1, "seg_up_step": 8,
-                        "seg_down_step": 8, "segscan_sum": 0,
+          per_analysis={"evidence_front": 1, "seg_contrast_step": 1,
+                        "seg_up_step": 8, "seg_down_step": 8,
+                        "noisy_or_pair": 0, "segscan_sum": 0,
                         "segscan_max": 0})
 
     cpu = GraphEngine(device="cpu")
@@ -453,6 +535,58 @@ def main(argv) -> int:
                 "library_ms": None,
                 "bound": bound_ms(n_bytes, 3 * e_pad + n_pad),
             }
+
+        # the front: features read once, the weights, the up layout's CSR,
+        # the [n_pad] vectors between and out of the two launches
+        fr = kin[n]["front"]
+        pt, up_d = fr["features"], fr["up"]
+        a_raw, _, e, _ = evidence_front_rows(pt, aw, hw)
+        feat_bytes = n_pad * C * 4 + 2 * C * 4
+        noisy_ops = n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
+        t["evidence_front"] = {
+            "ms": cuda_ms(lambda: evidence_front_rows(pt, aw, hw)),
+            "call_ms": cuda_ms(lambda: evidence_front_rows(pt, aw, hw),
+                               queued=False),
+            "plain_ms": cuda_ms(lambda: evidence_front_rows_plain(pt, aw,
+                                                                  hw)),
+            "library_ms": None,
+            "bound": bound_ms(feat_bytes + 3 * n_pad * 4 + 4, noisy_ops),
+        }
+        t["seg_contrast_step"] = {
+            "ms": cuda_ms(lambda: seg_contrast_step(a_raw, e, contrast,
+                                                    up_d)),
+            "call_ms": cuda_ms(lambda: seg_contrast_step(a_raw, e, contrast,
+                                                         up_d), queued=False),
+            "plain_ms": cuda_ms(lambda: seg_contrast_step_plain(
+                a_raw, e, contrast, up_d)),
+            "library_ms": None,
+            "bound": bound_ms(csr_bytes + 3 * n_pad * 4, e_pad + 6 * n_pad),
+        }
+
+        def replaced_front():
+            # the front as the main path ran it before the fused pass: the
+            # sanitize's torch ops, the noisy_or_pair kernel, the
+            # error-source gather and scatter-max over the edge lists, the
+            # fold
+            clean, n_bad = finite_mask_rows(pt)
+            a, h = noisy_or_pair(clean, aw, hw)
+            a = fold_error_contrast(a, error_source_excess(
+                error_rate(clean), fr["src"], fr["dst"]), contrast)
+            return a, h, n_bad
+
+        def front():
+            return evidence_front(pt, aw, hw, contrast, up_d)
+
+        t["front"] = {
+            "ms": cuda_ms(front),
+            "call_ms": cuda_ms(front, queued=False),
+            "plain_front_ms": cuda_ms(replaced_front),
+            "plain_front_call_ms": cuda_ms(replaced_front, queued=False),
+            "plain_ms": cuda_ms(lambda: evidence_front_plain(
+                pt, aw, hw, contrast, up_d)),
+            "bound": bound_ms(feat_bytes + csr_bytes + 2 * n_pad * 4 + 4,
+                              noisy_ops + e_pad + 6 * n_pad),
+        }
         case = cases[n]
 
         def analyze():
@@ -474,6 +608,13 @@ def main(argv) -> int:
 
     big = TIERS[-1][0]
     sources = {
+        "evidence_front": ("rca_tpu_torch/csrc/evidence.cu",
+                           "rca_tpu/engine/pallas_kernels.py:52 (with the "
+                           "sanitize, rca_tpu/engine/propagate.py:132)"),
+        "seg_contrast_step": ("rca_tpu_torch/csrc/segstep.cu",
+                              "rca_tpu/engine/pallas_kernels.py:52 (the "
+                              "front's contrast, rca_tpu/engine/"
+                              "propagate.py:174, :186)"),
         "noisy_or_pair": ("rca_tpu_torch/csrc/evidence.cu",
                           "rca_tpu/engine/pallas_kernels.py:52"),
         "segscan_sum": ("rca_tpu_torch/csrc/segscan.cu",
@@ -500,6 +641,13 @@ def main(argv) -> int:
             **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
                if key in t},
         })
+        if name == "evidence_front":
+            front = times[big]["front"]
+            kernels[-1].update(
+                front_ms=front["ms"], front_call_ms=front["call_ms"],
+                front_bound_ms=front["bound"][0],
+                plain_front_ms=front["plain_front_ms"],
+                plain_front_call_ms=front["plain_front_call_ms"])
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith("jax.") or mod == "rca_tpu" \

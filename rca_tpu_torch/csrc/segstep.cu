@@ -14,6 +14,17 @@
 // their inputs and write a fresh output: never in place, since a segment
 // reads other segments' entries of u / m.
 //
+// A third step, over the up layout, is the error-source contrast of the
+// propagation's front (rca_tpu/engine/propagate.py::error_source_excess
+// and ::fold_error_contrast, a gather and a scatter-max there):
+//
+//   contrast:  a[s] = 1 - (1 - a_raw[s]) * (1 - w*max(e[s] - max_e e[o_e], 0))
+//
+// with e the error rates the front pass (evidence.cu) wrote.  The up
+// layout's segments are the dependents and its other endpoints their
+// dependencies, so the segment max is the reference's
+// at[dep_src].max(e[dep_dst]) over zeros.
+//
 // The TPU walked one sequential grid and carried the scan between rows in
 // VMEM, so the step was a full prefix scan read at each segment's end.
 // Segments are independent, so here each is reduced where it lies, and the
@@ -40,10 +51,11 @@
 // device memory.
 //
 // Rounding: every product and sum is spelled with an _rn intrinsic so nvcc
-// cannot contract a*b+c into an fma; the per-edge values then round as the
-// plain version's separate torch ops do.  The up-step is a max, exact in
-// any order, so u' is bit-equal to the plain version; the down-step's sum
-// runs in another order than the plain version's doubling scan.
+// cannot contract a*b+c into an fma; the per-edge values and the epilogues
+// then round as the plain version's separate torch ops do.  The up-step and
+// the contrast reduce with a max, exact in any order, so u' and a are
+// bit-equal to the plain version; the down-step's sum runs in another order
+// than the plain version's doubling scan.
 
 #include <cuda_runtime.h>
 
@@ -83,6 +95,22 @@ struct DownStep {
   }
   __device__ __forceinline__ float finish(int s, float total) const {
     return __fmul_rn(total, __ldg(inv_deg + s));
+  }
+};
+
+struct ContrastStep {
+  const float* a_raw;
+  const float* e;
+  float weight;
+
+  __device__ __forceinline__ float value(int o) const { return __ldg(e + o); }
+  static __device__ __forceinline__ float combine(float a, float b) {
+    return fmaxf(a, b);
+  }
+  __device__ __forceinline__ float finish(int s, float dep_max) const {
+    const float excess = fmaxf(__fsub_rn(__ldg(e + s), dep_max), 0.0f);
+    const float keep = __fsub_rn(1.0f, __fmul_rn(weight, excess));
+    return __fsub_rn(1.0f, __fmul_rn(__fsub_rn(1.0f, __ldg(a_raw + s)), keep));
   }
 };
 
@@ -177,5 +205,14 @@ extern "C" int rca_seg_down_step(const float* m, const float* a_ex,
                                  const int* short_ids, int n_short,
                                  float* out, void* stream) {
   return launch(DownStep{m, a_ex, inv_deg, gamma}, offsets, other, long_ids,
+                n_long, short_ids, n_short, out, stream);
+}
+
+extern "C" int rca_seg_contrast_step(const float* a_raw, const float* e,
+                                     float weight, const int* offsets,
+                                     const int* other, const int* long_ids,
+                                     int n_long, const int* short_ids,
+                                     int n_short, float* out, void* stream) {
+  return launch(ContrastStep{a_raw, e, weight}, offsets, other, long_ids,
                 n_long, short_ids, n_short, out, stream);
 }

@@ -9,14 +9,17 @@ path (S services, E dependency edges ``(s -> d)``, "s depends on d"):
     m_d = (1/deg_d) sum_{(s,d)} (a~_s + g*m_s)   downstream impact (K steps)
     score = a * (1 + b*tanh(m)) * (1 - mu*u*(1-h))
 
-where a~ is the anomaly excess over the live-median background.  The
-evidence pair and every seg step go through the port's kernels on the card
-(:mod:`.evidence`, :mod:`.segscan`: one launch per step); every other op is
-plain PyTorch.  The JAX ``lax.scan`` over steps is a Python loop here.
+where a~ is the anomaly excess over the live-median background, and ``a``
+carries the error-source contrast.  The front (finite-mask sanitize,
+evidence pair, contrast) and every seg step go through the port's kernels
+on the card (:mod:`.evidence`: two launches; :mod:`.segscan`: one launch
+per step); every other op is plain PyTorch.  The JAX ``lax.scan`` over
+steps is a Python loop here.
 
 No float SUM on this path depends on the order of atomics: ``deg`` sums
-integer-valued ones (exact in any order), and the error-source scatter
-takes a max.  Two runs on one device give the same bits.
+integer-valued ones (exact in any order), the bad-row count is an integer
+sum, and the contrast takes a max.  Two runs on one device give the same
+bits.
 """
 
 from __future__ import annotations
@@ -26,19 +29,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from rca_tpu_torch.engine.evidence import noisy_or_pair
+from rca_tpu_torch.engine.evidence import evidence_front
 from rca_tpu_torch.engine.segscan import SegLayout, down_seg_step, up_seg_step
-from rca_tpu_torch.features.schema import SvcF
-
-
-def finite_mask_rows(features: torch.Tensor):
-    """Zero every feature row carrying a NaN/Inf; return ``(clean, n_bad)``
-    with ``n_bad`` a 0-dim int tensor on the features' device (fetched with
-    the top-k, so the sanitize costs no extra sync)."""
-    ok = torch.isfinite(features).all(dim=-1, keepdim=True)
-    clean = torch.where(ok, features, torch.zeros_like(features))
-    n_bad = (~ok).sum()
-    return clean, n_bad
 
 
 def background_excess(a: torch.Tensor, n_live: Optional[int] = None):
@@ -54,23 +46,6 @@ def background_excess(a: torch.Tensor, n_live: Optional[int] = None):
         a_bg = a.new_zeros(())
     live = torch.arange(a.shape[0], device=a.device) < n_live
     return torch.where(live, torch.clamp(a - a_bg, min=0.0), 0.0)
-
-
-def error_source_excess(features: torch.Tensor, dep_src: torch.Tensor,
-                        dep_dst: torch.Tensor) -> torch.Tensor:
-    """Per-node error rate in excess of its dependencies' max,
-    ``relu(e - max over edges (s, d) of e[d])``.  Padded edges self-loop on
-    the dummy slot whose error rate is 0 (the max's identity here)."""
-    e = features[:, SvcF.ERROR_RATE].clamp(0.0, 1.0)
-    dep_max = torch.zeros_like(e).scatter_reduce_(
-        0, dep_src, e[dep_dst], reduce="amax", include_self=True,
-    )
-    return torch.clamp(e - dep_max, min=0.0)
-
-
-def fold_error_contrast(a, err_src, weight: float):
-    """Noisy-OR the error-source contrast into the anomaly evidence."""
-    return 1.0 - (1.0 - a) * (1.0 - weight * err_src)
 
 
 def combine_score(a, h, u, m, explain_strength: float, impact_bonus: float):
@@ -111,24 +86,19 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
     return a, h, u, m, score
 
 
-def propagate(features, dep_src, dep_dst, anomaly_w, hard_w, steps: int,
-              decay: float, explain_strength: float, impact_bonus: float,
+def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
+              explain_strength: float, impact_bonus: float,
               n_live: Optional[int], down_seg: SegLayout, up_seg: SegLayout,
               error_contrast: float = 0.0):
-    """Evidence pair (one kernel), error-source contrast, then the core.
-    ``features`` is the padded ``[n_pad, C]`` float32 matrix, already
-    sanitized; edges are int64 ``[e_pad]``.  Returns ``(a, h, u, m,
-    score)``."""
-    a, h = noisy_or_pair(features, anomaly_w, hard_w)
-    if error_contrast:
-        a = fold_error_contrast(
-            a, error_source_excess(features, dep_src, dep_dst),
-            error_contrast,
-        )
-    return propagate_core(
-        a, h, dep_dst, steps, decay, explain_strength, impact_bonus,
-        n_live, down_seg, up_seg,
-    )
+    """The evidence front (sanitize, evidence pair, error-source contrast:
+    two kernels on the card), then the core.  ``features`` is the RAW
+    padded ``[n_pad, C]`` float32 matrix; ``dep_dst`` is int64 ``[e_pad]``.
+    Returns ``(a, h, u, m, score, n_bad)``, ``n_bad`` the 0-dim int32 count
+    of the rows the sanitize zeroed."""
+    a, h, n_bad = evidence_front(features, anomaly_w, hard_w, error_contrast,
+                                 up_seg)
+    return (*propagate_core(a, h, dep_dst, steps, decay, explain_strength,
+                            impact_bonus, n_live, down_seg, up_seg), n_bad)
 
 
 class Propagation(nn.Module):
@@ -146,10 +116,10 @@ class Propagation(nn.Module):
         self.impact_bonus = float(params.impact_bonus)
         self.error_contrast = float(params.error_contrast)
 
-    def forward(self, features, dep_src, dep_dst, n_live: int,
-                down_seg: SegLayout, up_seg: SegLayout):
+    def forward(self, features, dep_dst, n_live: int, down_seg: SegLayout,
+                up_seg: SegLayout):
         return propagate(
-            features, dep_src, dep_dst, self.anomaly_w, self.hard_w,
+            features, dep_dst, self.anomaly_w, self.hard_w,
             self.steps, self.decay, self.explain_strength,
             self.impact_bonus, n_live, down_seg, up_seg,
             error_contrast=self.error_contrast,

@@ -3,12 +3,12 @@
 Counterpart of the JAX package's ``engine/runner.py`` for one-shot
 analysis.  The host pads node/edge arrays to shape buckets, builds the
 seg-step layouts, moves everything to the engine's device, and runs one
-ranked analysis (:func:`propagate_ranked`): finite-mask sanitize, the
-evidence kernel, the error-source contrast, 8 up-steps and 8 down-steps
-(one seg-step kernel launch each), the score, top-k, and the ``[4, k]``
-diagnostic gather.  Only top-k-sized values cross to the host; the full
-``[4, n_pad]`` stack stays on the device behind the result's lazy
-diagnostics.
+ranked analysis (:func:`propagate_ranked`): the evidence front
+(finite-mask sanitize, evidence pair and error-source contrast, two kernel
+launches), 8 up-steps and 8 down-steps (one seg-step kernel launch each),
+the score, top-k, and the ``[4, k]`` diagnostic gather.  Only top-k-sized
+values cross to the host; the full ``[4, n_pad]`` stack stays on the
+device behind the result's lazy diagnostics.
 
 Device rule: ``GraphEngine()`` runs on ``cuda`` and raises where there is
 no CUDA device; ``device="cpu"`` selects the plain versions of the kernels
@@ -25,7 +25,7 @@ import torch
 
 from rca_tpu_torch.config import RCAConfig, bucket_for
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
-from rca_tpu_torch.engine.propagate import Propagation, finite_mask_rows
+from rca_tpu_torch.engine.propagate import Propagation
 from rca_tpu_torch.engine.segscan import build_seg_layouts
 
 
@@ -56,13 +56,12 @@ def top_k(score: torch.Tensor, k: int):
     return vals[:k], idx[:k]
 
 
-def propagate_ranked(model: Propagation, features, dep_src, dep_dst,
-                     n_live: int, kk: int, down_seg, up_seg):
-    """One ranked analysis on the device.  Returns ``(stacked, diag, vals,
-    idx, n_bad)``, all device tensors."""
-    features, n_bad = finite_mask_rows(features)
-    a, h, u, m, score = model(features, dep_src, dep_dst, n_live,
-                              down_seg, up_seg)
+def propagate_ranked(model: Propagation, features, dep_dst, n_live: int,
+                     kk: int, down_seg, up_seg):
+    """One ranked analysis on the device from the raw padded features.
+    Returns ``(stacked, diag, vals, idx, n_bad)``, all device tensors."""
+    a, h, u, m, score, n_bad = model(features, dep_dst, n_live, down_seg,
+                                     up_seg)
     vals, idx = top_k(score, kk)
     stacked = torch.stack([a, u, m, score])
     return stacked, topk_diag(stacked, idx), vals, idx, n_bad
@@ -283,12 +282,11 @@ class GraphEngine(EngineAPI):
         down_seg, up_seg = build_seg_layouts(n_pad, e_pad, dep_src, dep_dst,
                                              device=dev)
         fd = torch.from_numpy(f).to(dev)
-        sd = torch.from_numpy(s.astype(np.int64)).to(dev)
         dd = torch.from_numpy(d.astype(np.int64)).to(dev)
 
         def run():
-            return propagate_ranked(self.model, fd, sd, dd, n, kk,
-                                    down_seg, up_seg)
+            return propagate_ranked(self.model, fd, dd, n, kk, down_seg,
+                                    up_seg)
 
         stacked, diag, vals, idx, n_bad, latency_ms = timed_fetch(run, timed)
         return render_result(

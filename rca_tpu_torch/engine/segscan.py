@@ -267,7 +267,7 @@ def up_seg_step_plain(u, h, decay: float, seg: SegLayout, out=None,
     return torch.maximum(u, upd, out=out)
 
 
-def _check_step(name: str, seg: SegLayout, out, vectors: dict):
+def check_step(name: str, seg: SegLayout, out, vectors: dict):
     """The step kernels' input contract, held on every device: float32,
     contiguous ``[n_pad]`` vectors on one device, the layout's tensors on
     that device, and an output that is none of the inputs."""
@@ -300,7 +300,7 @@ def _check_step(name: str, seg: SegLayout, out, vectors: dict):
     return device.type == "cuda"
 
 
-def _launch(entry: str, name: str, seg: SegLayout, out, *args):
+def launch_step(entry: str, name: str, seg: SegLayout, out, *args):
     from rca_tpu_torch.kernels.build import check, library
 
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -320,11 +320,11 @@ def down_seg_step(m, a_ex, decay: float, seg: SegLayout, inv_deg, out=None):
     (a_ex[s] + decay*m[s])``: on CUDA tensors one launch of the
     ``seg_down_step`` kernel into ``out`` (fresh when not given), on CPU
     tensors :func:`down_seg_step_plain`."""
-    on_card = _check_step("seg_down_step", seg, out,
+    on_card = check_step("seg_down_step", seg, out,
                           {"m": m, "a_ex": a_ex, "inv_deg": inv_deg})
     if not on_card:
         return down_seg_step_plain(m, a_ex, decay, seg, inv_deg, out=out)
-    return _launch("rca_seg_down_step", "seg_down_step", seg,
+    return launch_step("rca_seg_down_step", "seg_down_step", seg,
                    torch.empty_like(m) if out is None else out,
                    m.data_ptr(), a_ex.data_ptr(), inv_deg.data_ptr(),
                    as_float32(decay))
@@ -335,10 +335,10 @@ def up_seg_step(u, h, decay: float, seg: SegLayout, out=None):
     max(h[d], decay*u[d]))``: on CUDA tensors one launch of the
     ``seg_up_step`` kernel into ``out`` (fresh when not given), on CPU
     tensors :func:`up_seg_step_plain`."""
-    on_card = _check_step("seg_up_step", seg, out, {"u": u, "h": h})
+    on_card = check_step("seg_up_step", seg, out, {"u": u, "h": h})
     if not on_card:
         return up_seg_step_plain(u, h, decay, seg, out=out)
-    return _launch("rca_seg_up_step", "seg_up_step", seg,
+    return launch_step("rca_seg_up_step", "seg_up_step", seg,
                    torch.empty_like(u) if out is None else out,
                    u.data_ptr(), h.data_ptr(), as_float32(decay))
 

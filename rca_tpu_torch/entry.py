@@ -15,7 +15,6 @@ def entry(device=None):
 
     from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
     from rca_tpu_torch.engine import GraphEngine
-    from rca_tpu_torch.engine.propagate import finite_mask_rows
     from rca_tpu_torch.engine.segscan import build_seg_layouts
 
     case = synthetic_cascade_arrays(2048 - 1, n_roots=3, seed=0)
@@ -27,9 +26,9 @@ def entry(device=None):
     n_live = case.features.shape[0]
 
     def forward(features, dep_src, dep_dst):
-        features, _ = finite_mask_rows(features)
-        return engine.model(features, dep_src, dep_dst, n_live,
-                            down_seg, up_seg)[4]
+        # the edges reach the kernels through the layouts; dep_src stays in
+        # the signature of the reference's step
+        return engine.model(features, dep_dst, n_live, down_seg, up_seg)[4]
 
     example_args = (
         torch.from_numpy(f).to(dev),

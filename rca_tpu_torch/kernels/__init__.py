@@ -8,7 +8,8 @@ tensors do not count).
 """
 
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-            "seg_up_step": 0, "seg_down_step": 0}
+            "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
+            "seg_contrast_step": 0}
 
 
 def reset_launches() -> None:

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``rca_tpu_torch/csrc/`` compile with ONE ``nvcc`` call
-into one shared library with a plain C interface (no PyTorch headers, so
-the build takes seconds), which is loaded with ``ctypes``.  The build runs
+All sources under ``rca_tpu_torch/csrc/`` compile in parallel, one ``nvcc``
+each, and link into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds), which is loaded with
+``ctypes``.  The build runs
 at first use, never at import, into ``rca_tpu_torch/_build/`` (listed in
 ``.gitignore``); the library's file name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and a stale one is never loaded.
@@ -29,7 +30,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -45,6 +46,8 @@ _SIGNATURES = {
     "rca_segscan_block_size": (),
     "rca_seg_up_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
     "rca_seg_down_step": (_P, _P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
+    "rca_evidence_front": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rca_seg_contrast_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
 }
 
 
@@ -74,8 +77,26 @@ def _library_path() -> Path:
     return BUILD_DIR / f"librca_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _start(cmd) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(procs, verbose: bool) -> None:
+    """Wait for every ``(what, process)``, then raise on the first that
+    failed."""
+    done = [(what, proc, "".join(proc.communicate())) for what, proc in procs]
+    for what, proc, output in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):"
+                               f"\n{output}")
+        if verbose:
+            print(output, end="")
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile every ``csrc/*.cu`` into the hashed library (once)."""
+    """Compile every ``csrc/*.cu`` into the hashed library (once): one
+    ``nvcc`` per source, all started together, then one link."""
     global BUILD_SECONDS
     out = _library_path()
     if out.exists():
@@ -83,26 +104,19 @@ def build(verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build into a private name, then rename: a concurrent or cut build
+    nvcc = find_nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    # build in a private directory, then rename: a concurrent or cut build
     # never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [str(Path(tmp, src.stem + ".o")) for src in sources()]
+        _finish([(src.name, _start([nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *ptxas,
+                                    "-c", "-o", obj, str(src)]))
+                 for src, obj in zip(sources(), objects)], verbose)
+        lib = str(Path(tmp, out.name))
+        _finish([("the link", _start([nvcc, *ARCH_FLAGS, "-shared", "-o",
+                                      lib, *objects]))], verbose)
+        os.replace(lib, out)
     BUILD_SECONDS = time.perf_counter() - t0
     return out
 

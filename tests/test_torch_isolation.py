@@ -152,9 +152,10 @@ def test_engine_on_card_runs_the_kernels_and_matches_cpu():
     case = synthetic_cascade_arrays(2047, n_roots=3, seed=0)
     reset_launches()
     got = GraphEngine().analyze_case(case)
-    assert LAUNCHES == {"noisy_or_pair": 1, "segscan_sum": 0,
+    assert LAUNCHES == {"noisy_or_pair": 0, "segscan_sum": 0,
                         "segscan_max": 0, "seg_up_step": 8,
-                        "seg_down_step": 8}
+                        "seg_down_step": 8, "evidence_front": 1,
+                        "seg_contrast_step": 1}
     ref = GraphEngine(device="cpu").analyze_case(case)
     assert got.top_components() == ref.top_components()
     assert np.array_equal(got.upstream, ref.upstream)

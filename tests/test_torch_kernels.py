@@ -11,13 +11,24 @@ Tolerances: the evidence pair allclose at rtol 1e-6 / atol 1e-7 (one
 product of 13 float32 factors); the segmented max bitwise (float32 max
 does not depend on order); the segmented sum allclose at rtol 1e-5 /
 atol 1e-6, the repo's segscan-vs-scatter tolerance (the sum is taken in
-another order).
+another order).  The evidence front against the reference's front
+compiled as one program: ``a`` and ``h`` allclose at rtol 1e-6 / atol
+1e-7, the bad-row count equal.  ``h`` is not held bitwise there: the
+reference's own compiled noisy-OR rounds differently from one program to
+another (its Pallas kernel in interpret mode, its front alone and its
+whole propagation disagree with each other in the last bit on many rows
+with the packaged weights), so the bitwise checks are the port's kernels against their plain versions on
+the card, and ``u`` against the reference's engine
+(``tests/test_torch_engine.py``).
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from rca_tpu.cluster.generator import synthetic_cascade_arrays
@@ -26,9 +37,21 @@ from rca_tpu.engine.pallas_kernels import (
     noisy_or_pair_pallas,
     noisy_or_pair_xla,
 )
+from rca_tpu.engine.propagate import _noisy_or as ref_noisy_or
+from rca_tpu.engine.propagate import (
+    error_source_excess as ref_error_source_excess,
+)
+from rca_tpu.engine.propagate import (
+    finite_mask_rows as ref_finite_mask_rows,
+)
+from rca_tpu.engine.propagate import (
+    fold_error_contrast as ref_fold_error_contrast,
+)
 from rca_tpu.engine.train import packaged_params
+from rca_tpu_torch.engine import evidence as port_evidence
 from rca_tpu_torch.engine import segscan as port_segscan
 from rca_tpu_torch.engine.evidence import noisy_or_pair, noisy_or_pair_plain
+from rca_tpu_torch.features.schema import SvcF
 from rca_tpu_torch.kernels import LAUNCHES
 
 C = 13
@@ -106,6 +129,178 @@ def test_noisy_or_kernel_matches_plain_on_card(cuda_device):
     pa, ph = noisy_or_pair_plain(f, aw, hw)
     torch.testing.assert_close(a, pa, rtol=1e-6, atol=1e-7)
     torch.testing.assert_close(h, ph, rtol=1e-6, atol=1e-7)
+
+
+# -- K1 redesigned: the evidence front (sanitize, pair, contrast) -------------
+
+@functools.partial(jax.jit, static_argnames=("error_contrast",))
+def _ref_front(features, dep_src, dep_dst, aw, hw, error_contrast):
+    """The front of the reference's ranked propagation, compiled as one
+    program as its ``_propagate_ranked`` is."""
+    clean, n_bad = ref_finite_mask_rows(features)
+    a = ref_noisy_or(clean, aw)
+    h = ref_noisy_or(clean, hw)
+    if error_contrast:
+        a = ref_fold_error_contrast(
+            a, ref_error_source_excess(clean, dep_src, dep_dst),
+            error_contrast)
+    return a, h, n_bad
+
+
+def _front_case(n: int, poison: str):
+    """A padded cascade of ``n`` services, a few rows past [0, 1], and the
+    rows ``poison`` names made non-finite.  Returns the features, the
+    padded edges, the port's up layout on the CPU and the poisoned row
+    whose finite error rate the sanitize must drop (or None)."""
+    case = synthetic_cascade_arrays(n, n_roots=2, seed={50: 7, 700: 3,
+                                                         2047: 0}[n])
+    n_pad = {50: 64, 700: 1024, 2047: 2048}[n]
+    e_pad = 4096 if n == 2047 else (128 if n == 50 else 2048)
+    rng = np.random.default_rng(n)
+    f = np.zeros((n_pad, C), np.float32)
+    f[:n] = case.features
+    f[: n : 5] = rng.uniform(-0.2, 1.2, f[: n : 5].shape)
+    dropped = None
+    if poison == "error_rate_only":
+        f[3, SvcF.ERROR_RATE] = np.nan
+    elif poison == "nan_elsewhere":
+        dropped = 11
+        f[dropped, SvcF.ERROR_RATE] = 0.9
+        f[dropped, 4] = np.nan
+    elif poison == "inf":
+        f[[2, 20], [7, 12]] = (np.inf, -np.inf)
+    elif poison == "all_rows":
+        f[:] = np.nan
+    dummy = n_pad - 1
+    src = np.full(e_pad, dummy, np.int32)
+    dst = np.full(e_pad, dummy, np.int32)
+    src[: len(case.dep_src)] = case.dep_src
+    dst[: len(case.dep_dst)] = case.dep_dst
+    up = port_segscan.build_up_seg(n_pad, e_pad, case.dep_src,
+                                   case.dep_dst).to("cpu")
+    return f, src, dst, up, dropped
+
+
+POISONS = ["clean", "error_rate_only", "nan_elsewhere", "inf", "all_rows"]
+
+
+@pytest.mark.parametrize("poison", POISONS)
+@pytest.mark.parametrize("error_contrast", [0.0, 0.7])
+@pytest.mark.parametrize("n", [50, 700, 2047])
+def test_evidence_front_plain_matches_reference_front(n, error_contrast,
+                                                      poison):
+    f, src, dst, up, dropped = _front_case(n, poison)
+    aw, hw = _weights()
+    ref_a, ref_h, ref_bad = _ref_front(
+        jnp.asarray(f), jnp.asarray(src), jnp.asarray(dst), jnp.asarray(aw),
+        jnp.asarray(hw), error_contrast)
+    ft, awt, hwt = (torch.from_numpy(v) for v in (f, aw, hw))
+    a, h, n_bad = port_evidence.evidence_front_plain(ft, awt, hwt,
+                                                     error_contrast, up)
+    np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ref_a), rtol=1e-6,
+                               atol=1e-7)
+    assert n_bad.dtype == torch.int32
+    assert int(n_bad) == int(ref_bad)
+    assert int(n_bad) == {"clean": 0, "error_rate_only": 1,
+                          "nan_elsewhere": 1, "inf": 2,
+                          "all_rows": f.shape[0]}[poison]
+    _, _, e, _ = port_evidence.evidence_front_rows_plain(ft, awt, hwt)
+    if dropped is not None:
+        assert e[dropped] == 0.0 and a[dropped] == 0.0 and h[dropped] == 0.0
+    if poison == "all_rows":
+        assert not a.any() and not h.any() and not e.any()
+
+
+def _front_inputs(n: int = 700, poison: str = "inf"):
+    f, _, _, up, _ = _front_case(n, poison)
+    aw, hw = (torch.from_numpy(w) for w in _weights())
+    return torch.from_numpy(f), aw, hw, up
+
+
+def test_evidence_front_wrappers_on_cpu_are_the_plain_versions():
+    f, aw, hw, up = _front_inputs()
+    before = dict(LAUNCHES)
+    for weight in (0.0, 0.7):
+        got = port_evidence.evidence_front(f, aw, hw, weight, up)
+        want = port_evidence.evidence_front_plain(f, aw, hw, weight, up)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    rows = port_evidence.evidence_front_rows(f, aw, hw)
+    for g, w in zip(rows, port_evidence.evidence_front_rows_plain(f, aw, hw)):
+        assert torch.equal(g, w)
+    a_raw, _, e, _ = rows
+    assert torch.equal(port_evidence.seg_contrast_step(a_raw, e, 0.7, up),
+                       port_evidence.seg_contrast_step_plain(a_raw, e, 0.7,
+                                                             up))
+    assert LAUNCHES == before
+
+
+def test_front_is_the_pair_on_clean_rows_and_the_contrast_over_the_layout():
+    """Pieces of the front against the functions they stand for: the row
+    pass's pair is the evidence pair of the sanitized rows, and the
+    layout's segment of each sorted edge recovers the dependency max of
+    the scatter over the raw edge lists."""
+    f, aw, hw, up = _front_inputs(2047, "clean")
+    a_raw, h, e, n_bad = port_evidence.evidence_front_rows(f, aw, hw)
+    pa, ph = noisy_or_pair(f, aw, hw)
+    assert torch.equal(a_raw, pa) and torch.equal(h, ph) and int(n_bad) == 0
+    _, src, dst, _, _ = _front_case(2047, "clean")
+    want = port_evidence.error_source_excess(
+        e, torch.from_numpy(src.astype(np.int64)),
+        torch.from_numpy(dst.astype(np.int64)))
+    got = port_evidence.error_source_excess(
+        e, port_evidence.segment_sources(up), up.other_sorted)
+    assert torch.equal(got, want)
+    assert int((got > 0).sum()) > 0
+
+
+def _bad_front_call(bad):
+    f, aw, hw, up = _front_inputs(50, "clean")
+    err = ValueError
+    if bad == "dtype":
+        f, err = f.double(), TypeError
+    elif bad == "weight_shape":
+        hw = hw[:-1]
+    elif bad == "rank":
+        f = f.reshape(-1)
+    elif bad == "channels":
+        f, aw, hw = f[:, :1].contiguous(), aw[:1], hw[:1]
+    elif bad == "device":
+        f, aw, hw = f.to("meta"), aw.to("meta"), hw.to("meta")
+    elif bad == "host_layout":
+        up, err = port_segscan.build_up_seg(64, 128, [0], [1]), TypeError
+    elif bad == "layout_device":
+        up = port_segscan.build_up_seg(64, 128, [0], [1]).to("meta")
+    else:  # a layout of another bucket
+        up = port_segscan.build_up_seg(128, 128, [0], [1]).to("cpu")
+    return lambda: port_evidence.evidence_front(f, aw, hw, 0.7, up), err
+
+
+@pytest.mark.parametrize("bad", ["dtype", "weight_shape", "rank", "channels",
+                                 "device", "host_layout", "layout_device",
+                                 "layout_rows"])
+def test_evidence_front_wrapper_rejects_bad_inputs(bad):
+    call, err = _bad_front_call(bad)
+    with pytest.raises(err):
+        call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", POISONS)
+@pytest.mark.parametrize("error_contrast", [0.0, 0.7])
+def test_evidence_front_kernels_match_plain_on_card(error_contrast, poison,
+                                                    cuda_device):
+    f, aw, hw, up = _front_inputs(2047, poison)
+    f, aw, hw = (t.to(cuda_device) for t in (f, aw, hw))
+    up = up.to(cuda_device)
+    got = port_evidence.evidence_front(f, aw, hw, error_contrast, up)
+    again = port_evidence.evidence_front(f, aw, hw, error_contrast, up)
+    want = port_evidence.evidence_front_plain(f, aw, hw, error_contrast, up)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert torch.equal(g, w)
 
 
 # -- K2/K3: the flagged segmented scans ---------------------------------------
