@@ -34,7 +34,26 @@ verdict line:
    give a bitwise-equal ``[4, n_pad]`` stack); a poisoned copy of the
    2047 case checks the NaN/Inf sanitize the same way, and the flagship
    ``entry()`` step must reproduce the engine's scores;
-5. times from CUDA events (median of 20 samples after warm-up): each
+5. the snapshot path: the port's ``RCACoordinator(backend="torch")`` runs
+   a comprehensive analysis (capture, features, graph, the six agents, the
+   engine, the findings JSON) on the card over the 5-service fixture, the
+   50-service fixture and a 2047-service cascade, each with the launch
+   counters set to 0 just before: each analysis must launch
+   ``evidence_front`` / ``seg_contrast_step`` / ``seg_up_step`` /
+   ``seg_down_step`` 1 / 1 / 8 / 8 times and nothing else, finish with
+   the torch backend and no fallback, rank a fault root first (the
+   database and the api-gateway first and second at 5 services), match
+   the port's own CPU run (agents' findings and groups byte-identical,
+   root causes in the same order, floats within rel 1e-5 / abs 1e-6,
+   scores within 1e-4) and a second card run bit for bit.  At 2047 the
+   topology agent's betweenness takes the device path: it is held to the
+   float64 loop at rtol 1e-5 / atol 1e-7 and timed, and the stage profile
+   and the whole ``run_analysis`` are timed (median of 5 after a warm-up;
+   ``--profile`` adds the device time and busy share of both).
+   ``python -m rca_tpu_torch analyze --fixture 50svc --seed 7 --compact``
+   (the same 50-service fixture) must exit 0 with a torch-engine ranking
+   whose first root cause is the fixture's fault root;
+6. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -123,10 +142,9 @@ def cuda_ms(fn, reps: int = 20, inner: int = 10, queued: bool = True):
     return float(np.median(samples))
 
 
-def host_ms(fn, reps: int = 20) -> float:
-    """Median host wall of ``fn`` (which must end in a device sync)."""
-    import numpy as np
-
+def host_samples(fn, reps: int = 20) -> list:
+    """Host walls in ms of ``reps`` calls of ``fn`` (which must end in a
+    device sync) after 3 warm calls."""
     for _ in range(3):
         fn()
     samples = []
@@ -134,7 +152,14 @@ def host_ms(fn, reps: int = 20) -> float:
         t0 = time.perf_counter()
         fn()
         samples.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(samples))
+    return samples
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host wall of ``fn`` (which must end in a device sync)."""
+    import numpy as np
+
+    return float(np.median(host_samples(fn, reps)))
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -476,7 +501,10 @@ def main(argv) -> int:
     phase("entry", n_pad=int(example[0].shape[0]),
           e_pad=int(example[1].shape[0]))
 
-    # -- 5. times ----------------------------------------------------------
+    # -- 5. the snapshot path, through the kernels -------------------------
+    record["snapshot"] = snapshot_phase(args.profile, args.out)
+
+    # -- 6. times ----------------------------------------------------------
     times = {}
     for n in cases:
         n_pad, e_pad = shapes[n]
@@ -638,6 +666,7 @@ def main(argv) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "tier_services": big, "at_2047": times[2047][name],
+            "snapshot_launches": record["snapshot"]["launches"][name],
             **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
                if key in t},
         })
@@ -666,6 +695,230 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels}, default=float))
     print(json.dumps({"ok": True, "device": device}))
     return 0
+
+
+SNAPSHOT_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
+                     "seg_up_step": 8, "seg_down_step": 8,
+                     "noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0}
+
+
+def _causes_match(got, want, label):
+    """The root causes of two comprehensive analyses: same components in
+    the same order, every other field equal, floats within rel 1e-5 / abs
+    1e-6 and the (4-place) score within 1e-4."""
+    import math
+
+    if [r["component"] for r in got] != [r["component"] for r in want]:
+        fail(f"root causes differ ({label}): "
+             f"{[r['component'] for r in got]} vs "
+             f"{[r['component'] for r in want]}")
+    for g, w in zip(got, want):
+        if sorted(g) != sorted(w):
+            fail(f"root-cause fields differ ({label}, {w['component']})")
+        for key, value in w.items():
+            if key == "score":
+                ok = abs(g[key] - value) <= 1e-4
+            elif isinstance(value, float):
+                ok = math.isclose(g[key], value, rel_tol=1e-5, abs_tol=1e-6)
+            else:
+                ok = _dumps(g[key]) == _dumps(value)
+            if not ok:
+                fail(f"root cause {w['component']} field {key} differs "
+                     f"({label}): {g[key]} vs {value}")
+
+
+def _dumps(obj) -> str:
+    return json.dumps(obj, sort_keys=True, default=str)
+
+
+def _without_times(results: dict) -> str:
+    """A comprehensive result as JSON without what a rerun may change: the
+    stage profile and the engine's latency (also inside its summary)."""
+    out = {k: v for k, v in results.items() if k != "profile"}
+    out["correlated"] = {k: v for k, v in results["correlated"].items()
+                         if k not in ("engine_latency_ms", "summary")}
+    return _dumps(out)
+
+
+def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
+    """Comprehensive analyses through the port's coordinator on the card
+    (phase 5 of the module docstring); ``profile_it`` adds a
+    ``torch.profiler`` table of the 2047-service analysis and of its
+    betweenness pass."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.agents import ALL_AGENT_TYPES, AnalysisContext
+    from rca_tpu_torch.cluster.fixtures import NS, five_service_world
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+    from rca_tpu_torch.coordinator import RCACoordinator
+    from rca_tpu_torch.graph import analysis
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = {"worlds": []}
+    worlds = []
+    for label, make, ns in (
+            ("5svc", five_service_world, NS),
+            ("50svc", lambda: synthetic_cascade_world(
+                50, n_roots=1, seed=7, namespace="synthetic"), "synthetic"),
+            ("2047svc", lambda: synthetic_cascade_world(
+                2047, n_roots=3, seed=0), "synthetic")):
+        t0 = time.perf_counter()
+        world = make()
+        worlds.append((label, world, ns))
+        phase("snapshot_world", world=label,
+              services=len(world.services[ns]),
+              generate_s=time.perf_counter() - t0)
+
+    total = {name: 0 for name in LAUNCHES}
+    for label, world, ns in worlds:
+        card = RCACoordinator(MockClusterClient(world), backend="torch")
+        if card.device.type != "cuda" or card.engine.plan != "kernels":
+            fail(f"coordinator on {card.device} with plan "
+                 f"{card.engine.plan}")
+        reset_launches()
+        t0 = time.perf_counter()
+        rec = card.run_analysis("comprehensive", ns)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)
+        if rec["status"] != "completed":
+            fail(f"comprehensive analysis {rec['status']} at {label}: "
+                 f"{rec.get('error')}")
+        if launches != SNAPSHOT_LAUNCHES:
+            fail(f"launch counts {launches} for one analysis at {label}, "
+                 f"want {SNAPSHOT_LAUNCHES}")
+        for name, count in launches.items():
+            total[name] += count
+        res = rec["results"]
+        corr = res["correlated"]
+        if corr.get("backend") != "torch" or "fallback_from" in corr:
+            fail(f"correlate fell back at {label}: "
+                 f"{corr.get('fallback_reason')}")
+        top = [r["component"] for r in corr["root_causes"]]
+        if label == "5svc":
+            if set(top[:2]) != {"database", "api-gateway"}:
+                fail(f"top-2 at 5svc is {top[:2]}")
+        elif top[0] not in world.ground_truth["fault_roots"]:
+            fail(f"top-1 {top[0]} at {label} is not a fault root "
+                 f"{world.ground_truth['fault_roots']}")
+
+        cpu = RCACoordinator(MockClusterClient(world), backend="torch",
+                             device="cpu").run_analysis("comprehensive", ns)
+        if cpu["status"] != "completed":
+            fail(f"CPU analysis {cpu['status']} at {label}")
+        cres = cpu["results"]
+        for agent in ALL_AGENT_TYPES:
+            if _dumps(res[agent]) != _dumps(cres[agent]):
+                fail(f"agent {agent} findings differ from the CPU run at "
+                     f"{label}")
+        if _dumps(corr["groups"]) != _dumps(cres["correlated"]["groups"]):
+            fail(f"groups differ from the CPU run at {label}")
+        _causes_match(corr["root_causes"], cres["correlated"]["root_causes"],
+                      f"card vs CPU, {label}")
+        if res["summary"] != cres["summary"]:
+            fail(f"summary differs from the CPU run at {label}")
+        again = card.run_analysis("comprehensive", ns)
+        if _without_times(again["results"]) != _without_times(res):
+            fail(f"two card runs differ at {label}")
+        row = {"world": label, "status": rec["status"], "top": top[:3],
+               "fault_roots": world.ground_truth.get("fault_roots"),
+               "launches": launches, "run_analysis_ms": wall_ms,
+               "summary": corr["summary"]}
+        out["worlds"].append(row)
+        phase("snapshot", **row)
+
+    # the betweenness device pass at 2047 against the float64 loop
+    label, world, ns = worlds[-1]
+    ctx = AnalysisContext(ClusterSnapshot.capture(
+        MockClusterClient(world), ns), device=card.device)
+    src, dst = ctx.dep_edges
+    n = ctx.features.num_services
+    if not (analysis._BC_DEVICE_MIN_NODES <= n
+            <= analysis._BC_DEVICE_MAX_NODES):
+        fail(f"{n} services do not take the betweenness device path")
+    got = analysis.betweenness_centrality(n, src, dst, device=card.device)
+    t0 = time.perf_counter()
+    exact = analysis._betweenness_python(n, src, dst)
+    python_ms = (time.perf_counter() - t0) * 1e3
+    if not np.allclose(got, exact, rtol=1e-5, atol=1e-7):
+        fail("the card's betweenness disagrees with the float64 loop")
+    n_pad = -(-n // 256) * 256
+    _, finite, levels = analysis._bc_kernel(src, dst, n_pad, card.device)
+
+    def bc():
+        analysis.betweenness_centrality(n, src, dst, device=card.device)
+        torch.cuda.synchronize()
+
+    products = 2 * levels - 1      # forward levels + backward levels
+    bc_ms = host_ms(bc, reps=5)
+    bound, bound_by = bound_ms(
+        4 * (len(src) * 2 + n_pad),            # the edges in, bc out
+        products * 2.0 * n_pad ** 3)           # the [n, n] products
+    out["betweenness"] = {
+        "services": n, "edges": int(len(src)), "n_pad": n_pad,
+        "levels": levels, "finite": finite, "products": products,
+        "max_abs_err": float(np.abs(got - exact).max()),
+        "ms": bc_ms, "python_float64_ms": python_ms,
+        "bound_ms": bound, "bound_by": bound_by}
+    phase("betweenness", **out["betweenness"])
+
+    # the stage profile at 2047: median of 5 after a warm-up
+    card.run_analysis("comprehensive", ns)
+    walls, profiles = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rec = card.run_analysis("comprehensive", ns)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        profiles.append(rec["results"]["profile"])
+    out["profile_2047"] = {
+        stage: float(np.median([p[stage] for p in profiles]))
+        for stage in profiles[0]}
+    out["run_analysis_ms_2047"] = float(np.median(walls))
+    client = MockClusterClient(world)
+    captures = host_samples(lambda: ClusterSnapshot.capture(client, ns),
+                            reps=5)
+    out["capture_ms_2047"] = float(np.median(captures))
+    # the spread of the host walls: the card's host shares its cores
+    spread = {"run_analysis_ms_range": [min(walls), max(walls)],
+              "capture_ms_range": [min(captures), max(captures)]}
+    out.update({f"{k}_2047": v for k, v in spread.items()})
+    phase("snapshot_profile", services=n, run_analysis_ms=float(
+        np.median(walls)), capture_ms=out["capture_ms_2047"], **spread,
+        **out["profile_2047"])
+    if profile_it:
+        out["device_profile_2047"] = {
+            "run_analysis": device_profile(
+                lambda: card.run_analysis("comprehensive", ns),
+                out["run_analysis_ms_2047"], out_dir, "snapshot_2047"),
+            "betweenness": device_profile(bc, bc_ms, out_dir,
+                                          "betweenness_2047")}
+        phase("snapshot_device_profile", **out["device_profile_2047"])
+
+    # the user's entry point, in its own process, on the 50-service fixture
+    # (the CLI's <N>svc world with seed 7 is the one generated above)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "analyze", "--fixture",
+         "50svc", "--seed", "7", "--compact"], capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m rca_tpu_torch analyze exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout)
+    causes = cli.get("root_causes") or []
+    if cli.get("status") != "completed" or not causes or \
+            "explained_by_upstream" not in causes[0]:
+        fail(f"the CLI gave no engine ranking: {proc.stdout[:500]}")
+    roots_50 = worlds[1][1].ground_truth["fault_roots"]
+    if causes[0]["component"] not in roots_50:
+        fail(f"the CLI's top-1 {causes[0]['component']} is not a fault root "
+             f"{roots_50}")
+    out["cli"] = {"top": causes[0]["component"],
+                  "seconds": time.perf_counter() - t0}
+    phase("cli", **out["cli"])
+    out["launches"] = total
+    return out
 
 
 def sweep(cases, shapes, kin, decay, cuts=(8, 16, 32, 64, 128, 256)):
@@ -702,46 +955,67 @@ def sweep(cases, shapes, kin, decay, cuts=(8, 16, 32, 64, 128, 256)):
     return rows
 
 
-def profile(engine, case, host_ms_per_analysis: float, out=None) -> None:
-    """Device time by kernel over 5 analyses (torch.profiler), the table
-    written to ``out/profile_<n>.txt`` when ``out`` is given.  The busy
-    share divides the device time of one analysis by its unprofiled host
-    wall time (the profiler's own start-up would swamp a profiled wall
+def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
+                   calls: int = 3, warm: int = 1) -> dict:
+    """Device time, kernel launches, device kernels and the busy share of
+    one ``fn`` call (``torch.profiler`` over ``calls`` calls after ``warm``
+    unprofiled ones), and the five device ops that take the most time; the
+    table goes to ``out_dir/profile_<name>.txt`` when ``out_dir`` is given.
+    The busy share divides the device time of one call by its unprofiled
+    host wall time (the profiler's own start-up would swamp a profiled wall
     clock)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    for _ in range(3):
-        engine.analyze_case(case)
+    for _ in range(warm):
+        fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            engine.analyze_case(case)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
     # device-side events: kernels, copies and memsets; the profiler's own
     # buffer request shows up there too and is left out
     on_device = [e for e in events if e.device_type == DeviceType.CUDA
                  and e.key != "Activity Buffer Request"]
-    device_us = sum(
-        getattr(e, "self_device_time_total", 0) or
-        getattr(e, "self_cuda_time_total", 0) for e in on_device) / 5
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    device_us = sum(dev_us(e) for e in on_device) / calls
     launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / 5
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / calls
     kernels = sum(e.count for e in on_device
-                  if not e.key.startswith(("Memcpy", "Memset"))) / 5
-    if out:
-        os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, f"profile_{case.n}.txt"), "w") as f:
-            f.write(table)
-    phase("profile", services=case.n, device_us_per_analysis=device_us,
-          launches_per_analysis=launches,
-          device_kernels_per_analysis=kernels,
+                  if not e.key.startswith(("Memcpy", "Memset"))) / calls
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(events.table(sort_by="self_cuda_time_total",
+                                 row_limit=40))
+    top = sorted(on_device, key=dev_us, reverse=True)[:5]
+    return {"device_us_per_call": device_us,
+            "launches_per_call": launches,
+            "device_kernels_per_call": kernels,
+            "host_ms_per_call": host_ms_per_call,
+            "device_busy_share": device_us / 1e3 / host_ms_per_call,
+            "top_device_ops": [[e.key[:60], dev_us(e) / calls] for e in top]}
+
+
+def profile(engine, case, host_ms_per_analysis: float, out=None) -> None:
+    """Device time by kernel over 5 analyses after 3 warm ones."""
+    p = device_profile(lambda: engine.analyze_case(case),
+                       host_ms_per_analysis, out, str(case.n), calls=5,
+                       warm=3)
+    phase("profile", services=case.n,
+          device_us_per_analysis=p["device_us_per_call"],
+          launches_per_analysis=p["launches_per_call"],
+          device_kernels_per_analysis=p["device_kernels_per_call"],
           host_ms_per_analysis=host_ms_per_analysis,
-          device_busy_share=device_us / 1e3 / host_ms_per_analysis)
+          device_busy_share=p["device_busy_share"])
 
 
 if __name__ == "__main__":

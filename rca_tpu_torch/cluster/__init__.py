@@ -1,1 +1,2 @@
-"""Synthetic cascade inputs for the engine."""
+"""Cluster data access: the world model, the mock client, snapshot capture
+and the synthetic cascade generators."""

@@ -1,21 +1,33 @@
-"""Synthetic fault-cascade arrays: the port's numpy copy of the arrays
-half of ``rca_tpu.cluster.generator``.
+"""Synthetic fault cascades: the port's numpy copy of
+``rca_tpu.cluster.generator``.
 
 A random service-dependency DAG (each service depends on 1..3 earlier
 services, preferential-attachment flavored so hub services emerge), fault
 injection at ``n_roots`` services, and symptom propagation to transitive
-dependents with per-hop decay.  The output is the raw arrays the engine
-takes (:class:`CascadeArrays`); the same seed gives the same bytes as the
-JAX package's generator, so both engines can be held to one input.
+dependents with per-hop decay.  Two output forms: the raw arrays the engine
+takes (:class:`CascadeArrays`) and a full dict :class:`World` that drives
+the agent and coordinator layer.  The same seed gives the same bytes as
+the JAX package's generator, so both packages can be held to one input.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from rca_tpu_torch.cluster.world import (
+    World,
+    make_deployment,
+    make_endpoints,
+    make_event,
+    make_node,
+    make_pod,
+    make_service,
+    pod_metric,
+    waiting_status,
+)
 from rca_tpu_torch.features.schema import NUM_RAW_SERVICE_FEATURES as NUM_RAW
 from rca_tpu_torch.features.schema import NUM_SERVICE_FEATURES as NUM_FEATURES
 from rca_tpu_torch.features.schema import SvcF, derive_silent_channel
@@ -380,3 +392,221 @@ def synthetic_cascade_arrays(
         # which legacy-seed byte-stability forbids changing)
         root_kinds=[root_kinds[j] for j in np.argsort(roots)],
     )
+
+
+def _faulty_pod_parts(kind: str, svc: str, rng: np.random.Generator):
+    """Per-archetype pod state for the dict-world form: container status,
+    pod phase, event (reason, message), log text (None = container never
+    produced logs), and metrics (cpu_m, mem_mib) — each chosen so the
+    feature extractor's reason/phase/termination matching lights the
+    archetype's DEFINING channels (features/extract.py:36-108).  The
+    secondary-channel mix is the plausible K8s realization, not a replica
+    of the raw-array generator's exact per-channel ranges — an OOM-killed
+    pod really does carry a CrashLoopBackOff waiting reason, and a
+    config-error pod really produces no logs."""
+    if kind == "oom":
+        status = waiting_status(
+            svc, "CrashLoopBackOff", "Back-off restarting failed container",
+            restarts=int(rng.integers(3, 10)),
+            last_exit_code=137, last_reason="OOMKilled",
+        )
+        return (status, "Running",
+                ("OOMKilling",
+                 f"Memory cgroup out of memory: Killed process ({svc})"),
+                "INFO: allocating buffers\n"
+                "ERROR: Out of memory: killed by cgroup limit\n",
+                (30, 127))
+    if kind == "image":
+        status = waiting_status(
+            svc, "ImagePullBackOff",
+            f'Back-off pulling image "{svc}:latest"',
+        )
+        return (status, "Pending",
+                ("Failed", f'Failed to pull image "{svc}:latest": not found'),
+                None, (0, 0))
+    if kind == "config":
+        status = waiting_status(
+            svc, "CreateContainerConfigError",
+            f'configmap "{svc}-config" not found',
+        )
+        return (status, "Pending",
+                ("FailedCreate", f'configmap "{svc}-config" not found'),
+                None, (0, 0))
+    if kind == "pending":
+        return (None, "Pending",
+                ("FailedScheduling",
+                 "0/3 nodes are available: 3 Insufficient memory."),
+                None, (0, 0))
+    # crash (default)
+    status = waiting_status(
+        svc, "CrashLoopBackOff", "Back-off restarting failed container",
+        restarts=int(rng.integers(4, 12)), last_exit_code=1,
+    )
+    return (status, "Running",
+            ("BackOff", f"Back-off restarting failed container {svc}"),
+            "ERROR: fatal error during startup\n"
+            "Exception in thread main\nERROR: exiting\n", (5, 20))
+
+
+def synthetic_cascade_world(
+    n_services: int,
+    n_roots: int = 1,
+    seed: int = 0,
+    namespace: str = "synthetic",
+    pods_per_service: int = 1,
+    mode: str = "standard",
+    fault_mix: str = "crash",
+) -> World:
+    """Generate a full dict-world cascade (drives the agent/coordinator layer).
+
+    Suitable up to a few thousand services; the raw-array form above covers
+    10k-50k scale without dict materialization.  ``fault_mix`` selects the
+    roots' fault archetypes exactly as in :func:`synthetic_cascade_arrays`
+    — the dict world realizes each archetype as the K8s states the feature
+    extractor and rule agents classify (ImagePullBackOff waiting status,
+    OOMKilled termination, FailedScheduling events, ...).
+    """
+    case = synthetic_cascade_arrays(
+        n_services, n_roots, seed, mode=mode, fault_mix=fault_mix,
+    )
+    rng = np.random.default_rng(seed + 1)
+    names = [f"svc-{i:05d}" for i in range(n_services)]
+
+    w = World(cluster_name=f"synthetic-{n_services}")
+    n_nodes = max(2, n_services // 50)
+    w.nodes = [make_node(f"node-{i}") for i in range(n_nodes)]
+    w.node_metrics = {
+        f"node-{i}": {
+            "cpu": {"usage_percentage": int(rng.uniform(30, 70))},
+            "memory": {"usage_percentage": int(rng.uniform(30, 70))},
+        }
+        for i in range(n_nodes)
+    }
+
+    root_set = set(case.roots.tolist())
+    kind_of = dict(zip(case.roots.tolist(), case.root_kinds or []))
+    hops = _bfs_hops(
+        n_services, _dependents_adj(n_services, case.dep_src, case.dep_dst), case.roots
+    )
+    w.pod_metrics[namespace] = {"pods": {}}
+    w.logs[namespace] = {}
+    events: List[dict] = []
+
+    # deps per service for env-var DNS inference (topology agent input)
+    deps_of: Dict[int, List[int]] = {}
+    for s, d in zip(case.dep_src.tolist(), case.dep_dst.tolist()):
+        deps_of.setdefault(s, []).append(d)
+
+    for i, svc in enumerate(names):
+        faulty = i in root_set
+        degraded = (not faulty) and hops[i] < np.iinfo(np.int32).max
+        env = [
+            {
+                "name": f"DEP_{j}_URL",
+                "value": f"http://{names[d]}.{namespace}.svc.cluster.local:8080",
+            }
+            for j, d in enumerate(deps_of.get(i, []))
+        ]
+        pod_names = []
+        for r in range(pods_per_service):
+            pod_name = f"{svc}-{r}"
+            pod_names.append(pod_name)
+            if faulty:
+                status, phase, (ev_reason, ev_msg), log_text, (cpu_m, mem_mib) = (
+                    _faulty_pod_parts(kind_of.get(i, "crash"), svc, rng)
+                )
+                pod = make_pod(
+                    pod_name,
+                    namespace,
+                    svc,
+                    phase=phase,
+                    container_statuses=[status] if status is not None else [],
+                )
+                if log_text is not None:
+                    w.logs[namespace][pod_name] = {svc: log_text}
+                events.append(
+                    make_event(
+                        namespace, "Pod", pod_name, ev_reason, ev_msg,
+                        count=int(rng.integers(5, 25)),
+                    )
+                )
+                w.pod_metrics[namespace]["pods"][pod_name] = pod_metric(
+                    cpu_m, mem_mib, 200, 128, svc
+                )
+            else:
+                pod = make_pod(pod_name, namespace, svc)
+                if degraded:
+                    w.logs[namespace][pod_name] = {
+                        svc: "WARN: upstream timeout\n"
+                        "ERROR: connection timed out waiting for dependency\n"
+                    }
+                    events.append(
+                        make_event(
+                            namespace, "Pod", pod_name, "Unhealthy",
+                            "Readiness probe failed: upstream dependency timeout",
+                            count=int(rng.integers(1, 6)),
+                        )
+                    )
+                else:
+                    w.logs[namespace][pod_name] = {svc: "INFO: serving\n"}
+                w.pod_metrics[namespace]["pods"][pod_name] = pod_metric(
+                    int(rng.uniform(20, 120)), int(rng.uniform(30, 90)), 200, 128, svc
+                )
+            if env:
+                pod["spec"]["containers"][0].setdefault("env", env)
+            w.add("pods", namespace, pod)
+
+        ready = 0 if faulty else pods_per_service
+        w.add(
+            "deployments",
+            namespace,
+            make_deployment(svc, namespace, svc, pods_per_service, ready),
+        )
+        w.add("services", namespace, make_service(svc, namespace))
+        w.add(
+            "endpoints",
+            namespace,
+            make_endpoints(svc, namespace, [] if faulty else pod_names),
+        )
+
+    w.events[namespace] = events
+
+    # Traces derived from the same ground truth.
+    latency = {}
+    error_rates = {}
+    for i, svc in enumerate(names):
+        if i in root_set:
+            error_rates[svc] = round(float(case.features[i, F_ERROR_RATE]), 3)
+            latency[svc] = {"p50": 50, "p95": 120, "p99": 250}
+        else:
+            error_rates[svc] = round(float(case.features[i, F_ERROR_RATE]), 3)
+            scale = 1.0 + 4.0 * float(case.features[i, F_LATENCY])
+            latency[svc] = {
+                "p50": int(100 * scale),
+                "p95": int(300 * scale),
+                "p99": int(600 * scale),
+            }
+    w.traces = {
+        "trace_ids": {namespace: [f"trace-{i:05d}" for i in range(20)]},
+        "traces": {},
+        "latency": {namespace: latency},
+        "error_rates": {namespace: error_rates},
+        "dependencies": {
+            namespace: {
+                names[s]: sorted(names[d] for d in deps)
+                for s, deps in ((k, v) for k, v in deps_of.items())
+            }
+        },
+        "slow_ops": {namespace: []},
+    }
+
+    w.ground_truth = {
+        "namespace": namespace,
+        "fault_roots": [names[r] for r in case.roots.tolist()],
+        "fault_kinds": list(case.root_kinds or []),
+        "n_services": n_services,
+        "seed": seed,
+        "mode": mode,
+        "fault_mix": fault_mix,
+    }
+    return w

@@ -3,8 +3,9 @@ one-shot engine reads, kept as the port's own copy so that the port loads
 nothing of the JAX package.
 
 Copied semantics: :class:`RCAConfig`'s engine knobs, the shape-bucket rule
-:func:`bucket_for`, and the free-form env accessor :func:`env_raw`
-(``RCA_WEIGHTS``).
+:func:`bucket_for`, the free-form env accessor :func:`env_raw`
+(``RCA_WEIGHTS``), the checked string accessor :func:`env_str`
+(``RCA_BACKEND``) and :func:`explain_enabled` (``RCA_EXPLAIN``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,29 @@ def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
     beyond centralizing the read.  None when unset."""
     value = os.environ.get(name)
     return default if value is None else value
+
+
+def env_str(name: str, default: str = "", *, choices=None,
+            lower: bool = False) -> str:
+    """A string env knob; empty/unset means ``default`` (which is NOT
+    checked against ``choices`` — an unset knob is always legal)."""
+    raw = (os.environ.get(name) or "").strip()
+    if not raw:
+        return default
+    if lower:
+        raw = raw.lower()
+    if choices is not None and raw not in choices:
+        raise ValueError(
+            f"{name}={raw!r}: expected one of {tuple(choices)}"
+        )
+    return raw
+
+
+def explain_enabled() -> bool:
+    """``RCA_EXPLAIN``: attach the attribution block to engine rankings."""
+    return env_str(
+        "RCA_EXPLAIN", "0", choices=("0", "1", "on", "off"), lower=True,
+    ) in ("1", "on")
 
 
 @dataclasses.dataclass(frozen=True)

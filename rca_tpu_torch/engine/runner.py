@@ -228,6 +228,17 @@ class EngineAPI:
             k=k, timed=timed,
         )
 
+    def analyze_snapshot(self, snapshot,
+                         k: Optional[int] = None) -> EngineResult:
+        """Analyze a :class:`rca_tpu_torch.cluster.snapshot.ClusterSnapshot`:
+        extract its features, condense its dependency edges, rank."""
+        from rca_tpu_torch.features.extract import extract_features
+        from rca_tpu_torch.graph.build import service_dependency_edges
+
+        fs = extract_features(snapshot)
+        src, dst = service_dependency_edges(snapshot, fs)
+        return self.analyze_features(fs, src, dst, k=k)
+
     def analyze_features(self, fs, src: np.ndarray, dst: np.ndarray,
                          k: Optional[int] = None) -> EngineResult:
         """Analyze an extracted feature set (``service_features`` and

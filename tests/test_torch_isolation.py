@@ -4,8 +4,11 @@
   module of the ``rca_tpu`` package (``rca_tpu_torch`` shares its prefix,
   so names are compared exactly);
 - no source file of the port, nor ``chip_smoke.py``, imports either;
-- without a CUDA device the engine raises unless the caller asks for the
-  CPU, and ``chip_smoke.py`` exits non-zero with no verdict line;
+- a comprehensive analysis through the port's coordinator and a run of
+  ``python -m rca_tpu_torch analyze`` load neither;
+- without a CUDA device the engine, the coordinator and the CLI raise (or
+  exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
+  exits non-zero with no verdict line;
 - on a card (tests marked ``cuda``) the engine runs through the kernels
   and agrees with its own CPU run.
 """
@@ -35,9 +38,28 @@ _PROBE = """
 import json, sys
 from rca_tpu_torch import GraphEngine
 from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.coordinator import RCACoordinator
 res = GraphEngine(device="cpu").analyze_case(
     synthetic_cascade_arrays(200, n_roots=2, seed=1))
-print(json.dumps({"top": res.top_components(), "modules": sorted(sys.modules)}))
+rec = RCACoordinator(MockClusterClient(synthetic_cascade_world(
+    50, n_roots=1, seed=7, namespace="synthetic")), backend="torch",
+    device="cpu").run_analysis("comprehensive", "synthetic")
+print(json.dumps({"top": res.top_components(), "status": rec["status"],
+                  "backend": rec["results"]["correlated"]["backend"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+_CLI_PROBE = """
+import json, runpy, sys
+sys.argv = ["rca_tpu_torch", "analyze", "--fixture", "5svc", "--device",
+            "cpu", "--compact"]
+try:
+    runpy.run_module("rca_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+print(json.dumps({"code": code, "modules": sorted(sys.modules)}))
 """
 
 
@@ -49,7 +71,23 @@ def test_port_analysis_loads_no_jax_and_no_rca_tpu():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["top"]) == 5
+    assert (out["status"], out["backend"]) == ("completed", "torch")
     assert "rca_tpu_torch" in out["modules"]
+    assert "rca_tpu_torch.coordinator.core" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+def test_port_cli_loads_no_jax_and_no_rca_tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[0])["status"] == "completed"
+    out = json.loads(lines[-1])
+    assert out["code"] == 0
+    assert "rca_tpu_torch.cli" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
@@ -84,6 +122,36 @@ def test_engine_without_device_raises_on_a_host_without_cuda(no_cuda):
         GraphEngine(device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
+
+
+def test_coordinator_and_cli_without_device_raise_on_a_host_without_cuda(
+        no_cuda):
+    from rca_tpu_torch.agents import AnalysisContext
+    from rca_tpu_torch.cluster.fixtures import NS, five_service_world
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+    from rca_tpu_torch.coordinator import RCACoordinator, correlate_findings
+    from rca_tpu_torch.graph.analysis import betweenness_centrality
+
+    client = MockClusterClient(five_service_world())
+    for backend in ("torch", "deterministic"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            RCACoordinator(client, backend=backend)
+    case = synthetic_cascade_arrays(1300, n_roots=1, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        betweenness_centrality(1300, case.dep_src, case.dep_dst)
+    ctx = AnalysisContext(ClusterSnapshot.capture(client, NS))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        correlate_findings({}, ctx=ctx, backend="torch")
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "analyze", "--fixture",
+         "5svc", "--compact"], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=180,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert '"status"' not in proc.stdout
 
 
 def test_engine_rejects_an_unsupported_device():
