@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # the check: exit 0 and a last-line verdict
     python3 chip_smoke.py --profile    # also profile the analysis per tier
+                                       # and the attribution at 49,999
     python3 chip_smoke.py --out DIR    # also write the full record to DIR
     python3 chip_smoke.py --sweep      # also time the seg steps per bin cut
 
@@ -23,8 +24,14 @@ verdict line:
    1e-5 / atol 1e-6, and every kernel bitwise-equal to itself over two
    runs.  The steps run over the tier's real layouts and over a star
    layout (all 4096 edges in one segment, longer than a block);
-4. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
-   both tiers with the launch counters set to 0 just before; each
+4. the kernel registry at both tiers, with a fresh cache file: the
+   ``kernels`` row is elected by timing with ``torch`` timed beside it, a
+   second engine reads the cache (``source == "cache"``), and under
+   ``RCA_KERNEL=torch`` an analysis launches no kernel of the port and
+   ranks the same top-k;
+5. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
+   both tiers (the registry engaging ``kernels``) with the launch
+   counters set to 0 just before; each
    analysis must launch ``evidence_front`` and ``seg_contrast_step`` once,
    ``seg_up_step`` and ``seg_down_step`` 8 times each, and
    ``noisy_or_pair`` and the flagged scans never.  Each result
@@ -34,7 +41,16 @@ verdict line:
    give a bitwise-equal ``[4, n_pad]`` stack); a poisoned copy of the
    2047 case checks the NaN/Inf sanitize the same way, and the flagship
    ``entry()`` step must reproduce the engine's scores;
-5. the snapshot path: the port's ``RCACoordinator(backend="torch")`` runs
+6. the hypothesis batch, 8 lanes per tier (each of the top candidates
+   made healthy in its lane, NaN/Inf rows in two lanes): one
+   ``analyze_batch`` launches ``evidence_front`` / ``seg_contrast_step`` /
+   ``seg_up_step`` / ``seg_down_step`` 1 / 1 / 8 / 8 times for the whole
+   batch, every lane is bitwise equal to a solo card analysis of its
+   features, each batched launch agrees with its batched plain version
+   (the front, the contrast and ``u`` bitwise, the down-step at rtol
+   1e-5 / atol 1e-6), the batch delta is bitwise equal to full staging,
+   and each batched launch is timed beside its bound and plain version;
+7. the snapshot path: the port's ``RCACoordinator(backend="torch")`` runs
    a comprehensive analysis (capture, features, graph, the six agents, the
    engine, the findings JSON) on the card over the 5-service fixture, the
    50-service fixture and a 2047-service cascade, each with the launch
@@ -53,7 +69,21 @@ verdict line:
    ``python -m rca_tpu_torch analyze --fixture 50svc --seed 7 --compact``
    (the same 50-service fixture) must exit 0 with a torch-engine ranking
    whose first root cause is the fixture's fault root;
-6. times from CUDA events (median of 20 samples after warm-up): each
+8. attribution: ``RCA_EXPLAIN=1`` comprehensive analyses over the
+   50-service fixture and the 2047-service cascade, and
+   ``analyze_arrays(...).attribution()`` at 49,999 services, the sweep on
+   the registry's ``dense`` row (``kernels``: the base run and the
+   counterfactual lanes launch ``evidence_front`` / ``seg_contrast_step``
+   / ``seg_up_step`` / ``seg_down_step`` 2 / 2 / 16 / 16 times, counted
+   from 0 just before) and the saliency on its ``attribution`` row
+   (``torch``): the provenance block is there with saliency, every
+   candidate's reconstruction error is at most 1e-5, it equals the port's
+   CPU block (blame paths and counterfactual order outside drops within
+   1e-6, values within the CPU tests' tolerances) and a second card run
+   bit for bit; the attribution is timed.
+   ``python -m rca_tpu_torch hypotheses --fixture 50svc --seed 7
+   --compact`` must put the fixture's fault root first over a batch of 8;
+9. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -67,7 +97,9 @@ verdict line:
    scatter and the fold (``plain_front_ms`` / ``plain_front_call_ms``);
    the end-to-end ``analyze_arrays`` wall time at both tiers.
 
-The line before the last is the ``{"kernels": [...]}`` JSON; the last line
+The line before the last is the ``{"kernels": [...]}`` JSON (each
+main-path kernel also with its launches per batch and its batched times);
+the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
 ``DIR/profile_<services>.txt``.  Imports nothing of JAX or ``rca_tpu``.
@@ -213,6 +245,7 @@ def main(argv) -> int:
         up_seg_step,
         up_seg_step_plain,
     )
+    from rca_tpu_torch.engine.registry import get_registry
     from rca_tpu_torch.entry import entry
     from rca_tpu_torch.features.schema import SvcF
     from rca_tpu_torch.kernels import LAUNCHES, build, reset_launches
@@ -425,10 +458,16 @@ def main(argv) -> int:
                 torch.full((2048,), 1.0 / 4096, dtype=torch.float32,
                            device=dev), ["seg_up_step", "seg_down_step"])
 
-    # -- 4. the main path, through the kernels -----------------------------
+    # -- 4. the registry elects the kernels row by timing ------------------
     engine = GraphEngine()
-    if engine.plan != "kernels":
-        fail(f"engine plan {engine.plan!r} on the card")
+    record["registry"] = registry_phase(engine, cases, shapes)
+
+    # -- 5. the main path, through the kernels -----------------------------
+    for n in cases:
+        row = get_registry().resolve(*shapes[n], device=dev)
+        if row.winner != "kernels":
+            fail(f"the registry engages {row.winner!r} ({row.source}) at "
+                 f"{n} services")
     reset_launches()
     results = {}
     for i, n in enumerate(cases, start=1):
@@ -444,6 +483,9 @@ def main(argv) -> int:
                         "seg_up_step": 8, "seg_down_step": 8,
                         "noisy_or_pair": 0, "segscan_sum": 0,
                         "segscan_max": 0})
+
+    # -- 6. the hypothesis batch, one launch per kernel and step ----------
+    record["batch"] = batch_phase(engine, cases, shapes, aw, hw, params)
 
     cpu = GraphEngine(device="cpu")
     checks = []
@@ -501,10 +543,15 @@ def main(argv) -> int:
     phase("entry", n_pad=int(example[0].shape[0]),
           e_pad=int(example[1].shape[0]))
 
-    # -- 5. the snapshot path, through the kernels -------------------------
+    # -- 7. the snapshot path, through the kernels -------------------------
     record["snapshot"] = snapshot_phase(args.profile, args.out)
 
-    # -- 6. times ----------------------------------------------------------
+    # -- 8. attribution (sweep on the kernels) and the hypotheses command -
+    record["attribution"] = attribution_phase(
+        engine, cases[TIERS[-1][0]], args.profile, args.out)
+    record["hypotheses"] = hypotheses_phase()
+
+    # -- 9. times ----------------------------------------------------------
     times = {}
     for n in cases:
         n_pad, e_pad = shapes[n]
@@ -670,6 +717,12 @@ def main(argv) -> int:
             **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
                if key in t},
         })
+        if name in BATCH_LAUNCHES:
+            batch = record["batch"]
+            kernels[-1].update(
+                batch_lanes=BATCH, batch_launches=batch["launches"][name],
+                batch=batch["times"][str(big)][name],
+                batch_at_2047=batch["times"]["2047"][name])
         if name == "evidence_front":
             front = times[big]["front"]
             kernels[-1].update(
@@ -695,6 +748,417 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels}, default=float))
     print(json.dumps({"ok": True, "device": device}))
     return 0
+
+
+BATCH = 8
+BATCH_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
+                  "seg_up_step": 8, "seg_down_step": 8}
+#: one attribution's sweep: the base run and one batch of the
+#: counterfactual lanes
+SWEEP_LAUNCHES = {k: 2 * v for k, v in BATCH_LAUNCHES.items()}
+
+
+def registry_phase(engine, cases, shapes) -> dict:
+    """The registry on the card at both tiers: with a fresh cache file the
+    ``kernels`` row is elected by timing, ``torch`` timed beside it; after
+    the rows are dropped, an analysis reads the cache; under
+    ``RCA_KERNEL=torch`` an analysis launches no kernel of the port and
+    ranks the same top-k as the kernels row."""
+    import numpy as np
+    from rca_tpu_torch.engine import registry
+    from rca_tpu_torch.kernels import LAUNCHES, build, reset_launches
+
+    cache = build.BUILD_DIR / "chip_smoke_kernel_cache.json"
+    cache.unlink(missing_ok=True)
+    os.environ["RCA_KERNEL_CACHE"] = str(cache)
+    os.environ.pop("RCA_KERNEL", None)
+    registry.reset_registry()
+    out = {}
+    for n, case in cases.items():
+        n_pad, e_pad = shapes[n]
+        t0 = time.perf_counter()
+        row = registry.get_registry().resolve(n_pad, e_pad,
+                                              device=engine.device)
+        race_s = time.perf_counter() - t0
+        if (row.source, row.winner) != ("timed", "kernels") or \
+                sorted(row.timings_ms) != ["kernels", "torch"]:
+            fail(f"registry at {n}: {row.to_dict()}")
+        registry.reset_registry()
+        kernels = engine.analyze_case(case)
+        cached = registry.get_registry().resolve(n_pad, e_pad,
+                                                 device=engine.device)
+        if (cached.source, cached.winner) != ("cache", "kernels") or \
+                cached.timings_ms != row.timings_ms:
+            fail(f"a second engine did not read the cache at {n}: "
+                 f"{cached.to_dict()}")
+        os.environ["RCA_KERNEL"] = "torch"
+        reset_launches()
+        plain = engine.analyze_case(case)
+        launched = sum(LAUNCHES.values())
+        del os.environ["RCA_KERNEL"]
+        if launched:
+            fail(f"RCA_KERNEL=torch launched {dict(LAUNCHES)} at {n}")
+        if plain.top_components() != kernels.top_components():
+            fail(f"the torch row ranks {plain.top_components()} and the "
+                 f"kernels row {kernels.top_components()} at {n}")
+        if not np.array_equal(plain.upstream, kernels.upstream):
+            fail(f"u differs between the rows at {n}")
+        out[str(n)] = {"n_pad": n_pad, "e_pad": e_pad, "winner": row.winner,
+                       "timings_ms": row.timings_ms, "race_s": race_s,
+                       "cache_source": cached.source,
+                       "torch_row_launches": launched,
+                       "top": kernels.top_components()}
+        phase("registry", services=n, **out[str(n)])
+    return out
+
+
+def _hypothesis_batch(engine, case):
+    """``BATCH`` what-if feature sets over the case's graph, as the
+    ``hypotheses`` command builds them (each of the top candidates made
+    healthy in its lane), with a NaN row in lane 1 and +-Inf in lane 5."""
+    import numpy as np
+
+    base = engine.analyze_case(case, k=BATCH)
+    names = list(case.names) if case.names else None
+    batch = np.repeat(case.features[None], BATCH, axis=0)
+    for b, comp in enumerate(base.top_components(BATCH)):
+        batch[b, names.index(comp) if names else int(comp.split("-")[1])] = 0
+    batch[1, 11, 2] = np.nan
+    batch[5, [40, 41], [0, 6]] = (np.inf, -np.inf)
+    return batch
+
+
+def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
+    """The hypothesis batch on the card (``BATCH`` lanes per tier): one
+    launch of each front kernel and one per step for the whole batch,
+    every lane bitwise equal to a solo card analysis of its features; each
+    batched kernel against its batched plain version (``u`` and the front
+    bitwise, the down-step within rtol 1e-5 / atol 1e-6), the batch delta
+    bitwise equal to full staging, and the batched kernels' times."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine.evidence import (
+        evidence_front_rows,
+        evidence_front_rows_plain,
+        seg_contrast_step,
+        seg_contrast_step_plain,
+    )
+    from rca_tpu_torch.engine.runner import (
+        check_batch_delta,
+        propagate_ranked,
+        propagate_ranked_batch_delta,
+    )
+    from rca_tpu_torch.engine.segscan import (
+        build_seg_layouts,
+        down_seg_step,
+        down_seg_step_plain,
+        up_seg_step,
+        up_seg_step_plain,
+    )
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    dev = engine.device
+    rng = np.random.default_rng(61)
+    out = {"times": {}, "checks": []}
+    want = {name: 0 for name in LAUNCHES}
+    want.update(BATCH_LAUNCHES)
+    for n, case in cases.items():
+        n_pad, e_pad = shapes[n]
+        batch = _hypothesis_batch(engine, case)
+        reset_launches()
+        t0 = time.perf_counter()
+        lanes = engine.analyze_batch(batch, case.dep_src, case.dep_dst,
+                                     case.names)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)
+        if launches != want:
+            fail(f"launch counts {launches} for one batch of {BATCH} at {n},"
+                 f" want {want}")
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        if lanes[0].sanitized_rows != 3:
+            fail(f"the batch counted {lanes[0].sanitized_rows} bad rows")
+        for b, lane in enumerate(lanes):
+            solo = engine.analyze_arrays(batch[b], case.dep_src,
+                                         case.dep_dst, case.names)
+            if not np.array_equal(lane.full_diagnostics(),
+                                  solo.full_diagnostics()) or \
+                    lane.ranked != solo.ranked:
+                fail(f"lane {b} differs from its solo card run at {n}")
+
+        # each batched kernel against its batched plain version
+        fb = np.zeros((BATCH, n_pad, C), np.float32)
+        fb[:, :n] = batch
+        ft = torch.from_numpy(fb).to(dev)
+        down, up = build_seg_layouts(n_pad, e_pad, case.dep_src,
+                                     case.dep_dst, device=dev)
+        d_pad = np.full(e_pad, n_pad - 1, np.int64)
+        d_pad[: len(case.dep_dst)] = case.dep_dst
+        inv_deg = torch.from_numpy((1.0 / np.maximum(np.bincount(
+            d_pad, minlength=n_pad), 1)).astype(np.float32)).to(dev)
+        contrast, decay = params.error_contrast, params.decay
+        rows = evidence_front_rows(ft, aw, hw)
+        a_raw, h, e, _ = rows
+        u, m = (torch.from_numpy(rng.uniform(0.0, 1.0, (BATCH, n_pad))
+                                 .astype(np.float32)).to(dev)
+                for _ in range(2))
+        runs = {
+            "evidence_front": (lambda: evidence_front_rows(ft, aw, hw),
+                               lambda: evidence_front_rows_plain(ft, aw, hw)),
+            "seg_contrast_step": (
+                lambda: seg_contrast_step(a_raw, e, contrast, up),
+                lambda: seg_contrast_step_plain(a_raw, e, contrast, up)),
+            "seg_up_step": (lambda: up_seg_step(u, h, decay, up),
+                            lambda: up_seg_step_plain(u, h, decay, up)),
+            "seg_down_step": (
+                lambda: down_seg_step(m, a_raw, decay, down, inv_deg),
+                lambda: down_seg_step_plain(m, a_raw, decay, down, inv_deg)),
+        }
+        csr = e_pad * 4 + (n_pad + 1) * 4
+        vec = BATCH * n_pad * 4
+        noisy_ops = BATCH * n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
+        bounds = {
+            "evidence_front": bound_ms(BATCH * n_pad * C * 4 + 2 * C * 4
+                                       + 3 * vec + 4, noisy_ops),
+            "seg_contrast_step": bound_ms(csr + 3 * vec,
+                                          BATCH * (e_pad + 6 * n_pad)),
+            "seg_up_step": bound_ms(csr + 3 * vec,
+                                    BATCH * (3 * e_pad + n_pad)),
+            "seg_down_step": bound_ms(csr + n_pad * 4 + 3 * vec,
+                                      BATCH * (3 * e_pad + n_pad)),
+        }
+        times = {}
+        for name, (kernel, plain) in runs.items():
+            got, again, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            got, again, ref = (x if isinstance(x, tuple) else (x,)
+                               for x in (got, again, ref))
+            for g, a, r in zip(got, again, ref):
+                if not torch.equal(g, a):
+                    fail(f"batched {name} not deterministic at {n}")
+                if name == "seg_down_step":
+                    ok = torch.allclose(g, r, rtol=1e-5, atol=1e-6)
+                else:
+                    ok = torch.equal(g, r)
+                if not ok:
+                    fail(f"batched {name} disagrees with its batched plain "
+                         f"version at {n}")
+            err = max(float((g.float() - r.float()).abs().max())
+                      for g, r in zip(got, ref))
+            check = {"kernel": name, "services": n, "lanes": BATCH,
+                     "max_abs_err": err,
+                     "bitwise": all(torch.equal(g, r)
+                                    for g, r in zip(got, ref))}
+            out["checks"].append(check)
+            phase("batch_check", **check)
+            times[name] = {"ms": cuda_ms(kernel),
+                           "call_ms": cuda_ms(kernel, queued=False),
+                           "plain_ms": cuda_ms(plain),
+                           "bound": bounds[name], "max_abs_err": err}
+
+        # the batch delta against full staging
+        plan = engine.plan_for(n_pad, e_pad, case.dep_src, case.dep_dst)
+        f0 = np.zeros((n_pad, C), np.float32)
+        f0[:n] = case.features
+        idx_b = np.full((BATCH, 6), n_pad - 1, np.int64)
+        rows_b = np.zeros((BATCH, 6, C), np.float32)
+        for b in range(BATCH):
+            ids = rng.choice(n, size=4, replace=False)
+            idx_b[b, :4] = ids
+            rows_b[b, :4] = rng.uniform(0.0, 1.0, (4, C))
+        idx_c, rows_c = check_batch_delta(idx_b, rows_b, n_pad)
+        dd = torch.from_numpy(d_pad).to(dev)
+        delta = propagate_ranked_batch_delta(
+            engine.model, torch.from_numpy(f0).to(dev),
+            torch.from_numpy(idx_c).to(dev), torch.from_numpy(rows_c).to(dev),
+            dd, n, 13, plan)
+        full_b = np.repeat(f0[None], BATCH, axis=0)
+        for b in range(BATCH):
+            full_b[b, idx_b[b]] = rows_b[b]
+        full = propagate_ranked(engine.model, torch.from_numpy(full_b).to(
+            dev), dd, n, 13, plan)
+        if not all(torch.equal(g, w) for g, w in zip(delta, full)):
+            fail(f"the batch delta differs from full staging at {n}")
+        out["times"][str(n)] = times
+        phase("batch", services=n, lanes=BATCH, launches=launches,
+              analyze_batch_ms=batch_ms, delta_bitwise=True, times=times)
+    return out
+
+
+def _blocks_agree(card: dict, cpu: dict, label: str) -> None:
+    """A card attribution block against the port's CPU block, under the
+    CPU tests' tolerances: channels and evidence rows equal, ``upstream``
+    bitwise, values within rtol 1e-5 / atol 1e-6, the counterfactual order
+    equal outside drops within 1e-6, the blame paths' rows equal and their
+    terms within 1e-6, saliency within rtol 1e-4 / atol 1e-6 over the same
+    channels and rows."""
+    def close(a, b, rtol=1e-5, atol=1e-6):
+        return abs(a - b) <= atol + rtol * abs(b)
+
+    if card["evidence_rows"] != cpu["evidence_rows"]:
+        fail(f"evidence rows differ from the CPU block ({label})")
+    for c, r in zip(card["candidates"], cpu["candidates"]):
+        who = f"{label}, {r['component']}"
+        if (c["component"], c["channels"]) != (r["component"],
+                                                r["channels"]):
+            fail(f"channels differ from the CPU block ({who})")
+        if c["upstream"] != r["upstream"]:
+            fail(f"u differs from the CPU block ({who})")
+        for key in ("score", "anomaly", "hard", "impact_mean"):
+            if not close(c[key], r[key]):
+                fail(f"{key} {c[key]} vs {r[key]} on the CPU ({who})")
+        drops = {x["row"]: x["score_drop"] for x in r["counterfactuals"]}
+        order = [x["row"] for x in c["counterfactuals"]]
+        for x in c["counterfactuals"]:
+            if not close(x["score_drop"], drops[x["row"]]):
+                fail(f"score drop of row {x['row']} differs ({who})")
+        values = [drops[row] for row in order]
+        if any(a < b - 1e-6 for a, b in zip(values, values[1:])):
+            fail(f"counterfactual order differs from the CPU block ({who})")
+        if [h["row"] for h in c["blame_path"]] != \
+                [h["row"] for h in r["blame_path"]] or any(
+                    abs(hc["term"] - hr["term"]) > 1e-6
+                    for hc, hr in zip(c["blame_path"], r["blame_path"])):
+            fail(f"blame path differs from the CPU block ({who})")
+        cs, rs = c["saliency"]["channels"], r["saliency"]["channels"]
+        if sorted(cs) != sorted(rs) or any(
+                not close(cs[k], v, rtol=1e-4) for k, v in rs.items()):
+            fail(f"saliency differs from the CPU block ({who})")
+    rows = {x["row"]: x["grad_l1"] for x in cpu["saliency_rows"]}
+    if sorted(x["row"] for x in card["saliency_rows"]) != sorted(rows) or \
+            any(not close(x["grad_l1"], rows[x["row"]], rtol=1e-4)
+                for x in card["saliency_rows"]):
+        fail(f"saliency rows differ from the CPU block ({label})")
+
+
+def _check_block(block: dict, label: str) -> None:
+    if "saliency_unavailable" in block:
+        fail(f"saliency unavailable ({label}): "
+             f"{block['saliency_unavailable']}")
+    if block["kernel"] != "kernels" or not block["candidates"]:
+        fail(f"the sweep ran {block['kernel']} with "
+             f"{len(block['candidates'])} candidates ({label})")
+    worst = max(c["reconstruction_error"] for c in block["candidates"])
+    if worst > 1e-5:
+        fail(f"reconstruction error {worst} ({label})")
+
+
+def attribution_phase(engine, big_case, profile_it: bool = False,
+                      out_dir=None) -> dict:
+    """``RCA_EXPLAIN=1`` comprehensive analyses on the card over the
+    50-service fixture and the 2047-service cascade, and
+    ``analyze_arrays(...).attribution()`` at 49,999 services: the block is
+    there, with saliency and every candidate's reconstruction error at most
+    1e-5, equal to the port's CPU block under the CPU tests' tolerances
+    (``_blocks_agree``) and identical over two card runs; the sweep runs
+    through the kernels (``SWEEP_LAUNCHES`` per attribution at 49,999,
+    counted from 0 just before), the saliency on the ``attribution`` row
+    (``torch``); the attribution's wall time is recorded, and with
+    ``profile_it`` its device time by op (``device_profile``)."""
+    import torch
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.coordinator import RCACoordinator
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.registry import kernel_table
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    os.environ["RCA_EXPLAIN"] = "1"
+    for label, n, roots, seed in (("50svc", 50, 1, 7), ("2047svc", 2047, 3,
+                                                         0)):
+        ns = "synthetic"
+        world = synthetic_cascade_world(n, n_roots=roots, seed=seed,
+                                        namespace=ns)
+        card = RCACoordinator(MockClusterClient(world), backend="torch")
+        blocks = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rec = card.run_analysis("comprehensive", ns)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            corr = rec["results"].get("correlated", {})
+            if rec["status"] != "completed" or "provenance" not in corr:
+                fail(f"no provenance block at {label}: "
+                     f"{corr.get('provenance_error', rec.get('error'))}")
+            blocks.append(corr["provenance"])
+        if _dumps(blocks[0]) != _dumps(blocks[1]):
+            fail(f"two card runs give different blocks at {label}")
+        block = blocks[0]["attribution"]
+        _check_block(block, label)
+        cpu = RCACoordinator(MockClusterClient(world), backend="torch",
+                             device="cpu").run_analysis("comprehensive", ns)
+        _blocks_agree(block, cpu["results"]["correlated"]["provenance"][
+            "attribution"], label)
+        out[label] = {"candidates": len(block["candidates"]),
+                      "run_analysis_ms": wall_ms,
+                      "digest": blocks[0]["digest"]}
+        phase("attribution", world=label, **out[label])
+    del os.environ["RCA_EXPLAIN"]
+
+    case = big_case
+    blocks, walls = [], []
+    for i in range(3):
+        res = engine.analyze_case(case)
+        reset_launches()
+        t0 = time.perf_counter()
+        blocks.append(res.attribution())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            sweep_launches = {k: v for k, v in LAUNCHES.items() if v}
+    if sweep_launches != SWEEP_LAUNCHES:
+        fail(f"the attribution launched {sweep_launches}, want "
+             f"{SWEEP_LAUNCHES}")
+    if any(_dumps(b) != _dumps(blocks[0]) for b in blocks[1:]):
+        fail("two card runs give different blocks at 49,999 services")
+    block = blocks[0]["attribution"]
+    _check_block(block, "49999")
+    cpu = GraphEngine(device="cpu").analyze_case(case).attribution()
+    _blocks_agree(block, cpu["attribution"], "49999")
+    rows = [r for r in kernel_table() if r["variant"] == "attribution"]
+    if not rows or any(r["winner"] != "torch" for r in rows):
+        fail(f"the attribution rows engage {rows}")
+    out["49999"] = {"candidates": len(block["candidates"]),
+                    "attribution_ms": walls, "launches": sweep_launches,
+                    "registry_rows": rows}
+    phase("attribution", world="49999 arrays", **out["49999"])
+    if profile_it:
+        # fresh results, analyzed beforehand: attribution() caches its block
+        fresh = iter([engine.analyze_case(case) for _ in range(4)])
+        out["device_profile_49999"] = device_profile(
+            lambda: next(fresh).attribution(), min(walls), out_dir,
+            "attribution_49999")
+        phase("attribution_device_profile", **out["device_profile_49999"])
+    return out
+
+
+def hypotheses_phase() -> dict:
+    """``python -m rca_tpu_torch hypotheses --fixture 50svc --seed 7
+    --compact`` on the card in its own process: the top-supported
+    candidate is the fixture's fault root, over a batch of 8."""
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "hypotheses", "--fixture",
+         "50svc", "--seed", "7", "--compact"], capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m rca_tpu_torch hypotheses exited {proc.returncode}:"
+             f" {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    roots = synthetic_cascade_world(50, n_roots=1, seed=7).ground_truth[
+        "fault_roots"]
+    top = got["hypotheses"][0]
+    if got["batch_width"] != BATCH or top["candidate"] not in roots:
+        fail(f"hypotheses: {got['batch_width']} lanes, top {top} vs fault "
+             f"roots {roots}")
+    out = {"top": top["candidate"], "support": top["support"],
+           "batch_width": got["batch_width"], "engine": got["engine"],
+           "batch_latency_ms_per_hypothesis":
+               got["batch_latency_ms_per_hypothesis"],
+           "seconds": time.perf_counter() - t0}
+    phase("hypotheses", **out)
+    return out
 
 
 SNAPSHOT_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
@@ -774,9 +1238,11 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
     total = {name: 0 for name in LAUNCHES}
     for label, world, ns in worlds:
         card = RCACoordinator(MockClusterClient(world), backend="torch")
-        if card.device.type != "cuda" or card.engine.plan != "kernels":
-            fail(f"coordinator on {card.device} with plan "
-                 f"{card.engine.plan}")
+        if card.device.type != "cuda":
+            fail(f"coordinator on {card.device}")
+        # a first analysis resolves the registry row of the world's shape
+        # (its race launches kernels); the counted one reads the row
+        card.run_analysis("comprehensive", ns)
         reset_launches()
         t0 = time.perf_counter()
         rec = card.run_analysis("comprehensive", ns)

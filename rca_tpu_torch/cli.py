@@ -1,11 +1,18 @@
-"""Command-line interface of the port (the ``analyze`` command of
-``rca_tpu.cli``).
+"""Command-line interface of the port (the ``analyze``, ``hypotheses`` and
+``kernels`` commands of ``rca_tpu.cli``).
 
-``python -m rca_tpu_torch analyze``: one agent or the comprehensive
-pipeline over a fixture world → findings JSON, exit 0 when the analysis
-completed.  Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or
-``--fixture <N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``).
-It runs on the CUDA card unless ``--device cpu`` asks for the CPU.  A live
+- ``python -m rca_tpu_torch analyze``: one agent or the comprehensive
+  pipeline over a fixture world → findings JSON, exit 0 when the analysis
+  completed (``RCA_EXPLAIN=1`` adds the causelens ``provenance`` block);
+- ``python -m rca_tpu_torch hypotheses``: the what-if-healthy batch over
+  the top candidates, every hypothesis a lane of one batched analysis;
+- ``python -m rca_tpu_torch kernels``: the kernel registry's table, each
+  row with its engaged kernel, why, its timings and every candidate's
+  eligibility.
+
+Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
+<N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``).  Every command
+runs on the CUDA card unless ``--device cpu`` asks for the CPU.  A live
 cluster is not supported yet.
 """
 
@@ -60,6 +67,158 @@ def cmd_analyze(args) -> int:
     return 0 if record["status"] == "completed" else 1
 
 
+def cmd_hypotheses(args) -> int:
+    """Counterfactual hypothesis batch: for each of the analysis's top
+    candidates, score a what-if-it-were-healthy feature set, all of them
+    lanes of ONE batched analysis (``GraphEngine.analyze_batch``).  A
+    candidate's SUPPORT is the anomaly its removal leaves unexplained
+    elsewhere: muting a true root frees its victims from explain-away
+    suppression, so their scores rise; muting a victim changes little.
+    Prints the candidates ranked by support."""
+    import numpy as np
+
+    from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.features.extract import extract_features
+    from rca_tpu_torch.graph.build import service_dependency_edges
+
+    if args.fixture in (None, "", "live"):
+        print("rca_tpu_torch: a live cluster is not supported yet; pass "
+              "--fixture 5svc or --fixture <N>svc", file=sys.stderr)
+        return 2
+    client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
+    namespace = args.namespace or ns
+    snap = ClusterSnapshot.capture(client, namespace)
+    fs = extract_features(snap)
+    src, dst = service_dependency_edges(snap, fs)
+    engine = GraphEngine(device=args.device)
+    base = engine.analyze_features(fs, src, dst, k=args.candidates)
+    cands = [r["component"] for r in base.ranked[: args.candidates]]
+    indent = None if args.compact else 2
+    if not cands:
+        print(json.dumps({
+            "namespace": namespace, "engine": base.engine,
+            "batch_width": 0, "hypotheses": [],
+            "note": "no ranked candidates (empty namespace?)",
+        }, indent=indent))
+        return 0
+    name_to_idx = {n_: i for i, n_ in enumerate(base.service_names)}
+    feats = np.asarray(fs.service_features, np.float32)
+    batch = np.repeat(feats[None], len(cands), axis=0)
+    for b, comp in enumerate(cands):
+        batch[b, name_to_idx[comp]] = 0.0     # the counterfactual: healthy
+    results = engine.analyze_batch(batch, src, dst,
+                                   names=base.service_names, k=args.top)
+    base_total = float(np.sum(base.score))
+    out = []
+    for comp, res in zip(cands, results):
+        i = name_to_idx[comp]
+        # support: anomaly left unexplained elsewhere once comp is healthy
+        others = float(np.sum(np.delete(res.score, i)))
+        base_others = float(base_total - base.score[i])
+        out.append({
+            "candidate": comp,
+            "base_score": round(float(base.score[i]), 4),
+            "support": round(others - base_others, 4),
+            "counterfactual_top": res.top_components(3),
+        })
+    out.sort(key=lambda r: -r["support"])
+    print(json.dumps({
+        "namespace": namespace,
+        "engine": results[0].engine,
+        "batch_width": len(cands),
+        "batch_latency_ms_per_hypothesis": round(results[0].latency_ms, 3),
+        "hypotheses": out,
+    }, indent=indent))
+    return 0
+
+
+def _ints(raw: str, flag: str):
+    out = []
+    for part in (raw or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            out.append(int(part))
+        except ValueError:
+            raise SystemExit(f"{flag} expects comma-separated ints, got "
+                             f"{part!r}")
+    return out
+
+
+def cmd_kernels(args) -> int:
+    """The kernel registry as a table: one row per ``(variant, n_pad,
+    e_pad)`` on the device, with the engaged row, why it won and the
+    timings of the race.  ``--services`` (paired with ``--edges``)
+    resolves the dense and the attribution rows of those graph sizes
+    first; ``--explain`` prints every candidate per row: engaged, its
+    eligibility reason, or the timing it lost with."""
+    from rca_tpu_torch.config import KERNELS, RCAConfig, bucket_for
+    from rca_tpu_torch.engine.registry import get_registry, kernel_table
+    from rca_tpu_torch.engine.runner import resolve_device
+
+    device = resolve_device(args.device)
+    reg = get_registry()
+    buckets = RCAConfig().shape_buckets
+    services = _ints(args.services, "--services")
+    edges = _ints(args.edges, "--edges")
+    for i, n in enumerate(services):
+        e = edges[i] if i < len(edges) else max(1, int(n * 2.5))
+        for variant in ("dense", "attribution"):
+            reg.resolve(bucket_for(n + 1, buckets),
+                        e_pad=bucket_for(e, buckets), variant=variant,
+                        device=device)
+    rows = kernel_table()
+    if args.json:
+        print(json.dumps({"rows": rows},
+                         indent=None if args.compact else 2))
+        return 0
+
+    def fmt(x):
+        if x is None:
+            return "-"
+        return f"{x:.4g}" if isinstance(x, float) else str(x)
+
+    cols = ("n_pad", "e_pad", "variant", "backend", "winner", "source",
+            "t_torch_ms", "t_win_ms")
+    table = [cols]
+    for row in rows:
+        timings = row["timings_ms"]
+        # attribution rows time the whole causelens attribution, under
+        # "attribution" rather than the winner's name
+        t_win = timings.get("attribution" if row["variant"] == "attribution"
+                            else row["winner"])
+        table.append((str(row["n_pad"]), fmt(row["e_pad"]), row["variant"],
+                      row["backend"], row["winner"], row["source"],
+                      fmt(timings.get("torch")), fmt(t_win)))
+    widths = [max(len(r[i]) for r in table) for i in range(len(cols))]
+    for i, r in enumerate(table):
+        print("  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip())
+        if i == 0:
+            print("  ".join("-" * w for w in widths))
+    if args.explain:
+        for row in rows:
+            print(f"\n{row['variant']} n_pad={row['n_pad']} "
+                  f"e_pad={fmt(row['e_pad'])}: winner={row['winner']} "
+                  f"({row['source']})")
+            timings = row["timings_ms"]
+            for k in KERNELS:
+                elig = row["eligible"].get(k)
+                if k == row["winner"]:
+                    t = timings.get(k)
+                    detail = "engaged" + (f" ({t:.4g} ms)" if t else "")
+                elif elig is not True:
+                    detail = f"ineligible: {elig}"
+                elif k in timings:
+                    detail = (f"lost the timing: {timings[k]:.4g} ms vs "
+                              f"{fmt(timings.get(row['winner']))} ms")
+                else:
+                    detail = f"not raced (decision source: {row['source']})"
+                print(f"  {k:8s} {detail}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rca_tpu_torch",
@@ -86,6 +245,44 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comprehensive | resources | metrics | logs | "
                     "events | topology | traces")
     sp.set_defaults(fn=cmd_analyze)
+
+    sp = sub.add_parser(
+        "hypotheses",
+        help="counterfactual hypothesis batch: what-if-healthy scoring of "
+        "the top candidates as lanes of one batched analysis",
+    )
+    sp.add_argument("--fixture", default=None, help="5svc | <N>svc")
+    sp.add_argument("--namespace", default=None)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--fault-mix", default="crash", dest="fault_mix")
+    sp.add_argument("--candidates", type=int, default=8,
+                    help="batch width: top-N candidates to counterfactual")
+    sp.add_argument("--top", type=int, default=5)
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_hypotheses)
+
+    sp = sub.add_parser(
+        "kernels",
+        help="print the kernel registry: the engaged row per padded shape, "
+        "why, its timings and every candidate's eligibility",
+    )
+    sp.add_argument("--services", default="500,2000",
+                    help="comma-separated service counts whose shape "
+                    "buckets to resolve before printing (default 500,2000)")
+    sp.add_argument("--edges", default="",
+                    help="comma-separated edge counts paired with "
+                    "--services (default: ~2.5 edges per service)")
+    sp.add_argument("--explain", action="store_true",
+                    help="per row, each candidate: engaged, its "
+                    "eligibility reason, or the timing it lost with")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--json", action="store_true",
+                    help="machine-readable rows instead of the table")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_kernels)
     return p
 
 

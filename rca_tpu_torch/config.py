@@ -4,8 +4,11 @@ nothing of the JAX package.
 
 Copied semantics: :class:`RCAConfig`'s engine knobs, the shape-bucket rule
 :func:`bucket_for`, the free-form env accessor :func:`env_raw`
-(``RCA_WEIGHTS``), the checked string accessor :func:`env_str`
-(``RCA_BACKEND``) and :func:`explain_enabled` (``RCA_EXPLAIN``).
+(``RCA_WEIGHTS``), the checked accessors :func:`env_str` (``RCA_BACKEND``)
+and :func:`env_int`, :func:`explain_enabled` (``RCA_EXPLAIN``) with its
+two sizes :func:`explain_paths` / :func:`explain_topm`, and the kernel
+registry's knobs: :func:`kernel_cache_path` (``RCA_KERNEL_CACHE``) and
+:func:`forced_kernel` (``RCA_KERNEL``).
 """
 
 from __future__ import annotations
@@ -38,11 +41,65 @@ def env_str(name: str, default: str = "", *, choices=None,
     return raw
 
 
+def env_int(name: str, default: int, lo: int, hi: int) -> int:
+    """A range-checked integer env knob; empty/unset means ``default``."""
+    raw = (os.environ.get(name) or "").strip()
+    if not raw:
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected an integer in [{lo}, {hi}]")
+    if not lo <= value <= hi:
+        raise ValueError(f"{name}={value}: out of range [{lo}, {hi}]")
+    return value
+
+
 def explain_enabled() -> bool:
     """``RCA_EXPLAIN``: attach the attribution block to engine rankings."""
     return env_str(
         "RCA_EXPLAIN", "0", choices=("0", "1", "on", "off"), lower=True,
     ) in ("1", "on")
+
+
+def explain_paths() -> int:
+    """``RCA_EXPLAIN_PATHS``: blame-path hop cap per candidate."""
+    return env_int("RCA_EXPLAIN_PATHS", 4, 1, 16)
+
+
+def explain_topm() -> int:
+    """``RCA_EXPLAIN_TOPM``: counterfactual evidence rows per sweep."""
+    return env_int("RCA_EXPLAIN_TOPM", 8, 1, 64)
+
+
+#: the kernel registry's rows: ``torch`` (plain PyTorch ops, the default)
+#: and ``kernels`` (the hand-written CUDA kernels)
+KERNELS = ("torch", "kernels")
+
+
+def kernel_cache_path(platform: str) -> Optional[str]:
+    """``RCA_KERNEL_CACHE``: the registry's cache of timed winners.
+    Unset/empty = ``kernel_cache.<platform>.json`` beside the built kernels
+    in the port's build directory (a CPU host and a CUDA host never
+    overwrite each other's rows); ``0``/``off``/``none`` = no cache
+    (None)."""
+    from rca_tpu_torch.kernels.build import BUILD_DIR
+
+    raw = (env_raw("RCA_KERNEL_CACHE") or "").strip()
+    if not raw:
+        safe = "".join(ch if ch.isalnum() or ch in "-_" else "-"
+                       for ch in platform) or "cpu"
+        return str(BUILD_DIR / f"kernel_cache.{safe}.json")
+    if raw.lower() in ("0", "off", "none"):
+        return None
+    return raw
+
+
+def forced_kernel() -> Optional[str]:
+    """``RCA_KERNEL``: the registry row every shape engages (``torch`` or
+    ``kernels``), or None to let the registry decide."""
+    return env_str("RCA_KERNEL", "", choices=("",) + KERNELS,
+                   lower=True) or None
 
 
 @dataclasses.dataclass(frozen=True)

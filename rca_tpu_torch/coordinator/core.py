@@ -52,7 +52,7 @@ class RCACoordinator:
         self.device = resolve_device(device)
         self.engine = (GraphEngine(device=self.device)
                        if self.backend == "torch" else None)
-        if self.engine is not None and self.engine.plan == "kernels":
+        if self.engine is not None and self.device.type == "cuda":
             library()
         self.agents = make_agents()
         self.analyses: Dict[str, Dict[str, Any]] = {}

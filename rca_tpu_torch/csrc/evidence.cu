@@ -35,6 +35,11 @@
 //     integer atomicAdd per block that has any, into a counter the C entry
 //     clears with a memset on the same stream: an integer sum, the same in
 //     any order, and no second kernel.
+//   - Lanes: B feature matrices [B, S, C] of one graph (the hypothesis
+//     batch, the counterfactual sweep) are B*S rows of one launch, laid out
+//     as the [B, S] vectors the seg steps read.  Rows are independent, so
+//     a lane is bitwise equal to a solo launch on the same rows, and the
+//     bad-row count runs across the whole batch, as the reference counts it.
 //
 // Bound: bytes.  S*C*4 in plus 3*S*4 out (3.4 MB at the 50k tier, about
 // 1 us at 3.35 TB/s), so one launch costs more than the traffic; the

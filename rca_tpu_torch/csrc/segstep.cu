@@ -42,6 +42,14 @@
 // the rest 256 short segments each.  Every segment is reduced by a fixed
 // set of threads in a fixed order, so two runs give the same bits.
 //
+// Lanes: a launch may carry B lanes, [B, n_pad] vectors that share one
+// layout (the hypothesis batch, the counterfactual sweep): the grid's y
+// index is the lane, and each lane's vectors sit lane * n_pad entries in.
+// inv_deg and the layout are per graph, read by every lane.  A lane goes
+// through the same threads in the same order as a launch of one, so it is
+// bitwise equal to a solo launch on the same input, and the batch costs one
+// launch per step instead of one per lane.
+//
 // Bound: bytes.  other (4 B per edge), offsets, two or three node vectors
 // read and one written: about 1.3-1.5 MB at the 50k tier, under half a
 // microsecond at 3.35 TB/s; the working set sits in the 50 MB L2.  The
@@ -70,6 +78,10 @@ struct UpStep {
   const float* h;
   float gamma;
 
+  __device__ __forceinline__ UpStep lane(size_t off) const {
+    return UpStep{u + off, h + off, gamma};
+  }
+
   __device__ __forceinline__ float value(int o) const {
     return fmaxf(__ldg(h + o), __fmul_rn(gamma, __ldg(u + o)));
   }
@@ -84,8 +96,12 @@ struct UpStep {
 struct DownStep {
   const float* m;
   const float* a_ex;
-  const float* inv_deg;
+  const float* inv_deg;   // per graph: not offset by the lane
   float gamma;
+
+  __device__ __forceinline__ DownStep lane(size_t off) const {
+    return DownStep{m + off, a_ex + off, inv_deg, gamma};
+  }
 
   __device__ __forceinline__ float value(int o) const {
     return __fadd_rn(__ldg(a_ex + o), __fmul_rn(gamma, __ldg(m + o)));
@@ -103,6 +119,10 @@ struct ContrastStep {
   const float* e;
   float weight;
 
+  __device__ __forceinline__ ContrastStep lane(size_t off) const {
+    return ContrastStep{a_raw + off, e + off, weight};
+  }
+
   __device__ __forceinline__ float value(int o) const { return __ldg(e + o); }
   static __device__ __forceinline__ float combine(float a, float b) {
     return fmaxf(a, b);
@@ -116,11 +136,14 @@ struct ContrastStep {
 
 template <class Step>
 __global__ void __launch_bounds__(kThreads)
-    seg_step_kernel(Step step, const int* __restrict__ offsets,
+    seg_step_kernel(Step all_lanes, const int* __restrict__ offsets,
                     const int* __restrict__ other,
                     const int* __restrict__ long_ids, int n_long,
                     const int* __restrict__ short_ids, int n_short,
-                    float* __restrict__ out) {
+                    int n_pad, float* __restrict__ out_lanes) {
+  const size_t lane_off = static_cast<size_t>(blockIdx.y) * n_pad;
+  const Step step = all_lanes.lane(lane_off);
+  float* __restrict__ out = out_lanes + lane_off;
   if (static_cast<int>(blockIdx.x) < n_long) {
     // one long segment per block (the branch is uniform over the block)
     __shared__ float partial[kWarps];
@@ -175,27 +198,29 @@ __global__ void __launch_bounds__(kThreads)
 template <class Step>
 int launch(const Step& step, const int* offsets, const int* other,
            const int* long_ids, int n_long, const int* short_ids, int n_short,
-           float* out, void* stream) {
-  if (n_long < 0 || n_short < 0 || n_long + n_short < 1) {
+           int n_lanes, int n_pad, float* out, void* stream) {
+  if (n_long < 0 || n_short < 0 || n_long + n_short != n_pad || n_pad < 1 ||
+      n_lanes < 1 || n_lanes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = n_long + (n_short + kThreads - 1) / kThreads;
-  seg_step_kernel<Step><<<blocks, kThreads, 0,
+  const dim3 grid(n_long + (n_short + kThreads - 1) / kThreads, n_lanes);
+  seg_step_kernel<Step><<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      step, offsets, other, long_ids, n_long, short_ids, n_short, out);
+      step, offsets, other, long_ids, n_long, short_ids, n_short, n_pad, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch.
+// Each entry runs one step over n_lanes lanes of n_pad entries (the
+// layout's segment count) and returns the cudaError_t of the launch.
 extern "C" int rca_seg_up_step(const float* u, const float* h, float gamma,
                                const int* offsets, const int* other,
                                const int* long_ids, int n_long,
-                               const int* short_ids, int n_short, float* out,
-                               void* stream) {
+                               const int* short_ids, int n_short, int n_lanes,
+                               int n_pad, float* out, void* stream) {
   return launch(UpStep{u, h, gamma}, offsets, other, long_ids, n_long,
-                short_ids, n_short, out, stream);
+                short_ids, n_short, n_lanes, n_pad, out, stream);
 }
 
 extern "C" int rca_seg_down_step(const float* m, const float* a_ex,
@@ -203,16 +228,18 @@ extern "C" int rca_seg_down_step(const float* m, const float* a_ex,
                                  const int* offsets, const int* other,
                                  const int* long_ids, int n_long,
                                  const int* short_ids, int n_short,
-                                 float* out, void* stream) {
+                                 int n_lanes, int n_pad, float* out,
+                                 void* stream) {
   return launch(DownStep{m, a_ex, inv_deg, gamma}, offsets, other, long_ids,
-                n_long, short_ids, n_short, out, stream);
+                n_long, short_ids, n_short, n_lanes, n_pad, out, stream);
 }
 
 extern "C" int rca_seg_contrast_step(const float* a_raw, const float* e,
                                      float weight, const int* offsets,
                                      const int* other, const int* long_ids,
                                      int n_long, const int* short_ids,
-                                     int n_short, float* out, void* stream) {
+                                     int n_short, int n_lanes, int n_pad,
+                                     float* out, void* stream) {
   return launch(ContrastStep{a_raw, e, weight}, offsets, other, long_ids,
-                n_long, short_ids, n_short, out, stream);
+                n_long, short_ids, n_short, n_lanes, n_pad, out, stream);
 }

@@ -59,16 +59,25 @@ from rca_tpu_torch.kernels import LAUNCHES
 MAX_CHANNELS = 32
 
 
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``clip(x, 0, 1)`` spelled as ``jnp.clip`` computes it, a max then a
+    min: the same values as ``torch.clamp``, and the same gradient, which
+    splits a tie evenly (0.5 at exactly 0 or 1, where ``torch.clamp``
+    passes 1).  Most feature values are exactly 0, so the saliency of the
+    ``torch`` row depends on it."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def noisy_or_plain(features: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """One noisy-OR over row-major ``[S, C]`` float32 features."""
-    x = features.clamp(0.0, 1.0)
+    """One noisy-OR over row-major ``[..., S, C]`` float32 features."""
+    x = clip01(features)
     # every factor but the last as fma(-x, w, 1): x*w of two float32
     # values is exact in float64, so the difference rounds once
     terms = (1.0 - x.double() * weights.double()).float()
-    terms[:, -1] = 1.0 - x[:, -1] * weights[-1]
-    p = terms[:, 0]
-    for c in range(1, terms.shape[1]):
-        p = p * terms[:, c]
+    terms[..., -1] = 1.0 - x[..., -1] * weights[-1]
+    p = terms[..., 0]
+    for c in range(1, terms.shape[-1]):
+        p = p * terms[..., c]
     return 1.0 - p
 
 
@@ -80,7 +89,8 @@ def noisy_or_pair_plain(features, anomaly_w, hard_w):
 def finite_mask_rows(features: torch.Tensor):
     """Zero every feature row carrying a NaN/Inf; return ``(clean, n_bad)``
     with ``n_bad`` a 0-dim int32 tensor on the features' device (fetched
-    with the top-k, so the sanitize costs no extra sync)."""
+    with the top-k, so the sanitize costs no extra sync), counting across
+    every lane of ``[B, S, C]`` features."""
     ok = torch.isfinite(features).all(dim=-1, keepdim=True)
     clean = torch.where(ok, features, torch.zeros_like(features))
     n_bad = (~ok).sum(dtype=torch.int32)
@@ -88,19 +98,24 @@ def finite_mask_rows(features: torch.Tensor):
 
 
 def error_rate(features: torch.Tensor) -> torch.Tensor:
-    """``clip(f[:, ERROR_RATE], 0, 1)``, the contrast's per-node signal."""
-    return features[:, SvcF.ERROR_RATE].clamp(0.0, 1.0)
+    """``clip(f[..., ERROR_RATE], 0, 1)``, the contrast's per-node signal."""
+    return clip01(features[..., SvcF.ERROR_RATE])
 
 
 def error_source_excess(e: torch.Tensor, dep_src: torch.Tensor,
                         dep_dst: torch.Tensor) -> torch.Tensor:
     """Per-node error rate in excess of its dependencies' max,
-    ``relu(e - max over edges (s, d) of e[d])``.  Padded edges self-loop on
-    the dummy slot whose error rate is 0 (the max's identity here)."""
-    dep_max = torch.zeros_like(e).scatter_reduce_(
-        0, dep_src, e[dep_dst], reduce="amax", include_self=True,
+    ``relu(e - max over edges (s, d) of e[d])``, over ``[..., S]`` lanes.
+    Padded edges self-loop on the dummy slot whose error rate is 0 (the
+    max's identity here).  The max over the zero-initialised rows and the
+    relu split a tie's gradient evenly, as ``.at[].max`` and
+    ``jnp.maximum`` do."""
+    dep_e = e[..., dep_dst]
+    dep_max = torch.zeros_like(e).scatter_reduce(
+        -1, dep_src.expand(dep_e.shape), dep_e, reduce="amax",
+        include_self=True,
     )
-    return torch.clamp(e - dep_max, min=0.0)
+    return torch.maximum(e - dep_max, e.new_zeros(()))
 
 
 def fold_error_contrast(a, err_src, weight: float):
@@ -144,9 +159,10 @@ def evidence_front_plain(features, anomaly_w, hard_w, error_contrast: float,
 
 
 def _check(features, anomaly_w, hard_w):
-    if features.dim() != 2:
-        raise ValueError(f"features must be [S, C], got {tuple(features.shape)}")
-    n_channels = features.shape[1]
+    if features.dim() not in (2, 3):
+        raise ValueError(f"features must be [S, C] or [B, S, C], got "
+                         f"{tuple(features.shape)}")
+    n_channels = features.shape[-1]
     for name, t in (("features", features), ("anomaly_w", anomaly_w),
                     ("hard_w", hard_w)):
         if t.dtype != torch.float32:
@@ -174,8 +190,10 @@ def noisy_or_pair(features: torch.Tensor, anomaly_w: torch.Tensor,
     features = features.contiguous()
     anomaly_w = anomaly_w.contiguous()
     hard_w = hard_w.contiguous()
-    n_rows, n_channels = features.shape
-    a = torch.empty(n_rows, dtype=torch.float32, device=features.device)
+    n_channels = features.shape[-1]
+    n_rows = features.numel() // n_channels
+    a = torch.empty(features.shape[:-1], dtype=torch.float32,
+                    device=features.device)
     h = torch.empty_like(a)
     if n_rows == 0:
         return a, h
@@ -191,18 +209,20 @@ def noisy_or_pair(features: torch.Tensor, anomaly_w: torch.Tensor,
 
 def _check_rows(features, anomaly_w, hard_w):
     on_card = _check(features, anomaly_w, hard_w)
-    if not SvcF.ERROR_RATE < features.shape[1] <= MAX_CHANNELS:
+    if not SvcF.ERROR_RATE < features.shape[-1] <= MAX_CHANNELS:
         raise ValueError(f"the front takes {SvcF.ERROR_RATE + 1} to "
-                         f"{MAX_CHANNELS} channels, got {features.shape[1]}")
+                         f"{MAX_CHANNELS} channels, got {features.shape[-1]}")
     return on_card
 
 
 def evidence_front_rows(features: torch.Tensor, anomaly_w: torch.Tensor,
                         hard_w: torch.Tensor):
-    """``(a_raw, h, e, n_bad)`` from raw float32 ``[S, C]`` features, the
-    sanitize included: one launch of the ``evidence_front`` kernel on a
-    CUDA tensor, :func:`evidence_front_rows_plain` on a CPU tensor.
-    ``n_bad`` is a 0-dim int32 tensor."""
+    """``(a_raw, h, e, n_bad)`` from raw float32 ``[S, C]`` features, or
+    ``[B, S, C]`` lanes, the sanitize included: one launch of the
+    ``evidence_front`` kernel on a CUDA tensor (lanes are B*S rows of one
+    row pass), :func:`evidence_front_rows_plain` on a CPU tensor.  The
+    vectors are ``[S]`` or ``[B, S]``; ``n_bad`` is a 0-dim int32 tensor
+    counting across the lanes."""
     if not _check_rows(features, anomaly_w, hard_w):
         return evidence_front_rows_plain(features, anomaly_w, hard_w)
     from rca_tpu_torch.kernels.build import check, library
@@ -210,8 +230,9 @@ def evidence_front_rows(features: torch.Tensor, anomaly_w: torch.Tensor,
     features = features.contiguous()
     anomaly_w = anomaly_w.contiguous()
     hard_w = hard_w.contiguous()
-    n_rows, n_channels = features.shape
-    a_raw, h, e = (torch.empty(n_rows, dtype=torch.float32,
+    n_channels = features.shape[-1]
+    n_rows = features.numel() // n_channels
+    a_raw, h, e = (torch.empty(features.shape[:-1], dtype=torch.float32,
                                device=features.device) for _ in range(3))
     if n_rows == 0:
         return a_raw, h, e, torch.zeros((), dtype=torch.int32,
@@ -232,24 +253,26 @@ def seg_contrast_step(a_raw: torch.Tensor, e: torch.Tensor, weight: float,
                       seg: SegLayout) -> torch.Tensor:
     """``a = 1 - (1 - a_raw) * (1 - weight * relu(e - dep_max))`` with
     ``dep_max[s]`` the max of ``e`` over the dependencies of ``s`` in the
-    up layout ``seg``: one launch of the ``seg_contrast_step`` kernel on
-    CUDA tensors, :func:`seg_contrast_step_plain` on CPU tensors."""
-    on_card = check_step("seg_contrast_step", seg, None,
-                         {"a_raw": a_raw, "e": e})
-    if not on_card:
+    up layout ``seg``, on ``[S]`` vectors or ``[B, S]`` lanes: one launch
+    of the ``seg_contrast_step`` kernel for all lanes on CUDA tensors,
+    :func:`seg_contrast_step_plain` on CPU tensors."""
+    lanes = check_step("seg_contrast_step", seg, None,
+                       {"a_raw": a_raw, "e": e})
+    if not lanes:
         return seg_contrast_step_plain(a_raw, e, weight, seg)
     return launch_step("rca_seg_contrast_step", "seg_contrast_step", seg,
-                       torch.empty_like(a_raw), a_raw.data_ptr(),
+                       lanes, torch.empty_like(a_raw), a_raw.data_ptr(),
                        e.data_ptr(), as_float32(weight))
 
 
 def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
                    hard_w: torch.Tensor, error_contrast: float,
                    up_seg: SegLayout):
-    """``(a, h, n_bad)`` from the RAW padded ``[n_pad, C]`` features over
-    the up layout ``up_seg`` (its tensors on the features' device): on CUDA
-    tensors :func:`evidence_front_rows` then, unless ``error_contrast`` is
-    0, :func:`seg_contrast_step`; on CPU tensors
+    """``(a, h, n_bad)`` from the RAW padded ``[n_pad, C]`` features, or
+    ``[B, n_pad, C]`` lanes, over the up layout ``up_seg`` (its tensors on
+    the features' device): on CUDA tensors :func:`evidence_front_rows`
+    then, unless ``error_contrast`` is 0, :func:`seg_contrast_step`, one
+    launch each for all lanes; on CPU tensors
     :func:`evidence_front_plain`."""
     on_card = _check_rows(features, anomaly_w, hard_w)
     if not isinstance(up_seg.offsets, torch.Tensor):
@@ -259,9 +282,9 @@ def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
         raise ValueError(f"evidence_front: layout on {up_seg.offsets.device}"
                          f", features on {features.device}")
     n_pad = up_seg.offsets.shape[0] - 1
-    if n_pad != features.shape[0]:
+    if n_pad != features.shape[-2]:
         raise ValueError(f"evidence_front: layout of {n_pad} segments, "
-                         f"features of {features.shape[0]} rows")
+                         f"features of {features.shape[-2]} rows")
     if not on_card:
         return evidence_front_plain(features, anomaly_w, hard_w,
                                     error_contrast, up_seg)

@@ -1,7 +1,7 @@
 """Explain-away propagation over the service graph, in PyTorch.
 
-Counterpart of the JAX package's ``engine/propagate.py`` for the seg-step
-path (S services, E dependency edges ``(s -> d)``, "s depends on d"):
+Counterpart of the JAX package's ``engine/propagate.py`` (S services, E
+dependency edges ``(s -> d)``, "s depends on d"):
 
     a  = 1 - prod_c (1 - w_c f_c)            anomaly evidence (noisy-OR)
     h  = 1 - prod_c (1 - v_c f_c)            hard "I am broken" evidence
@@ -10,42 +10,92 @@ path (S services, E dependency edges ``(s -> d)``, "s depends on d"):
     score = a * (1 + b*tanh(m)) * (1 - mu*u*(1-h))
 
 where a~ is the anomaly excess over the live-median background, and ``a``
-carries the error-source contrast.  The front (finite-mask sanitize,
-evidence pair, contrast) and every seg step go through the port's kernels
-on the card (:mod:`.evidence`: two launches; :mod:`.segscan`: one launch
-per step); every other op is plain PyTorch.  The JAX ``lax.scan`` over
-steps is a Python loop here.
+carries the error-source contrast.  Every function takes one ``[n_pad, C]``
+feature matrix or ``[B, n_pad, C]`` lanes over one graph (the reference's
+vmap, written out as a leading dimension); each lane gets its own median
+and its own top-k, and comes out bitwise equal to a solo run.
 
-No float SUM on this path depends on the order of atomics: ``deg`` sums
-integer-valued ones (exact in any order), the bad-row count is an integer
-sum, and the contrast takes a max.  Two runs on one device give the same
-bits.
+The body runs the kernel registry's row that its :class:`KernelPlan`
+names (:mod:`rca_tpu_torch.engine.registry`); the plan's ``kernel`` is
+the one place the row is decided:
+
+- ``kernels``: the front (finite-mask sanitize, evidence pair, contrast)
+  and every seg step go through the port's kernels on the card
+  (:mod:`.evidence`: two launches; :mod:`.segscan`: one launch per step,
+  each for all lanes); on the CPU through their plain versions;
+- ``torch``: plain PyTorch ops on every device, differentiable with the
+  reference's gradient at ties, which attribution's saliency needs: the
+  front's plain version, the up-steps over the plan's hybrid up-table
+  (:func:`.ell.ell_up_step`) and the down-steps as the sorted segment sum
+  of :func:`.segscan.down_seg_step_plain`.
+
+The JAX ``lax.scan`` over steps is a Python loop here.  No float SUM on
+this path depends on the order of atomics: ``deg`` sums integer-valued
+ones (exact in any order), the bad-row count is an integer sum, and the
+contrast takes a max.  Two runs on one device give the same bits.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from rca_tpu_torch.engine.evidence import evidence_front
-from rca_tpu_torch.engine.segscan import SegLayout, down_seg_step, up_seg_step
+from rca_tpu_torch.engine.ell import UpEll, ell_up_step
+from rca_tpu_torch.engine.evidence import evidence_front, evidence_front_plain
+from rca_tpu_torch.engine.segscan import (
+    SegLayout,
+    down_seg_step,
+    down_seg_step_plain,
+    up_seg_step,
+)
+
+
+class KernelPlan(NamedTuple):
+    """One shape's resolved dispatch: the engaged registry row and the
+    device layouts it runs over.  Both rows read the seg layouts; the
+    ``torch`` row also the hybrid up-table."""
+
+    kernel: str                       # the engaged row: torch | kernels
+    down_seg: SegLayout
+    up_seg: SegLayout
+    up_ell: Optional[UpEll] = None    # the torch row's up-table
+
+
+def _row(plan: KernelPlan) -> str:
+    if plan.kernel == "kernels":
+        return "kernels"
+    if plan.kernel == "torch":
+        if plan.up_ell is None:
+            raise ValueError("the torch row needs the plan's up-table")
+        return "torch"
+    raise ValueError(f"unknown kernel row {plan.kernel!r}")
+
+
+def live_median(a: torch.Tensor, n_live: int) -> torch.Tensor:
+    """The median of each lane's live slots ``0..n_live-1`` (``[...]`` from
+    ``[..., S]``), as ``jnp.nanmedian`` takes it over the NaN-masked pads:
+    a STABLE sort, then the midpoint ``(lo + hi) * 0.5`` of the two middle
+    values (``torch.median`` would return the lower one).  The stable sort
+    puts a tie's gradient on the same index as the reference's; 0 when
+    nothing is live."""
+    if n_live <= 0:
+        return a.new_zeros(a.shape[:-1])
+    vals = torch.sort(a[..., :n_live], dim=-1, stable=True).values
+    return (vals[..., (n_live - 1) // 2] + vals[..., n_live // 2]) * 0.5
 
 
 def background_excess(a: torch.Tensor, n_live: Optional[int] = None):
     """Anomaly excess over the MEDIAN of the live services (slots
-    ``0..n_live-1``; later slots are shape padding and get 0).  The median
-    is the midpoint of the two middle values, as ``jnp.nanmedian`` takes it
-    (``torch.median`` would return the lower one); 0 when nothing is live."""
+    ``0..n_live-1``; later slots are shape padding and get 0), per lane of
+    ``[..., S]``.  The relu is a max with 0, which splits a tie's gradient
+    as ``jnp.maximum`` does (the median's own slot always ties)."""
     if n_live is None:
-        n_live = a.shape[0]
-    if n_live > 0:
-        a_bg = torch.quantile(a[:n_live], 0.5, interpolation="midpoint")
-    else:
-        a_bg = a.new_zeros(())
-    live = torch.arange(a.shape[0], device=a.device) < n_live
-    return torch.where(live, torch.clamp(a - a_bg, min=0.0), 0.0)
+        n_live = a.shape[-1]
+    a_bg = live_median(a, n_live)[..., None]
+    live = torch.arange(a.shape[-1], device=a.device) < n_live
+    return torch.where(live, torch.maximum(a - a_bg, a.new_zeros(())), 0.0)
 
 
 def combine_score(a, h, u, m, explain_strength: float, impact_bonus: float):
@@ -60,27 +110,41 @@ def combine_score(a, h, u, m, explain_strength: float, impact_bonus: float):
 
 def propagate_core(a, h, dep_dst, steps: int, decay: float,
                    explain_strength: float, impact_bonus: float,
-                   n_live: Optional[int], down_seg: SegLayout,
-                   up_seg: SegLayout):
-    """Propagation from precomputed evidence over the seg-step layouts.
-    Returns ``(a, h, u, m, score)``, all ``[S]``."""
-    # each step reads its input at other segments' nodes, so it writes a
-    # fresh vector: two buffers per recursion, alternating
-    u, spare = torch.zeros_like(a), torch.empty_like(a)
-    for _ in range(steps):
-        u, spare = up_seg_step(u, h, decay, up_seg, out=spare), u
+                   n_live: Optional[int], plan: KernelPlan):
+    """Propagation from precomputed ``[..., n_pad]`` evidence on the
+    plan's row: the seg-step wrappers (``kernels``) or plain ops over the
+    up-table and the sorted segment sum (``torch``).  Returns ``(a, h, u,
+    m, score)``, each shaped like ``a``."""
+    plain = _row(plan) == "torch"
+    u = torch.zeros_like(a)
+    if plain:
+        for _ in range(steps):
+            u = ell_up_step(u, h, decay, plan.up_ell)
+    else:
+        # each step reads its input at other segments' nodes, so it writes
+        # a fresh vector: two buffers per recursion, alternating
+        spare = torch.empty_like(a)
+        for _ in range(steps):
+            u, spare = up_seg_step(u, h, decay, plan.up_seg, out=spare), u
 
     a_ex = background_excess(a, n_live)
     # dependent count per service for the impact MEAN (padded edges point
-    # at the dummy slot, so live degrees come from real edges only)
-    deg = torch.zeros_like(a).index_add_(0, dep_dst, torch.ones_like(
-        dep_dst, dtype=a.dtype))
+    # at the dummy slot, so live degrees come from real edges only); one
+    # graph, so one [n_pad] vector for every lane
+    n_pad = a.shape[-1]
+    deg = a.new_zeros(n_pad).index_add_(0, dep_dst, a.new_ones(
+        dep_dst.shape[0]))
     inv_deg = 1.0 / torch.clamp(deg, min=1.0)
 
-    m, spare = torch.zeros_like(a), torch.empty_like(a)
-    for _ in range(steps):
-        m, spare = down_seg_step(m, a_ex, decay, down_seg, inv_deg,
-                                 out=spare), m
+    m = torch.zeros_like(a)
+    if plain:
+        for _ in range(steps):
+            m = down_seg_step_plain(m, a_ex, decay, plan.down_seg, inv_deg)
+    else:
+        spare = torch.empty_like(a)
+        for _ in range(steps):
+            m, spare = down_seg_step(m, a_ex, decay, plan.down_seg, inv_deg,
+                                     out=spare), m
 
     score = combine_score(a, h, u, m, explain_strength, impact_bonus)
     return a, h, u, m, score
@@ -88,17 +152,21 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
 
 def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
               explain_strength: float, impact_bonus: float,
-              n_live: Optional[int], down_seg: SegLayout, up_seg: SegLayout,
+              n_live: Optional[int], plan: KernelPlan,
               error_contrast: float = 0.0):
     """The evidence front (sanitize, evidence pair, error-source contrast:
-    two kernels on the card), then the core.  ``features`` is the RAW
-    padded ``[n_pad, C]`` float32 matrix; ``dep_dst`` is int64 ``[e_pad]``.
-    Returns ``(a, h, u, m, score, n_bad)``, ``n_bad`` the 0-dim int32 count
-    of the rows the sanitize zeroed."""
-    a, h, n_bad = evidence_front(features, anomaly_w, hard_w, error_contrast,
-                                 up_seg)
+    two kernels on the card for the ``kernels`` row, the plain version for
+    the ``torch`` row), then the core, both on the plan's row.
+    ``features`` is the RAW padded ``[n_pad, C]`` float32 matrix or
+    ``[B, n_pad, C]`` lanes; ``dep_dst`` is int64 ``[e_pad]``.  Returns
+    ``(a, h, u, m, score, n_bad)``, ``n_bad`` the 0-dim int32 count of the
+    rows the sanitize zeroed, across the lanes."""
+    front = (evidence_front_plain if _row(plan) == "torch"
+             else evidence_front)
+    a, h, n_bad = front(features, anomaly_w, hard_w, error_contrast,
+                        plan.up_seg)
     return (*propagate_core(a, h, dep_dst, steps, decay, explain_strength,
-                            impact_bonus, n_live, down_seg, up_seg), n_bad)
+                            impact_bonus, n_live, plan), n_bad)
 
 
 class Propagation(nn.Module):
@@ -116,11 +184,10 @@ class Propagation(nn.Module):
         self.impact_bonus = float(params.impact_bonus)
         self.error_contrast = float(params.error_contrast)
 
-    def forward(self, features, dep_dst, n_live: int, down_seg: SegLayout,
-                up_seg: SegLayout):
+    def forward(self, features, dep_dst, n_live: int, plan: KernelPlan):
         return propagate(
             features, dep_dst, self.anomaly_w, self.hard_w,
             self.steps, self.decay, self.explain_strength,
-            self.impact_bonus, n_live, down_seg, up_seg,
+            self.impact_bonus, n_live, plan,
             error_contrast=self.error_contrast,
         )

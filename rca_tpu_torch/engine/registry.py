@@ -1,0 +1,403 @@
+"""KernelRegistry: the per-shape kernel table and THE dispatch seam.
+
+Counterpart of the JAX package's ``engine/registry.py``.  A row per
+``(variant, n_pad, e_pad, steps, device)`` records which of the port's
+propagation rows the shape engages, WHY (``forced`` / ``cpu-default`` /
+``timed`` / ``cache`` / ``attribution``), every candidate's eligibility
+(``True`` or the reason it sat out) and the timings of the race.  The rows (:data:`KERNELS`):
+
+- ``torch``: plain PyTorch ops, the default and the counterpart of the
+  reference's ``xla`` row: the front's plain version, the up-steps over the
+  hybrid up-table, the down-steps as a sorted segment sum;
+- ``kernels``: the hand-written CUDA kernels (``csrc/``), two launches for
+  the front and one per seg step; on a CPU tensor their plain versions.
+
+:func:`engaged_kernel` is the one place a propagation surface asks which
+row a padded shape runs (through ``runner.kernel_plan``).  A CPU host picks
+``torch`` without timing, as the reference does for XLA; on a CUDA card
+both rows are timed over a ring graph of the row's shape and ``kernels``
+must beat ``torch`` by more than 5% to take it.  The race never hands the
+card's main path to plain ops: a kernel that fails while it is timed
+raises, and so does a race that ``torch`` would win (only
+``RCA_KERNEL=torch`` runs the plain row on the card).  Timed winners
+persist to a file (``RCA_KERNEL_CACHE``, by default in the port's build
+directory) whose header holds the torch and CUDA versions, the card's
+name and a hash of the kernel sources and their wrappers; a stale or
+corrupt file, or a cached ``torch`` verdict, re-times, never crashes.
+
+The ``attribution`` variant is the causelens saliency's row: it engages
+``torch``, the differentiable body, and records ``kernels`` as ineligible
+with the reason.  The counterfactual sweep needs no gradient and runs the
+``dense`` row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from rca_tpu_torch.config import KERNELS, forced_kernel, kernel_cache_path
+from rca_tpu_torch.kernels.build import PKG_DIR
+
+_CACHE_VERSION = 1
+
+#: the sources whose edit re-times every shape: the kernels, their
+#: wrappers, the propagation body and this registry
+_HASHED = ("csrc/*.cu", "engine/evidence.py", "engine/segscan.py",
+           "engine/ell.py", "engine/propagate.py", "engine/registry.py",
+           "kernels/build.py")
+
+#: why the attribution variant cannot engage the kernels row
+ATTRIBUTION_DECLINE = (
+    "no backward kernel: the front and the seg steps (evidence_front, "
+    "seg_contrast_step, seg_up_step, seg_down_step) have none, so saliency "
+    "differentiates the torch row"
+)
+
+
+def _flag() -> str:
+    """The env knob of the row key: a test flipping ``RCA_KERNEL``
+    mid-process re-decides instead of reading a stale verdict."""
+    return os.environ.get("RCA_KERNEL", "").strip().lower()
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+def kernel_set_hash() -> str:
+    """Hash of the kernel set's sources: the cache invalidation key.  An
+    edit to a kernel, a wrapper, the propagation body or this registry
+    re-times every shape."""
+    global _KERNEL_SET_HASH
+    if _KERNEL_SET_HASH is None:
+        h = hashlib.sha1(repr(KERNELS).encode())
+        for pattern in _HASHED:
+            for path in sorted(PKG_DIR.glob(pattern)):
+                h.update(path.name.encode())
+                h.update(path.read_bytes())
+        _KERNEL_SET_HASH = h.hexdigest()[:16]
+    return _KERNEL_SET_HASH
+
+
+_KERNEL_SET_HASH: Optional[str] = None
+
+
+@dataclasses.dataclass
+class KernelRow:
+    """One registry row: the engaged row for one padded shape."""
+
+    variant: str                  # dense | attribution
+    n_pad: int
+    backend: str                  # the device type: cuda | cpu
+    winner: str                   # the engaged row (a KERNELS member)
+    source: str                   # forced|cpu-default|timed|cache|
+    #                               attribution
+    e_pad: Optional[int] = None   # padded edge tier
+    steps: int = 8                # propagation depth the row decided for
+    eligible: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    timings_ms: Dict[str, Optional[float]] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "variant": self.variant,
+            "n_pad": self.n_pad,
+            "e_pad": self.e_pad,
+            "steps": self.steps,
+            "backend": self.backend,
+            "winner": self.winner,
+            "source": self.source,
+            "eligible": dict(self.eligible),
+            "timings_ms": dict(self.timings_ms),
+        }
+
+
+class KernelRegistry:
+    """The per-shape kernel table (one per process via
+    :func:`get_registry`).  Rows resolve lazily the first time a surface
+    asks about a shape; the timing runs outside the lock (two threads may
+    time one shape; the last write wins)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rows: Dict[Tuple, KernelRow] = {}
+
+    # -- cache file (RCA_KERNEL_CACHE, read per lookup) --------------------
+    @staticmethod
+    def _header(device: torch.device) -> Dict[str, Any]:
+        return {
+            "version": _CACHE_VERSION,
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "device": _device_name(device),
+            "kernel_set": kernel_set_hash(),
+        }
+
+    @staticmethod
+    def _read_rows(path: Optional[str],
+                   header: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """The rows of one cache file whose header matches, else None: a
+        corrupt file or a stale header (another torch, CUDA, card or kernel
+        set) re-times instead of serving a verdict earned elsewhere."""
+        if not path or not os.path.exists(path):
+            return None
+        try:
+            with open(path, encoding="utf-8") as f:
+                data = json.load(f)
+        except (json.JSONDecodeError, OSError, UnicodeDecodeError):
+            return None
+        if not isinstance(data, dict) or any(
+                data.get(key) != value for key, value in header.items()):
+            return None
+        rows = data.get("rows")
+        return rows if isinstance(rows, dict) else None
+
+    def _load_cached(self, key: str, device: torch.device):
+        rows = self._read_rows(kernel_cache_path(device.type),
+                               self._header(device))
+        row = None if rows is None else rows.get(key)
+        if not isinstance(row, dict) or row.get("winner") not in KERNELS:
+            return None
+        return row
+
+    def _store_cached(self, key: str, row: KernelRow,
+                      device: torch.device) -> None:
+        path = kernel_cache_path(device.type)
+        if not path:
+            return
+        header = self._header(device)
+        rows = self._read_rows(path, header) or {}
+        rows[key] = {"winner": row.winner,
+                     "timings_ms": dict(row.timings_ms)}
+        try:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({**header, "rows": rows}, f, indent=1)
+                f.write("\n")
+            os.replace(tmp, path)
+        except OSError:
+            pass  # an unwritable cache re-times next time; the row stands
+
+    # -- resolution ----------------------------------------------------------
+    def resolve(self, n_pad: int, e_pad: Optional[int] = None,
+                steps: int = 8, variant: str = "dense",
+                device="cpu") -> KernelRow:
+        """The row for one padded shape on ``device``, created on first
+        ask.  Rows are keyed by the dispatch env knobs too
+        (:func:`_flag`)."""
+        device = torch.device(device)
+        n_pad = int(n_pad)
+        e_pad = int(e_pad) if e_pad is not None else None
+        key = (variant, n_pad, e_pad, int(steps), str(device), _flag())
+        with self._lock:
+            row = self._rows.get(key)
+        if row is not None:
+            return row
+        row = self._decide(variant, n_pad, e_pad, int(steps), device)
+        with self._lock:
+            self._rows[key] = row
+        return row
+
+    def note_timing(self, n_pad: int, e_pad: Optional[int], name: str,
+                    ms: float, variant: str = "dense", steps: int = 8,
+                    device="cpu") -> None:
+        """Record one observed wall cost into a row's timings, keeping the
+        minimum (the first call carries the start-up).  The attribution
+        sweep stamps its per-shape cost here."""
+        row = self.resolve(n_pad, e_pad=e_pad, steps=steps, variant=variant,
+                           device=device)
+        with self._lock:
+            prev = row.timings_ms.get(name)
+            if prev is None or float(ms) < float(prev):
+                row.timings_ms[name] = round(float(ms), 4)
+
+    def _decide(self, variant: str, n_pad: int, e_pad: Optional[int],
+                steps: int, device: torch.device) -> KernelRow:
+        backend = device.type
+        eligible = _eligibility(variant)
+        row = KernelRow(variant=variant, n_pad=n_pad, e_pad=e_pad,
+                        steps=steps, backend=backend, winner="torch",
+                        source="default", eligible=eligible)
+        if variant == "attribution":
+            # the saliency's backward pass needs the differentiable body;
+            # the attribution's cost lands in the timings through
+            # note_timing
+            row.source = "attribution"
+            return row
+        forced = forced_kernel()
+        if forced is not None:
+            # every dense shape takes either row
+            row.winner = forced
+            row.source = "forced"
+            return row
+        if backend == "cpu":
+            # the kernels row runs its plain versions on the CPU: timing
+            # them proves nothing about the card
+            row.source = "cpu-default"
+            return row
+        cache_key = f"{variant}:{n_pad}:{e_pad}:{steps}:{backend}"
+        cached = self._load_cached(cache_key, device)
+        if cached is not None and cached["winner"] == "kernels":
+            row.winner = "kernels"
+            row.source = "cache"
+            row.timings_ms = dict(cached.get("timings_ms") or {})
+            return row
+        candidates = [k for k in KERNELS if eligible.get(k) is True]
+        row.timings_ms = _time_candidates(n_pad, e_pad, steps, candidates,
+                                          device)
+        row.winner = _pick_winner(row.timings_ms)
+        if row.winner != "kernels":
+            raise RuntimeError(
+                f"kernel race at n_pad={n_pad}, e_pad={e_pad} on "
+                f"{_device_name(device)}: the plain torch row would win "
+                f"({row.timings_ms}); the port does not run plain ops on "
+                f"the card unless RCA_KERNEL=torch asks for them"
+            )
+        row.source = "timed"
+        self._store_cached(cache_key, row, device)
+        return row
+
+    # -- reading -------------------------------------------------------------
+    def table(self) -> List[Dict[str, Any]]:
+        """Every resolved row, smallest shape first."""
+        with self._lock:
+            rows = sorted(self._rows.values(),
+                          key=lambda r: (r.variant, r.n_pad, r.e_pad or -1,
+                                         r.backend))
+        return [row.to_dict() for row in rows]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rows.clear()
+
+
+def _eligibility(variant: str) -> Dict[str, Any]:
+    """Per-row eligibility: ``True`` or the reason the row sits out.  The
+    kernels row takes every dense shape: on the card its kernels, on a CPU
+    tensor their plain versions (``RCA_KERNEL=kernels`` there)."""
+    out: Dict[str, Any] = {"torch": True}
+    out["kernels"] = ATTRIBUTION_DECLINE if variant == "attribution" else True
+    return out
+
+
+def _pick_winner(timings: Dict[str, Optional[float]]) -> str:
+    """Ties go to ``torch``, the plain default: a challenger must beat it
+    by more than 5% to take a row."""
+    t_torch = timings.get("torch")
+    if t_torch is None:
+        return "torch"
+    best, best_t = "torch", t_torch
+    for k, t in timings.items():
+        if k != "torch" and t is not None and t < best_t:
+            best, best_t = k, t
+    return best if best_t < 0.95 * t_torch else "torch"
+
+
+def _timing_harness(n_pad: int, e_pad: Optional[int]):
+    """The synthetic graph the race runs over: a ring over ``n_pad - 1``
+    live nodes padded to ``e_pad`` edges, canonical per shape (the row's
+    key), not per graph.  Returns ``(n, e_pad, src, dst)``, the edges
+    padded with dummy self-loops."""
+    import numpy as np
+
+    e_pad = int(e_pad) if e_pad is not None else n_pad
+    n = max(1, n_pad - 1)
+    dummy = n_pad - 1
+    src = np.full(e_pad, dummy, np.int32)
+    dst = np.full(e_pad, dummy, np.int32)
+    ring = np.arange(min(n, e_pad), dtype=np.int32)
+    src[: len(ring)] = ring
+    dst[: len(ring)] = (ring + 1) % n
+    return n, e_pad, src, dst
+
+
+def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
+                     candidates, device: torch.device,
+                     reps: int = 5) -> Dict[str, float]:
+    """Host wall per call of each candidate's FULL propagation (front and
+    both recursions, as the engine runs it) at this padded shape on the
+    card: one warm call, then the best of 3 runs of ``reps`` calls, each
+    run ending in a synchronize.  A candidate that fails raises."""
+    import numpy as np
+
+    from rca_tpu_torch.engine.propagate import KernelPlan, propagate
+    from rca_tpu_torch.engine.ell import up_ell_for
+    from rca_tpu_torch.engine.segscan import build_seg_layouts
+    from rca_tpu_torch.features.schema import NUM_SERVICE_FEATURES
+
+    n, e_pad, src, dst = _timing_harness(n_pad, e_pad)
+    raw = src[src != n_pad - 1], dst[src != n_pad - 1]
+    rng = np.random.default_rng(0)
+    f = torch.from_numpy(rng.uniform(0, 1, (n_pad, NUM_SERVICE_FEATURES))
+                         .astype(np.float32)).to(device)
+    w = torch.from_numpy(rng.uniform(0.2, 0.9, NUM_SERVICE_FEATURES)
+                         .astype(np.float32)).to(device)
+    dd = torch.from_numpy(dst.astype(np.int64)).to(device)
+    down_seg, up_seg = build_seg_layouts(n_pad, e_pad, *raw, device=device)
+
+    def timed(kernel: str) -> float:
+        plan = KernelPlan(kernel, down_seg, up_seg,
+                          up_ell_for(n_pad, *raw, device)
+                          if kernel == "torch" else None)
+
+        def call():
+            return propagate(f, dd, w, w, steps, 0.7, 0.85, 1.6, n, plan,
+                             error_contrast=0.7)[4]
+
+        call()
+        torch.cuda.synchronize(device)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize(device)
+            runs.append(time.perf_counter() - t0)
+        return min(runs) * 1e3 / reps
+
+    return {k: timed(k) for k in candidates}
+
+
+# -- the process registry and the module-level seam ---------------------------
+
+_REGISTRY: Optional[KernelRegistry] = None
+_REGISTRY_LOCK = threading.Lock()
+
+
+def get_registry() -> KernelRegistry:
+    global _REGISTRY
+    with _REGISTRY_LOCK:
+        if _REGISTRY is None:
+            _REGISTRY = KernelRegistry()
+        return _REGISTRY
+
+
+def reset_registry() -> None:
+    """Drop every resolved row (tests flipping env knobs)."""
+    get_registry().clear()
+
+
+def engaged_kernel(n_pad: int, e_pad: Optional[int] = None, steps: int = 8,
+                   variant: str = "dense", device="cpu") -> str:
+    """THE dispatch seam: which row an ``(n_pad, e_pad)``-padded graph
+    engages on ``device``."""
+    return get_registry().resolve(n_pad, e_pad=e_pad, steps=steps,
+                                  variant=variant, device=device).winner
+
+
+def kernel_table() -> List[Dict[str, Any]]:
+    """Every resolved row as dicts: the ``kernels`` CLI and
+    ``chip_smoke.py`` read THIS."""
+    return get_registry().table()

@@ -1,18 +1,24 @@
-"""GraphEngine: bucketing, device transfer, ranking, rendering.
+"""GraphEngine: bucketing, device transfer, the kernel plan, ranking,
+rendering.
 
-Counterpart of the JAX package's ``engine/runner.py`` for one-shot
-analysis.  The host pads node/edge arrays to shape buckets, builds the
-seg-step layouts, moves everything to the engine's device, and runs one
-ranked analysis (:func:`propagate_ranked`): the evidence front
-(finite-mask sanitize, evidence pair and error-source contrast, two kernel
-launches), 8 up-steps and 8 down-steps (one seg-step kernel launch each),
-the score, top-k, and the ``[4, k]`` diagnostic gather.  Only top-k-sized
-values cross to the host; the full ``[4, n_pad]`` stack stays on the
-device behind the result's lazy diagnostics.
+Counterpart of the JAX package's ``engine/runner.py`` for one-shot and
+batched analysis.  The host pads node/edge arrays to shape buckets, asks
+the kernel registry which row this shape engages (:func:`kernel_plan`, THE
+dispatch seam), builds that row's layouts on the engine's device, and runs
+one ranked analysis (:func:`propagate_ranked`): the evidence front, 8
+up-steps and 8 down-steps, the score, top-k, and the ``[4, k]`` diagnostic
+gather.  On the ``kernels`` row the front is two kernel launches and each
+step one launch; on the ``torch`` row every op is plain PyTorch.  A
+hypothesis batch (:meth:`GraphEngine.analyze_batch`) runs the same body on
+``[B, n_pad, C]`` lanes of one graph: one launch per kernel and step for
+the whole batch.  Only top-k-sized values cross to the host; the full
+``[4, n_pad]`` stack stays on the device behind the result's lazy
+diagnostics, and the inputs stay behind its lazy attribution.
 
 Device rule: ``GraphEngine()`` runs on ``cuda`` and raises where there is
-no CUDA device; ``device="cpu"`` selects the plain versions of the kernels
-explicitly (the tests).  Nothing falls back from one to the other.
+no CUDA device; ``device="cpu"`` runs on the CPU, where the registry picks
+the ``torch`` row and ``RCA_KERNEL=kernels`` the kernels' plain versions.
+Nothing falls back from one device to the other.
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ import numpy as np
 import torch
 
 from rca_tpu_torch.config import RCAConfig, bucket_for
+from rca_tpu_torch.engine.ell import up_ell_for
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
-from rca_tpu_torch.engine.propagate import Propagation
+from rca_tpu_torch.engine.propagate import KernelPlan, Propagation
 from rca_tpu_torch.engine.segscan import build_seg_layouts
 
 
@@ -43,28 +50,106 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
+                steps: int = 8, variant: str = "dense") -> KernelPlan:
+    """THE per-graph dispatch step, shared by every caller that stages a
+    padded graph (one-shot analyze, the hypothesis batch, attribution): ask
+    the registry which row this ``(n_pad, e_pad)`` shape engages on
+    ``device`` (the forcing knob, the timings and the eligibility all live
+    there), then build that row's layouts.  The edges are the RAW ones."""
+    from rca_tpu_torch.engine.registry import engaged_kernel
+
+    kernel = engaged_kernel(n_pad, e_pad, steps=steps, variant=variant,
+                            device=device)
+    down_seg, up_seg = build_seg_layouts(n_pad, e_pad, dep_src, dep_dst,
+                                         device=device)
+    up_ell = (up_ell_for(n_pad, dep_src, dep_dst, device)
+              if kernel == "torch" else None)
+    return KernelPlan(kernel, down_seg, up_seg, up_ell)
+
+
+def propagate_auto(model: Propagation, features, dep_dst, n_live: int,
+                   plan: KernelPlan):
+    """The propagation body behind every ranked surface (one-shot, the
+    batch lanes, the batch delta, attribution): the plan's ``kernel`` picks
+    the front and the steps in :mod:`.propagate`, so the engaged row cannot
+    drift between the call surfaces.  Returns ``(a, h, u, m, score,
+    n_bad)``."""
+    return model(features, dep_dst, n_live, plan)
+
+
 def topk_diag(stacked, idx):
-    """Gather of the top-k columns of the ``[4, S]`` diagnostic stack."""
-    return stacked[:, idx]
+    """Gather of the top-k columns of the ``[4, S]`` diagnostic stack, or
+    of each lane's ``[B, 4, S]`` stack at its own ``[B, k]`` indices."""
+    if stacked.dim() == 2:
+        return stacked[:, idx]
+    return torch.gather(stacked, 2, idx[:, None, :].expand(
+        -1, stacked.shape[1], -1))
 
 
 def top_k(score: torch.Tensor, k: int):
-    """``(values, indices)`` of the ``k`` largest scores, ties broken
-    lowest index first as ``jax.lax.top_k`` breaks them (``torch.topk``
-    does not promise an order): a STABLE descending sort."""
-    vals, idx = torch.sort(score, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """``(values, indices)`` of the ``k`` largest scores of each lane (the
+    last axis), ties broken lowest index first as ``jax.lax.top_k`` breaks
+    them (``torch.topk`` does not promise an order): a STABLE descending
+    sort."""
+    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def propagate_ranked(model: Propagation, features, dep_dst, n_live: int,
-                     kk: int, down_seg, up_seg):
-    """One ranked analysis on the device from the raw padded features.
-    Returns ``(stacked, diag, vals, idx, n_bad)``, all device tensors."""
-    a, h, u, m, score, n_bad = model(features, dep_dst, n_live, down_seg,
-                                     up_seg)
+                     kk: int, plan: KernelPlan):
+    """One ranked analysis on the device from the raw padded features, or
+    each lane's of ``[B, n_pad, C]`` lanes.  Returns ``(stacked, diag,
+    vals, idx, n_bad)``, all device tensors (``[4, n_pad]`` / ``[B, 4,
+    n_pad]`` stacks, ``n_bad`` across the lanes)."""
+    a, h, u, m, score, n_bad = propagate_auto(model, features, dep_dst,
+                                              n_live, plan)
     vals, idx = top_k(score, kk)
-    stacked = torch.stack([a, u, m, score])
+    stacked = torch.stack([a, u, m, score], dim=-2)
     return stacked, topk_diag(stacked, idx), vals, idx, n_bad
+
+
+def check_batch_delta(idx_b: np.ndarray, rows_b: np.ndarray, n_pad: int):
+    """The batch delta's staging contract, checked on the host: ``idx_b``
+    ``[B, U]`` rows within ``[0, n_pad)``, ``rows_b`` ``[B, U, C]``; pad
+    slots aim at the dummy row ``n_pad - 1`` with zero rows, and the real
+    rows of a lane are distinct.  Duplicate indices then all write the
+    same zeros: a scatter with duplicates has no defined winner on CUDA."""
+    idx_b = np.asarray(idx_b)
+    rows_b = np.asarray(rows_b, np.float32)
+    if idx_b.ndim != 2 or rows_b.shape[:2] != idx_b.shape:
+        raise ValueError(f"batch delta: idx [B, U] and rows [B, U, C], got "
+                         f"{idx_b.shape} and {rows_b.shape}")
+    if idx_b.size and (idx_b.min() < 0 or idx_b.max() >= n_pad):
+        raise ValueError(f"batch delta: row ids outside [0, {n_pad})")
+    dummy = n_pad - 1
+    pad = idx_b == dummy
+    if np.any(rows_b[pad] != 0.0):
+        raise ValueError("batch delta: a slot on the dummy row carries a "
+                         "nonzero row")
+    for lane, ids in enumerate(idx_b):
+        real = ids[ids != dummy]
+        if len(np.unique(real)) != len(real):
+            raise ValueError(f"batch delta: lane {lane} repeats a row")
+    return idx_b.astype(np.int64), rows_b
+
+
+def propagate_ranked_batch_delta(model: Propagation, base, idx_b, rows_b,
+                                 dep_dst, n_live: int, kk: int,
+                                 plan: KernelPlan):
+    """A delta-staged hypothesis batch: each lane is the device-resident
+    ``[n_pad, C]`` base buffer with that lane's rows ``idx_b[b]`` replaced
+    by ``rows_b[b]`` (device tensors from host arrays that passed
+    :func:`check_batch_delta`), scattered on the device, so the host sends
+    the ``[B, U]`` ids and ``[B, U, C]`` rows instead of ``[B, n_pad, C]``.
+    ``base`` is read, never written.  The ranked body is
+    :func:`propagate_ranked`'s, so each lane is bitwise equal to full
+    staging of the same features."""
+    lanes = idx_b.shape[0]
+    features_b = base.expand(lanes, *base.shape).clone()
+    lane = torch.arange(lanes, device=base.device)[:, None].expand_as(idx_b)
+    features_b[lane, idx_b] = rows_b
+    return propagate_ranked(model, features_b, dep_dst, n_live, kk, plan)
 
 
 class EngineResult:
@@ -72,7 +157,9 @@ class EngineResult:
     their diagnostic channels) are rendered eagerly from the ``[4, k]``
     fetch; the FULL per-service vectors (``anomaly``/``upstream``/
     ``impact``/``score``) are LAZY — the device-parked ``[4, n_pad]`` stack
-    moves to the host on the first access."""
+    moves to the host on the first access — and so is the causelens
+    provenance block (:meth:`attribution`), computed from the retained
+    inputs on first call."""
 
     def __init__(
         self,
@@ -84,6 +171,7 @@ class EngineResult:
         engine: str = "single",
         sanitized_rows: int = 0,
         stacked_dev: object = None,
+        attribution_ctx: object = None,
     ):
         self._service_names = service_names
         self.ranked = ranked
@@ -94,6 +182,8 @@ class EngineResult:
         self.sanitized_rows = int(sanitized_rows)
         self._stacked: Optional[np.ndarray] = None
         self._stacked_dev = stacked_dev
+        self._attribution_ctx = attribution_ctx
+        self._provenance: Optional[dict] = None
 
     @property
     def service_names(self) -> List[str]:
@@ -132,10 +222,26 @@ class EngineResult:
 
     def attribution(self, paths: Optional[int] = None,
                     topm: Optional[int] = None) -> dict:
-        """Not ported yet: the attribution slice brings it."""
-        raise ValueError(
-            "attribution is not available in the PyTorch engine yet"
-        )
+        """The causelens provenance block for THIS ranking: per-channel
+        evidence contributions, counterfactual evidence rows, blame paths
+        and gradient saliency for every ranked candidate, computed on the
+        engine's device on first call and cached for the default
+        arguments.  Raises ``ValueError`` on a result that retained no
+        inputs."""
+        default_args = paths is None and topm is None
+        if self._provenance is not None and default_args:
+            return self._provenance
+        if self._attribution_ctx is None:
+            raise ValueError("EngineResult carries no attribution context")
+        from rca_tpu_torch.engine.attribution import compute_attribution
+        from rca_tpu_torch.observability.causelens import provenance_block
+
+        block = compute_attribution(self._attribution_ctx, self.ranked,
+                                    paths=paths, topm=topm)
+        out = provenance_block(block, engine=self.engine)
+        if default_args:
+            self._provenance = out
+        return out
 
     def top_components(self, k: Optional[int] = None) -> List[str]:
         items = self.ranked if k is None else self.ranked[:k]
@@ -144,11 +250,12 @@ class EngineResult:
 
 def render_result(diag, vals, idx, names: Optional[Sequence[str]], n: int,
                   k: int, latency_ms: float, n_edges: int, engine: str,
-                  sanitized_rows: int = 0,
-                  stacked_dev: object = None) -> EngineResult:
+                  sanitized_rows: int = 0, stacked_dev: object = None,
+                  attribution_ctx: object = None) -> EngineResult:
     """Host-side rendering from the ``[4, kk]`` top-k gather (host numpy);
     pad slots (index >= n) are skipped.  Unnamed services render as
-    ``svc-<i>``."""
+    ``svc-<i>``.  ``attribution_ctx`` (:func:`make_attribution_ctx`) is
+    what the result's lazy :meth:`EngineResult.attribution` runs on."""
     diag = np.asarray(diag)
     names = list(names) if names is not None else None
     ranked = []
@@ -173,6 +280,25 @@ def render_result(diag, vals, idx, names: Optional[Sequence[str]], n: int,
         engine=engine,
         sanitized_rows=int(sanitized_rows),
         stacked_dev=stacked_dev,
+        attribution_ctx=attribution_ctx,
+    )
+
+
+def make_attribution_ctx(features, dep_src, dep_dst, params, names,
+                         shape_buckets, device):
+    """The one constructor every render surface uses to retain the inputs
+    of its lazy attribution: the raw arrays, the resolved params, the
+    shape tiers and the device the engine ran on."""
+    from rca_tpu_torch.engine.attribution import AttributionContext
+
+    return AttributionContext(
+        features=np.asarray(features, np.float32),
+        dep_src=np.asarray(dep_src, np.int32),
+        dep_dst=np.asarray(dep_dst, np.int32),
+        params=params,
+        names=list(names) if names is not None else None,
+        shape_buckets=tuple(shape_buckets),
+        device=device,
     )
 
 
@@ -213,8 +339,9 @@ class EngineAPI:
 
     def analyze_batch(self, features_batch, dep_src, dep_dst, names=None,
                       k=None) -> List[EngineResult]:
-        """Score a batch of fault-hypothesis feature sets over ONE graph:
-        a loop of :meth:`analyze_arrays`."""
+        """Score a batch of fault-hypothesis feature sets over ONE graph.
+        Default: a loop of :meth:`analyze_arrays`; engines with a batched
+        body override it."""
         return [
             self.analyze_arrays(f, dep_src, dep_dst, names, k=k)
             for f in features_batch
@@ -257,7 +384,6 @@ class GraphEngine(EngineAPI):
         self.config = config or RCAConfig()
         self.params = resolve_params(self.config, params)
         self.model = Propagation(self.params).to(self.device)
-        self.plan = "kernels" if self.device.type == "cuda" else "plain"
 
     # -- shaping -----------------------------------------------------------
     def _pad(self, features: np.ndarray, src: np.ndarray, dst: np.ndarray):
@@ -273,6 +399,17 @@ class GraphEngine(EngineAPI):
         s[: len(src)] = src
         d[: len(dst)] = dst
         return f, s, d
+
+    def plan_for(self, n_pad: int, e_pad: int, dep_src, dep_dst,
+                 variant: str = "dense") -> KernelPlan:
+        """The kernel plan of one padded graph on this engine's device."""
+        return kernel_plan(n_pad, e_pad, dep_src, dep_dst, self.device,
+                           steps=self.params.steps, variant=variant)
+
+    def _attribution_ctx(self, features, dep_src, dep_dst, names):
+        return make_attribution_ctx(features, dep_src, dep_dst, self.params,
+                                    names, self.config.shape_buckets,
+                                    self.device)
 
     # -- core --------------------------------------------------------------
     def analyze_arrays(
@@ -290,17 +427,62 @@ class GraphEngine(EngineAPI):
         n_pad, e_pad = f.shape[0], len(s)
         kk = min(k + 8, n_pad)
         dev = self.device
-        down_seg, up_seg = build_seg_layouts(n_pad, e_pad, dep_src, dep_dst,
-                                             device=dev)
+        plan = self.plan_for(n_pad, e_pad, dep_src, dep_dst)
         fd = torch.from_numpy(f).to(dev)
         dd = torch.from_numpy(d.astype(np.int64)).to(dev)
 
         def run():
-            return propagate_ranked(self.model, fd, dd, n, kk, down_seg,
-                                    up_seg)
+            return propagate_ranked(self.model, fd, dd, n, kk, plan)
 
         stacked, diag, vals, idx, n_bad, latency_ms = timed_fetch(run, timed)
         return render_result(
             diag, vals, idx, names, n, k, latency_ms, int(len(dep_src)),
             engine="single", sanitized_rows=n_bad, stacked_dev=stacked,
+            attribution_ctx=self._attribution_ctx(features, dep_src, dep_dst,
+                                                  names),
         )
+
+    def analyze_batch(
+        self,
+        features_batch: np.ndarray,
+        dep_src: np.ndarray,
+        dep_dst: np.ndarray,
+        names: Optional[Sequence[str]] = None,
+        k: Optional[int] = None,
+    ) -> List[EngineResult]:
+        """Score ``[B, S, C]`` fault-hypothesis feature sets over ONE graph
+        in one ranked dispatch: the lanes share the plan, and on the
+        ``kernels`` row every kernel launches once per step for the whole
+        batch.  Each lane is bitwise equal to :meth:`analyze_arrays` of its
+        features; ``latency_ms`` is the batch's wall over B, and
+        ``sanitized_rows`` counts across the batch (a poisoned row poisons
+        every hypothesis built from the same snapshot)."""
+        features_batch = np.asarray(features_batch, np.float32)
+        lanes, n = features_batch.shape[0], features_batch.shape[1]
+        k = k or min(self.config.top_k_root_causes, n)
+        f0, s, d = self._pad(features_batch[0], dep_src, dep_dst)
+        n_pad, e_pad = f0.shape[0], len(s)
+        fb = np.zeros((lanes, n_pad, f0.shape[1]), np.float32)
+        fb[:, :n] = features_batch
+        # the batch runs the solo row: the port's front and seg steps have
+        # lane-batched launches (the reference keeps its Pallas front off
+        # the batch path, having no vmap twin of it)
+        plan = self.plan_for(n_pad, e_pad, dep_src, dep_dst)
+        kk = min(k + 8, n_pad)
+        dev = self.device
+        t0 = time.perf_counter()
+        fd = torch.from_numpy(fb).to(dev)
+        dd = torch.from_numpy(d.astype(np.int64)).to(dev)
+        stacked, diag, vals, idx, n_bad = _fetch(propagate_ranked(
+            self.model, fd, dd, n, kk, plan))
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        return [
+            render_result(
+                diag[b], vals[b], idx[b], names, n, k, latency_ms / lanes,
+                int(len(dep_src)), engine="single-batch",
+                sanitized_rows=n_bad, stacked_dev=stacked[b],
+                attribution_ctx=self._attribution_ctx(
+                    features_batch[b], dep_src, dep_dst, names),
+            )
+            for b in range(lanes)
+        ]

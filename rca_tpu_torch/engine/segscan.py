@@ -41,15 +41,17 @@ _OPS = {"sum": 0, "max": 1}
 
 
 def segscan_plain(x: torch.Tensor, flags: torch.Tensor, op: str) -> torch.Tensor:
-    """Segment-local flagged Hillis-Steele doubling over a flat ``[N]``
-    array: ``log2(N)`` shifted passes of ``v = v (+|max) shift(v)*(1-f)``,
+    """Segment-local flagged Hillis-Steele doubling along the last axis of
+    ``x`` (``[N]``, or ``[B, N]`` lanes sharing the ``[N]`` flags):
+    ``log2(N)`` shifted passes of ``v = v (+|max) shift(v)*(1-f)``,
     ``f = max(f, shift(f))``.  Every input must be NONNEGATIVE, so a
     boundary-masked contribution ``v*(1-f)`` is the combine's identity."""
     v, f = x, flags
-    n = v.shape[0]
+    n = v.shape[-1]
     k = 1
     while k < n:
-        v_s = torch.cat([v.new_zeros(k), v[:-k]])
+        v_s = torch.cat([v.new_zeros(v.shape[:-1] + (k,)), v[..., :-k]],
+                        dim=-1)
         f_s = torch.cat([f.new_zeros(k), f[:-k]])
         masked = v_s * (1.0 - f)
         v = v + masked if op == "sum" else torch.maximum(v, masked)
@@ -241,14 +243,15 @@ def down_seg_step_plain(m, a_ex, decay: float, seg: SegLayout, inv_deg,
                         out=None, scan=None):
     """One impact step in plain PyTorch: the gather of the per-edge values
     ``a_ex[s] + decay*m[s]``, a flagged segmented sum over the dst-sorted
-    edges, each segment's total read at its end, times ``inv_deg``.
-    ``scan(x, flags)`` takes the place of the plain flagged sum when given
-    (the step as composed around the scan kernel); ``out`` receives the
-    result."""
-    vals = a_ex[seg.other_sorted] + decay * m[seg.other_sorted]
+    edges, each segment's total read at its end, times ``inv_deg``.  ``m``
+    and ``a_ex`` are ``[n_pad]`` or ``[B, n_pad]`` lanes; ``inv_deg`` is
+    ``[n_pad]``, shared.  ``scan(x, flags)`` takes the place of the plain
+    flagged sum when given (the step as composed around the scan kernel);
+    ``out`` receives the result."""
+    vals = a_ex[..., seg.other_sorted] + decay * m[..., seg.other_sorted]
     s = (segscan_plain(vals, seg.flags, "sum") if scan is None
          else scan(vals, seg.flags))
-    return torch.mul(torch.where(seg.has_edges > 0, s[seg.ends], 0.0),
+    return torch.mul(torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0),
                      inv_deg, out=out)
 
 
@@ -257,34 +260,45 @@ def up_seg_step_plain(u, h, decay: float, seg: SegLayout, out=None,
     """One explain-away step in plain PyTorch: a flagged segmented MAX over
     the src-sorted edges of the dense per-node signal ``max(h, decay*u)``;
     fp32 max is order-invariant, so this is bit-identical to any
-    scatter-max form.  ``scan`` and ``out`` as in
+    scatter-max form.  Lanes, ``scan`` and ``out`` as in
     :func:`down_seg_step_plain`."""
     w = torch.maximum(h, decay * u)
-    vals = w[seg.other_sorted]
+    vals = w[..., seg.other_sorted]
     s = (segscan_plain(vals, seg.flags, "max") if scan is None
          else scan(vals, seg.flags))
-    upd = torch.where(seg.has_edges > 0, s[seg.ends], 0.0)
+    upd = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
     return torch.maximum(u, upd, out=out)
 
 
-def check_step(name: str, seg: SegLayout, out, vectors: dict):
+def check_step(name: str, seg: SegLayout, out, vectors: dict,
+               shared: dict = None) -> int:
     """The step kernels' input contract, held on every device: float32,
-    contiguous ``[n_pad]`` vectors on one device, the layout's tensors on
-    that device, and an output that is none of the inputs."""
+    contiguous vectors on one device, the lane vectors (``vectors`` and
+    ``out``) all ``[n_pad]`` or all ``[B, n_pad]``, the ``shared`` ones
+    ``[n_pad]``, the layout's tensors on that device, and an output that is
+    none of the inputs.  Returns the lane count B (1 for ``[n_pad]``) on
+    CUDA tensors and 0 on CPU tensors."""
     if not isinstance(seg.offsets, torch.Tensor):
         raise TypeError(f"{name}: the layout is on the host; move it with "
                         f".to(device)")
     n_pad = seg.offsets.shape[0] - 1
-    device = next(iter(vectors.values())).device
-    named = vectors if out is None else {**vectors, "out": out}
-    for key, t in named.items():
+    first = next(iter(vectors.values()))
+    device = first.device
+    lane_shape = tuple(first.shape)
+    if lane_shape not in ((n_pad,), lane_shape[:1] + (n_pad,)):
+        raise ValueError(f"{name}: vectors must be [{n_pad}] or "
+                         f"[B, {n_pad}], got {lane_shape}")
+    lanes = vectors if out is None else {**vectors, "out": out}
+    named = [(key, t, lane_shape) for key, t in lanes.items()] + [
+        (key, t, (n_pad,)) for key, t in (shared or {}).items()]
+    for key, t, want in named:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name}: {key} on {t.device}, inputs on "
                              f"{device}")
-        if tuple(t.shape) != (n_pad,):
-            raise ValueError(f"{name}: {key} must be [{n_pad}], got "
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {key} must be {list(want)}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
@@ -293,14 +307,20 @@ def check_step(name: str, seg: SegLayout, out, vectors: dict):
                          f"on {device}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {device}")
-    if out is not None and any(out.data_ptr() == t.data_ptr()
-                               for t in vectors.values()):
+    if out is not None and any(
+            out.data_ptr() == t.data_ptr()
+            for t in [*vectors.values(), *(shared or {}).values()]):
         raise ValueError(f"{name}: the step is out of place; out must not "
                          f"be an input")
-    return device.type == "cuda"
+    if device.type != "cuda":
+        return 0
+    return lane_shape[0] if len(lane_shape) == 2 else 1
 
 
-def launch_step(entry: str, name: str, seg: SegLayout, out, *args):
+def launch_step(entry: str, name: str, seg: SegLayout, lanes: int, out,
+                *args):
+    """One launch of a seg-step kernel over ``lanes`` lanes of ``n_pad``
+    entries each (one grid row per lane), sharing the layout."""
     from rca_tpu_torch.kernels.build import check, library
 
     stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -308,7 +328,7 @@ def launch_step(entry: str, name: str, seg: SegLayout, out, *args):
         *args, seg.offsets.data_ptr(), seg.other32.data_ptr(),
         seg.long_ids.data_ptr(), seg.long_ids.shape[0],
         seg.short_ids.data_ptr(), seg.short_ids.shape[0],
-        out.data_ptr(), stream,
+        lanes, seg.offsets.shape[0] - 1, out.data_ptr(), stream,
     )
     check(err, name)
     LAUNCHES[name] += 1
@@ -317,30 +337,32 @@ def launch_step(entry: str, name: str, seg: SegLayout, out, *args):
 
 def down_seg_step(m, a_ex, decay: float, seg: SegLayout, inv_deg, out=None):
     """One impact step, ``m'[d] = inv_deg[d] * sum over (s, d) of
-    (a_ex[s] + decay*m[s])``: on CUDA tensors one launch of the
-    ``seg_down_step`` kernel into ``out`` (fresh when not given), on CPU
-    tensors :func:`down_seg_step_plain`."""
-    on_card = check_step("seg_down_step", seg, out,
-                          {"m": m, "a_ex": a_ex, "inv_deg": inv_deg})
-    if not on_card:
+    (a_ex[s] + decay*m[s])``, on ``[n_pad]`` vectors or ``[B, n_pad]``
+    lanes (``inv_deg`` ``[n_pad]``, shared): on CUDA tensors one launch of
+    the ``seg_down_step`` kernel for all lanes into ``out`` (fresh when not
+    given), on CPU tensors :func:`down_seg_step_plain`."""
+    lanes = check_step("seg_down_step", seg, out, {"m": m, "a_ex": a_ex},
+                       {"inv_deg": inv_deg})
+    if not lanes:
         return down_seg_step_plain(m, a_ex, decay, seg, inv_deg, out=out)
-    return launch_step("rca_seg_down_step", "seg_down_step", seg,
-                   torch.empty_like(m) if out is None else out,
-                   m.data_ptr(), a_ex.data_ptr(), inv_deg.data_ptr(),
-                   as_float32(decay))
+    return launch_step("rca_seg_down_step", "seg_down_step", seg, lanes,
+                       torch.empty_like(m) if out is None else out,
+                       m.data_ptr(), a_ex.data_ptr(), inv_deg.data_ptr(),
+                       as_float32(decay))
 
 
 def up_seg_step(u, h, decay: float, seg: SegLayout, out=None):
     """One explain-away step, ``u'[s] = max(u[s], max over (s, d) of
-    max(h[d], decay*u[d]))``: on CUDA tensors one launch of the
-    ``seg_up_step`` kernel into ``out`` (fresh when not given), on CPU
-    tensors :func:`up_seg_step_plain`."""
-    on_card = check_step("seg_up_step", seg, out, {"u": u, "h": h})
-    if not on_card:
+    max(h[d], decay*u[d]))``, on ``[n_pad]`` vectors or ``[B, n_pad]``
+    lanes: on CUDA tensors one launch of the ``seg_up_step`` kernel for all
+    lanes into ``out`` (fresh when not given), on CPU tensors
+    :func:`up_seg_step_plain`."""
+    lanes = check_step("seg_up_step", seg, out, {"u": u, "h": h})
+    if not lanes:
         return up_seg_step_plain(u, h, decay, seg, out=out)
-    return launch_step("rca_seg_up_step", "seg_up_step", seg,
-                   torch.empty_like(u) if out is None else out,
-                   u.data_ptr(), h.data_ptr(), as_float32(decay))
+    return launch_step("rca_seg_up_step", "seg_up_step", seg, lanes,
+                       torch.empty_like(u) if out is None else out,
+                       u.data_ptr(), h.data_ptr(), as_float32(decay))
 
 
 def as_float32(x: float) -> float:

@@ -44,10 +44,13 @@ _SIGNATURES = {
     "rca_noisy_or_pair": (_P, _P, _P, _P, _P, _I, _I, _P),
     "rca_segscan": (_P, _P, _P, _P, _P, _I, _I, _P),
     "rca_segscan_block_size": (),
-    "rca_seg_up_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
-    "rca_seg_down_step": (_P, _P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
+    "rca_seg_up_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I, _P,
+                        _P),
+    "rca_seg_down_step": (_P, _P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I,
+                          _P, _P),
     "rca_evidence_front": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "rca_seg_contrast_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _P, _P),
+    "rca_seg_contrast_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I,
+                              _P, _P),
 }
 
 

@@ -36,57 +36,81 @@ def _forbidden(name: str) -> bool:
 
 _PROBE = """
 import json, sys
+import numpy as np
 from rca_tpu_torch import GraphEngine
 from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
 from rca_tpu_torch.cluster.generator import synthetic_cascade_world
 from rca_tpu_torch.cluster.mock_client import MockClusterClient
 from rca_tpu_torch.coordinator import RCACoordinator
-res = GraphEngine(device="cpu").analyze_case(
-    synthetic_cascade_arrays(200, n_roots=2, seed=1))
+from rca_tpu_torch.engine.registry import kernel_table
+case = synthetic_cascade_arrays(200, n_roots=2, seed=1)
+engine = GraphEngine(device="cpu")
+res = engine.analyze_case(case)
+lanes = engine.analyze_batch(np.stack([case.features] * 3), case.dep_src,
+                             case.dep_dst, case.names)
 rec = RCACoordinator(MockClusterClient(synthetic_cascade_world(
     50, n_roots=1, seed=7, namespace="synthetic")), backend="torch",
     device="cpu").run_analysis("comprehensive", "synthetic")
+corr = rec["results"]["correlated"]
 print(json.dumps({"top": res.top_components(), "status": rec["status"],
-                  "backend": rec["results"]["correlated"]["backend"],
+                  "backend": corr["backend"],
+                  "provenance": "provenance" in corr,
+                  "lanes": [r.top_components() for r in lanes],
+                  "rows": len(kernel_table()),
                   "modules": sorted(sys.modules)}))
 """
 
 _CLI_PROBE = """
 import json, runpy, sys
-sys.argv = ["rca_tpu_torch", "analyze", "--fixture", "5svc", "--device",
-            "cpu", "--compact"]
-try:
-    runpy.run_module("rca_tpu_torch", run_name="__main__")
-except SystemExit as exc:
-    code = exc.code
-print(json.dumps({"code": code, "modules": sorted(sys.modules)}))
+codes = []
+for argv in (["analyze", "--fixture", "5svc"],
+             ["hypotheses", "--fixture", "50svc", "--seed", "7"],
+             ["kernels", "--services", "50", "--json"]):
+    sys.argv = ["rca_tpu_torch", *argv, "--device", "cpu", "--compact"]
+    try:
+        runpy.run_module("rca_tpu_torch", run_name="__main__")
+    except SystemExit as exc:
+        codes.append(exc.code)
+print(json.dumps({"codes": codes, "modules": sorted(sys.modules)}))
 """
+
+
+def _probe_env():
+    return {**os.environ, "RCA_EXPLAIN": "1", "RCA_KERNEL_CACHE": "off"}
 
 
 def test_port_analysis_loads_no_jax_and_no_rca_tpu():
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=str(ROOT), capture_output=True,
-        text=True, timeout=180,
+        text=True, timeout=180, env=_probe_env(),
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["top"]) == 5
     assert (out["status"], out["backend"]) == ("completed", "torch")
+    assert out["provenance"]
+    assert out["lanes"] == [out["top"]] * 3
+    assert out["rows"] >= 2
     assert "rca_tpu_torch" in out["modules"]
     assert "rca_tpu_torch.coordinator.core" in out["modules"]
+    for module in ("engine.attribution", "engine.registry",
+                   "observability.causelens"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
 def test_port_cli_loads_no_jax_and_no_rca_tpu():
     proc = subprocess.run(
         [sys.executable, "-c", _CLI_PROBE], cwd=str(ROOT),
-        capture_output=True, text=True, timeout=180,
+        capture_output=True, text=True, timeout=180, env=_probe_env(),
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert json.loads(lines[0])["status"] == "completed"
+    assert json.loads(lines[1])["hypotheses"]
+    assert json.loads(lines[2])["rows"]
     out = json.loads(lines[-1])
-    assert out["code"] == 0
+    assert out["codes"] == [0, 0, 0]
     assert "rca_tpu_torch.cli" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
@@ -218,8 +242,12 @@ def test_engine_on_card_runs_the_kernels_and_matches_cpu():
     from rca_tpu_torch.kernels import LAUNCHES, reset_launches
 
     case = synthetic_cascade_arrays(2047, n_roots=3, seed=0)
+    engine = GraphEngine()
+    # the first analysis of a shape races the registry's rows, which
+    # launches the kernels; the counted one reads the resolved row
+    engine.analyze_case(case)
     reset_launches()
-    got = GraphEngine().analyze_case(case)
+    got = engine.analyze_case(case)
     assert LAUNCHES == {"noisy_or_pair": 0, "segscan_sum": 0,
                         "segscan_max": 0, "seg_up_step": 8,
                         "seg_down_step": 8, "evidence_front": 1,
