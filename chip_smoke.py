@@ -2,8 +2,9 @@
 """Drive the PyTorch port (``rca_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py              # the check: exit 0 and a last-line verdict
-    python3 chip_smoke.py --profile    # also profile the analysis per tier
-                                       # and the attribution at 49,999
+    python3 chip_smoke.py --profile    # also profile the analysis per tier,
+                                       # the attribution at 49,999 and a
+                                       # streaming tick per size
     python3 chip_smoke.py --out DIR    # also write the full record to DIR
     python3 chip_smoke.py --sweep      # also time the seg steps per bin cut
 
@@ -83,7 +84,39 @@ verdict line:
    bit for bit; the attribution is timed.
    ``python -m rca_tpu_torch hypotheses --fixture 50svc --seed 7
    --compact`` must put the fixture's fault root first over a batch of 8;
-9. times from CUDA events (median of 20 samples after warm-up): each
+9. resident sessions at both tiers: a seeded request sequence (first,
+   identical, deltas of 1 / 8 / 64 rows with NaN and Inf rows, a delete,
+   a delta wider than ``n_pad / 2``, the heal, identical again) through
+   ``GraphEngine()`` (``RCA_RESIDENT`` on): every request launches 1 / 1
+   / 8 / 8, is bitwise ``GraphEngine(resident=False)`` of the same
+   features (the ``[4, n_pad]`` stack, the top-k with its tie order,
+   ``sanitized_rows``) and the session's upload and fetch bytes are what
+   the reference's formula predicts; the host walls of a delta request,
+   an identical one and a restaged one;
+10. streaming ticks at 2047, 10,000 (BASELINE.md row 4's size) and 49,999
+   services: 30 ticks of a ``StreamingSession`` (deltas of 1 / 8 / 64
+   rows with NaN/Inf, deletes, a delta wider than ``n_pad / 2``, quiet
+   ticks, one ``set_all`` carrying NaN rows): each tick launches 1 / 1 /
+   8 / 8, the ``evidence_front`` launch persisting (counted apart in
+   ``PERSIST_LAUNCHES``) on delta ticks only, the buffer is
+   bitwise its plain version's (a twin session on the ``torch`` row,
+   whose ranking it matches within rtol 1e-5 / atol 1e-6), a manual
+   depth-2 pipeline is the serial run shifted by one, bitwise, every
+   ``dispatch`` runs under ``torch.cuda.set_sync_debug_mode("error")``,
+   and ``memory_allocated`` passes kernelscope's leak gate; then the
+   tick's wall, ``dispatch_ms`` and ``fetch_ms`` per size;
+11. the live session: the 50-service fixture, 60 polls of the live tests'
+   mutation mix at depths 1 and 2, and a 10,000-service cascade world,
+   20 polls at depth 2, each against the port's CPU run of a twin world
+   (components and order exact, scores within rtol 1e-5 / atol 1e-6):
+   depth 2 is depth 1 shifted by one, bitwise; no tick degraded, took a
+   rung or recorded a fault; a dispatch made to fail on every rung takes
+   ``single-device`` and then raises ``KernelPathFailed`` (the card never
+   takes the ``interpret`` rung); then ``python -m rca_tpu_torch stream
+   --fixture 50svc --ticks 10 --pipeline-depth 2 --interval 0``, whose
+   top-1 must be the fixture's root; the quiet and busy capture times and
+   the tick at 10,000;
+12. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -95,10 +128,14 @@ verdict line:
    ``front_call_ms`` and its bound) beside the front it replaces, the
    sanitize's torch ops, the ``noisy_or_pair`` kernel, the error-source
    scatter and the fold (``plain_front_ms`` / ``plain_front_call_ms``);
-   the end-to-end ``analyze_arrays`` wall time at both tiers.
+   the persisting ``evidence_front`` launch (``persist_*``); the
+   end-to-end ``analyze_arrays`` wall time at both tiers, restaged.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (each
-main-path kernel also with its launches per batch and its batched times);
+main-path kernel also with its launches per batch and its batched times,
+and the launches counted on a delta tick, a quiet tick and an 8-row
+resident delta request at 49,999 services, ``evidence_front`` also its
+persisting launches there);
 the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
@@ -551,7 +588,15 @@ def main(argv) -> int:
         engine, cases[TIERS[-1][0]], args.profile, args.out)
     record["hypotheses"] = hypotheses_phase()
 
-    # -- 9. times ----------------------------------------------------------
+    # -- 9-11. resident sessions, streaming ticks, the live session --------
+    record["resident"] = resident_phase(cases, shapes)
+    record["stream"] = stream_phase(engine, cases, args.profile, args.out)
+    record["live"] = live_phase()
+
+    # -- 12. times ---------------------------------------------------------
+    # the analysis walls restage every call, as they did before resident
+    # sessions (the resident phase times its requests)
+    restaged = GraphEngine(resident=False)
     times = {}
     for n in cases:
         n_pad, e_pad = shapes[n]
@@ -627,6 +672,21 @@ def main(argv) -> int:
             "library_ms": None,
             "bound": bound_ms(feat_bytes + 3 * n_pad * 4 + 4, noisy_ops),
         }
+        # the flush's persisting launch, over a buffer whose bad rows the
+        # warm-up calls already zeroed: each timed call writes no row, so
+        # its bytes are the reading launch's
+        buf = pt.clone()
+        plain_buf = pt.clone()
+        t["evidence_front_persist"] = {
+            "ms": cuda_ms(lambda: evidence_front_rows(buf, aw, hw,
+                                                      persist=True)),
+            "call_ms": cuda_ms(lambda: evidence_front_rows(
+                buf, aw, hw, persist=True), queued=False),
+            "plain_ms": cuda_ms(lambda: evidence_front_rows_plain(
+                plain_buf, aw, hw, persist=True)),
+            "library_ms": None,
+            "bound": bound_ms(feat_bytes + 3 * n_pad * 4 + 4, noisy_ops),
+        }
         t["seg_contrast_step"] = {
             "ms": cuda_ms(lambda: seg_contrast_step(a_raw, e, contrast,
                                                     up_d)),
@@ -665,8 +725,8 @@ def main(argv) -> int:
         case = cases[n]
 
         def analyze():
-            engine.analyze_arrays(case.features, case.dep_src,
-                                  case.dep_dst, case.names)
+            restaged.analyze_arrays(case.features, case.dep_src,
+                                    case.dep_dst, case.names)
 
         t["analyze_arrays_ms"] = host_ms(analyze)
         t["analyze_timed_latency_ms"] = engine.analyze_case(
@@ -679,7 +739,8 @@ def main(argv) -> int:
 
     if args.profile:
         for n in cases:
-            profile(engine, cases[n], times[n]["analyze_arrays_ms"], args.out)
+            profile(restaged, cases[n], times[n]["analyze_arrays_ms"],
+                    args.out)
 
     big = TIERS[-1][0]
     sources = {
@@ -703,6 +764,10 @@ def main(argv) -> int:
                           "rca_tpu/engine/segscan.py:136 "
                           "(step down_seg_step :197)"),
     }
+    stream_counts = record["stream"][str(big)]["tick_launches"]
+    resident_counts = next(
+        r for r in record["resident"][str(big)]["requests"]
+        if r["request"] == "delta_8_nan_inf")
     kernels = []
     for name, (src, replaces) in sources.items():
         t = times[big][name]
@@ -714,6 +779,11 @@ def main(argv) -> int:
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "tier_services": big, "at_2047": times[2047][name],
             "snapshot_launches": record["snapshot"]["launches"][name],
+            # counted in the stream and resident phases of this run
+            "tick_launches": {
+                "delta_tick": stream_counts["delta"][name],
+                "quiet_tick": stream_counts["quiet"][name],
+                "resident_delta_request": resident_counts["launches"][name]},
             **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
                if key in t},
         })
@@ -725,6 +795,16 @@ def main(argv) -> int:
                 batch_at_2047=batch["times"]["2047"][name])
         if name == "evidence_front":
             front = times[big]["front"]
+            persist = times[big]["evidence_front_persist"]
+            kernels[-1]["persist_launches"] = {
+                "delta_tick": stream_counts["delta"]["evidence_front_persist"],
+                "quiet_tick": stream_counts["quiet"]["evidence_front_persist"],
+                "resident_delta_request": resident_counts["persist_launches"]}
+            kernels[-1].update(
+                persist_ms=persist["ms"], persist_call_ms=persist["call_ms"],
+                persist_plain_ms=persist["plain_ms"],
+                persist_bound_ms=persist["bound"][0],
+                persist_at_2047=times[2047]["evidence_front_persist"])
             kernels[-1].update(
                 front_ms=front["ms"], front_call_ms=front["call_ms"],
                 front_bound_ms=front["bound"][0],
@@ -1387,6 +1467,587 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
     return out
 
 
+#: launches of the four main-path kernels per resident request and per
+#: streaming tick (delta or quiet), every other kernel 0
+TICK_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
+                 "seg_up_step": 8, "seg_down_step": 8, "noisy_or_pair": 0,
+                 "segscan_sum": 0, "segscan_max": 0}
+STREAM_SIZES = (2047, 10000, 49999)
+
+
+def _bits(t):
+    """A float32 tensor's bit pattern (NaN-safe bitwise comparisons)."""
+    import torch
+
+    return t.contiguous().view(torch.int32)
+
+
+def _pow2(u: int) -> int:
+    return 1 << max(0, (u - 1).bit_length()) if u else 1
+
+
+def _resident_requests(case, n_pad, rng):
+    """The seeded request sequence of the resident phase: labelled feature
+    matrices over one graph."""
+    import numpy as np
+
+    n = case.n
+    f = case.features.copy()
+    out = [("first", f.copy()), ("identical", f.copy())]
+    rows = rng.choice(n, 1, replace=False)
+    f[rows] = rng.uniform(0, 1, (1, C))
+    out.append(("delta_1", f.copy()))
+    rows = rng.choice(n, 8, replace=False)
+    f[rows] = rng.uniform(0, 1, (8, C))
+    f[rows[0]] = np.nan
+    f[rows[1], 4] = np.inf
+    out.append(("delta_8_nan_inf", f.copy()))
+    rows = rng.choice(n, 64, replace=False)
+    f[rows] = rng.uniform(0, 1, (64, C))
+    f[rows[2], 0] = -np.inf
+    out.append(("delta_64", f.copy()))
+    f[rng.choice(n, 3, replace=False)] = 0.0
+    out.append(("delete_3", f.copy()))
+    rows = rng.choice(n, n_pad // 2 + 16, replace=False)
+    f[rows] = rng.uniform(0, 1, (len(rows), C))
+    out.append(("wide", f.copy()))
+    f = np.nan_to_num(f, posinf=0.0, neginf=0.0)
+    out.append(("heal", f.copy()))
+    out.append(("identical_again", f.copy()))
+    return out
+
+
+def resident_phase(cases, shapes) -> dict:
+    """Resident sessions on the card at both tiers: every request of the
+    seeded sequence is bitwise equal to ``GraphEngine(resident=False)``
+    of the same features (the ``[4, n_pad]`` stack, the top-k with its tie
+    order, ``sanitized_rows``), launches 1 / 1 / 8 / 8, and moves the bytes
+    the reference's formula predicts; then the host wall of a delta
+    request beside a restaged one."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.kernels import (
+        LAUNCHES,
+        PERSIST_LAUNCHES,
+        reset_launches,
+    )
+
+    out = {}
+    for n, case in cases.items():
+        n_pad, _ = shapes[n]
+        rng = np.random.default_rng(70 + n)
+        res = GraphEngine()
+        restaged = GraphEngine(resident=False)
+        kk = min(5 + 8, n_pad)
+        want_up = want_fetch = 0
+        prev = None
+        rows = []
+        for label, f in _resident_requests(case, n_pad, rng):
+            changed = (None if prev is None else
+                       np.flatnonzero(np.any(f != prev, axis=1)))
+            if changed is None or 2 * len(changed) >= n_pad:
+                want_up += n_pad * C * 4
+                prev = f.copy()
+            elif len(changed):
+                want_up += _pow2(len(changed)) * (4 + C * 4)
+                prev[changed] = f[changed]
+            want_fetch += 4 * kk * 4 + kk * 4 + kk * 4 + 4
+            reset_launches()
+            got = res.analyze_arrays(f, case.dep_src, case.dep_dst,
+                                     case.names)
+            launches = dict(LAUNCHES)
+            persisting = PERSIST_LAUNCHES["evidence_front"]
+            ref = restaged.analyze_arrays(f, case.dep_src, case.dep_dst,
+                                          case.names)
+            if launches != TICK_LAUNCHES or persisting:
+                fail(f"resident {label} at {n}: launches {launches}, "
+                     f"{persisting} persisting")
+            if not torch.equal(_bits(torch.from_numpy(
+                    got.full_diagnostics())), _bits(torch.from_numpy(
+                        ref.full_diagnostics()))):
+                fail(f"resident {label} at {n} is not bitwise restaging")
+            if got.ranked != ref.ranked or \
+                    got.sanitized_rows != ref.sanitized_rows:
+                fail(f"resident {label} at {n}: ranking or sanitized_rows "
+                     f"differ from restaging")
+            sess = next(iter(res._resident_cache._sessions.values()))
+            rows.append({"request": label,
+                         "upload_rows": sess.last_upload_rows,
+                         "sanitized_rows": got.sanitized_rows,
+                         "launches": launches,
+                         "persist_launches": persisting})
+        stats = res._resident_cache.stats()
+        if (stats["upload_bytes"], stats["fetch_bytes"]) != (want_up,
+                                                             want_fetch):
+            fail(f"resident bytes at {n}: {stats} vs upload {want_up}, "
+                 f"fetch {want_fetch}")
+        # host walls: a delta of 8 rows (alternating two matrices) beside
+        # the same request restaged, and an identical request
+        a = case.features.copy()
+        b = a.copy()
+        b[rng.choice(n, 8, replace=False)] = rng.uniform(0, 1, (8, C))
+        flip = [a, b]
+
+        def delta():
+            flip.reverse()
+            res.analyze_arrays(flip[0], case.dep_src, case.dep_dst,
+                               case.names)
+
+        def restage():
+            restaged.analyze_arrays(a, case.dep_src, case.dep_dst,
+                                    case.names)
+
+        def identical():
+            res.analyze_arrays(flip[0], case.dep_src, case.dep_dst,
+                               case.names)
+
+        walls = {"delta_request_ms": host_samples(delta),
+                 "restaged_request_ms": host_samples(restage),
+                 "identical_request_ms": host_samples(identical)}
+        out[str(n)] = {
+            "requests": rows, "stats": stats, "bitwise": True,
+            **{k: float(np.median(v)) for k, v in walls.items()},
+            **{f"{k}_range": [min(v), max(v)] for k, v in walls.items()}}
+        phase("resident", services=n, **out[str(n)])
+    return out
+
+
+def _stream_script(n, n_pad, rng):
+    """30 ticks: ``("delta", idx, rows)``, ``("quiet",)`` or
+    ``("set_all", matrix)``, with NaN/Inf rows, deletes and a delta wider
+    than ``n_pad / 2``."""
+    import numpy as np
+
+    def delta(u, poison=False):
+        idx = rng.choice(n, u, replace=False)
+        rows = rng.uniform(0, 1, (u, C)).astype(np.float32)
+        if poison:
+            rows[0] = np.nan
+            rows[-1, 3] = np.inf
+        return ("delta", idx, rows)
+
+    script = []
+    for t in range(30):
+        kind = t % 6
+        if t == 15:
+            script.append(("set_all", None))
+        elif kind == 0:
+            script.append(delta(1))
+        elif kind == 1:
+            script.append(delta(8, poison=True))
+        elif kind == 2:
+            script.append(delta(64, poison=True))
+        elif kind == 3:
+            script.append(("quiet",))
+        elif kind == 4:
+            idx = rng.choice(n, 3, replace=False)
+            script.append(("delta", idx, np.zeros((3, C), np.float32)))
+        else:
+            script.append(delta(n_pad // 2 + 8) if t == 5 else delta(8))
+    return script
+
+
+def stream_phase(engine, cases, profile_it: bool = False,
+                 out_dir=None) -> dict:
+    """``StreamingSession`` on the card at 2047, 10,000 and 49,999
+    services over a 30-tick script: each tick launches 1 / 1 / 8 / 8
+    (``evidence_front`` persisting on delta ticks), its buffer is bitwise
+    the plain version's (a twin session on the ``torch`` row), its ranking
+    the plain twin's within rtol 1e-5 / atol 1e-6, manual depth-2
+    pipelining is serial shifted by one, bitwise, every ``dispatch`` runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, and
+    ``memory_allocated`` passes the leak gate; then the tick's times
+    (``profile_it``: the device time and busy share of a delta and a
+    quiet tick)."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.config import RCAConfig, bucket_for
+    from rca_tpu_torch.engine.streaming import StreamingSession
+    from rca_tpu_torch.kernels import (
+        LAUNCHES,
+        PERSIST_LAUNCHES,
+        reset_launches,
+    )
+    from rca_tpu_torch.observability.kernelscope import leak_gate
+
+    def no_sync(fn):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def stage(session, step, start):
+        if step[0] == "delta":
+            session.update_rows(step[1], step[2])
+        elif step[0] == "set_all":
+            session.set_all(start)
+
+    out = {}
+    for n in STREAM_SIZES:
+        case = cases.get(n) or synthetic_cascade_arrays(n, n_roots=3,
+                                                        seed=0)
+        n_pad = bucket_for(n + 1, RCAConfig().shape_buckets)
+        rng = np.random.default_rng(90 + n)
+        script = _stream_script(n, n_pad, rng)
+        bad_start = case.features.copy()
+        bad_start[rng.choice(n, 4, replace=False)] = np.nan
+
+        names = (list(case.names) if case.names is not None
+                 else [f"svc-{i}" for i in range(n)])
+
+        def session():
+            s = StreamingSession(names, case.dep_src, case.dep_dst,
+                                 num_features=C, engine=engine, k=5)
+            s.set_all(case.features)
+            return s
+
+        serial, plain, piped = session(), session(), session()
+        plain.use_torch_row()
+        if serial.kernel_path != "kernels":
+            fail(f"stream at {n} engages {serial.kernel_path}")
+        serial_out, piped_out, mem = [], [], []
+        prev = None
+        persisted_rows = 0
+        counted = {}  # the launches of the first tick of each kind
+        for t, step in enumerate(script):
+            for s in (serial, plain, piped):
+                stage(s, step, bad_start)
+            reset_launches()
+            handle = no_sync(serial.dispatch)
+            got = serial.fetch(handle)
+            launches = dict(LAUNCHES)
+            persisting = PERSIST_LAUNCHES["evidence_front"]
+            if launches != TICK_LAUNCHES or \
+                    persisting != int(step[0] == "delta"):
+                fail(f"stream tick {t} ({step[0]}) at {n}: launches "
+                     f"{launches}, {persisting} persisting")
+            counted.setdefault(step[0], dict(
+                launches, evidence_front_persist=persisting))
+            want = plain.tick()
+            if not torch.equal(_bits(serial._features),
+                               _bits(plain._features)):
+                fail(f"stream tick {t} at {n}: the persisted buffer is not "
+                     f"bitwise its plain version")
+            if [r["component"] for r in got["ranked"]] != \
+                    [r["component"] for r in want["ranked"]] or \
+                    not np.allclose([r["score"] for r in got["ranked"]],
+                                    [r["score"] for r in want["ranked"]],
+                                    rtol=1e-5, atol=1e-6):
+                fail(f"stream tick {t} at {n}: ranking differs from the "
+                     f"plain twin")
+            for key in ("sanitized_rows", "upload_rows"):
+                if got[key] != want[key]:
+                    fail(f"stream tick {t} at {n}: {key} {got[key]} vs "
+                         f"{want[key]}")
+            if step[0] == "delta":
+                persisted_rows += got["sanitized_rows"]
+            serial_out.append(got)
+            h = no_sync(piped.dispatch)
+            if prev is not None:
+                piped_out.append(piped.fetch(prev))
+            prev = h
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+        piped_out.append(piped.fetch(prev))
+        for t, (a, b) in enumerate(zip(serial_out, piped_out)):
+            if (a["ranked"], a["upload_rows"], a["sanitized_rows"]) != \
+                    (b["ranked"], b["upload_rows"], b["sanitized_rows"]):
+                fail(f"stream at {n}: depth-2 tick {t} differs from serial")
+        if not torch.equal(_bits(serial._features), _bits(piped._features)):
+            fail(f"stream at {n}: the depth-2 buffer differs from serial")
+        if torch.isnan(serial._features).any():
+            fail(f"stream at {n}: a NaN row survived a delta tick")
+        gate = leak_gate(mem, warmup=3)
+        if not gate["ok"]:
+            fail(f"stream at {n}: device memory grew {gate}")
+
+        # the sync debug mode does not see every sync, so also: a dispatch
+        # (delta, then quiet) queued behind a 0.2 s sleep kernel returns
+        # while the card is still busy, its result not yet ready
+        behind = []
+        for step in (_stream_script(n, n_pad, rng)[1], ("quiet",)):
+            stage(serial, step, bad_start)
+            torch.cuda._sleep(int(0.2 * 2e9))
+            t0 = time.perf_counter()
+            handle = no_sync(serial.dispatch)
+            ms = (time.perf_counter() - t0) * 1e3
+            pending = not handle.result.ready.query()
+            serial.fetch(handle)
+            if not pending or ms > 100:
+                fail(f"stream at {n}: a {step[0]} dispatch waited for the "
+                     f"card ({ms:.1f} ms, result pending {pending})")
+            behind.append(ms)
+
+        # times: 8-row delta ticks, serial
+        walls, dispatch, fetch = [], [], []
+        for _ in range(23):
+            serial.update_rows(rng.choice(n, 8, replace=False),
+                               rng.uniform(0, 1, (8, C)).astype(np.float32))
+            t0 = time.perf_counter()
+            tick = serial.tick()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dispatch.append(tick["dispatch_ms"])
+            fetch.append(tick["fetch_ms"])
+        quiet = host_samples(serial.tick)
+        walls, dispatch, fetch = walls[3:], dispatch[3:], fetch[3:]
+        profiles = {}
+        if profile_it:
+            from rca_tpu_torch.observability.spans import set_profiling
+
+            # name the tick's halves in the profile (device_annotation)
+            set_profiling(True)
+            def delta_tick():
+                serial.update_rows(
+                    rng.choice(n, 8, replace=False),
+                    rng.uniform(0, 1, (8, C)).astype(np.float32))
+                serial.tick()
+
+            profiles = {
+                "device_profile_delta_tick": device_profile(
+                    delta_tick, float(np.median(walls)), out_dir,
+                    f"tick_{n}", calls=5, warm=2),
+                "device_profile_quiet_tick": device_profile(
+                    serial.tick, float(np.median(quiet)), out_dir,
+                    f"quiet_tick_{n}", calls=5, warm=2)}
+            set_profiling(False)
+        out[str(n)] = {
+            "n_pad": n_pad, "ticks": len(script), "tick_launches": counted,
+            "persisting_sanitized_rows": persisted_rows,
+            "sync_free_dispatches": 2 * len(script) + 2,
+            "dispatch_behind_sleep_ms": behind,
+            "memory_gate": gate,
+            "tick_wall_ms": float(np.median(walls)),
+            "tick_wall_ms_range": [min(walls), max(walls)],
+            "dispatch_ms": float(np.median(dispatch)),
+            "fetch_ms": float(np.median(fetch)),
+            "quiet_tick_wall_ms": float(np.median(quiet)), **profiles}
+        phase("stream", services=n, **out[str(n)])
+    return out
+
+
+def _mutate(world, ns, op):
+    """One descriptor-driven mutation of a world (the live tests' mix:
+    crash, heal, logs, metrics; the same descriptor keeps twin worlds
+    identical)."""
+    from rca_tpu_torch.cluster.world import waiting_status
+
+    kind, idx, arg = op
+    pods = world.pods[ns]
+    pod = pods[idx % len(pods)]
+    name = pod["metadata"]["name"]
+    app = pod["metadata"]["labels"].get("app", "x")
+    if kind == "crash":
+        pod["status"]["phase"] = "Running"
+        pod["status"]["containerStatuses"] = [
+            waiting_status(app, "CrashLoopBackOff", restarts=arg,
+                           last_exit_code=1)]
+        world.touch("pod", ns, name)
+    elif kind == "heal":
+        pod["status"]["phase"] = "Running"
+        pod["status"]["containerStatuses"] = [
+            {"name": app, "ready": True, "restartCount": 0,
+             "state": {"running": {}}}]
+        world.touch("pod", ns, name)
+    elif kind == "logs":
+        world.logs[ns][name] = {app: f"ERROR: failure mode {arg}\n" * arg}
+        world.touch("logs", ns, name)
+    elif kind == "metrics":
+        rec = world.pod_metrics[ns]["pods"].get(name)
+        if rec:
+            rec["cpu"]["usage_percentage"] = float(arg)
+            world.touch("pod_metrics", ns, name)
+
+
+def _op_sequence(seed, n):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds = ("crash", "heal", "logs", "metrics")
+    return [(kinds[int(rng.integers(0, len(kinds)))],
+             int(rng.integers(0, 10_000)), int(rng.integers(1, 9)))
+            for _ in range(n)]
+
+
+def _live_run(make_world, ns, device, depth, ops, check_every):
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
+
+    world = make_world()
+    live = LiveStreamingSession(
+        MockClusterClient(world), ns, k=3, engine=GraphEngine(device=device),
+        topology_check_every=check_every, pipeline_depth=depth)
+    outs = []
+    for t, op in enumerate(ops):
+        if t % 3 != 2:          # every third poll stays quiet
+            _mutate(world, ns, op)
+        outs.append(live.poll())
+    return outs
+
+
+def _card_ladder(make_world) -> dict:
+    """The degradation ladder on the card: a dispatch that keeps failing
+    (injected) takes the ``single-device`` rung, a fresh engine on the
+    same kernels, then ``poll()`` raises ``KernelPathFailed`` where the
+    reference would step to ``interpret``; no tick ran on the ``torch``
+    row."""
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
+    from rca_tpu_torch.engine.live import KernelPathFailed
+    from rca_tpu_torch.engine.streaming import StreamingSession
+    from rca_tpu_torch.resilience.policy import drain_faults
+
+    live = LiveStreamingSession(MockClusterClient(make_world()),
+                                "synthetic", k=3, engine=GraphEngine(),
+                                topology_check_every=100)
+    live.poll()
+    real = StreamingSession.dispatch
+
+    def broken(self):
+        raise RuntimeError("injected dispatch failure")
+
+    StreamingSession.dispatch = broken
+    try:
+        live.poll()
+    except KernelPathFailed as exc:
+        raised = type(exc).__name__
+    else:
+        fail("live ladder: a dispatch failing on every rung did not raise")
+    finally:
+        StreamingSession.dispatch = real
+    # the raise left the injected faults in the process's fault log
+    faults = [f["op"] for f in drain_faults()]
+    if live.degradation != 1 or live.session.kernel_path != "kernels" or \
+            live.engine.device.type != "cuda":
+        fail(f"live ladder: rung {live.degradation}, kernel_path "
+             f"{live.session.kernel_path}, device {live.engine.device}")
+    return {"raised": raised, "rung": "single-device",
+            "kernel_path": live.session.kernel_path, "faults": faults}
+
+
+def live_phase() -> dict:
+    """``LiveStreamingSession`` on the card: the 50-service fixture, 60
+    polls of the live tests' mutation mix at depths 1 and 2, and a
+    10,000-service cascade world, 20 polls at depth 2.  On every tick:
+    depth 2 is depth 1 shifted by one, bitwise; nothing degraded, no rung
+    taken, no fault; the ranking equals the port's CPU run (components and
+    order exact, scores within rtol 1e-5 / atol 1e-6).  The ladder on the
+    card raises instead of taking the ``interpret`` rung.  Then
+    ``python -m rca_tpu_torch stream --fixture 50svc --ticks 10
+    --pipeline-depth 2`` in a subprocess, whose top-1 must be the
+    fixture's root."""
+    import numpy as np
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+
+    def healthy(outs, label):
+        for t, o in enumerate(outs):
+            h = o["health"]
+            if o["degraded"] or h["degradation"] or h["faults"]:
+                fail(f"live {label} tick {t}: degraded {o['degraded']}, "
+                     f"rung {h['degradation_rung']}, faults {h['faults']}")
+            if h["kernel_path"] != "kernels":
+                fail(f"live {label} tick {t}: kernel_path "
+                     f"{h['kernel_path']}")
+
+    def same_as_cpu(card, cpu, label):
+        for t, (a, b) in enumerate(zip(card, cpu)):
+            if [r["component"] for r in a["ranked"]] != \
+                    [r["component"] for r in b["ranked"]] or \
+                    not np.allclose([r["score"] for r in a["ranked"]],
+                                    [r["score"] for r in b["ranked"]],
+                                    rtol=1e-5, atol=1e-6):
+                fail(f"live {label} tick {t}: ranking differs from the CPU "
+                     f"run")
+            for key in ("changed_rows", "upload_rows", "quiet", "resynced"):
+                if a[key] != b[key]:
+                    fail(f"live {label} tick {t}: {key} {a[key]} vs "
+                         f"{b[key]}")
+
+    out = {}
+    ops = _op_sequence(13, 60)
+
+    def fixture():
+        return synthetic_cascade_world(50, n_roots=1, seed=7,
+                                       namespace="synthetic")
+
+    d1 = _live_run(fixture, "synthetic", "cuda", 1, ops, 7)
+    d2 = _live_run(fixture, "synthetic", "cuda", 2, ops, 7)
+    cpu = _live_run(fixture, "synthetic", "cpu", 1, ops, 7)
+    healthy(d1, "50svc depth 1")
+    healthy(d2, "50svc depth 2")
+    if not d2[0]["health"]["pipeline_fill"]:
+        fail("live 50svc depth 2: the first poll is not a fill tick")
+    for t in range(1, 60):
+        if d2[t]["ranked"] != d1[t - 1]["ranked"]:
+            fail(f"live 50svc: depth-2 tick {t} is not depth-1 tick {t - 1}")
+    same_as_cpu(d1, cpu, "50svc")
+    out["50svc"] = {
+        "polls": 60, "busy_polls": sum(not o["quiet"] for o in d1),
+        "tick_ms": float(np.median([o["latency_ms"] for o in d1[1:]])),
+        "capture_ms_busy": float(np.median(
+            [o["capture_ms"] for o in d1 if not o["quiet"]])),
+        "capture_ms_quiet": float(np.median(
+            [o["capture_ms"] for o in d1 if o["quiet"]]))}
+    phase("live", world="50svc", **out["50svc"])
+    out["ladder"] = _card_ladder(fixture)
+    phase("live_ladder", **out["ladder"])
+
+    t0 = time.perf_counter()
+    big = [synthetic_cascade_world(10000, n_roots=3, seed=0)
+           for _ in range(2)]
+    generate_s = time.perf_counter() - t0
+    ops = _op_sequence(29, 20)
+    card = _live_run(lambda: big[0], "synthetic", "cuda", 2, ops, 5)
+    cpu = _live_run(lambda: big[1], "synthetic", "cpu", 2, ops, 5)
+    healthy(card, "10k depth 2")
+    same_as_cpu(card, cpu, "10k")
+    # poll p (1-based) is a sweep when p % 5 == 0, a watch poll otherwise
+    quiet = [o["capture_ms"] for o in card[1:] if o["quiet"]]
+    busy = [o["capture_ms"] for p, o in enumerate(card[1:], start=2)
+            if not o["quiet"] and not o["resynced"] and p % 5]
+    sweeps = [o["capture_ms"] for p, o in enumerate(card, start=1)
+              if p % 5 == 0]
+    ticks = [o["latency_ms"] for o in card[2:]]
+    dispatch = [o["dispatch_ms"] for o in card[2:]]
+    fetch = [o["fetch_ms"] for o in card[2:]]
+    out["10k"] = {
+        "polls": 20, "generate_s": generate_s,
+        "capture_ms_quiet": float(np.median(quiet)),
+        "capture_ms_busy": float(np.median(busy)),
+        "capture_ms_busy_range": [min(busy), max(busy)],
+        "capture_ms_sweep": float(np.median(sweeps)),
+        "tick_ms": float(np.median(ticks)),
+        "tick_ms_range": [min(ticks), max(ticks)],
+        "dispatch_ms": float(np.median(dispatch)),
+        "fetch_ms": float(np.median(fetch)),
+        "top": [r["component"] for r in card[-1]["ranked"]],
+        "fault_roots": big[0].ground_truth["fault_roots"]}
+    phase("live", world="10k", **out["10k"])
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "stream", "--fixture",
+         "50svc", "--ticks", "10", "--pipeline-depth", "2", "--interval",
+         "0"], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m rca_tpu_torch stream exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    roots = synthetic_cascade_world(50, n_roots=1, seed=0).ground_truth[
+        "fault_roots"]
+    last = lines[-1]
+    if len(lines) != 10 or not last["ranked"] or \
+            last["ranked"][0]["component"] not in roots or \
+            last.get("degraded") or last.get("pipeline_depth") != 2:
+        fail(f"stream: {len(lines)} lines, last {last}, roots {roots}")
+    out["cli"] = {"top": last["ranked"][0]["component"],
+                  "seconds": time.perf_counter() - t0}
+    phase("stream_cli", **out["cli"])
+    return out
+
+
 def sweep(cases, shapes, kin, decay, cuts=(8, 16, 32, 64, 128, 256)):
     """Device time of each seg-step kernel per tier over layouts binned at
     each cut (the longest segment one thread reduces), on the check
@@ -1444,9 +2105,12 @@ def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
         torch.cuda.synchronize()
     events = prof.key_averages()
     # device-side events: kernels, copies and memsets; the profiler's own
-    # buffer request shows up there too and is left out
+    # buffer request and the host scopes named by device_annotation
+    # (their ranges show on the device timeline too) are left out
     on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and e.key != "Activity Buffer Request"]
+                 and e.key != "Activity Buffer Request"
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.key.startswith("tick.")]
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0)

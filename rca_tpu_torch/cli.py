@@ -1,5 +1,5 @@
-"""Command-line interface of the port (the ``analyze``, ``hypotheses`` and
-``kernels`` commands of ``rca_tpu.cli``).
+"""Command-line interface of the port (the ``analyze``, ``hypotheses``,
+``kernels`` and ``stream`` commands of ``rca_tpu.cli``).
 
 - ``python -m rca_tpu_torch analyze``: one agent or the comprehensive
   pipeline over a fixture world → findings JSON, exit 0 when the analysis
@@ -8,7 +8,10 @@
   the top candidates, every hypothesis a lane of one batched analysis;
 - ``python -m rca_tpu_torch kernels``: the kernel registry's table, each
   row with its engaged kernel, why, its timings and every candidate's
-  eligibility.
+  eligibility;
+- ``python -m rca_tpu_torch stream``: the live streaming session, one
+  JSON line per poll (``--pipeline-depth 2`` overlaps each tick's device
+  work with the next poll's capture).
 
 Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
 <N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``).  Every command
@@ -219,6 +222,64 @@ def cmd_kernels(args) -> int:
     return 0
 
 
+def cmd_stream(args) -> int:
+    """Poll-driven live streaming: one JSON line per tick, with the
+    reference's keys and its conditional channels (``degraded``,
+    ``sanitized_rows``, ``degradation_rung``, and at depth >= 2
+    ``pipeline_depth`` / ``result_lag`` / ``pipeline_fill``).  Exits 1
+    when a tick degraded (it may have served a stale ranking)."""
+    import time
+
+    from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
+
+    if args.fixture in (None, "", "live"):
+        print("rca_tpu_torch: a live cluster is not supported yet; pass "
+              "--fixture 5svc or --fixture <N>svc", file=sys.stderr)
+        return 2
+    client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
+    live = LiveStreamingSession(
+        client, args.namespace or ns, k=args.top,
+        engine=GraphEngine(device=args.device),
+        pipeline_depth=args.pipeline_depth,
+    )
+    degraded = 0
+    for i in range(args.ticks):
+        out = live.poll()
+        line = {
+            "tick": out["tick"],
+            "latency_ms": round(out["latency_ms"], 3),
+            "capture_ms": out["capture_ms"],
+            "quiet": out.get("quiet", False),
+            "changed_rows": out["changed_rows"],
+            "upload_rows": out["upload_rows"],
+            "resynced": out["resynced"],
+            "ranked": out["ranked"],
+        }
+        # the resilience channel: printed only when something degraded
+        health = out.get("health", {})
+        if out.get("degraded"):
+            line["degraded"] = True
+            degraded += 1
+        if health.get("sanitized_rows"):
+            line["sanitized_rows"] = health["sanitized_rows"]
+        if health.get("degradation"):
+            line["degradation_rung"] = health["degradation_rung"]
+        # the pipeline channel: only at depth >= 2
+        if health.get("pipeline_depth", 1) > 1:
+            line["pipeline_depth"] = health["pipeline_depth"]
+            line["result_lag"] = health["result_lag"]
+            if health.get("pipeline_fill"):
+                line["pipeline_fill"] = True
+        print(json.dumps(line, default=str), flush=True)
+        if args.interval > 0 and i + 1 < args.ticks:
+            time.sleep(args.interval)
+    if degraded:
+        print(f"rca_tpu_torch: {degraded} of {args.ticks} ticks degraded",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rca_tpu_torch",
@@ -283,6 +344,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="machine-readable rows instead of the table")
     sp.add_argument("--compact", action="store_true")
     sp.set_defaults(fn=cmd_kernels)
+
+    sp = sub.add_parser(
+        "stream", help="poll-driven live streaming analysis (1 Hz loop)"
+    )
+    sp.add_argument("--fixture", default=None, help="5svc | <N>svc")
+    sp.add_argument("--fault-mix", default="crash", dest="fault_mix",
+                    help="synthetic fixtures' root fault archetypes")
+    sp.add_argument("--namespace", default=None)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--ticks", type=int, default=5)
+    sp.add_argument("--interval", type=float, default=1.0,
+                    help="seconds between polls (0 = as fast as possible)")
+    sp.add_argument("--top", type=int, default=5)
+    sp.add_argument("--pipeline-depth", type=int, default=None,
+                    dest="pipeline_depth",
+                    help="tick pipeline depth (default $RCA_PIPELINE_DEPTH "
+                    "or 1): 2 overlaps each tick's device work with the "
+                    "next poll's capture; rankings arrive depth-1 ticks "
+                    "late")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.set_defaults(fn=cmd_stream)
     return p
 
 

@@ -6,9 +6,15 @@ Copied semantics: :class:`RCAConfig`'s engine knobs, the shape-bucket rule
 :func:`bucket_for`, the free-form env accessor :func:`env_raw`
 (``RCA_WEIGHTS``), the checked accessors :func:`env_str` (``RCA_BACKEND``)
 and :func:`env_int`, :func:`explain_enabled` (``RCA_EXPLAIN``) with its
-two sizes :func:`explain_paths` / :func:`explain_topm`, and the kernel
+two sizes :func:`explain_paths` / :func:`explain_topm`, the kernel
 registry's knobs: :func:`kernel_cache_path` (``RCA_KERNEL_CACHE``) and
-:func:`forced_kernel` (``RCA_KERNEL``).
+:func:`forced_kernel` (``RCA_KERNEL``), the resident sessions'
+:func:`resident_enabled` (``RCA_RESIDENT``) and :func:`resident_cache_cap`
+(``RCA_RESIDENT_CACHE``), the live session's :func:`pipeline_depth_from_env`
+(``RCA_PIPELINE_DEPTH``), tracing (``RCA_TRACE``, ``RCA_TRACE_BUFFER``),
+kernelscope (``RCA_KERNELSCOPE``, ``RCA_MEM_SAMPLE_EVERY``) and
+:func:`compile_cache_status`, which in the port describes the kernel build
+directory.
 """
 
 from __future__ import annotations
@@ -55,11 +61,14 @@ def env_int(name: str, default: int, lo: int, hi: int) -> int:
     return value
 
 
+def _flag_on(name: str, default: str) -> bool:
+    return env_str(name, default, choices=("0", "1", "on", "off"),
+                   lower=True) in ("1", "on")
+
+
 def explain_enabled() -> bool:
     """``RCA_EXPLAIN``: attach the attribution block to engine rankings."""
-    return env_str(
-        "RCA_EXPLAIN", "0", choices=("0", "1", "on", "off"), lower=True,
-    ) in ("1", "on")
+    return _flag_on("RCA_EXPLAIN", "0")
 
 
 def explain_paths() -> int:
@@ -100,6 +109,73 @@ def forced_kernel() -> Optional[str]:
     ``kernels``), or None to let the registry decide."""
     return env_str("RCA_KERNEL", "", choices=("",) + KERNELS,
                    lower=True) or None
+
+
+def resident_enabled() -> bool:
+    """``RCA_RESIDENT``: device-resident one-shot analyze sessions (default
+    on; 0 restages the full padded matrix on every call)."""
+    return _flag_on("RCA_RESIDENT", "1")
+
+
+def resident_cache_cap() -> int:
+    """``RCA_RESIDENT_CACHE``: resident sessions kept per engine (LRU)."""
+    return env_int("RCA_RESIDENT_CACHE", 8, 1, 1024)
+
+
+def pipeline_depth_from_env(default: int = 1) -> int:
+    """``RCA_PIPELINE_DEPTH`` as a validated int (>= 1); empty/unset means
+    the caller's default.  A malformed value fails loudly."""
+    raw = (os.environ.get("RCA_PIPELINE_DEPTH") or "").strip()
+    if not raw:
+        return default
+    try:
+        depth = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"RCA_PIPELINE_DEPTH={raw!r}: expected a positive integer"
+        )
+    if depth < 1:
+        raise ValueError(
+            f"RCA_PIPELINE_DEPTH={depth}: depth counts this tick too, so "
+            "it must be >= 1 (1 = serial)"
+        )
+    return depth
+
+
+def trace_enabled() -> bool:
+    """``RCA_TRACE``: span-based tracing (default off: the null tracer)."""
+    return _flag_on("RCA_TRACE", "0")
+
+
+def trace_buffer_cap() -> int:
+    """``RCA_TRACE_BUFFER``: ring-buffer span capacity."""
+    return env_int("RCA_TRACE_BUFFER", 8192, 64, 1_000_000)
+
+
+def kernelscope_enabled() -> bool:
+    """``RCA_KERNELSCOPE``: the recompile monitor and the device-memory
+    accountant of the live session's health record (default on)."""
+    return _flag_on("RCA_KERNELSCOPE", "1")
+
+
+def memory_sample_every() -> int:
+    """``RCA_MEM_SAMPLE_EVERY``: ticks between device-memory samples."""
+    return env_int("RCA_MEM_SAMPLE_EVERY", 10, 1, 100_000)
+
+
+def compile_cache_status() -> dict:
+    """The port's compile cache: the kernel build directory, where the
+    built library (named by a hash of its sources) and the registry's
+    timed rows persist across processes.  Always enabled; ``entries``
+    counts its files now, so a caller sampling it before and after a
+    session's first tick sees what that session had to build."""
+    from rca_tpu_torch.kernels.build import BUILD_DIR
+
+    try:
+        entries = sum(1 for e in os.scandir(BUILD_DIR) if e.is_file())
+    except OSError:
+        entries = 0
+    return {"enabled": True, "dir": str(BUILD_DIR), "entries": entries}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,8 +23,17 @@
 // counts as a row of zeros) and takes the error rate
 // e = clip(f[:, err_col], 0, 1) of the sanitized row, which the
 // error-source contrast (seg_contrast_step in segstep.cu) reads.  It
-// writes a_raw, h and e as [S] vectors and the count of bad rows; the
-// clean matrix is never written.
+// writes a_raw, h and e as [S] vectors and the count of bad rows.  The
+// clean matrix is written only by the persisting launch (persist != 0,
+// evidence_front_persist_kernel), the streaming flush's: it also writes
+// zeros over each row it found non-finite, in place in its input, as the
+// reference's flush persists the sanitized buffer
+// (rca_tpu/engine/streaming.py::_flush_propagate_ranked).  Each row is
+// read only by its own block, into the tile, before its thread writes
+// it, so the persisting kernel reads its input with plain loads (never
+// through the read-only cache, and through no const __restrict__
+// pointer); clean rows are not touched.  The non-persisting launch keeps
+// its read-only loads and its bits.
 //
 //   - Each block first stages its 256-row tile (13,312 bytes at C = 13) in
 //     shared memory with coalesced 16-byte loads, where one thread per row
@@ -113,6 +122,41 @@ __global__ void noisy_or_pair_kernel(const float* __restrict__ features,
   noisy_or_row(row, false, wa, wh, n_channels, a + s, h + s);
 }
 
+// Stages ``count`` floats from ``src`` into the block's tile: 16-byte
+// loads where the rows start aligned, through the read-only cache where
+// the launch never writes its input (kReadOnly).
+template <bool kReadOnly>
+__device__ __forceinline__ void stage_tile(const float* src, float* tile,
+                                           int count, bool vector_loads) {
+  int done = 0;
+  if (vector_loads) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* tile4 = reinterpret_cast<float4*>(tile);
+    const int n4 = count / 4;
+    for (int i = threadIdx.x; i < n4; i += kThreads) {
+      tile4[i] = kReadOnly ? __ldg(src4 + i) : src4[i];
+    }
+    done = n4 * 4;
+  }
+  for (int i = done + threadIdx.x; i < count; i += kThreads) {
+    tile[i] = kReadOnly ? __ldg(src + i) : src[i];
+  }
+}
+
+// One thread's row pass over its staged row: the sanitize (a row with any
+// NaN/Inf is a row of zeros), the pair and the error rate.  Returns
+// whether the row was bad.
+__device__ __forceinline__ bool front_row(const float* row, const float* wa,
+                                          const float* wh, int n_channels,
+                                          int err_col, float* a_raw,
+                                          float* h, float* e) {
+  bool bad = false;
+  for (int c = 0; c < n_channels; ++c) bad |= !finite_value(row[c]);
+  noisy_or_row(row, bad, wa, wh, n_channels, a_raw, h);
+  *e = bad ? 0.0f : clip01(row[err_col]);
+  return bad;
+}
+
 __global__ void __launch_bounds__(kThreads)
     evidence_front_kernel(const float* __restrict__ features,
                           const float* __restrict__ anomaly_w,
@@ -130,32 +174,57 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int row0 = blockIdx.x * kThreads;
   const int count = min(kThreads, n_rows - row0) * n_channels;
-  const float* src = features + static_cast<size_t>(row0) * n_channels;
   // the tile is contiguous in device memory and starts 16-byte aligned
   // when the matrix does (kThreads * 4 bytes is a multiple of 16)
-  int done = 0;
-  if (vector_loads) {
-    const float4* src4 = reinterpret_cast<const float4*>(src);
-    float4* tile4 = reinterpret_cast<float4*>(tile);
-    const int n4 = count / 4;
-    for (int i = threadIdx.x; i < n4; i += kThreads) {
-      tile4[i] = __ldg(src4 + i);
-    }
-    done = n4 * 4;
-  }
-  for (int i = done + threadIdx.x; i < count; i += kThreads) {
-    tile[i] = __ldg(src + i);
-  }
+  stage_tile<true>(features + static_cast<size_t>(row0) * n_channels, tile,
+                   count, vector_loads);
   __syncthreads();
 
   const int s = row0 + threadIdx.x;
   bool bad = false;
   if (s < n_rows) {
-    const float* row = tile + threadIdx.x * n_channels;
-    for (int c = 0; c < n_channels; ++c) bad |= !finite_value(row[c]);
-    // the sanitize: a row with any NaN/Inf is a row of zeros
-    noisy_or_row(row, bad, wa, wh, n_channels, a_raw + s, h + s);
-    e[s] = bad ? 0.0f : clip01(row[err_col]);
+    bad = front_row(tile + threadIdx.x * n_channels, wa, wh, n_channels,
+                    err_col, a_raw + s, h + s, e + s);
+  }
+  const int block_bad = __syncthreads_count(bad);
+  if (threadIdx.x == 0 && block_bad > 0) atomicAdd(n_bad, block_bad);
+}
+
+// The same row pass, which also zeroes each bad row in place in
+// ``features``: the thread that owns the row writes it after the block's
+// tile is staged, and no other thread reads the row again.
+__global__ void __launch_bounds__(kThreads)
+    evidence_front_persist_kernel(float* features,
+                                  const float* __restrict__ anomaly_w,
+                                  const float* __restrict__ hard_w,
+                                  float* __restrict__ a_raw,
+                                  float* __restrict__ h,
+                                  float* __restrict__ e,
+                                  int* __restrict__ n_bad, int n_rows,
+                                  int n_channels, int err_col,
+                                  bool vector_loads) {
+  extern __shared__ __align__(16) float tile[];   // kThreads * n_channels
+  __shared__ float wa[kMaxChannels];
+  __shared__ float wh[kMaxChannels];
+  for (int c = threadIdx.x; c < n_channels; c += kThreads) {
+    wa[c] = anomaly_w[c];
+    wh[c] = hard_w[c];
+  }
+  const int row0 = blockIdx.x * kThreads;
+  const int count = min(kThreads, n_rows - row0) * n_channels;
+  stage_tile<false>(features + static_cast<size_t>(row0) * n_channels, tile,
+                    count, vector_loads);
+  __syncthreads();
+
+  const int s = row0 + threadIdx.x;
+  bool bad = false;
+  if (s < n_rows) {
+    bad = front_row(tile + threadIdx.x * n_channels, wa, wh, n_channels,
+                    err_col, a_raw + s, h + s, e + s);
+    if (bad) {
+      float* row = features + static_cast<size_t>(s) * n_channels;
+      for (int c = 0; c < n_channels; ++c) row[c] = 0.0f;
+    }
   }
   const int block_bad = __syncthreads_count(bad);
   if (threadIdx.x == 0 && block_bad > 0) atomicAdd(n_bad, block_bad);
@@ -176,12 +245,14 @@ extern "C" int rca_noisy_or_pair(const float* features, const float* anomaly_w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Clears *n_bad, then runs the row pass; returns the first cudaError_t.
-extern "C" int rca_evidence_front(const float* features,
-                                  const float* anomaly_w, const float* hard_w,
-                                  float* a_raw, float* h, float* e,
-                                  int* n_bad, int n_rows, int n_channels,
-                                  int err_col, void* stream) {
+// Clears *n_bad, then runs the row pass (persist != 0: the persisting
+// kernel, which zeroes the bad rows of ``features`` in place); returns the
+// first cudaError_t.
+extern "C" int rca_evidence_front(float* features, const float* anomaly_w,
+                                  const float* hard_w, float* a_raw, float* h,
+                                  float* e, int* n_bad, int n_rows,
+                                  int n_channels, int err_col, int persist,
+                                  void* stream) {
   if (n_channels < 1 || n_channels > kMaxChannels || n_rows < 1 ||
       err_col < 0 || err_col >= n_channels) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -193,8 +264,14 @@ extern "C" int rca_evidence_front(const float* features,
   const size_t tile_bytes = sizeof(float) * kThreads * n_channels;
   const bool vector_loads =
       reinterpret_cast<std::uintptr_t>(features) % 16 == 0;
-  evidence_front_kernel<<<blocks, kThreads, tile_bytes, st>>>(
-      features, anomaly_w, hard_w, a_raw, h, e, n_bad, n_rows, n_channels,
-      err_col, vector_loads);
+  if (persist) {
+    evidence_front_persist_kernel<<<blocks, kThreads, tile_bytes, st>>>(
+        features, anomaly_w, hard_w, a_raw, h, e, n_bad, n_rows, n_channels,
+        err_col, vector_loads);
+  } else {
+    evidence_front_kernel<<<blocks, kThreads, tile_bytes, st>>>(
+        features, anomaly_w, hard_w, a_raw, h, e, n_bad, n_rows, n_channels,
+        err_col, vector_loads);
+  }
   return static_cast<int>(cudaGetLastError());
 }

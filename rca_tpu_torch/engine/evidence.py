@@ -8,7 +8,9 @@ evidence pair and the error-source contrast.
 - :func:`evidence_front` is the engine's front.  On CUDA tensors it is
   two launches of hand-written kernels: the row pass in
   ``csrc/evidence.cu`` (:func:`evidence_front_rows`: sanitize, the pair,
-  the error rate and the bad-row count over the raw features) and the
+  the error rate and the bad-row count over the raw features; with
+  ``persist`` also the sanitized rows written back into its input, the
+  streaming flush's launch) and the
   contrast step in ``csrc/segstep.cu`` (:func:`seg_contrast_step`,
   skipped when the contrast's weight is 0, as the reference skips it).
   On CPU tensors it computes :func:`evidence_front_plain`, the reference's
@@ -52,7 +54,7 @@ from rca_tpu_torch.engine.segscan import (
     launch_step,
 )
 from rca_tpu_torch.features.schema import SvcF
-from rca_tpu_torch.kernels import LAUNCHES
+from rca_tpu_torch.kernels import LAUNCHES, PERSIST_LAUNCHES
 
 #: the widest feature row the kernels take (their weights sit in shared
 #: memory)
@@ -140,19 +142,25 @@ def seg_contrast_step_plain(a_raw, e, weight: float, seg: SegLayout):
     return fold_error_contrast(a_raw, err_src, weight)
 
 
-def evidence_front_rows_plain(features, anomaly_w, hard_w):
+def evidence_front_rows_plain(features, anomaly_w, hard_w,
+                              persist: bool = False):
     """``(a_raw, h, e, n_bad)``: the row pass in plain PyTorch, over the
-    sanitized features."""
+    sanitized features; ``persist`` copies the sanitized matrix back into
+    ``features``."""
     clean, n_bad = finite_mask_rows(features)
+    if persist:
+        features.copy_(clean)
     a_raw, h = noisy_or_pair_plain(clean, anomaly_w, hard_w)
     return a_raw, h, error_rate(clean), n_bad
 
 
 def evidence_front_plain(features, anomaly_w, hard_w, error_contrast: float,
-                         up_seg: SegLayout):
+                         up_seg: SegLayout, persist: bool = False):
     """``(a, h, n_bad)`` from the raw padded features: the reference's
-    front in plain PyTorch."""
-    a, h, e, n_bad = evidence_front_rows_plain(features, anomaly_w, hard_w)
+    front in plain PyTorch (``persist``: the sanitized rows are copied
+    back into ``features``)."""
+    a, h, e, n_bad = evidence_front_rows_plain(features, anomaly_w, hard_w,
+                                               persist)
     if error_contrast:
         a = seg_contrast_step_plain(a, e, error_contrast, up_seg)
     return a, h, n_bad
@@ -216,15 +224,22 @@ def _check_rows(features, anomaly_w, hard_w):
 
 
 def evidence_front_rows(features: torch.Tensor, anomaly_w: torch.Tensor,
-                        hard_w: torch.Tensor):
+                        hard_w: torch.Tensor, persist: bool = False):
     """``(a_raw, h, e, n_bad)`` from raw float32 ``[S, C]`` features, or
     ``[B, S, C]`` lanes, the sanitize included: one launch of the
     ``evidence_front`` kernel on a CUDA tensor (lanes are B*S rows of one
     row pass), :func:`evidence_front_rows_plain` on a CPU tensor.  The
     vectors are ``[S]`` or ``[B, S]``; ``n_bad`` is a 0-dim int32 tensor
-    counting across the lanes."""
-    if not _check_rows(features, anomaly_w, hard_w):
-        return evidence_front_rows_plain(features, anomaly_w, hard_w)
+    counting across the lanes.  ``persist``: every bad row of ``features``
+    (which must be contiguous) is also zeroed in place, as the sanitize
+    left it."""
+    on_card = _check_rows(features, anomaly_w, hard_w)
+    if persist and not features.is_contiguous():
+        raise ValueError("evidence_front: a persisting launch writes its "
+                         "input in place, which must be contiguous")
+    if not on_card:
+        return evidence_front_rows_plain(features, anomaly_w, hard_w,
+                                         persist)
     from rca_tpu_torch.kernels.build import check, library
 
     features = features.contiguous()
@@ -242,10 +257,12 @@ def evidence_front_rows(features: torch.Tensor, anomaly_w: torch.Tensor,
     err = library().rca_evidence_front(
         features.data_ptr(), anomaly_w.data_ptr(), hard_w.data_ptr(),
         a_raw.data_ptr(), h.data_ptr(), e.data_ptr(), n_bad.data_ptr(),
-        n_rows, n_channels, int(SvcF.ERROR_RATE), stream,
+        n_rows, n_channels, int(SvcF.ERROR_RATE), int(persist), stream,
     )
     check(err, "evidence_front")
     LAUNCHES["evidence_front"] += 1
+    if persist:
+        PERSIST_LAUNCHES["evidence_front"] += 1
     return a_raw, h, e, n_bad
 
 
@@ -267,13 +284,14 @@ def seg_contrast_step(a_raw: torch.Tensor, e: torch.Tensor, weight: float,
 
 def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
                    hard_w: torch.Tensor, error_contrast: float,
-                   up_seg: SegLayout):
+                   up_seg: SegLayout, persist: bool = False):
     """``(a, h, n_bad)`` from the RAW padded ``[n_pad, C]`` features, or
     ``[B, n_pad, C]`` lanes, over the up layout ``up_seg`` (its tensors on
     the features' device): on CUDA tensors :func:`evidence_front_rows`
     then, unless ``error_contrast`` is 0, :func:`seg_contrast_step`, one
     launch each for all lanes; on CPU tensors
-    :func:`evidence_front_plain`."""
+    :func:`evidence_front_plain`.  ``persist`` leaves the sanitized rows
+    in ``features`` (the streaming flush)."""
     on_card = _check_rows(features, anomaly_w, hard_w)
     if not isinstance(up_seg.offsets, torch.Tensor):
         raise TypeError("evidence_front: the layout is on the host; move it "
@@ -287,8 +305,9 @@ def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
                          f"features of {features.shape[-2]} rows")
     if not on_card:
         return evidence_front_plain(features, anomaly_w, hard_w,
-                                    error_contrast, up_seg)
-    a, h, e, n_bad = evidence_front_rows(features, anomaly_w, hard_w)
+                                    error_contrast, up_seg, persist)
+    a, h, e, n_bad = evidence_front_rows(features, anomaly_w, hard_w,
+                                         persist)
     if error_contrast:
         a = seg_contrast_step(a, e, error_contrast, up_seg)
     return a, h, n_bad

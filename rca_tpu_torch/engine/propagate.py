@@ -153,18 +153,20 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
 def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
               explain_strength: float, impact_bonus: float,
               n_live: Optional[int], plan: KernelPlan,
-              error_contrast: float = 0.0):
+              error_contrast: float = 0.0, persist: bool = False):
     """The evidence front (sanitize, evidence pair, error-source contrast:
     two kernels on the card for the ``kernels`` row, the plain version for
     the ``torch`` row), then the core, both on the plan's row.
     ``features`` is the RAW padded ``[n_pad, C]`` float32 matrix or
     ``[B, n_pad, C]`` lanes; ``dep_dst`` is int64 ``[e_pad]``.  Returns
     ``(a, h, u, m, score, n_bad)``, ``n_bad`` the 0-dim int32 count of the
-    rows the sanitize zeroed, across the lanes."""
+    rows the sanitize zeroed, across the lanes.  ``persist`` leaves the
+    sanitized rows in ``features`` (the streaming flush); otherwise
+    ``features`` is only read."""
     front = (evidence_front_plain if _row(plan) == "torch"
              else evidence_front)
     a, h, n_bad = front(features, anomaly_w, hard_w, error_contrast,
-                        plan.up_seg)
+                        plan.up_seg, persist)
     return (*propagate_core(a, h, dep_dst, steps, decay, explain_strength,
                             impact_bonus, n_live, plan), n_bad)
 
@@ -184,10 +186,11 @@ class Propagation(nn.Module):
         self.impact_bonus = float(params.impact_bonus)
         self.error_contrast = float(params.error_contrast)
 
-    def forward(self, features, dep_dst, n_live: int, plan: KernelPlan):
+    def forward(self, features, dep_dst, n_live: int, plan: KernelPlan,
+                persist: bool = False):
         return propagate(
             features, dep_dst, self.anomaly_w, self.hard_w,
             self.steps, self.decay, self.explain_strength,
             self.impact_bonus, n_live, plan,
-            error_contrast=self.error_contrast,
+            error_contrast=self.error_contrast, persist=persist,
         )

@@ -45,6 +45,7 @@ import torch
 
 from rca_tpu_torch.config import KERNELS, forced_kernel, kernel_cache_path
 from rca_tpu_torch.kernels.build import PKG_DIR
+from rca_tpu_torch.observability.kernelscope import note_compile
 
 _CACHE_VERSION = 1
 
@@ -206,6 +207,8 @@ class KernelRegistry:
         if row is not None:
             return row
         row = self._decide(variant, n_pad, e_pad, int(steps), device)
+        note_compile(f"plan {variant}:{n_pad}:{e_pad}:{steps} on {device}",
+                     key[:5])
         with self._lock:
             self._rows[key] = row
         return row

@@ -13,7 +13,11 @@ hypothesis batch (:meth:`GraphEngine.analyze_batch`) runs the same body on
 ``[B, n_pad, C]`` lanes of one graph: one launch per kernel and step for
 the whole batch.  Only top-k-sized values cross to the host; the full
 ``[4, n_pad]`` stack stays on the device behind the result's lazy
-diagnostics, and the inputs stay behind its lazy attribution.
+diagnostics, and the inputs stay behind its lazy attribution.  With
+``RCA_RESIDENT`` on (the default), ``analyze_arrays`` goes through a
+:class:`rca_tpu_torch.engine.resident.ResidentCache`: a repeat call over
+a known graph writes only its changed rows into a buffer pinned on the
+device, bitwise equal to restaging.
 
 Device rule: ``GraphEngine()`` runs on ``cuda`` and raises where there is
 no CUDA device; ``device="cpu"`` runs on the CPU, where the registry picks
@@ -29,7 +33,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from rca_tpu_torch.config import RCAConfig, bucket_for
+from rca_tpu_torch.config import RCAConfig, bucket_for, resident_enabled
 from rca_tpu_torch.engine.ell import up_ell_for
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
 from rca_tpu_torch.engine.propagate import KernelPlan, Propagation
@@ -69,13 +73,14 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
 
 
 def propagate_auto(model: Propagation, features, dep_dst, n_live: int,
-                   plan: KernelPlan):
+                   plan: KernelPlan, persist: bool = False):
     """The propagation body behind every ranked surface (one-shot, the
-    batch lanes, the batch delta, attribution): the plan's ``kernel`` picks
-    the front and the steps in :mod:`.propagate`, so the engaged row cannot
-    drift between the call surfaces.  Returns ``(a, h, u, m, score,
-    n_bad)``."""
-    return model(features, dep_dst, n_live, plan)
+    batch lanes, the batch delta, attribution, the resident request, the
+    streaming tick): the plan's ``kernel`` picks the front and the steps in
+    :mod:`.propagate`, so the engaged row cannot drift between the call
+    surfaces.  ``persist`` (the streaming flush) leaves the sanitized rows
+    in ``features``.  Returns ``(a, h, u, m, score, n_bad)``."""
+    return model(features, dep_dst, n_live, plan, persist=persist)
 
 
 def topk_diag(stacked, idx):
@@ -97,13 +102,14 @@ def top_k(score: torch.Tensor, k: int):
 
 
 def propagate_ranked(model: Propagation, features, dep_dst, n_live: int,
-                     kk: int, plan: KernelPlan):
+                     kk: int, plan: KernelPlan, persist: bool = False):
     """One ranked analysis on the device from the raw padded features, or
     each lane's of ``[B, n_pad, C]`` lanes.  Returns ``(stacked, diag,
     vals, idx, n_bad)``, all device tensors (``[4, n_pad]`` / ``[B, 4,
-    n_pad]`` stacks, ``n_bad`` across the lanes)."""
+    n_pad]`` stacks, ``n_bad`` across the lanes).  ``persist``: see
+    :func:`propagate_auto`."""
     a, h, u, m, score, n_bad = propagate_auto(model, features, dep_dst,
-                                              n_live, plan)
+                                              n_live, plan, persist)
     vals, idx = top_k(score, kk)
     stacked = torch.stack([a, u, m, score], dim=-2)
     return stacked, topk_diag(stacked, idx), vals, idx, n_bad
@@ -302,6 +308,42 @@ def make_attribution_ctx(features, dep_src, dep_dst, params, names,
     )
 
 
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync: on a card, staged in
+    pinned memory and copied non-blocking on the current stream (so it is
+    ordered before every later launch there); on the CPU, the array's own
+    memory."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class HostCopy:
+    """Device→host copies started without a host sync: each tensor goes
+    into a pinned host buffer of its own (non-blocking, on the current
+    stream) and an event is recorded after them; :meth:`numpy` waits on
+    that event, the one sync, and returns the arrays.  CPU tensors are
+    their own host copies (``ready`` is None)."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.ready = None
+        if tensors[0].device.type != "cuda":
+            self.tensors = tensors
+            return
+        self.tensors = tuple(
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True)
+            for t in tensors)
+        self.ready = torch.cuda.Event()
+        self.ready.record()
+
+    def numpy(self):
+        if self.ready is not None:
+            self.ready.synchronize()
+        return tuple(t.numpy() for t in self.tensors)
+
+
 def _fetch(out):
     stacked, diag, vals, idx, n_bad = out
     # the top-k pair's .cpu() is the sync point; diag and n_bad are as small
@@ -379,11 +421,21 @@ class GraphEngine(EngineAPI):
     """Bucketed causal propagation on one device."""
 
     def __init__(self, config: Optional[RCAConfig] = None,
-                 params: Optional[PropagationParams] = None, device=None):
+                 params: Optional[PropagationParams] = None, device=None,
+                 resident: Optional[bool] = None):
         self.device = resolve_device(device)
         self.config = config or RCAConfig()
         self.params = resolve_params(self.config, params)
         self.model = Propagation(self.params).to(self.device)
+        # device-resident sessions: a repeat analyze call over a known
+        # graph uploads only its changed rows into a buffer pinned on the
+        # device.  ``resident=None`` follows RCA_RESIDENT (default on;
+        # the results are bitwise equal either way)
+        self._resident_cache = None
+        if resident if resident is not None else resident_enabled():
+            from rca_tpu_torch.engine.resident import ResidentCache
+
+            self._resident_cache = ResidentCache(self)
 
     # -- shaping -----------------------------------------------------------
     def _pad(self, features: np.ndarray, src: np.ndarray, dst: np.ndarray):
@@ -423,6 +475,10 @@ class GraphEngine(EngineAPI):
     ) -> EngineResult:
         n = features.shape[0]
         k = k or min(self.config.top_k_root_causes, n)
+        if self._resident_cache is not None and not timed:
+            # the resident path; ``timed`` keeps the restaged method
+            return self._resident_cache.analyze(features, dep_src, dep_dst,
+                                                names, k)
         f, s, d = self._pad(np.asarray(features, np.float32), dep_src, dep_dst)
         n_pad, e_pad = f.shape[0], len(s)
         kk = min(k + 8, n_pad)

@@ -1,5 +1,6 @@
 """Snapshot → packed feature arrays (the engine's host-side front end): the
-port's copy of ``rca_tpu.features.extract``, full extraction only.
+port's copy of ``rca_tpu.features.extract`` (the dict path: full and
+incremental extraction; the columnar capture is not ported yet).
 
 One pass over the snapshot builds:
 
@@ -135,8 +136,11 @@ def _pod_feature_row(
     warn_count: int,
     metrics_rec: Optional[dict],
     logs: Optional[Dict[str, str]],
+    log_counts=None,
 ) -> np.ndarray:
-    """One pod's feature row."""
+    """One pod's feature row, the one definition the full and the
+    incremental extraction share.  ``log_counts`` supplies memoized
+    regex-scan counts (a pure function of the log text)."""
     feat = np.zeros(NUM_POD_FEATURES, dtype=np.float32)
     status = pod.get("status", {}) or {}
     phase = status.get("phase", "Unknown")
@@ -148,76 +152,159 @@ def _pod_feature_row(
     feat[PodF.WARN_EVENTS] = float(warn_count)
     feat[PodF.WARN_EVENTS_SAT] = min(1.0, warn_count / 10.0)
     if logs is not None:
-        feat[PodF.LOG0 : PodF.LOG0 + len(LOG_PATTERN_NAMES)] = \
-            scan_pod_logs(logs)
+        counts = log_counts if log_counts is not None else scan_pod_logs(logs)
+        feat[PodF.LOG0 : PodF.LOG0 + len(LOG_PATTERN_NAMES)] = counts
         if phase == "Running" and not any(t.strip() for t in logs.values()):
             feat[PodF.NO_LOGS] = 1.0
     return feat
 
 
-def extract_features(snapshot: ClusterSnapshot) -> FeatureSet:
-    """Snapshot → FeatureSet, every row computed afresh (the full mode of
-    the JAX package's ``IncrementalExtractor``, which its memoizing
-    incremental mode is held to)."""
-    pods = snapshot.pods
-    P = len(pods)
-    pod_names = [
-        p.get("metadata", {}).get("name", f"pod-{i}")
-        for i, p in enumerate(pods)
-    ]
-    warn_counts = _warn_counts(snapshot)
-    metrics_by_pod = (snapshot.pod_metrics or {}).get("pods", {})
+class IncrementalExtractor:
+    """Snapshot → FeatureSet with memoization across repeated captures
+    (the live session's busy polls re-derive only the changed rows).
+    Three caches, each keyed so a stale hit is impossible:
 
-    node_names = [
-        n.get("metadata", {}).get("name", "") for n in snapshot.nodes
-    ]
-    node_index = {n: i for i, n in enumerate(node_names)}
-    pod_node = np.full(P, -1, dtype=np.int32)
+    - **row cache**: pod feature rows keyed by the pod's
+      ``metadata.resourceVersion`` plus the row's other inputs (warn-event
+      count, cpu/mem percentages, log content key).  Consulted only on
+      ``incremental=True`` extractions (the watch patch path, where every
+      mutation bumps the resourceVersion); full extractions recompute
+      every row and refresh the cache.  Pods without one are recomputed.
+    - **log-scan cache**: regex pattern counts keyed by the log text.
+    - **selector memo**: pod→service matches keyed by the pod's label set,
+      reset whenever any service selector changes.
 
-    # -- pod → service assignment (selector ⊆ labels) ------------------
-    service_names = [
-        s.get("metadata", {}).get("name", f"svc-{j}")
-        for j, s in enumerate(snapshot.services)
-    ]
-    selectors = [
-        (s.get("spec", {}) or {}).get("selector") or {}
-        for s in snapshot.services
-    ]
-    # inverted selector index: O(labels) per pod.  Every matching
-    # service is recorded (one pod may back several services, e.g.
-    # ClusterIP + headless sharing a selector); pod_service keeps the
-    # first match as primary owner.
-    index = SelectorIndex(selectors)
+    :func:`extract_features` runs a fresh instance in full mode, so the
+    one-shot path computes every row as before.
+    """
 
-    pod_features = np.zeros((P, NUM_POD_FEATURES), dtype=np.float32)
-    pod_service = np.full(P, -1, dtype=np.int32)
-    memb_pod: List[int] = []
-    memb_svc: List[int] = []
+    def __init__(self) -> None:
+        self._rows: Dict[str, tuple] = {}
+        self._log_counts: Dict[tuple, np.ndarray] = {}
+        self._hits_memo: Dict[tuple, List[int]] = {}
+        self._selector_sig: Optional[tuple] = None
 
-    for i, pod in enumerate(pods):
-        name = pod_names[i]
-        md = pod.get("metadata", {}) or {}
-        pod_features[i] = _pod_feature_row(
-            pod, warn_counts.get(name, 0), metrics_by_pod.get(name),
-            snapshot.logs.get(name),
+    def extract(self, snapshot: ClusterSnapshot,
+                incremental: bool = True) -> FeatureSet:
+        pods = snapshot.pods
+        P = len(pods)
+        pod_names = [
+            p.get("metadata", {}).get("name", f"pod-{i}")
+            for i, p in enumerate(pods)
+        ]
+        warn_counts = _warn_counts(snapshot)
+        metrics_by_pod = (snapshot.pod_metrics or {}).get("pods", {})
+
+        node_names = [
+            n.get("metadata", {}).get("name", "") for n in snapshot.nodes
+        ]
+        node_index = {n: i for i, n in enumerate(node_names)}
+        pod_node = np.full(P, -1, dtype=np.int32)
+
+        # -- pod → service assignment (selector ⊆ labels) ------------------
+        service_names = [
+            s.get("metadata", {}).get("name", f"svc-{j}")
+            for j, s in enumerate(snapshot.services)
+        ]
+        selectors = [
+            (s.get("spec", {}) or {}).get("selector") or {}
+            for s in snapshot.services
+        ]
+        try:
+            selector_sig = tuple(
+                (service_names[j], tuple(sorted(selectors[j].items())))
+                for j in range(len(service_names))
+            )
+        except TypeError:
+            selector_sig = None  # unhashable selector values: no memo
+        if selector_sig != self._selector_sig or selector_sig is None:
+            self._hits_memo = {}
+            self._selector_sig = selector_sig
+        # inverted selector index: O(labels) per pod.  Every matching
+        # service is recorded (one pod may back several services, e.g.
+        # ClusterIP + headless sharing a selector); pod_service keeps the
+        # first match as primary owner.
+        index = SelectorIndex(selectors)
+        hits_memo = self._hits_memo
+
+        pod_features = np.zeros((P, NUM_POD_FEATURES), dtype=np.float32)
+        pod_service = np.full(P, -1, dtype=np.int32)
+        memb_pod: List[int] = []
+        memb_svc: List[int] = []
+        new_rows: Dict[str, tuple] = {}
+        new_log_counts: Dict[tuple, np.ndarray] = {}
+
+        for i, pod in enumerate(pods):
+            name = pod_names[i]
+            md = pod.get("metadata", {}) or {}
+            wc = warn_counts.get(name, 0)
+            rec = metrics_by_pod.get(name)
+            logs = snapshot.logs.get(name)
+            logs_key: Optional[tuple] = None
+            counts = None
+            if logs is not None:
+                try:
+                    logs_key = tuple(sorted(logs.items()))
+                except TypeError:
+                    logs_key = None
+                if logs_key is not None:
+                    counts = self._log_counts.get(logs_key)
+            rv = md.get("resourceVersion")
+            sig = (rv, wc, _metric_pcts(rec), logs_key)
+            row = None
+            if incremental and rv is not None:
+                cached = self._rows.get(name)
+                if cached is not None and cached[0] == sig:
+                    row = cached[1]
+            if row is None:
+                if logs is not None and counts is None:
+                    counts = scan_pod_logs(logs)
+                row = _pod_feature_row(pod, wc, rec, logs, counts)
+            if logs_key is not None and counts is not None:
+                new_log_counts[logs_key] = counts
+            if rv is not None:
+                new_rows[name] = (sig, row)
+            pod_features[i] = row
+
+            labels = md.get("labels", {}) or {}
+            try:
+                labels_key: Optional[tuple] = tuple(sorted(labels.items()))
+            except TypeError:
+                labels_key = None
+            hits = (
+                hits_memo.get(labels_key) if labels_key is not None else None
+            )
+            if hits is None:
+                hits = index.matches(labels)
+                if labels_key is not None:
+                    hits_memo[labels_key] = hits
+            if hits:
+                pod_service[i] = hits[0]
+                memb_pod.extend([i] * len(hits))
+                memb_svc.extend(hits)
+
+            node = pod.get("spec", {}).get("nodeName")
+            if node in node_index:
+                pod_node[i] = node_index[node]
+
+        # replace (not merge) the per-name/content caches: entries of
+        # deleted pods and superseded log tails drop out here
+        self._rows = new_rows
+        self._log_counts = new_log_counts
+
+        memb_pod_arr = np.asarray(memb_pod, dtype=np.int32)
+        memb_svc_arr = np.asarray(memb_svc, dtype=np.int32)
+        return _aggregate_services(
+            snapshot, pod_names, pod_features, service_names, selectors,
+            pod_service, memb_pod_arr, memb_svc_arr,
+            node_names, pod_node,
         )
-        hits = index.matches(md.get("labels", {}) or {})
-        if hits:
-            pod_service[i] = hits[0]
-            memb_pod.extend([i] * len(hits))
-            memb_svc.extend(hits)
 
-        node = pod.get("spec", {}).get("nodeName")
-        if node in node_index:
-            pod_node[i] = node_index[node]
 
-    memb_pod_arr = np.asarray(memb_pod, dtype=np.int32)
-    memb_svc_arr = np.asarray(memb_svc, dtype=np.int32)
-    return _aggregate_services(
-        snapshot, pod_names, pod_features, service_names, selectors,
-        pod_service, memb_pod_arr, memb_svc_arr,
-        node_names, pod_node,
-    )
+def extract_features(snapshot: ClusterSnapshot) -> FeatureSet:
+    """Snapshot → FeatureSet, every row computed afresh: a fresh
+    :class:`IncrementalExtractor` in full mode."""
+    return IncrementalExtractor().extract(snapshot, incremental=False)
 
 
 def _aggregate_services(

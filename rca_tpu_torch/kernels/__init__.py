@@ -4,14 +4,17 @@ launch counters.
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel on the card, and nowhere else, so a run can show that
 the main path went through the kernels (the plain versions used on CPU
-tensors do not count).
+tensors do not count).  :data:`PERSIST_LAUNCHES` counts, apart, the
+``evidence_front`` launches that persist the sanitize into their input.
 """
 
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
             "seg_contrast_step": 0}
+PERSIST_LAUNCHES = {"evidence_front": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PERSIST_LAUNCHES):
+        for name in counts:
+            counts[name] = 0

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from rca_tpu_torch.observability.kernelscope import note_compile
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -48,7 +50,8 @@ _SIGNATURES = {
                         _P),
     "rca_seg_down_step": (_P, _P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I,
                           _P, _P),
-    "rca_evidence_front": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rca_evidence_front": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P),
     "rca_seg_contrast_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I,
                               _P, _P),
 }
@@ -121,6 +124,7 @@ def build(verbose: bool = False) -> Path:
                                       lib, *objects]))], verbose)
         os.replace(lib, out)
     BUILD_SECONDS = time.perf_counter() - t0
+    note_compile("kernel library", out.name)
     return out
 
 

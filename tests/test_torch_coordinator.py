@@ -290,14 +290,11 @@ def test_engine_failure_fails_the_analysis(ctx, clean_env):
 
 
 @pytest.mark.parametrize("name", ["5svc", "50svc"])
-def test_explain_records_the_missing_attribution(name, clean_env,
-                                                 monkeypatch):
+def test_explain_block_matches_reference(name, clean_env, monkeypatch):
     """Under ``RCA_EXPLAIN=1`` the port's findings JSON carries the
     causelens ``provenance`` block, held to the reference's block within
     the attribution contract (``test_torch_attribution``); no
-    ``provenance_error`` remains.  (The name dates from when the port had
-    no attribution and this test pinned the missing block; it is kept so
-    the test's record carries on.)"""
+    ``provenance_error`` remains."""
     from test_torch_attribution import assert_blocks_match
 
     monkeypatch.setenv("RCA_EXPLAIN", "1")

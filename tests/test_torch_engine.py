@@ -237,12 +237,10 @@ def test_bucket_for_matches_reference():
         assert bucket_for(n, buckets) == ref_bucket(n, buckets)
 
 
-def test_engine_result_diagnostics_are_lazy_and_attribution_is_not_ported():
+def test_engine_result_diagnostics_are_lazy_and_attribution_is_cached():
     """The diagnostics and the attribution are lazy: neither is computed
     by the analysis; the attribution is cached for the default arguments,
-    and a result that retained no inputs raises.  (The name dates from
-    when the port had no attribution and this test pinned that; it is
-    kept so the test's record carries on.)"""
+    and a result that retained no inputs raises."""
     from rca_tpu_torch.engine.runner import render_result
 
     case = synthetic_cascade_arrays(60, n_roots=1, seed=2)

@@ -5,9 +5,11 @@
   so names are compared exactly);
 - no source file of the port, nor ``chip_smoke.py``, imports either;
 - a comprehensive analysis through the port's coordinator and a run of
-  ``python -m rca_tpu_torch analyze`` load neither;
-- without a CUDA device the engine, the coordinator and the CLI raise (or
-  exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
+  ``python -m rca_tpu_torch analyze`` load neither, nor do a resident
+  repeat analysis, a streaming tick, a live poll and
+  ``python -m rca_tpu_torch stream``;
+- without a CUDA device the engine, the coordinator, the CLI (``stream``
+  included) and the streaming sessions raise (or exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
   exits non-zero with no verdict line;
 - on a card (tests marked ``cuda``) the engine runs through the kernels
   and agrees with its own CPU run.
@@ -73,6 +75,63 @@ for argv in (["analyze", "--fixture", "5svc"],
         codes.append(exc.code)
 print(json.dumps({"codes": codes, "modules": sorted(sys.modules)}))
 """
+
+
+_STREAM_PROBE = """
+import json, runpy, sys
+import numpy as np
+from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.engine import (GraphEngine, LiveStreamingSession,
+                                  StreamingSession)
+case = synthetic_cascade_arrays(200, n_roots=2, seed=1)
+engine = GraphEngine(device="cpu")
+first = engine.analyze_case(case)
+feats = case.features.copy()
+feats[3] = np.nan
+again = engine.analyze_arrays(feats, case.dep_src, case.dep_dst, case.names)
+stream = StreamingSession(case.names, case.dep_src, case.dep_dst,
+                          num_features=13, engine=engine, k=3)
+stream.set_all(case.features)
+stream.update(3, feats[3])
+tick = stream.fetch(stream.dispatch())
+live = LiveStreamingSession(MockClusterClient(synthetic_cascade_world(
+    40, n_roots=1, seed=3, namespace="iso")), "iso", k=3, engine=engine,
+    pipeline_depth=2)
+polls = [live.poll() for _ in range(3)]
+sys.argv = ["rca_tpu_torch", "stream", "--fixture", "50svc", "--ticks", "2",
+            "--interval", "0", "--device", "cpu"]
+try:
+    runpy.run_module("rca_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+print(json.dumps({"stats": engine._resident_cache.stats(),
+                  "sanitized": again.sanitized_rows,
+                  "tick": tick["sanitized_rows"],
+                  "live": [bool(p["ranked"]) for p in polls],
+                  "code": code, "modules": sorted(sys.modules)}))
+"""
+
+
+def test_resident_streaming_live_and_stream_load_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _STREAM_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert [json.loads(line)["tick"] for line in lines[:2]] == [1, 2]
+    out = json.loads(lines[-1])
+    assert out["stats"]["delta_requests"] == 1
+    assert out["sanitized"] == out["tick"] == 1
+    assert out["live"] == [False, True, True]
+    assert out["code"] == 0
+    for module in ("engine.resident", "engine.streaming", "engine.live",
+                   "observability.kernelscope", "observability.spans",
+                   "resilience.policy"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
 def _probe_env():
@@ -176,6 +235,27 @@ def test_coordinator_and_cli_without_device_raise_on_a_host_without_cuda(
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert '"status"' not in proc.stdout
+
+
+def test_streaming_without_device_raises_on_a_host_without_cuda(no_cuda):
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.cluster.fixtures import NS, five_service_world
+    from rca_tpu_torch.engine import LiveStreamingSession, StreamingSession
+
+    case = synthetic_cascade_arrays(50, n_roots=1, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingSession(case.names, case.dep_src, case.dep_dst, 13)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LiveStreamingSession(MockClusterClient(five_service_world()), NS)
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "stream", "--fixture",
+         "50svc", "--ticks", "1", "--interval", "0"], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert '"tick"' not in proc.stdout
 
 
 def test_engine_rejects_an_unsupported_device():
