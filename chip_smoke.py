@@ -7,6 +7,9 @@
                                        # streaming tick per size
     python3 chip_smoke.py --out DIR    # also write the full record to DIR
     python3 chip_smoke.py --sweep      # also time the seg steps per bin cut
+    python3 chip_smoke.py --multi-card # two cards or more: the build, then
+                                       # the sharded engine over distinct
+                                       # cards alone
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line:
@@ -116,7 +119,33 @@ verdict line:
    --fixture 50svc --ticks 10 --pipeline-depth 2 --interval 0``, whose
    top-1 must be the fixture's root; the quiet and busy capture times and
    the tick at 10,000;
-12. times from CUDA events (median of 20 samples after warm-up): each
+12. the node-sharded engine (``ShardedGraphEngine`` over a mesh whose
+   device list repeats ``cuda:0``: logical shards; with two cards or more
+   also ``sp = 2`` over distinct cards, else a line saying the
+   collectives were device-local): the per-shard entries of
+   ``seg_up_step`` / ``seg_contrast_step`` (bitwise) and
+   ``seg_down_step`` (rtol 1e-5 / atol 1e-6) against their plain versions
+   over the tiers' layouts, a star split across the shards and a hub cut
+   by a shard boundary; the engine at 2047 and 49,999 services with
+   ``sp = 4`` and at 49,999 with ``sp = 8``, restaged and resident, each
+   analysis counted from 0: ``evidence_front`` / ``seg_contrast_step`` /
+   ``seg_up_step`` / ``seg_down_step`` sp x 1 / 1 / 8 / 8 launches, the
+   collective bytes per step per shard equal to the reference's round-5
+   formula ``(sp - 1) * block * 4``, ``a`` / ``h`` / ``u`` bitwise the
+   dense engine on the card, ``m`` and scores within rtol 1e-5 / atol
+   1e-6, top-3 identical, ``sanitized_rows`` identical on NaN/Inf rows,
+   a second run and every resident request bitwise restaging;
+   ``analyze_batch`` on ``dp = 2, sp = 2`` (B = 8) lane by lane against
+   the dense batch; ``ShardedStreamingSession`` at 10,000 services, 30
+   ticks (sp x 1 / 1 / 8 / 8 launches a tick) ranking as the dense
+   session, its blocks bitwise a ``torch``-row twin's, every ``dispatch``
+   sync-free and one behind a sleep kernel pending; a live session over
+   the 50-service fixture on a sharded engine (20 polls, the root
+   first), whose failing dispatch steps the ladder to ``single-device``;
+   then the sharded and dense ``analyze_arrays`` walls, device times,
+   busy shares and launches, the tick walls, and each per-shard kernel's
+   card, call and plain time beside its bound;
+13. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -131,7 +160,10 @@ verdict line:
    the persisting ``evidence_front`` launch (``persist_*``); the
    end-to-end ``analyze_arrays`` wall time at both tiers, restaged.
 
-The line before the last is the ``{"kernels": [...]}`` JSON (each
+The line before the last is the ``{"kernels": [...]}`` JSON (the
+per-shard entries as rows of their own, with their launches over one
+sharded analysis at 49,999 services on 4 shards; every dense kernel with
+its launches per sharded analysis beside its dense count; each
 main-path kernel also with its launches per batch and its batched times,
 and the launches counted on a delta tick, a quiet tick and an 8-row
 resident delta request at 49,999 services, ``evidence_front`` also its
@@ -249,6 +281,11 @@ def main(argv) -> int:
     parser.add_argument("--sweep", action="store_true",
                         help="time the seg-step kernels at each tier for "
                              "several short/long bin cuts")
+    parser.add_argument("--multi-card", action="store_true",
+                        help="with two cards or more: build, then run the "
+                             "sharded engine over distinct cards alone "
+                             "(bitwise logical shards, the walls of "
+                             "make_engine() beside the dense engine)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -313,6 +350,18 @@ def main(argv) -> int:
         phase("generate", services=n, edges=len(cases[n].dep_src),
               n_pad=f.shape[0], e_pad=len(s),
               seconds=time.perf_counter() - t0)
+
+    if args.multi_card:
+        record["multi_card"] = multi_card_phase(
+            cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
+        device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                  "count": torch.cuda.device_count()}
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+                json.dump(record, f, indent=1, default=float)
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
 
     # -- 3. each kernel against its plain version, on the card -------------
     rng = np.random.default_rng(20260)
@@ -593,7 +642,10 @@ def main(argv) -> int:
     record["stream"] = stream_phase(engine, cases, args.profile, args.out)
     record["live"] = live_phase()
 
-    # -- 12. times ---------------------------------------------------------
+    # -- 12. the node-sharded engine -----------------------------------------
+    record["sharded"] = sharded_phase(cases, shapes, args.profile, args.out)
+
+    # -- 13. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -810,6 +862,26 @@ def main(argv) -> int:
                 front_bound_ms=front["bound"][0],
                 plain_front_ms=front["plain_front_ms"],
                 plain_front_call_ms=front["plain_front_call_ms"])
+
+    # the per-shard entries, their launches counted over one sharded
+    # analysis at 49,999 services on 4 logical shards
+    sharded = record["sharded"]
+    for name, replaces in SHARD_SOURCES.items():
+        t = sharded["times"][str(big)][name]
+        kernels.append({
+            "name": f"{name} (per shard)", "route": "cuda",
+            "source": "rca_tpu_torch/csrc/segstep.cu", "replaces": replaces,
+            "launches": sharded["launches"][f"{big}x{SHARD_SP}"][name],
+            "max_abs_err": sharded["errs"][name], "ms": t["ms"],
+            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None, "tier_services": big, "sp": SHARD_SP,
+            "at_2047": sharded["times"]["2047"][name],
+            "sharded_launches": sharded["launches"]})
+    for entry in kernels[: len(sources)]:
+        entry["sharded_launches"] = {
+            key: counts[entry["name"]]
+            for key, counts in sharded["all_launches"].items()}
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith("jax.") or mod == "rca_tpu" \
@@ -1672,13 +1744,6 @@ def stream_phase(engine, cases, profile_it: bool = False,
     )
     from rca_tpu_torch.observability.kernelscope import leak_gate
 
-    def no_sync(fn):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
     def stage(session, step, start):
         if step[0] == "delta":
             session.update_rows(step[1], step[2])
@@ -1716,7 +1781,7 @@ def stream_phase(engine, cases, profile_it: bool = False,
             for s in (serial, plain, piped):
                 stage(s, step, bad_start)
             reset_launches()
-            handle = no_sync(serial.dispatch)
+            handle = _no_sync(serial.dispatch)
             got = serial.fetch(handle)
             launches = dict(LAUNCHES)
             persisting = PERSIST_LAUNCHES["evidence_front"]
@@ -1745,7 +1810,7 @@ def stream_phase(engine, cases, profile_it: bool = False,
             if step[0] == "delta":
                 persisted_rows += got["sanitized_rows"]
             serial_out.append(got)
-            h = no_sync(piped.dispatch)
+            h = _no_sync(piped.dispatch)
             if prev is not None:
                 piped_out.append(piped.fetch(prev))
             prev = h
@@ -1772,7 +1837,7 @@ def stream_phase(engine, cases, profile_it: bool = False,
             stage(serial, step, bad_start)
             torch.cuda._sleep(int(0.2 * 2e9))
             t0 = time.perf_counter()
-            handle = no_sync(serial.dispatch)
+            handle = _no_sync(serial.dispatch)
             ms = (time.perf_counter() - t0) * 1e3
             pending = not handle.result.ready.query()
             serial.fetch(handle)
@@ -2046,6 +2111,657 @@ def live_phase() -> dict:
                   "seconds": time.perf_counter() - t0}
     phase("stream_cli", **out["cli"])
     return out
+
+
+SHARD_SP = 4
+#: the per-shard kernel entries and the TPU kernel each one replaces
+SHARD_SOURCES = {
+    "seg_up_step": "rca_tpu/parallel/sharded.py:252 (pallas_segscan_max "
+                   "per shard, pl.pallas_call rca_tpu/engine/segscan.py:128)",
+    "seg_down_step": "rca_tpu/parallel/sharded.py:285 (pallas_segscan per "
+                     "shard, pl.pallas_call rca_tpu/engine/segscan.py:128)",
+    "seg_contrast_step": "rca_tpu/parallel/sharded.py:227-232 (the "
+                         "per-block contrast, beside the Pallas scans of "
+                         ":245-297)",
+}
+
+
+def _shard_launches(sp: int) -> dict:
+    """The kernel launches of one sharded analysis over ``sp`` shards."""
+    return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
+            "evidence_front": sp, "seg_contrast_step": sp,
+            "seg_up_step": 8 * sp, "seg_down_step": 8 * sp}
+
+
+def _hub_case(n: int, block: int, seed: int):
+    """Edges of ``n`` services whose shard boundary cuts a hub: node
+    ``block - 1``, the last of shard 0, has 3000 dependencies and 3000
+    dependents spread over every shard, beside a random sparse graph."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hub = block - 1
+    src = np.concatenate([rng.integers(0, n, 2 * n), np.full(3000, hub),
+                          rng.integers(0, n, 3000)])
+    dst = np.concatenate([rng.integers(0, n, 2 * n), rng.integers(0, n, 3000),
+                          np.full(3000, hub)])
+    keep = src != dst
+    return src[keep].astype(np.int32), dst[keep].astype(np.int32)
+
+
+def _star_case(n: int, seed: int):
+    """A star split across the shards: every service depends on node 5
+    (one destination segment of about n / sp edges in each shard), and
+    node 5 has 4096 dependencies drawn with repeats (one source segment of
+    4096 edges in shard 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    others = np.setdiff1d(np.arange(n), [5])
+    src = np.concatenate([others, np.full(4096, 5)])
+    dst = np.concatenate([np.full(len(others), 5),
+                          rng.choice(others, 4096)])
+    return src.astype(np.int32), dst.astype(np.int32)
+
+
+def sharded_phase(cases, shapes, profile_it: bool = False,
+                  out_dir=None) -> dict:
+    """The node-sharded engine on the card, over logical shards (a mesh
+    whose device list repeats ``cuda:0``) and, with two cards or more,
+    over distinct cards: the per-shard kernel entries against their plain
+    versions (the up-step and the contrast bitwise, the down-step at rtol
+    1e-5 / atol 1e-6, each twice bitwise) over the tiers' layouts, a star
+    split across the shards and a hub cut by a shard boundary;
+    ``ShardedGraphEngine`` at 2047 and 49,999 services with ``sp = 4`` and
+    at 49,999 with ``sp = 8``, restaged and resident, each analysis
+    launching ``evidence_front`` / ``seg_contrast_step`` / ``seg_up_step``
+    / ``seg_down_step`` sp x 1 / 1 / 8 / 8 times with its collectives
+    moving the reference's round-5 budget; ``a``, ``h`` and ``u`` bitwise
+    the dense engine on the card, ``m`` and the score within rtol 1e-5 /
+    atol 1e-6, top-3 identical, ``sanitized_rows`` identical on NaN/Inf
+    rows, a second run bitwise, resident requests bitwise restaged;
+    ``analyze_batch`` on ``dp = 2, sp = 2`` (B = 8) at 2047 against the
+    dense batch; ``ShardedStreamingSession`` at 10,000 services, 30 ticks,
+    against the dense session (rankings), its ``torch``-row twin (blocks
+    bitwise), sync-free ``dispatch`` (also behind a sleep kernel); a live
+    session over the 50-service fixture on a sharded engine, then its
+    ladder from ``full`` to ``single-device``; the times."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.cluster.generator import (
+        synthetic_cascade_arrays,
+        synthetic_cascade_world,
+    )
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.engine import (
+        GraphEngine,
+        LiveStreamingSession,
+        ShardedGraphEngine,
+    )
+    from rca_tpu_torch.engine.evidence import (
+        evidence_front_rows,
+        seg_contrast_step_shard,
+        seg_contrast_step_shard_plain,
+    )
+    from rca_tpu_torch.engine.segscan import (
+        down_seg_step_shard,
+        down_seg_step_shard_plain,
+        up_seg_step_shard,
+        up_seg_step_shard_plain,
+    )
+    from rca_tpu_torch.engine.streaming import StreamingSession
+    from rca_tpu_torch.kernels import LAUNCHES, SHARD_LAUNCHES, reset_launches
+    from rca_tpu_torch.parallel import collectives
+    from rca_tpu_torch.parallel.mesh import make_mesh
+    from rca_tpu_torch.parallel.sharded import shard_plans
+    from rca_tpu_torch.parallel.streaming import ShardedStreamingSession
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(808)
+
+    def mesh(sp, dp=1, devices=None):
+        return make_mesh([("dp", dp), ("sp", sp)],
+                         devices or [dev] * (dp * sp))
+
+    params = GraphEngine(device="cpu").params
+    decay, weight = params.decay, params.error_contrast
+    out = {"sp": SHARD_SP}
+    errs = {name: 0.0 for name in SHARD_SOURCES}
+
+    # -- the per-shard entries against their plain versions ----------------
+    def check_shards(label, graph, sp):
+        (plan,) = shard_plans(mesh(sp), graph, "kernels")
+
+        def vec(*shape):
+            return torch.from_numpy(rng.uniform(
+                0.0, 1.0, shape).astype(np.float32)).to(dev)
+
+        u, h, m, a_ex, e = (vec(graph.n_pad) for _ in range(5))
+        for k in range(sp):
+            base = k * graph.block
+            a_raw = vec(graph.block)
+            runs = {
+                "seg_up_step": (
+                    lambda: up_seg_step_shard(u, h, decay, plan.up[k], base),
+                    lambda: up_seg_step_shard_plain(u, h, decay, plan.up[k],
+                                                    base)),
+                "seg_down_step": (
+                    lambda: down_seg_step_shard(m, a_ex, decay, plan.dn[k]),
+                    lambda: down_seg_step_shard_plain(m, a_ex, decay,
+                                                      plan.dn[k])),
+                "seg_contrast_step": (
+                    lambda: seg_contrast_step_shard(a_raw, e, weight,
+                                                    plan.up[k], base),
+                    lambda: seg_contrast_step_shard_plain(
+                        a_raw, e, weight, plan.up[k], base)),
+            }
+            for name, (kernel, plain) in runs.items():
+                k1, k2, want = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                if not torch.equal(k1, k2):
+                    fail(f"{name} (shard) not deterministic ({label}, "
+                         f"shard {k})")
+                if name != "seg_down_step" and not torch.equal(k1, want):
+                    fail(f"{name} (shard) not bitwise its plain version "
+                         f"({label}, shard {k})")
+                if not torch.allclose(k1, want, rtol=1e-5, atol=1e-6):
+                    fail(f"{name} (shard) disagrees with plain ({label}, "
+                         f"shard {k})")
+                errs[name] = max(errs[name], float((k1 - want).abs().max()))
+        longest = {d: int(max((p.offsets[1:] - p.offsets[:-1]).max()
+                              for p in getattr(plan, d)))
+                   for d in ("up", "dn")}
+        phase("sharded_check", layout=label, sp=sp, n_pad=graph.n_pad,
+              block=graph.block, longest_up_segment=longest["up"],
+              longest_down_segment=longest["dn"],
+              max_abs_err=dict(errs))
+        return plan
+
+    eng4 = ShardedGraphEngine(mesh=mesh(SHARD_SP), resident=False)
+    plans = {}
+    for n in cases:
+        g = eng4._shard(n, cases[n].dep_src, cases[n].dep_dst)
+        plans[n] = (g, check_shards(f"{n} services", g, SHARD_SP))
+    g = eng4._shard(2047, *_star_case(2047, 3))
+    check_shards("star split across 4 shards", g, SHARD_SP)
+    block = eng4._shard(2047, np.zeros(0, np.int32),
+                        np.zeros(0, np.int32)).block
+    g = eng4._shard(2047, *_hub_case(2047, block, 4))
+    check_shards("hub cut by the boundary of shards 0 and 1", g, SHARD_SP)
+
+    # -- the engine against the dense engine on the card -------------------
+    dense = GraphEngine(resident=False)
+    configs = [(2047, 4), (49999, 4), (49999, 8)]
+    out["engine"] = []
+    counted = {}
+    for n, sp in configs:
+        case = cases[n]
+        eng = ShardedGraphEngine(mesh=mesh(sp), resident=False)
+        res = ShardedGraphEngine(mesh=mesh(sp))
+        graph = eng._shard(n, case.dep_src, case.dep_dst)
+        bad = case.features.copy()
+        bad[[5, 77, 901], [1, 4, 12]] = (np.nan, np.inf, -np.inf)
+        for label, feats in (("clean", case.features), ("nan_inf", bad)):
+            want = dense.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                        case.names)
+            # the counted run: launches and collective bytes of one analysis
+            eng.analyze_arrays(feats, case.dep_src, case.dep_dst, case.names)
+            torch.cuda.synchronize()
+            reset_launches()
+            collectives.reset_collectives()
+            got = eng.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                     case.names)
+            launches, shard_l = dict(LAUNCHES), dict(SHARD_LAUNCHES)
+            cbytes = dict(collectives.COLLECTIVE_BYTES)
+            ccalls = dict(collectives.COLLECTIVE_CALLS)
+            if launches != _shard_launches(sp):
+                fail(f"sharded launches at {n}, sp {sp}: {launches}")
+            if shard_l != {"seg_up_step": 8 * sp, "seg_down_step": 8 * sp,
+                           "seg_contrast_step": sp}:
+                fail(f"per-shard launches at {n}, sp {sp}: {shard_l}")
+            counted[(n, sp)] = {"shard": shard_l, "all": launches}
+            per_call = (sp - 1) * graph.block * 4
+            budget = {"all_gather": 19 * sp * per_call,
+                      "reduce_scatter": 9 * sp * per_call}
+            if ccalls["all_gather"] != 19 or                     ccalls["reduce_scatter"] != 9 or any(
+                        cbytes[kind] != budget[kind] for kind in budget):
+                fail(f"collectives at {n}, sp {sp}: {ccalls} {cbytes}, "
+                     f"budget {budget}")
+            again = eng.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                       case.names)
+            resident = [res.analyze_arrays(feats, case.dep_src,
+                                           case.dep_dst, case.names)
+                        for _ in range(2)]
+            gs, ds = got.full_diagnostics(), want.full_diagnostics()
+            if not all(np.array_equal(_f32bits(gs), _f32bits(
+                    r.full_diagnostics())) for r in [again, *resident]):
+                fail(f"sharded runs differ at {n}, sp {sp} ({label})")
+            if not (np.array_equal(gs[0][:n], ds[0][:n])
+                    and np.array_equal(gs[1][:n], ds[1][:n])):
+                fail(f"sharded a / u not bitwise dense at {n}, sp {sp}")
+            if not (np.allclose(gs[2][:n], ds[2][:n], rtol=1e-5, atol=1e-6)
+                    and np.allclose(gs[3][:n], ds[3][:n], rtol=1e-5,
+                                    atol=1e-6)):
+                fail(f"sharded m / score disagree with dense at {n}, sp {sp}")
+            if got.top_components()[:3] != want.top_components()[:3]:
+                fail(f"sharded top-3 {got.top_components()[:3]} vs dense "
+                     f"{want.top_components()[:3]} at {n}, sp {sp}")
+            if got.sanitized_rows != want.sanitized_rows or \
+                    any(r.sanitized_rows != got.sanitized_rows
+                        for r in resident):
+                fail(f"sharded sanitized_rows {got.sanitized_rows} vs "
+                     f"{want.sanitized_rows} at {n}, sp {sp}")
+            if not np.isfinite(gs).all():
+                fail(f"non-finite sharded diagnostics at {n}, sp {sp}")
+            # h: the dense front's and the shards' row passes, bitwise
+            f = np.zeros((graph.n_pad, C), np.float32)
+            f[:n] = np.where(np.isfinite(feats).all(1, keepdims=True),
+                             feats, 0.0)
+            ft = torch.from_numpy(f).to(dev)
+            aw, hw = (torch.from_numpy(np.asarray(w)).to(dev)
+                      for w in params.weight_arrays())
+            h_dense = evidence_front_rows(ft, aw, hw)[1]
+            h_shards = torch.cat([evidence_front_rows(
+                ft[k * graph.block:(k + 1) * graph.block], aw, hw)[1]
+                for k in range(sp)])
+            if not torch.equal(h_dense, h_shards):
+                fail(f"sharded h not bitwise dense at {n}, sp {sp}")
+            row = {"services": n, "sp": sp, "input": label,
+                   "n_pad": graph.n_pad, "block": graph.block,
+                   "e_pad_per_shard": int(graph.src_local.shape[1]),
+                   "launches": launches, "shard_launches": shard_l,
+                   "collective_calls": ccalls,
+                   "collective_bytes": cbytes,
+                   "bytes_per_step_per_shard": {
+                       "up_all_gather": per_call,
+                       "down_all_gather": per_call,
+                       "reduce_scatter": per_call,
+                       "round5_formula": per_call},
+                   "top": got.top_components()[:3],
+                   "top_k_identical": got.top_components()
+                   == want.top_components(),
+                   "sanitized_rows": got.sanitized_rows,
+                   "score_max_abs_err": float(np.abs(gs[3][:n]
+                                                     - ds[3][:n]).max()),
+                   "m_max_abs_err": float(np.abs(gs[2][:n]
+                                                 - ds[2][:n]).max())}
+            out["engine"].append(row)
+            phase("sharded_engine", **row)
+        # resident: the seeded request sequence, bitwise restaged
+        seq = _resident_requests(case, graph.n_pad,
+                                 np.random.default_rng(170 + n))
+        for label, f in seq:
+            reset_launches()
+            a = res.analyze_arrays(f, case.dep_src, case.dep_dst, case.names)
+            if dict(LAUNCHES) != _shard_launches(sp):
+                fail(f"sharded resident {label} at {n}: {dict(LAUNCHES)}")
+            b = eng.analyze_arrays(f, case.dep_src, case.dep_dst, case.names)
+            if not np.array_equal(_f32bits(a.full_diagnostics()),
+                                  _f32bits(b.full_diagnostics())) or \
+                    a.ranked != b.ranked or \
+                    a.sanitized_rows != b.sanitized_rows:
+                fail(f"sharded resident {label} at {n}, sp {sp} is not "
+                     f"bitwise restaging")
+        phase("sharded_resident", services=n, sp=sp, requests=len(seq),
+              bitwise=True, stats=res._resident_cache.stats())
+
+    # -- the hypothesis batch over dp = 2, sp = 2 --------------------------
+    case = cases[2047]
+    batch = np.repeat(case.features[None], 8, axis=0)
+    for b in range(1, 8):
+        batch[b, rng.choice(case.n, 12, replace=False)] = 0.0
+    batch[3, 40, 2] = np.nan
+    got = ShardedGraphEngine(mesh=mesh(2, dp=2)).analyze_batch(
+        batch, case.dep_src, case.dep_dst, case.names)
+    want = dense.analyze_batch(batch, case.dep_src, case.dep_dst, case.names)
+    for b, (g_b, w_b) in enumerate(zip(got, want)):
+        if g_b.top_components()[:3] != w_b.top_components()[:3] or \
+                not np.allclose(g_b.score, w_b.score, rtol=1e-5, atol=1e-6) \
+                or not np.array_equal(g_b.upstream, w_b.upstream):
+            fail(f"sharded batch lane {b} disagrees with the dense lane")
+    out["batch"] = {"lanes": 8, "dp": 2, "sp": 2, "services": 2047,
+                    "engine": got[0].engine}
+    phase("sharded_batch", **out["batch"])
+
+    # -- the streaming session at 10,000 services ---------------------------
+    n = 10000
+    big = synthetic_cascade_arrays(n, n_roots=3, seed=0)
+    names = [f"svc-{i}" for i in range(n)]
+    seng = ShardedGraphEngine(mesh=mesh(SHARD_SP))
+    sharded_s = ShardedStreamingSession(names, big.dep_src, big.dep_dst, C,
+                                        engine=seng, k=5)
+    twin = ShardedStreamingSession(names, big.dep_src, big.dep_dst, C,
+                                   engine=seng, k=5)
+    twin.use_torch_row()
+    dense_s = StreamingSession(names, big.dep_src, big.dep_dst, C,
+                               engine=GraphEngine(), k=5)
+    start = big.features.copy()
+    start[rng.choice(n, 4, replace=False)] = np.nan
+    for s_ in (sharded_s, twin, dense_s):
+        s_.set_all(start)
+    tick_launches = {}
+    for t in range(30):
+        if t % 3 != 2:
+            idx = rng.choice(n, 8, replace=False)
+            rows = rng.uniform(0, 1, (8, C)).astype(np.float32)
+            if t % 5 == 1:
+                rows[0, 3] = np.nan
+            for s_ in (sharded_s, twin, dense_s):
+                s_.update_rows(idx, rows)
+        kind = "delta" if t % 3 != 2 else "quiet"
+        reset_launches()
+        got = sharded_s.fetch(_no_sync(sharded_s.dispatch))
+        launches = dict(LAUNCHES)
+        if launches != _shard_launches(SHARD_SP):
+            fail(f"sharded tick {t}: launches {launches}")
+        tick_launches.setdefault(kind, launches)
+        want, plain = dense_s.tick(), twin.tick()
+        if [r["component"] for r in got["ranked"]] != \
+                [r["component"] for r in want["ranked"]] or \
+                not np.allclose([r["score"] for r in got["ranked"]],
+                                [r["score"] for r in want["ranked"]],
+                                rtol=1e-5, atol=1e-6):
+            fail(f"sharded tick {t}: ranking differs from the dense session")
+        if got["upload_rows"] != want["upload_rows"]:
+            fail(f"sharded tick {t}: upload_rows {got['upload_rows']} vs "
+                 f"{want['upload_rows']}")
+        if not all(torch.equal(_bits(a), _bits(b)) for a, b in
+                   zip(sharded_s.blocks(), twin.blocks())):
+            fail(f"sharded tick {t}: the blocks are not bitwise the "
+                 f"torch-row twin's")
+        if [r["component"] for r in got["ranked"]] != \
+                [r["component"] for r in plain["ranked"]] or \
+                not np.allclose([r["score"] for r in got["ranked"]],
+                                [r["score"] for r in plain["ranked"]],
+                                rtol=1e-5, atol=1e-6):
+            fail(f"sharded tick {t}: ranking differs from the torch-row "
+                 f"twin")
+    behind = []
+    for staged in (True, False):
+        if staged:
+            sharded_s.update_rows(rng.choice(n, 8, replace=False),
+                                  rng.uniform(0, 1, (8, C)).astype(
+                                      np.float32))
+        torch.cuda._sleep(int(0.2 * 2e9))
+        t0 = time.perf_counter()
+        handle = _no_sync(sharded_s.dispatch)
+        ms = (time.perf_counter() - t0) * 1e3
+        pending = not handle.result.ready.query()
+        sharded_s.fetch(handle)
+        if not pending or ms > 150:
+            fail(f"sharded dispatch waited for the card ({ms:.1f} ms, "
+                 f"pending {pending})")
+        behind.append(ms)
+
+    sh_walls = _tick_walls(sharded_s, rng)
+    de_walls = _tick_walls(dense_s, rng)
+    out["stream"] = {
+        "services": n, "sp": SHARD_SP, "ticks": 30,
+        "tick_launches": tick_launches, "sync_free_dispatches": 32,
+        "dispatch_behind_sleep_ms": behind,
+        "tick_wall_ms": float(np.median(sh_walls)),
+        "tick_wall_ms_range": [min(sh_walls), max(sh_walls)],
+        "dense_tick_wall_ms": float(np.median(de_walls))}
+
+    # -- the live session on a sharded engine --------------------------------
+    def fixture():
+        return synthetic_cascade_world(50, n_roots=1, seed=7,
+                                       namespace="synthetic")
+
+    world, dworld = fixture(), fixture()
+    roots = world.ground_truth["fault_roots"]
+    live = LiveStreamingSession(MockClusterClient(world), "synthetic", k=3,
+                                engine=ShardedGraphEngine(mesh=mesh(SHARD_SP)),
+                                topology_check_every=7)
+    dlive = LiveStreamingSession(MockClusterClient(dworld), "synthetic", k=3,
+                                 engine=GraphEngine(),
+                                 topology_check_every=7)
+    if type(live.session) is not ShardedStreamingSession:
+        fail(f"live session on a sharded engine: {type(live.session)}")
+    for t in range(20):
+        if t % 2:
+            for w in (world, dworld):
+                pods = w.pods["synthetic"]
+                w.touch("pod", "synthetic",
+                        pods[(7 * t) % len(pods)]["metadata"]["name"])
+        got, want = live.poll(), dlive.poll()
+        if got["degraded"] or got["health"]["kernel_path"] != "kernels":
+            fail(f"sharded live poll {t}: degraded {got['degraded']}, "
+                 f"kernel_path {got['health']['kernel_path']}")
+        if [r["component"] for r in got["ranked"]] != \
+                [r["component"] for r in want["ranked"]]:
+            fail(f"sharded live poll {t}: ranking differs from dense")
+    if got["ranked"][0]["component"] not in roots:
+        fail(f"sharded live top-1 {got['ranked'][0]['component']} is not "
+             f"the root {roots}")
+    real = ShardedStreamingSession.dispatch
+
+    def broken(self):
+        raise RuntimeError("injected sharded dispatch failure")
+
+    ShardedStreamingSession.dispatch = broken
+    try:
+        stepped = live.poll()
+    finally:
+        ShardedStreamingSession.dispatch = real
+    if stepped["health"]["degradation_rung"] != "single-device" or \
+            type(live.engine) is not GraphEngine or \
+            type(live.session) is not StreamingSession or \
+            live.engine.device != dev or \
+            live.session.kernel_path != "kernels" or not stepped["ranked"]:
+        fail(f"sharded live ladder: rung "
+             f"{stepped['health']['degradation_rung']}, engine "
+             f"{type(live.engine).__name__}, session "
+             f"{type(live.session).__name__}")
+    out["live"] = {"polls": 20, "top": got["ranked"][0]["component"],
+                   "roots": roots,
+                   "ladder": {"rung": "single-device",
+                              "faults": [f["op"] for f in
+                                         stepped["health"]["faults"]],
+                              "engine": type(live.engine).__name__}}
+    phase("sharded_stream", **out["stream"])
+    phase("sharded_live", **out["live"])
+
+    # -- distinct cards ------------------------------------------------------
+    if torch.cuda.device_count() >= 2:
+        out["multi_card"] = multi_card_phase(cases, big, dense)
+    else:
+        out["multi_card"] = {"cards": 1, "collectives": "device-local",
+                             "note": "one card: every shard on cuda:0, the "
+                                     "collectives are copies on its stream"}
+        phase("sharded_multi_card", **out["multi_card"])
+
+    # -- times ---------------------------------------------------------------
+    times = {}
+    for n in cases:
+        case = cases[n]
+        sh = ShardedGraphEngine(mesh=mesh(SHARD_SP), resident=False)
+
+        def sharded_call():
+            sh.analyze_arrays(case.features, case.dep_src, case.dep_dst,
+                              case.names)
+
+        def dense_call():
+            dense.analyze_arrays(case.features, case.dep_src, case.dep_dst,
+                                 case.names)
+
+        t = {"analyze_arrays_ms": host_ms(sharded_call),
+             "dense_analyze_arrays_ms": host_ms(dense_call)}
+        for label, fn in (("sharded", sharded_call), ("dense", dense_call)):
+            p = device_profile(fn, t["analyze_arrays_ms"
+                                     if label == "sharded"
+                                     else "dense_analyze_arrays_ms"],
+                               out_dir if profile_it else None,
+                               f"{label}_{n}", calls=3, warm=2)
+            t[f"{label}_device_us"] = p["device_us_per_call"]
+            t[f"{label}_busy_share"] = p["device_busy_share"]
+            t[f"{label}_launches_per_call"] = p["launches_per_call"]
+        graph, plan = plans[n]
+        e_real = [int(m.sum()) for m in graph.mask]
+        k = int(np.argmax(e_real))      # the shard with the most edges
+        base = k * graph.block
+        vec = {name: torch.from_numpy(rng.uniform(0, 1, graph.n_pad).astype(
+            np.float32)).to(dev) for name in ("u", "h", "m", "a_ex", "e")}
+        a_raw = torch.from_numpy(rng.uniform(0, 1, graph.block).astype(
+            np.float32)).to(dev)
+        up_out = torch.empty(graph.block, device=dev)
+        dn_out = torch.empty(graph.n_pad, device=dev)
+        e_k, b_k, np_k = e_real[k], graph.block, graph.n_pad
+        # the bounds count each entry a step must read once, for this
+        # shard's real edges: the CSR (endpoints, offsets, segment order),
+        # the gathered vectors at the edges' distinct destinations (up,
+        # contrast; also the node's own entry there) or distinct sources
+        # (down: its own block only), the output once
+        real = graph.mask[k] > 0
+        dsts = graph.dst_global[k][real]
+        n_dst = len(np.unique(dsts))
+        n_dst_own = len(np.union1d(dsts, np.arange(base, base + b_k)))
+        n_src = len(np.unique(graph.src_global[k][real]))
+        up_csr = e_k * 4 + (b_k + 1) * 4 + b_k * 4
+        dn_csr = e_k * 4 + (np_k + 1) * 4 + np_k * 4
+        runs = {
+            "seg_up_step": (
+                lambda: up_seg_step_shard(vec["u"], vec["h"], decay,
+                                          plan.up[k], base, out=up_out),
+                lambda: up_seg_step_shard_plain(vec["u"], vec["h"], decay,
+                                                plan.up[k], base),
+                bound_ms(up_csr + (n_dst + n_dst_own + b_k) * 4,
+                         3 * e_k + b_k)),
+            "seg_down_step": (
+                lambda: down_seg_step_shard(vec["m"], vec["a_ex"], decay,
+                                            plan.dn[k], out=dn_out),
+                lambda: down_seg_step_shard_plain(vec["m"], vec["a_ex"],
+                                                  decay, plan.dn[k]),
+                bound_ms(dn_csr + (2 * n_src + np_k) * 4, 3 * e_k)),
+            "seg_contrast_step": (
+                lambda: seg_contrast_step_shard(a_raw, vec["e"], weight,
+                                                plan.up[k], base),
+                lambda: seg_contrast_step_shard_plain(
+                    a_raw, vec["e"], weight, plan.up[k], base),
+                bound_ms(up_csr + (n_dst_own + 2 * b_k) * 4,
+                         e_k + 7 * b_k)),
+        }
+        for name, (kernel, plain, bound) in runs.items():
+            t[name] = {"shard": k, "edges": e_k, "distinct_dst": n_dst,
+                       "distinct_src": n_src, "ms": cuda_ms(kernel),
+                       "call_ms": cuda_ms(kernel, queued=False),
+                       "plain_ms": cuda_ms(plain), "library_ms": None,
+                       "bound": bound}
+        times[n] = t
+        phase("sharded_times", services=n, sp=SHARD_SP, **t)
+    out["times"] = {str(n): t for n, t in times.items()}
+    out["errs"] = errs
+    out["launches"] = {f"{n}x{sp}": v["shard"]
+                       for (n, sp), v in counted.items()}
+    out["all_launches"] = {f"{n}x{sp}": v["all"]
+                           for (n, sp), v in counted.items()}
+    return out
+
+
+def _no_sync(fn):
+    """``fn()`` with any host sync on the card raising."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _tick_walls(session, rng):
+    """Host walls of 20 serial ticks (8-row deltas) after 3 warm ones."""
+    import numpy as np
+
+    walls = []
+    for _ in range(23):
+        session.update_rows(rng.choice(session._n, 8, replace=False),
+                            rng.uniform(0, 1, (8, C)).astype(np.float32))
+        t0 = time.perf_counter()
+        session.tick()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls[3:]
+
+
+def multi_card_phase(cases, big, dense=None) -> dict:
+    """The sharded engine over distinct cards (two or more): ``sp = 2``
+    over two cards bitwise two logical shards of ``cuda:0`` (restaged, at
+    49,999 services) and three sync-free streaming dispatches over them;
+    then what a multi-card host runs, ``make_engine()`` with ``RCA_SHARD``
+    unset (one shard on every card): its ``analyze_arrays`` wall
+    (restaged, median of 20) at each tier and its tick wall at 10,000
+    services (8-row deltas, median of 20), beside the same shards as
+    logical shards of ``cuda:0`` and the dense engine on ``cuda:0``."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine, ShardedGraphEngine, make_engine
+    from rca_tpu_torch.engine.streaming import StreamingSession
+    from rca_tpu_torch.parallel.mesh import make_mesh
+    from rca_tpu_torch.parallel.streaming import ShardedStreamingSession
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        fail(f"the multi-card phase needs two cards or more, found {n_cards}")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(909)
+    dense = dense or GraphEngine(resident=False)
+
+    def mesh(sp, devices=None):
+        return make_mesh([("dp", 1), ("sp", sp)], devices or [dev] * sp)
+
+    cards = [torch.device("cuda", i) for i in range(2)]
+    case = cases[49999]
+    a = ShardedGraphEngine(mesh=mesh(2), resident=False).analyze_arrays(
+        case.features, case.dep_src, case.dep_dst, case.names)
+    b = ShardedGraphEngine(mesh=mesh(2, cards), resident=False).analyze_arrays(
+        case.features, case.dep_src, case.dep_dst, case.names)
+    if not np.array_equal(_f32bits(a.full_diagnostics()),
+                          _f32bits(b.full_diagnostics())):
+        fail("sp = 2 over two cards differs from two logical shards")
+    n = big.features.shape[0]
+    names = [f"svc-{i}" for i in range(n)]
+
+    def session(engine):
+        s_ = (StreamingSession if isinstance(engine, GraphEngine)
+              else ShardedStreamingSession)(names, big.dep_src, big.dep_dst,
+                                            C, engine=engine, k=5)
+        s_.set_all(big.features)
+        return s_
+
+    ss = session(ShardedGraphEngine(mesh=mesh(2, cards)))
+    for _ in range(3):
+        ss.update_rows(rng.choice(n, 8, replace=False),
+                       rng.uniform(0, 1, (8, C)).astype(np.float32))
+        ss.fetch(_no_sync(ss.dispatch))
+
+    auto = make_engine()
+    over_cards = ShardedGraphEngine(mesh=auto.mesh, resident=False)
+    sp = auto.mesh.shape["sp"]
+    logical = ShardedGraphEngine(mesh=mesh(sp), resident=False)
+    walls = {}
+    for n_, c in cases.items():
+        walls[str(n_)] = {
+            label: host_ms(lambda e=e, c=c: e.analyze_arrays(
+                c.features, c.dep_src, c.dep_dst, c.names))
+            for label, e in (("cards", over_cards), ("logical", logical),
+                             ("dense", dense))}
+    walls["tick_10000"] = {
+        label: float(np.median(_tick_walls(session(e), rng)))
+        for label, e in (("cards", ShardedGraphEngine(mesh=auto.mesh)),
+                         ("logical", ShardedGraphEngine(mesh=mesh(sp))),
+                         ("dense", GraphEngine()))}
+    out = {"cards": n_cards, "sp": 2, "bitwise_logical": True,
+           "sync_free_dispatches": 3, "make_engine": auto.engine_tag,
+           "mesh": [str(d) for d in auto.mesh.flat], "walls_ms": walls}
+    phase("sharded_multi_card", **out)
+    return out
+
+
+def _f32bits(a):
+    """A float32 array's bit pattern (NaN-safe bitwise comparisons)."""
+    import numpy as np
+
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
 
 
 def sweep(cases, shapes, kin, decay, cuts=(8, 16, 32, 64, 128, 256)):

@@ -15,8 +15,10 @@
 
 Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
 <N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``).  Every command
-runs on the CUDA card unless ``--device cpu`` asks for the CPU.  A live
-cluster is not supported yet.
+runs on the CUDA card unless ``--device cpu`` asks for the CPU.  ``analyze``,
+``hypotheses`` and ``stream`` build their engine through ``make_engine``:
+node-sharded when ``RCA_SHARD`` asks for it or more than one CUDA device is
+visible.  A live cluster is not supported yet.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def cmd_hypotheses(args) -> int:
     import numpy as np
 
     from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
-    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine import make_engine
     from rca_tpu_torch.features.extract import extract_features
     from rca_tpu_torch.graph.build import service_dependency_edges
 
@@ -94,7 +96,7 @@ def cmd_hypotheses(args) -> int:
     snap = ClusterSnapshot.capture(client, namespace)
     fs = extract_features(snap)
     src, dst = service_dependency_edges(snap, fs)
-    engine = GraphEngine(device=args.device)
+    engine = make_engine(device=args.device)
     base = engine.analyze_features(fs, src, dst, k=args.candidates)
     cands = [r["component"] for r in base.ranked[: args.candidates]]
     indent = None if args.compact else 2
@@ -172,6 +174,12 @@ def cmd_kernels(args) -> int:
             reg.resolve(bucket_for(n + 1, buckets),
                         e_pad=bucket_for(e, buckets), variant=variant,
                         device=device)
+        if args.sp:
+            # the sharded row at the node tier rounded up to sp shards,
+            # with the edges spread evenly over them
+            n_pad = -(-bucket_for(n + 1, buckets) // args.sp) * args.sp
+            reg.resolve(n_pad, e_pad=bucket_for(-(-e // args.sp), buckets),
+                        variant="sharded", device=device)
     rows = kernel_table()
     if args.json:
         print(json.dumps({"rows": rows},
@@ -230,7 +238,7 @@ def cmd_stream(args) -> int:
     when a tick degraded (it may have served a stale ranking)."""
     import time
 
-    from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
+    from rca_tpu_torch.engine import LiveStreamingSession, make_engine
 
     if args.fixture in (None, "", "live"):
         print("rca_tpu_torch: a live cluster is not supported yet; pass "
@@ -239,7 +247,7 @@ def cmd_stream(args) -> int:
     client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
     live = LiveStreamingSession(
         client, args.namespace or ns, k=args.top,
-        engine=GraphEngine(device=args.device),
+        engine=make_engine(device=args.device),
         pipeline_depth=args.pipeline_depth,
     )
     degraded = 0
@@ -338,6 +346,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--explain", action="store_true",
                     help="per row, each candidate: engaged, its "
                     "eligibility reason, or the timing it lost with")
+    sp.add_argument("--sp", type=int, default=0,
+                    help="also resolve the node-sharded engine's row for "
+                    "this many shards (default 0: none)")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--json", action="store_true",

@@ -37,21 +37,28 @@ def _degraded_note(errors: List[Dict[str, str]]) -> str:
 class RCACoordinator:
     """Runs analyses over ``cluster_client`` on ``device`` (CUDA unless the
     caller names another; raises here when that device does not exist).
-    With the ``torch`` backend the engine, and on the card its kernel
-    library, are built now, so a missing card or a kernel that does not
-    build fails the construction instead of the first analysis."""
+    With the ``torch`` backend the engine (``engine``, else
+    :func:`make_engine` on ``device``: sharded when ``RCA_SHARD`` asks for
+    it or more than one device is visible), and on the card its kernel
+    library, are built now, so a missing card, a misconfigured
+    ``RCA_SHARD`` or a kernel that does not build fails the construction
+    instead of the first analysis."""
 
     def __init__(self, cluster_client, backend: Optional[str] = None,
-                 device=None):
-        from rca_tpu_torch.engine import GraphEngine
+                 device=None, engine=None):
+        from rca_tpu_torch.engine import make_engine
         from rca_tpu_torch.engine.runner import resolve_device
         from rca_tpu_torch.kernels.build import library
 
         self.cluster = cluster_client
         self.backend = resolve_backend(backend)
-        self.device = resolve_device(device)
-        self.engine = (GraphEngine(device=self.device)
-                       if self.backend == "torch" else None)
+        self.device = resolve_device(device if engine is None
+                                     else engine.device)
+        if self.backend != "torch":
+            engine = None
+        elif engine is None:
+            engine = make_engine(device=self.device)
+        self.engine = engine
         if self.engine is not None and self.device.type == "cuda":
             library()
         self.agents = make_agents()

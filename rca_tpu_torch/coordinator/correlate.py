@@ -134,16 +134,19 @@ def correlate_torch(
     engine=None,
 ) -> Dict[str, Any]:
     """Engine propagation ranking with agent findings as supporting
-    evidence.  ``engine`` defaults to a :class:`GraphEngine` on the
-    context's device.
+    evidence.  ``engine`` defaults to :func:`make_engine` on the context's
+    device: sharded when ``RCA_SHARD`` asks for it or more than one device
+    is visible (a misconfigured ``RCA_SHARD`` raises
+    :class:`ShardConfigError`), single-device otherwise; the result names
+    the engine that ran.
 
     Components that do not map onto a graph service (nodes, namespaces,
     HPAs…) are appended after the engine-ranked services, ordered by the
     deterministic severity rank.
     """
-    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine import make_engine
 
-    engine = engine or GraphEngine(device=ctx.device)
+    engine = engine or make_engine(device=ctx.device)
     fs = ctx.features
     src, dst = ctx.dep_edges
     result = engine.analyze_features(fs, src, dst, k=max(top_k, 5))

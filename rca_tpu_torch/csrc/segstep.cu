@@ -50,6 +50,21 @@
 // bitwise equal to a solo launch on the same input, and the batch costs one
 // launch per step instead of one per lane.
 //
+// Shards: the node-sharded engine (rca_tpu/parallel/sharded.py::
+// _propagate_block, where each device calls pallas_segscan_max at :252 and
+// pallas_segscan at :285 over its own edge partition) launches the same
+// kernel once per shard through the *_shard entries at the bottom.  A
+// shard's segments are not the value vectors' index space: its up-step
+// and contrast reduce its `block` own sources, gathering from full-length
+// [n_pad] vectors and reading the node's own entry at base + s
+// (base = shard * block); its down-step reduces every destination over
+// its partition only and writes the unscaled totals, which the
+// reduce-scatter and inv_deg finish.  So the kernel takes the segment
+// count apart from the value length (each with its own lane stride) and a
+// segment base.  A dense launch is the case n_seg == n_val, base 0: the
+// same arithmetic, so its bits do not change.  The shard layouts hold real
+// edges only, so a padded edge adds nothing to any node of any shard.
+//
 // Bound: bytes.  other (4 B per edge), offsets, two or three node vectors
 // read and one written: about 1.3-1.5 MB at the 50k tier, under half a
 // microsecond at 3.35 TB/s; the working set sits in the 50 MB L2.  The
@@ -78,8 +93,8 @@ struct UpStep {
   const float* h;
   float gamma;
 
-  __device__ __forceinline__ UpStep lane(size_t off) const {
-    return UpStep{u + off, h + off, gamma};
+  __device__ __forceinline__ UpStep lane(size_t in_off, size_t) const {
+    return UpStep{u + in_off, h + in_off, gamma};
   }
 
   __device__ __forceinline__ float value(int o) const {
@@ -88,8 +103,8 @@ struct UpStep {
   static __device__ __forceinline__ float combine(float a, float b) {
     return fmaxf(a, b);
   }
-  __device__ __forceinline__ float finish(int s, float total) const {
-    return fmaxf(__ldg(u + s), total);
+  __device__ __forceinline__ float finish(int s, int base, float total) const {
+    return fmaxf(__ldg(u + base + s), total);
   }
 };
 
@@ -99,8 +114,8 @@ struct DownStep {
   const float* inv_deg;   // per graph: not offset by the lane
   float gamma;
 
-  __device__ __forceinline__ DownStep lane(size_t off) const {
-    return DownStep{m + off, a_ex + off, inv_deg, gamma};
+  __device__ __forceinline__ DownStep lane(size_t in_off, size_t) const {
+    return DownStep{m + in_off, a_ex + in_off, inv_deg, gamma};
   }
 
   __device__ __forceinline__ float value(int o) const {
@@ -109,8 +124,33 @@ struct DownStep {
   static __device__ __forceinline__ float combine(float a, float b) {
     return __fadd_rn(a, b);
   }
-  __device__ __forceinline__ float finish(int s, float total) const {
+  __device__ __forceinline__ float finish(int s, int, float total) const {
     return __fmul_rn(total, __ldg(inv_deg + s));
+  }
+};
+
+// The down-step of one shard: the same per-edge values and sum over the
+// shard's own edge partition, finished with no epilogue at all (the
+// unscaled segment totals; the reduce-scatter over the shards and then
+// inv_deg finish the step, as the reference's psum_scatter and multiply
+// do).  Not scaling at all is bitwise the same as scaling by 1.0.
+struct DownSumStep {
+  const float* m;
+  const float* a_ex;
+  float gamma;
+
+  __device__ __forceinline__ DownSumStep lane(size_t in_off, size_t) const {
+    return DownSumStep{m + in_off, a_ex + in_off, gamma};
+  }
+
+  __device__ __forceinline__ float value(int o) const {
+    return __fadd_rn(__ldg(a_ex + o), __fmul_rn(gamma, __ldg(m + o)));
+  }
+  static __device__ __forceinline__ float combine(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  __device__ __forceinline__ float finish(int, int, float total) const {
+    return total;
   }
 };
 
@@ -119,16 +159,20 @@ struct ContrastStep {
   const float* e;
   float weight;
 
-  __device__ __forceinline__ ContrastStep lane(size_t off) const {
-    return ContrastStep{a_raw + off, e + off, weight};
+  // a_raw is indexed like the output, e like the gathered values
+  __device__ __forceinline__ ContrastStep lane(size_t in_off,
+                                               size_t out_off) const {
+    return ContrastStep{a_raw + out_off, e + in_off, weight};
   }
 
   __device__ __forceinline__ float value(int o) const { return __ldg(e + o); }
   static __device__ __forceinline__ float combine(float a, float b) {
     return fmaxf(a, b);
   }
-  __device__ __forceinline__ float finish(int s, float dep_max) const {
-    const float excess = fmaxf(__fsub_rn(__ldg(e + s), dep_max), 0.0f);
+  __device__ __forceinline__ float finish(int s, int base,
+                                          float dep_max) const {
+    const float excess =
+        fmaxf(__fsub_rn(__ldg(e + base + s), dep_max), 0.0f);
     const float keep = __fsub_rn(1.0f, __fmul_rn(weight, excess));
     return __fsub_rn(1.0f, __fmul_rn(__fsub_rn(1.0f, __ldg(a_raw + s)), keep));
   }
@@ -140,10 +184,12 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ other,
                     const int* __restrict__ long_ids, int n_long,
                     const int* __restrict__ short_ids, int n_short,
-                    int n_pad, float* __restrict__ out_lanes) {
-  const size_t lane_off = static_cast<size_t>(blockIdx.y) * n_pad;
-  const Step step = all_lanes.lane(lane_off);
-  float* __restrict__ out = out_lanes + lane_off;
+                    int in_stride, int out_stride, int base,
+                    float* __restrict__ out_lanes) {
+  const size_t in_off = static_cast<size_t>(blockIdx.y) * in_stride;
+  const size_t out_off = static_cast<size_t>(blockIdx.y) * out_stride;
+  const Step step = all_lanes.lane(in_off, out_off);
+  float* __restrict__ out = out_lanes + out_off;
   if (static_cast<int>(blockIdx.x) < n_long) {
     // one long segment per block (the branch is uniform over the block)
     __shared__ float partial[kWarps];
@@ -166,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
       float total = partial[0];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) total = Step::combine(total, partial[w]);
-      out[s] = step.finish(s, total);
+      out[s] = step.finish(s, base, total);
     }
     return;
   }
@@ -192,21 +238,26 @@ __global__ void __launch_bounds__(kThreads)
     acc = Step::combine(acc, v3);
   }
   for (; e < end; ++e) acc = Step::combine(acc, step.value(__ldg(other + e)));
-  out[s] = step.finish(s, acc);
+  out[s] = step.finish(s, base, acc);
 }
 
+// n_seg segments write an output lane of n_seg entries; the values the
+// edges gather (and, at base + s, the segment's own entry) lie in lanes
+// of n_val entries.  A dense step has n_seg == n_val and base 0.
 template <class Step>
 int launch(const Step& step, const int* offsets, const int* other,
            const int* long_ids, int n_long, const int* short_ids, int n_short,
-           int n_lanes, int n_pad, float* out, void* stream) {
-  if (n_long < 0 || n_short < 0 || n_long + n_short != n_pad || n_pad < 1 ||
-      n_lanes < 1 || n_lanes > 65535) {
+           int n_lanes, int n_seg, int n_val, int base, float* out,
+           void* stream) {
+  if (n_long < 0 || n_short < 0 || n_long + n_short != n_seg || n_seg < 1 ||
+      n_lanes < 1 || n_lanes > 65535 || base < 0 || base + n_seg > n_val) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_long + (n_short + kThreads - 1) / kThreads, n_lanes);
   seg_step_kernel<Step><<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      step, offsets, other, long_ids, n_long, short_ids, n_short, n_pad, out);
+      step, offsets, other, long_ids, n_long, short_ids, n_short, n_val,
+      n_seg, base, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,7 +271,7 @@ extern "C" int rca_seg_up_step(const float* u, const float* h, float gamma,
                                const int* short_ids, int n_short, int n_lanes,
                                int n_pad, float* out, void* stream) {
   return launch(UpStep{u, h, gamma}, offsets, other, long_ids, n_long,
-                short_ids, n_short, n_lanes, n_pad, out, stream);
+                short_ids, n_short, n_lanes, n_pad, n_pad, 0, out, stream);
 }
 
 extern "C" int rca_seg_down_step(const float* m, const float* a_ex,
@@ -231,7 +282,8 @@ extern "C" int rca_seg_down_step(const float* m, const float* a_ex,
                                  int n_lanes, int n_pad, float* out,
                                  void* stream) {
   return launch(DownStep{m, a_ex, inv_deg, gamma}, offsets, other, long_ids,
-                n_long, short_ids, n_short, n_lanes, n_pad, out, stream);
+                n_long, short_ids, n_short, n_lanes, n_pad, n_pad, 0, out,
+                stream);
 }
 
 extern "C" int rca_seg_contrast_step(const float* a_raw, const float* e,
@@ -241,5 +293,53 @@ extern "C" int rca_seg_contrast_step(const float* a_raw, const float* e,
                                      int n_short, int n_lanes, int n_pad,
                                      float* out, void* stream) {
   return launch(ContrastStep{a_raw, e, weight}, offsets, other, long_ids,
-                n_long, short_ids, n_short, n_lanes, n_pad, out, stream);
+                n_long, short_ids, n_short, n_lanes, n_pad, n_pad, 0, out,
+                stream);
+}
+
+// The per-shard entries of the node-sharded engine: one shard's step over
+// its own edge partition (the shard's CSR layout, real edges only), with
+// the values gathered from full-length [n_val] vectors.
+//
+//   up, contrast: n_seg = block segments, the shard's own sources; the
+//     node's own entry is u_full[base + s] / e_full[base + s] with
+//     base = shard * block; the output (and a_raw) are [block] lanes.
+//   down: n_seg = n_val = n_pad segments, every destination; the output is
+//     the shard's unscaled [n_pad] contribution vector (DownSumStep).
+extern "C" int rca_seg_up_step_shard(const float* u_full, const float* h_full,
+                                     float gamma, int base, int n_val,
+                                     const int* offsets, const int* other,
+                                     const int* long_ids, int n_long,
+                                     const int* short_ids, int n_short,
+                                     int n_lanes, int n_seg, float* out,
+                                     void* stream) {
+  return launch(UpStep{u_full, h_full, gamma}, offsets, other, long_ids,
+                n_long, short_ids, n_short, n_lanes, n_seg, n_val, base, out,
+                stream);
+}
+
+extern "C" int rca_seg_down_step_shard(const float* m_full,
+                                       const float* a_ex_full, float gamma,
+                                       int n_val, const int* offsets,
+                                       const int* other, const int* long_ids,
+                                       int n_long, const int* short_ids,
+                                       int n_short, int n_lanes, int n_seg,
+                                       float* out, void* stream) {
+  return launch(DownSumStep{m_full, a_ex_full, gamma}, offsets, other,
+                long_ids, n_long, short_ids, n_short, n_lanes, n_seg, n_val,
+                0, out, stream);
+}
+
+extern "C" int rca_seg_contrast_step_shard(const float* a_raw,
+                                           const float* e_full, float weight,
+                                           int base, int n_val,
+                                           const int* offsets,
+                                           const int* other,
+                                           const int* long_ids, int n_long,
+                                           const int* short_ids, int n_short,
+                                           int n_lanes, int n_seg, float* out,
+                                           void* stream) {
+  return launch(ContrastStep{a_raw, e_full, weight}, offsets, other,
+                long_ids, n_long, short_ids, n_short, n_lanes, n_seg, n_val,
+                base, out, stream);
 }

@@ -49,9 +49,11 @@ import torch
 
 from rca_tpu_torch.engine.segscan import (
     SegLayout,
+    ShardSeg,
     as_float32,
     check_step,
     launch_step,
+    segscan_plain,
 )
 from rca_tpu_torch.features.schema import SvcF
 from rca_tpu_torch.kernels import LAUNCHES, PERSIST_LAUNCHES
@@ -253,12 +255,13 @@ def evidence_front_rows(features: torch.Tensor, anomaly_w: torch.Tensor,
         return a_raw, h, e, torch.zeros((), dtype=torch.int32,
                                         device=features.device)
     n_bad = torch.empty((), dtype=torch.int32, device=features.device)
-    stream = torch.cuda.current_stream(features.device).cuda_stream
-    err = library().rca_evidence_front(
-        features.data_ptr(), anomaly_w.data_ptr(), hard_w.data_ptr(),
-        a_raw.data_ptr(), h.data_ptr(), e.data_ptr(), n_bad.data_ptr(),
-        n_rows, n_channels, int(SvcF.ERROR_RATE), int(persist), stream,
-    )
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream(features.device).cuda_stream
+        err = library().rca_evidence_front(
+            features.data_ptr(), anomaly_w.data_ptr(), hard_w.data_ptr(),
+            a_raw.data_ptr(), h.data_ptr(), e.data_ptr(), n_bad.data_ptr(),
+            n_rows, n_channels, int(SvcF.ERROR_RATE), int(persist), stream,
+        )
     check(err, "evidence_front")
     LAUNCHES["evidence_front"] += 1
     if persist:
@@ -273,13 +276,50 @@ def seg_contrast_step(a_raw: torch.Tensor, e: torch.Tensor, weight: float,
     up layout ``seg``, on ``[S]`` vectors or ``[B, S]`` lanes: one launch
     of the ``seg_contrast_step`` kernel for all lanes on CUDA tensors,
     :func:`seg_contrast_step_plain` on CPU tensors."""
-    lanes = check_step("seg_contrast_step", seg, None,
-                       {"a_raw": a_raw, "e": e})
+    lanes, _ = check_step("seg_contrast_step", seg, None,
+                          {"a_raw": a_raw, "e": e})
     if not lanes:
         return seg_contrast_step_plain(a_raw, e, weight, seg)
     return launch_step("rca_seg_contrast_step", "seg_contrast_step", seg,
                        lanes, torch.empty_like(a_raw), a_raw.data_ptr(),
                        e.data_ptr(), as_float32(weight))
+
+
+def seg_contrast_step_shard_plain(a_raw, e_full, weight: float,
+                                  seg: ShardSeg, base: int):
+    """One shard's error-source contrast in plain PyTorch, the reference's
+    per-block form: the masked gather of the dependencies' error rates
+    from the full gathered ``e``, a flagged segmented MAX over the shard's
+    src-sorted edges, then :func:`fold_error_contrast` of ``relu(e[base +
+    s] - dep_max)`` into the shard's own ``a_raw``."""
+    n_seg = seg.ends.shape[0]
+    vals = seg.mask * e_full[..., seg.other_sorted]
+    s = segscan_plain(vals, seg.flags, "max")
+    dep_max = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    e_own = e_full[..., base:base + n_seg]
+    return fold_error_contrast(
+        a_raw, torch.maximum(e_own - dep_max, e_own.new_zeros(())), weight)
+
+
+def seg_contrast_step_shard(a_raw: torch.Tensor, e_full: torch.Tensor,
+                            weight: float, seg: ShardSeg,
+                            base: int) -> torch.Tensor:
+    """One shard's contrast: the shard's ``[block]`` (or ``[B, block]``)
+    ``a_raw`` folded with the excess of its own error rate
+    ``e_full[base + s]`` over its dependencies' max, read from the full
+    gathered ``e``: on CUDA tensors one launch of the
+    ``seg_contrast_step`` kernel's per-shard entry, on CPU tensors
+    :func:`seg_contrast_step_shard_plain`."""
+    lanes, n_val = check_step("seg_contrast_step", seg, None,
+                              {"e_full": e_full}, local={"a_raw": a_raw},
+                              base=base)
+    if not lanes:
+        return seg_contrast_step_shard_plain(a_raw, e_full, weight, seg,
+                                             base)
+    return launch_step("rca_seg_contrast_step_shard", "seg_contrast_step",
+                       seg, lanes, torch.empty_like(a_raw),
+                       a_raw.data_ptr(), e_full.data_ptr(),
+                       as_float32(weight), int(base), n_val, shard=True)
 
 
 def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,

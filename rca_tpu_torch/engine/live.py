@@ -25,10 +25,16 @@ poll dispatches this capture's tick and fetches the one issued N-1 polls
 ago, so the device round trip hides behind the next capture; rankings
 are the serial sequence delivered N-1 polls late.
 
+The engine follows the analyze boundary (:func:`make_engine`: sharded
+when ``RCA_SHARD`` asks for it or more than one CUDA device is visible), and
+a sharded engine gets the sharded streaming session
+(:func:`.streaming.make_streaming_session`).
+
 A failing capture, patch or tick returns the last known ranking with
 ``degraded: True`` and a per-tick health record.  Repeated device failure
 walks the degradation ladder: ``single-device`` rebuilds the session on a
-fresh :class:`GraphEngine` on the same device (the same kernels), and
+fresh :class:`GraphEngine` on the same device (the first shard's device
+for a sharded engine; the same kernels), and
 ``interpret`` (the reference's op-by-op run) runs every later tick on the
 plain ``torch`` row, on the CPU only.  On the CUDA card the kernels have
 no plain stand-in: where the ladder would step to ``interpret``,
@@ -51,6 +57,7 @@ import numpy as np
 from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
 from rca_tpu_torch.config import compile_cache_status, pipeline_depth_from_env
 from rca_tpu_torch.engine.runner import GraphEngine
+from rca_tpu_torch.engine.sharded_runner import make_engine
 from rca_tpu_torch.engine.streaming import make_streaming_session
 from rca_tpu_torch.features.extract import IncrementalExtractor
 from rca_tpu_torch.graph.build import service_dependency_edges
@@ -106,8 +113,8 @@ class LiveStreamingSession:
         ``pipeline_depth`` (default ``RCA_PIPELINE_DEPTH``, else 1): 1 runs
         each poll serially; N >= 2 keeps N-1 ticks in flight (the first
         N-1 polls are pipeline-fill ticks carrying the last known
-        ranking).  ``engine`` defaults to ``GraphEngine()``, on the CUDA
-        card.  ``clock`` is the injectable monotonic timer.  ``explain``
+        ranking).  ``engine`` defaults to :func:`make_engine` on the CUDA
+        devices.  ``clock`` is the injectable monotonic timer.  ``explain``
         (default ``RCA_EXPLAIN``) attributes every delivered ranking."""
         self.namespace = namespace
         self.k = k
@@ -140,7 +147,7 @@ class LiveStreamingSession:
         # the compile cache (the kernel build directory) at session start;
         # the first post-tick health record adds what this session built
         self._compile_cache = compile_cache_status()
-        self.engine = engine if engine is not None else GraphEngine()
+        self.engine = engine if engine is not None else make_engine()
         self.topology_check_every = max(1, int(topology_check_every))
         self._polls = 0
         self.resyncs = -1  # first _resync is initialization, not a resync
@@ -547,7 +554,8 @@ class LiveStreamingSession:
 
     # -- degradation ladder -------------------------------------------------
     def _degrade(self) -> None:
-        """Step one rung down: a fresh GraphEngine on the same device, then
+        """Step one rung down: a fresh GraphEngine on the same device (a
+        sharded engine's first shard's), then
         (on the CPU) the plain ``torch`` row; on the card the second step
         raises :class:`KernelPathFailed`.  The ladder is sticky for the
         session's life (a resync keeps the rung).  In-flight handles were

@@ -29,6 +29,14 @@ The ``attribution`` variant is the causelens saliency's row: it engages
 ``torch``, the differentiable body, and records ``kernels`` as ineligible
 with the reason.  The counterfactual sweep needs no gradient and runs the
 ``dense`` row.
+
+The ``sharded`` variant is the node-sharded engine's row, keyed by the
+padded node count and the per-shard edge tier: ``kernels`` (the seg
+steps' per-shard entries and the front's row pass, one launch per shard)
+on a CUDA card, ``torch`` (the per-shard plain versions) on the CPU and
+under ``RCA_KERNEL=torch``; it is not raced (the reference's sharded row
+is not either), and its ``source`` says why (``sharded`` / ``cpu-default``
+/ ``forced``).
 """
 
 from __future__ import annotations
@@ -97,12 +105,12 @@ _KERNEL_SET_HASH: Optional[str] = None
 class KernelRow:
     """One registry row: the engaged row for one padded shape."""
 
-    variant: str                  # dense | attribution
+    variant: str                  # dense | attribution | sharded
     n_pad: int
     backend: str                  # the device type: cuda | cpu
     winner: str                   # the engaged row (a KERNELS member)
     source: str                   # forced|cpu-default|timed|cache|
-    #                               attribution
+    #                               attribution|sharded
     e_pad: Optional[int] = None   # padded edge tier
     steps: int = 8                # propagation depth the row decided for
     eligible: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -241,7 +249,7 @@ class KernelRegistry:
             return row
         forced = forced_kernel()
         if forced is not None:
-            # every dense shape takes either row
+            # every dense and sharded shape takes either row
             row.winner = forced
             row.source = "forced"
             return row
@@ -249,6 +257,12 @@ class KernelRegistry:
             # the kernels row runs its plain versions on the CPU: timing
             # them proves nothing about the card
             row.source = "cpu-default"
+            return row
+        if variant == "sharded":
+            # the per-shard launches; no race, as the reference's sharded
+            # row runs no race
+            row.winner = "kernels"
+            row.source = "sharded"
             return row
         cache_key = f"{variant}:{n_pad}:{e_pad}:{steps}:{backend}"
         cached = self._load_cached(cache_key, device)

@@ -62,39 +62,55 @@ def pow2_pad(u: int) -> int:
 
 class ResidentSession:
     """One graph's device-resident analyze state.  Not thread-safe on its
-    own: :class:`ResidentCache` serializes whole requests."""
+    own: :class:`ResidentCache` serializes whole requests.
+
+    The request contract (the mirror diff, the restage rule, the padded
+    delta, dropping the mirror on a raise, the byte accounting) lives here
+    once; a subclass places the graph and the rows on its devices through
+    :meth:`_stage_graph`, :meth:`_request_rows`, :meth:`_upload_full`,
+    :meth:`_scatter_rows` and :meth:`_launch` (the sharded engine's
+    :class:`rca_tpu_torch.parallel.sharded.ShardedResidentSession`)."""
+
+    #: the results' ``engine`` tag
+    engine_tag = "single"
 
     def __init__(self, engine, key: GraphDigest, dep_src: np.ndarray,
                  dep_dst: np.ndarray):
-        from rca_tpu_torch.engine.runner import upload
-
         self.engine = engine
         self.key = key
         n, num_features, n_edges, _ = key
-        cfg = engine.config
         self._n = n
         self._num_features = num_features
         self._n_edges = n_edges
-        self._n_pad = bucket_for(n + 1, cfg.shape_buckets)
-        e_pad = bucket_for(max(n_edges, 1), cfg.shape_buckets)
-        self._e_pad = e_pad
-        d = np.full(e_pad, self._n_pad - 1, np.int64)
-        d[:n_edges] = dep_dst
-        self._dep_dst = upload(d, engine.device)
-        # raw edges retained for the lazy attribution context
+        # raw edges retained for the plan and the lazy attribution context
         self._src_raw = np.asarray(dep_src, np.int32)
         self._dst_raw = np.asarray(dep_dst, np.int32)
-        # the per-shape plan: the same dispatch seam as every surface
-        self._plan = engine.plan_for(self._n_pad, e_pad, dep_src, dep_dst)
         # raw host mirror of the buffer's live rows (the diff base); None
         # until the first request stages the buffer
         self._mirror: Optional[np.ndarray] = None
-        self._features: Optional[torch.Tensor] = None   # [n_pad, C]
         self.requests = 0
         self.delta_requests = 0      # served by the delta or no upload
         self.last_upload_rows = 0    # padded rows the last request staged
         self.upload_bytes = 0        # cumulative host->device request bytes
         self.fetch_bytes = 0         # cumulative device->host result bytes
+        self._stage_graph()
+
+    # -- the device placement (what a subclass overrides) -------------------
+
+    def _stage_graph(self) -> None:
+        """Pin the padded edges and the per-shape plan on the device."""
+        from rca_tpu_torch.engine.runner import upload
+
+        cfg = self.engine.config
+        self._n_pad = bucket_for(self._n + 1, cfg.shape_buckets)
+        self._e_pad = bucket_for(max(self._n_edges, 1), cfg.shape_buckets)
+        d = np.full(self._e_pad, self._n_pad - 1, np.int64)
+        d[: self._n_edges] = self._dst_raw
+        self._dep_dst = upload(d, self.engine.device)
+        # the per-shape plan: the same dispatch seam as every surface
+        self._plan = self.engine.plan_for(self._n_pad, self._e_pad,
+                                          self._src_raw, self._dst_raw)
+        self._features: Optional[torch.Tensor] = None   # [n_pad, C]
 
     def _current_plan(self):
         """The session's plan, re-made when the registry now engages
@@ -110,16 +126,47 @@ class ResidentSession:
                                               self._src_raw, self._dst_raw)
         return self._plan
 
+    def _request_rows(self, features):
+        """The rows the buffer takes and the host's bad-row count: here
+        the RAW rows and None (the front sanitizes and counts on the
+        device)."""
+        return features, None
+
+    def _upload_full(self, f: np.ndarray) -> None:
+        from rca_tpu_torch.engine.runner import upload
+
+        self._features = upload(f, self.engine.device)
+
+    def _scatter_rows(self, idx_h: np.ndarray, rows_h: np.ndarray) -> None:
+        from rca_tpu_torch.engine.runner import upload
+
+        dev = self.engine.device
+        self._features.index_copy_(0, upload(idx_h, dev).long(),
+                                   upload(rows_h, dev))
+
+    def _launch(self, kk: int, n_bad):
+        """Enqueue the ranked propagation over the buffer: ``(stacked,
+        diag, vals, idx, n_bad)``, the count on the device."""
+        from rca_tpu_torch.engine.runner import propagate_ranked
+
+        return propagate_ranked(self.engine.model, self._features,
+                                self._dep_dst, self._n, kk,
+                                self._current_plan())
+
+    # -- the request contract ------------------------------------------------
+
     def _fetch_topk(self, diag, vals, idx, n_bad):
         """The session's one sync point: the ``[4, kk]`` gather, the top-k
-        pair (indices as int32, cast on the device) and the bad-row
-        count."""
+        pair (indices as int32, cast on the device) and the bad-row count
+        when the device counted it (a host count is not fetched)."""
         from rca_tpu_torch.engine.runner import HostCopy
 
-        diag, vals, idx, n_bad = HostCopy(
-            diag, vals, idx.to(torch.int32), n_bad).numpy()
-        self.fetch_bytes += diag.nbytes + vals.nbytes + idx.nbytes + 4
-        return diag, vals, idx, int(n_bad)
+        on_device = torch.is_tensor(n_bad)
+        fetched = HostCopy(diag, vals, idx.to(torch.int32),
+                           *((n_bad,) if on_device else ())).numpy()
+        self.fetch_bytes += sum(a.nbytes for a in fetched)
+        diag, vals, idx = fetched[:3]
+        return diag, vals, idx, int(fetched[3] if on_device else n_bad)
 
     def analyze(self, features: np.ndarray, names, k: int):
         from rca_tpu_torch.engine.runner import render_result
@@ -145,23 +192,23 @@ class ResidentSession:
         latency_ms = (time.perf_counter() - t0) * 1e3
         return render_result(
             diag, vals, idx, names, self._n, k, latency_ms, self._n_edges,
-            engine="single", sanitized_rows=n_bad, stacked_dev=stacked,
+            engine=self.engine_tag, sanitized_rows=n_bad,
+            stacked_dev=stacked,
             attribution_ctx=self.engine._attribution_ctx(
                 features, self._src_raw, self._dst_raw, names),
         )
 
     def _stage_and_propagate(self, features, changed, kk):
         """Stage the request (the full matrix, nothing, or the padded
-        delta rows scattered in place into the RAW buffer) and launch the
-        ranked propagation; the mirror follows the buffer."""
-        from rca_tpu_torch.engine.runner import propagate_ranked, upload
-
-        dev = self.engine.device
+        delta rows, pad slots on the dummy row with zero rows, scattered
+        in place into the buffer) and launch the ranked propagation; the
+        mirror follows the buffer."""
+        rows, n_bad = self._request_rows(features)
         if changed is None or 2 * len(changed) >= self._n_pad:
             # first request, or a delta no cheaper than the matrix
             f = np.zeros((self._n_pad, self._num_features), np.float32)
-            f[: self._n] = features
-            self._features = upload(f, dev)
+            f[: self._n] = rows
+            self._upload_full(f)
             self._mirror = features.copy()
             self.last_upload_rows = self._n_pad
             self.upload_bytes += f.nbytes
@@ -174,16 +221,13 @@ class ResidentSession:
             idx_h = np.full(u_pad, self._n_pad - 1, np.int32)
             rows_h = np.zeros((u_pad, self._num_features), np.float32)
             idx_h[:u] = changed
-            rows_h[:u] = features[changed]
-            self._features.index_copy_(0, upload(idx_h, dev).long(),
-                                       upload(rows_h, dev))
+            rows_h[:u] = rows[changed]
+            self._scatter_rows(idx_h, rows_h)
             self._mirror[changed] = features[changed]
             self.delta_requests += 1
             self.last_upload_rows = u_pad
             self.upload_bytes += idx_h.nbytes + rows_h.nbytes
-        return propagate_ranked(self.engine.model, self._features,
-                                self._dep_dst, self._n, kk,
-                                self._current_plan())
+        return self._launch(kk, n_bad)
 
 
 class ResidentCache:
@@ -191,8 +235,12 @@ class ResidentCache:
     serializes whole analyze calls: one session's in-place buffer update
     must not interleave with another thread's request over it."""
 
-    def __init__(self, engine, cap: Optional[int] = None):
+    def __init__(self, engine, cap: Optional[int] = None,
+                 session_factory=None):
         self._engine = engine
+        # the session kind per graph: ResidentSession, or the sharded
+        # engine's ShardedResidentSession
+        self._factory = session_factory or ResidentSession
         self._cap = int(cap) if cap is not None else resident_cache_cap()
         self._sessions: "collections.OrderedDict[GraphDigest, ResidentSession]" = (
             collections.OrderedDict()
@@ -213,7 +261,7 @@ class ResidentCache:
                 self.hits += 1
             else:
                 self.misses += 1
-                sess = ResidentSession(self._engine, key, dep_src, dep_dst)
+                sess = self._factory(self._engine, key, dep_src, dep_dst)
                 self._sessions[key] = sess
                 while len(self._sessions) > self._cap:
                     self._sessions.popitem(last=False)

@@ -308,6 +308,20 @@ def make_attribution_ctx(features, dep_src, dep_dst, params, names,
     )
 
 
+def finite_mask_rows_np(features: np.ndarray):
+    """Host-side finite mask for paths that stage from the host anyway
+    (the sharded engine, its resident and streaming sessions): every row
+    carrying a NaN/Inf zeroed in a COPY; returns ``(clean, n_bad)``, the
+    zeroing of the device's sanitize."""
+    features = np.asarray(features, np.float32)
+    ok = np.all(np.isfinite(features), axis=-1)
+    if ok.all():
+        return features, 0
+    clean = features.copy()
+    clean[~ok] = 0.0
+    return clean, int(np.sum(~ok))
+
+
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` without a host sync: on a card, staged in
     pinned memory and copied non-blocking on the current stream (so it is
@@ -331,12 +345,13 @@ class HostCopy:
         if tensors[0].device.type != "cuda":
             self.tensors = tensors
             return
-        self.tensors = tuple(
-            torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                t, non_blocking=True)
-            for t in tensors)
-        self.ready = torch.cuda.Event()
-        self.ready.record()
+        with torch.cuda.device(tensors[0].device):
+            self.tensors = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True)
+                for t in tensors)
+            self.ready = torch.cuda.Event()
+            self.ready.record()
 
     def numpy(self):
         if self.ready is not None:

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rca_tpu_torch.kernels import LAUNCHES
+from rca_tpu_torch.kernels import LAUNCHES, SHARD_LAUNCHES
 
 _OPS = {"sum": 0, "max": 1}
 
@@ -270,27 +270,37 @@ def up_seg_step_plain(u, h, decay: float, seg: SegLayout, out=None,
     return torch.maximum(u, upd, out=out)
 
 
-def check_step(name: str, seg: SegLayout, out, vectors: dict,
-               shared: dict = None) -> int:
+def check_step(name: str, seg, out, vectors: dict, shared: dict = None,
+               local: dict = None, base: int = None):
     """The step kernels' input contract, held on every device: float32,
-    contiguous vectors on one device, the lane vectors (``vectors`` and
-    ``out``) all ``[n_pad]`` or all ``[B, n_pad]``, the ``shared`` ones
-    ``[n_pad]``, the layout's tensors on that device, and an output that is
-    none of the inputs.  Returns the lane count B (1 for ``[n_pad]``) on
-    CUDA tensors and 0 on CPU tensors."""
+    contiguous tensors on one device, the layout's tensors on that device,
+    and an output that is none of the inputs.  ``n_seg`` is the layout's
+    segment count.  A dense step (``base`` None): the lane ``vectors``
+    and ``out`` all ``[n_seg]`` or all ``[B, n_seg]``, the ``shared``
+    ones ``[n_seg]``.  A shard's step (``base`` given): the ``vectors``
+    ``[n_val]`` or ``[B, n_val]`` (the full gathered vectors), ``local``
+    and ``out`` ``[n_seg]`` or ``[B, n_seg]``, and ``base + n_seg <=
+    n_val``.  Returns ``(lanes, n_val)``: lanes is B (1 for flat vectors)
+    on CUDA tensors and 0 on CPU tensors."""
     if not isinstance(seg.offsets, torch.Tensor):
         raise TypeError(f"{name}: the layout is on the host; move it with "
                         f".to(device)")
-    n_pad = seg.offsets.shape[0] - 1
+    n_seg = seg.offsets.shape[0] - 1
     first = next(iter(vectors.values()))
     device = first.device
-    lane_shape = tuple(first.shape)
-    if lane_shape not in ((n_pad,), lane_shape[:1] + (n_pad,)):
-        raise ValueError(f"{name}: vectors must be [{n_pad}] or "
-                         f"[B, {n_pad}], got {lane_shape}")
-    lanes = vectors if out is None else {**vectors, "out": out}
-    named = [(key, t, lane_shape) for key, t in lanes.items()] + [
-        (key, t, (n_pad,)) for key, t in (shared or {}).items()]
+    shape = tuple(first.shape)
+    if base is None:
+        if shape not in ((n_seg,), shape[:1] + (n_seg,)):
+            raise ValueError(f"{name}: vectors must be [{n_seg}] or "
+                             f"[B, {n_seg}], got {shape}")
+    elif len(shape) not in (1, 2) or not 0 <= base <= shape[-1] - n_seg:
+        raise ValueError(f"{name}: {n_seg} segments from base {base} do not "
+                         f"fit vectors {shape}")
+    lead = shape[:-1]
+    lanes = {**(local or {}), **({} if out is None else {"out": out})}
+    named = [(key, t, shape) for key, t in vectors.items()] + [
+        (key, t, lead + (n_seg,)) for key, t in lanes.items()] + [
+        (key, t, (n_seg,)) for key, t in (shared or {}).items()]
     for key, t, want in named:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
@@ -307,31 +317,37 @@ def check_step(name: str, seg: SegLayout, out, vectors: dict,
                          f"on {device}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {device}")
-    if out is not None and any(
-            out.data_ptr() == t.data_ptr()
-            for t in [*vectors.values(), *(shared or {}).values()]):
+    inputs = [*vectors.values(), *(local or {}).values(),
+              *(shared or {}).values()]
+    if out is not None and any(out.data_ptr() == t.data_ptr()
+                               for t in inputs):
         raise ValueError(f"{name}: the step is out of place; out must not "
                          f"be an input")
     if device.type != "cuda":
-        return 0
-    return lane_shape[0] if len(lane_shape) == 2 else 1
+        return 0, shape[-1]
+    return (shape[0] if len(shape) == 2 else 1), shape[-1]
 
 
-def launch_step(entry: str, name: str, seg: SegLayout, lanes: int, out,
-                *args):
-    """One launch of a seg-step kernel over ``lanes`` lanes of ``n_pad``
-    entries each (one grid row per lane), sharing the layout."""
+def launch_step(entry: str, name: str, seg, lanes: int, out, *args,
+                shard: bool = False):
+    """One launch of a seg-step kernel over ``lanes`` lanes (one grid row
+    per lane) of the layout's segments, sharing the layout, on the
+    output's device and its current stream.  ``shard``: a per-shard entry,
+    counted in ``SHARD_LAUNCHES`` too."""
     from rca_tpu_torch.kernels.build import check, library
 
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = getattr(library(), entry)(
-        *args, seg.offsets.data_ptr(), seg.other32.data_ptr(),
-        seg.long_ids.data_ptr(), seg.long_ids.shape[0],
-        seg.short_ids.data_ptr(), seg.short_ids.shape[0],
-        lanes, seg.offsets.shape[0] - 1, out.data_ptr(), stream,
-    )
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = getattr(library(), entry)(
+            *args, seg.offsets.data_ptr(), seg.other32.data_ptr(),
+            seg.long_ids.data_ptr(), seg.long_ids.shape[0],
+            seg.short_ids.data_ptr(), seg.short_ids.shape[0],
+            lanes, seg.offsets.shape[0] - 1, out.data_ptr(), stream,
+        )
     check(err, name)
     LAUNCHES[name] += 1
+    if shard:
+        SHARD_LAUNCHES[name] += 1
     return out
 
 
@@ -341,8 +357,8 @@ def down_seg_step(m, a_ex, decay: float, seg: SegLayout, inv_deg, out=None):
     lanes (``inv_deg`` ``[n_pad]``, shared): on CUDA tensors one launch of
     the ``seg_down_step`` kernel for all lanes into ``out`` (fresh when not
     given), on CPU tensors :func:`down_seg_step_plain`."""
-    lanes = check_step("seg_down_step", seg, out, {"m": m, "a_ex": a_ex},
-                       {"inv_deg": inv_deg})
+    lanes, _ = check_step("seg_down_step", seg, out, {"m": m, "a_ex": a_ex},
+                          {"inv_deg": inv_deg})
     if not lanes:
         return down_seg_step_plain(m, a_ex, decay, seg, inv_deg, out=out)
     return launch_step("rca_seg_down_step", "seg_down_step", seg, lanes,
@@ -357,7 +373,7 @@ def up_seg_step(u, h, decay: float, seg: SegLayout, out=None):
     lanes: on CUDA tensors one launch of the ``seg_up_step`` kernel for all
     lanes into ``out`` (fresh when not given), on CPU tensors
     :func:`up_seg_step_plain`."""
-    lanes = check_step("seg_up_step", seg, out, {"u": u, "h": h})
+    lanes, _ = check_step("seg_up_step", seg, out, {"u": u, "h": h})
     if not lanes:
         return up_seg_step_plain(u, h, decay, seg, out=out)
     return launch_step("rca_seg_up_step", "seg_up_step", seg, lanes,
@@ -369,3 +385,95 @@ def as_float32(x: float) -> float:
     """``x`` rounded to float32: the value torch multiplies a float32
     tensor by when it is given the Python float ``x``."""
     return float(np.float32(x))
+
+
+# -- the per-shard entries (the node-sharded engine) -------------------------
+
+class ShardSeg(NamedTuple):
+    """One shard's layout for one scan direction, as tensors on the
+    shard's device: the reference's per-shard fields (``other_sorted``
+    widened to int64 for torch indexing, the edge ``mask``, ``flags``,
+    ``ends`` as int64, ``has_edges``) over the shard's padded edge rows,
+    whose padding sorts into the last segment with mask 0, and the CSR
+    form the per-shard kernels read: ``offsets`` over REAL edges only
+    (the last segment stops before the padding, so a pad edge adds or
+    maxes nothing into any node), ``other32`` (the sorted other
+    endpoints, int32) and the segment ids split by length."""
+
+    other_sorted: torch.Tensor   # int64 [e_pad]
+    mask: torch.Tensor           # float32 [e_pad]
+    flags: torch.Tensor          # float32 [e_pad]
+    ends: torch.Tensor           # int64 [n_seg]
+    has_edges: torch.Tensor      # float32 [n_seg]
+    offsets: torch.Tensor        # int32 [n_seg + 1], real edges only
+    other32: torch.Tensor        # int32 [e_pad]
+    long_ids: torch.Tensor       # int32, segments of > SHORT_SEGMENT_MAX
+    short_ids: torch.Tensor      # int32, the rest
+
+
+def up_seg_step_shard_plain(u_full, h_full, decay: float, seg: ShardSeg,
+                            base: int, out=None):
+    """One shard's explain-away step in plain PyTorch, the reference's
+    per-block composition: the masked gather of ``max(h, decay*u)`` from
+    the full gathered vectors, a flagged segmented MAX over the shard's
+    src-sorted edges, each segment's total at its end, then the max with
+    the node's own ``u`` (``u_full[base + s]``).  Returns ``[..., n_seg]``."""
+    n_seg = seg.ends.shape[0]
+    w = torch.maximum(h_full, decay * u_full)
+    vals = seg.mask * w[..., seg.other_sorted]
+    s = segscan_plain(vals, seg.flags, "max")
+    upd = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    return torch.maximum(u_full[..., base:base + n_seg], upd, out=out)
+
+
+def down_seg_step_shard_plain(m_full, a_ex_full, decay: float,
+                              seg: ShardSeg, out=None):
+    """One shard's impact contributions in plain PyTorch: the masked
+    per-edge values ``a_ex[s] + decay*m[s]`` over the shard's dst-sorted
+    edge partition, a flagged segmented SUM, each destination's total at
+    its end, unscaled (the reduce-scatter and ``inv_deg`` finish the
+    step).  Returns ``[..., n_pad]``."""
+    o = seg.other_sorted
+    vals = seg.mask * (a_ex_full[..., o] + decay * m_full[..., o])
+    s = segscan_plain(vals, seg.flags, "sum")
+    contrib = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    return contrib if out is None else out.copy_(contrib)
+
+
+def up_seg_step_shard(u_full, h_full, decay: float, seg: ShardSeg,
+                      base: int, out=None):
+    """One shard's explain-away step, ``u'[s] = max(u[base+s], max over
+    (s, d) of max(h[d], decay*u[d]))`` for the shard's ``n_seg`` own
+    sources, from full ``[n_pad]`` (or ``[B, n_pad]``) gathered vectors:
+    on CUDA tensors one launch of the ``seg_up_step`` kernel's per-shard
+    entry, on CPU tensors :func:`up_seg_step_shard_plain`."""
+    lanes, n_val = check_step("seg_up_step", seg, out,
+                              {"u_full": u_full, "h_full": h_full},
+                              base=base)
+    if not lanes:
+        return up_seg_step_shard_plain(u_full, h_full, decay, seg, base,
+                                       out=out)
+    if out is None:
+        out = u_full.new_empty(u_full.shape[:-1] + (seg.ends.shape[0],))
+    return launch_step("rca_seg_up_step_shard", "seg_up_step", seg, lanes,
+                       out, u_full.data_ptr(), h_full.data_ptr(),
+                       as_float32(decay), int(base), n_val, shard=True)
+
+
+def down_seg_step_shard(m_full, a_ex_full, decay: float, seg: ShardSeg,
+                        out=None):
+    """One shard's unscaled impact contributions, ``c[d] = sum over the
+    shard's edges (s, d) of (a_ex[s] + decay*m[s])`` for every
+    destination, from full ``[n_pad]`` (or ``[B, n_pad]``) vectors: on
+    CUDA tensors one launch of the ``seg_down_step`` kernel's per-shard
+    entry, on CPU tensors :func:`down_seg_step_shard_plain`."""
+    lanes, n_val = check_step("seg_down_step", seg, out,
+                              {"m_full": m_full, "a_ex_full": a_ex_full})
+    if not lanes:
+        return down_seg_step_shard_plain(m_full, a_ex_full, decay, seg,
+                                         out=out)
+    if out is None:
+        out = torch.empty_like(m_full)
+    return launch_step("rca_seg_down_step_shard", "seg_down_step", seg,
+                       lanes, out, m_full.data_ptr(), a_ex_full.data_ptr(),
+                       as_float32(decay), n_val, shard=True)

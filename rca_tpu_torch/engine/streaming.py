@@ -82,8 +82,17 @@ def flush_propagate_ranked(model, features, idx, rows, dep_dst, n_live: int,
 def make_streaming_session(names: Sequence[str], dep_src: np.ndarray,
                            dep_dst: np.ndarray, num_features: int,
                            engine=None, k: int = 5, clock=None):
-    """The streaming session for ``engine``: the dense
-    :class:`StreamingSession` (a sharded session waits for multi-GPU)."""
+    """The streaming session for ``engine``: the sharded
+    :class:`rca_tpu_torch.parallel.streaming.ShardedStreamingSession` for a
+    :class:`ShardedGraphEngine`, else the dense :class:`StreamingSession`."""
+    from rca_tpu_torch.engine.sharded_runner import ShardedGraphEngine
+
+    if isinstance(engine, ShardedGraphEngine):
+        from rca_tpu_torch.parallel.streaming import ShardedStreamingSession
+
+        return ShardedStreamingSession(names, dep_src, dep_dst,
+                                       num_features=num_features,
+                                       engine=engine, k=k, clock=clock)
     return StreamingSession(names, dep_src, dep_dst,
                             num_features=num_features, engine=engine, k=k,
                             clock=clock)

@@ -5,16 +5,20 @@ Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel on the card, and nowhere else, so a run can show that
 the main path went through the kernels (the plain versions used on CPU
 tensors do not count).  :data:`PERSIST_LAUNCHES` counts, apart, the
-``evidence_front`` launches that persist the sanitize into their input.
+``evidence_front`` launches that persist the sanitize into their input,
+and :data:`SHARD_LAUNCHES` the launches of the seg steps' per-shard
+entries (the node-sharded engine), which count in :data:`LAUNCHES` too.
 """
 
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
             "seg_contrast_step": 0}
 PERSIST_LAUNCHES = {"evidence_front": 0}
+SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
+                  "seg_contrast_step": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PERSIST_LAUNCHES):
+    for counts in (LAUNCHES, PERSIST_LAUNCHES, SHARD_LAUNCHES):
         for name in counts:
             counts[name] = 0

@@ -54,6 +54,12 @@ _SIGNATURES = {
                            _P),
     "rca_seg_contrast_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I,
                               _P, _P),
+    "rca_seg_up_step_shard": (_P, _P, _F, _I, _I, _P, _P, _P, _I, _P, _I,
+                              _I, _I, _P, _P),
+    "rca_seg_down_step_shard": (_P, _P, _F, _I, _P, _P, _P, _I, _P, _I, _I,
+                                _I, _P, _P),
+    "rca_seg_contrast_step_shard": (_P, _P, _F, _I, _I, _P, _P, _P, _I, _P,
+                                    _I, _I, _I, _P, _P),
 }
 
 

@@ -1,0 +1,82 @@
+"""A device mesh in one process: named axes over an explicit device list.
+
+Counterpart of the JAX package's ``parallel/mesh.py::make_mesh``.  The
+reference is single-controller: one Python process drives every device of
+its mesh through ``shard_map``.  The port keeps that shape: a
+:class:`DeviceMesh` is a grid of ``torch.device`` s with named axes, and
+the sharded engine runs each shard's work on its own device from one
+process.
+
+A device list may REPEAT a device: several logical shards then share one
+card (or the CPU), each with its own partition, layouts and launches.
+That is the port's counterpart of the reference's
+``--xla_force_host_platform_device_count`` virtual devices, used by the
+tests and ``chip_smoke.py`` through an explicit mesh; ``RCA_SHARD`` still
+counts only the devices that are really there
+(:mod:`rca_tpu_torch.engine.sharded_runner`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def visible_devices(device=None) -> List[torch.device]:
+    """The devices a mesh may span when the caller names none: every CUDA
+    device (none without a card), or the one CPU for ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return [torch.device("cpu")]
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class DeviceMesh:
+    """A grid of devices with named axes, ``sp`` innermost by convention
+    (node shards of one replica sit next to each other)."""
+
+    def __init__(self, grid: np.ndarray, axis_names: Tuple[str, ...]):
+        self.devices = grid
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, grid.shape))
+
+    def row(self, index: int) -> List[torch.device]:
+        """The ``sp`` devices of one ``dp`` index (one replica's shards)."""
+        return list(self.devices.reshape(-1, self.shape["sp"])[index])
+
+    @property
+    def flat(self) -> List[torch.device]:
+        return list(self.devices.reshape(-1))
+
+    def sub_mesh(self) -> "DeviceMesh":
+        """The ``dp = 1`` mesh over the first ``sp`` devices: where a
+        single analysis runs (the reference's ``_exec_mesh``)."""
+        if self.shape.get("dp", 1) == 1:
+            return self
+        return make_mesh([("dp", 1), ("sp", self.shape["sp"])], self.row(0))
+
+
+
+def make_mesh(axis_sizes: Sequence[Tuple[str, int]],
+              devices: Optional[Sequence] = None) -> DeviceMesh:
+    """Build a mesh from (axis, size) pairs, e.g. ``[("dp", 2), ("sp",
+    4)]``, over the first ``prod(sizes)`` entries of ``devices`` (default:
+    the visible CUDA devices).  Axis order follows the argument order."""
+    devices = [torch.device(d) for d in (
+        devices if devices is not None else visible_devices())]
+    names = tuple(a for a, _ in axis_sizes)
+    sizes = tuple(int(s) for _, s in axis_sizes)
+    total = int(np.prod(sizes))
+    if total > len(devices):
+        raise ValueError(
+            f"mesh needs {total} devices for axes {axis_sizes}, "
+            f"have {len(devices)}"
+        )
+    grid = np.empty(total, dtype=object)
+    for i, d in enumerate(devices[:total]):
+        grid[i] = d
+    return DeviceMesh(grid.reshape(sizes), names)

@@ -9,9 +9,12 @@ reference's ``RCACoordinator(backend="jax")`` analyze it.  The contract:
 - the root causes name the same components in the same order, and every
   other field is equal, floats within rel 1e-5 / abs 1e-6 and ``score``
   (rounded to 4 places by both) within 1e-4;
-- only the backend name, the engine's name (the reference shards over the
-  test session's virtual devices), the latencies, the profile and the
-  record's ids and timestamps differ.
+- only the backend name, the latencies, the profile and the record's ids
+  and timestamps differ.  The reference shards over the test session's 8
+  virtual devices; the port's dense coordinator names its engine
+  ``single``, and the port's coordinator over a ``ShardedGraphEngine`` on
+  8 logical CPU shards gives the findings JSON again, the reference's
+  ``engine`` key included.
 
 The betweenness device pass is held to the reference's and to the port's
 own float64 loop on a seeded 1300-node graph, which takes the device path
@@ -116,8 +119,9 @@ def test_comprehensive_analysis_matches_reference(name, clean_env):
     assert _dumps(pc["groups"]) == _dumps(rc["groups"])
     _assert_causes_match(pc["root_causes"], rc["root_causes"])
     # the reference shards over the test session's 8 virtual CPU devices;
-    # the port has one device
+    # the port's coordinator on the CPU sees one device
     assert pc["engine"] == "single"
+    assert rc["engine"] == "sharded(dp=1,sp=8)"
     assert sorted(pc) == sorted(rc)
     assert (_SUMMARY["torch"].fullmatch(pc["summary"]).groups()
             == _SUMMARY["jax"].fullmatch(rc["summary"]).groups())
@@ -132,6 +136,42 @@ def test_comprehensive_analysis_matches_reference(name, clean_env):
     else:
         assert pc["root_causes"][0]["component"] in rw.ground_truth[
             "fault_roots"]
+
+
+@pytest.mark.parametrize("name", WORLDS)
+def test_sharded_coordinator_matches_reference_engine_key_included(
+        name, clean_env, monkeypatch):
+    """The port's coordinator over 8 logical CPU shards against the
+    reference's, which shards over the session's 8 virtual devices: every
+    agent's JSON, the groups and the summary byte-identical, the root
+    causes under the contract, and the ``engine`` key equal."""
+    import jax
+
+    from rca_tpu_torch.engine import ShardedGraphEngine
+    from rca_tpu_torch.parallel.mesh import make_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("the reference needs 8 devices")
+    monkeypatch.delenv("RCA_SHARD", raising=False)
+    port_world, ref_world_fn, ns = WORLDS[name]
+    engine = ShardedGraphEngine(
+        mesh=make_mesh([("dp", 1), ("sp", 8)], [torch.device("cpu")] * 8))
+    port = RCACoordinator(MockClusterClient(port_world()), backend="torch",
+                          engine=engine).run_analysis("comprehensive", ns)
+    ref = RefCoordinator(RefClient(ref_world_fn()), backend="jax"
+                         ).run_analysis("comprehensive", ns)
+    assert port["status"] == ref["status"] == "completed", port.get("error")
+    pr, rr = port["results"], ref["results"]
+    for agent in ALL_AGENT_TYPES:
+        assert _dumps(pr[agent]) == _dumps(rr[agent]), agent
+    pc, rc = pr["correlated"], rr["correlated"]
+    assert _dumps(pc["groups"]) == _dumps(rc["groups"])
+    _assert_causes_match(pc["root_causes"], rc["root_causes"])
+    assert pc["engine"] == rc["engine"] == "sharded(dp=1,sp=8)"
+    assert sorted(pc) == sorted(rc)
+    assert (_SUMMARY["torch"].fullmatch(pc["summary"]).groups()
+            == _SUMMARY["jax"].fullmatch(rc["summary"]).groups())
+    assert pr["summary"] == rr["summary"] == port["summary"]
 
 
 def _random_dag(n, seed):

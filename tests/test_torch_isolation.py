@@ -6,8 +6,9 @@
 - no source file of the port, nor ``chip_smoke.py``, imports either;
 - a comprehensive analysis through the port's coordinator and a run of
   ``python -m rca_tpu_torch analyze`` load neither, nor do a resident
-  repeat analysis, a streaming tick, a live poll and
-  ``python -m rca_tpu_torch stream``;
+  repeat analysis, a streaming tick, a live poll,
+  ``python -m rca_tpu_torch stream`` and a sharded analysis (restaged,
+  resident, batched, through the coordinator and a live session);
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   included) and the streaming sessions raise (or exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
   exits non-zero with no verdict line;
@@ -130,6 +131,63 @@ def test_resident_streaming_live_and_stream_load_no_jax():
     for module in ("engine.resident", "engine.streaming", "engine.live",
                    "observability.kernelscope", "observability.spans",
                    "resilience.policy"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+_SHARDED_PROBE = """
+import json, sys
+import numpy as np
+import torch
+from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.coordinator import RCACoordinator
+from rca_tpu_torch.engine import LiveStreamingSession, ShardedGraphEngine
+from rca_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh([("dp", 2), ("sp", 4)], [torch.device("cpu")] * 8)
+engine = ShardedGraphEngine(mesh=mesh)
+case = synthetic_cascade_arrays(300, n_roots=2, seed=1)
+first = engine.analyze_case(case)
+feats = case.features.copy()
+feats[3] = np.nan
+again = engine.analyze_arrays(feats, case.dep_src, case.dep_dst, case.names)
+lanes = engine.analyze_batch(np.stack([case.features] * 3), case.dep_src,
+                             case.dep_dst, case.names)
+rec = RCACoordinator(MockClusterClient(synthetic_cascade_world(
+    50, n_roots=1, seed=7, namespace="synthetic")), backend="torch",
+    engine=engine).run_analysis("comprehensive", "synthetic")
+live = LiveStreamingSession(MockClusterClient(synthetic_cascade_world(
+    40, n_roots=1, seed=3, namespace="iso")), "iso", k=3, engine=engine)
+polls = [live.poll() for _ in range(2)]
+print(json.dumps({"engine": first.engine, "top": first.top_components(),
+                  "sanitized": again.sanitized_rows,
+                  "lanes": [r.top_components() for r in lanes],
+                  "status": rec["status"],
+                  "corr_engine": rec["results"]["correlated"]["engine"],
+                  "session": type(live.session).__name__,
+                  "live": [bool(p["ranked"]) for p in polls],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_sharded_analysis_loads_no_jax_and_no_rca_tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SHARDED_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["engine"] == "sharded(dp=2,sp=4)"
+    assert out["corr_engine"] == "sharded(dp=2,sp=4)"
+    assert out["status"] == "completed"
+    assert out["sanitized"] == 1
+    assert out["lanes"] == [out["top"]] * 3
+    assert out["session"] == "ShardedStreamingSession"
+    assert out["live"] == [True, True]
+    for module in ("engine.sharded_runner", "parallel.sharded",
+                   "parallel.collectives", "parallel.mesh",
+                   "parallel.rules", "parallel.streaming"):
         assert f"rca_tpu_torch.{module}" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
 

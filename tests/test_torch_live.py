@@ -37,6 +37,7 @@ from rca_tpu.engine import LiveStreamingSession as RefLive
 from rca_tpu.engine.streaming import StreamingSession as RefStreaming
 from rca_tpu.features.extract import extract_features as ref_extract
 from rca_tpu.observability import spans as ref_spans
+from rca_tpu.resilience.policy import drain_faults as ref_drain_faults
 from rca_tpu_torch.cluster.fixtures import NS
 from rca_tpu_torch.cluster.fixtures import five_service_world
 from rca_tpu_torch.cluster.generator import synthetic_cascade_world
@@ -51,6 +52,7 @@ from rca_tpu_torch.features.extract import (
     extract_features,
 )
 from rca_tpu_torch.observability import spans as port_spans
+from rca_tpu_torch.resilience.policy import drain_faults
 
 #: poll keys both packages must agree on exactly
 POLL_KEYS = ("changed_rows", "upload_rows", "resynced", "quiet", "resyncs",
@@ -63,7 +65,7 @@ PORT = {"world": synthetic_cascade_world, "client": MockClusterClient,
         "live": LiveStreamingSession, "waiting": waiting_status,
         "five": five_service_world, "service": make_service,
         "deployment": make_deployment,
-        "engine": lambda: GraphEngine(device="cpu")}
+        "engine": lambda: GraphEngine(device="cpu"), "drain": drain_faults}
 # the reference on its dict capture, the port's only one: above the
 # healthy-pod log sample its columnar capture samples other pods' logs
 # (ticks 41-42 of the 60-tick run: changed_rows 0 where the dict path
@@ -72,7 +74,7 @@ REF = {"world": ref_world, "client": RefClient,
        "live": functools.partial(RefLive, use_columnar=False),
        "waiting": ref_waiting_status, "five": ref_five,
        "service": ref_make_service, "deployment": ref_make_deployment,
-       "engine": RefEngine}
+       "engine": RefEngine, "drain": ref_drain_faults}
 
 
 def _mutate(world, ns, op, waiting):
@@ -117,6 +119,10 @@ def _op_sequence(seed, n):
 
 
 def _drive(pkg, depth, ops):
+    # start from an empty process fault log: a test that ran earlier in
+    # this process (a serve selftest's injected faults) must not show up
+    # in this run's first health record
+    pkg["drain"]()
     world = pkg["world"](40, n_roots=1, seed=3, namespace="pipe")
     live = pkg["live"](pkg["client"](world), "pipe", k=3,
                        engine=pkg["engine"](), topology_check_every=7,
@@ -286,7 +292,6 @@ def test_ladder_on_the_card_raises_instead_of_the_interpret_rung(
     on the same kernels) and raises where it would step to ``interpret``,
     at depths 1 and 2: the card never runs the plain versions."""
     from rca_tpu_torch.engine import live as live_mod
-    from rca_tpu_torch.resilience.policy import drain_faults
 
     monkeypatch.setattr(live_mod, "_on_card", lambda engine: True)
 
