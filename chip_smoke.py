@@ -54,7 +54,25 @@ verdict line:
    (the front, the contrast and ``u`` bitwise, the down-step at rtol
    1e-5 / atol 1e-6), the batch delta is bitwise equal to full staging,
    and each batched launch is timed beside its bound and plain version;
-7. the snapshot path: the port's ``RCACoordinator(backend="torch")`` runs
+7. the capture layer: the native log scanner and the C sanitize
+   extension are built with g++ from ``rca_tpu_torch/native/`` into the
+   port's own cache (the scanner must load; the sanitize extension must
+   load where ``Python.h`` exists, and a line ``native_sanitize: ...``
+   says whether it did): the scanner counts what the regex scanner counts
+   on every log of the 2047-service world, the sanitize returns what the
+   Python walk returns on fuzzed objects.  Then
+   ``synthetic_cascade_world(n, n_roots=3, seed=0)`` at 2047, 10,000 and
+   49,999 services is captured columnar (the default; a capture that
+   falls back to the dict sweep fails) and with ``columnar=False``:
+   snapshot values and feature matrices bitwise equal, dependency edges
+   equal, and each path's ``capture_ms``, ``features_ms`` and
+   ``graph_ms`` beside each other with the card's name and power limit
+   (the columnar path's first capture, which builds the master tables,
+   and its diff capture through a persisted mirror apart).  Then
+   ``python -m rca_tpu_torch analyze --compact`` with no fixture, no
+   ``kubectl`` on the PATH and ``KUBECONFIG`` naming a missing file must
+   exit 0 with the reference's report for an empty, unreachable cluster;
+8. the snapshot path: the port's ``RCACoordinator(backend="torch")`` runs
    a comprehensive analysis (capture, features, graph, the six agents, the
    engine, the findings JSON) on the card over the 5-service fixture, the
    50-service fixture and a 2047-service cascade, each with the launch
@@ -65,15 +83,18 @@ verdict line:
    database and the api-gateway first and second at 5 services), match
    the port's own CPU run (agents' findings and groups byte-identical,
    root causes in the same order, floats within rel 1e-5 / abs 1e-6,
-   scores within 1e-4) and a second card run bit for bit.  At 2047 the
+   scores within 1e-4), a second card run bit for bit and a card run on
+   the dict capture (``RCA_COLUMNAR=0``) bit for bit; the analyses take
+   the columnar default.  At 2047 the
    topology agent's betweenness takes the device path: it is held to the
    float64 loop at rtol 1e-5 / atol 1e-7 and timed, and the stage profile
-   and the whole ``run_analysis`` are timed (median of 5 after a warm-up;
+   and the whole ``run_analysis`` are timed on the columnar and on the
+   dict capture, in turns (median of 5 each after a warm-up;
    ``--profile`` adds the device time and busy share of both).
    ``python -m rca_tpu_torch analyze --fixture 50svc --seed 7 --compact``
    (the same 50-service fixture) must exit 0 with a torch-engine ranking
    whose first root cause is the fixture's fault root;
-8. attribution: ``RCA_EXPLAIN=1`` comprehensive analyses over the
+9. attribution: ``RCA_EXPLAIN=1`` comprehensive analyses over the
    50-service fixture and the 2047-service cascade, and
    ``analyze_arrays(...).attribution()`` at 49,999 services, the sweep on
    the registry's ``dense`` row (``kernels``: the base run and the
@@ -87,7 +108,7 @@ verdict line:
    bit for bit; the attribution is timed.
    ``python -m rca_tpu_torch hypotheses --fixture 50svc --seed 7
    --compact`` must put the fixture's fault root first over a batch of 8;
-9. resident sessions at both tiers: a seeded request sequence (first,
+10. resident sessions at both tiers: a seeded request sequence (first,
    identical, deltas of 1 / 8 / 64 rows with NaN and Inf rows, a delete,
    a delta wider than ``n_pad / 2``, the heal, identical again) through
    ``GraphEngine()`` (``RCA_RESIDENT`` on): every request launches 1 / 1
@@ -96,7 +117,7 @@ verdict line:
    ``sanitized_rows``) and the session's upload and fetch bytes are what
    the reference's formula predicts; the host walls of a delta request,
    an identical one and a restaged one;
-10. streaming ticks at 2047, 10,000 (BASELINE.md row 4's size) and 49,999
+11. streaming ticks at 2047, 10,000 (BASELINE.md row 4's size) and 49,999
    services: 30 ticks of a ``StreamingSession`` (deltas of 1 / 8 / 64
    rows with NaN/Inf, deletes, a delta wider than ``n_pad / 2``, quiet
    ticks, one ``set_all`` carrying NaN rows): each tick launches 1 / 1 /
@@ -108,7 +129,7 @@ verdict line:
    ``dispatch`` runs under ``torch.cuda.set_sync_debug_mode("error")``,
    and ``memory_allocated`` passes kernelscope's leak gate; then the
    tick's wall, ``dispatch_ms`` and ``fetch_ms`` per size;
-11. the live session: the 50-service fixture, 60 polls of the live tests'
+12. the live session: the 50-service fixture, 60 polls of the live tests'
    mutation mix at depths 1 and 2, and a 10,000-service cascade world,
    20 polls at depth 2, each against the port's CPU run of a twin world
    (components and order exact, scores within rtol 1e-5 / atol 1e-6):
@@ -117,9 +138,15 @@ verdict line:
    ``single-device`` and then raises ``KernelPathFailed`` (the card never
    takes the ``interpret`` rung); then ``python -m rca_tpu_torch stream
    --fixture 50svc --ticks 10 --pipeline-depth 2 --interval 0``, whose
-   top-1 must be the fixture's root; the quiet and busy capture times and
-   the tick at 10,000;
-12. the node-sharded engine (``ShardedGraphEngine`` over a mesh whose
+   top-1 must be the fixture's root; the quiet, busy and sweep capture
+   times and the tick at 10,000.  Every session takes the columnar
+   default and must keep it to its end; the 10,000-service run is
+   repeated on the dict capture for its capture times, and over the live
+   columnar feed (``LiveColumnarFeed``, what ``K8sApiClient`` serves over
+   a connected cluster, here over the mock), which must rank every tick
+   as the session over the mock's own columnar feed, with the same
+   changed rows and a fault root first;
+13. the node-sharded engine (``ShardedGraphEngine`` over a mesh whose
    device list repeats ``cuda:0``: logical shards; with two cards or more
    also ``sp = 2`` over distinct cards, else a line saying the
    collectives were device-local): the per-shard entries of
@@ -145,7 +172,7 @@ verdict line:
    then the sharded and dense ``analyze_arrays`` walls, device times,
    busy shares and launches, the tick walls, and each per-shard kernel's
    card, call and plain time beside its bound;
-13. times from CUDA events (median of 20 samples after warm-up): each
+14. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -182,6 +209,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 # published peaks of one H100 SXM (data sheet, dense): HBM bytes/s and
 # float32 operations/s outside the tensor cores
@@ -629,23 +657,26 @@ def main(argv) -> int:
     phase("entry", n_pad=int(example[0].shape[0]),
           e_pad=int(example[1].shape[0]))
 
-    # -- 7. the snapshot path, through the kernels -------------------------
+    # -- 7. the capture layer: native scanners, columnar against dict -----
+    record["capture"] = capture_phase(smi)
+
+    # -- 8. the snapshot path, through the kernels -------------------------
     record["snapshot"] = snapshot_phase(args.profile, args.out)
 
-    # -- 8. attribution (sweep on the kernels) and the hypotheses command -
+    # -- 9. attribution (sweep on the kernels) and the hypotheses command -
     record["attribution"] = attribution_phase(
         engine, cases[TIERS[-1][0]], args.profile, args.out)
     record["hypotheses"] = hypotheses_phase()
 
-    # -- 9-11. resident sessions, streaming ticks, the live session --------
+    # -- 10-12. resident sessions, streaming ticks, the live session ------
     record["resident"] = resident_phase(cases, shapes)
     record["stream"] = stream_phase(engine, cases, args.profile, args.out)
     record["live"] = live_phase()
 
-    # -- 12. the node-sharded engine -----------------------------------------
+    # -- 13. the node-sharded engine ---------------------------------------
     record["sharded"] = sharded_phase(cases, shapes, args.profile, args.out)
 
-    # -- 13. times ---------------------------------------------------------
+    # -- 14. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -1358,7 +1389,7 @@ def _without_times(results: dict) -> str:
 
 def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
     """Comprehensive analyses through the port's coordinator on the card
-    (phase 5 of the module docstring); ``profile_it`` adds a
+    (phase 8 of the module docstring); ``profile_it`` adds a
     ``torch.profiler`` table of the 2047-service analysis and of its
     betweenness pass."""
     import numpy as np
@@ -1392,6 +1423,10 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
         card = RCACoordinator(MockClusterClient(world), backend="torch")
         if card.device.type != "cuda":
             fail(f"coordinator on {card.device}")
+        # the analysis takes the columnar default (no silent dict sweep)
+        if ClusterSnapshot.capture(MockClusterClient(world),
+                                   ns).columnar is None:
+            fail(f"the capture at {label} did not take the columnar path")
         # a first analysis resolves the registry row of the world's shape
         # (its race launches kernels); the counted one reads the row
         card.run_analysis("comprehensive", ns)
@@ -1439,6 +1474,11 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
         again = card.run_analysis("comprehensive", ns)
         if _without_times(again["results"]) != _without_times(res):
             fail(f"two card runs differ at {label}")
+        with mock.patch.dict(os.environ, {"RCA_COLUMNAR": "0"}):
+            dict_rec = card.run_analysis("comprehensive", ns)
+        if _without_times(dict_rec["results"]) != _without_times(res):
+            fail(f"the dict capture's findings differ from the columnar "
+                 f"capture's at {label}")
         row = {"world": label, "status": rec["status"], "top": top[:3],
                "fault_roots": world.ground_truth.get("fault_roots"),
                "launches": launches, "run_analysis_ms": wall_ms,
@@ -1481,29 +1521,48 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
         "bound_ms": bound, "bound_by": bound_by}
     phase("betweenness", **out["betweenness"])
 
-    # the stage profile at 2047: median of 5 after a warm-up
-    card.run_analysis("comprehensive", ns)
-    walls, profiles = [], []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        rec = card.run_analysis("comprehensive", ns)
-        walls.append((time.perf_counter() - t0) * 1e3)
-        profiles.append(rec["results"]["profile"])
-    out["profile_2047"] = {
-        stage: float(np.median([p[stage] for p in profiles]))
-        for stage in profiles[0]}
-    out["run_analysis_ms_2047"] = float(np.median(walls))
+    # the stage profile at 2047, columnar (the default) and dict in turns:
+    # median of 5 each after a warm-up of each
+    walls = {"columnar": [], "dict": []}
+    profiles = {"columnar": [], "dict": []}
+
+    def analysis(path):
+        with mock.patch.dict(os.environ, {
+                "RCA_COLUMNAR": "1" if path == "columnar" else "0"}):
+            t0 = time.perf_counter()
+            rec = card.run_analysis("comprehensive", ns)
+            return (time.perf_counter() - t0) * 1e3, rec
+
+    for path in ("columnar", "dict"):
+        analysis(path)
+    for i in range(5):
+        for path in (("columnar", "dict") if i % 2 == 0
+                     else ("dict", "columnar")):
+            wall, rec = analysis(path)
+            walls[path].append(wall)
+            profiles[path].append(rec["results"]["profile"])
     client = MockClusterClient(world)
-    captures = host_samples(lambda: ClusterSnapshot.capture(client, ns),
-                            reps=5)
-    out["capture_ms_2047"] = float(np.median(captures))
-    # the spread of the host walls: the card's host shares its cores
-    spread = {"run_analysis_ms_range": [min(walls), max(walls)],
-              "capture_ms_range": [min(captures), max(captures)]}
-    out.update({f"{k}_2047": v for k, v in spread.items()})
-    phase("snapshot_profile", services=n, run_analysis_ms=float(
-        np.median(walls)), capture_ms=out["capture_ms_2047"], **spread,
-        **out["profile_2047"])
+    captures = {
+        "columnar": host_samples(
+            lambda: ClusterSnapshot.capture(client, ns), reps=5),
+        "dict": host_samples(lambda: ClusterSnapshot.capture(
+            client, ns, columnar=False), reps=5)}
+    for path, suffix in (("columnar", ""), ("dict", "_dict")):
+        prof = profiles[path]
+        out[f"profile{suffix}_2047"] = {
+            stage: float(np.median([p[stage] for p in prof]))
+            for stage in prof[0]}
+        out[f"run_analysis_ms{suffix}_2047"] = float(np.median(walls[path]))
+        out[f"capture_ms{suffix}_2047"] = float(np.median(captures[path]))
+        # the spread of the host walls: the card's host shares its cores
+        spread = {
+            "run_analysis_ms_range": [min(walls[path]), max(walls[path])],
+            "capture_ms_range": [min(captures[path]), max(captures[path])]}
+        out.update({f"{k}{suffix}_2047": v for k, v in spread.items()})
+        phase("snapshot_profile", services=n, capture=path,
+              run_analysis_ms=out[f"run_analysis_ms{suffix}_2047"],
+              capture_ms=out[f"capture_ms{suffix}_2047"], **spread,
+              **out[f"profile{suffix}_2047"])
     if profile_it:
         out["device_profile_2047"] = {
             "run_analysis": device_profile(
@@ -1536,6 +1595,276 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
                   "seconds": time.perf_counter() - t0}
     phase("cli", **out["cli"])
     out["launches"] = total
+    return out
+
+
+#: the capture phase's world sizes, each captured columnar and by the dict
+#: sweep in the same call
+CAPTURE_SIZES = (2047, 10000, 49999)
+#: what the reference's ``analyze --compact`` prints with no fixture, no
+#: kubectl and a missing kubeconfig (tier-1 holds the port's JSON to the
+#: reference's in that setting)
+NO_CLUSTER_REPORT = {"status": "completed", "summary": "No issues detected.",
+                     "root_causes": []}
+
+
+def _same(a, b) -> bool:
+    """Deep equality of snapshot values, NaN equal to NaN."""
+    import math
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, float) and isinstance(b, float) and math.isnan(a):
+        return math.isnan(b)
+    return type(a) is type(b) and a == b
+
+
+def _no_kubectl_env(tmp: str) -> dict:
+    """The environment of a host with no cluster: no ``kubectl`` on the
+    PATH and a ``KUBECONFIG`` naming a missing file."""
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "kubectl")))
+    return {**os.environ, "PATH": path,
+            "KUBECONFIG": os.path.join(tmp, "missing-kubeconfig")}
+
+
+def _native_check(world, ns) -> dict:
+    """Build the native scanner and sanitize extension from
+    ``rca_tpu_torch/native/`` with g++ into the port's cache; the scanner
+    must load and count what the regex scanner counts on every log of the
+    world, and the sanitize extension, where ``Python.h`` exists, must
+    load and return what the Python walk returns on fuzzed objects."""
+    import copy
+    import hashlib
+    import random
+    import sysconfig
+    from pathlib import Path
+
+    import numpy as np
+    from rca_tpu_torch import native
+    from rca_tpu_torch.cluster.sanitize import sanitize_object
+    from rca_tpu_torch.features.logscan import scan_text_python
+
+    t0 = time.perf_counter()
+    lib = native.load_native()
+    scan_build_s = time.perf_counter() - t0
+    if lib is None or not native.native_available():
+        fail("the native log scanner did not build or load (g++ on the "
+             "card's host)")
+    so = Path(lib._name).resolve()
+    configured = native.native_cache_dir()
+    cache = (Path(configured).resolve() if configured
+             else native._default_cache_dir().resolve())
+    abi = (sysconfig.get_config_var("SOABI") or "unknown-abi").encode()
+    tag = hashlib.sha256(native._SOURCE.read_bytes() + abi).hexdigest()[:16]
+    here = Path(__file__).resolve().parent / "rca_tpu_torch" / "native"
+    if so.parent != cache or so.name != f"liblogscan-{tag}.so" or \
+            native._SOURCE.resolve().parent != here:
+        fail(f"the scanner {so} is not the port's build of {here}")
+
+    texts = [text for store in (world.logs, world.previous_logs)
+             for by_pod in store.values()
+             for by_container in by_pod.values()
+             for text in by_container.values()]
+    for text in texts:
+        if not np.array_equal(native.scan_text_native(text),
+                              scan_text_python(text)):
+            fail(f"the native scanner disagrees with the regex scanner on "
+                 f"a log of the world: {text[:200]!r}")
+    t0 = time.perf_counter()
+    for text in texts:
+        native.scan_text_native(text)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for text in texts:
+        scan_text_python(text)
+    regex_ms = (time.perf_counter() - t0) * 1e3
+
+    include = sysconfig.get_paths().get("include") or ""
+    has_header = os.path.exists(os.path.join(include, "Python.h"))
+    t0 = time.perf_counter()
+    san = native.load_sanitize()
+    san_build_s = time.perf_counter() - t0
+    fuzzed = 0
+    if san is not None:
+        status = "loaded"
+
+        def mangle(obj, rng):
+            if isinstance(obj, dict):
+                for k in list(obj):
+                    r = rng.random()
+                    if r < 0.1:
+                        del obj[k]
+                    elif r < 0.18:
+                        obj[k] = None
+                    elif r < 0.2:
+                        obj[k] = 123
+                    else:
+                        mangle(obj[k], rng)
+            elif isinstance(obj, list):
+                for i, item in enumerate(obj):
+                    if rng.random() < 0.06:
+                        obj[i] = None
+                    else:
+                        mangle(item, rng)
+
+        objects = [o for store in (world.pods, world.services,
+                                   world.deployments, world.events,
+                                   world.endpoints)
+                   for o in store.get(ns, [])[:60]]
+        for seed in range(10):
+            rng = random.Random(seed)
+            for obj in copy.deepcopy(objects):
+                mangle(obj, rng)
+                if san.sanitize_object(copy.deepcopy(obj)) != \
+                        sanitize_object(copy.deepcopy(obj)):
+                    fail(f"the native sanitize disagrees with the Python "
+                         f"walk (seed {seed}): {obj!r:.300}")
+                fuzzed += 1
+    elif has_header:
+        fail(f"Python.h is at {include} but the native sanitize did not "
+             f"build or load")
+    else:
+        status = f"not loaded: no Python.h under {include!r}"
+    print(f"native_sanitize: {status}", flush=True)
+    return {"scanner": str(so), "scanner_build_s": scan_build_s,
+            "logs_checked": len(texts), "native_scan_ms": native_ms,
+            "regex_scan_ms": regex_ms, "native_sanitize": status,
+            "sanitize_build_s": san_build_s, "sanitize_fuzzed": fuzzed}
+
+
+def capture_phase(smi: str) -> dict:
+    """The capture layer on the card's host: the native scanners
+    (:func:`_native_check`), then at 2047, 10,000 and 49,999 services one
+    world captured columnar (the default) and by the dict sweep in the
+    same call: snapshot values and feature matrices bitwise equal, and
+    ``capture_ms`` / ``features_ms`` / ``graph_ms`` of each path beside
+    each other (medians; the columnar path's first capture, which builds
+    the master tables, and its diff capture through a persisted mirror
+    apart); then ``python -m rca_tpu_torch analyze --compact`` with no
+    fixture, no kubectl and a missing kubeconfig, which must print the
+    reference's report for an empty, unreachable cluster."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from rca_tpu_torch.cluster.columnar import (
+        ColumnarClientState,
+        digest_array_crc,
+    )
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+    from rca_tpu_torch.features.extract import extract_features
+    from rca_tpu_torch.graph.build import (
+        build_typed_graph,
+        service_dependency_edges,
+    )
+
+    ns = "synthetic"
+    out = {"card": smi, "sizes": {}}
+    fields = ("pod_features", "service_features", "pod_service", "memb_pod",
+              "memb_svc", "pod_node", "node_features")
+
+    def timed(fn, reps):
+        walls, value = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            value = fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls)), [min(walls), max(walls)], value
+
+    for n in CAPTURE_SIZES:
+        t0 = time.perf_counter()
+        world = synthetic_cascade_world(n, n_roots=3, seed=0)
+        generate_s = time.perf_counter() - t0
+        if n == CAPTURE_SIZES[0]:
+            out["native"] = _native_check(world, ns)
+            phase("native", card=smi, **out["native"])
+        client = MockClusterClient(world)
+        reps = 3 if n > 10000 else 5
+        t0 = time.perf_counter()
+        first = ClusterSnapshot.capture(client, ns)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if first.columnar is None:
+            payload = client.get_columnar(ns)
+            fail(f"the columnar capture fell back at {n} services: "
+                 f"{payload.get('reason', 'columnar view missing')}")
+        col_ms, col_range, col = timed(
+            lambda: ClusterSnapshot.capture(client, ns), reps)
+        state = ColumnarClientState()
+        ClusterSnapshot.capture(client, ns, columnar_state=state)
+        diff_ms, _, diff = timed(lambda: ClusterSnapshot.capture(
+            client, ns, columnar_state=state), reps)
+        dict_ms, dict_range, dic = timed(
+            lambda: ClusterSnapshot.capture(client, ns, columnar=False),
+            reps)
+        for snap, label in ((col, "columnar"), (diff, "columnar diff")):
+            if snap.columnar is None:
+                fail(f"the {label} capture fell back at {n} services")
+            for f in dataclasses.fields(snap):
+                if f.name != "columnar" and not _same(
+                        getattr(snap, f.name), getattr(dic, f.name)):
+                    fail(f"snapshot field {f.name} differs between the "
+                         f"{label} and the dict capture at {n} services")
+        feat_col_ms, _, fs_col = timed(lambda: extract_features(col), reps)
+        feat_dict_ms, _, fs_dict = timed(lambda: extract_features(dic), reps)
+        for fs in (fs_dict, extract_features(diff)):
+            if (fs.pod_names, fs.service_names, fs.node_names) != \
+                    (fs_col.pod_names, fs_col.service_names,
+                     fs_col.node_names):
+                fail(f"feature names differ between the paths at {n}")
+            for f in fields:
+                a, b = getattr(fs_col, f), getattr(fs, f)
+                if a.dtype != b.dtype or a.shape != b.shape or \
+                        a.tobytes() != b.tobytes():
+                    fail(f"{f} not bitwise equal between the columnar and "
+                         f"the dict capture at {n} services")
+
+        def graph(snap, fs):
+            g = build_typed_graph(snap)
+            return service_dependency_edges(snap, fs, g)
+
+        graph_col_ms, _, e_col = timed(lambda: graph(col, fs_col), reps)
+        graph_dict_ms, _, e_dict = timed(lambda: graph(dic, fs_dict), reps)
+        if any(a.tobytes() != b.tobytes() for a, b in zip(e_col, e_dict)):
+            fail(f"dependency edges differ between the paths at {n}")
+        row = {
+            "pods": len(col.pods), "generate_s": generate_s,
+            "columnar": {"capture_ms": col_ms, "capture_ms_range": col_range,
+                         "first_capture_ms": first_ms,
+                         "diff_capture_ms": diff_ms,
+                         "features_ms": feat_col_ms,
+                         "graph_ms": graph_col_ms},
+            "dict": {"capture_ms": dict_ms, "capture_ms_range": dict_range,
+                     "features_ms": feat_dict_ms, "graph_ms": graph_dict_ms},
+            "service_features_crc": digest_array_crc(fs_col.service_features),
+            "bitwise_equal": True}
+        out["sizes"][str(n)] = row
+        phase("capture", services=n, card=smi, **row)
+        del world, client, first, col, diff, dic, fs_col, fs_dict
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rca_tpu_torch", "analyze", "--compact"],
+            capture_output=True, text=True, timeout=300,
+            env=_no_kubectl_env(tmp))
+    if proc.returncode != 0:
+        fail(f"analyze with no fixture exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    if report != NO_CLUSTER_REPORT:
+        fail(f"analyze with no cluster printed {report}, the reference "
+             f"prints {NO_CLUSTER_REPORT}")
+    out["no_cluster_cli"] = {"report": report,
+                             "seconds": time.perf_counter() - t0}
+    phase("no_cluster_cli", **out["no_cluster_cli"])
     return out
 
 
@@ -1936,19 +2265,58 @@ def _op_sequence(seed, n):
             for _ in range(n)]
 
 
-def _live_run(make_world, ns, device, depth, ops, check_every):
+class _FeedClient:
+    """A mock client whose ``get_columnar`` is the live columnar feed
+    (``LiveColumnarFeed``, what ``K8sApiClient.get_columnar`` serves over
+    a connected cluster) instead of the mock's own columnar master; pod
+    metrics come back as fresh objects on every call, as a live API server
+    returns them."""
+
+    def __init__(self, inner, ns):
+        from rca_tpu_torch.cluster.live_columnar import LiveColumnarFeed
+
+        self._inner = inner
+        self.feed = LiveColumnarFeed(self, ns)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def get_columnar(self, namespace, cursor=None):
+        return self.feed.payload(cursor)
+
+    def get_pod_metrics(self, namespace):
+        import copy
+
+        return copy.deepcopy(self._inner.get_pod_metrics(namespace))
+
+
+def _live_run(make_world, ns, device, depth, ops, check_every,
+              use_columnar=None, feed=False):
+    """Polls of a live session over a mutating world; ``use_columnar``
+    None takes the default (``RCA_COLUMNAR``, on), which must hold to the
+    end: a columnar session that fell back to the dict sweep fails.
+    ``feed`` serves the columnar capture through the live feed."""
     from rca_tpu_torch.cluster.mock_client import MockClusterClient
     from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
 
     world = make_world()
+    client = MockClusterClient(world)
+    if feed:
+        client = _FeedClient(client, ns)
     live = LiveStreamingSession(
-        MockClusterClient(world), ns, k=3, engine=GraphEngine(device=device),
-        topology_check_every=check_every, pipeline_depth=depth)
+        client, ns, k=3, engine=GraphEngine(device=device),
+        topology_check_every=check_every, pipeline_depth=depth,
+        use_columnar=use_columnar)
     outs = []
     for t, op in enumerate(ops):
         if t % 3 != 2:          # every third poll stays quiet
             _mutate(world, ns, op)
         outs.append(live.poll())
+    if live._use_columnar is not (use_columnar is not False):
+        fail(f"live session at {len(live._names)} services: columnar "
+             f"{live._use_columnar}, asked {use_columnar}")
+    if feed:
+        client.feed.close()
     return outs
 
 
@@ -2059,37 +2427,72 @@ def live_phase() -> dict:
     out["ladder"] = _card_ladder(fixture)
     phase("live_ladder", **out["ladder"])
 
+    def world_10k():
+        return synthetic_cascade_world(10000, n_roots=3, seed=0)
+
     t0 = time.perf_counter()
-    big = [synthetic_cascade_world(10000, n_roots=3, seed=0)
-           for _ in range(2)]
+    roots = world_10k().ground_truth["fault_roots"]
     generate_s = time.perf_counter() - t0
     ops = _op_sequence(29, 20)
-    card = _live_run(lambda: big[0], "synthetic", "cuda", 2, ops, 5)
-    cpu = _live_run(lambda: big[1], "synthetic", "cpu", 2, ops, 5)
+    card = _live_run(world_10k, "synthetic", "cuda", 2, ops, 5)
+    cpu = _live_run(world_10k, "synthetic", "cpu", 2, ops, 5)
     healthy(card, "10k depth 2")
     same_as_cpu(card, cpu, "10k")
-    # poll p (1-based) is a sweep when p % 5 == 0, a watch poll otherwise
-    quiet = [o["capture_ms"] for o in card[1:] if o["quiet"]]
-    busy = [o["capture_ms"] for p, o in enumerate(card[1:], start=2)
-            if not o["quiet"] and not o["resynced"] and p % 5]
-    sweeps = [o["capture_ms"] for p, o in enumerate(card, start=1)
-              if p % 5 == 0]
+    # the dict sweep on the card, for its capture times beside the default
+    dict_run = _live_run(world_10k, "synthetic", "cuda", 2, ops, 5,
+                         use_columnar=False)
+    healthy(dict_run, "10k depth 2, dict capture")
+
+    def capture_times(run):
+        # poll p (1-based) is a sweep when p % 5 == 0, a watch poll
+        # otherwise
+        quiet = [o["capture_ms"] for o in run[1:] if o["quiet"]]
+        busy = [o["capture_ms"] for p, o in enumerate(run[1:], start=2)
+                if not o["quiet"] and not o["resynced"] and p % 5]
+        sweeps = [o["capture_ms"] for p, o in enumerate(run, start=1)
+                  if p % 5 == 0]
+        return {"capture_ms_quiet": float(np.median(quiet)),
+                "capture_ms_busy": float(np.median(busy)),
+                "capture_ms_busy_range": [min(busy), max(busy)],
+                "capture_ms_sweep": float(np.median(sweeps))}
+
     ticks = [o["latency_ms"] for o in card[2:]]
     dispatch = [o["dispatch_ms"] for o in card[2:]]
     fetch = [o["fetch_ms"] for o in card[2:]]
     out["10k"] = {
-        "polls": 20, "generate_s": generate_s,
-        "capture_ms_quiet": float(np.median(quiet)),
-        "capture_ms_busy": float(np.median(busy)),
-        "capture_ms_busy_range": [min(busy), max(busy)],
-        "capture_ms_sweep": float(np.median(sweeps)),
+        "polls": 20, "generate_s": generate_s, "capture": "columnar",
+        **capture_times(card),
+        "dict": capture_times(dict_run),
+        "dict_ranked_as_columnar": sum(
+            a["ranked"] == b["ranked"] for a, b in zip(dict_run, card)),
         "tick_ms": float(np.median(ticks)),
         "tick_ms_range": [min(ticks), max(ticks)],
         "dispatch_ms": float(np.median(dispatch)),
         "fetch_ms": float(np.median(fetch)),
         "top": [r["component"] for r in card[-1]["ranked"]],
-        "fault_roots": big[0].ground_truth["fault_roots"]}
+        "fault_roots": roots}
     phase("live", world="10k", **out["10k"])
+
+    # the live columnar feed (the live client's get_columnar) over the
+    # same world and mutations: every tick ranks as the session over the
+    # mock's own columnar feed, with the same changed rows, root first
+    fed = _live_run(world_10k, "synthetic", "cuda", 2, ops, 5, feed=True)
+    healthy(fed, "10k depth 2, live columnar feed")
+    for t, (a, b) in enumerate(zip(fed, card)):
+        if a["ranked"] != b["ranked"] or \
+                a["changed_rows"] != b["changed_rows"]:
+            fail(f"live feed tick {t}: ranking or changed_rows "
+                 f"{a['changed_rows']} differ from the mock's own feed's "
+                 f"({b['changed_rows']})")
+        if a["ranked"] and a["ranked"][0]["component"] not in roots:
+            fail(f"live feed tick {t}: top-1 {a['ranked'][0]['component']}"
+                 f" is not a fault root {roots}")
+    if not fed[-1]["ranked"]:
+        fail("live feed: no ranking after 20 polls")
+    out["10k_feed"] = {"polls": 20, **capture_times(fed),
+                       "top": [r["component"] for r in fed[-1]["ranked"]],
+                       "fault_roots": roots}
+    phase("live", world="10k live feed", **out["10k_feed"])
 
     t0 = time.perf_counter()
     proc = subprocess.run(

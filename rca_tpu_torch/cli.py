@@ -14,11 +14,14 @@
   work with the next poll's capture).
 
 Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
-<N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``).  Every command
-runs on the CUDA card unless ``--device cpu`` asks for the CPU.  ``analyze``,
-``hypotheses`` and ``stream`` build their engine through ``make_engine``:
-node-sharded when ``RCA_SHARD`` asks for it or more than one CUDA device is
-visible.  A live cluster is not supported yet.
+<N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``); omit
+``--fixture`` (or pass ``live``) for a live cluster through
+:class:`rca_tpu_torch.cluster.k8s_client.K8sApiClient` (kubeconfig or
+``kubectl``; with neither, the analysis reports the degraded, empty
+capture).  Every command runs on the CUDA card unless ``--device cpu``
+asks for the CPU.  ``analyze``, ``hypotheses`` and ``stream`` build their
+engine through ``make_engine``: node-sharded when ``RCA_SHARD`` asks for
+it or more than one CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -27,11 +30,17 @@ import argparse
 import json
 import re
 import sys
+from typing import Optional
 
 
-def _make_client(fixture: str, seed: int = 0, fault_mix: str = "crash"):
+def _make_client(fixture: Optional[str], seed: int = 0,
+                 fault_mix: str = "crash"):
     from rca_tpu_torch.cluster.mock_client import MockClusterClient
 
+    if fixture in (None, "", "live"):
+        from rca_tpu_torch.cluster.k8s_client import K8sApiClient
+
+        return K8sApiClient(), None
     if fixture == "5svc":
         from rca_tpu_torch.cluster.fixtures import NS, five_service_world
 
@@ -44,18 +53,14 @@ def _make_client(fixture: str, seed: int = 0, fault_mix: str = "crash"):
             int(m.group(1)), n_roots=1, seed=seed, fault_mix=fault_mix,
         )
         return MockClusterClient(world), "synthetic"
-    raise SystemExit(f"unknown fixture: {fixture!r} (want 5svc or <N>svc)")
+    raise SystemExit(f"unknown fixture: {fixture!r} (want 5svc, <N>svc, live)")
 
 
 def cmd_analyze(args) -> int:
     from rca_tpu_torch.coordinator import RCACoordinator
 
-    if args.fixture in (None, "", "live"):
-        print("rca_tpu_torch: a live cluster is not supported yet; pass "
-              "--fixture 5svc or --fixture <N>svc", file=sys.stderr)
-        return 2
     client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
-    namespace = args.namespace or ns
+    namespace = args.namespace or ns or "default"
     coord = RCACoordinator(client, backend=args.backend, device=args.device)
     record = coord.run_analysis(args.type, namespace)
     out = record if args.full else {
@@ -87,12 +92,8 @@ def cmd_hypotheses(args) -> int:
     from rca_tpu_torch.features.extract import extract_features
     from rca_tpu_torch.graph.build import service_dependency_edges
 
-    if args.fixture in (None, "", "live"):
-        print("rca_tpu_torch: a live cluster is not supported yet; pass "
-              "--fixture 5svc or --fixture <N>svc", file=sys.stderr)
-        return 2
     client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
-    namespace = args.namespace or ns
+    namespace = args.namespace or ns or "default"
     snap = ClusterSnapshot.capture(client, namespace)
     fs = extract_features(snap)
     src, dst = service_dependency_edges(snap, fs)
@@ -240,13 +241,9 @@ def cmd_stream(args) -> int:
 
     from rca_tpu_torch.engine import LiveStreamingSession, make_engine
 
-    if args.fixture in (None, "", "live"):
-        print("rca_tpu_torch: a live cluster is not supported yet; pass "
-              "--fixture 5svc or --fixture <N>svc", file=sys.stderr)
-        return 2
     client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
     live = LiveStreamingSession(
-        client, args.namespace or ns, k=args.top,
+        client, args.namespace or ns or "default", k=args.top,
         engine=make_engine(device=args.device),
         pipeline_depth=args.pipeline_depth,
     )
@@ -295,7 +292,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("analyze", help="run an analysis")
-    sp.add_argument("--fixture", default=None, help="5svc | <N>svc")
+    sp.add_argument("--fixture", default=None,
+                    help="5svc | <N>svc | live (default: live)")
     sp.add_argument("--fault-mix", default="crash", dest="fault_mix",
                     help="synthetic fixtures' root fault archetypes: "
                     "crash | mixed | oom | image | config | pending")
@@ -320,7 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="counterfactual hypothesis batch: what-if-healthy scoring of "
         "the top candidates as lanes of one batched analysis",
     )
-    sp.add_argument("--fixture", default=None, help="5svc | <N>svc")
+    sp.add_argument("--fixture", default=None,
+                    help="5svc | <N>svc | live (default: live)")
     sp.add_argument("--namespace", default=None)
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--fault-mix", default="crash", dest="fault_mix")
@@ -359,7 +358,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser(
         "stream", help="poll-driven live streaming analysis (1 Hz loop)"
     )
-    sp.add_argument("--fixture", default=None, help="5svc | <N>svc")
+    sp.add_argument("--fixture", default=None,
+                    help="5svc | <N>svc | live (default: live)")
     sp.add_argument("--fault-mix", default="crash", dest="fault_mix",
                     help="synthetic fixtures' root fault archetypes")
     sp.add_argument("--namespace", default=None)

@@ -1,7 +1,5 @@
 """Hermetic mock cluster client backed by a :class:`World`: the port's copy
-of ``rca_tpu.cluster.mock_client`` without the columnar feed (snapshot
-capture here takes the dict sweep, which the JAX package documents as
-bit-identical to its columnar capture).
+of ``rca_tpu.cluster.mock_client``, the columnar feed included.
 
 Drop-in replacement for the live client (same :class:`ClusterClient`
 protocol), playing the role of the reference's ``MockK8sClient``
@@ -206,6 +204,23 @@ class MockClusterClient:
     ) -> List[Dict[str, Any]]:
         ops = self.world.traces.get("slow_ops", {}).get(namespace, [])
         return [op for op in ops if op.get("duration_ms", 0) >= threshold_ms]
+
+    # ---- columnar capture surface -----------------------------------------
+    def get_columnar(
+        self, namespace: str, cursor: Optional[str] = None
+    ) -> Dict[str, Any]:
+        """Columnar world-state feed: the full table dump on a fresh (or
+        expired) cursor, column-diff row ops after.  The journal that
+        backs ``watch_changes`` drives the row writes, so the two feeds
+        expire together.  ``supported: False`` (degenerate world —
+        duplicate object names) sends the caller back to the dict scans."""
+        from rca_tpu_torch.cluster.columnar import ColumnarWorld
+
+        master = self.world._columnar.get(namespace)
+        if master is None:
+            master = ColumnarWorld.master(self.world, namespace)
+            self.world._columnar[namespace] = master
+        return master.payload(cursor)
 
     # ---- incremental changes (watch surface) ------------------------------
     def watch_changes(

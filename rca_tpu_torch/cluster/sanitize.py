@@ -1,6 +1,6 @@
 """Defensive normalization of raw Kubernetes objects at the snapshot boundary
 (the port's copy of ``rca_tpu.cluster.sanitize``: the Python walk, which is
-the specification its C twin is held to).
+the specification, and its C twin ``rca_tpu_torch/native/sanitizec.c``).
 
 Live clusters produce objects this codebase's consumers must not have to
 defend against one key at a time: a `metadata: null` from a partial
@@ -76,7 +76,9 @@ _STR_KEYS = frozenset({
 
 
 def _empty_metadata() -> dict:
-    """A fresh metadata satisfying the module invariant (name + labels)."""
+    """A fresh metadata satisfying the module invariant (name + labels) —
+    the single Python-side spelling; sanitizec.c's empty_metadata() is its
+    twin."""
     return {"name": "", "labels": {}}
 
 
@@ -172,13 +174,25 @@ def sanitize_object(obj: Any, parent_key: str = "") -> Any:
     return obj
 
 
+def _native_sanitize():
+    """The C extension twin (rca_tpu_torch/native/sanitizec.c), or None.
+    Same walk in C; exact parity is enforced by
+    tests/test_torch_native.py, and the Python implementation above is the
+    spec."""
+    from rca_tpu_torch.native import load_sanitize
+
+    return load_sanitize()
+
+
 def sanitize_objects(items: List[dict]) -> List[dict]:
     """Normalize a collection; drops entries that are not dicts at all."""
+    native = _native_sanitize()
+    san = native.sanitize_object if native is not None else sanitize_object
     out = []
     for item in items or []:
         if not isinstance(item, dict):
             continue
-        clean = sanitize_object(item)
+        clean = san(item)
         # every top-level object gets a metadata dict with a name
         md = clean.get("metadata")
         if not isinstance(md, dict):

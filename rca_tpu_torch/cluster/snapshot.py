@@ -1,5 +1,5 @@
 """Frozen point-in-time capture of one namespace — the engine's single input
-(the port's copy of ``rca_tpu.cluster.snapshot``, dict capture only).
+(the port's copy of ``rca_tpu.cluster.snapshot``).
 
 The reference re-fetched cluster state ad hoc inside every agent and the
 coordinator (reference: agents/mcp_coordinator.py:322-620 builds a fresh
@@ -17,7 +17,13 @@ from typing import Any, Dict, List, Optional
 
 @dataclasses.dataclass(frozen=True)
 class ClusterSnapshot:
-    """See module docstring."""
+    """See module docstring.  ``columnar``, when present, is a
+    :class:`rca_tpu_torch.cluster.columnar.ColumnarView` — the vectorized
+    extractor inputs assembled at capture time from the client's columnar
+    tables; the extractor uses it instead of the per-object dict scans
+    (bit-identical by construction, property-tested).  Patched/derived
+    snapshots must drop it (``dataclasses.replace(..., columnar=None)``)
+    because a view describes exactly the capture that built it."""
     namespace: str
     captured_at: str
     pods: List[dict]
@@ -44,6 +50,10 @@ class ClusterSnapshot:
     # fetch failures swallowed during capture ([{"op", "error"}]): non-empty
     # means this snapshot is PARTIAL and every consumer should say so
     errors: List[Dict[str, str]] = dataclasses.field(default_factory=list)
+    # columnar fast-path view; never part of the value
+    columnar: Optional[Any] = dataclasses.field(
+        default=None, compare=False, repr=False,
+    )
 
     @classmethod
     def capture(
@@ -53,16 +63,50 @@ class ClusterSnapshot:
         log_tail_lines: int = 200,
         max_log_pods: Optional[int] = None,
         include_traces: bool = True,
+        columnar: bool = True,
+        columnar_state: Optional[Any] = None,
+        traces_from: Optional[Dict[str, Any]] = None,
     ) -> "ClusterSnapshot":
-        """Capture everything the analysis needs in one pass (the dict
-        sweep: every object sanitized, every sampled pod's logs fetched).
+        """Capture everything the analysis needs in one pass.
 
         ``max_log_pods=None`` fetches logs for every non-healthy pod plus a
         bounded sample of healthy ones — unlike the reference which sampled
         only the first 5 pods' logs (reference: mcp_coordinator.py:396-409)
         and could miss the faulty pod entirely.
+
+        When the client supports ``get_columnar`` and
+        ``RCA_COLUMNAR`` is on, the object lists, feature columns, and
+        log-scan counts come from the incrementally-maintained columnar
+        tables instead of per-object re-sanitize/re-scan sweeps —
+        O(dirty rows) instead of O(objects) per capture.  ``columnar_state``
+        (a :class:`rca_tpu_torch.cluster.columnar.ColumnarClientState`) carries
+        the mirror + cursor across repeated captures so only column DIFFS
+        cross the client boundary;
+        ``traces_from`` reuses a previous capture's trace payloads when
+        the caller knows traces were untouched (the busy-poll patch
+        contract).  Both are ignored on the dict path.
         """
         from rca_tpu_torch.cluster.sanitize import sanitize_objects
+        from rca_tpu_torch.config import columnar_enabled
+
+        # callable check (not bare hasattr): a client subclass opts out of
+        # the columnar surface with ``get_columnar = None`` — e.g. fault-
+        # simulating test clients whose overridden getters must be hit
+        if (
+            columnar
+            and columnar_enabled()
+            and log_tail_lines == 200
+            and callable(getattr(client, "get_columnar", None))
+        ):
+            snap = cls._capture_columnar(
+                client, namespace,
+                max_log_pods=max_log_pods,
+                include_traces=include_traces,
+                columnar_state=columnar_state,
+                traces_from=traces_from,
+            )
+            if snap is not None:
+                return snap
 
         # drain stale errors so this snapshot reports only ITS failures
         if hasattr(client, "collect_errors"):
@@ -124,6 +168,108 @@ class ClusterSnapshot:
                 client.collect_errors()
                 if hasattr(client, "collect_errors") else []
             ),
+        )
+
+    @classmethod
+    def _capture_columnar(
+        cls,
+        client,
+        namespace: str,
+        max_log_pods: Optional[int],
+        include_traces: bool,
+        columnar_state: Optional[Any],
+        traces_from: Optional[Dict[str, Any]],
+    ) -> Optional["ClusterSnapshot"]:
+        """Columnar capture: one ``get_columnar`` call (full
+        tables once, column diffs after), log-text refetch only for pods
+        whose rows changed, everything else assembled from the mirror.
+        Returns None when the world is degenerate for columnar
+        maintenance — the caller falls back to the dict sweep."""
+        from rca_tpu_torch.cluster.columnar import (
+            ColumnarClientState,
+            ColumnarUnsupported,
+        )
+
+        state = columnar_state or ColumnarClientState()
+        if hasattr(client, "collect_errors"):
+            client.collect_errors()  # drain stale errors
+        payload = client.get_columnar(namespace, state.cursor)
+        try:
+            full, changed, _removed = state.apply(namespace, payload)
+        except ColumnarUnsupported:
+            return None
+        tables = state.tables
+        view = tables.build_view(max_log_pods=max_log_pods)
+
+        # sampled log texts: fetch only what the mirror cannot vouch for
+        # (everything on a full payload; changed/uncached pods on diffs)
+        pods_tbl = tables.kinds["pods"]
+        logs: Dict[str, Dict[str, str]] = {}
+        for name in view.sampled_names:
+            cached = state.log_texts.get(name)
+            if cached is None or full or name in changed:
+                row = pods_tbl.pos.get(name)
+                pod = pods_tbl.objects[row] if row is not None else {}
+                per_container: Dict[str, str] = {}
+                for c in pod.get("spec", {}).get("containers", []) or []:
+                    try:
+                        per_container[c["name"]] = client.get_pod_logs(
+                            namespace, name, container=c["name"],
+                            tail_lines=200,
+                        )
+                    except Exception:
+                        per_container[c["name"]] = ""
+                state.log_texts[name] = per_container
+                cached = per_container
+            logs[name] = cached
+
+        traces: Dict[str, Any] = {}
+        if include_traces:
+            if traces_from is not None:
+                traces = traces_from
+            else:
+                try:
+                    traces = {
+                        "latency": client.get_service_latency_stats(
+                            namespace),
+                        "error_rates": client.get_error_rate_by_service(
+                            namespace),
+                        "dependencies": client.get_service_dependencies(
+                            namespace),
+                        "slow_ops": client.find_slow_operations(namespace),
+                    }
+                except Exception:
+                    traces = {}
+
+        k = tables.kinds
+        return cls(
+            namespace=namespace,
+            captured_at=client.get_current_time(),
+            pods=list(k["pods"].objects),
+            deployments=list(k["deployments"].objects),
+            statefulsets=list(k["statefulsets"].objects),
+            daemonsets=list(k["daemonsets"].objects),
+            cronjobs=list(k["cronjobs"].objects),
+            services=list(k["services"].objects),
+            endpoints=list(k["endpoints"].objects),
+            ingresses=list(k["ingresses"].objects),
+            network_policies=list(k["network_policies"].objects),
+            configmaps=list(k["configmaps"].objects),
+            secrets=list(k["secrets"].objects),
+            pvcs=list(k["pvcs"].objects),
+            resource_quotas=list(k["resource_quotas"].objects),
+            hpas=list(k["hpas"].objects),
+            nodes=list(tables.nodes),
+            node_metrics=client.get_node_metrics() or {},
+            pod_metrics={"pods": dict(tables.metric_recs)},
+            events=list(tables.events),
+            logs=logs,
+            traces=traces,
+            errors=(
+                client.collect_errors()
+                if hasattr(client, "collect_errors") else []
+            ),
+            columnar=view,
         )
 
     # convenience lookups -------------------------------------------------

@@ -1,5 +1,5 @@
 """In-memory cluster world model + builder helpers: the port's copy of
-``rca_tpu.cluster.world`` (without the columnar capture's master tables).
+``rca_tpu.cluster.world``.
 
 A :class:`World` is the hermetic backing store for :class:`MockClusterClient`
 and the output of the synthetic-cascade generators.  It plays the role of the
@@ -80,6 +80,11 @@ class World:
     # mismatch, so out-of-band list surgery degrades to a rebuild, never
     # to a wrong stamp.
     _pos_index: Dict[tuple, dict] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False,
+    )
+    # namespace -> ColumnarWorld master (rca_tpu_torch.cluster.columnar),
+    # created lazily by MockClusterClient.get_columnar
+    _columnar: Dict[str, Any] = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False,
     )
 

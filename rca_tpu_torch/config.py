@@ -12,9 +12,15 @@ registry's knobs: :func:`kernel_cache_path` (``RCA_KERNEL_CACHE``) and
 :func:`resident_enabled` (``RCA_RESIDENT``) and :func:`resident_cache_cap`
 (``RCA_RESIDENT_CACHE``), the live session's :func:`pipeline_depth_from_env`
 (``RCA_PIPELINE_DEPTH``), tracing (``RCA_TRACE``, ``RCA_TRACE_BUFFER``),
-kernelscope (``RCA_KERNELSCOPE``, ``RCA_MEM_SAMPLE_EVERY``) and
+kernelscope (``RCA_KERNELSCOPE``, ``RCA_MEM_SAMPLE_EVERY``),
 :func:`compile_cache_status`, which in the port describes the kernel build
-directory.
+directory, and the capture layer's knobs: :func:`columnar_enabled`
+(``RCA_COLUMNAR``), the live columnar feed's :func:`ingest_topo_every`
+(``RCA_INGEST_TOPO_EVERY``) and :func:`ingest_log_fetch`
+(``RCA_INGEST_LOGS``), and the native host scanners'
+:func:`native_scan_mode` (``RCA_NATIVE_SCAN``),
+:func:`native_sanitize_mode` (``RCA_NATIVE_SANITIZE``) and
+:func:`native_cache_dir` (``RCA_NATIVE_CACHE``).
 """
 
 from __future__ import annotations
@@ -176,6 +182,51 @@ def compile_cache_status() -> dict:
     except OSError:
         entries = 0
     return {"enabled": True, "dir": str(BUILD_DIR), "entries": entries}
+
+
+def columnar_enabled() -> bool:
+    """``RCA_COLUMNAR``: columnar world-state capture.  When a cluster
+    client exposes ``get_columnar`` (the mock world and the live client's
+    feed do), snapshot capture reads the incrementally-maintained columnar
+    tables instead of re-sanitizing and re-scanning every object per
+    sweep, and feature extraction becomes a vectorized assembly over the
+    tables' columns — bit-identical to the per-object dict path.  Default
+    on; 0 restores the dict scans."""
+    return env_str(
+        "RCA_COLUMNAR", "1", choices=("0", "1", "on", "off"), lower=True,
+    ) in ("1", "on")
+
+
+def ingest_topo_every() -> int:
+    """``RCA_INGEST_TOPO_EVERY``: topology re-list cadence (sweeps)."""
+    return env_int("RCA_INGEST_TOPO_EVERY", 1, 0, 100_000)
+
+
+def ingest_log_fetch() -> bool:
+    """``RCA_INGEST_LOGS``: fetch container logs into the live feed."""
+    return env_str(
+        "RCA_INGEST_LOGS", "1", choices=("0", "1", "on", "off"),
+        lower=True,
+    ) in ("1", "on")
+
+
+def native_scan_mode() -> str:
+    """``RCA_NATIVE_SCAN``: the C++ log scanner (``auto``, the default,
+    builds it where a toolchain exists; ``0`` keeps the regex scanner)."""
+    return env_str("RCA_NATIVE_SCAN", "auto", choices=("auto", "0", "1"))
+
+
+def native_sanitize_mode() -> str:
+    """``RCA_NATIVE_SANITIZE``: the C sanitize extension (``auto`` /
+    ``0`` / ``1``, as :func:`native_scan_mode`)."""
+    return env_str("RCA_NATIVE_SANITIZE", "auto",
+                   choices=("auto", "0", "1"))
+
+
+def native_cache_dir() -> Optional[str]:
+    """``RCA_NATIVE_CACHE``: where the native scanners are built (unset =
+    the port's user-private default, ``~/.cache/rca_tpu_torch``)."""
+    return env_raw("RCA_NATIVE_CACHE")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,9 +40,17 @@ plain ``torch`` row, on the CPU only.  On the CUDA card the kernels have
 no plain stand-in: where the ladder would step to ``interpret``,
 ``poll()`` raises :class:`KernelPathFailed` instead.  A rung is never
 silent: the tick says ``degraded``, the fault is recorded and the health
-record names the rung.  The port's clients serve no columnar feed yet,
-so every capture is the dict sweep (bit-equal to the reference's
-columnar one).
+record names the rung.
+
+Columnar capture (``RCA_COLUMNAR``, default on, or ``use_columnar``):
+when the client serves ``get_columnar`` (the mock world, and the live
+client through :class:`rca_tpu_torch.cluster.live_columnar.LiveColumnarFeed`),
+every capture — sweep, resync, busy poll — goes through the table mirror
+(row writes and a vectorized assembly) instead of the per-object dict
+scans; quiet polls still skip capture entirely.  A degenerate world
+(duplicate object names) falls back to the dict sweep for good.  Above
+the healthy-pod log sample the two paths sample other pods' logs, so a
+busy poll may count other ``changed_rows`` on each (the rankings agree).
 """
 
 from __future__ import annotations
@@ -55,7 +63,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
-from rca_tpu_torch.config import compile_cache_status, pipeline_depth_from_env
+from rca_tpu_torch.config import (
+    columnar_enabled,
+    compile_cache_status,
+    pipeline_depth_from_env,
+)
 from rca_tpu_torch.engine.runner import GraphEngine
 from rca_tpu_torch.engine.sharded_runner import make_engine
 from rca_tpu_torch.engine.streaming import make_streaming_session
@@ -105,6 +117,7 @@ class LiveStreamingSession:
         use_watch: bool = True,
         pipeline_depth: Optional[int] = None,
         clock=None,
+        use_columnar: Optional[bool] = None,
         tracer=None,
         explain: Optional[bool] = None,
     ):
@@ -114,8 +127,10 @@ class LiveStreamingSession:
         each poll serially; N >= 2 keeps N-1 ticks in flight (the first
         N-1 polls are pipeline-fill ticks carrying the last known
         ranking).  ``engine`` defaults to :func:`make_engine` on the CUDA
-        devices.  ``clock`` is the injectable monotonic timer.  ``explain``
-        (default ``RCA_EXPLAIN``) attributes every delivered ranking."""
+        devices.  ``clock`` is the injectable monotonic timer.
+        ``use_columnar`` (default ``RCA_COLUMNAR``) captures through the
+        client's columnar feed where it serves one.  ``explain`` (default
+        ``RCA_EXPLAIN``) attributes every delivered ranking."""
         self.namespace = namespace
         self.k = k
         self._clock = clock or time.perf_counter
@@ -144,6 +159,12 @@ class LiveStreamingSession:
         self._inflight: "collections.deque" = collections.deque()
         self.pipeline_flushed = 0  # in-flight ticks dropped by degradation
         self._extractor = IncrementalExtractor()
+        # columnar capture: the state carries the table mirror, its cursor
+        # and the log-text cache across polls
+        self._use_columnar = (
+            columnar_enabled() if use_columnar is None else bool(use_columnar)
+        )
+        self._colstate = None
         # the compile cache (the kernel build directory) at session start;
         # the first post-tick health record adds what this session built
         self._compile_cache = compile_cache_status()
@@ -166,11 +187,33 @@ class LiveStreamingSession:
         self._watch = bool(use_watch)
         self._resync()
 
-    # -- capture ------------------------------------------------------------
-    def _capture_full(self) -> ClusterSnapshot:
-        """One namespace capture: the dict sweep (the port has no columnar
-        capture yet)."""
-        return ClusterSnapshot.capture(self.client, self.namespace)
+    # -- capture (columnar fast path) ---------------------------------------
+    def _columnar_active(self) -> bool:
+        return self._use_columnar and callable(
+            getattr(self.client, "get_columnar", None)
+        )
+
+    def _capture_full(self, traces_from=None) -> ClusterSnapshot:
+        """One namespace capture through the preferred path: the columnar
+        tables when the client serves them, else the dict sweep.  A
+        degenerate world (columnar unsupported) falls back permanently —
+        capture() already returned the dict-path snapshot in that case."""
+        if self._columnar_active():
+            if self._colstate is None:
+                from rca_tpu_torch.cluster.columnar import ColumnarClientState
+
+                self._colstate = ColumnarClientState()
+            snap = ClusterSnapshot.capture(
+                self.client, self.namespace,
+                columnar_state=self._colstate, traces_from=traces_from,
+            )
+            if snap.columnar is None:
+                self._use_columnar = False
+                self._colstate = None
+            return snap
+        return ClusterSnapshot.capture(
+            self.client, self.namespace, columnar=False,
+        )
 
     # -- topology (re)build -------------------------------------------------
     def _new_session(self, src, dst):
@@ -315,6 +358,9 @@ class LiveStreamingSession:
             pod_metrics=metrics,
             traces=traces,
             errors=[],
+            # a columnar view describes exactly the capture that built
+            # it; this grafted snapshot must extract through the dict path
+            columnar=None,
         )
         self._force_topology_check = True
         # full mode: the lost notifications are exactly the drift the
@@ -349,6 +395,9 @@ class LiveStreamingSession:
 
         patch: Dict[str, Any] = {
             "captured_at": self.client.get_current_time(),
+            # patched snapshots extract through the dict path (a columnar
+            # view is only valid for the capture that assembled it)
+            "columnar": None,
         }
         can_check_errors = hasattr(self.client, "collect_errors")
         if traces_touched:
@@ -726,9 +775,25 @@ class LiveStreamingSession:
                 return self._finish(
                     t0, changed=len(self._names), resynced=True, quiet=False,
                 )
-            snap = self._patch_snapshot(changes)
+            if self._columnar_active():
+                # busy-poll columnar capture: the get_columnar diff IS the
+                # patch (row writes for exactly the journaled names);
+                # trace payloads carry forward unless journaled, the same
+                # contract _patch_snapshot has
+                traces_touched = any(
+                    c["kind"] == "traces" for c in changes
+                )
+                snap = self._capture_full(
+                    traces_from=(
+                        None if traces_touched else self._snap.traces
+                    ),
+                )
+            else:
+                snap = self._patch_snapshot(changes)
             # every mutation reaching here bumped a resourceVersion, so
             # the incremental extractor re-derives only the changed rows
+            # (a columnar snapshot skips the row cache: its rows were
+            # assembled at capture)
             fs = self._extractor.extract(snap)
             if list(fs.service_names) != self._names:
                 self._resync(snap=snap, fs=fs)
@@ -777,7 +842,10 @@ class LiveStreamingSession:
 
     def _poll_sweep(self, check_edges: bool = False) -> Dict[str, Any]:
         """Full list + extract + diff: the strategy without a change feed,
-        and the watch path's periodic topology check."""
+        and the watch path's periodic topology check.  With columnar
+        capture the "full list" is the table mirror: the sweep sees what
+        the journal carries plus the trace payloads it refetches, the
+        same visibility the watch feed has."""
         t0 = self._clock()
         snap = self._capture_full()
         # full mode: sweeps exist to catch out-of-band drift

@@ -1,6 +1,6 @@
 """Snapshot → packed feature arrays (the engine's host-side front end): the
-port's copy of ``rca_tpu.features.extract`` (the dict path: full and
-incremental extraction; the columnar capture is not ported yet).
+port's copy of ``rca_tpu.features.extract`` (the dict path, full and
+incremental, and the vectorized assembly off a columnar capture).
 
 One pass over the snapshot builds:
 
@@ -186,6 +186,14 @@ class IncrementalExtractor:
 
     def extract(self, snapshot: ClusterSnapshot,
                 incremental: bool = True) -> FeatureSet:
+        if getattr(snapshot, "columnar", None) is not None:
+            # columnar capture: the per-pod work was already done as row
+            # writes when the world mutated; the view carries the
+            # assembled matrix + memberships, so extraction is just the
+            # (vectorized) service aggregation, and the row cache is
+            # skipped.  Bit-identical to the dict loop below —
+            # property-tested in tests/test_torch_columnar.py.
+            return _extract_columnar(snapshot)
         pods = snapshot.pods
         P = len(pods)
         pod_names = [
@@ -424,4 +432,19 @@ def _aggregate_services(
         node_names=node_names,
         pod_node=pod_node,
         node_features=node_feat,
+    )
+
+
+def _extract_columnar(snapshot: ClusterSnapshot) -> FeatureSet:
+    """[no-dict-scan] Vectorized extraction off a columnar capture: every
+    per-pod quantity (feature rows, selector memberships, node indices)
+    was assembled from column slices at capture time
+    (:meth:`rca_tpu_torch.cluster.columnar.ColumnarWorld.build_view`);
+    only the shared service aggregation — already numpy segment ops —
+    runs here."""
+    v = snapshot.columnar
+    return _aggregate_services(
+        snapshot, v.pod_names, v.pod_features, v.service_names,
+        v.selectors, v.pod_service, v.memb_pod, v.memb_svc,
+        v.node_names, v.pod_node,
     )

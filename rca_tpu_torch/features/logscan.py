@@ -1,5 +1,7 @@
 """Log-pattern scanner: 13 named error classes (the port's copy of
-``rca_tpu.features.logscan``, the regex scanner only).
+``rca_tpu.features.logscan``: the native C++ scanner of
+:mod:`rca_tpu_torch.native` where a toolchain exists, the regex scanner
+as the fallback and the parity oracle).
 
 Same taxonomy as the reference's log agent (reference: agents/logs_agent.py
 :20-34 pattern table, :416-437 severity map, :451-477 recommendation table)
@@ -10,6 +12,7 @@ feature extractor packs straight into the device array.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict, List
 
@@ -71,8 +74,8 @@ def pattern_recommendation(name: str) -> str:
 
 
 def scan_text_python(text: str) -> np.ndarray:
-    """Pure-Python scanner (the parity oracle for the JAX package's C++
-    scanner)."""
+    """Pure-Python reference scanner (the parity oracle for the C++
+    path)."""
     counts = np.zeros(len(LOG_PATTERN_NAMES), dtype=np.int32)
     if not text:
         return counts
@@ -82,10 +85,36 @@ def scan_text_python(text: str) -> np.ndarray:
 
 
 def scan_text(text: str) -> np.ndarray:
-    """Count matches of every pattern class in one log text → int32 [13]
-    (the regex scanner; the JAX package's native scanner is held to the
-    same counts)."""
+    """Count matches of every pattern class in one log text → int32 [13].
+
+    Uses the native C++ scanner (:mod:`rca_tpu_torch.native`) when a
+    toolchain is available, falling back to the Python regex oracle
+    (identical counts, enforced by tests/test_torch_native.py)."""
+    if not text:
+        return np.zeros(len(LOG_PATTERN_NAMES), dtype=np.int32)
+    from rca_tpu_torch.native import scan_text_native
+
+    counts = scan_text_native(text)
+    if counts is not None:
+        return counts
     return scan_text_python(text)
+
+
+@functools.lru_cache(maxsize=4096)
+def _scan_text_cached(text: str) -> bytes:
+    """Memoized scan keyed by log content: the columnar row encoder
+    re-derives a pod's counts on every journaled log touch, and unchanged
+    tails would otherwise re-run the scan.  Returns immutable bytes so
+    cached entries cannot be mutated through a returned array."""
+    return scan_text(text).tobytes()
+
+
+def scan_text_cached(text: str) -> np.ndarray:
+    """Content-memoized :func:`scan_text` (same counts, enforced by the
+    parity tests); the cache is process-wide and bounded."""
+    return np.frombuffer(
+        _scan_text_cached(text), dtype=np.int32
+    ).copy()
 
 
 def scan_pod_logs(logs_by_container: Dict[str, str]) -> np.ndarray:

@@ -1,30 +1,46 @@
-"""The fault log and the retry counter behind the live session's health
-record: the port's copy of the part of ``rca_tpu.resilience.policy`` that
-the live session uses (``Retry``, ``Deadline`` and ``CircuitBreaker``
-come with the modules that use them).
+"""The fault log, the retry counter and the retry/deadline policies: the
+port's copy of the part of ``rca_tpu.resilience.policy`` that the live
+session, the live-cluster client and its watch pumps use
+(``CircuitBreaker`` comes with the chaos client).
 
 - :func:`suppressed` is the one sanctioned way to swallow an exception:
   the fault is recorded into the bounded module fault log, which each
   tick's health record drains (:func:`drain_faults`);
 - :func:`record_fault` records a fault that a caller handled itself;
 - :func:`retry_counter` reads the process-wide count of retries spent,
-  which the health record reports per tick as a delta.
+  which the health record reports per tick as a delta;
+- :class:`Retry` (exponential backoff, jitter drawn from the policy's own
+  seeded generator, injectable ``sleep`` and ``clock``) and
+  :class:`Deadline` (a monotonic budget shared by the steps of one
+  operation) guard the live client's API calls and the pumps' streams.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
-from typing import Dict, List, Tuple, Type
+import dataclasses
+import random
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
+
+from rca_tpu_torch.util.threads import make_lock
 
 FAULT_LOG_CAP = 256
+
+
+class PolicyError(RuntimeError):
+    """Base class for policy-raised failures."""
+
+
+class DeadlineExceeded(PolicyError):
+    """The operation's time budget ran out (possibly mid-retry)."""
 
 
 class _FaultLog:
     """Bounded, thread-safe record of deliberately-swallowed faults."""
 
     def __init__(self, cap: int = FAULT_LOG_CAP):
-        self._lock = threading.Lock()
+        self._lock = make_lock("_FaultLog._lock")
         self._cap = cap
         self._entries: List[Dict[str, str]] = []
 
@@ -74,7 +90,7 @@ class Counter:
     """Thread-safe monotonic counter."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = make_lock("Counter._lock")
         self._value = 0
 
     def add(self, n: int = 1) -> None:
@@ -95,3 +111,111 @@ RETRIES = Counter()
 def retry_counter() -> int:
     """Process-wide retries spent so far (for health-record deltas)."""
     return RETRIES.value
+
+
+@dataclasses.dataclass
+class Deadline:
+    """A monotonic time budget shared by the steps of one operation."""
+
+    budget_s: float
+    clock: Callable[[], float] = time.monotonic
+    _started: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self._started is None:
+            self._started = self.clock()
+
+    @classmethod
+    def after(cls, seconds: float,
+              clock: Callable[[], float] = time.monotonic) -> "Deadline":
+        return cls(budget_s=seconds, clock=clock)
+
+    def remaining(self) -> float:
+        return self.budget_s - (self.clock() - self._started)
+
+    @property
+    def expired(self) -> bool:
+        return self.remaining() <= 0.0
+
+    def check(self, op: str = "operation") -> None:
+        if self.expired:
+            raise DeadlineExceeded(
+                f"{op}: deadline of {self.budget_s:.3f}s exceeded"
+            )
+
+
+@dataclasses.dataclass
+class Retry:
+    """Exponential backoff + jitter.  ``attempts`` counts RE-tries: the
+    first call is free, so ``attempts=2`` means at most 3 invocations.
+
+    The jitter draws from the policy's own generator,
+    ``random.Random(seed)``, never the process-global one, so a seeded
+    policy is reproducible; ``sleep``/``clock`` are injectable so a test
+    never waits wall time."""
+
+    attempts: int = 2
+    base_delay: float = 0.1
+    max_delay: float = 5.0
+    jitter: float = 0.25               # fraction of the delay randomized
+    retry_on: Tuple[Type[BaseException], ...] = (Exception,)
+    sleep: Callable[[float], None] = time.sleep
+    clock: Callable[[], float] = time.monotonic
+    seed: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        self._rng = random.Random(self.seed)
+        # one policy is shared across threads (the watch pump set hands
+        # one instance to both pump threads): the counter and the jitter
+        # draw sit under a lock
+        self._lock = make_lock("Retry._lock")
+        self.retries_spent = 0  # instance-lifetime count
+
+    def delay(self, attempt: int) -> float:
+        """Backoff before re-try number ``attempt`` (1-based)."""
+        d = min(self.base_delay * (2.0 ** (attempt - 1)), self.max_delay)
+        if self.jitter:
+            with self._lock:
+                jitter_draw = self._rng.random()
+            d *= 1.0 + self.jitter * (2.0 * jitter_draw - 1.0)
+        return max(d, 0.0)
+
+    def sleep_for(self, attempt: int) -> None:
+        with self._lock:
+            self.retries_spent += 1
+        RETRIES.add(1)
+        self.sleep(self.delay(attempt))
+
+    def call(
+        self,
+        fn: Callable[..., Any],
+        *args: Any,
+        deadline: Optional[Deadline] = None,
+        on_retry: Optional[Callable[[int, BaseException], None]] = None,
+        **kwargs: Any,
+    ) -> Any:
+        """``fn(*args, **kwargs)`` with up to ``attempts`` re-tries.
+
+        A ``deadline`` bounds the WHOLE call including backoff sleeps:
+        when the budget cannot cover the next delay the original failure
+        is re-raised chained under :class:`DeadlineExceeded`."""
+        attempt = 0
+        while True:
+            if deadline is not None:
+                deadline.check(getattr(fn, "__name__", "call"))
+            try:
+                return fn(*args, **kwargs)
+            except self.retry_on as exc:
+                if attempt >= self.attempts:
+                    raise
+                attempt += 1
+                if deadline is not None and (
+                    deadline.remaining() <= self.delay(attempt)
+                ):
+                    raise DeadlineExceeded(
+                        f"{getattr(fn, '__name__', 'call')}: budget cannot "
+                        f"cover retry {attempt}"
+                    ) from exc
+                if on_retry is not None:
+                    on_retry(attempt, exc)
+                self.sleep_for(attempt)

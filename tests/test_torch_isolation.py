@@ -7,8 +7,11 @@
 - a comprehensive analysis through the port's coordinator and a run of
   ``python -m rca_tpu_torch analyze`` load neither, nor do a resident
   repeat analysis, a streaming tick, a live poll,
-  ``python -m rca_tpu_torch stream`` and a sharded analysis (restaged,
-  resident, batched, through the coordinator and a live session);
+  ``python -m rca_tpu_torch stream``, a sharded analysis (restaged,
+  resident, batched, through the coordinator and a live session), a
+  columnar capture, a native scan, the live columnar feed and an analysis
+  through ``K8sApiClient()`` with no cluster; the native scanner loaded is
+  the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   included) and the streaming sessions raise (or exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
   exits non-zero with no verdict line;
@@ -113,6 +116,70 @@ print(json.dumps({"stats": engine._resident_cache.stats(),
                   "live": [bool(p["ranked"]) for p in polls],
                   "code": code, "modules": sorted(sys.modules)}))
 """
+
+
+_CAPTURE_PROBE = """
+import json, sys
+from rca_tpu_torch import native
+from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+from rca_tpu_torch.cluster.k8s_client import K8sApiClient
+from rca_tpu_torch.cluster.live_columnar import LiveColumnarFeed
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+from rca_tpu_torch.coordinator import RCACoordinator
+from rca_tpu_torch.features.extract import extract_features
+world = synthetic_cascade_world(60, n_roots=1, seed=3, namespace="cap")
+snap = ClusterSnapshot.capture(MockClusterClient(world), "cap")
+fs = extract_features(snap)
+counts = native.scan_text_native("ERROR: connection refused; OOMKilled")
+feed = LiveColumnarFeed(MockClusterClient(world), "cap")
+full = feed.payload(None)
+feed.close()
+rec = RCACoordinator(K8sApiClient(), backend="torch",
+                     device="cpu").run_analysis("comprehensive", "default")
+print(json.dumps({"columnar": snap.columnar is not None,
+                  "services": len(fs.service_names),
+                  "counts": [int(c) for c in counts],
+                  "scanner": native.load_native()._name,
+                  "sanitize": native.load_sanitize().__file__,
+                  "feed": [full["supported"], full["full"]],
+                  "status": rec["status"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_capture_layer_loads_no_jax_and_no_rca_tpu(tmp_path):
+    import hashlib
+    import sysconfig
+
+    env = {**_probe_env(), "RCA_NATIVE_CACHE": str(tmp_path / "native"),
+           "KUBECONFIG": str(tmp_path / "missing")}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CAPTURE_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["columnar"] and out["services"] == 60
+    assert out["counts"][:2] == [1, 1]          # oom_kill, connection_refused
+    assert out["feed"] == [True, True]
+    assert out["status"] == "completed"
+    # the scanner and the sanitize extension were built from the port's
+    # sources (the hash tag binds the artifact to its source and ABI) into
+    # the configured cache
+    abi = (sysconfig.get_config_var("SOABI") or "unknown-abi").encode()
+    for key, src, prefix in (("scanner", "logscan.cpp", "liblogscan"),
+                             ("sanitize", "sanitizec.c", "sanitizec")):
+        so = Path(out[key])
+        tag = hashlib.sha256(
+            (ROOT / "rca_tpu_torch" / "native" / src).read_bytes() + abi
+        ).hexdigest()[:16]
+        assert so.name == f"{prefix}-{tag}.so", key
+        assert so.parent == (tmp_path / "native").resolve()
+    for module in ("cluster.columnar", "cluster.k8s_client", "native",
+                   "cluster.live_columnar"):
+        assert f"rca_tpu_torch.{module}" in out["modules"], module
+    assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
 def test_resident_streaming_live_and_stream_load_no_jax():

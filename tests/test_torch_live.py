@@ -7,9 +7,9 @@ for bit), mutated by the same seeded op sequence, drive
 two agree on the rankings under the engine contract (components and
 order exact, scores at rtol 1e-5 / atol 1e-6) and exactly on the poll's
 counters, ``degraded`` and the health keys the reference's recorder
-replays (spans by name and order, under ``RCA_TRACE=1``).  The reference
-runs its dict capture, the port's only one.  On the port,
-depth 2 is depth 1 shifted by one tick, bitwise.  Also: a topology change
+replays (spans by name and order, under ``RCA_TRACE=1``), once on both
+packages' dict capture and once on their columnar capture (the default).
+On the port, depth 2 is depth 1 shifted by one tick, bitwise.  Also: a topology change
 forces a resync, an expired feed recovers, the degradation ladder walks
 the same rungs with the same flush counts, the incremental extractor
 equals full extraction and the reference's, and the ``stream`` command
@@ -62,19 +62,23 @@ HEALTH_KEYS = ("sanitized_rows", "degradation", "resyncs_expired",
                "resyncs_topology", "pipeline_fill", "retries")
 
 PORT = {"world": synthetic_cascade_world, "client": MockClusterClient,
-        "live": LiveStreamingSession, "waiting": waiting_status,
+        "live": functools.partial(LiveStreamingSession, use_columnar=False),
+        "waiting": waiting_status,
         "five": five_service_world, "service": make_service,
         "deployment": make_deployment,
         "engine": lambda: GraphEngine(device="cpu"), "drain": drain_faults}
-# the reference on its dict capture, the port's only one: above the
-# healthy-pod log sample its columnar capture samples other pods' logs
-# (ticks 41-42 of the 60-tick run: changed_rows 0 where the dict path
-# has 1, the same rankings)
+# both packages on their dict capture; the columnar runs below.  Above
+# the healthy-pod log sample the columnar capture samples other pods'
+# logs (ticks 41-42 of the 60-tick run: changed_rows 0 where the dict
+# path has 1, the same rankings), so each capture is held to its twin
 REF = {"world": ref_world, "client": RefClient,
        "live": functools.partial(RefLive, use_columnar=False),
        "waiting": ref_waiting_status, "five": ref_five,
        "service": ref_make_service, "deployment": ref_make_deployment,
        "engine": RefEngine, "drain": ref_drain_faults}
+PORT_COLUMNAR = {**PORT, "live": functools.partial(LiveStreamingSession,
+                                                   use_columnar=True)}
+REF_COLUMNAR = {**REF, "live": functools.partial(RefLive, use_columnar=True)}
 
 
 def _mutate(world, ns, op, waiting):
@@ -146,7 +150,10 @@ def runs():
         mp.setenv("RCA_KERNEL_CACHE", "off")
         for depth in (1, 2):
             for name, pkg, mod in (("port", PORT, port_spans),
-                                   ("ref", REF, ref_spans)):
+                                   ("ref", REF, ref_spans),
+                                   ("port_columnar", PORT_COLUMNAR,
+                                    port_spans),
+                                   ("ref_columnar", REF_COLUMNAR, ref_spans)):
                 mp.setattr(mod, "_DEFAULT", None)
                 out[name, depth] = _drive(pkg, depth, ops)
     return out
@@ -160,9 +167,7 @@ def assert_ranked_close(got, want, ctx=""):
                                atol=1e-6, err_msg=ctx)
 
 
-@pytest.mark.parametrize("depth", [1, 2])
-def test_live_run_matches_reference(runs, depth):
-    port, ref = runs["port", depth], runs["ref", depth]
+def _assert_runs_match(port, ref, depth):
     assert len(port) == len(ref) == 60
     for t, (p, r) in enumerate(zip(port, ref)):
         ctx = f"depth {depth}, tick {t + 1}"
@@ -179,6 +184,25 @@ def test_live_run_matches_reference(runs, depth):
         assert ph["kernel_path"] == "torch"
     assert any(p["quiet"] for p in port)
     assert any(p["changed_rows"] for p in port)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_live_run_matches_reference(runs, depth):
+    _assert_runs_match(runs["port", depth], runs["ref", depth], depth)
+    # the dict capture's counts at ticks 41-42
+    assert [p["changed_rows"] for p in runs["port", depth][40:42]] == [1, 1]
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_live_columnar_run_matches_reference(runs, depth):
+    """The columnar default against the reference's columnar session,
+    tick for tick, including its own ``changed_rows`` at ticks 41-42."""
+    port = runs["port_columnar", depth]
+    _assert_runs_match(port, runs["ref_columnar", depth], depth)
+    assert [p["changed_rows"] for p in port[40:42]] == [0, 0]
+    # the two captures rank alike on every tick
+    for t, (c, d) in enumerate(zip(port, runs["port", depth])):
+        assert_ranked_close(c["ranked"], d["ranked"], f"tick {t + 1}")
 
 
 def test_port_depth_two_is_depth_one_shifted(runs):
@@ -384,7 +408,7 @@ def test_incremental_extractor_matches_full_and_reference():
                     "Back-off restarting failed container", count=arg))
         if step % 4 != 3:
             continue
-        snap = ClusterSnapshot.capture(client, ns)
+        snap = ClusterSnapshot.capture(client, ns, columnar=False)
         got = inc.extract(snap, incremental=True)
         want = extract_features(snap)
         ref = ref_extract(RefSnapshot.capture(rclient, ns, columnar=False))
@@ -412,19 +436,19 @@ def test_incremental_extractor_reuses_cached_rows(monkeypatch):
     world = synthetic_cascade_world(25, n_roots=1, seed=4, namespace=ns)
     client = MockClusterClient(world)
     inc = IncrementalExtractor()
-    snap = ClusterSnapshot.capture(client, ns)
+    snap = ClusterSnapshot.capture(client, ns, columnar=False)
     inc.extract(snap)
     calls = []
     orig = ex.scan_pod_logs
     monkeypatch.setattr(ex, "scan_pod_logs",
                         lambda logs: calls.append(1) or orig(logs))
-    inc.extract(ClusterSnapshot.capture(client, ns))
+    inc.extract(ClusterSnapshot.capture(client, ns, columnar=False))
     assert not calls
     name = sorted(snap.logs)[0]
     app = name.rsplit("-", 1)[0]
     world.logs[ns][name] = {app: "ERROR: fresh failure\n" * 4}
     world.touch("logs", ns, name)
-    inc.extract(ClusterSnapshot.capture(client, ns))
+    inc.extract(ClusterSnapshot.capture(client, ns, columnar=False))
     assert len(calls) == 1
 
 
@@ -433,13 +457,11 @@ def _stream_lines(main, argv, capsys):
     return [json.loads(line) for line in capsys.readouterr().out.splitlines()]
 
 
-@pytest.mark.parametrize("depth", ["1", "2"])
-def test_stream_cli_lines_match_reference(depth, capsys, monkeypatch):
+def _stream_cli_matches(depth, capsys, monkeypatch):
     from rca_tpu.cli import main as ref_main
     from rca_tpu_torch.cli import main as port_main
 
     monkeypatch.setenv("RCA_SHARD", "0")      # the port has one device
-    monkeypatch.setenv("RCA_COLUMNAR", "0")   # the port's dict capture
     monkeypatch.setenv("RCA_KERNEL_CACHE", "off")
     args = ["stream", "--fixture", "50svc", "--seed", "7", "--ticks", "6",
             "--interval", "0", "--pipeline-depth", depth]
@@ -452,6 +474,19 @@ def test_stream_cli_lines_match_reference(depth, capsys, monkeypatch):
             del line["latency_ms"], line["capture_ms"]
         assert p == r
     assert port[-1]["tick"] == 6
+
+
+@pytest.mark.parametrize("depth", ["1", "2"])
+def test_stream_cli_lines_match_reference(depth, capsys, monkeypatch):
+    monkeypatch.setenv("RCA_COLUMNAR", "0")   # both on the dict capture
+    _stream_cli_matches(depth, capsys, monkeypatch)
+
+
+@pytest.mark.parametrize("depth", ["1", "2"])
+def test_stream_cli_lines_match_reference_columnar(depth, capsys,
+                                                   monkeypatch):
+    monkeypatch.delenv("RCA_COLUMNAR", raising=False)   # the default
+    _stream_cli_matches(depth, capsys, monkeypatch)
 
 
 def test_health_record_has_every_reference_key(runs):

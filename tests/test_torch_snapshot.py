@@ -3,11 +3,10 @@
 Each world is generated by each package's own generator from the same
 seed and captured by each package's own mock client; the port's snapshot,
 extracted features, typed graph and service dependency edges must equal
-the reference's exactly.  The reference runs under its default settings
-(columnar capture) and again with ``RCA_COLUMNAR=0`` (its dict sweep); the
-port always takes the dict sweep.  The log scanner and the object
-sanitizer are held to the reference's functions on the same worlds' logs
-and objects.
+the reference's exactly.  Both packages run under their default settings
+(columnar capture) and again with ``RCA_COLUMNAR=0`` (the dict sweep).
+The log scanner and the object sanitizer are held to the reference's
+functions on the same worlds' logs and objects.
 """
 
 import copy
@@ -73,7 +72,7 @@ def worlds():
 
 @pytest.fixture(params=["default", "dict_sweep"])
 def columnar_setting(request, monkeypatch):
-    """The reference's default capture, then its dict sweep."""
+    """Both packages' default capture (columnar), then their dict sweep."""
     if request.param == "dict_sweep":
         monkeypatch.setenv("RCA_COLUMNAR", "0")
     else:
@@ -120,11 +119,15 @@ def test_world_generator_copy_every_mode_and_fault_mix(mode, fault_mix):
 def test_snapshot_equals_reference(worlds, name, columnar_setting):
     port, ref = _captures(worlds, name)
     names = [f.name for f in dataclasses.fields(port)]
-    assert names == [f.name for f in dataclasses.fields(ref)
-                     if f.name != "columnar"]
-    for field in names:
+    assert names == [f.name for f in dataclasses.fields(ref)]
+    # the columnar view is never part of the value
+    for field in names[:-1]:
         assert getattr(port, field) == getattr(ref, field), field
+    assert names[-1] == "columnar"
     assert port.errors == []
+    # the default captures through the columnar feed on both
+    on = columnar_setting == "default"
+    assert (port.columnar is not None) == (ref.columnar is not None) == on
 
 
 @pytest.mark.parametrize("name", WORLDS)
