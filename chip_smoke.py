@@ -172,7 +172,29 @@ verdict line:
    then the sharded and dense ``analyze_arrays`` walls, device times,
    busy shares and launches, the tick walls, and each per-shard kernel's
    card, call and plain time beside its bound;
-14. times from CUDA events (median of 20 samples after warm-up): each
+14. the serving scheduler (``rca_tpu_torch.serve``): ``serve_selftest``
+   on the card without chaos (every request ok or shed, nothing degraded)
+   and with seeded dispatch/fetch faults (every request resolved, every
+   ok answer bitwise its solo run); then per tier a ``BatchDispatcher``
+   driven at widths 1, 2, 3, 4, 8 and 16, full staging and delta staging
+   (a NaN row in one lane), each batch 1 / 1 / 8 / 8 launches, its
+   ``dispatch`` under ``torch.cuda.set_sync_debug_mode("error")`` and
+   every lane bitwise its solo card analysis; each main-path kernel's
+   launch over 1, 2, 4 and 16 lanes against its batched plain version and
+   timed; 64 requests (dense and sparse perturbations, 4 tenants, 4
+   submitter threads) through a ``ServeLoop`` (max batch 16) and through
+   a ``max_batch = 1`` loop, in turns, twice, after one warm load: every
+   response ok and bitwise its solo run, every device batch 1 / 1 / 8 / 8
+   launches and sync-free, with analyses per second, device batches, mean
+   width and per-tenant queue wait and submit → completion p50 / p99;
+   then the same requests through a pool of two dense replicas on the
+   card with replica 0 killed mid-wave and through a ``dense,sharded@4``
+   pool: every response ok, no double completion, every answer bitwise
+   its own kind's solo engine, every dispatch sync-free and counted on
+   its own (one lock over the replicas' device calls), each dense batch
+   1 / 1 / 8 / 8 launches and each sharded batch 32 / 32 / 4 launches of
+   the per-shard entries;
+15. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -190,8 +212,13 @@ verdict line:
 The line before the last is the ``{"kernels": [...]}`` JSON (the
 per-shard entries as rows of their own, with their launches over one
 sharded analysis at 49,999 services on 4 shards; every dense kernel with
-its launches per sharded analysis beside its dense count; each
-main-path kernel also with its launches per batch and its batched times,
+its launches per sharded analysis beside its dense count; every kernel
+with ``serve_launches``, its launches per serve device batch by lane
+count and over each tier's coalesced load and pool runs, the per-shard
+entries per sharded device batch and over the dense + sharded pool's
+sharded batches; each main-path kernel also with its launches
+per batch and its batched times (``serve_batch``: at 1, 2, 4 and 16
+lanes),
 and the launches counted on a delta tick, a quiet tick and an 8-row
 resident delta request at 49,999 services, ``evidence_front`` also its
 persisting launches there);
@@ -676,7 +703,10 @@ def main(argv) -> int:
     # -- 13. the node-sharded engine ---------------------------------------
     record["sharded"] = sharded_phase(cases, shapes, args.profile, args.out)
 
-    # -- 14. times ---------------------------------------------------------
+    # -- 14. the serving scheduler -----------------------------------------
+    record["serve"] = serve_phase(engine, cases, shapes, aw, hw, params, smi)
+
+    # -- 15. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -870,12 +900,31 @@ def main(argv) -> int:
             **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
                if key in t},
         })
+        serve = record["serve"]
+        # launches per device batch of the serve path, by padded width,
+        # and over each tier's coalesced load
+        kernels[-1]["serve_launches"] = {
+            "per_batch_by_lanes": {str(lanes): counts[name] for lanes, counts
+                                   in sorted(serve["by_width"].items())},
+            "load": {tier: runs["coalesced"]["launches"].get(name, 0)
+                     for tier, runs in serve["load"].items()},
+            "load_batches": {tier: runs["coalesced"]["device_batches"]
+                             for tier, runs in serve["load"].items()},
+            # over each tier's two pool runs (a sharded batch counts its
+            # per-shard launches here too)
+            "pool": {tier: {label: row["launches"][name]
+                            for label, row in runs.items()}
+                     for tier, runs in serve["pool"].items()}}
         if name in BATCH_LAUNCHES:
             batch = record["batch"]
             kernels[-1].update(
                 batch_lanes=BATCH, batch_launches=batch["launches"][name],
                 batch=batch["times"][str(big)][name],
-                batch_at_2047=batch["times"]["2047"][name])
+                batch_at_2047=batch["times"]["2047"][name],
+                serve_batch={lanes: t[name] for lanes, t
+                             in serve["batched"][str(big)].items()},
+                serve_batch_at_2047={lanes: t[name] for lanes, t
+                                     in serve["batched"]["2047"].items()})
         if name == "evidence_front":
             front = times[big]["front"]
             persist = times[big]["evidence_front_persist"]
@@ -908,7 +957,18 @@ def main(argv) -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None, "tier_services": big, "sp": SHARD_SP,
             "at_2047": sharded["times"]["2047"][name],
-            "sharded_launches": sharded["launches"]})
+            "sharded_launches": sharded["launches"],
+            # per device batch of the dense + sharded pool's sharded
+            # replica (sp = 4), and over its batches at each tier
+            "serve_launches": {
+                "per_sharded_batch": record["serve"]["per_sharded_batch"][
+                    name],
+                "sharded_pool": {
+                    tier: runs["dense_sharded"]["shard_launches"][name]
+                    for tier, runs in record["serve"]["pool"].items()},
+                "sharded_batches": {
+                    tier: runs["dense_sharded"]["sharded_batches"]
+                    for tier, runs in record["serve"]["pool"].items()}}})
     for entry in kernels[: len(sources)]:
         entry["sharded_launches"] = {
             key: counts[entry["name"]]
@@ -1011,6 +1071,97 @@ def _hypothesis_batch(engine, case):
     return batch
 
 
+def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
+    """Each main-path kernel's launch over the ``[B, n_pad, C]`` lanes
+    ``ft`` of ``case``'s graph against its batched plain version (the
+    front, the contrast and ``u`` bitwise, the down-step within rtol 1e-5
+    / atol 1e-6; each bitwise over two runs), then timed beside its bound
+    and plain version.  Returns ``(checks, times)``."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine.evidence import (
+        evidence_front_rows,
+        evidence_front_rows_plain,
+        seg_contrast_step,
+        seg_contrast_step_plain,
+    )
+    from rca_tpu_torch.engine.segscan import (
+        build_seg_layouts,
+        down_seg_step,
+        down_seg_step_plain,
+        up_seg_step,
+        up_seg_step_plain,
+    )
+
+    dev, lanes, n = ft.device, ft.shape[0], case.n
+    down, up = build_seg_layouts(n_pad, e_pad, case.dep_src,
+                                 case.dep_dst, device=dev)
+    d_pad = np.full(e_pad, n_pad - 1, np.int64)
+    d_pad[: len(case.dep_dst)] = case.dep_dst
+    inv_deg = torch.from_numpy((1.0 / np.maximum(np.bincount(
+        d_pad, minlength=n_pad), 1)).astype(np.float32)).to(dev)
+    contrast, decay = params.error_contrast, params.decay
+    rows = evidence_front_rows(ft, aw, hw)
+    a_raw, h, e, _ = rows
+    u, m = (torch.from_numpy(rng.uniform(0.0, 1.0, (lanes, n_pad))
+                             .astype(np.float32)).to(dev)
+            for _ in range(2))
+    runs = {
+        "evidence_front": (lambda: evidence_front_rows(ft, aw, hw),
+                           lambda: evidence_front_rows_plain(ft, aw, hw)),
+        "seg_contrast_step": (
+            lambda: seg_contrast_step(a_raw, e, contrast, up),
+            lambda: seg_contrast_step_plain(a_raw, e, contrast, up)),
+        "seg_up_step": (lambda: up_seg_step(u, h, decay, up),
+                        lambda: up_seg_step_plain(u, h, decay, up)),
+        "seg_down_step": (
+            lambda: down_seg_step(m, a_raw, decay, down, inv_deg),
+            lambda: down_seg_step_plain(m, a_raw, decay, down, inv_deg)),
+    }
+    csr = e_pad * 4 + (n_pad + 1) * 4
+    vec = lanes * n_pad * 4
+    noisy_ops = lanes * n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
+    bounds = {
+        "evidence_front": bound_ms(lanes * n_pad * C * 4 + 2 * C * 4
+                                   + 3 * vec + 4, noisy_ops),
+        "seg_contrast_step": bound_ms(csr + 3 * vec,
+                                      lanes * (e_pad + 6 * n_pad)),
+        "seg_up_step": bound_ms(csr + 3 * vec,
+                                lanes * (3 * e_pad + n_pad)),
+        "seg_down_step": bound_ms(csr + n_pad * 4 + 3 * vec,
+                                  lanes * (3 * e_pad + n_pad)),
+    }
+    checks, times = [], {}
+    for name, (kernel, plain) in runs.items():
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        got, again, ref = (x if isinstance(x, tuple) else (x,)
+                           for x in (got, again, ref))
+        for g, a, r in zip(got, again, ref):
+            if not torch.equal(g, a):
+                fail(f"batched {name} not deterministic at {n} x {lanes}")
+            if name == "seg_down_step":
+                ok = torch.allclose(g, r, rtol=1e-5, atol=1e-6)
+            else:
+                ok = torch.equal(g, r)
+            if not ok:
+                fail(f"batched {name} disagrees with its batched plain "
+                     f"version at {n} x {lanes}")
+        err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(got, ref))
+        check = {"kernel": name, "services": n, "lanes": lanes,
+                 "max_abs_err": err,
+                 "bitwise": all(torch.equal(g, r)
+                                for g, r in zip(got, ref))}
+        checks.append(check)
+        phase("batch_check", **check)
+        times[name] = {"ms": cuda_ms(kernel),
+                       "call_ms": cuda_ms(kernel, queued=False),
+                       "plain_ms": cuda_ms(plain),
+                       "bound": bounds[name], "max_abs_err": err}
+    return checks, times
+
+
 def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
     """The hypothesis batch on the card (``BATCH`` lanes per tier): one
     launch of each front kernel and one per step for the whole batch,
@@ -1020,23 +1171,10 @@ def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
     bitwise equal to full staging, and the batched kernels' times."""
     import numpy as np
     import torch
-    from rca_tpu_torch.engine.evidence import (
-        evidence_front_rows,
-        evidence_front_rows_plain,
-        seg_contrast_step,
-        seg_contrast_step_plain,
-    )
     from rca_tpu_torch.engine.runner import (
         check_batch_delta,
         propagate_ranked,
         propagate_ranked_batch_delta,
-    )
-    from rca_tpu_torch.engine.segscan import (
-        build_seg_layouts,
-        down_seg_step,
-        down_seg_step_plain,
-        up_seg_step,
-        up_seg_step_plain,
     )
     from rca_tpu_torch.kernels import LAUNCHES, reset_launches
 
@@ -1071,72 +1209,12 @@ def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
         # each batched kernel against its batched plain version
         fb = np.zeros((BATCH, n_pad, C), np.float32)
         fb[:, :n] = batch
-        ft = torch.from_numpy(fb).to(dev)
-        down, up = build_seg_layouts(n_pad, e_pad, case.dep_src,
-                                     case.dep_dst, device=dev)
+        checks, times = _batched_kernels(
+            torch.from_numpy(fb).to(dev), case, n_pad, e_pad, aw, hw,
+            params, rng)
+        out["checks"].extend(checks)
         d_pad = np.full(e_pad, n_pad - 1, np.int64)
         d_pad[: len(case.dep_dst)] = case.dep_dst
-        inv_deg = torch.from_numpy((1.0 / np.maximum(np.bincount(
-            d_pad, minlength=n_pad), 1)).astype(np.float32)).to(dev)
-        contrast, decay = params.error_contrast, params.decay
-        rows = evidence_front_rows(ft, aw, hw)
-        a_raw, h, e, _ = rows
-        u, m = (torch.from_numpy(rng.uniform(0.0, 1.0, (BATCH, n_pad))
-                                 .astype(np.float32)).to(dev)
-                for _ in range(2))
-        runs = {
-            "evidence_front": (lambda: evidence_front_rows(ft, aw, hw),
-                               lambda: evidence_front_rows_plain(ft, aw, hw)),
-            "seg_contrast_step": (
-                lambda: seg_contrast_step(a_raw, e, contrast, up),
-                lambda: seg_contrast_step_plain(a_raw, e, contrast, up)),
-            "seg_up_step": (lambda: up_seg_step(u, h, decay, up),
-                            lambda: up_seg_step_plain(u, h, decay, up)),
-            "seg_down_step": (
-                lambda: down_seg_step(m, a_raw, decay, down, inv_deg),
-                lambda: down_seg_step_plain(m, a_raw, decay, down, inv_deg)),
-        }
-        csr = e_pad * 4 + (n_pad + 1) * 4
-        vec = BATCH * n_pad * 4
-        noisy_ops = BATCH * n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
-        bounds = {
-            "evidence_front": bound_ms(BATCH * n_pad * C * 4 + 2 * C * 4
-                                       + 3 * vec + 4, noisy_ops),
-            "seg_contrast_step": bound_ms(csr + 3 * vec,
-                                          BATCH * (e_pad + 6 * n_pad)),
-            "seg_up_step": bound_ms(csr + 3 * vec,
-                                    BATCH * (3 * e_pad + n_pad)),
-            "seg_down_step": bound_ms(csr + n_pad * 4 + 3 * vec,
-                                      BATCH * (3 * e_pad + n_pad)),
-        }
-        times = {}
-        for name, (kernel, plain) in runs.items():
-            got, again, ref = kernel(), kernel(), plain()
-            torch.cuda.synchronize()
-            got, again, ref = (x if isinstance(x, tuple) else (x,)
-                               for x in (got, again, ref))
-            for g, a, r in zip(got, again, ref):
-                if not torch.equal(g, a):
-                    fail(f"batched {name} not deterministic at {n}")
-                if name == "seg_down_step":
-                    ok = torch.allclose(g, r, rtol=1e-5, atol=1e-6)
-                else:
-                    ok = torch.equal(g, r)
-                if not ok:
-                    fail(f"batched {name} disagrees with its batched plain "
-                         f"version at {n}")
-            err = max(float((g.float() - r.float()).abs().max())
-                      for g, r in zip(got, ref))
-            check = {"kernel": name, "services": n, "lanes": BATCH,
-                     "max_abs_err": err,
-                     "bitwise": all(torch.equal(g, r)
-                                    for g, r in zip(got, ref))}
-            out["checks"].append(check)
-            phase("batch_check", **check)
-            times[name] = {"ms": cuda_ms(kernel),
-                           "call_ms": cuda_ms(kernel, queued=False),
-                           "plain_ms": cuda_ms(plain),
-                           "bound": bounds[name], "max_abs_err": err}
 
         # the batch delta against full staging
         plan = engine.plan_for(n_pad, e_pad, case.dep_src, case.dep_dst)
@@ -1164,6 +1242,443 @@ def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
         out["times"][str(n)] = times
         phase("batch", services=n, lanes=BATCH, launches=launches,
               analyze_batch_ms=batch_ms, delta_bitwise=True, times=times)
+    return out
+
+
+#: the serve phase: requests per load, the direct sweep's batch widths
+#: (3 pads to 4 lanes) and the batched kernels' timed lane counts (8 is
+#: the batch phase's)
+SERVE_REQUESTS = 64
+SERVE_WIDTHS = (1, 2, 3, 4, 8, 16)
+SERVE_LANES = (1, 2, 4, 16)
+SERVE_K = 5
+
+
+def _serve_features(case, rng, count: int = SERVE_REQUESTS) -> list:
+    """``count`` seeded feature sets over ``case``'s graph, alternating a
+    dense perturbation (every row within 0.05) and a sparse one (4 rows
+    moved up to 0.2, which rides the resident delta path)."""
+    import numpy as np
+
+    out = []
+    for i in range(count):
+        f = case.features.copy()
+        if i % 2:
+            rows = rng.choice(case.n, 4, replace=False)
+            f[rows] = np.clip(f[rows] + rng.uniform(0, 0.2, (4, C)), 0, 1)
+        else:
+            f = np.clip(f + rng.uniform(0, 0.05, f.shape), 0, 1)
+        out.append(f.astype(np.float32))
+    return out
+
+
+def _counting_dispatch(dispatcher, log: list, lock=None, replica=None):
+    """Wrap ``dispatcher.dispatch`` so each call runs with any host sync
+    raising and logs one row for that device batch (dispatch is where a
+    batch launches): its width, its ``b_pad`` lanes, its launches (every
+    counter, and the per-shard entries apart), whether it took the delta
+    staging, and ``replica``.  A loop has one dispatching thread; a pool's
+    replicas share ``lock``, which holds their fetches too, so no other
+    replica's launch or sync falls inside a counted dispatch (routing,
+    batching and stealing still run on the replicas' threads)."""
+    import contextlib
+
+    from rca_tpu_torch.kernels import LAUNCHES, SHARD_LAUNCHES
+
+    inner, inner_fetch = dispatcher.dispatch, dispatcher.fetch
+    held = lock if lock is not None else contextlib.nullcontext()
+
+    def dispatch(batch, now=None):
+        with held:
+            before, shard = dict(LAUNCHES), dict(SHARD_LAUNCHES)
+            handle = _no_sync(lambda: inner(batch, now=now))
+            log.append({
+                "width": len(batch), "b_pad": dispatcher._b_pad(len(batch)),
+                "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                "shard": {k: SHARD_LAUNCHES[k] - shard[k]
+                          for k in SHARD_LAUNCHES},
+                "delta": handle.resident_delta, "replica": replica})
+        return handle
+
+    def fetch(handle):
+        with held:
+            return inner_fetch(handle)
+
+    dispatcher.dispatch = dispatch
+    if lock is not None:
+        dispatcher.fetch = fetch
+
+
+def _tenant_latency(reqs, resps) -> dict:
+    """Each tenant's submit → completion p50 / p99 in ms (nearest rank)
+    over every request of a load, from the scheduler's own stamps
+    (admission ``enqueued_at``, the sink's ``completed_at``)."""
+    import numpy as np
+
+    by: dict = {}
+    for req, resp in zip(reqs, resps):
+        by.setdefault(req.tenant, []).append(
+            1e3 * (resp.completed_at - req.enqueued_at))
+    return {t: {q: float(np.percentile(v, p, method="nearest"))
+                for q, p in (("e2e_ms_p50", 50), ("e2e_ms_p99", 99))}
+            for t, v in sorted(by.items())}
+
+
+def _submit_load(plane, items, kill=None) -> tuple:
+    """``items`` (``(case, features)`` pairs) submitted to ``plane`` (a
+    loop or a pool) by 4 threads as 4 tenants, ``kill()`` called once half
+    of them are in; returns the requests, their responses and the wall
+    from the first submit to the last answer."""
+    from rca_tpu_torch.serve import ServeClient
+    from rca_tpu_torch.util.threads import make_thread
+
+    reqs = [None] * len(items)
+    tenants = [f"tenant-{c}" for c in "abcd"]
+    client = ServeClient(plane)
+
+    def submitter(w: int) -> None:
+        for i in range(w, len(items), 4):
+            if kill is not None and w == 0 and i >= len(items) // 2:
+                kill()
+            case, f = items[i]
+            reqs[i] = client.submit(
+                f, case.dep_src, case.dep_dst, names=case.names,
+                tenant=tenants[i % 4], k=SERVE_K)
+
+    threads = [make_thread(submitter, name=f"smoke-submit-{w}",
+                           daemon=True, args=(w,)) for w in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    resps = [r.result(120.0) for r in reqs]
+    return reqs, resps, time.perf_counter() - t0
+
+
+def _serve_load(engine, case, feats, max_batch: int) -> dict:
+    """One open-loop load through a ``ServeLoop`` on the card: ``feats``
+    submitted by 4 threads as 4 tenants, every dispatch counted and
+    sync-checked (:func:`_counting_dispatch`) after one warm dispatch
+    builds the graph's prepared state.  Returns the responses, the
+    per-batch log, the launches counted from after the warm dispatch and
+    the numbers."""
+    import numpy as np
+    from rca_tpu_torch.config import ServeConfig
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+    from rca_tpu_torch.serve import ServeLoop, ServeRequest
+
+    loop = ServeLoop(engine=engine, config=ServeConfig(
+        max_batch=max_batch, queue_cap=4 * SERVE_REQUESTS))
+    warm = ServeRequest("warm", case.features, case.dep_src, case.dep_dst)
+    loop.dispatcher.fetch(loop.dispatcher.dispatch([warm]))
+    reset_launches()
+    log: list = []
+    _counting_dispatch(loop.dispatcher, log)
+    with loop:
+        reqs, resps, wall_s = _submit_load(loop, [(case, f) for f in feats])
+    summary = loop.metrics.summary()
+    e2e = _tenant_latency(reqs, resps)
+    widths = [e["width"] for e in log]
+    return {
+        "responses": resps, "log": log, "wall_s": wall_s,
+        "launches": {k: v for k, v in LAUNCHES.items() if v},
+        "analyses_per_s": sum(r.ok for r in resps) / wall_s,
+        "device_batches": loop.device_batches,
+        "mean_width": float(np.mean(widths)),
+        "widths": sorted(set(widths)),
+        "delta_batches": sum(1 for e in log if e["delta"]),
+        "tenants": {t: {"queue_ms_p50": v["queue_ms_p50"],
+                        "queue_ms_p99": v["queue_ms_p99"], **e2e[t],
+                        "answered": v["answered"]}
+                    for t, v in sorted(summary["tenants"].items())},
+    }
+
+
+def _kill_after_first_batch(replica):
+    """A ``kill`` for :func:`_submit_load`: kills ``replica`` once it has
+    dispatched a device batch (or 10 s on), so it dies mid-wave."""
+    def kill() -> None:
+        t_end = time.perf_counter() + 10.0
+        while not replica.device_batches and time.perf_counter() < t_end:
+            time.sleep(0.001)
+        replica.kill()
+    return kill
+
+
+def _pool_load(engine, items, homes, mix: str, kill: bool) -> dict:
+    """``items`` through a ``ServePool`` on the card, as
+    :func:`_submit_load` submits them: ``mix`` its replica kinds (``""``:
+    two dense replicas), ``kill`` kills replica 0 mid-wave.  Replica ``i``
+    is warmed over the graph of ``homes[i]`` (so a graph no other replica
+    holds is routed there), then every device batch is counted and
+    sync-checked (:func:`_counting_dispatch`, one lock over the replicas'
+    device calls)."""
+    import threading
+
+    from rca_tpu_torch.config import ServeConfig
+    from rca_tpu_torch.kernels import reset_launches
+    from rca_tpu_torch.parallel.mesh import visible_devices
+    from rca_tpu_torch.serve import ServePool, ServeRequest
+
+    pool = ServePool(config=ServeConfig(
+        max_batch=16, queue_cap=4 * SERVE_REQUESTS, replicas=2,
+        replica_mix=mix), devices=visible_devices(engine.device))
+    lock, log = threading.Lock(), []
+    for r, home in zip(pool.replicas, homes):
+        warm = ServeRequest("warm", home.features, home.dep_src,
+                            home.dep_dst, k=SERVE_K)
+        r.dispatcher.fetch(r.dispatcher.dispatch([warm]))
+        _counting_dispatch(r.dispatcher, log, lock=lock,
+                           replica=(r.replica_id, r.kind))
+    reset_launches()
+    with pool:
+        reqs, resps, wall_s = _submit_load(
+            pool, items,
+            kill=_kill_after_first_batch(pool.replicas[0]) if kill else None)
+    summary = pool.metrics.summary()
+    return {
+        "responses": resps, "log": log, "wall_s": wall_s,
+        "analyses_per_s": sum(r.ok for r in resps) / wall_s,
+        "device_batches": len(log),
+        "double_completions": pool.sink.double_completions,
+        "steals_total": summary.get("steals_total", 0),
+        "breaker_state": {str(r.replica_id): r.breaker.state if r.alive()
+                          else "dead" for r in pool.replicas},
+        "replica_mix": [r.kind for r in pool.replicas],
+        "replica_batches": {
+            str(r.replica_id): sum(1 for e in log
+                                   if e["replica"][0] == r.replica_id)
+            for r in pool.replicas},
+        "tenants": _tenant_latency(reqs, resps),
+        # each kind's solo oracle: the dense kind's is ``engine`` (the
+        # same packaged weights and kernels as the dense replicas), as in
+        # serve_selftest
+        "engines": {"serve+single": engine, **{
+            r.dispatcher.engine_tag: r.dispatcher.engine
+            for r in pool.replicas if r.kind != "dense"}},
+    }
+
+
+def _same_as_solo(res, solo) -> bool:
+    import numpy as np
+
+    return res.ranked == solo.ranked and np.array_equal(res.score,
+                                                        solo.score)
+
+
+def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
+    """The serving scheduler on the card (``rca_tpu_torch.serve``): its
+    selftest with and without chaos; the batch dispatcher driven directly
+    at every width, full and delta staging; a 64-request, 4-tenant load
+    per tier through a ``ServeLoop`` and the same requests through a
+    ``max_batch = 1`` loop, in turns; then the same requests through a
+    pool of two dense replicas with one killed mid-wave and through a
+    dense + sharded pool.  Every ok answer bitwise equal to its solo card
+    analysis on its own kind's engine, every dense device batch 1 / 1 / 8
+    / 8 launches and every sharded one 8·sp / 8·sp / sp per-shard
+    launches, every dispatch sync-free, each batched launch held against
+    its plain version and timed at 1, 2, 4 and 16 lanes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+    from rca_tpu_torch.resilience.policy import drain_faults
+    from rca_tpu_torch.serve import BatchDispatcher, ServeRequest
+    from rca_tpu_torch.serve import serve_selftest
+
+    t_phase = time.perf_counter()
+    want = {name: 0 for name in LAUNCHES}
+    want.update(BATCH_LAUNCHES)
+    # a sharded device batch: every per-shard entry on each of sp shards
+    want_sharded = _shard_launches(SHARD_SP)
+    want_shard = {name: want_sharded[name] for name in SHARD_SOURCES}
+    out = {"nvidia_smi": smi, "selftest": {}, "widths": {}, "load": {},
+           "batched": {}, "by_width": {}, "pool": {},
+           "per_sharded_batch": want_shard}
+    drain_faults()
+
+    # -- the selftest, without and with chaos ----------------------------
+    for chaos in (False, True):
+        got = serve_selftest(engine=engine, chaos=chaos, seed=3 if chaos
+                             else 0, n_requests=32, timeout_s=120.0)
+        row = {k: got[k] for k in ("ok", "by_status", "parity_checked",
+                                   "parity_ok", "device_batches",
+                                   "resident_delta_requests")}
+        out["selftest"]["chaos" if chaos else "clean"] = row
+        phase("serve_selftest", chaos=chaos, **row)
+        if not (got["ok"] and got["all_resolved"] and got["parity_ok"]):
+            fail(f"serve selftest (chaos={chaos}) failed: {row}; "
+                 f"faults {drain_faults()}")
+        if not chaos and set(got["by_status"]) - {"ok", "shed"}:
+            fail(f"serve selftest answered {got['by_status']} without "
+                 "chaos")
+
+    rng = np.random.default_rng(97)
+    for n, case in cases.items():
+        n_pad, e_pad = shapes[n]
+        solo_cache = {}
+
+        def solo(f, eng=engine, c=case):
+            key = (id(eng), id(c), f.tobytes())
+            if key not in solo_cache:
+                solo_cache[key] = eng.analyze_arrays(
+                    f, c.dep_src, c.dep_dst, c.names, k=SERVE_K)
+            return solo_cache[key]
+
+        # -- the dispatcher at every width, full then delta ---------------
+        disp = BatchDispatcher(engine)
+        warm = ServeRequest("warm", case.features, case.dep_src,
+                            case.dep_dst, k=SERVE_K)
+        disp.fetch(disp.dispatch([warm]))
+        per_width = {}
+        for w in SERVE_WIDTHS:
+            dense = [np.clip(case.features + rng.uniform(
+                0, 0.05, case.features.shape), 0, 1).astype(np.float32)
+                for _ in range(w)]
+            for staging in ("full", "delta"):
+                if staging == "delta":
+                    base = disp._graphs[warm.graph_key].base_host[: case.n]
+                    feats = []
+                    for _ in range(w):
+                        f = base.copy()
+                        rows = rng.choice(case.n, 4, replace=False)
+                        f[rows] = rng.uniform(0, 1, (4, C))
+                        feats.append(f)
+                    feats[0][rows[0], 3] = np.nan    # a poisoned lane
+                else:
+                    feats = dense
+                reqs = [ServeRequest(f"t{i % 4}", f, case.dep_src,
+                                     case.dep_dst, names=case.names,
+                                     k=SERVE_K) for i, f in enumerate(feats)]
+                reset_launches()
+                handle = _no_sync(lambda: disp.dispatch(reqs))
+                launches = dict(LAUNCHES)
+                results = disp.fetch(handle)
+                if launches != want:
+                    fail(f"serve batch of {w} ({staging}) at {n} launched "
+                         f"{launches}, want {want}")
+                if handle.resident_delta != (staging == "delta"):
+                    fail(f"serve batch of {w} at {n} took the wrong "
+                         f"staging (delta={handle.resident_delta})")
+                for i, (f, res) in enumerate(zip(feats, results)):
+                    if not _same_as_solo(res, solo(f)):
+                        fail(f"serve lane {i} of {w} ({staging}) at {n} "
+                             "differs from its solo card analysis")
+                if staging == "delta" and results[0].sanitized_rows != 1:
+                    fail(f"the delta batch at {n} counted "
+                         f"{results[0].sanitized_rows} bad rows")
+            per_width[w] = {"b_pad": disp._b_pad(w),
+                            "launches": {k: v for k, v in launches.items()
+                                         if v}}
+            out["by_width"].setdefault(disp._b_pad(w), launches)
+        out["widths"][str(n)] = per_width
+        phase("serve_widths", services=n, widths=list(SERVE_WIDTHS),
+              per_batch=BATCH_LAUNCHES, bitwise_solo=True, sync_free=True)
+
+        # -- each lane count's batched launches against the plain ones ---
+        times = {}
+        for lanes in SERVE_LANES:
+            fb = np.zeros((lanes, n_pad, C), np.float32)
+            fb[:, :n] = _serve_features(case, rng, lanes)
+            _, times[str(lanes)] = _batched_kernels(
+                torch.from_numpy(fb).to(engine.device), case, n_pad, e_pad,
+                aw, hw, params, rng)
+        out["batched"][str(n)] = times
+
+        # -- the load, coalesced and max_batch = 1, in turns (after one
+        # warm load: the first pays the pinned host buffers' growth) ----
+        feats = _serve_features(case, rng)
+        runs = {}
+        for label, max_batch in (("warm", 16), ("coalesced", 16),
+                                 ("max_batch_1", 1), ("coalesced_2", 16),
+                                 ("max_batch_1_2", 1)):
+            got = _serve_load(engine, case, feats, max_batch)
+            totals = {k: got["launches"].get(k, 0) for k in want}
+            bad = [r.status for r in got["responses"] if not r.ok]
+            if bad:
+                fail(f"serve load ({label}) at {n} answered {bad}; faults "
+                     f"{drain_faults()}")
+            for i, (f, r) in enumerate(zip(feats, got["responses"])):
+                if not _same_as_solo(r.result, solo(f)):
+                    fail(f"serve load ({label}) at {n}: request {i} "
+                         "differs from its solo card analysis")
+            for e in got["log"]:
+                if e["launches"] != want:
+                    fail(f"serve load ({label}) at {n}: a batch of "
+                         f"{e['width']} launched {e['launches']}, want "
+                         f"{want}")
+                out["by_width"].setdefault(e["b_pad"], e["launches"])
+            if totals != {k: v * got["device_batches"]
+                          for k, v in want.items()}:
+                fail(f"serve load ({label}) at {n}: {totals} launches for "
+                     f"{got['device_batches']} batches")
+            del got["responses"], got["log"]
+            runs[label] = got
+            phase("serve_load", services=n, run=label, **got)
+        out["load"][str(n)] = runs
+
+        # -- the same requests through a pool: two dense replicas, replica
+        # 0 killed mid-wave; and a dense + sharded mix over two graphs (the
+        # tier's edges, and the same edges in another order), each homed
+        # on one replica, so both kinds serve ------------------------------
+        perm = rng.permutation(len(case.dep_src))
+        other = dataclasses.replace(case, dep_src=case.dep_src[perm],
+                                    dep_dst=case.dep_dst[perm])
+        mixed = [(other if i % 4 > 1 else case, f) for i, f in
+                 enumerate(feats)]
+        pools = {}
+        for label, mix, items, homes, kill in (
+                ("dense_x2_kill", "", [(case, f) for f in feats],
+                 (case, case), True),
+                ("dense_sharded", f"dense,sharded@{SHARD_SP}", mixed,
+                 (other, case), False)):
+            t_pool = time.perf_counter()
+            got = _pool_load(engine, items, homes, mix, kill)
+            bad = [r.status for r in got["responses"] if not r.ok]
+            if bad or got["double_completions"]:
+                fail(f"serve pool ({label}) at {n} answered {bad}, "
+                     f"{got['double_completions']} double completions; "
+                     f"faults {drain_faults()}")
+            for i, ((c, f), r) in enumerate(zip(items, got["responses"])):
+                if not _same_as_solo(r.result, solo(
+                        f, got["engines"][r.result.engine], c)):
+                    fail(f"serve pool ({label}) at {n}: request {i} differs "
+                         f"from its solo analysis on {r.result.engine}")
+            for e in got["log"]:
+                sharded = e["replica"][1] == "sharded"
+                if (e["launches"], e["shard"]) != (
+                        (want_sharded, want_shard) if sharded
+                        else (want, dict.fromkeys(want_shard, 0))):
+                    fail(f"serve pool ({label}) at {n}: replica "
+                         f"{e['replica']} launched {e['launches']} "
+                         f"({e['shard']} per shard) for a batch of "
+                         f"{e['width']}")
+            sharded_log = [e for e in got["log"]
+                           if e["replica"][1] == "sharded"]
+            row = {k: got[k] for k in (
+                "wall_s", "analyses_per_s", "device_batches", "steals_total",
+                "double_completions", "breaker_state", "replica_mix",
+                "replica_batches", "tenants")}
+            row.update(
+                widths=sorted({e["width"] for e in got["log"]}),
+                launches={k: sum(e["launches"][k] for e in got["log"])
+                          for k in want},
+                sharded_batches=len(sharded_log),
+                shard_launches={k: sum(e["shard"][k] for e in sharded_log)
+                                for k in want_shard},
+                seconds=time.perf_counter() - t_pool)
+            pools[label] = row
+            phase("serve_pool", services=n, run=label, **row)
+        if "dead" not in pools["dense_x2_kill"]["breaker_state"].values():
+            fail(f"the killed replica at {n} did not die")
+        if not pools["dense_sharded"]["sharded_batches"]:
+            fail(f"the sharded replica at {n} served no device batch")
+        out["pool"][str(n)] = pools
+
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("serve", seconds=out["seconds"])
     return out
 
 

@@ -11,7 +11,13 @@
   eligibility;
 - ``python -m rca_tpu_torch stream``: the live streaming session, one
   JSON line per poll (``--pipeline-depth 2`` overlaps each tick's device
-  work with the next poll's capture).
+  work with the next poll's capture);
+- ``python -m rca_tpu_torch serve``: the serving scheduler in one process
+  — ``--selftest`` checks its contract (every request answered or shed,
+  coalesced rankings bitwise equal to solo ones; ``--chaos`` injects
+  seeded dispatch/fetch faults, ``--replicas`` / ``--replica-mix`` /
+  ``--kill-replica`` run the pool), without it a synthetic ``<N>svc``
+  load prints the per-tenant metrics.
 
 Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
 <N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``); omit
@@ -285,6 +291,116 @@ def cmd_stream(args) -> int:
     return 0
 
 
+#: serve modes that are not ported yet, and the ROADMAP item that ports
+#: each
+_SERVE_NOT_PORTED = {
+    "listen": "the gateway (ROADMAP A item 8, the next serving slice)",
+    "federation": "the cross-process federation (ROADMAP A item 12)",
+    "autoscale": "the autoscaler (ROADMAP A item 12)",
+    "record": "record/replay (ROADMAP A item 7)",
+}
+
+
+def cmd_serve(args) -> int:
+    """The serving scheduler.  ``--selftest`` runs the end-to-end contract
+    check (mixed-tenant requests over three shape buckets, concurrent
+    submitters, deadline sheds, coalesced-vs-solo bit parity) and exits 0
+    only when the contract holds.  Without it, a synthetic load over a
+    ``<N>svc`` graph prints throughput, the per-tenant metrics and the
+    plane's kernelscope summary (the registry row that served the shape);
+    it exits 0 only when every request was served ok."""
+    import time
+
+    import numpy as np
+
+    from rca_tpu_torch.config import ServeConfig
+
+    for flag, what in _SERVE_NOT_PORTED.items():
+        if getattr(args, flag):
+            print(f"rca_tpu_torch serve: --{flag} is not ported yet: it "
+                  f"comes with {what}", file=sys.stderr)
+            return 2
+    overrides = {
+        k: v for k, v in (
+            ("max_batch", args.max_batch),
+            ("max_wait_us", args.max_wait_us),
+            ("queue_cap", args.queue_cap),
+            ("replicas", args.replicas),
+            ("replica_mix", args.replica_mix),
+        ) if v is not None
+    }
+    if args.no_steal:
+        overrides["steal"] = False
+    config = ServeConfig.from_env(**overrides)
+    indent = None if args.compact else 2
+    if args.selftest:
+        from rca_tpu_torch.serve import serve_selftest
+
+        summary = serve_selftest(
+            n_requests=args.requests, seed=args.seed, chaos=args.chaos,
+            config=config, submitters=args.submitters,
+            replicas=config.replicas, replica_mix=config.replica_mix,
+            kill_replica=args.kill_replica, device=args.device,
+        )
+        print(json.dumps(summary, indent=indent, default=str))
+        return 0 if summary["ok"] else 1
+
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.engine import make_engine
+    from rca_tpu_torch.engine.runner import resolve_device
+    from rca_tpu_torch.parallel.mesh import visible_devices
+    from rca_tpu_torch.serve import ServeClient, ServeLoop, ServePool
+
+    m = re.fullmatch(r"(\d+)svc", args.fixture or "500svc")
+    if not m:
+        raise SystemExit(
+            f"serve needs a synthetic fixture (<N>svc), got {args.fixture!r}"
+        )
+    case = synthetic_cascade_arrays(
+        int(m.group(1)), n_roots=1, seed=args.seed
+    )
+    rng = np.random.default_rng(args.seed)
+    if len(config.replica_specs()) > 1:
+        # the pool: engines and device groups from the replica mix
+        loop = ServePool(config=config, devices=visible_devices(
+            resolve_device(args.device)))
+    else:
+        loop = ServeLoop(engine=make_engine(device=args.device),
+                         config=config)
+    tenants = [f"tenant-{i}" for i in range(args.tenants)]
+    t0 = time.perf_counter()
+    with loop:
+        client = ServeClient(loop)
+        reqs = [
+            client.submit(
+                np.clip(case.features + rng.uniform(
+                    0, 0.05, case.features.shape
+                ).astype(np.float32), 0, 1),
+                case.dep_src, case.dep_dst, names=case.names,
+                tenant=tenants[i % len(tenants)], k=args.top,
+            )
+            for i in range(args.requests)
+        ]
+        responses = [r.result(timeout=300.0) for r in reqs]
+    wall_s = time.perf_counter() - t0
+    by_status = {}
+    for resp in responses:
+        by_status[resp.status] = by_status.get(resp.status, 0) + 1
+    print(json.dumps({
+        "requests": args.requests,
+        "tenants": len(tenants),
+        "by_status": by_status,
+        "wall_s": round(wall_s, 3),
+        "analyses_per_sec": round(
+            by_status.get("ok", 0) / max(wall_s, 1e-9), 1
+        ),
+        "device_batches": loop.device_batches,
+        "metrics": loop.metrics.summary(),
+        "kernelscope": loop.kernelscope_summary(),
+    }, indent=indent, default=str))
+    return 0 if by_status.get("ok", 0) == args.requests else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rca_tpu_torch",
@@ -377,6 +493,60 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.set_defaults(fn=cmd_stream)
+
+    sp = sub.add_parser(
+        "serve",
+        help="multi-tenant serving scheduler: continuous shape-bucketed "
+        "batching of concurrent analyze requests",
+    )
+    sp.add_argument("--selftest", action="store_true",
+                    help="run the serving-contract selftest (all requests "
+                    "answered or shed, coalesced-vs-solo bit parity); "
+                    "exit 0 only when the contract holds")
+    sp.add_argument("--chaos", action="store_true",
+                    help="selftest with seeded dispatch/fetch fault "
+                    "injection (breaker and degraded path)")
+    sp.add_argument("--requests", type=int, default=32)
+    sp.add_argument("--submitters", type=int, default=4,
+                    help="concurrent submitter threads (selftest)")
+    sp.add_argument("--tenants", type=int, default=4,
+                    help="logical tenants (load demo)")
+    sp.add_argument("--fixture", default="500svc",
+                    help="<N>svc synthetic graph (load demo)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--top", type=int, default=5)
+    sp.add_argument("--max-batch", type=int, default=None, dest="max_batch",
+                    help="override RCA_SERVE_MAX_BATCH")
+    sp.add_argument("--max-wait-us", type=int, default=None,
+                    dest="max_wait_us",
+                    help="override RCA_SERVE_MAX_WAIT_US")
+    sp.add_argument("--queue-cap", type=int, default=None, dest="queue_cap",
+                    help="override RCA_SERVE_QUEUE_CAP")
+    sp.add_argument("--replicas", type=int, default=None,
+                    help="serve-pool width: N engine replicas behind the "
+                    "shared queue (override RCA_SERVE_REPLICAS; >1 "
+                    "selects the pool)")
+    sp.add_argument("--replica-mix", default=None, dest="replica_mix",
+                    metavar="SPEC",
+                    help="replica kinds and device groups, e.g. "
+                    "'dense:2,sharded@4:1' (override RCA_SERVE_REPLICA_MIX;"
+                    " defines the replica count when given)")
+    sp.add_argument("--no-steal", action="store_true",
+                    help="disable the work-stealing rebalance "
+                    "(RCA_SERVE_STEAL=0): a dead replica's staged work "
+                    "rides the degradation ladder instead")
+    sp.add_argument("--kill-replica", action="store_true",
+                    dest="kill_replica",
+                    help="selftest chaos: kill replica 0 mid-wave and "
+                    "check the steal protocol drops nothing (implies a "
+                    "pool of >= 2 replicas)")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--compact", action="store_true")
+    for flag, what in _SERVE_NOT_PORTED.items():
+        sp.add_argument(f"--{flag}", default=None, metavar="ARG",
+                        help=f"not ported yet (exits 2): {what}")
+    sp.set_defaults(fn=cmd_serve)
     return p
 
 

@@ -20,14 +20,21 @@ directory, and the capture layer's knobs: :func:`columnar_enabled`
 (``RCA_INGEST_LOGS``), and the native host scanners'
 :func:`native_scan_mode` (``RCA_NATIVE_SCAN``),
 :func:`native_sanitize_mode` (``RCA_NATIVE_SANITIZE``) and
-:func:`native_cache_dir` (``RCA_NATIVE_CACHE``).
+:func:`native_cache_dir` (``RCA_NATIVE_CACHE``), and the serving
+scheduler's: :class:`ServeConfig` (``RCA_SERVE_MAX_BATCH``,
+``RCA_SERVE_MAX_WAIT_US``, ``RCA_SERVE_QUEUE_CAP``, ``RCA_SERVE_REPLICAS``,
+``RCA_SERVE_STEAL``, ``RCA_SERVE_REPLICA_MIX``) with
+:func:`parse_replica_mix`, :func:`serve_graph_cache_cap`
+(``RCA_SERVE_GRAPH_CACHE``) and :func:`slo_ms` (``RCA_SLO_MS``), read
+through the float accessor :func:`env_float`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+import re
+from typing import Optional, Tuple
 
 
 def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -62,6 +69,22 @@ def env_int(name: str, default: int, lo: int, hi: int) -> int:
         value = int(raw)
     except ValueError:
         raise ValueError(f"{name}={raw!r}: expected an integer in [{lo}, {hi}]")
+    if not lo <= value <= hi:
+        raise ValueError(f"{name}={value}: out of range [{lo}, {hi}]")
+    return value
+
+
+def env_float(name: str, default: float, lo: float, hi: float) -> float:
+    """A range-checked float env knob; empty/unset means ``default``."""
+    raw = (os.environ.get(name) or "").strip()
+    if not raw:
+        return default
+    try:
+        value = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name}={raw!r}: expected a number in [{lo}, {hi}]"
+        )
     if not lo <= value <= hi:
         raise ValueError(f"{name}={value}: out of range [{lo}, {hi}]")
     return value
@@ -227,6 +250,144 @@ def native_cache_dir() -> Optional[str]:
     """``RCA_NATIVE_CACHE``: where the native scanners are built (unset =
     the port's user-private default, ``~/.cache/rca_tpu_torch``)."""
     return env_raw("RCA_NATIVE_CACHE")
+
+
+def serve_graph_cache_cap() -> int:
+    """``RCA_SERVE_GRAPH_CACHE``: prepared graphs the dispatcher pins."""
+    return env_int("RCA_SERVE_GRAPH_CACHE", 32, 1, 4096)
+
+
+def serve_steal_enabled() -> bool:
+    """``RCA_SERVE_STEAL``: work-stealing rebalance in the serve pool."""
+    return _flag_on("RCA_SERVE_STEAL", "1")
+
+
+def slo_ms() -> float:
+    """``RCA_SLO_MS``: the per-request latency SLO target (ms)."""
+    return env_float("RCA_SLO_MS", 500.0, 1.0, 600_000.0)
+
+
+#: the serving scheduler's integer knobs and their ranges:
+#: ``RCA_SERVE_MAX_BATCH`` requests coalesced per device dispatch (a full
+#: batch never waits; default 16), ``RCA_SERVE_MAX_WAIT_US`` the longest a
+#: request is held for batchmates while the device is busy (default 2000;
+#: an idle engine never waits), ``RCA_SERVE_QUEUE_CAP`` the admission cap
+#: (a submit against a full queue is answered ``queue_full``; default 256),
+#: ``RCA_SERVE_REPLICAS`` the engine replicas behind the shared queue
+#: (default 1: the single ``ServeLoop``)
+_SERVE_ENV_RANGES = {
+    "RCA_SERVE_MAX_BATCH": (1, 4096),
+    "RCA_SERVE_MAX_WAIT_US": (0, 60_000_000),
+    "RCA_SERVE_QUEUE_CAP": (1, 1_000_000),
+    "RCA_SERVE_REPLICAS": (1, 64),
+}
+
+#: replica kinds a serve-pool mix may name
+REPLICA_KINDS = ("dense", "sharded")
+
+_MIX_ENTRY = re.compile(r"(dense|sharded)(?:@(\d+))?(?::(\d+))?")
+
+
+def parse_replica_mix(
+    spec: str, default_replicas: int = 1,
+) -> Tuple[Tuple[str, Optional[int]], ...]:
+    """``RCA_SERVE_REPLICA_MIX`` → ``((kind, group_size|None), ...)``.
+
+    Syntax: comma-separated ``kind[@group_size][:count]`` entries, e.g.
+    ``"dense:2,sharded@4:2"`` = two dense replicas (one device each) plus
+    two sharded replicas spanning four devices each.  ``group_size``
+    defaults per kind at pool construction (dense → 1, sharded → an equal
+    share of the visible devices).  An empty spec means
+    ``default_replicas`` dense replicas.  A malformed spec fails loudly."""
+    spec = (spec or "").strip().lower()
+    if not spec:
+        return tuple(("dense", None) for _ in range(default_replicas))
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        m = _MIX_ENTRY.fullmatch(part)
+        if m is None:
+            raise ValueError(
+                f"RCA_SERVE_REPLICA_MIX entry {part!r}: expected "
+                "'kind[@group_size][:count]' with kind in "
+                f"{REPLICA_KINDS}"
+            )
+        kind, group, count = m.group(1), m.group(2), m.group(3)
+        count = int(count) if count else 1
+        group_size = int(group) if group else None
+        if not 1 <= count <= 64:
+            raise ValueError(
+                f"RCA_SERVE_REPLICA_MIX entry {part!r}: count {count} "
+                "out of range [1, 64]"
+            )
+        if group_size is not None and not 1 <= group_size <= 4096:
+            raise ValueError(
+                f"RCA_SERVE_REPLICA_MIX entry {part!r}: group size "
+                f"{group_size} out of range [1, 4096]"
+            )
+        out.extend((kind, group_size) for _ in range(count))
+    if not 1 <= len(out) <= 64:
+        raise ValueError(
+            f"RCA_SERVE_REPLICA_MIX={spec!r}: {len(out)} replicas out "
+            "of range [1, 64]"
+        )
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Typed serving-scheduler knobs (``rca_tpu_torch.serve``)."""
+
+    max_batch: int = 16      # RCA_SERVE_MAX_BATCH
+    max_wait_us: int = 2000  # RCA_SERVE_MAX_WAIT_US
+    queue_cap: int = 256     # RCA_SERVE_QUEUE_CAP
+    replicas: int = 1        # RCA_SERVE_REPLICAS (serve pool width)
+    steal: bool = True       # RCA_SERVE_STEAL (rebalance on death/open)
+    replica_mix: str = ""    # RCA_SERVE_REPLICA_MIX ("" = all dense)
+
+    def __post_init__(self):
+        # the env parse's ranges, so a directly-constructed config cannot
+        # carry a value the env path would reject
+        for name, value in (
+            ("RCA_SERVE_MAX_BATCH", self.max_batch),
+            ("RCA_SERVE_MAX_WAIT_US", self.max_wait_us),
+            ("RCA_SERVE_QUEUE_CAP", self.queue_cap),
+            ("RCA_SERVE_REPLICAS", self.replicas),
+        ):
+            lo, hi = _SERVE_ENV_RANGES[name]
+            if not lo <= int(value) <= hi:
+                raise ValueError(
+                    f"{name.lower().removeprefix('rca_serve_')}={value}: "
+                    f"out of range [{lo}, {hi}]"
+                )
+        # a malformed mix fails at construction, not at pool start
+        parse_replica_mix(self.replica_mix, self.replicas)
+
+    def replica_specs(self) -> Tuple[Tuple[str, Optional[int]], ...]:
+        """The resolved replica set: the parsed mix when one is given (its
+        length then DEFINES the replica count), else ``replicas`` dense
+        entries."""
+        return parse_replica_mix(self.replica_mix, self.replicas)
+
+    @classmethod
+    def from_env(cls, **overrides) -> "ServeConfig":
+        env = {
+            "max_batch": _serve_env_int("RCA_SERVE_MAX_BATCH", 16),
+            "max_wait_us": _serve_env_int("RCA_SERVE_MAX_WAIT_US", 2000),
+            "queue_cap": _serve_env_int("RCA_SERVE_QUEUE_CAP", 256),
+            "replicas": _serve_env_int("RCA_SERVE_REPLICAS", 1),
+            "steal": serve_steal_enabled(),
+            "replica_mix": env_str("RCA_SERVE_REPLICA_MIX", ""),
+        }
+        env.update(overrides)
+        return cls(**env)
+
+
+def _serve_env_int(name: str, default: int) -> int:
+    """One ``RCA_SERVE_*`` integer knob, range-checked."""
+    return env_int(name, default, *_SERVE_ENV_RANGES[name])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,9 +3,10 @@ the deterministic part of ``rca_tpu.coordinator.core``).
 
 One snapshot is captured per analysis and shared by the six signal agents;
 the comprehensive pipeline then fuses their findings through the port's
-engine (``RCA_BACKEND``, default ``torch``).  Chat turns, suggestions,
-hypotheses, LLM agents, the evidence logger and shared serving are not
-ported.
+engine (``RCA_BACKEND``, default ``torch``), or through a shared serving
+plane (``serve=``), whose queue coalesces concurrent coordinators'
+analyses into batched dispatches.  Chat turns, suggestions, hypotheses,
+LLM agents and the evidence logger are not ported.
 """
 
 from __future__ import annotations
@@ -37,21 +38,38 @@ def _degraded_note(errors: List[Dict[str, str]]) -> str:
 class RCACoordinator:
     """Runs analyses over ``cluster_client`` on ``device`` (CUDA unless the
     caller names another; raises here when that device does not exist).
-    With the ``torch`` backend the engine (``engine``, else
-    :func:`make_engine` on ``device``: sharded when ``RCA_SHARD`` asks for
-    it or more than one device is visible), and on the card its kernel
-    library, are built now, so a missing card, a misconfigured
-    ``RCA_SHARD`` or a kernel that does not build fails the construction
-    instead of the first analysis."""
+    With the ``torch`` backend the engine (``engine``; the serving plane's
+    facade with ``serve``, on the plane's device; else :func:`make_engine`
+    on ``device``: sharded when ``RCA_SHARD`` asks for it or more than one
+    device is visible), and on the card its kernel library, are built now,
+    so a missing card, a misconfigured ``RCA_SHARD`` or a kernel that does
+    not build fails the construction instead of the first analysis."""
 
     def __init__(self, cluster_client, backend: Optional[str] = None,
-                 device=None, engine=None):
+                 device=None, engine=None, serve=None,
+                 tenant: Optional[str] = None):
         from rca_tpu_torch.engine import make_engine
         from rca_tpu_torch.engine.runner import resolve_device
         from rca_tpu_torch.kernels.build import library
 
         self.cluster = cluster_client
         self.backend = resolve_backend(backend)
+        # ``serve``: a ServeClient (or a ServeLoop / ServePool) — the
+        # correlation analyses then ride the shared multi-tenant serving
+        # queue instead of owning the device, so concurrent coordinators
+        # coalesce into batched dispatches.  Mutually exclusive with a
+        # directly-pinned ``engine``.
+        if serve is not None:
+            if engine is not None:
+                raise ValueError("pass either engine= or serve=, not both")
+            from rca_tpu_torch.serve.client import ServeClient
+
+            if not isinstance(serve, ServeClient):
+                serve = ServeClient(serve)
+            engine = serve.as_engine(
+                tenant=tenant or f"coordinator-{uuid.uuid4().hex[:6]}"
+            )
+        self.serve = serve
         self.device = resolve_device(device if engine is None
                                      else engine.device)
         if self.backend != "torch":

@@ -56,7 +56,7 @@ from rca_tpu_torch.engine.segscan import (
     segscan_plain,
 )
 from rca_tpu_torch.features.schema import SvcF
-from rca_tpu_torch.kernels import LAUNCHES, PERSIST_LAUNCHES
+from rca_tpu_torch.kernels import count_launch
 
 #: the widest feature row the kernels take (their weights sit in shared
 #: memory)
@@ -213,7 +213,7 @@ def noisy_or_pair(features: torch.Tensor, anomaly_w: torch.Tensor,
         a.data_ptr(), h.data_ptr(), n_rows, n_channels, stream,
     )
     check(err, "noisy_or_pair")
-    LAUNCHES["noisy_or_pair"] += 1
+    count_launch("noisy_or_pair")
     return a, h
 
 
@@ -263,9 +263,7 @@ def evidence_front_rows(features: torch.Tensor, anomaly_w: torch.Tensor,
             n_rows, n_channels, int(SvcF.ERROR_RATE), int(persist), stream,
         )
     check(err, "evidence_front")
-    LAUNCHES["evidence_front"] += 1
-    if persist:
-        PERSIST_LAUNCHES["evidence_front"] += 1
+    count_launch("evidence_front", persist=bool(persist))
     return a_raw, h, e, n_bad
 
 

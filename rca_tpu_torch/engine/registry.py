@@ -135,11 +135,16 @@ class KernelRow:
 class KernelRegistry:
     """The per-shape kernel table (one per process via
     :func:`get_registry`).  Rows resolve lazily the first time a surface
-    asks about a shape; the timing runs outside the lock (two threads may
-    time one shape; the last write wins)."""
+    asks about a shape.  Elections run one at a time, under
+    ``_elect_lock``: serve threads (a loop's worker, a pool's replicas on
+    one card) that ask about shapes at once never time two races against
+    each other on the card, and a shape is elected, timed and noted to
+    kernelscope exactly once.  Lookups of resolved rows take only
+    ``_lock`` and never wait on an election."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self._elect_lock = threading.Lock()
         self._rows: Dict[Tuple, KernelRow] = {}
 
     # -- cache file (RCA_KERNEL_CACHE, read per lookup) --------------------
@@ -214,11 +219,17 @@ class KernelRegistry:
             row = self._rows.get(key)
         if row is not None:
             return row
-        row = self._decide(variant, n_pad, e_pad, int(steps), device)
-        note_compile(f"plan {variant}:{n_pad}:{e_pad}:{steps} on {device}",
-                     key[:5])
-        with self._lock:
-            self._rows[key] = row
+        with self._elect_lock:
+            with self._lock:
+                row = self._rows.get(key)
+            if row is not None:
+                return row      # elected while this thread waited
+            row = self._decide(variant, n_pad, e_pad, int(steps), device)
+            note_compile(
+                f"plan {variant}:{n_pad}:{e_pad}:{steps} on {device}",
+                key[:5])
+            with self._lock:
+                self._rows[key] = row
         return row
 
     def note_timing(self, n_pad: int, e_pad: Optional[int], name: str,

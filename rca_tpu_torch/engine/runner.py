@@ -151,10 +151,13 @@ def propagate_ranked_batch_delta(model: Propagation, base, idx_b, rows_b,
     ``base`` is read, never written.  The ranked body is
     :func:`propagate_ranked`'s, so each lane is bitwise equal to full
     staging of the same features."""
-    lanes = idx_b.shape[0]
+    lanes, n_pad = idx_b.shape[0], base.shape[0]
     features_b = base.expand(lanes, *base.shape).clone()
-    lane = torch.arange(lanes, device=base.device)[:, None].expand_as(idx_b)
-    features_b[lane, idx_b] = rows_b
+    # one index_copy_ over the lanes' rows, as a delta tick writes its
+    # buffer (no host sync); the duplicates are pad slots, all zeros
+    lane = torch.arange(lanes, device=base.device)[:, None] * n_pad
+    features_b.view(-1, base.shape[1]).index_copy_(
+        0, (lane + idx_b).reshape(-1), rows_b.reshape(-1, base.shape[1]))
     return propagate_ranked(model, features_b, dep_dst, n_live, kk, plan)
 
 

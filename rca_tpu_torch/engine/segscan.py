@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rca_tpu_torch.kernels import LAUNCHES, SHARD_LAUNCHES
+from rca_tpu_torch.kernels import count_launch
 
 _OPS = {"sum": 0, "max": 1}
 
@@ -90,7 +90,7 @@ def _segscan(x: torch.Tensor, flags: torch.Tensor, op: str) -> torch.Tensor:
         agg_i.data_ptr(), n, _OPS[op], stream,
     )
     check(err, f"segscan_{op}")
-    LAUNCHES[f"segscan_{op}"] += 1
+    count_launch(f"segscan_{op}")
     return out
 
 
@@ -345,9 +345,7 @@ def launch_step(entry: str, name: str, seg, lanes: int, out, *args,
             lanes, seg.offsets.shape[0] - 1, out.data_ptr(), stream,
         )
     check(err, name)
-    LAUNCHES[name] += 1
-    if shard:
-        SHARD_LAUNCHES[name] += 1
+    count_launch(name, shard=shard)
     return out
 
 

@@ -1,14 +1,18 @@
 """The port's hand-written CUDA kernels: build/load (:mod:`.build`) and the
 launch counters.
 
-Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
-launches its kernel on the card, and nowhere else, so a run can show that
-the main path went through the kernels (the plain versions used on CPU
-tensors do not count).  :data:`PERSIST_LAUNCHES` counts, apart, the
+Each kernel wrapper adds one to its entry of :data:`LAUNCHES`
+(:func:`count_launch`) where it launches its kernel on the card, and
+nowhere else, so a run can show that the main path went through the
+kernels (the plain versions used on CPU tensors do not count).  The counts
+are taken under a lock: serve threads launch concurrently, and a lost
+update would misreport a run.  :data:`PERSIST_LAUNCHES` counts, apart, the
 ``evidence_front`` launches that persist the sanitize into their input,
 and :data:`SHARD_LAUNCHES` the launches of the seg steps' per-shard
 entries (the node-sharded engine), which count in :data:`LAUNCHES` too.
 """
+
+import threading
 
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
@@ -18,7 +22,23 @@ SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
                   "seg_contrast_step": 0}
 
 
+_LOCK = threading.Lock()
+
+
+def count_launch(name: str, persist: bool = False,
+                 shard: bool = False) -> None:
+    """One launch of kernel ``name`` (a persisting ``evidence_front``
+    launch or a per-shard entry counted apart too)."""
+    with _LOCK:
+        LAUNCHES[name] += 1
+        if persist:
+            PERSIST_LAUNCHES[name] += 1
+        if shard:
+            SHARD_LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PERSIST_LAUNCHES, SHARD_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _LOCK:
+        for counts in (LAUNCHES, PERSIST_LAUNCHES, SHARD_LAUNCHES):
+            for name in counts:
+                counts[name] = 0

@@ -126,6 +126,16 @@ class Tracer:
             start=float(start), end=float(end), attrs=dict(attrs or {}),
         ))
 
+    def event(
+        self,
+        name: str,
+        at: float,
+        parent: Optional[SpanContext] = None,
+        attrs: Optional[Dict[str, Any]] = None,
+    ) -> Optional[Span]:
+        """A zero-duration marker (a serve pool's steal moves)."""
+        return self.record(name, at, at, parent=parent, attrs=attrs)
+
     @contextlib.contextmanager
     def span(
         self,

@@ -13,7 +13,10 @@ That is the port's counterpart of the reference's
 ``--xla_force_host_platform_device_count`` virtual devices, used by the
 tests and ``chip_smoke.py`` through an explicit mesh; ``RCA_SHARD`` still
 counts only the devices that are really there
-(:mod:`rca_tpu_torch.engine.sharded_runner`).
+(:mod:`rca_tpu_torch.engine.sharded_runner`).  The serve pool carves its
+replicas' device groups with :func:`carve_device_groups`, which wraps
+around the same way when the replica set asks for more devices than are
+there.
 """
 
 from __future__ import annotations
@@ -80,3 +83,24 @@ def make_mesh(axis_sizes: Sequence[Tuple[str, int]],
     for i, d in enumerate(devices[:total]):
         grid[i] = d
     return DeviceMesh(grid.reshape(sizes), names)
+
+
+def carve_device_groups(sizes: Sequence[int], devices: Sequence) -> list:
+    """Contiguous device groups for a serve-pool replica set: ``sizes[i]``
+    devices go to replica ``i``, carved in order so a sharded replica's
+    group stays adjacent.  When the host has fewer devices than the
+    replica set asks for, groups WRAP AROUND and share devices (replicas
+    then oversubscribe the hardware, as logical shards do; the pool's
+    occupancy metrics show the sharing) instead of refusing to start."""
+    devices = list(devices)
+    if not devices:
+        raise ValueError("carve_device_groups: no devices visible")
+    groups = []
+    cursor = 0
+    for size in sizes:
+        size = max(1, int(size))
+        groups.append(
+            [devices[(cursor + j) % len(devices)] for j in range(size)]
+        )
+        cursor = (cursor + size) % len(devices)
+    return groups

@@ -1,7 +1,7 @@
-"""The fault log, the retry counter and the retry/deadline policies: the
-port's copy of the part of ``rca_tpu.resilience.policy`` that the live
-session, the live-cluster client and its watch pumps use
-(``CircuitBreaker`` comes with the chaos client).
+"""The fault log, the retry counter, the retry/deadline policies and the
+circuit breaker: the port's copy of ``rca_tpu.resilience.policy``, which
+the live session, the live-cluster client, its watch pumps and the serving
+scheduler use.
 
 - :func:`suppressed` is the one sanctioned way to swallow an exception:
   the fault is recorded into the bounded module fault log, which each
@@ -12,7 +12,10 @@ session, the live-cluster client and its watch pumps use
 - :class:`Retry` (exponential backoff, jitter drawn from the policy's own
   seeded generator, injectable ``sleep`` and ``clock``) and
   :class:`Deadline` (a monotonic budget shared by the steps of one
-  operation) guard the live client's API calls and the pumps' streams.
+  operation) guard the live client's API calls and the pumps' streams;
+- :class:`CircuitBreaker` (closed → open → half-open) gates the serving
+  scheduler's device path, and :class:`CircuitOpen` is what its
+  :meth:`CircuitBreaker.call` raises while it is open.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ class PolicyError(RuntimeError):
 
 class DeadlineExceeded(PolicyError):
     """The operation's time budget ran out (possibly mid-retry)."""
+
+
+class CircuitOpen(PolicyError):
+    """The breaker is open: the protected operation was not attempted."""
 
 
 class _FaultLog:
@@ -219,3 +226,80 @@ class Retry:
                 if on_retry is not None:
                     on_retry(attempt, exc)
                 self.sleep_for(attempt)
+
+
+class CircuitBreaker:
+    """Classic closed → open → half-open breaker.
+
+    ``failure_threshold`` consecutive failures open the circuit; after
+    ``reset_after`` seconds one probe call is allowed (half-open) — its
+    success closes the circuit, its failure re-opens it for another full
+    window.  ``allow()`` is the gate callers check before attempting the
+    protected operation; it consumes the half-open probe slot."""
+
+    def __init__(
+        self,
+        failure_threshold: int = 2,
+        reset_after: float = 30.0,
+        clock: Callable[[], float] = time.monotonic,
+        name: str = "",
+    ):
+        self.failure_threshold = max(1, int(failure_threshold))
+        self.reset_after = float(reset_after)
+        self.clock = clock
+        self.name = name
+        self._lock = make_lock("CircuitBreaker._lock")
+        self._failures = 0
+        self._opened_at: Optional[float] = None
+        self._half_open = False
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            if self._opened_at is None:
+                return "closed"
+            if self._half_open:
+                return "half-open"
+            if self.clock() - self._opened_at >= self.reset_after:
+                return "half-open"
+            return "open"
+
+    def allow(self) -> bool:
+        """May the caller attempt the protected operation right now?"""
+        with self._lock:
+            if self._opened_at is None:
+                return True
+            if self._half_open:
+                # one probe is already in flight; hold further callers
+                return False
+            if self.clock() - self._opened_at >= self.reset_after:
+                self._half_open = True  # this caller is the probe
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._failures = 0
+            self._opened_at = None
+            self._half_open = False
+
+    def record_failure(self) -> None:
+        with self._lock:
+            self._failures += 1
+            if self._half_open or self._failures >= self.failure_threshold:
+                self._opened_at = self.clock()
+                self._half_open = False
+
+    def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
+        """Gate + execute + record in one step."""
+        if not self.allow():
+            raise CircuitOpen(
+                f"circuit {self.name or getattr(fn, '__name__', '?')} is open"
+            )
+        try:
+            out = fn(*args, **kwargs)
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return out

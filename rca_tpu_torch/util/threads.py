@@ -10,13 +10,20 @@ return the bare ``threading`` primitives.
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 
 def make_lock(name: str) -> Any:
     """A mutex named for the attribute that owns it (``"Class._lock"``)."""
     del name  # the name documents the owner; the lock is the plain one
     return threading.Lock()
+
+
+def make_condition(name: str, lock: Optional[Any] = None) -> Any:
+    """A condition variable (its internal mutex counts as the lock the
+    name identifies — ``with cond:`` is an acquire of it)."""
+    del name
+    return threading.Condition(lock)
 
 
 def make_thread(

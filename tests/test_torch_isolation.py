@@ -10,8 +10,10 @@
   ``python -m rca_tpu_torch stream``, a sharded analysis (restaged,
   resident, batched, through the coordinator and a live session), a
   columnar capture, a native scan, the live columnar feed and an analysis
-  through ``K8sApiClient()`` with no cluster; the native scanner loaded is
-  the one built from ``rca_tpu_torch/native/``;
+  through ``K8sApiClient()`` with no cluster, a serve selftest (the
+  loop and the pool, chaos and a dense + sharded mix) and a coordinator
+  with ``serve=``; the native scanner loaded is the one built from
+  ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   included) and the streaming sessions raise (or exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
   exits non-zero with no verdict line;
@@ -255,6 +257,44 @@ def test_sharded_analysis_loads_no_jax_and_no_rca_tpu():
     for module in ("engine.sharded_runner", "parallel.sharded",
                    "parallel.collectives", "parallel.mesh",
                    "parallel.rules", "parallel.streaming"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+_SERVE_PROBE = """
+import json, sys
+from rca_tpu_torch import GraphEngine
+from rca_tpu_torch.cluster.fixtures import NS, five_service_world
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.coordinator import RCACoordinator
+from rca_tpu_torch.serve import ServeClient, serve_selftest
+engine = GraphEngine(device="cpu")
+runs = [serve_selftest(n_requests=16, engine=engine),
+        serve_selftest(n_requests=16, seed=3, engine=engine, chaos=True),
+        serve_selftest(n_requests=16, engine=engine,
+                       replica_mix="dense,sharded@2", kill_replica=True)]
+with ServeClient(engine=engine) as client:
+    rec = RCACoordinator(MockClusterClient(five_service_world()),
+                         backend="torch", serve=client).run_analysis(
+        "comprehensive", NS)
+print(json.dumps({"ok": [r["ok"] for r in runs],
+                  "status": rec["status"],
+                  "engine": rec["results"]["correlated"]["engine"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_serve_selftest_and_coordinator_serve_load_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["ok"] == [True, True, True]
+    assert (out["status"], out["engine"]) == ("completed", "serve+single")
+    for module in ("serve.loop", "serve.pool", "serve.dispatcher",
+                   "serve.replica", "resilience.chaos", "parallel.sharded"):
         assert f"rca_tpu_torch.{module}" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
