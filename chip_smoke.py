@@ -194,7 +194,23 @@ verdict line:
    its own (one lock over the replicas' device calls), each dense batch
    1 / 1 / 8 / 8 launches and each sharded batch 32 / 32 / 4 launches of
    the per-shard entries;
-15. times from CUDA events (median of 20 samples after warm-up): each
+15. flight recording and replay (``rca_tpu_torch.replay``): 20 polls
+   of the live mix over a 10,000-service cascade world at depth 2 on the
+   columnar capture, recorded and unrecorded in turns (the record
+   overhead per poll, the bytes per tick); the tape holds ``coldiff``
+   frames and ``replay_stream`` on the card is bitwise (``parity_ok``, no
+   unconsumed call, the ``kernels`` row on every tick, each tick's
+   launches those of the recorded poll; replayed ticks per second); a
+   200-tick ``run_chaos_soak`` over the 50-service fixture world with its
+   record leg (no uncaught exception, the five fault classes, fault-free
+   ticks bitwise the baseline, its replay in parity on ``kernels``, no
+   post-warm recompile, the memory gate); the serve phase's 64 requests
+   at 2047 through ``ServeLoop(recorder=...)``, replayed bitwise by
+   ``replay_serve``; the committed CPU tape
+   (``tests/corpus_torch/``) replayed on the card under rank parity.  No
+   recording leaves a ``serve.record`` or ``live.*`` fault; tapes go to a
+   temporary directory, removed after;
+16. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -221,7 +237,9 @@ per batch and its batched times (``serve_batch``: at 1, 2, 4 and 16
 lanes),
 and the launches counted on a delta tick, a quiet tick and an 8-row
 resident delta request at 49,999 services, ``evidence_front`` also its
-persisting launches there);
+persisting launches there; the four tick kernels with
+``replay_launches``, over the 20 replayed ticks of the 10,000-service
+tape);
 the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
@@ -706,7 +724,10 @@ def main(argv) -> int:
     # -- 14. the serving scheduler -----------------------------------------
     record["serve"] = serve_phase(engine, cases, shapes, aw, hw, params, smi)
 
-    # -- 15. times ---------------------------------------------------------
+    # -- 15. flight recording, replay and the chaos soak ------------------
+    record["replay"] = replay_phase(cases, smi)
+
+    # -- 16. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -915,6 +936,12 @@ def main(argv) -> int:
             "pool": {tier: {label: row["launches"][name]
                             for label, row in runs.items()}
                      for tier, runs in serve["pool"].items()}}
+        if name in TICK_KERNELS:
+            # launches over the 20 replayed ticks of the 10,000-service
+            # tape, each tick equal to the recorded session's
+            kernels[-1]["replay_launches"] = {
+                "ticks": 20, "total": record["replay"]["live_10k"][
+                    "launches_per_tick"]["total"][name]}
         if name in BATCH_LAUNCHES:
             batch = record["batch"]
             kernels[-1].update(
@@ -3028,6 +3055,268 @@ def live_phase() -> dict:
     out["cli"] = {"top": last["ranked"][0]["component"],
                   "seconds": time.perf_counter() - t0}
     phase("stream_cli", **out["cli"])
+    return out
+
+
+#: the four kernels of a tick (``evidence_front`` persisting apart)
+TICK_KERNELS = ("evidence_front", "seg_contrast_step", "seg_up_step",
+                "seg_down_step")
+
+
+def _launch_snapshot() -> dict:
+    from rca_tpu_torch.kernels import LAUNCHES, PERSIST_LAUNCHES
+
+    return {**LAUNCHES, "evidence_front_persist":
+            PERSIST_LAUNCHES["evidence_front"]}
+
+
+def _counted_polls(per_tick: list, faults: list):
+    """A replacement for ``LiveStreamingSession.poll`` that sets the
+    launch counters to 0 just before each poll, appends the counts read
+    just after to ``per_tick`` and the poll's recorded faults (the health
+    record drains the fault log) to ``faults``."""
+    from rca_tpu_torch.engine.live import LiveStreamingSession
+    from rca_tpu_torch.kernels import reset_launches
+
+    real = LiveStreamingSession.poll
+
+    def poll(self):
+        reset_launches()
+        out = real(self)
+        per_tick.append(_launch_snapshot())
+        faults.extend(f["op"] for f in out["health"]["faults"])
+        return out
+
+    return real, poll
+
+
+def _recorded_live(world, ops, recorder, per_tick: list) -> tuple:
+    """20 polls of the live mix over ``world`` at depth 2 on the columnar
+    capture (``recorder`` None: unrecorded), each poll counted; returns
+    the outputs and the per-poll host walls (ms)."""
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
+    from rca_tpu_torch.kernels import reset_launches
+
+    live = LiveStreamingSession(
+        MockClusterClient(world), "synthetic", k=5, engine=GraphEngine(),
+        topology_check_every=5, pipeline_depth=2, use_columnar=True,
+        recorder=recorder)
+    outs, walls = [], []
+    for t, op in enumerate(ops):
+        if t % 3 != 2:          # every third poll stays quiet
+            _mutate(world, "synthetic", op)
+        reset_launches()
+        t0 = time.perf_counter()
+        outs.append(live.poll())
+        walls.append(1e3 * (time.perf_counter() - t0))
+        per_tick.append(_launch_snapshot())
+    if not live._use_columnar:
+        fail("replay: the recorded 10,000-service session left the "
+             "columnar capture")
+    if recorder is not None:
+        recorder.close()
+    return outs, walls
+
+
+def replay_phase(cases, smi: str) -> dict:
+    """Flight recording and replay on the card.
+
+    - 20 polls of the live mix over ``synthetic_cascade_world(10000,
+      n_roots=3, seed=0)`` at depth 2 on the columnar capture, recorded
+      and unrecorded in turns (twice each, a fresh world each run): the
+      tape holds ``coldiff`` frames; ``replay_stream`` gives ``parity_ok``
+      bitwise, no unconsumed call, ``kernels`` on every tick, and per
+      tick the launches of the recorded poll; the record overhead per
+      poll, the bytes per tick, the replayed ticks per second;
+    - ``run_chaos_soak`` over the 50-service fixture world for 200 ticks
+      with the record leg: no uncaught exception, all five fault classes,
+      fault-free ticks bitwise the baseline, the replay in parity on the
+      ``kernels`` row, no post-warm recompile, the memory gate;
+    - the serve phase's 64-request, 4-tenant load at 2047 through
+      ``ServeLoop(recorder=...)``: ``replay_serve`` bitwise for all 64;
+    - the committed CPU tape replayed on the card under rank parity
+      (hit@1 and hit@3 equal, Kendall-tau), its bitwise verdict printed.
+
+    No recording phase may leave a ``serve.record`` or ``live.*`` fault
+    (the chaos soak's come from its injected faults and are counted).
+    Tapes go to a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.config import ServeConfig
+    from rca_tpu_torch.engine import GraphEngine, LiveStreamingSession
+    from rca_tpu_torch.kernels import reset_launches
+    from rca_tpu_torch.replay import (
+        Recorder,
+        load_recording,
+        replay_serve,
+        replay_stream,
+    )
+    from rca_tpu_torch.resilience.chaos import FAULT_CLASSES, run_chaos_soak
+    from rca_tpu_torch.resilience.policy import drain_faults
+    from rca_tpu_torch.serve import ServeLoop
+
+    def no_faults(label, ops=()):
+        # a live session drains the fault log into each tick's health
+        # record: ``ops`` are those, the log holds the rest
+        bad = [op for op in [*ops, *(f["op"] for f in drain_faults())]
+               if op == "serve.record" or op.startswith("live.")]
+        if bad:
+            fail(f"replay {label}: faults {bad}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="rca_replay_")
+    out = {"nvidia_smi": smi}
+    try:
+        # -- live recording at 10,000 services ----------------------------
+        ops = _op_sequence(29, 20)
+        drain_faults()
+        walls = {"recorded": [], "unrecorded": []}
+        rec_ticks: list = []
+        for turn in range(2):
+            walls["unrecorded"] += _recorded_live(
+                synthetic_cascade_world(10000, n_roots=3, seed=0), ops,
+                None, [])[1]
+            path = os.path.join(tmp, f"live{turn}")
+            rec = Recorder(path, mode="stream")
+            rec_ticks = []
+            outs, w = _recorded_live(
+                synthetic_cascade_world(10000, n_roots=3, seed=0), ops, rec,
+                rec_ticks)
+            walls["recorded"] += w
+        no_faults("10k recording", [f["op"] for o in outs
+                                    for f in o["health"]["faults"]])
+        for t, o in enumerate(outs):
+            if o["degraded"] or o["health"]["kernel_path"] != "kernels":
+                fail(f"replay: recorded tick {t + 1} degraded "
+                     f"{o['degraded']} on {o['health']['kernel_path']}")
+        tape = load_recording(path)
+        coldiff = sum(fr["kind"] == "coldiff" for fr in tape.calls)
+        if not coldiff:
+            fail("replay: the 10,000-service tape holds no coldiff frame")
+        replay_ticks: list = []
+        replay_faults: list = []
+        real, counted = _counted_polls(replay_ticks, replay_faults)
+        LiveStreamingSession.poll = counted
+        try:
+            t0 = time.perf_counter()
+            report = replay_stream(path)
+            replay_s = time.perf_counter() - t0
+        finally:
+            LiveStreamingSession.poll = real
+        no_faults("10k replay", replay_faults)
+        if not report["parity_ok"] or report["unconsumed_calls"] or \
+                report["kernel_paths"] != {"kernels": 20}:
+            fail(f"replay 10k: parity {report['parity_ok']}, unconsumed "
+                 f"{report['unconsumed_calls']}, rows "
+                 f"{report['kernel_paths']}, first divergence "
+                 f"{report.get('first_divergent_tick')}")
+        if replay_ticks != rec_ticks:
+            fail(f"replay 10k: launches per tick {replay_ticks} differ from "
+                 f"the recorded session's {rec_ticks}")
+        for name in TICK_KERNELS:
+            if not sum(t[name] for t in replay_ticks):
+                fail(f"replay 10k: {name} never launched")
+        med_rec = float(np.median(walls["recorded"]))
+        med_plain = float(np.median(walls["unrecorded"]))
+        out["live_10k"] = {
+            "ticks": 20, "coldiff_frames": coldiff,
+            "bytes": rec.bytes_written,
+            "bytes_per_tick": rec.bytes_written / 20,
+            "poll_ms_recorded": med_rec, "poll_ms_unrecorded": med_plain,
+            "record_overhead_pct": 100.0 * (med_rec - med_plain) / med_plain,
+            "replay_s": replay_s, "replayed_ticks_per_s": 20 / replay_s,
+            "launches_per_tick": {
+                "delta_or_busy_max": {k: max(t[k] for t in replay_ticks)
+                                      for k in replay_ticks[0]},
+                "total": {k: sum(t[k] for t in replay_ticks)
+                          for k in replay_ticks[0]}},
+            "kernel_paths": report["kernel_paths"]}
+        phase("replay", leg="live_10k", **out["live_10k"])
+
+        # -- the chaos soak -------------------------------------------------
+        t0 = time.perf_counter()
+        soak = run_chaos_soak(
+            lambda: synthetic_cascade_world(50, n_roots=1, seed=7,
+                                            namespace="synthetic"),
+            "synthetic", seed=7, ticks=200, engine_factory=GraphEngine,
+            record_path=os.path.join(tmp, "chaos"))
+        faults = [f["op"] for f in drain_faults()]
+        leg = soak["replay"]
+        scope = soak["kernelscope"]
+        if soak["uncaught_exceptions"] or not soak["all_classes_observed"] \
+                or not soak["parity_ok"] or not leg["parity_ok"] or \
+                leg["unconsumed_calls"] or \
+                scope["recompiles_post_warm"] or \
+                not scope["memory_gate"].get("ok", True) or \
+                leg["kernel_paths"] != {"kernels": 200} or \
+                soak["kernel_paths"] != {"kernels": 200} or \
+                "chaos.soak.uncaught" in faults or "serve.record" in faults:
+            fail(f"replay chaos soak: {soak}")
+        out["chaos"] = {
+            "ticks": 200, "seconds": time.perf_counter() - t0,
+            "faults_injected": soak["faults_injected"],
+            "fault_classes": len(FAULT_CLASSES),
+            "degraded_ticks": soak["degraded_ticks"],
+            "parity_ticks_checked": soak["parity_ticks_checked"],
+            "replay_ticks": leg["ticks_replayed"],
+            "bytes": leg["bytes"], "fault_log": sorted(set(faults))}
+        phase("replay", leg="chaos", **out["chaos"])
+
+        # -- serve: 64 requests at 2047, recorded -------------------------
+        case = cases[2047]
+        items = [(case, f) for f in _serve_features(
+            case, np.random.default_rng(11))]
+        drain_faults()
+        rec = Recorder(os.path.join(tmp, "serve"), mode="serve")
+        loop = ServeLoop(engine=GraphEngine(), recorder=rec,
+                         config=ServeConfig(max_batch=16,
+                                            queue_cap=4 * SERVE_REQUESTS))
+        with loop:
+            _, resps, wall_s = _submit_load(loop, items)
+        rec.close()
+        no_faults("serve recording")
+        if not all(r.ok for r in resps):
+            fail(f"replay serve: statuses {[r.status for r in resps]}")
+        t0 = time.perf_counter()
+        served = replay_serve(os.path.join(tmp, "serve"))
+        serve_replay_s = time.perf_counter() - t0
+        if not served["parity_ok"] or \
+                served["requests_recorded"] != SERVE_REQUESTS:
+            fail(f"replay serve: parity {served['parity_ok']}, "
+                 f"{served['requests_recorded']} frames, first divergence "
+                 f"{served['first_divergent_index']}")
+        out["serve"] = {
+            "requests": SERVE_REQUESTS, "frames": served["requests_recorded"],
+            "device_batches": loop.device_batches, "load_s": wall_s,
+            "bytes_per_request": rec.bytes_written / SERVE_REQUESTS,
+            "replay_s": serve_replay_s}
+        phase("replay", leg="serve", **out["serve"])
+
+        # -- the CPU tape on the card -------------------------------------
+        tape_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "corpus_torch",
+                                 "chaos-20svc-seed11.torch.rcz")
+        rank = replay_stream(tape_path, parity="rank")
+        exact = replay_stream(tape_path)
+        if not rank["parity_ok"] or rank["unconsumed_calls"] or \
+                rank["kernel_paths"] != {"kernels": 40}:
+            fail(f"replay CPU tape on the card: {rank}")
+        out["cpu_tape"] = {
+            "ticks": rank["ticks_replayed"],
+            "recorded_on": rank["env_recorded"]["device_kind"],
+            "rank_parity_ok": rank["parity_ok"],
+            "bitwise_parity_ok": exact["parity_ok"],
+            "bitwise_mismatched_ticks": exact["mismatched_ticks"]}
+        phase("replay", leg="cpu_tape", **out["cpu_tape"])
+        reset_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("replay", seconds=out["seconds"])
     return out
 
 

@@ -17,7 +17,13 @@
   coalesced rankings bitwise equal to solo ones; ``--chaos`` injects
   seeded dispatch/fetch faults, ``--replicas`` / ``--replica-mix`` /
   ``--kill-replica`` run the pool), without it a synthetic ``<N>svc``
-  load prints the per-tenant metrics.
+  load prints the per-tenant metrics;
+- ``python -m rca_tpu_torch replay``: re-drive the engine from a flight
+  recording (``stream --record`` / ``serve --record`` / ``chaos
+  --record``) and check parity tick for tick or request for request;
+  ``--seek``, ``--bisect``, ``--mint`` and ``--trace-out``;
+- ``python -m rca_tpu_torch chaos``: the seeded chaos soak of the live
+  session (five fault classes), exit 0 only when its contract holds.
 
 Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
 <N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``); omit
@@ -248,10 +254,15 @@ def cmd_stream(args) -> int:
     from rca_tpu_torch.engine import LiveStreamingSession, make_engine
 
     client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
+    recorder = None
+    if args.record:
+        from rca_tpu_torch.replay import Recorder
+
+        recorder = Recorder(args.record, mode="stream")
     live = LiveStreamingSession(
         client, args.namespace or ns or "default", k=args.top,
         engine=make_engine(device=args.device),
-        pipeline_depth=args.pipeline_depth,
+        pipeline_depth=args.pipeline_depth, recorder=recorder,
     )
     degraded = 0
     for i in range(args.ticks):
@@ -284,6 +295,13 @@ def cmd_stream(args) -> int:
         print(json.dumps(line, default=str), flush=True)
         if args.interval > 0 and i + 1 < args.ticks:
             time.sleep(args.interval)
+    if recorder is not None:
+        recorder.close()
+        print(json.dumps({
+            "recording": recorder.path,
+            "ticks_recorded": recorder.ticks_recorded,
+            "bytes": recorder.bytes_written,
+        }), file=sys.stderr)
     if degraded:
         print(f"rca_tpu_torch: {degraded} of {args.ticks} ticks degraded",
               file=sys.stderr)
@@ -291,13 +309,12 @@ def cmd_stream(args) -> int:
     return 0
 
 
-#: serve modes that are not ported yet, and the ROADMAP item that ports
-#: each
+#: serve modes that are not ported yet, and the module (its A-id in
+#: ROADMAP.md) that ports each
 _SERVE_NOT_PORTED = {
-    "listen": "the gateway (ROADMAP A item 8, the next serving slice)",
-    "federation": "the cross-process federation (ROADMAP A item 12)",
-    "autoscale": "the autoscaler (ROADMAP A item 12)",
-    "record": "record/replay (ROADMAP A item 7)",
+    "listen": "the gateway (A9)",
+    "federation": "the cross-process federation (A14)",
+    "autoscale": "the autoscaler (A14)",
 }
 
 
@@ -360,13 +377,18 @@ def cmd_serve(args) -> int:
         int(m.group(1)), n_roots=1, seed=args.seed
     )
     rng = np.random.default_rng(args.seed)
+    recorder = None
+    if args.record:
+        from rca_tpu_torch.replay import Recorder
+
+        recorder = Recorder(args.record, mode="serve")
     if len(config.replica_specs()) > 1:
         # the pool: engines and device groups from the replica mix
-        loop = ServePool(config=config, devices=visible_devices(
-            resolve_device(args.device)))
+        loop = ServePool(config=config, recorder=recorder,
+                         devices=visible_devices(resolve_device(args.device)))
     else:
         loop = ServeLoop(engine=make_engine(device=args.device),
-                         config=config)
+                         config=config, recorder=recorder)
     tenants = [f"tenant-{i}" for i in range(args.tenants)]
     t0 = time.perf_counter()
     with loop:
@@ -383,12 +405,17 @@ def cmd_serve(args) -> int:
         ]
         responses = [r.result(timeout=300.0) for r in reqs]
     wall_s = time.perf_counter() - t0
+    if recorder is not None:
+        recorder.close()
     by_status = {}
     for resp in responses:
         by_status[resp.status] = by_status.get(resp.status, 0) + 1
     print(json.dumps({
         "requests": args.requests,
         "tenants": len(tenants),
+        **({"recording": recorder.path,
+            "serve_recorded": recorder.serve_recorded}
+           if recorder is not None else {}),
         "by_status": by_status,
         "wall_s": round(wall_s, 3),
         "analyses_per_sec": round(
@@ -399,6 +426,141 @@ def cmd_serve(args) -> int:
         "kernelscope": loop.kernelscope_summary(),
     }, indent=indent, default=str))
     return 0 if by_status.get("ok", 0) == args.requests else 1
+
+
+def cmd_chaos(args) -> int:
+    """Seeded chaos soak: a live session over a fault-injecting
+    :class:`ChaosClusterClient` for N ticks, scored on the resilience
+    contract: no uncaught exception, every fault class observed (from 100
+    ticks), fault-free ticks bitwise a fault-free baseline, and with
+    ``--record`` the replay of its own recording in parity.  Exit 0 only
+    when the contract holds; exit 2 when the soak would need the
+    federation, autoscale and ingest legs (``--ticks`` >= 100 without
+    ``--no-federation``), which are not ported."""
+    from rca_tpu_torch.config import chaos_seed
+    from rca_tpu_torch.resilience.chaos import ChaosConfig, run_chaos_soak
+
+    m = re.fullmatch(r"(\d+)svc", args.fixture or "50svc")
+    if not m:
+        raise SystemExit(
+            f"chaos needs a synthetic fixture (<N>svc), got {args.fixture!r}"
+        )
+    if args.ticks >= 100 and not args.no_federation:
+        print("rca_tpu_torch chaos: at --ticks >= 100 the soak adds the "
+              "federation, autoscale and ingest legs, which come with the "
+              "cross-process plane (A14, not ported yet); pass "
+              "--no-federation to soak the live session alone",
+              file=sys.stderr)
+        return 2
+    n_services = int(m.group(1))
+    seed = args.seed if args.seed is not None else chaos_seed()
+
+    def make_world():
+        from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+
+        return synthetic_cascade_world(
+            n_services, n_roots=1, seed=args.world_seed,
+            fault_mix=args.fault_mix,
+        )
+
+    summary = run_chaos_soak(
+        make_world, "synthetic", seed=seed, ticks=args.ticks, k=args.top,
+        config=ChaosConfig(seed=seed),
+        topology_check_every=args.topology_check_every,
+        record_path=args.record, pipeline_depth=args.pipeline_depth,
+        device=args.device,
+    )
+    print(json.dumps(summary, indent=None if args.compact else 2))
+    scope = summary["kernelscope"]
+    ok = (
+        summary["uncaught_exceptions"] == 0
+        and summary["parity_ok"]
+        and (summary["all_classes_observed"] or args.ticks < 100)
+        # --record adds the record → replay parity leg
+        and summary.get("replay", {}).get("parity_ok", True)
+        and scope["recompiles_post_warm"] == 0
+        and scope["memory_gate"].get("ok", True)
+    )
+    return 0 if ok else 1
+
+
+def _replay_engine(choice: Optional[str], device):
+    """The engine of a replay run: ``auto`` (None) lets the replayer pick
+    the RECORDED engine kind (bitwise claims hold like-for-like);
+    ``single`` / ``sharded`` force a cross-engine replay."""
+    if choice in (None, "", "auto"):
+        return None
+    if choice == "single":
+        from rca_tpu_torch.engine.runner import GraphEngine
+
+        return GraphEngine(device=device)
+    if choice == "sharded":
+        from rca_tpu_torch.engine.sharded_runner import ShardedGraphEngine
+
+        return ShardedGraphEngine(device=device)
+    raise SystemExit(f"unknown engine {choice!r} (want auto|single|sharded)")
+
+
+def cmd_replay(args) -> int:
+    """Deterministic incident replay: re-drive the engine from a flight
+    recording and check tick-for-tick (stream) or request-for-request
+    (serve) parity; exit 0 when it holds.  ``--seek`` replays up to one
+    tick and reports its detail, ``--bisect`` finds the first divergent
+    tick and dumps both sides' tensors, ``--mint`` compacts a recording
+    into one file, ``--trace-out`` writes its span timeline."""
+    from rca_tpu_torch.replay import (
+        bisect_divergence,
+        load_recording,
+        mint_recording,
+        replay_serve,
+        replay_stream,
+    )
+
+    indent = None if args.compact else 2
+    if args.investigation:
+        print("rca_tpu_torch replay: --investigation is not ported yet: "
+              "it reads the investigation store (A3)", file=sys.stderr)
+        return 2
+    if not args.log:
+        raise SystemExit("replay needs a LOG path")
+    path = args.log
+    if args.mint:
+        print(json.dumps(mint_recording(path, args.mint), indent=indent))
+        return 0
+    if args.trace_out:
+        # the timeline from the spans embedded in the tick frames: the
+        # times the session had, no re-run
+        from rca_tpu_torch.observability.export import (
+            recording_trace,
+            write_chrome_trace,
+        )
+
+        trace = recording_trace(path)
+        write_chrome_trace(trace, args.trace_out)
+        print(json.dumps({
+            "trace_out": args.trace_out,
+            "trace_events": len(trace["traceEvents"]),
+        }, indent=indent))
+        return 0 if trace["traceEvents"] else 1
+    engine = _replay_engine(args.engine, args.device)
+    rec = load_recording(path)
+    if rec.mode == "serve":
+        report = replay_serve(path, engine=engine, device=args.device)
+    elif args.bisect:
+        report = bisect_divergence(
+            path, engine=engine, pipeline_depth=args.pipeline_depth,
+            dump_path=args.dump, device=args.device,
+        )
+    else:
+        report = replay_stream(
+            path, engine=engine, pipeline_depth=args.pipeline_depth,
+            seek=args.seek, ticks=args.ticks,
+            parity="rank" if args.rank_parity else "exact",
+            explain=args.explain, device=args.device,
+        )
+    print(json.dumps(report, indent=indent, default=str))
+    ok = report.get("parity_ok", not report.get("divergent", False))
+    return 0 if ok else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -490,6 +652,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "or 1): 2 overlaps each tick's device work with the "
                     "next poll's capture; rankings arrive depth-1 ticks "
                     "late")
+    sp.add_argument("--record", default=None, metavar="PATH",
+                    help="flight-record every tick to PATH (a directory); "
+                    "re-drive later with `replay PATH`")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.set_defaults(fn=cmd_stream)
@@ -540,6 +705,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="selftest chaos: kill replica 0 mid-wave and "
                     "check the steal protocol drops nothing (implies a "
                     "pool of >= 2 replicas)")
+    sp.add_argument("--record", default=None, metavar="PATH",
+                    help="flight-record every served request (load demo) "
+                    "to PATH; re-run them solo with `replay PATH`")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--compact", action="store_true")
@@ -547,6 +715,84 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument(f"--{flag}", default=None, metavar="ARG",
                         help=f"not ported yet (exits 2): {what}")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser(
+        "replay",
+        help="deterministic incident replay from a flight recording: "
+        "parity check, --seek, --bisect, --mint, --trace-out",
+    )
+    sp.add_argument("log", nargs="?", default=None,
+                    help="recording directory (or minted single file)")
+    sp.add_argument("--seek", type=int, default=None, metavar="TICK",
+                    help="replay up to TICK and attach its detail (both "
+                    "rankings, feature digests) to the report")
+    sp.add_argument("--ticks", type=int, default=None,
+                    help="replay only the first N ticks")
+    sp.add_argument("--bisect", action="store_true",
+                    help="binary-search the FIRST divergent tick and dump "
+                    "both sides' feature and ranking tensors")
+    sp.add_argument("--dump", default=None, metavar="PATH",
+                    help="where --bisect writes the divergence tensors "
+                    "(default: <log>.divergence.json)")
+    sp.add_argument("--mint", default=None, metavar="OUT",
+                    help="compact the recording into one compressed file")
+    sp.add_argument("--engine", default="auto",
+                    help="auto (= the recorded engine kind) | single | "
+                    "sharded")
+    sp.add_argument("--pipeline-depth", type=int, default=None,
+                    dest="pipeline_depth",
+                    help="replay at this depth (default: the recorded one; "
+                    "another depth compares lag-stripped serial sequences)")
+    sp.add_argument("--rank-parity", action="store_true",
+                    dest="rank_parity",
+                    help="judge ticks by hit@1 / hit@3 + Kendall-tau "
+                    "instead of bitwise digests (a replay on another "
+                    "device)")
+    sp.add_argument("--explain", action="store_true",
+                    help="require the recorded attribution digests "
+                    "(RCA_EXPLAIN=1 recordings) and match them")
+    sp.add_argument("--trace-out", default=None, dest="trace_out",
+                    metavar="PATH",
+                    help="write the recording's span timeline as Chrome "
+                    "trace JSON (recorded with RCA_TRACE=1) and exit")
+    sp.add_argument("--investigation", default=None, metavar="ID",
+                    help="not ported yet (exits 2): the investigation "
+                    "store (A3)")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_replay)
+
+    sp = sub.add_parser(
+        "chaos",
+        help="seeded chaos soak: fault injection over a synthetic world; "
+        "no uncaught exception and fault-free tick parity",
+    )
+    sp.add_argument("--fixture", default="50svc", help="<N>svc synthetic")
+    sp.add_argument("--seed", type=int, default=None,
+                    help="chaos schedule seed (default: $RCA_CHAOS_SEED "
+                    "or 7)")
+    sp.add_argument("--world-seed", type=int, default=0, dest="world_seed")
+    sp.add_argument("--fault-mix", default="crash", dest="fault_mix")
+    sp.add_argument("--ticks", type=int, default=200)
+    sp.add_argument("--top", type=int, default=5)
+    sp.add_argument("--topology-check-every", type=int, default=5,
+                    dest="topology_check_every")
+    sp.add_argument("--record", default=None, metavar="PATH",
+                    help="flight-record the chaos session to PATH and add "
+                    "the record → replay parity leg to the contract")
+    sp.add_argument("--pipeline-depth", type=int, default=None,
+                    dest="pipeline_depth",
+                    help="tick pipeline depth of the soaked session")
+    sp.add_argument("--no-federation", action="store_true",
+                    dest="no_federation",
+                    help="soak the live session alone: without it, "
+                    "--ticks >= 100 asks for the federation, autoscale "
+                    "and ingest legs, which are not ported (exits 2)")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_chaos)
     return p
 
 

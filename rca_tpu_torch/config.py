@@ -171,6 +171,12 @@ def pipeline_depth_from_env(default: int = 1) -> int:
     return depth
 
 
+def chaos_seed() -> int:
+    """``RCA_CHAOS_SEED``: the chaos soak's fault-schedule seed when the
+    ``chaos`` command gets no ``--seed`` (default 7)."""
+    return env_int("RCA_CHAOS_SEED", 7, 0, 2**31 - 1)
+
+
 def trace_enabled() -> bool:
     """``RCA_TRACE``: span-based tracing (default off: the null tracer)."""
     return _flag_on("RCA_TRACE", "0")

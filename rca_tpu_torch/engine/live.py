@@ -116,6 +116,7 @@ class LiveStreamingSession:
         topology_check_every: int = 5,
         use_watch: bool = True,
         pipeline_depth: Optional[int] = None,
+        recorder=None,
         clock=None,
         use_columnar: Optional[bool] = None,
         tracer=None,
@@ -127,7 +128,12 @@ class LiveStreamingSession:
         each poll serially; N >= 2 keeps N-1 ticks in flight (the first
         N-1 polls are pipeline-fill ticks carrying the last known
         ranking).  ``engine`` defaults to :func:`make_engine` on the CUDA
-        devices.  ``clock`` is the injectable monotonic timer.
+        devices.  ``recorder`` (a
+        :class:`rca_tpu_torch.replay.recorder.Recorder`) flight-records the
+        session: the client is wrapped before the bootstrap capture, so
+        every call it answers lands in the log, and each poll seals a tick
+        frame with the delivered ranking.  ``clock`` is the injectable
+        monotonic timer.
         ``use_columnar`` (default ``RCA_COLUMNAR``) captures through the
         client's columnar feed where it serves one.  ``explain`` (default
         ``RCA_EXPLAIN``) attributes every delivered ranking."""
@@ -155,20 +161,37 @@ class LiveStreamingSession:
         self._explain = (
             explain_enabled() if explain is None else bool(explain)
         )
+        self._use_columnar = (
+            columnar_enabled() if use_columnar is None else bool(use_columnar)
+        )
+        self.recorder = recorder
+        if recorder is not None:
+            # wrap BEFORE the bootstrap capture: the recording replays the
+            # session from its construction
+            recorder.begin_session({
+                "namespace": namespace, "k": int(k),
+                "topology_check_every": int(max(1, topology_check_every)),
+                "use_watch": bool(use_watch),
+                "pipeline_depth": self.pipeline_depth,
+                "use_columnar": self._use_columnar,
+                "explain": self._explain,
+            })
+            client = recorder.wrap_client(client)
         self.client = client
         self._inflight: "collections.deque" = collections.deque()
         self.pipeline_flushed = 0  # in-flight ticks dropped by degradation
         self._extractor = IncrementalExtractor()
         # columnar capture: the state carries the table mirror, its cursor
         # and the log-text cache across polls
-        self._use_columnar = (
-            columnar_enabled() if use_columnar is None else bool(use_columnar)
-        )
         self._colstate = None
         # the compile cache (the kernel build directory) at session start;
         # the first post-tick health record adds what this session built
         self._compile_cache = compile_cache_status()
         self.engine = engine if engine is not None else make_engine()
+        if recorder is not None:
+            # forensics, and replay's default engine kind
+            recorder.begin_session({"engine": type(self.engine).__name__,
+                                    "device": str(self.engine.device)})
         self.topology_check_every = max(1, int(topology_check_every))
         self._polls = 0
         self.resyncs = -1  # first _resync is initialization, not a resync
@@ -460,6 +483,8 @@ class LiveStreamingSession:
         on the card when the ticks fail on both of its rungs."""
         self._polls += 1
         t_poll0 = self._clock()
+        if self.recorder is not None:
+            self.recorder.begin_tick(self._polls)
         try:
             out = self._poll_inner()
             out["degraded"] = bool(out.pop("_tick_degraded", False))
@@ -485,6 +510,8 @@ class LiveStreamingSession:
             self._warm_marked = True
         out["health"] = self._health_record(out)
         self._trace_tick(out, t_poll0)
+        if self.recorder is not None:
+            self.recorder.end_tick(out, features=self._features)
         return out
 
     def _explain_tick(self, out: Dict[str, Any]) -> None:

@@ -26,8 +26,10 @@ Resilience contract:
 
 The loop body lives in :meth:`ServeLoop.run_once` so policy tests can
 drive the scheduler single-threaded with a fake clock;
-:meth:`ServeLoop.start` runs the same body on a daemon worker.  Flight
-recording (``recorder=``) is not ported yet and raises.
+:meth:`ServeLoop.start` runs the same body on a daemon worker.  With
+``recorder=`` every ``ok`` response writes one self-contained ``serve``
+frame (the request's inputs and its ranking), which ``replay`` re-runs
+solo.
 """
 
 from __future__ import annotations
@@ -89,8 +91,6 @@ class ServeLoop:
         tracer=None,
         kernelscope: Optional[bool] = None,
     ):
-        if recorder is not None:
-            raise NotImplementedError("record/replay is not ported yet")
         self.config = config or ServeConfig.from_env()
         self.clock = clock
         # kernelscope: the serve plane's recompile watchdog, its window
@@ -114,7 +114,8 @@ class ServeLoop:
             dispatcher.metrics = self.metrics
         # response delivery is shared with the serve pool: the sink owns
         # the last-known ladder and the exactly-once accounting
-        self.sink = CompletionSink(self.metrics, clock, tracer=self.tracer)
+        self.sink = CompletionSink(self.metrics, clock, tracer=self.tracer,
+                                   recorder=recorder)
         self.worker = ReplicaWorker(
             0, config=self.config, clock=clock, sink=self.sink,
             metrics=self.metrics, dispatcher=dispatcher, queue=self.queue,
@@ -128,6 +129,16 @@ class ServeLoop:
         )
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self.recorder = recorder
+        if recorder is not None:
+            engine = getattr(self.dispatcher, "engine", None)
+            recorder.begin_session({
+                "engine": type(engine).__name__,
+                "device": str(getattr(engine, "device", None)),
+                "max_batch": self.config.max_batch,
+                "max_wait_us": self.config.max_wait_us,
+                "queue_cap": self.config.queue_cap,
+            })
 
     @property
     def dispatcher(self) -> BatchDispatcher:

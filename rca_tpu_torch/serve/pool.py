@@ -82,10 +82,9 @@ class ServePool:
         omitted, the replica set comes from ``config.replica_specs()``
         (``RCA_SERVE_REPLICAS`` / ``RCA_SERVE_REPLICA_MIX``) over
         ``devices`` (default: the visible CUDA devices).  ``dispatchers``
-        (tests) builds one stub replica per entry instead.  Flight
-        recording (``recorder=``) is not ported yet and raises."""
-        if recorder is not None:
-            raise NotImplementedError("record/replay is not ported yet")
+        (tests) builds one stub replica per entry instead.  ``recorder``
+        writes one ``serve`` frame per ``ok`` response, whichever replica
+        served it."""
         self.config = config or ServeConfig.from_env()
         self.clock = clock
         self.queue = RequestQueue(self.config.queue_cap, clock=clock)
@@ -99,7 +98,8 @@ class ServePool:
         # context, the router records queue/steal spans, replicas record
         # batch/dispatch/fetch, the sink closes the root
         self.tracer = tracer if tracer is not None else default_tracer()
-        self.sink = CompletionSink(self.metrics, clock, tracer=self.tracer)
+        self.sink = CompletionSink(self.metrics, clock, tracer=self.tracer,
+                                   recorder=recorder)
         self.steal = bool(self.config.steal)
         self._route_lock = make_lock("ServePool._route_lock")
         self._home: dict = {}          # GraphKey -> replica_id (sticky)
@@ -130,6 +130,15 @@ class ServePool:
                 queue=self.queue,
                 tracer=self.tracer,
             ))
+        self.recorder = recorder
+        if recorder is not None:
+            recorder.begin_session({
+                "replicas": len(self.replicas),
+                "mix": [r.kind for r in self.replicas],
+                "max_batch": self.config.max_batch,
+                "max_wait_us": self.config.max_wait_us,
+                "queue_cap": self.config.queue_cap,
+            })
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "ServePool":

@@ -40,7 +40,11 @@ from rca_tpu_torch.observability.spans import (
     default_tracer,
     device_annotation,
 )
-from rca_tpu_torch.resilience.policy import CircuitBreaker, record_fault
+from rca_tpu_torch.resilience.policy import (
+    CircuitBreaker,
+    record_fault,
+    suppressed,
+)
 from rca_tpu_torch.serve.batcher import ShapeBucketBatcher
 from rca_tpu_torch.serve.dispatcher import BatchDispatcher, BatchHandle
 from rca_tpu_torch.serve.request import GraphKey, ServeRequest, ServeResponse
@@ -72,12 +76,19 @@ class CompletionSink:
       protocol never re-serves an already-answered request;
     - **the degradation ladder's memory**: last-known rankings per graph
       key, shared pool-wide so ANY replica can serve a stale answer for a
-      graph another replica computed.
+      graph another replica computed;
+    - **the flight recorder's serve frames** (``recorder``): an ``ok``
+      response whose completion won writes one frame under the sink's
+      lock, so N replica workers write one frame per request.  A failed
+      frame is a recorded fault (``serve.record``), never a failed
+      response.
     """
 
-    def __init__(self, metrics, clock: Callable[[], float], tracer=None):
+    def __init__(self, metrics, clock: Callable[[], float], tracer=None,
+                 recorder=None):
         self.metrics = metrics
         self.clock = clock
+        self.recorder = recorder
         # the sink is where every request terminates exactly once, so the
         # root ``serve.request`` span and the duration sample belong here
         self.tracer = tracer if tracer is not None else default_tracer()
@@ -153,12 +164,15 @@ class CompletionSink:
                 }
         queue_ms = max(0.0, (dispatched_at - req.enqueued_at) * 1e3)
         self.metrics.answered(req.tenant, queue_ms)
-        self._complete(req, ServeResponse(
+        won = self._complete(req, ServeResponse(
             status="ok", request_id=req.request_id, tenant=req.tenant,
             ranked=ranked, queue_ms=round(queue_ms, 3), batch_size=width,
             deadline_missed=req.expired(self.clock()),
             result=result, provenance=provenance,
         ))
+        if won and self.recorder is not None:
+            with suppressed("serve.record"), self._lock:
+                self.recorder.record_serve(req, ranked)
 
     def shed(self, req: ServeRequest, detail: str) -> None:
         self.metrics.shed(req.tenant)

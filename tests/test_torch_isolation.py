@@ -12,10 +12,12 @@
   columnar capture, a native scan, the live columnar feed and an analysis
   through ``K8sApiClient()`` with no cluster, a serve selftest (the
   loop and the pool, chaos and a dense + sharded mix) and a coordinator
-  with ``serve=``; the native scanner loaded is the one built from
-  ``rca_tpu_torch/native/``;
+  with ``serve=``, a flight-recorded stream, chaos soak and serve load
+  with their replays, the mint and the bisect; the native scanner loaded
+  is the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
-  included) and the streaming sessions raise (or exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
+  included), the streaming sessions, ``replay`` and ``chaos`` raise (or
+  exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
   exits non-zero with no verdict line;
 - on a card (tests marked ``cuda``) the engine runs through the kernels
   and agrees with its own CPU run.
@@ -299,6 +301,66 @@ def test_serve_selftest_and_coordinator_serve_load_no_jax():
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
+_REPLAY_PROBE = """
+import json, os, runpy, sys, tempfile
+import numpy as np
+from rca_tpu_torch import GraphEngine
+from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+from rca_tpu_torch.replay import (Recorder, bisect_divergence,
+                                  mint_recording, replay_serve)
+from rca_tpu_torch.resilience.chaos import run_chaos_soak
+from rca_tpu_torch.serve import ServeClient, ServeLoop
+tmp = tempfile.mkdtemp()
+codes = []
+for argv in (["stream", "--fixture", "50svc", "--ticks", "6", "--interval",
+              "0", "--record", os.path.join(tmp, "stream")],
+             ["replay", os.path.join(tmp, "stream"), "--compact"]):
+    sys.argv = ["rca_tpu_torch", *argv, "--device", "cpu"]
+    try:
+        runpy.run_module("rca_tpu_torch", run_name="__main__")
+    except SystemExit as exc:
+        codes.append(exc.code)
+soak = run_chaos_soak(
+    lambda: synthetic_cascade_world(20, n_roots=1, seed=0), "synthetic",
+    seed=7, ticks=30, engine_factory=lambda: GraphEngine(device="cpu"),
+    record_path=os.path.join(tmp, "soak"))
+minted = mint_recording(os.path.join(tmp, "soak"),
+                        os.path.join(tmp, "soak.rcz"))
+bisect = bisect_divergence(os.path.join(tmp, "soak.rcz"), device="cpu")
+rec = Recorder(os.path.join(tmp, "serve"), mode="serve")
+case = synthetic_cascade_arrays(60, n_roots=1, seed=1)
+with ServeLoop(engine=GraphEngine(device="cpu"), recorder=rec) as loop:
+    resps = [ServeClient(loop).submit(case.features, case.dep_src,
+                                      case.dep_dst).result(60)
+             for _ in range(3)]
+rec.close()
+served = replay_serve(os.path.join(tmp, "serve"), device="cpu")
+print(json.dumps({"codes": codes, "soak": soak["replay"]["parity_ok"],
+                  "minted": minted["ticks"], "bisect": bisect["divergent"],
+                  "served": [served["parity_ok"],
+                             served["requests_recorded"]],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_record_replay_and_chaos_load_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _REPLAY_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["codes"] == [0, 0]
+    assert out["soak"] and out["minted"] == 30 and not out["bisect"]
+    assert out["served"] == [True, 3]
+    for module in ("replay.format", "replay.recorder", "replay.replayer",
+                   "replay.source", "resilience.chaos",
+                   "observability.export"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
 def _probe_env():
     return {**os.environ, "RCA_EXPLAIN": "1", "RCA_KERNEL_CACHE": "off"}
 
@@ -421,6 +483,21 @@ def test_streaming_without_device_raises_on_a_host_without_cuda(no_cuda):
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert '"tick"' not in proc.stdout
+
+
+def test_replay_and_chaos_without_device_fail_on_a_host_without_cuda(
+        no_cuda):
+    tape = str(ROOT / "tests" / "corpus_torch" /
+               "chaos-20svc-seed11.torch.rcz")
+    for argv in (["replay", tape], ["chaos", "--fixture", "20svc",
+                                    "--ticks", "5"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "rca_tpu_torch", *argv, "--compact"],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=180,
+        )
+        assert proc.returncode != 0, argv
+        assert "CUDA" in proc.stderr, argv
+        assert '"parity_ok"' not in proc.stdout, argv
 
 
 def test_engine_rejects_an_unsupported_device():

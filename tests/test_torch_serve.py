@@ -501,9 +501,23 @@ def test_loop_shutdown_resolves_everything():
     assert all(r.done() for r in reqs)
 
 
-def test_loop_rejects_a_recorder():
-    with pytest.raises(NotImplementedError, match="record/replay"):
-        ServeLoop(dispatcher=StubDispatcher(), recorder=object())
+def test_loop_rejects_a_recorder(tmp_path):
+    """The loop used to refuse a recorder; it now takes one, writes its
+    knobs into the header and one ``serve`` frame per ``ok`` response."""
+    from rca_tpu_torch.replay import Recorder, load_recording
+
+    rec = Recorder(str(tmp_path / "rec"), mode="serve")
+    loop = ServeLoop(dispatcher=StubDispatcher(), recorder=rec,
+                     config=ServeConfig(max_batch=4))
+    reqs = [_req(seed=i) for i in range(3)]
+    assert all(loop.submit(r) for r in reqs)
+    _drain(loop)
+    rec.close()
+    assert all(r.result(timeout=5).status == "ok" for r in reqs)
+    parsed = load_recording(str(tmp_path / "rec"))
+    assert parsed.session_info["max_batch"] == 4
+    assert [fr["request_id"] for fr in parsed.serve] == \
+        [r.request_id for r in reqs]
 
 
 def test_served_request_records_its_trace():
@@ -1022,8 +1036,7 @@ def test_serve_cli_selftest_and_load():
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--listen", "item 8"), ("--federation", "item 12"),
-    ("--autoscale", "item 12"), ("--record", "item 7"),
+    ("--listen", "A9"), ("--federation", "A14"), ("--autoscale", "A14"),
 ])
 def test_serve_cli_unported_modes_exit_2(capsys, flag, item):
     from rca_tpu_torch.cli import main

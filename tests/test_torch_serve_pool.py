@@ -229,9 +229,17 @@ def test_pool_without_a_card_raises(monkeypatch):
         ServePool(config=ServeConfig(replicas=2))
 
 
-def test_pool_rejects_a_recorder():
-    with pytest.raises(NotImplementedError, match="record/replay"):
-        ServePool(dispatchers=[StubDispatcher()], recorder=object())
+def test_pool_rejects_a_recorder(tmp_path):
+    """The pool used to refuse a recorder; it now takes one and writes
+    its replica mix into the header."""
+    from rca_tpu_torch.replay import Recorder, load_recording
+
+    rec = Recorder(str(tmp_path / "rec"), mode="serve")
+    ServePool(dispatchers=[StubDispatcher(), StubDispatcher()],
+              recorder=rec)
+    rec.close()
+    info = load_recording(str(tmp_path / "rec")).session_info
+    assert info["replicas"] == 2 and info["mix"] == ["stub", "stub"]
 
 
 # -- routing policy (fake clock, stub devices) ---------------------------------
