@@ -210,7 +210,28 @@ verdict line:
    (``tests/corpus_torch/``) replayed on the card under rank parity.  No
    recording leaves a ``serve.record`` or ``live.*`` fault; tapes go to a
    temporary directory, removed after;
-16. times from CUDA events (median of 20 samples after warm-up): each
+16. the ``quantized`` and ``doubling`` registry rows at both tiers beside
+   ``kernels`` and ``torch`` (``RCA_KERNEL`` names each; the card's race
+   leaves them out): one restaged ``analyze_case`` per row counted from
+   0 (``kernels`` 1 / 1 / 8 / 8; ``doubling`` 1 / 1 / 0 / 0 where it
+   engages, or a plan that says ``kernels`` and 1 / 1 / 8 / 8 where the
+   frontier cap declines the graph, and it must engage at 2047;
+   ``quantized`` and ``torch`` none), doubling's ``u`` bitwise the
+   ``kernels`` row's with scores at rtol 1e-5 / atol 1e-6 and the same
+   top-k, ``quantized`` in rank parity with ``kernels``, every row
+   bitwise itself over two runs; each row's ``analyze_arrays`` wall
+   (restaged, median of 20); at 2047 an 8-lane ``analyze_batch`` and a
+   streaming session under ``RCA_KERNEL=doubling``, bitwise their solo
+   analyses;
+17. training at the ``train`` command's defaults: the first 5 Adam
+   iterations on the card against the CPU run of the same config (losses
+   at rtol 1e-4, raw values at rtol 1e-4 / atol 1e-6), the 150-iteration
+   fit on the card (ms per iteration, the wall, the first and last loss),
+   ``shippability_report`` of its weights on the card equal as a dict to
+   the same report on the CPU, and ``python -m rca_tpu_torch train
+   --iters 20 --out <tmp>.json --allow-unshippable`` (exit 0, its
+   checkpoint loaded by ``GraphEngine()`` under ``RCA_WEIGHTS``);
+18. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -239,7 +260,8 @@ and the launches counted on a delta tick, a quiet tick and an 8-row
 resident delta request at 49,999 services, ``evidence_front`` also its
 persisting launches there; the four tick kernels with
 ``replay_launches``, over the 20 replayed ticks of the 10,000-service
-tape);
+tape, and ``variant_launches``, per analysis on the ``doubling`` and
+``quantized`` rows at each tier);
 the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
@@ -727,7 +749,11 @@ def main(argv) -> int:
     # -- 15. flight recording, replay and the chaos soak ------------------
     record["replay"] = replay_phase(cases, smi)
 
-    # -- 16. times ---------------------------------------------------------
+    # -- 16-17. the quantized and doubling rows; training ------------------
+    record["variants"] = variants_phase(cases, shapes, smi)
+    record["train"] = train_phase(smi)
+
+    # -- 18. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -942,6 +968,11 @@ def main(argv) -> int:
             kernels[-1]["replay_launches"] = {
                 "ticks": 20, "total": record["replay"]["live_10k"][
                     "launches_per_tick"]["total"][name]}
+            # launches per analysis on the doubling and quantized rows
+            kernels[-1]["variant_launches"] = {
+                f"{row}_{tier}": record["variants"][tier]["launches"][row][
+                    name] for tier in map(str, cases)
+                for row in ("doubling", "quantized")}
         if name in BATCH_LAUNCHES:
             batch = record["batch"]
             kernels[-1].update(
@@ -3317,6 +3348,265 @@ def replay_phase(cases, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     phase("replay", seconds=out["seconds"])
+    return out
+
+
+# -- the quantized and doubling rows, and training ---------------------------
+
+VARIANT_ROWS = ("kernels", "doubling", "quantized", "torch")
+MAIN_LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
+                 "seg_up_step": 8, "seg_down_step": 8, "evidence_front": 1,
+                 "seg_contrast_step": 1}
+DOUBLING_LAUNCHES = {**MAIN_LAUNCHES, "seg_up_step": 0, "seg_down_step": 0}
+NO_LAUNCHES = {name: 0 for name in MAIN_LAUNCHES}
+TRAIN_MODES = ("standard", "crashing_victims", "correlated_noise",
+               "adversarial")
+
+
+def _row_env(row: str):
+    """``RCA_KERNEL`` naming ``row`` while the block runs; for ``kernels``
+    (the row the card's race elects; the registry phase left the knob
+    unset) nothing."""
+    return mock.patch.dict(os.environ,
+                           {} if row == "kernels" else {"RCA_KERNEL": row})
+
+
+def _same_ranked(got, want) -> bool:
+    return [(r["component"], r["score"]) for r in got] == [
+        (r["component"], r["score"]) for r in want]
+
+
+def variants_phase(cases, shapes, smi: str) -> dict:
+    """The ``quantized`` and ``doubling`` rows on the card, at both tiers,
+    beside ``kernels`` and ``torch``: ``GraphEngine().analyze_case`` on
+    each row (restaged), the launch counters set to 0 just before one
+    analysis.  ``kernels`` launches 1 / 1 / 8 / 8; ``doubling`` launches
+    ``evidence_front`` and ``seg_contrast_step`` once and no seg step, or,
+    where the frontier cap declines the graph, its plan says ``kernels``
+    and it launches 1 / 1 / 8 / 8 (the 2047 tier must engage); its ``u``
+    is bitwise the ``kernels`` row's, its scores within rtol 1e-5 / atol
+    1e-6, its top-k identical.  ``quantized`` launches none of the port's
+    kernels (its reference has no Pallas body) and keeps rank parity with
+    ``kernels``; ``torch`` launches none either.  Each row is bitwise
+    equal to itself over two runs.  Then ``analyze_arrays`` restaged,
+    median of 20, per row, and at 2047 one 8-lane ``analyze_batch`` and
+    one streaming session (a full tick, a delta tick) under
+    ``RCA_KERNEL=doubling``, each bitwise equal to its solo analysis."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.quantized import rank_parity
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    out = {}
+    for n, case in cases.items():
+        n_pad, e_pad = shapes[n]
+        args = (case.features, case.dep_src, case.dep_dst, case.names)
+        res, counts, plans, walls = {}, {}, {}, {}
+        for row in VARIANT_ROWS:
+            with _row_env(row):
+                eng = GraphEngine(resident=False)
+                eng.analyze_case(case)          # the row's layouts, warm
+                torch.cuda.synchronize()
+                reset_launches()
+                first = eng.analyze_case(case)
+                counts[row] = dict(LAUNCHES)
+                again = eng.analyze_case(case)
+                plans[row] = eng.plan_for(n_pad, e_pad, case.dep_src,
+                                          case.dep_dst).kernel
+                walls[row] = host_ms(lambda: eng.analyze_arrays(*args))
+            if not np.array_equal(first.full_diagnostics(),
+                                  again.full_diagnostics()):
+                fail(f"the {row} row is not bitwise equal to itself at {n}")
+            res[row] = first
+        engaged = plans["doubling"] == "doubling"
+        want = {"kernels": MAIN_LAUNCHES,
+                "doubling": DOUBLING_LAUNCHES if engaged else MAIN_LAUNCHES,
+                "quantized": NO_LAUNCHES, "torch": NO_LAUNCHES}
+        for row in VARIANT_ROWS:
+            if counts[row] != want[row]:
+                fail(f"{row} row launched {counts[row]} at {n}, want "
+                     f"{want[row]} (plan {plans[row]})")
+        if not engaged and (n == TIERS[0][0] or plans["doubling"]
+                            != "kernels"):
+            fail(f"doubling declined at {n}: plan {plans['doubling']}")
+        kern, dbl = res["kernels"], res["doubling"]
+        if not np.array_equal(dbl.upstream, kern.upstream):
+            fail(f"doubling u not bitwise the kernels row's at {n}")
+        if not np.allclose(dbl.score, kern.score, rtol=1e-5, atol=1e-6):
+            fail(f"doubling scores disagree with the kernels row at {n}")
+        if dbl.top_components() != kern.top_components():
+            fail(f"doubling top-k {dbl.top_components()} vs "
+                 f"{kern.top_components()} at {n}")
+        parity = rank_parity(kern.ranked, res["quantized"].ranked)
+        if not parity["ok"]:
+            fail(f"quantized rank parity at {n}: {parity}")
+        entry = {
+            "doubling": "engaged" if engaged else "declined (frontier cap)",
+            "plans": plans, "launches": counts,
+            "launches_per_analysis": {r: sum(c.values())
+                                      for r, c in counts.items()},
+            "analyze_arrays_ms": walls,
+            "doubling_score_max_abs_err": float(
+                np.abs(dbl.score - kern.score).max()),
+            "quantized_rank_parity": parity,
+            "quantized_score_max_abs_err": float(
+                np.abs(res["quantized"].score - kern.score).max()),
+            "top": kern.top_components()}
+        if n == TIERS[0][0]:
+            entry.update(_doubling_surfaces(case))
+        out[str(n)] = entry
+        phase("variants", services=n, smi=smi, **entry)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _doubling_surfaces(case) -> dict:
+    """Under ``RCA_KERNEL=doubling``: 8 lanes of ``analyze_batch`` (4 rows
+    changed per lane, a NaN in lane 3) and a streaming session (a full
+    tick, then a delta tick), each bitwise equal to its solo analysis."""
+    import numpy as np
+    from rca_tpu_torch.engine import GraphEngine, StreamingSession
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(12)
+    batch = np.repeat(case.features[None], BATCH, axis=0)
+    for b in range(BATCH):
+        batch[b, rng.integers(0, case.n, 4)] = rng.uniform(0, 1, (4, C))
+    batch[3, 9, 1] = np.nan
+    args = (case.dep_src, case.dep_dst, case.names)
+    with _row_env("doubling"):
+        eng = GraphEngine(resident=False)
+        reset_launches()
+        lanes = eng.analyze_batch(batch, *args)
+        batch_launches = dict(LAUNCHES)
+        for b, lane in enumerate(lanes):
+            solo = eng.analyze_arrays(batch[b], *args)
+            if not np.array_equal(lane.full_diagnostics(),
+                                  solo.full_diagnostics()):
+                fail(f"doubling batch lane {b} is not its solo analysis")
+        sess = StreamingSession(case.names, case.dep_src, case.dep_dst,
+                                num_features=C, engine=eng, k=5)
+        if sess.kernel_path != "doubling":
+            fail(f"the doubling session runs {sess.kernel_path}")
+        sess.set_all(case.features)
+        ticks = [sess.tick()]
+        changed = case.features.copy()
+        changed[17] = np.clip(changed[17] + 0.5, 0, 1)
+        sess.update(17, changed[17])
+        ticks.append(sess.tick())
+        for tick, feats in zip(ticks, (case.features, changed)):
+            solo = eng.analyze_arrays(feats, *args, k=5)
+            if not _same_ranked(tick["ranked"], solo.ranked):
+                fail("a doubling tick is not its solo analysis")
+    if batch_launches != DOUBLING_LAUNCHES:
+        fail(f"the doubling batch launched {batch_launches}")
+    return {"batch_lanes": BATCH, "batch_launches": batch_launches,
+            "stream_ticks": len(ticks), "batch_and_stream_bitwise": True}
+
+
+def train_phase(smi: str) -> dict:
+    """Training on the card at the ``train`` command's defaults (256
+    services, 64 cases, 150 iterations, the four modes): the first 5
+    iterations' losses and raw values within rtol 1e-4 (atol 1e-6 on the
+    raw values) of the port's CPU run of the same config; the whole fit on
+    the card (ms per iteration, the wall, the first and last loss);
+    ``shippability_report`` of the card's fitted weights on the card
+    (``kernels`` row) equal as a dict to the same report on
+    ``GraphEngine(device="cpu")``; then ``python -m rca_tpu_torch train
+    --iters 20 --out <tmp>.json --allow-unshippable`` exits 0 and
+    ``GraphEngine()`` under ``RCA_WEIGHTS`` loads its checkpoint."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.runner import resolve_device
+    from rca_tpu_torch.engine.train import (
+        TrainConfig,
+        load_params,
+        make_dataset,
+        shippability_report,
+        stage_dataset,
+        train,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(modes=TRAIN_MODES)
+    short = dataclasses.replace(cfg, iters=5)
+    cpu_raw, card_raw = [], []
+    _, cpu_hist = train(short, device="cpu", history_raw=cpu_raw)
+    _, card_hist = train(short, history_raw=card_raw)
+    if not np.allclose(card_hist, cpu_hist, rtol=1e-4, atol=0.0):
+        fail(f"card losses {card_hist} vs CPU {cpu_hist}")
+    raw_err = 0.0
+    for card_it, cpu_it in zip(card_raw, cpu_raw):
+        for key, value in card_it.items():
+            if not np.allclose(value, cpu_it[key], rtol=1e-4, atol=1e-6):
+                fail(f"raw {key} after {len(card_raw)} iterations: card "
+                     f"{value} vs CPU {cpu_it[key]}")
+            raw_err = max(raw_err, float(np.max(np.abs(
+                value - cpu_it[key]) / np.maximum(np.abs(cpu_it[key]),
+                                                  1e-6))))
+    t0 = time.perf_counter()
+    stage_dataset(*make_dataset(cfg), resolve_device(None))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, hist = train(cfg)
+    fit_s = time.perf_counter() - t0
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        fail(f"the card fit did not lower its loss: {hist[0]} -> {hist[-1]}")
+    t0 = time.perf_counter()
+    card_report = shippability_report(params)
+    gate_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_report = shippability_report(params, device="cpu")
+    gate_cpu_s = time.perf_counter() - t0
+    if card_report != cpu_report:
+        fail(f"the gate on the card {card_report} vs on the CPU "
+             f"{cpu_report}")
+    tmp = tempfile.mkdtemp(prefix="rca_train_")
+    try:
+        path = os.path.join(tmp, "weights.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rca_tpu_torch", "train", "--iters", "20",
+             "--out", path, "--allow-unshippable"], capture_output=True,
+            text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"python -m rca_tpu_torch train exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        cli = json.loads(proc.stdout.strip().splitlines()[-1])
+        with mock.patch.dict(os.environ, {"RCA_WEIGHTS": path}):
+            loaded = GraphEngine().params
+        if cli["checkpoint"] != path or loaded != load_params(path):
+            fail(f"RCA_WEIGHTS did not load the train checkpoint: {cli}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {
+        "config": {"services": cfg.n_services, "cases": cfg.n_cases,
+                   "iters": cfg.iters, "modes": list(cfg.modes)},
+        "first5_losses_card": card_hist, "first5_losses_cpu": cpu_hist,
+        "first5_raw_max_rel_err": raw_err,
+        "fit_s": fit_s, "setup_s": setup_s,
+        "ms_per_iter": (fit_s - setup_s) * 1e3 / cfg.iters,
+        "first_loss": hist[0], "last_loss": hist[-1],
+        "decay": params.decay, "explain_strength": params.explain_strength,
+        "impact_bonus": params.impact_bonus,
+        "ships": card_report["ships"],
+        "holdout_adversarial_hit1": card_report["holdout_adversarial_hit1"],
+        "gate_card_s": gate_card_s, "gate_cpu_s": gate_cpu_s,
+        "gate_equal_cpu": True,
+        "cli": {"seconds": cli_s, "final_loss": cli["final_loss"],
+                "ships": cli["shippability"]["ships"],
+                "rca_weights_loaded": True},
+        "seconds": time.perf_counter() - t_phase}
+    phase("train", smi=smi, **out)
     return out
 
 

@@ -23,7 +23,14 @@
   --record``) and check parity tick for tick or request for request;
   ``--seek``, ``--bisect``, ``--mint`` and ``--trace-out``;
 - ``python -m rca_tpu_torch chaos``: the seeded chaos soak of the live
-  session (five fault classes), exit 0 only when its contract holds.
+  session (five fault classes), exit 0 only when its contract holds;
+- ``python -m rca_tpu_torch train``: fit the propagation weights on
+  synthetic cascades, gate them (``shippability_report``) and write the
+  JSON checkpoint that ``RCA_WEIGHTS`` loads.
+
+``RCA_KERNEL`` forces a kernel registry row for ``analyze``,
+``hypotheses`` and ``stream``: ``torch``, ``kernels``, ``quantized`` or
+``doubling``.
 
 Fixtures: ``--fixture 5svc`` (the faulted hermetic world) or ``--fixture
 <N>svc`` (a synthetic cascade, e.g. ``50svc``, ``2000svc``); omit
@@ -563,6 +570,48 @@ def cmd_replay(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_train(args) -> int:
+    """Fit, gate, save: the reference's ``train`` with its JSON keys and
+    exit codes.  The gate runs only when a checkpoint is asked for, and a
+    checkpoint that fails it is refused unless ``--allow-unshippable``."""
+    from rca_tpu_torch.engine.train import (
+        TrainConfig,
+        hit_at_1,
+        save_params,
+        shippability_report,
+        train,
+    )
+
+    cfg = TrainConfig(
+        n_services=args.services, n_cases=args.cases,
+        iters=args.iters, lr=args.lr, seed=args.seed,
+        modes=tuple(args.modes.split(",")),
+    )
+    params, history = train(cfg, device=args.device)
+    acc = hit_at_1(params, cfg, device=args.device)
+    report = (shippability_report(params, device=args.device)
+              if args.out else None)
+    saved = None
+    if args.out:
+        if report["ships"] or args.allow_unshippable:
+            save_params(params, args.out)
+            saved = args.out
+        else:
+            print("refusing to save: shippability gate failed "
+                  "(--allow-unshippable overrides)", file=sys.stderr)
+    print(json.dumps({
+        "final_loss": round(history[-1], 5),
+        "initial_loss": round(history[0], 5),
+        "holdout_hit_at_1": acc,
+        "checkpoint": saved,
+        "decay": round(params.decay, 4),
+        "explain_strength": round(params.explain_strength, 4),
+        "impact_bonus": round(params.impact_bonus, 4),
+        "shippability": report,
+    }))
+    return 0 if (report is None or report["ships"] or saved) else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rca_tpu_torch",
@@ -793,6 +842,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--compact", action="store_true")
     sp.set_defaults(fn=cmd_chaos)
+
+    sp = sub.add_parser("train", help="fit propagation weights on "
+                        "synthetic cascades; save a JSON checkpoint")
+    sp.add_argument("--services", type=int, default=256)
+    sp.add_argument("--cases", type=int, default=64)
+    sp.add_argument("--iters", type=int, default=150)
+    sp.add_argument("--lr", type=float, default=0.05)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--modes", default="standard,crashing_victims,"
+                    "correlated_noise,adversarial",
+                    help="comma-separated cascade modes for the dataset")
+    sp.add_argument("--out", default=None,
+                    help="checkpoint file, rca-weights-v1 JSON (loadable "
+                    "via RCA_WEIGHTS)")
+    sp.add_argument("--allow-unshippable", action="store_true",
+                    help="save the checkpoint even when the shippability "
+                    "gate fails (research use)")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.set_defaults(fn=cmd_train)
     return p
 
 

@@ -110,9 +110,10 @@ def explain_topm() -> int:
     return env_int("RCA_EXPLAIN_TOPM", 8, 1, 64)
 
 
-#: the kernel registry's rows: ``torch`` (plain PyTorch ops, the default)
-#: and ``kernels`` (the hand-written CUDA kernels)
-KERNELS = ("torch", "kernels")
+#: the kernel registry's rows: ``torch`` (plain PyTorch ops, the default),
+#: ``kernels`` (the hand-written CUDA kernels), ``quantized`` (bf16
+#: evidence, int8 messages) and ``doubling`` (log-depth operator doubling)
+KERNELS = ("torch", "kernels", "quantized", "doubling")
 
 
 def kernel_cache_path(platform: str) -> Optional[str]:
@@ -134,8 +135,8 @@ def kernel_cache_path(platform: str) -> Optional[str]:
 
 
 def forced_kernel() -> Optional[str]:
-    """``RCA_KERNEL``: the registry row every shape engages (``torch`` or
-    ``kernels``), or None to let the registry decide."""
+    """``RCA_KERNEL``: the registry row every shape engages (a
+    :data:`KERNELS` member), or None to let the registry decide."""
     return env_str("RCA_KERNEL", "", choices=("",) + KERNELS,
                    lower=True) or None
 

@@ -53,7 +53,8 @@ from rca_tpu_torch.engine.segscan import (
     as_float32,
     check_step,
     launch_step,
-    segscan_plain,
+    scatter_max,
+    segment_totals,
 )
 from rca_tpu_torch.features.schema import SvcF
 from rca_tpu_torch.kernels import count_launch
@@ -114,11 +115,7 @@ def error_source_excess(e: torch.Tensor, dep_src: torch.Tensor,
     max's identity here).  The max over the zero-initialised rows and the
     relu split a tie's gradient evenly, as ``.at[].max`` and
     ``jnp.maximum`` do."""
-    dep_e = e[..., dep_dst]
-    dep_max = torch.zeros_like(e).scatter_reduce(
-        -1, dep_src.expand(dep_e.shape), dep_e, reduce="amax",
-        include_self=True,
-    )
+    dep_max = scatter_max(e, dep_src, e[..., dep_dst])
     return torch.maximum(e - dep_max, e.new_zeros(()))
 
 
@@ -291,9 +288,8 @@ def seg_contrast_step_shard_plain(a_raw, e_full, weight: float,
     src-sorted edges, then :func:`fold_error_contrast` of ``relu(e[base +
     s] - dep_max)`` into the shard's own ``a_raw``."""
     n_seg = seg.ends.shape[0]
-    vals = seg.mask * e_full[..., seg.other_sorted]
-    s = segscan_plain(vals, seg.flags, "max")
-    dep_max = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    dep_max = segment_totals(seg.mask * e_full[..., seg.other_sorted], seg,
+                             "max")
     e_own = e_full[..., base:base + n_seg]
     return fold_error_contrast(
         a_raw, torch.maximum(e_own - dep_max, e_own.new_zeros(())), weight)

@@ -2,8 +2,10 @@
 
 The port's copy of ``PropagationParams``/``default_params`` (from the JAX
 package's ``engine/propagate.py``), the JSON checkpoint loader and the
-packaged default checkpoint (``engine/train.py``), and ``resolve_params``
-(``engine/runner.py``).  ``default_weights.json`` here is a byte copy of
+packaged default checkpoint (``engine/train.py``), ``resolve_params``
+(``engine/runner.py``), and the bridges from the JAX package's values:
+:func:`params_from_jax` (its params) and :func:`raw_from_jax` (its
+trainer's raw values).  ``default_weights.json`` here is a byte copy of
 the JAX package's shipped artifact, so both engines answer with the same
 weights by default.
 """
@@ -156,3 +158,18 @@ def params_from_jax(
         impact_bonus=float(impact_bonus),
         error_contrast=float(error_contrast),
     )
+
+
+RAW_KEYS = ("aw", "hw", "decay", "mu", "beta")
+
+
+def raw_from_jax(tree, device="cpu"):
+    """The port's raw training values (``engine/train.py``) from the JAX
+    package's raw pytree, passed as numpy arrays (``aw``, ``hw``,
+    ``decay``, ``mu``, ``beta``): float32 tensors on ``device`` with the
+    same bits, so both trainers start from the same values."""
+    import torch
+
+    return {key: torch.from_numpy(np.array(np.asarray(tree[key]),
+                                           dtype=np.float32)).to(device)
+            for key in RAW_KEYS}

@@ -17,7 +17,7 @@ and its own top-k, and comes out bitwise equal to a solo run.
 
 The body runs the kernel registry's row that its :class:`KernelPlan`
 names (:mod:`rca_tpu_torch.engine.registry`); the plan's ``kernel`` is
-the one place the row is decided:
+the one place the row is decided, and the body branches on it once:
 
 - ``kernels``: the front (finite-mask sanitize, evidence pair, contrast)
   and every seg step go through the port's kernels on the card
@@ -27,12 +27,19 @@ the one place the row is decided:
   reference's gradient at ties, which attribution's saliency needs: the
   front's plain version, the up-steps over the plan's hybrid up-table
   (:func:`.ell.ell_up_step`) and the down-steps as the sorted segment sum
-  of :func:`.segscan.down_seg_step_plain`.
+  of :func:`.segscan.down_seg_step_plain`;
+- ``doubling``: the ``kernels`` row's front (its kernels on the card),
+  then the log-depth scans of :mod:`.doubling` over the plan's frontier
+  layouts (``plan.dbl``);
+- ``quantized``: the bf16 front and the int8-message steps of
+  :mod:`.quantized`, plain ops on every device (the reference's row has
+  no Pallas body).
 
 The JAX ``lax.scan`` over steps is a Python loop here.  No float SUM on
 this path depends on the order of atomics: ``deg`` sums integer-valued
-ones (exact in any order), the bad-row count is an integer sum, and the
-contrast takes a max.  Two runs on one device give the same bits.
+ones (exact in any order), the bad-row count is an integer sum, the
+contrast and the up-scans take maxima, and every other sum is a
+segmented sum in a fixed order.  Two runs on one device give the same bits.
 """
 
 from __future__ import annotations
@@ -42,8 +49,22 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from rca_tpu_torch.engine.doubling import (
+    DoublingLayout,
+    doubling_down,
+    doubling_up,
+)
 from rca_tpu_torch.engine.ell import UpEll, ell_up_step
-from rca_tpu_torch.engine.evidence import evidence_front, evidence_front_plain
+from rca_tpu_torch.engine.evidence import (
+    evidence_front,
+    evidence_front_plain,
+    segment_sources,
+)
+from rca_tpu_torch.engine.quantized import (
+    quant_imp_step,
+    quant_up_step,
+    quantized_front,
+)
 from rca_tpu_torch.engine.segscan import (
     SegLayout,
     down_seg_step,
@@ -54,22 +75,29 @@ from rca_tpu_torch.engine.segscan import (
 
 class KernelPlan(NamedTuple):
     """One shape's resolved dispatch: the engaged registry row and the
-    device layouts it runs over.  Both rows read the seg layouts; the
-    ``torch`` row also the hybrid up-table."""
+    device layouts it runs over.  Every row reads the seg layouts (the
+    front's contrast the up layout); the ``torch`` row also the hybrid
+    up-table, the ``doubling`` row also its frontier layouts."""
 
-    kernel: str                       # the engaged row: torch | kernels
+    kernel: str                       # the engaged row (config.KERNELS)
     down_seg: SegLayout
     up_seg: SegLayout
     up_ell: Optional[UpEll] = None    # the torch row's up-table
+    dbl: Optional[DoublingLayout] = None  # the doubling row's frontiers
 
 
 def _row(plan: KernelPlan) -> str:
-    if plan.kernel == "kernels":
-        return "kernels"
+    if plan.kernel in ("kernels", "quantized"):
+        return plan.kernel
     if plan.kernel == "torch":
         if plan.up_ell is None:
             raise ValueError("the torch row needs the plan's up-table")
         return "torch"
+    if plan.kernel == "doubling":
+        if plan.dbl is None:
+            raise ValueError("the doubling row needs the plan's frontier "
+                             "layouts")
+        return "doubling"
     raise ValueError(f"unknown kernel row {plan.kernel!r}")
 
 
@@ -108,18 +136,43 @@ def combine_score(a, h, u, m, explain_strength: float, impact_bonus: float):
     )
 
 
+def inverse_degree(like: torch.Tensor, dep_dst: torch.Tensor):
+    """``1 / max(deg, 1)`` over ``[n_pad]``, ``deg`` each service's
+    dependent count for the impact MEAN (padded edges point at the dummy
+    slot, so live degrees come from real edges only); one graph, so one
+    vector for every lane.  It sums integer-valued ones, exact in any
+    order."""
+    n_pad = like.shape[-1]
+    deg = like.new_zeros(n_pad).index_add_(0, dep_dst, like.new_ones(
+        dep_dst.shape[0]))
+    return 1.0 / torch.clamp(deg, min=1.0)
+
+
 def propagate_core(a, h, dep_dst, steps: int, decay: float,
                    explain_strength: float, impact_bonus: float,
                    n_live: Optional[int], plan: KernelPlan):
     """Propagation from precomputed ``[..., n_pad]`` evidence on the
-    plan's row: the seg-step wrappers (``kernels``) or plain ops over the
-    up-table and the sorted segment sum (``torch``).  Returns ``(a, h, u,
-    m, score)``, each shaped like ``a``."""
-    plain = _row(plan) == "torch"
+    plan's row: the seg-step wrappers (``kernels``), plain ops over the
+    up-table and the sorted segment sum (``torch``), the log-depth scans
+    (``doubling``) or the int8-message steps (``quantized``).  Returns
+    ``(a, h, u, m, score)``, each shaped like ``a``."""
+    row = _row(plan)
+    if row == "doubling":
+        u = doubling_up(h, decay, plan.dbl)
+        a_ex = background_excess(a, n_live)
+        m = doubling_down(a_ex, decay, plan.dbl, inverse_degree(a, dep_dst))
+        return a, h, u, m, combine_score(a, h, u, m, explain_strength,
+                                         impact_bonus)
+
     u = torch.zeros_like(a)
-    if plain:
+    if row == "torch":
         for _ in range(steps):
             u = ell_up_step(u, h, decay, plan.up_ell)
+    elif row == "quantized":
+        # the up layout's edges, (dependent, dependency) in sorted order
+        src, dst = segment_sources(plan.up_seg), plan.up_seg.other_sorted
+        for _ in range(steps):
+            u = quant_up_step(u, h, decay, src, dst)
     else:
         # each step reads its input at other segments' nodes, so it writes
         # a fresh vector: two buffers per recursion, alternating
@@ -128,18 +181,15 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
             u, spare = up_seg_step(u, h, decay, plan.up_seg, out=spare), u
 
     a_ex = background_excess(a, n_live)
-    # dependent count per service for the impact MEAN (padded edges point
-    # at the dummy slot, so live degrees come from real edges only); one
-    # graph, so one [n_pad] vector for every lane
-    n_pad = a.shape[-1]
-    deg = a.new_zeros(n_pad).index_add_(0, dep_dst, a.new_ones(
-        dep_dst.shape[0]))
-    inv_deg = 1.0 / torch.clamp(deg, min=1.0)
+    inv_deg = inverse_degree(a, dep_dst)
 
     m = torch.zeros_like(a)
-    if plain:
+    if row == "torch":
         for _ in range(steps):
             m = down_seg_step_plain(m, a_ex, decay, plan.down_seg, inv_deg)
+    elif row == "quantized":
+        for _ in range(steps):
+            m = quant_imp_step(m, a_ex, decay, plan.down_seg, inv_deg)
     else:
         spare = torch.empty_like(a)
         for _ in range(steps):
@@ -150,21 +200,25 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
     return a, h, u, m, score
 
 
+_FRONTS = {"torch": evidence_front_plain, "kernels": evidence_front,
+           "doubling": evidence_front, "quantized": quantized_front}
+
+
 def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
               explain_strength: float, impact_bonus: float,
               n_live: Optional[int], plan: KernelPlan,
               error_contrast: float = 0.0, persist: bool = False):
     """The evidence front (sanitize, evidence pair, error-source contrast:
-    two kernels on the card for the ``kernels`` row, the plain version for
-    the ``torch`` row), then the core, both on the plan's row.
+    two kernels on the card for the ``kernels`` and ``doubling`` rows,
+    the plain version for the ``torch`` row, the bf16 front for the
+    ``quantized`` row), then the core, both on the plan's row.
     ``features`` is the RAW padded ``[n_pad, C]`` float32 matrix or
     ``[B, n_pad, C]`` lanes; ``dep_dst`` is int64 ``[e_pad]``.  Returns
     ``(a, h, u, m, score, n_bad)``, ``n_bad`` the 0-dim int32 count of the
     rows the sanitize zeroed, across the lanes.  ``persist`` leaves the
     sanitized rows in ``features`` (the streaming flush); otherwise
     ``features`` is only read."""
-    front = (evidence_front_plain if _row(plan) == "torch"
-             else evidence_front)
+    front = _FRONTS[_row(plan)]
     a, h, n_bad = front(features, anomaly_w, hard_w, error_contrast,
                         plan.up_seg, persist)
     return (*propagate_core(a, h, dep_dst, steps, decay, explain_strength,

@@ -10,13 +10,23 @@ propagation rows the shape engages, WHY (``forced`` / ``cpu-default`` /
   reference's ``xla`` row: the front's plain version, the up-steps over the
   hybrid up-table, the down-steps as a sorted segment sum;
 - ``kernels``: the hand-written CUDA kernels (``csrc/``), two launches for
-  the front and one per seg step; on a CPU tensor their plain versions.
+  the front and one per seg step; on a CPU tensor their plain versions;
+- ``quantized``: bf16 evidence and int8 messages (``engine/quantized.py``),
+  plain ops on every device, held to the f32 rows by rank parity;
+- ``doubling``: the ``kernels`` row's front, then the scans in log depth
+  over host-built frontier layouts (``engine/doubling.py``); a graph
+  whose frontiers pass the cap runs the device's default row instead
+  (``runner.kernel_plan``).
 
 :func:`engaged_kernel` is the one place a propagation surface asks which
 row a padded shape runs (through ``runner.kernel_plan``).  A CPU host picks
 ``torch`` without timing, as the reference does for XLA; on a CUDA card
 both rows are timed over a ring graph of the row's shape and ``kernels``
-must beat ``torch`` by more than 5% to take it.  The race never hands the
+must beat ``torch`` by more than 5% to take it.  ``quantized`` and
+``doubling`` sit out the card's race (their eligibility there reads
+:data:`CARD_OPT_IN`): a lossy row could take a shape by timing alone and
+change the answers silently, so on the card they run only when
+``RCA_KERNEL`` names them.  The race never hands the
 card's main path to plain ops: a kernel that fails while it is timed
 raises, and so does a race that ``torch`` would win (only
 ``RCA_KERNEL=torch`` runs the plain row on the card).  Timed winners
@@ -26,9 +36,9 @@ name and a hash of the kernel sources and their wrappers; a stale or
 corrupt file, or a cached ``torch`` verdict, re-times, never crashes.
 
 The ``attribution`` variant is the causelens saliency's row: it engages
-``torch``, the differentiable body, and records ``kernels`` as ineligible
-with the reason.  The counterfactual sweep needs no gradient and runs the
-``dense`` row.
+``torch``, the differentiable body, and records the other rows as
+ineligible with the reference's reasons.  The counterfactual sweep needs
+no gradient and runs the ``dense`` row.
 
 The ``sharded`` variant is the node-sharded engine's row, keyed by the
 padded node count and the per-shard edge tier: ``kernels`` (the seg
@@ -36,7 +46,10 @@ steps' per-shard entries and the front's row pass, one launch per shard)
 on a CUDA card, ``torch`` (the per-shard plain versions) on the CPU and
 under ``RCA_KERNEL=torch``; it is not raced (the reference's sharded row
 is not either), and its ``source`` says why (``sharded`` / ``cpu-default``
-/ ``forced``).
+/ ``forced``).  ``quantized`` and ``doubling`` have no sharded form: a
+forced row that a shape's eligibility declines engages the device's
+default row (``kernels`` on the card, ``torch`` on the CPU) with source
+``ineligible``, as the reference falls back to its ``xla`` row.
 """
 
 from __future__ import annotations
@@ -61,7 +74,7 @@ _CACHE_VERSION = 1
 #: wrappers, the propagation body and this registry
 _HASHED = ("csrc/*.cu", "engine/evidence.py", "engine/segscan.py",
            "engine/ell.py", "engine/propagate.py", "engine/registry.py",
-           "kernels/build.py")
+           "engine/quantized.py", "engine/doubling.py", "kernels/build.py")
 
 #: why the attribution variant cannot engage the kernels row
 ATTRIBUTION_DECLINE = (
@@ -69,6 +82,9 @@ ATTRIBUTION_DECLINE = (
     "seg_contrast_step, seg_up_step, seg_down_step) have none, so saliency "
     "differentiates the torch row"
 )
+
+#: why the card's race leaves out the quantized and doubling rows
+CARD_OPT_IN = "opt-in on the card: RCA_KERNEL=quantized|doubling"
 
 
 def _flag() -> str:
@@ -248,7 +264,7 @@ class KernelRegistry:
     def _decide(self, variant: str, n_pad: int, e_pad: Optional[int],
                 steps: int, device: torch.device) -> KernelRow:
         backend = device.type
-        eligible = _eligibility(variant)
+        eligible = _eligibility(variant, e_pad, steps, backend)
         row = KernelRow(variant=variant, n_pad=n_pad, e_pad=e_pad,
                         steps=steps, backend=backend, winner="torch",
                         source="default", eligible=eligible)
@@ -260,9 +276,13 @@ class KernelRegistry:
             return row
         forced = forced_kernel()
         if forced is not None:
-            # every dense and sharded shape takes either row
-            row.winner = forced
-            row.source = "forced"
+            if eligible.get(forced) in (True, CARD_OPT_IN):
+                row.winner = forced
+                row.source = "forced"
+            else:
+                # the shape declines the forced row: the device's default
+                row.winner = default_row(device)
+                row.source = "ineligible"
             return row
         if backend == "cpu":
             # the kernels row runs its plain versions on the CPU: timing
@@ -311,13 +331,50 @@ class KernelRegistry:
             self._rows.clear()
 
 
-def _eligibility(variant: str) -> Dict[str, Any]:
-    """Per-row eligibility: ``True`` or the reason the row sits out.  The
-    kernels row takes every dense shape: on the card its kernels, on a CPU
-    tensor their plain versions (``RCA_KERNEL=kernels`` there)."""
+def _eligibility(variant: str, e_pad: Optional[int] = None, steps: int = 8,
+                 backend: str = "cpu") -> Dict[str, Any]:
+    """Per-row eligibility at one shape: ``True`` or the reason the row
+    sits out, with the reference's reasons for the rows both packages
+    have.  The kernels row takes every dense and sharded shape: on the
+    card its kernels, on a CPU tensor their plain versions
+    (``RCA_KERNEL=kernels`` there).  On the card, ``quantized`` and
+    ``doubling`` read :data:`CARD_OPT_IN` where no structural reason
+    declines them first."""
+    from rca_tpu_torch.engine.doubling import doubling_eligible
+
     out: Dict[str, Any] = {"torch": True}
-    out["kernels"] = ATTRIBUTION_DECLINE if variant == "attribution" else True
+    if variant == "attribution":
+        out["kernels"] = ATTRIBUTION_DECLINE
+        out["quantized"] = "int8 messages are not differentiable"
+        out["doubling"] = (
+            "frontier layouts have no per-row counterfactual twin"
+        )
+        return out
+    out["kernels"] = True
+    for name in ("quantized", "doubling"):
+        if variant == "sharded":
+            out[name] = "no shard_map twin"
+        elif e_pad is None:
+            out[name] = "edge tier unknown (caller passed no e_pad)"
+        else:
+            out[name] = True
+    if out["doubling"] is True and not doubling_eligible(steps):
+        out["doubling"] = (
+            f"steps {steps} not a power of two (doubled ladder cannot "
+            f"land exactly)"
+        )
+    if backend == "cuda":
+        for name in ("quantized", "doubling"):
+            if out[name] is True:
+                out[name] = CARD_OPT_IN
     return out
+
+
+def default_row(device) -> str:
+    """The row a shape engages on ``device`` when nothing else is asked
+    for: ``kernels`` on the card (the race always elects it there),
+    ``torch`` on the CPU."""
+    return "kernels" if torch.device(device).type == "cuda" else "torch"
 
 
 def _pick_winner(timings: Dict[str, Optional[float]]) -> str:
@@ -360,6 +417,7 @@ def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
     run ending in a synchronize.  A candidate that fails raises."""
     import numpy as np
 
+    from rca_tpu_torch.engine.doubling import doubling_layouts_for
     from rca_tpu_torch.engine.propagate import KernelPlan, propagate
     from rca_tpu_torch.engine.ell import up_ell_for
     from rca_tpu_torch.engine.segscan import build_seg_layouts
@@ -376,9 +434,16 @@ def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
     down_seg, up_seg = build_seg_layouts(n_pad, e_pad, *raw, device=device)
 
     def timed(kernel: str) -> float:
+        # each row's layouts, as runner.kernel_plan builds them
+        dbl = None
+        if kernel == "doubling":
+            dbl = doubling_layouts_for(n_pad, e_pad, *raw, steps, device)
+            if dbl is None:
+                raise ValueError("doubling frontier declined the harness "
+                                 "graph")
         plan = KernelPlan(kernel, down_seg, up_seg,
                           up_ell_for(n_pad, *raw, device)
-                          if kernel == "torch" else None)
+                          if kernel == "torch" else None, dbl)
 
         def call():
             return propagate(f, dd, w, w, steps, 0.7, 0.85, 1.6, n, plan,

@@ -107,21 +107,28 @@ class ResidentSession:
         d = np.full(self._e_pad, self._n_pad - 1, np.int64)
         d[: self._n_edges] = self._dst_raw
         self._dep_dst = upload(d, self.engine.device)
-        # the per-shape plan: the same dispatch seam as every surface
+        # the per-shape plan: the same dispatch seam as every surface;
+        # the registry's row is kept beside it, since a declined doubling
+        # layout makes the plan's row differ from the elected one
+        self._row = self._elected_row()
         self._plan = self.engine.plan_for(self._n_pad, self._e_pad,
                                           self._src_raw, self._dst_raw)
         self._features: Optional[torch.Tensor] = None   # [n_pad, C]
+
+    def _elected_row(self) -> str:
+        from rca_tpu_torch.engine.registry import engaged_kernel
+
+        return engaged_kernel(self._n_pad, self._e_pad,
+                              steps=self.engine.params.steps,
+                              device=self.engine.device)
 
     def _current_plan(self):
         """The session's plan, re-made when the registry now engages
         another row for its shape (an ``RCA_KERNEL`` flip), so a request
         always runs the row a restaged one would."""
-        from rca_tpu_torch.engine.registry import engaged_kernel
-
-        kernel = engaged_kernel(self._n_pad, self._e_pad,
-                                steps=self.engine.params.steps,
-                                device=self.engine.device)
-        if kernel != self._plan.kernel:
+        row = self._elected_row()
+        if row != self._row:
+            self._row = row
             self._plan = self.engine.plan_for(self._n_pad, self._e_pad,
                                               self._src_raw, self._dst_raw)
         return self._plan

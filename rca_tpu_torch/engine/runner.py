@@ -57,19 +57,33 @@ def resolve_device(device=None) -> torch.device:
 def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
                 steps: int = 8, variant: str = "dense") -> KernelPlan:
     """THE per-graph dispatch step, shared by every caller that stages a
-    padded graph (one-shot analyze, the hypothesis batch, attribution): ask
-    the registry which row this ``(n_pad, e_pad)`` shape engages on
+    padded graph (one-shot analyze, the hypothesis batch, attribution, the
+    resident and streaming sessions, the serve dispatcher): ask the
+    registry which row this ``(n_pad, e_pad)`` shape engages on
     ``device`` (the forcing knob, the timings and the eligibility all live
-    there), then build that row's layouts.  The edges are the RAW ones."""
-    from rca_tpu_torch.engine.registry import engaged_kernel
+    there), then build that row's layouts.  The edges are the RAW ones.
+
+    The doubling row may decline a specific GRAPH (its frontiers pass the
+    cap on hub-heavy topologies) even where the shape's row elected it;
+    the plan then runs the device's default row (``registry.default_row``)
+    and says so in ``plan.kernel``, so the stamped row is always the one
+    that ran."""
+    from rca_tpu_torch.engine.doubling import doubling_layouts_for
+    from rca_tpu_torch.engine.registry import default_row, engaged_kernel
 
     kernel = engaged_kernel(n_pad, e_pad, steps=steps, variant=variant,
                             device=device)
     down_seg, up_seg = build_seg_layouts(n_pad, e_pad, dep_src, dep_dst,
                                          device=device)
+    dbl = None
+    if kernel == "doubling":
+        dbl = doubling_layouts_for(n_pad, e_pad, dep_src, dep_dst, steps,
+                                   device=device)
+        if dbl is None:
+            kernel = default_row(device)
     up_ell = (up_ell_for(n_pad, dep_src, dep_dst, device)
               if kernel == "torch" else None)
-    return KernelPlan(kernel, down_seg, up_seg, up_ell)
+    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl)
 
 
 def propagate_auto(model: Propagation, features, dep_dst, n_live: int,

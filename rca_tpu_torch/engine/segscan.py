@@ -239,6 +239,26 @@ def build_seg_layouts(n_pad: int, e_pad: int, dep_src, dep_dst, device=None):
     return hit[dev]
 
 
+def segment_totals(vals, seg, op: str, scan=None):
+    """Each segment's total of the seg-sorted per-edge ``vals`` (``[...,
+    e_pad]``, nonnegative): the flagged segmented scan (``scan(vals,
+    flags)`` when given, else :func:`segscan_plain`) read at each
+    segment's last edge, 0 for a segment with no edge.  ``seg`` is a
+    :class:`SegLayout` or a :class:`ShardSeg`."""
+    s = (segscan_plain(vals, seg.flags, op) if scan is None
+         else scan(vals, seg.flags))
+    return torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+
+
+def scatter_max(like, idx, vals):
+    """``zeros_like(like).at[..., idx].max(vals)`` along the last axis
+    (``idx`` shared by the lanes): order-free, so every device gives the
+    same bits, and a tie's gradient splits evenly, as ``.at[].max``
+    splits it."""
+    return torch.zeros_like(like).scatter_reduce(
+        -1, idx.expand(vals.shape), vals, reduce="amax", include_self=True)
+
+
 def down_seg_step_plain(m, a_ex, decay: float, seg: SegLayout, inv_deg,
                         out=None, scan=None):
     """One impact step in plain PyTorch: the gather of the per-edge values
@@ -249,10 +269,8 @@ def down_seg_step_plain(m, a_ex, decay: float, seg: SegLayout, inv_deg,
     flagged sum when given (the step as composed around the scan kernel);
     ``out`` receives the result."""
     vals = a_ex[..., seg.other_sorted] + decay * m[..., seg.other_sorted]
-    s = (segscan_plain(vals, seg.flags, "sum") if scan is None
-         else scan(vals, seg.flags))
-    return torch.mul(torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0),
-                     inv_deg, out=out)
+    return torch.mul(segment_totals(vals, seg, "sum", scan), inv_deg,
+                     out=out)
 
 
 def up_seg_step_plain(u, h, decay: float, seg: SegLayout, out=None,
@@ -263,10 +281,7 @@ def up_seg_step_plain(u, h, decay: float, seg: SegLayout, out=None,
     scatter-max form.  Lanes, ``scan`` and ``out`` as in
     :func:`down_seg_step_plain`."""
     w = torch.maximum(h, decay * u)
-    vals = w[..., seg.other_sorted]
-    s = (segscan_plain(vals, seg.flags, "max") if scan is None
-         else scan(vals, seg.flags))
-    upd = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    upd = segment_totals(w[..., seg.other_sorted], seg, "max", scan)
     return torch.maximum(u, upd, out=out)
 
 
@@ -418,9 +433,7 @@ def up_seg_step_shard_plain(u_full, h_full, decay: float, seg: ShardSeg,
     the node's own ``u`` (``u_full[base + s]``).  Returns ``[..., n_seg]``."""
     n_seg = seg.ends.shape[0]
     w = torch.maximum(h_full, decay * u_full)
-    vals = seg.mask * w[..., seg.other_sorted]
-    s = segscan_plain(vals, seg.flags, "max")
-    upd = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    upd = segment_totals(seg.mask * w[..., seg.other_sorted], seg, "max")
     return torch.maximum(u_full[..., base:base + n_seg], upd, out=out)
 
 
@@ -433,8 +446,7 @@ def down_seg_step_shard_plain(m_full, a_ex_full, decay: float,
     step).  Returns ``[..., n_pad]``."""
     o = seg.other_sorted
     vals = seg.mask * (a_ex_full[..., o] + decay * m_full[..., o])
-    s = segscan_plain(vals, seg.flags, "sum")
-    contrib = torch.where(seg.has_edges > 0, s[..., seg.ends], 0.0)
+    contrib = segment_totals(vals, seg, "sum")
     return contrib if out is None else out.copy_(contrib)
 
 

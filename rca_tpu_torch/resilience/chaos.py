@@ -211,7 +211,7 @@ def run_chaos_soak(
     record_path: Optional[str] = None,
     pipeline_depth: Optional[int] = None,
     replay_check: bool = True,
-    parity_mode: str = "exact",
+    parity_mode: Optional[str] = None,
     device: Any = None,
 ) -> Dict[str, Any]:
     """Run ``ticks`` polls of a :class:`LiveStreamingSession` over a
@@ -222,7 +222,9 @@ def run_chaos_soak(
     - fault-free ticks (no injection this tick, no residual
       contamination, no sanitized rows, not degraded) must equal a
       fault-free baseline session over an identically built world, bit
-      for bit (``parity_mode="exact"``) or by rank (``"rank"``).
+      for bit (``parity_mode="exact"``) or by rank (``"rank"``); unset,
+      ``rank`` when ``RCA_KERNEL=quantized`` forces the row whose scores
+      move in the low decimals, else ``exact``.
 
     ``make_world`` is called twice (baseline + chaos), so the sessions
     never share mutable state.  ``engine_factory`` builds each session's
@@ -242,6 +244,10 @@ def run_chaos_soak(
     )
     from rca_tpu_torch.resilience.policy import record_fault
 
+    if parity_mode is None:
+        from rca_tpu_torch.config import forced_kernel
+
+        parity_mode = "rank" if forced_kernel() == "quantized" else "exact"
     if parity_mode not in ("exact", "rank"):
         raise ValueError(
             f"parity_mode={parity_mode!r}: expected 'exact' or 'rank'"

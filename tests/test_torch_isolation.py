@@ -13,8 +13,11 @@
   through ``K8sApiClient()`` with no cluster, a serve selftest (the
   loop and the pool, chaos and a dense + sharded mix) and a coordinator
   with ``serve=``, a flight-recorded stream, chaos soak and serve load
-  with their replays, the mint and the bisect; the native scanner loaded
-  is the one built from ``rca_tpu_torch/native/``;
+  with their replays, the mint and the bisect, an analysis (one-shot,
+  resident, batched, streamed) under ``RCA_KERNEL=quantized`` and
+  ``RCA_KERNEL=doubling``, a fit with ``train``, its gate and its JSON
+  checkpoint, and ``python -m rca_tpu_torch train``; the native scanner
+  loaded is the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   included), the streaming sessions, ``replay`` and ``chaos`` raise (or
   exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
@@ -359,6 +362,72 @@ def test_record_replay_and_chaos_load_no_jax():
                    "observability.export"):
         assert f"rca_tpu_torch.{module}" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+_VARIANTS_PROBE = """
+import json, os, runpy, sys, tempfile
+import numpy as np
+from rca_tpu_torch import GraphEngine
+from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+from rca_tpu_torch.engine import StreamingSession
+from rca_tpu_torch.engine.train import (TrainConfig, load_params,
+                                        save_params, shippability_report,
+                                        train)
+case = synthetic_cascade_arrays(200, n_roots=2, seed=1)
+rows = {}
+for row in ("quantized", "doubling"):
+    os.environ["RCA_KERNEL"] = row
+    engine = GraphEngine(device="cpu")
+    first = engine.analyze_case(case)
+    again = engine.analyze_case(case)
+    lanes = engine.analyze_batch(np.stack([case.features] * 2),
+                                 case.dep_src, case.dep_dst, case.names)
+    stream = StreamingSession(case.names, case.dep_src, case.dep_dst,
+                              num_features=13, engine=engine, k=3)
+    stream.set_all(case.features)
+    rows[row] = [first.top_components()[0], again.top_components()[0],
+                 lanes[1].top_components()[0],
+                 stream.tick()["ranked"][0]["component"],
+                 stream.kernel_path]
+os.environ.pop("RCA_KERNEL")
+params, history = train(TrainConfig(n_services=32, n_cases=4, iters=3),
+                        device="cpu")
+report = shippability_report(params, trials_per_setting=1, device="cpu")
+path = os.path.join(tempfile.mkdtemp(), "w.json")
+save_params(params, path)
+sys.argv = ["rca_tpu_torch", "train", "--services", "32", "--cases", "4",
+            "--iters", "2", "--device", "cpu"]
+try:
+    runpy.run_module("rca_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    code = exc.code
+print(json.dumps({"rows": rows, "losses": len(history),
+                  "ships": isinstance(report["ships"], bool),
+                  "loaded": load_params(path) == params, "code": code,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_variants_and_training_load_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _VARIANTS_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300,
+        env={**_probe_env(), "RCA_EXPLAIN": "0"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for row, tops in out["rows"].items():
+        assert len(set(tops[:4])) == 1, (row, tops)
+        assert tops[4] == row
+    assert out["losses"] == 3 and out["ships"] and out["loaded"]
+    assert out["code"] == 0
+    for module in ("engine.quantized", "engine.doubling", "engine.train",
+                   "cli"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+    for name in ("optax", "orbax"):
+        assert not any(m == name or m.startswith(name + ".")
+                       for m in out["modules"]), name
 
 
 def _probe_env():

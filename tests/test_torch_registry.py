@@ -56,16 +56,19 @@ def _edges(n):
     return case.dep_src, case.dep_dst
 
 
-@pytest.mark.parametrize("variant,winner,source,kernels", [
-    ("dense", "torch", "cpu-default", True),
-    ("attribution", "torch", "attribution", registry.ATTRIBUTION_DECLINE),
+@pytest.mark.parametrize("variant,winner,source,kernels,quantized,doubling", [
+    ("dense", "torch", "cpu-default", True, True, True),
+    ("attribution", "torch", "attribution", registry.ATTRIBUTION_DECLINE,
+     "int8 messages are not differentiable",
+     "frontier layouts have no per-row counterfactual twin"),
 ])
 def test_cpu_rows_sources_and_eligibility(variant, winner, source, kernels,
-                                          fresh):
+                                          quantized, doubling, fresh):
     row = registry.get_registry().resolve(2048, 4096, variant=variant,
                                           device="cpu")
     assert (row.winner, row.source, row.backend) == (winner, source, "cpu")
-    assert row.eligible == {"torch": True, "kernels": kernels}
+    assert row.eligible == {"torch": True, "kernels": kernels,
+                            "quantized": quantized, "doubling": doubling}
     assert row.timings_ms == {}
     assert "backward kernel" in registry.ATTRIBUTION_DECLINE
     table = registry.kernel_table()
