@@ -222,7 +222,19 @@ verdict line:
    bitwise itself over two runs; each row's ``analyze_arrays`` wall
    (restaged, median of 20); at 2047 an 8-lane ``analyze_batch`` and a
    streaming session under ``RCA_KERNEL=doubling``, bitwise their solo
-   analyses;
+   analyses.  Then the ``layouts`` leg at both tiers: one restaged
+   ``analyze_case`` per ``RCA_EDGE_LAYOUT`` counted from 0 (``hybrid``
+   and ``coo`` 1 / 1 / 8 / 8; ``ell`` 1 / 1 / 0 / 0 and 8
+   ``segscan_sum``, the front's kernels, then the gather tables with the
+   overflow's flagged sum), each result and the registry row stamped
+   with the ``kernels`` row and the layout, ``coo``'s ``u`` bitwise
+   ``hybrid``'s and its scores at rtol 1e-5 / atol 1e-6, ``ell``'s ``u``
+   bitwise and its scores within 1e-6, top-k identical, each layout
+   bitwise itself over two runs, an 8-lane ``ell`` batch bitwise its
+   solo runs, ``segscan_sum`` over the ``ell`` down overflow against its
+   plain version (rtol 1e-5 / atol 1e-6), each layout's
+   ``analyze_arrays`` wall (restaged, median of 20) and the full-ELL
+   tables' widths, overflow and bytes;
 17. training at the ``train`` command's defaults: the first 5 Adam
    iterations on the card against the CPU run of the same config (losses
    at rtol 1e-4, raw values at rtol 1e-4 / atol 1e-6), the 150-iteration
@@ -231,7 +243,25 @@ verdict line:
    the same report on the CPU, and ``python -m rca_tpu_torch train
    --iters 20 --out <tmp>.json --allow-unshippable`` (exit 0, its
    checkpoint loaded by ``GraphEngine()`` under ``RCA_WEIGHTS``);
-18. times from CUDA events (median of 20 samples after warm-up): each
+18. the investigation layer over ``synthetic_cascade_world(2047,
+   n_roots=3, seed=0)``: a coordinator on the card (offline provider, an
+   evidence logger and a prompt logger in a temporary directory) runs a
+   comprehensive analysis, the guided hypothesis workflow (hypotheses,
+   plan, every step, the report) on the top root cause and on the first
+   pod-level finding, a chat turn, the five suggestion types and the
+   chat turn's suggested actions, each followed by
+   ``update_suggestions_after_action``, then the analysis with
+   ``use_llm_agents=True``: every output equals the port's CPU run of the
+   same sequence without the volatile keys (ids, clocks, ``latency_ms``,
+   ``profile``), the evidence files too, the top cause is an injected
+   root and the ``run_agent`` suggestion launches 1 / 1 / 8 / 8; each
+   stage's host wall (median of 5).  Then ``python -m rca_tpu_torch chat
+   --investigation new``, ``suggest`` and ``report --out`` over
+   ``--fixture 50svc`` in subprocesses, one explained request naming the
+   investigation through ``ServeLoop(store=...)``, whose provenance and
+   serve note must land in the store, and ``investigations`` and ``why``
+   (which must print the stored blame tree), every command exiting 0;
+19. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -261,7 +291,10 @@ resident delta request at 49,999 services, ``evidence_front`` also its
 persisting launches there; the four tick kernels with
 ``replay_launches``, over the 20 replayed ticks of the 10,000-service
 tape, and ``variant_launches``, per analysis on the ``doubling`` and
-``quantized`` rows at each tier);
+``quantized`` rows at each tier; every main-path kernel with
+``layout_launches``, per analysis under each ``RCA_EDGE_LAYOUT`` at each
+tier, and ``investigate_launches``, over the investigation's
+``run_agent`` suggestion);
 the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
@@ -753,7 +786,10 @@ def main(argv) -> int:
     record["variants"] = variants_phase(cases, shapes, smi)
     record["train"] = train_phase(smi)
 
-    # -- 18. times ---------------------------------------------------------
+    # -- 18. the investigation layer ---------------------------------------
+    record["investigate"] = investigate_phase(smi)
+
+    # -- 19. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -962,6 +998,19 @@ def main(argv) -> int:
             "pool": {tier: {label: row["launches"][name]
                             for label, row in runs.items()}
                      for tier, runs in serve["pool"].items()}}
+        # launches per analysis under each edge layout at each tier, and
+        # of the investigation's run_agent suggestion at 2047
+        kernels[-1]["layout_launches"] = {
+            f"{layout}_{tier}": record["variants"]["layouts"][tier][
+                "launches"][layout][name]
+            for tier in map(str, cases) for layout in LAYOUTS}
+        kernels[-1]["investigate_launches"] = record["investigate"]["2047"][
+            "run_agent_launches"][name]
+        if name == "segscan_sum":
+            # the ell layout's overflow sum at each tier's overflow shape
+            kernels[-1]["ell_overflow_scan"] = {
+                tier: record["variants"]["layouts"][tier]["ell_overflow_scan"]
+                for tier in map(str, cases)}
         if name in TICK_KERNELS:
             # launches over the 20 replayed ticks of the 10,000-service
             # tape, each tick equal to the recorded session's
@@ -3458,7 +3507,152 @@ def variants_phase(cases, shapes, smi: str) -> dict:
             entry.update(_doubling_surfaces(case))
         out[str(n)] = entry
         phase("variants", services=n, smi=smi, **entry)
+    out["layouts"] = _layouts_leg(cases, shapes, smi)
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+LAYOUTS = ("hybrid", "coo", "ell")
+#: launches per analysis under each ``RCA_EDGE_LAYOUT``: ``coo`` runs the
+#: seg steps over the same sorted edges as ``hybrid``; ``ell`` runs the K1
+#: front, then its gather tables with the overflow's flagged segmented sum
+#: (``segscan_sum``) once a step
+LAYOUT_LAUNCHES = {"hybrid": MAIN_LAUNCHES, "coo": MAIN_LAUNCHES,
+                   "ell": {**DOUBLING_LAUNCHES, "segscan_sum": 8}}
+
+
+def _layouts_leg(cases, shapes, smi: str) -> dict:
+    """``RCA_EDGE_LAYOUT`` on the card at both tiers: one restaged
+    ``analyze_case`` per layout counted from 0 (:data:`LAYOUT_LAUNCHES`),
+    each result stamped with the ``kernels`` row and its layout, the dense
+    registry row keyed by the layout; ``coo``'s ``u`` bitwise ``hybrid``'s
+    with scores at rtol 1e-5 / atol 1e-6, ``ell``'s ``u`` bitwise and
+    scores within 1e-6, top-k identical on both; every layout bitwise
+    itself over two runs; an 8-lane ``ell`` batch bitwise its 8 solo runs;
+    ``segscan_sum`` over the ``ell`` down overflow (the analysis's own
+    last-step values) against ``segscan_plain`` at rtol 1e-5 / atol 1e-6
+    and bitwise itself, with its times; each layout's ``analyze_arrays``
+    wall (restaged, median of 20); the full-ELL tables' widths, overflow
+    and bytes beside the largest hub's dependents."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.ell import EllGraph, ell_tables_for
+    from rca_tpu_torch.engine.propagate import background_excess
+    from rca_tpu_torch.engine.registry import get_registry
+    from rca_tpu_torch.engine.segscan import segscan_plain, segscan_sum
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    for n, case in cases.items():
+        n_pad, e_pad = shapes[n]
+        args = (case.features, case.dep_src, case.dep_dst, case.names)
+        rng = np.random.default_rng(13)
+        batch = np.repeat(case.features[None], BATCH, axis=0)
+        for b in range(BATCH):
+            batch[b, rng.integers(0, case.n, 4)] = rng.uniform(0, 1, (4, C))
+        batch[5, 11, 2] = np.inf
+        res, counts, stamps, walls = {}, {}, {}, {}
+        for layout in LAYOUTS:
+            with mock.patch.dict(os.environ, {"RCA_EDGE_LAYOUT": layout}):
+                eng = GraphEngine(resident=False)
+                eng.analyze_case(case)      # the layout's tables, warm
+                torch.cuda.synchronize()
+                reset_launches()
+                first = eng.analyze_case(case)
+                counts[layout] = dict(LAUNCHES)
+                row = get_registry().resolve(n_pad, e_pad=e_pad,
+                                             device=eng.device)
+                stamps[layout] = {"kernel": first.kernel,
+                                  "layout": first.layout,
+                                  "row_source": row.source,
+                                  "row_layout": row.layout}
+                again = eng.analyze_case(case)
+                walls[layout] = host_ms(lambda: eng.analyze_arrays(*args))
+                if layout == "ell":
+                    lanes = eng.analyze_batch(batch, *args[1:])
+                    for b, lane in enumerate(lanes):
+                        solo = eng.analyze_arrays(batch[b], *args[1:])
+                        if not np.array_equal(lane.full_diagnostics(),
+                                              solo.full_diagnostics()):
+                            fail(f"ell batch lane {b} is not its solo run "
+                                 f"at {n}")
+            if not np.array_equal(first.full_diagnostics(),
+                                  again.full_diagnostics()):
+                fail(f"the {layout} layout is not bitwise itself at {n}")
+            if counts[layout] != LAYOUT_LAUNCHES[layout]:
+                fail(f"{layout} launched {counts[layout]} at {n}, want "
+                     f"{LAYOUT_LAUNCHES[layout]}")
+            if (stamps[layout]["kernel"] != "kernels"
+                    or stamps[layout]["layout"] != layout
+                    or stamps[layout]["row_layout"] != layout):
+                fail(f"the {layout} stamp at {n}: {stamps[layout]}")
+            res[layout] = first
+        hyb = res["hybrid"]
+        for layout in ("coo", "ell"):
+            got = res[layout]
+            if not np.array_equal(got.upstream, hyb.upstream):
+                fail(f"{layout} u is not bitwise hybrid's at {n}")
+            if got.top_components() != hyb.top_components():
+                fail(f"{layout} top-k {got.top_components()} vs "
+                     f"{hyb.top_components()} at {n}")
+        if not np.allclose(res["coo"].score, hyb.score, rtol=1e-5,
+                           atol=1e-6):
+            fail(f"coo scores disagree with hybrid at {n}")
+        ell_err = float(np.abs(res["ell"].score - hyb.score).max())
+        if ell_err > 1e-6:
+            fail(f"ell scores {ell_err} from hybrid's at {n}")
+        graph = EllGraph.build(n_pad, case.dep_src, case.dep_dst)
+        # the ell down step's overflow sum at this graph's overflow shape,
+        # over the values of the analysis's last step
+        ovf = ell_tables_for(n_pad, case.dep_src, case.dep_dst,
+                             eng.device).dn_ovf
+        diag = torch.from_numpy(res["ell"].full_diagnostics()).to(eng.device)
+        a_ex = background_excess(diag[0], case.n)
+        decay = eng.params.decay
+        x = (a_ex[ovf.other_sorted] + decay * diag[2][ovf.other_sorted])
+        x = x.contiguous()
+        k1, k2 = segscan_sum(x, ovf.flags), segscan_sum(x, ovf.flags)
+        plain = segscan_plain(x, ovf.flags, "sum")
+        if not torch.equal(k1, k2):
+            fail(f"segscan_sum over the ell overflow not deterministic "
+                 f"at {n}")
+        if not torch.allclose(k1, plain, rtol=1e-5, atol=1e-6):
+            fail(f"segscan_sum disagrees with plain over the ell overflow "
+                 f"at {n}")
+        o_pad = int(x.shape[0])
+        lengths = torch.from_numpy(np.bincount(
+            graph.down.ovf_seg, minlength=n_pad).astype(np.int64)).to(
+                eng.device)
+        entry = {
+            "ell_overflow_scan": {
+                "e_pad": o_pad, "edges": graph.down.n_overflow,
+                "max_abs_err": float((k1 - plain).abs().max()),
+                "rtol": 1e-5, "atol": 1e-6,
+                "ms": cuda_ms(lambda: segscan_sum(x, ovf.flags)),
+                "plain_ms": cuda_ms(lambda: segscan_plain(x, ovf.flags,
+                                                          "sum")),
+                "library_ms": cuda_ms(lambda: torch.segment_reduce(
+                    x, "sum", lengths=lengths)),
+                "bound": bound_ms(3 * o_pad * 4, o_pad)},
+            "launches": counts, "stamps": stamps,
+            "analyze_arrays_ms": walls,
+            "coo_score_max_abs_err": float(
+                np.abs(res["coo"].score - hyb.score).max()),
+            "ell_score_max_abs_err": ell_err,
+            "ell_batch_lanes": BATCH, "ell_batch_bitwise_solo": True,
+            "ell_tables": {
+                "up_width": int(graph.up.idx.shape[1]),
+                "down_width": int(graph.down.idx.shape[1]),
+                "up_overflow": graph.up.n_overflow,
+                "down_overflow": graph.down.n_overflow,
+                "down_overflow_pad": int(len(graph.down.ovf_seg)),
+                "bytes": graph.nbytes(),
+                "largest_hub_dependents": int(np.bincount(
+                    case.dep_dst, minlength=n_pad).max())},
+            "top": hyb.top_components()}
+        out[str(n)] = entry
+        phase("variants", leg="layouts", services=n, smi=smi, **entry)
     return out
 
 
@@ -3607,6 +3801,357 @@ def train_phase(smi: str) -> dict:
                 "rca_weights_loaded": True},
         "seconds": time.perf_counter() - t_phase}
     phase("train", smi=smi, **out)
+    return out
+
+
+# -- the investigation layer ---------------------------------------------------
+
+#: what differs between two runs of one investigation: ids, clocks, walls
+INVESTIGATION_VOLATILE = {"id", "timestamp", "started_at", "finished_at",
+                          "latency_ms", "engine_latency_ms", "profile",
+                          "logged_at"}
+_FUSION_SUMMARY = (r"propagation over (\d+) services / (\d+) edges in "
+                   r"[0-9.]+ ms on (?:cuda|cpu); top root cause: (.+)")
+
+
+def _investigation_norm(obj):
+    """``obj`` without the volatile keys, the fusion summary reduced to
+    its counts and top cause (the device and the wall differ)."""
+    import re
+
+    if isinstance(obj, dict):
+        out = {}
+        for key, value in obj.items():
+            if key in INVESTIGATION_VOLATILE:
+                continue
+            if key == "summary" and isinstance(value, str):
+                m = re.fullmatch(_FUSION_SUMMARY, value)
+                value = list(m.groups()) if m else value
+            out[key] = _investigation_norm(value)
+        return out
+    if isinstance(obj, (list, tuple)):
+        return [_investigation_norm(x) for x in obj]
+    return obj
+
+
+def _same_tree(got, want, path="$"):
+    """The first path where two normalized outputs differ (a ``score``
+    within 1e-4, other floats within rel 1e-5 / abs 1e-6), or None."""
+    import math
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return path
+        for key in want:
+            if key == "score" and isinstance(want[key], float):
+                if abs(got[key] - want[key]) > 1e-4:
+                    return f"{path}.{key}"
+                continue
+            bad = _same_tree(got[key], want[key], f"{path}.{key}")
+            if bad:
+                return bad
+        return None
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return path
+        for i, (g, w) in enumerate(zip(got, want)):
+            bad = _same_tree(g, w, f"{path}[{i}]")
+            if bad:
+                return bad
+        return None
+    if isinstance(want, float) and isinstance(got, float):
+        return None if math.isclose(got, want, rel_tol=1e-5,
+                                    abs_tol=1e-6) else path
+    return None if got == want else path
+
+
+def _first_pod_finding(results):
+    for agent in ("resources", "logs", "events", "metrics", "traces",
+                  "topology"):
+        for f in results.get(agent, {}).get("findings", []):
+            if str(f.get("component", "")).startswith("Pod/"):
+                return f
+    return None
+
+
+def _suggestion_actions(top, pod_finding):
+    """The five suggestion types, aimed at the top root cause and the
+    first pod-level finding."""
+    kind, _, name = top["findings"][0]["component"].partition("/")
+    pod = (pod_finding["component"].partition("/")[2] if pod_finding
+           else top["component"])
+    return {
+        "run_agent": {"type": "run_agent", "agent_type": "comprehensive"},
+        "check_resource": {"type": "check_resource", "kind": kind or "Pod",
+                           "name": name},
+        "check_logs": {"type": "check_logs", "pod_name": pod,
+                       "previous": True, "tail_lines": 50},
+        "check_events": {"type": "check_events", "kind": "Pod",
+                         "name": pod},
+        "query": {"type": "query",
+                  "query": f"what broke {top['component']}?"},
+    }
+
+
+def _investigation(coord, ns, launches=None):
+    """One scripted investigation: a comprehensive analysis, the guided
+    hypothesis workflow on the top root cause's first finding and on the
+    first pod-level finding, a chat turn, then the five suggestion types
+    (and every action the chat turn suggested), each followed by
+    ``update_suggestions_after_action``.  ``launches`` (a dict) receives
+    the kernel launches of the ``run_agent`` suggestion."""
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    rec = coord.run_analysis("comprehensive", ns)
+    if rec["status"] != "completed":
+        fail(f"investigation analysis {rec['status']}: {rec.get('error')}")
+    out["analysis"] = rec
+    top = rec["results"]["correlated"]["root_causes"][0]
+    pod_finding = _first_pod_finding(rec["results"])
+    out["workflow"] = []
+    for finding in [top["findings"][0]] + [pod_finding] * bool(pod_finding):
+        comp = finding["component"]
+        hyps = coord.generate_hypotheses(comp, finding, ns, "inv-smoke")
+        plan = coord.get_investigation_plan(hyps[0], ns)
+        steps = [coord.execute_investigation_step(step, hyps[0], ns,
+                                                  "inv-smoke")
+                 for step in plan["steps"]]
+        report = coord.generate_root_cause_report({
+            "component": comp, "accepted_hypothesis": hyps[0],
+            "steps": steps, "finding": finding})
+        out["workflow"].append({"hypotheses": hyps, "plan": plan,
+                                "steps": steps, "report": report})
+    chat = coord.process_user_query(
+        "why is the top service down?", ns,
+        previous_findings=[f"{top['component']} is {top['severity']}"])
+    out["chat"] = chat
+    actions = list(_suggestion_actions(top, pod_finding).values())
+    out["suggestions"] = []
+    for action in actions + [s["action"] for s in chat["suggestions"]]:
+        if launches is not None and action is actions[0]:
+            reset_launches()
+            res = coord.process_suggestion(action, ns)
+            launches.update(LAUNCHES)
+        else:
+            res = coord.process_suggestion(action, ns)
+        fresh = coord.update_suggestions_after_action(action, res, ns)
+        taken = _dumps(action)
+        if any(_dumps(f.get("action", {})) == taken for f in fresh):
+            fail(f"the taken action {action} came back as a follow-up")
+        out["suggestions"].append({"action": action, "result": res,
+                                   "after": fresh})
+    return out
+
+
+def investigate_phase(smi: str) -> dict:
+    """The investigation layer on the card over
+    ``synthetic_cascade_world(2047, n_roots=3, seed=0)``: a coordinator on
+    ``cuda`` with the offline provider, an ``EvidenceLogger`` and a
+    ``PromptLogger`` in a temporary directory runs :func:`_investigation`
+    (the comprehensive analysis, the hypothesis workflow with its report,
+    a chat turn, the five suggestion types and the regenerated
+    follow-ups), then the same analysis with ``use_llm_agents=True``;
+    each output equals the same sequence run by the port on the CPU once
+    the volatile keys are gone (ids, clocks, ``latency_ms``, ``profile``;
+    the fusion summary's device and wall), and so do the evidence files;
+    the top root cause is an injected root, and the ``run_agent``
+    suggestion launches the main path's kernels 1 / 1 / 8 / 8.  Each
+    stage's host wall, median of 5.  Then the store on the serve plane:
+    ``python -m rca_tpu_torch chat --investigation new`` over ``--fixture
+    50svc`` makes an investigation, one explained request naming it goes
+    through ``ServeLoop(store=...)`` on the card and its provenance must
+    land in the store; ``suggest``, ``report --out``, ``investigations``
+    and ``why`` run as subprocesses and exit 0, and ``why`` prints the
+    blame tree of the stored provenance."""
+    import shutil
+    import tempfile
+
+    import torch
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+    from rca_tpu_torch.coordinator import RCACoordinator
+    from rca_tpu_torch.features.extract import extract_features
+    from rca_tpu_torch.graph.build import service_dependency_edges
+    from rca_tpu_torch.llm import LLMClient, OfflineProvider
+    from rca_tpu_torch.observability.causelens import render_blame_tree
+    from rca_tpu_torch.obslog import EvidenceLogger, PromptLogger
+    from rca_tpu_torch.serve import ServeLoop, ServeRequest
+    from rca_tpu_torch.store import InvestigationStore
+    from rca_tpu_torch.ui.render import report_markdown
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_investigate_")
+    out = {}
+    try:
+        ns = "synthetic"
+        world = synthetic_cascade_world(2047, n_roots=3, seed=0)
+        roots = world.ground_truth["fault_roots"]
+
+        def coordinator(device, name, **kw):
+            prompts = PromptLogger(os.path.join(tmp, name, "prompts"))
+            return RCACoordinator(
+                MockClusterClient(world), backend="torch", device=device,
+                llm_client=LLMClient(provider=OfflineProvider(),
+                                     log_fn=prompts.as_log_fn(
+                                         namespace=ns)),
+                evidence_logger=EvidenceLogger(
+                    os.path.join(tmp, name, "evidence")), **kw), prompts
+
+        card, card_prompts = coordinator(None, "card")
+        if card.device.type != "cuda":
+            fail(f"the investigation coordinator runs on {card.device}")
+        cpu, _ = coordinator("cpu", "cpu")
+        run_agent_launches = {}
+        got = _investigation(card, ns, launches=run_agent_launches)
+        torch.cuda.synchronize()
+        want = _investigation(cpu, ns)
+        for stage in want:
+            bad = _same_tree(_investigation_norm(got[stage]),
+                             _investigation_norm(want[stage]), stage)
+            if bad:
+                fail(f"the card's investigation differs from the CPU's "
+                     f"at {bad}")
+        top = got["analysis"]["results"]["correlated"]["root_causes"][0]
+        if top["component"] not in roots:
+            fail(f"the investigation's top cause {top['component']} is "
+                 f"not an injected root {roots}")
+        if run_agent_launches != MAIN_LAUNCHES:
+            fail(f"the run_agent suggestion launched {run_agent_launches}, "
+                 f"want {MAIN_LAUNCHES}")
+        files = {}
+        for name in ("card", "cpu"):
+            root = os.path.join(tmp, name, "evidence")
+            files[name] = [
+                (fn[15:], _investigation_norm(json.load(open(
+                    os.path.join(root, fn)))))
+                for fn in sorted(os.listdir(root), key=lambda f: f[15:])]
+        if (len(files["card"]) != len(files["cpu"])
+                or _same_tree(files["card"], files["cpu"])):
+            fail("the card's evidence files differ from the CPU's")
+        llm_card, _ = coordinator(None, "card_llm", use_llm_agents=True)
+        llm_cpu, _ = coordinator("cpu", "cpu_llm", use_llm_agents=True)
+        llm_got = llm_card.run_analysis("comprehensive", ns)
+        llm_want = llm_cpu.run_analysis("comprehensive", ns)
+        if llm_got["status"] != "completed":
+            fail(f"the LLM-agent analysis {llm_got['status']}")
+        bad = _same_tree(_investigation_norm(llm_got),
+                         _investigation_norm(llm_want), "llm_agents")
+        if bad:
+            fail(f"the LLM-agent analysis differs from the CPU's at {bad}")
+
+        # each stage's host wall on the card, median of 5
+        actions = _suggestion_actions(top, _first_pod_finding(
+            got["analysis"]["results"]))
+        finding = top["findings"][0]
+
+        def workflow():
+            hyps = card.generate_hypotheses(finding["component"], finding,
+                                            ns, "inv-smoke")
+            plan = card.get_investigation_plan(hyps[0], ns)
+            steps = [card.execute_investigation_step(st, hyps[0], ns,
+                                                     "inv-smoke")
+                     for st in plan["steps"]]
+            card.generate_root_cause_report({
+                "component": finding["component"],
+                "accepted_hypothesis": hyps[0], "steps": steps,
+                "finding": finding})
+
+        walls = {
+            "hypothesis_workflow": host_ms(workflow, reps=5),
+            "chat_turn": host_ms(lambda: card.process_user_query(
+                "why is the top service down?", ns), reps=5),
+            **{f"suggest_{kind}": host_ms(
+                lambda a=action: card.process_suggestion(a, ns), reps=5)
+               for kind, action in actions.items()},
+            "report": host_ms(lambda: report_markdown(card.run_analysis(
+                "comprehensive", ns)["results"]), reps=5),
+        }
+        out["2047"] = {
+            "top": top["component"], "fault_roots": roots,
+            "run_agent_launches": run_agent_launches,
+            "suggestions": len(got["suggestions"]),
+            "hypotheses": sum(len(w["hypotheses"])
+                              for w in got["workflow"]),
+            "steps": sum(len(w["steps"]) for w in got["workflow"]),
+            "evidence_files": len(files["card"]),
+            "prompt_records": len(card_prompts.read_all()),
+            "card_equal_cpu": True, "llm_agents_equal_cpu": True,
+            "host_ms": walls}
+        phase("investigate", services=2047, smi=smi, **out["2047"])
+
+        # the store on the serve plane, and the commands
+        log_dir = os.path.join(tmp, "store")
+
+        def cli(*argv):
+            proc = subprocess.run(
+                [sys.executable, "-m", "rca_tpu_torch", *argv,
+                 "--log-dir", log_dir], capture_output=True, text=True,
+                timeout=300)
+            if proc.returncode != 0:
+                fail(f"python -m rca_tpu_torch {argv[0]} exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        t0 = time.perf_counter()
+        chat = json.loads(cli("chat", "--fixture", "50svc", "--compact",
+                              "--investigation", "new",
+                              "why is the top service down?"))
+        iid = chat["investigation_id"]
+        suggested = json.loads(cli(
+            "suggest", "--fixture", "50svc", "--compact",
+            json.dumps({"type": "run_agent", "agent_type": "comprehensive"})))
+        report_path = os.path.join(tmp, "report.md")
+        written = json.loads(cli("report", "--fixture", "50svc", "--out",
+                                 report_path))
+        with open(report_path) as f:
+            if not f.read().startswith("# Root Cause Analysis Report"):
+                fail("report --out wrote no report")
+        world50 = synthetic_cascade_world(50, n_roots=1, seed=0)
+        snap = ClusterSnapshot.capture(MockClusterClient(world50), ns)
+        fs = extract_features(snap)
+        src, dst = service_dependency_edges(snap, fs)
+        store = InvestigationStore(root=log_dir)
+        loop = ServeLoop(store=store).start()
+        try:
+            req = ServeRequest(tenant="investigate",
+                               features=fs.service_features, dep_src=src,
+                               dep_dst=dst, names=fs.service_names, k=5,
+                               explain=True, investigation_id=iid)
+            loop.submit(req)
+            resp = req.result(300.0)
+        finally:
+            loop.stop()
+        if resp.status != "ok" or not resp.provenance or \
+                "error" in resp.provenance:
+            fail(f"the explained serve request: {resp.status} "
+                 f"{resp.detail} {resp.provenance}")
+        stored = store.get_investigation(iid)
+        if _dumps(stored.get("provenance")) != _dumps(json.loads(
+                json.dumps(resp.provenance))):
+            fail("the served provenance did not land in the store")
+        if not any(m["role"] == "serve" for m in stored["conversation"]):
+            fail("the serve note did not land in the store")
+        listed = json.loads(cli("investigations"))
+        if [row["id"] for row in listed] != [iid]:
+            fail(f"investigations listed {listed}")
+        why = cli("why", iid)
+        tree = render_blame_tree(stored["provenance"])
+        if tree not in why or not why.startswith(f"investigation {iid}"):
+            fail(f"why did not print the stored blame tree: {why[:500]}")
+        out["commands"] = {
+            "investigation_id": iid, "chat_top": chat["key_findings"][:1],
+            "suggest_points": suggested["response"]["points"][:1],
+            "report_bytes": written["bytes"],
+            "served_top": resp.ranked[0]["component"],
+            "why_lines": why.count("\n"),
+            "seconds": time.perf_counter() - t0}
+        phase("investigate", leg="store and commands", **out["commands"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("investigate", seconds=out["seconds"])
     return out
 
 

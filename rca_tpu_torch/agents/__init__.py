@@ -1,5 +1,5 @@
 """Deterministic signal agents: the port's copy of ``rca_tpu.agents``
-(the LLM agents are not ported).
+(their tool-driven LLM twins are in :mod:`.llm_agent`).
 
 Six agents mirroring the reference's signal coverage (reference: agents/ —
 metrics, logs, events, topology, traces, resource_analyzer), each a stateless

@@ -1,9 +1,20 @@
-"""Command-line interface of the port (the ``analyze``, ``hypotheses``,
-``kernels`` and ``stream`` commands of ``rca_tpu.cli``).
+"""Command-line interface of the port (the commands of ``rca_tpu.cli``
+that the port has).
 
 - ``python -m rca_tpu_torch analyze``: one agent or the comprehensive
   pipeline over a fixture world → findings JSON, exit 0 when the analysis
-  completed (``RCA_EXPLAIN=1`` adds the causelens ``provenance`` block);
+  completed (``RCA_EXPLAIN=1`` adds the causelens ``provenance`` block;
+  ``--provider``, ``--llm-agents`` and ``--log-dir`` as for ``chat``);
+- ``python -m rca_tpu_torch chat``: one chat turn (structured response
+  and suggestions); ``--investigation new|<id>`` persists it in the
+  investigation store under ``--log-dir``;
+- ``python -m rca_tpu_torch report``: the comprehensive analysis as a
+  markdown report (``--out`` writes it to a file);
+- ``python -m rca_tpu_torch suggest``: run one suggestion action (JSON);
+- ``python -m rca_tpu_torch why``: the causelens blame tree of a stored
+  investigation's latest explained ranking;
+- ``python -m rca_tpu_torch investigations``: list the stored
+  investigations, or show one (``--id``);
 - ``python -m rca_tpu_torch hypotheses``: the what-if-healthy batch over
   the top candidates, every hypothesis a lane of one batched analysis;
 - ``python -m rca_tpu_torch kernels``: the kernel registry's table, each
@@ -75,12 +86,36 @@ def _make_client(fixture: Optional[str], seed: int = 0,
     raise SystemExit(f"unknown fixture: {fixture!r} (want 5svc, <N>svc, live)")
 
 
-def cmd_analyze(args) -> int:
+def _log_dir(args) -> str:
+    from rca_tpu_torch.config import log_dir
+
+    return getattr(args, "log_dir", None) or log_dir()
+
+
+def _coordinator(args):
+    """The coordinator of ``analyze``, ``chat``, ``report`` and
+    ``suggest``: its cluster client from ``--fixture``, an LLM client over
+    ``--provider`` whose prompts are logged under ``<log-dir>/prompts``,
+    and ``--backend`` / ``--llm-agents`` / ``--device``."""
     from rca_tpu_torch.coordinator import RCACoordinator
+    from rca_tpu_torch.llm import LLMClient, make_provider
+    from rca_tpu_torch.obslog import get_logger
 
     client, ns = _make_client(args.fixture, args.seed, args.fault_mix)
     namespace = args.namespace or ns or "default"
-    coord = RCACoordinator(client, backend=args.backend, device=args.device)
+    prompt_logger = get_logger(_log_dir(args) + "/prompts")
+    llm = LLMClient(
+        provider=make_provider(args.provider),
+        log_fn=prompt_logger.as_log_fn(namespace=namespace),
+    )
+    coord = RCACoordinator(client, llm_client=llm, backend=args.backend,
+                           use_llm_agents=args.llm_agents,
+                           device=args.device)
+    return coord, namespace
+
+
+def cmd_analyze(args) -> int:
+    coord, namespace = _coordinator(args)
     record = coord.run_analysis(args.type, namespace)
     out = record if args.full else {
         "status": record["status"],
@@ -158,6 +193,144 @@ def cmd_hypotheses(args) -> int:
     return 0
 
 
+def cmd_chat(args) -> int:
+    """One chat turn; with ``--investigation`` the turn is a persisted part
+    of that conversation (``new`` creates one): prior accumulated findings
+    feed the prompt, and the messages, suggestions and findings land back
+    in the store, the first turn titling it."""
+    coord, namespace = _coordinator(args)
+    store = inv = None
+    if args.investigation:
+        from rca_tpu_torch.store import InvestigationStore
+
+        store = InvestigationStore(root=_log_dir(args))
+        inv = store.get_investigation(args.investigation)
+        if inv is None and args.investigation != "new":
+            print(json.dumps(
+                {"error": f"no investigation {args.investigation}"}
+            ))
+            return 1
+        if inv is None:
+            inv = store.create_investigation(
+                args.query[:60], namespace=namespace
+            )
+    out = coord.process_user_query(
+        args.query, namespace,
+        previous_findings=(inv or {}).get("accumulated_findings"),
+    )
+    if store is not None:
+        iid = inv["id"]
+        first_turn = len(inv.get("conversation", [])) == 0
+        store.record_chat_turn(iid, args.query, out)
+        if first_turn:
+            store.set_title(
+                iid, coord.generate_summary_from_query(args.query, out)
+            )
+        out["investigation_id"] = iid
+    if not args.full:
+        out.pop("cluster_state", None)
+    print(json.dumps(out, indent=None if args.compact else 2, default=str))
+    return 0
+
+
+def cmd_report(args) -> int:
+    """The comprehensive analysis rendered as the markdown report."""
+    coord, namespace = _coordinator(args)
+    record = coord.run_analysis("comprehensive", namespace)
+    if record["status"] != "completed":
+        print(json.dumps({"error": record.get("error", "analysis failed")}))
+        return 1
+    from rca_tpu_torch.ui.render import report_markdown
+
+    md = report_markdown(record["results"])
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(md)
+        print(json.dumps({"written": args.out, "bytes": len(md)}))
+    else:
+        print(md)
+    return 0
+
+
+def cmd_suggest(args) -> int:
+    coord, namespace = _coordinator(args)
+    action = json.loads(args.action)
+    out = coord.process_suggestion(action, namespace)
+    print(json.dumps(out, indent=None if args.compact else 2, default=str))
+    return 0
+
+
+def cmd_why(args) -> int:
+    """The stored causelens provenance of an investigation rendered as its
+    blame tree (evidence channels → blame edges → ranked service).  It
+    lands in the store when an explained serve request names the
+    investigation; without it, the newest chat turn that carried one."""
+    from rca_tpu_torch.observability.causelens import render_blame_tree
+    from rca_tpu_torch.store import InvestigationStore
+
+    store = InvestigationStore(root=_log_dir(args))
+    inv = store.get_investigation(args.investigation_id)
+    if inv is None:
+        print(json.dumps(
+            {"error": f"no investigation {args.investigation_id}"}
+        ))
+        return 1
+    provenance = inv.get("provenance")
+    if provenance is None:
+        # fall back to the newest chat turn that carried one
+        for msg in reversed(inv.get("conversation", []) or []):
+            content = msg.get("content")
+            if isinstance(content, dict):
+                rd = content.get("response_data") or {}
+                cand = (
+                    content.get("provenance")
+                    or rd.get("provenance")
+                    or (rd.get("correlated") or {}).get("provenance")
+                )
+                if cand is not None:
+                    provenance = cand
+                    break
+    if provenance is None:
+        hint = {
+            "error": f"investigation {args.investigation_id} carries no "
+            "provenance block",
+            "hint": "serve the analysis with explain=true (wire: "
+            "?explain=1) naming this investigation_id, or run the "
+            "correlate flow with RCA_EXPLAIN=1",
+        }
+        if inv.get("recording_ref"):
+            hint["recording_ref"] = inv["recording_ref"]
+            hint["hint"] += (
+                "; the investigation has a recording — `replay "
+                "--explain` can recompute attributions from the tape "
+                "when it was recorded with RCA_EXPLAIN=1"
+            )
+        print(json.dumps(hint, indent=None if args.compact else 2))
+        return 1
+    if args.json:
+        print(json.dumps(provenance, indent=None if args.compact else 2))
+        return 0
+    print(f"investigation {args.investigation_id} · "
+          f"{inv.get('title', '')}".rstrip(" ·"))
+    print(render_blame_tree(provenance))
+    return 0
+
+
+def cmd_investigations(args) -> int:
+    from rca_tpu_torch.store import InvestigationStore
+
+    store = InvestigationStore(root=_log_dir(args))
+    if args.id:
+        inv = store.get_investigation(args.id)
+        if inv is None:
+            print(json.dumps({"error": f"no investigation {args.id}"}))
+            return 1
+        print(json.dumps(inv, indent=2, default=str))
+    else:
+        print(json.dumps(store.list_investigations(), indent=2, default=str))
+    return 0
+
+
 def _ints(raw: str, flag: str):
     out = []
     for part in (raw or "").split(","):
@@ -180,7 +353,11 @@ def cmd_kernels(args) -> int:
     first; ``--explain`` prints every candidate per row: engaged, its
     eligibility reason, or the timing it lost with."""
     from rca_tpu_torch.config import KERNELS, RCAConfig, bucket_for
-    from rca_tpu_torch.engine.registry import get_registry, kernel_table
+    from rca_tpu_torch.engine.registry import (
+        get_registry,
+        kernel_table,
+        layout_note,
+    )
     from rca_tpu_torch.engine.runner import resolve_device
 
     device = resolve_device(args.device)
@@ -212,7 +389,7 @@ def cmd_kernels(args) -> int:
         return f"{x:.4g}" if isinstance(x, float) else str(x)
 
     cols = ("n_pad", "e_pad", "variant", "backend", "winner", "source",
-            "t_torch_ms", "t_win_ms")
+            "layout", "t_torch_ms", "t_win_ms")
     table = [cols]
     for row in rows:
         timings = row["timings_ms"]
@@ -222,7 +399,7 @@ def cmd_kernels(args) -> int:
                             else row["winner"])
         table.append((str(row["n_pad"]), fmt(row["e_pad"]), row["variant"],
                       row["backend"], row["winner"], row["source"],
-                      fmt(timings.get("torch")), fmt(t_win)))
+                      row["layout"], fmt(timings.get("torch")), fmt(t_win)))
     widths = [max(len(r[i]) for r in table) for i in range(len(cols))]
     for i, r in enumerate(table):
         print("  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip())
@@ -232,7 +409,7 @@ def cmd_kernels(args) -> int:
         for row in rows:
             print(f"\n{row['variant']} n_pad={row['n_pad']} "
                   f"e_pad={fmt(row['e_pad'])}: winner={row['winner']} "
-                  f"({row['source']})")
+                  f"({row['source']}), layout={row['layout']}")
             timings = row["timings_ms"]
             for k in KERNELS:
                 elig = row["eligible"].get(k)
@@ -247,6 +424,11 @@ def cmd_kernels(args) -> int:
                 else:
                     detail = f"not raced (decision source: {row['source']})"
                 print(f"  {k:8s} {detail}")
+            note = layout_note(row["variant"], row["layout"])
+            if note:
+                print(f"  note     the reference declines its segscan row "
+                      f"({note}); the seg steps here reduce the same "
+                      f"sorted edges under every layout")
     return 0
 
 
@@ -514,7 +696,9 @@ def cmd_replay(args) -> int:
     (serve) parity; exit 0 when it holds.  ``--seek`` replays up to one
     tick and reports its detail, ``--bisect`` finds the first divergent
     tick and dumps both sides' tensors, ``--mint`` compacts a recording
-    into one file, ``--trace-out`` writes its span timeline."""
+    into one file, ``--trace-out`` writes its span timeline and
+    ``--investigation`` resolves the log from a stored investigation's
+    ``recording_ref``."""
     from rca_tpu_torch.replay import (
         bisect_divergence,
         load_recording,
@@ -524,13 +708,20 @@ def cmd_replay(args) -> int:
     )
 
     indent = None if args.compact else 2
-    if args.investigation:
-        print("rca_tpu_torch replay: --investigation is not ported yet: "
-              "it reads the investigation store (A3)", file=sys.stderr)
-        return 2
-    if not args.log:
-        raise SystemExit("replay needs a LOG path")
     path = args.log
+    if args.investigation:
+        from rca_tpu_torch.store import InvestigationStore
+
+        store = InvestigationStore(root=_log_dir(args))
+        path = store.get_recording_ref(args.investigation)
+        if not path:
+            print(json.dumps({
+                "error": f"investigation {args.investigation} has no "
+                "recording_ref",
+            }))
+            return 1
+    if not path:
+        raise SystemExit("replay needs a LOG path or --investigation ID")
     if args.mint:
         print(json.dumps(mint_recording(path, args.mint), indent=indent))
         return 0
@@ -618,27 +809,86 @@ def build_parser() -> argparse.ArgumentParser:
         description="Kubernetes root-cause analysis on an NVIDIA GPU",
     )
     sub = p.add_subparsers(dest="command", required=True)
+    def common(sp):
+        sp.add_argument("--fixture", default=None,
+                        help="5svc | <N>svc | live (default: live)")
+        sp.add_argument("--fault-mix", default="crash", dest="fault_mix",
+                        help="synthetic fixtures' root fault archetypes: "
+                        "crash | mixed | oom | image | config | pending")
+        sp.add_argument("--namespace", default=None)
+        sp.add_argument("--backend", default=None,
+                        choices=("torch", "deterministic"),
+                        help="default: $RCA_BACKEND or torch")
+        sp.add_argument("--provider", default=None,
+                        help="openai | anthropic | offline (default: "
+                        "$LLM_PROVIDER or offline)")
+        sp.add_argument("--llm-agents", action="store_true",
+                        dest="llm_agents",
+                        help="use LLM agents instead of deterministic rules")
+        sp.add_argument("--log-dir", default=None, dest="log_dir",
+                        help="investigations, evidence and prompt logs "
+                        "(default: $RCA_LOG_DIR or logs)")
+        sp.add_argument("--device", default=None,
+                        help="cuda | cpu (default: cuda)")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--full", action="store_true",
+                        help="print the full record")
+        sp.add_argument("--compact", action="store_true",
+                        help="single-line JSON")
+
     sp = sub.add_parser("analyze", help="run an analysis")
-    sp.add_argument("--fixture", default=None,
-                    help="5svc | <N>svc | live (default: live)")
-    sp.add_argument("--fault-mix", default="crash", dest="fault_mix",
-                    help="synthetic fixtures' root fault archetypes: "
-                    "crash | mixed | oom | image | config | pending")
-    sp.add_argument("--namespace", default=None)
-    sp.add_argument("--backend", default=None,
-                    choices=("torch", "deterministic"),
-                    help="default: $RCA_BACKEND or torch")
-    sp.add_argument("--device", default=None,
-                    help="cuda | cpu (default: cuda)")
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--full", action="store_true",
-                    help="print the full record")
-    sp.add_argument("--compact", action="store_true",
-                    help="single-line JSON")
+    common(sp)
     sp.add_argument("--type", default="comprehensive",
                     help="comprehensive | resources | metrics | logs | "
                     "events | topology | traces")
     sp.set_defaults(fn=cmd_analyze)
+
+    sp = sub.add_parser("chat", help="one chat turn")
+    common(sp)
+    sp.add_argument("query")
+    sp.add_argument("--investigation", default=None,
+                    help="persist the turn into this investigation id "
+                    "('new' creates one); prior findings feed the prompt")
+    sp.set_defaults(fn=cmd_chat)
+
+    sp = sub.add_parser(
+        "report", help="comprehensive analysis as a markdown report"
+    )
+    common(sp)
+    sp.add_argument("--out", default=None,
+                    help="write the report here instead of stdout")
+    sp.set_defaults(fn=cmd_report)
+
+    sp = sub.add_parser("suggest", help="execute one suggestion action")
+    common(sp)
+    sp.add_argument("action", help='JSON, e.g. {"type": "check_logs", '
+                    '"pod_name": "x"}')
+    sp.set_defaults(fn=cmd_suggest)
+
+    sp = sub.add_parser(
+        "why",
+        help="render an investigation's causelens blame tree: which "
+        "evidence channels, dependency edges and counterfactual rows "
+        "produced its ranking (kernel dispatch decisions are `kernels "
+        "--explain`)",
+    )
+    sp.add_argument("investigation_id",
+                    help="stored investigation id (see `investigations`)")
+    sp.add_argument("--json", action="store_true",
+                    help="print the raw provenance block instead of the "
+                    "ASCII tree")
+    sp.add_argument("--log-dir", default=None, dest="log_dir",
+                    help="the investigation store (default: $RCA_LOG_DIR "
+                    "or logs)")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_why)
+
+    sp = sub.add_parser("investigations", help="list/show investigations")
+    sp.add_argument("--id", default=None)
+    sp.add_argument("--log-dir", default=None, dest="log_dir",
+                    help="the investigation store (default: $RCA_LOG_DIR "
+                    "or logs)")
+    sp.set_defaults(fn=cmd_investigations)
 
     sp = sub.add_parser(
         "hypotheses",
@@ -805,8 +1055,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the recording's span timeline as Chrome "
                     "trace JSON (recorded with RCA_TRACE=1) and exit")
     sp.add_argument("--investigation", default=None, metavar="ID",
-                    help="not ported yet (exits 2): the investigation "
-                    "store (A3)")
+                    help="resolve the recording from this stored "
+                    "investigation's recording_ref")
+    sp.add_argument("--log-dir", default=None, dest="log_dir",
+                    help="the investigation store of --investigation "
+                    "(default: $RCA_LOG_DIR or logs)")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--compact", action="store_true")

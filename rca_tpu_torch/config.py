@@ -7,8 +7,9 @@ Copied semantics: :class:`RCAConfig`'s engine knobs, the shape-bucket rule
 (``RCA_WEIGHTS``), the checked accessors :func:`env_str` (``RCA_BACKEND``)
 and :func:`env_int`, :func:`explain_enabled` (``RCA_EXPLAIN``) with its
 two sizes :func:`explain_paths` / :func:`explain_topm`, the kernel
-registry's knobs: :func:`kernel_cache_path` (``RCA_KERNEL_CACHE``) and
-:func:`forced_kernel` (``RCA_KERNEL``), the resident sessions'
+registry's knobs: :func:`kernel_cache_path` (``RCA_KERNEL_CACHE``),
+:func:`forced_kernel` (``RCA_KERNEL``) and the scans' edge layout
+:func:`edge_layout` (``RCA_EDGE_LAYOUT``), the resident sessions'
 :func:`resident_enabled` (``RCA_RESIDENT``) and :func:`resident_cache_cap`
 (``RCA_RESIDENT_CACHE``), the live session's :func:`pipeline_depth_from_env`
 (``RCA_PIPELINE_DEPTH``), tracing (``RCA_TRACE``, ``RCA_TRACE_BUFFER``),
@@ -26,7 +27,8 @@ scheduler's: :class:`ServeConfig` (``RCA_SERVE_MAX_BATCH``,
 ``RCA_SERVE_STEAL``, ``RCA_SERVE_REPLICA_MIX``) with
 :func:`parse_replica_mix`, :func:`serve_graph_cache_cap`
 (``RCA_SERVE_GRAPH_CACHE``) and :func:`slo_ms` (``RCA_SLO_MS``), read
-through the float accessor :func:`env_float`.
+through the float accessor :func:`env_float`, and the investigation
+layer's :func:`log_dir` (``RCA_LOG_DIR``).
 """
 
 from __future__ import annotations
@@ -139,6 +141,35 @@ def forced_kernel() -> Optional[str]:
     :data:`KERNELS` member), or None to let the registry decide."""
     return env_str("RCA_KERNEL", "", choices=("",) + KERNELS,
                    lower=True) or None
+
+
+def log_dir() -> str:
+    """``RCA_LOG_DIR``: where investigations, evidence files and prompt
+    logs are written (default ``logs``, relative to the working
+    directory)."""
+    return (env_raw("RCA_LOG_DIR") or "").strip() or "logs"
+
+
+#: the propagation's edge layouts (``RCA_EDGE_LAYOUT``)
+EDGE_LAYOUTS = ("hybrid", "coo", "ell")
+
+
+def edge_layout() -> str:
+    """``RCA_EDGE_LAYOUT``, the edge layout of the propagation scans:
+
+    - ``hybrid`` (default): the registry row's own steps (the seg-step
+      kernels on the ``kernels`` row, the narrow up-table and the sorted
+      segment sum on the ``torch`` row);
+    - ``coo``: the up-steps a scatter-max over the COO edges, the
+      down-steps the sorted segment sum, plain ops on every row (the
+      front still runs the row's own);
+    - ``ell``: one-shot analyses over width-capped gather tables with a
+      short overflow list per direction (``engine/ell.py``); every other
+      surface runs the ``coo`` form.
+
+    Empty means ``hybrid``; any other value raises."""
+    return env_str("RCA_EDGE_LAYOUT", "hybrid", choices=EDGE_LAYOUTS,
+                   lower=True)
 
 
 def resident_enabled() -> bool:

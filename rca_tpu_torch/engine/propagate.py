@@ -35,6 +35,15 @@ the one place the row is decided, and the body branches on it once:
   :mod:`.quantized`, plain ops on every device (the reference's row has
   no Pallas body).
 
+The plan's ``layout`` (``RCA_EDGE_LAYOUT``) changes the ``torch`` row's
+up-steps alone: under ``coo`` they are the segmented max over the up
+layout's sorted edges (:func:`.segscan.up_seg_step_plain`, bitwise the
+up-table's, since a max is order-free) and the plan carries no up-table.
+The other rows run the same steps over the same seg layouts under every
+layout, so the stamp ``layout`` changes no bit of theirs.  The full-ELL
+layout runs through :func:`propagate` with ``ell``
+(:func:`.ell.ell_core` after the row's front).
+
 The JAX ``lax.scan`` over steps is a Python loop here.  No float SUM on
 this path depends on the order of atomics: ``deg`` sums integer-valued
 ones (exact in any order), the bad-row count is an integer sum, the
@@ -54,7 +63,7 @@ from rca_tpu_torch.engine.doubling import (
     doubling_down,
     doubling_up,
 )
-from rca_tpu_torch.engine.ell import UpEll, ell_up_step
+from rca_tpu_torch.engine.ell import UpEll, ell_core, ell_up_step
 from rca_tpu_torch.engine.evidence import (
     evidence_front,
     evidence_front_plain,
@@ -70,27 +79,31 @@ from rca_tpu_torch.engine.segscan import (
     down_seg_step,
     down_seg_step_plain,
     up_seg_step,
+    up_seg_step_plain,
 )
 
 
 class KernelPlan(NamedTuple):
-    """One shape's resolved dispatch: the engaged registry row and the
-    device layouts it runs over.  Every row reads the seg layouts (the
-    front's contrast the up layout); the ``torch`` row also the hybrid
-    up-table, the ``doubling`` row also its frontier layouts."""
+    """One shape's resolved dispatch: the engaged registry row, the edge
+    layout its steps run over and the device layouts.  Every row reads the
+    seg layouts (the front's contrast the up layout); the ``torch`` row on
+    the ``hybrid`` layout also the up-table, the ``doubling`` row also its
+    frontier layouts.  ``layout`` is ``hybrid``, ``coo`` or ``ell``: the
+    stamp of what ran, beside the row."""
 
     kernel: str                       # the engaged row (config.KERNELS)
     down_seg: SegLayout
     up_seg: SegLayout
-    up_ell: Optional[UpEll] = None    # the torch row's up-table
+    up_ell: Optional[UpEll] = None    # the torch row's hybrid up-table
     dbl: Optional[DoublingLayout] = None  # the doubling row's frontiers
+    layout: str = "hybrid"            # the edge layout (RCA_EDGE_LAYOUT)
 
 
 def _row(plan: KernelPlan) -> str:
     if plan.kernel in ("kernels", "quantized"):
         return plan.kernel
     if plan.kernel == "torch":
-        if plan.up_ell is None:
+        if plan.up_ell is None and plan.layout == "hybrid":
             raise ValueError("the torch row needs the plan's up-table")
         return "torch"
     if plan.kernel == "doubling":
@@ -153,8 +166,9 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
                    n_live: Optional[int], plan: KernelPlan):
     """Propagation from precomputed ``[..., n_pad]`` evidence on the
     plan's row: the seg-step wrappers (``kernels``), plain ops over the
-    up-table and the sorted segment sum (``torch``), the log-depth scans
-    (``doubling``) or the int8-message steps (``quantized``).  Returns
+    up-table (the segmented max under ``coo``) and the sorted segment sum
+    (``torch``), the log-depth scans (``doubling``) or the int8-message
+    steps (``quantized``).  Returns
     ``(a, h, u, m, score)``, each shaped like ``a``."""
     row = _row(plan)
     if row == "doubling":
@@ -165,7 +179,11 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
                                          impact_bonus)
 
     u = torch.zeros_like(a)
-    if row == "torch":
+    if row == "torch" and plan.up_ell is None:
+        # the coo layout: the segmented max over the up layout's edges
+        for _ in range(steps):
+            u = up_seg_step_plain(u, h, decay, plan.up_seg)
+    elif row == "torch":
         for _ in range(steps):
             u = ell_up_step(u, h, decay, plan.up_ell)
     elif row == "quantized":
@@ -207,7 +225,7 @@ _FRONTS = {"torch": evidence_front_plain, "kernels": evidence_front,
 def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
               explain_strength: float, impact_bonus: float,
               n_live: Optional[int], plan: KernelPlan,
-              error_contrast: float = 0.0, persist: bool = False):
+              error_contrast: float = 0.0, persist: bool = False, ell=None):
     """The evidence front (sanitize, evidence pair, error-source contrast:
     two kernels on the card for the ``kernels`` and ``doubling`` rows,
     the plain version for the ``torch`` row, the bf16 front for the
@@ -217,10 +235,15 @@ def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
     ``(a, h, u, m, score, n_bad)``, ``n_bad`` the 0-dim int32 count of the
     rows the sanitize zeroed, across the lanes.  ``persist`` leaves the
     sanitized rows in ``features`` (the streaming flush); otherwise
-    ``features`` is only read."""
+    ``features`` is only read.  ``ell`` (:class:`.ell.EllTables`, one
+    ``[n_pad, C]`` graph) runs the full-ELL recursions after the front
+    instead of the core."""
     front = _FRONTS[_row(plan)]
     a, h, n_bad = front(features, anomaly_w, hard_w, error_contrast,
                         plan.up_seg, persist)
+    if ell is not None:
+        return (*ell_core(a, h, ell, steps, decay, explain_strength,
+                          impact_bonus, n_live), n_bad)
     return (*propagate_core(a, h, dep_dst, steps, decay, explain_strength,
                             impact_bonus, n_live, plan), n_bad)
 
@@ -241,10 +264,10 @@ class Propagation(nn.Module):
         self.error_contrast = float(params.error_contrast)
 
     def forward(self, features, dep_dst, n_live: int, plan: KernelPlan,
-                persist: bool = False):
+                persist: bool = False, ell=None):
         return propagate(
             features, dep_dst, self.anomaly_w, self.hard_w,
             self.steps, self.decay, self.explain_strength,
             self.impact_bonus, n_live, plan,
-            error_contrast=self.error_contrast, persist=persist,
+            error_contrast=self.error_contrast, persist=persist, ell=ell,
         )

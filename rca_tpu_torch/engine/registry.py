@@ -50,6 +50,14 @@ is not either), and its ``source`` says why (``sharded`` / ``cpu-default``
 forced row that a shape's eligibility declines engages the device's
 default row (``kernels`` on the card, ``torch`` on the CPU) with source
 ``ineligible``, as the reference falls back to its ``xla`` row.
+
+Rows are keyed by ``RCA_EDGE_LAYOUT`` too, and record it (``layout``);
+a race under ``coo`` or ``ell`` caches its winner under its own key.
+Under ``ell`` ``quantized`` and ``doubling`` are declined, with the
+reference's reason.  The reference also declines its segmented-scan row
+under ``coo`` / ``ell``; the port has no such row (its seg steps run over
+the same sorted edges under every layout), so :func:`layout_note` carries
+that reason as text for ``kernels --explain``.
 """
 
 from __future__ import annotations
@@ -64,7 +72,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from rca_tpu_torch.config import KERNELS, forced_kernel, kernel_cache_path
+from rca_tpu_torch.config import (
+    KERNELS,
+    edge_layout,
+    forced_kernel,
+    kernel_cache_path,
+)
 from rca_tpu_torch.kernels.build import PKG_DIR
 from rca_tpu_torch.observability.kernelscope import note_compile
 
@@ -87,10 +100,13 @@ ATTRIBUTION_DECLINE = (
 CARD_OPT_IN = "opt-in on the card: RCA_KERNEL=quantized|doubling"
 
 
-def _flag() -> str:
-    """The env knob of the row key: a test flipping ``RCA_KERNEL``
-    mid-process re-decides instead of reading a stale verdict."""
-    return os.environ.get("RCA_KERNEL", "").strip().lower()
+def _env_key() -> str:
+    """The env knobs of the row key, ``RCA_KERNEL`` and
+    ``RCA_EDGE_LAYOUT``: a test flipping either mid-process re-decides
+    instead of reading a stale verdict, and a row decided under one
+    layout never serves another."""
+    return ":".join((os.environ.get("RCA_KERNEL", "").strip().lower(),
+                     edge_layout()))
 
 
 def _device_name(device: torch.device) -> str:
@@ -129,6 +145,7 @@ class KernelRow:
     #                               attribution|sharded
     e_pad: Optional[int] = None   # padded edge tier
     steps: int = 8                # propagation depth the row decided for
+    layout: str = "hybrid"        # RCA_EDGE_LAYOUT the row decided under
     eligible: Dict[str, Any] = dataclasses.field(default_factory=dict)
     timings_ms: Dict[str, Optional[float]] = dataclasses.field(
         default_factory=dict
@@ -140,6 +157,7 @@ class KernelRow:
             "n_pad": self.n_pad,
             "e_pad": self.e_pad,
             "steps": self.steps,
+            "layout": self.layout,
             "backend": self.backend,
             "winner": self.winner,
             "source": self.source,
@@ -226,11 +244,11 @@ class KernelRegistry:
                 device="cpu") -> KernelRow:
         """The row for one padded shape on ``device``, created on first
         ask.  Rows are keyed by the dispatch env knobs too
-        (:func:`_flag`)."""
+        (:func:`_env_key`)."""
         device = torch.device(device)
         n_pad = int(n_pad)
         e_pad = int(e_pad) if e_pad is not None else None
-        key = (variant, n_pad, e_pad, int(steps), str(device), _flag())
+        key = (variant, n_pad, e_pad, int(steps), str(device), _env_key())
         with self._lock:
             row = self._rows.get(key)
         if row is not None:
@@ -264,10 +282,11 @@ class KernelRegistry:
     def _decide(self, variant: str, n_pad: int, e_pad: Optional[int],
                 steps: int, device: torch.device) -> KernelRow:
         backend = device.type
-        eligible = _eligibility(variant, e_pad, steps, backend)
+        layout = edge_layout()
+        eligible = _eligibility(variant, e_pad, steps, backend, layout)
         row = KernelRow(variant=variant, n_pad=n_pad, e_pad=e_pad,
-                        steps=steps, backend=backend, winner="torch",
-                        source="default", eligible=eligible)
+                        steps=steps, layout=layout, backend=backend,
+                        winner="torch", source="default", eligible=eligible)
         if variant == "attribution":
             # the saliency's backward pass needs the differentiable body;
             # the attribution's cost lands in the timings through
@@ -296,6 +315,9 @@ class KernelRegistry:
             row.source = "sharded"
             return row
         cache_key = f"{variant}:{n_pad}:{e_pad}:{steps}:{backend}"
+        if layout != "hybrid":
+            # the torch row's up-steps differ by layout
+            cache_key += f":{layout}"
         cached = self._load_cached(cache_key, device)
         if cached is not None and cached["winner"] == "kernels":
             row.winner = "kernels"
@@ -332,7 +354,8 @@ class KernelRegistry:
 
 
 def _eligibility(variant: str, e_pad: Optional[int] = None, steps: int = 8,
-                 backend: str = "cpu") -> Dict[str, Any]:
+                 backend: str = "cpu",
+                 layout: str = "hybrid") -> Dict[str, Any]:
     """Per-row eligibility at one shape: ``True`` or the reason the row
     sits out, with the reference's reasons for the rows both packages
     have.  The kernels row takes every dense and sharded shape: on the
@@ -354,6 +377,8 @@ def _eligibility(variant: str, e_pad: Optional[int] = None, steps: int = 8,
     for name in ("quantized", "doubling"):
         if variant == "sharded":
             out[name] = "no shard_map twin"
+        elif layout == "ell":
+            out[name] = "RCA_EDGE_LAYOUT=ell pins the gather-table layout"
         elif e_pad is None:
             out[name] = "edge tier unknown (caller passed no e_pad)"
         else:
@@ -368,6 +393,17 @@ def _eligibility(variant: str, e_pad: Optional[int] = None, steps: int = 8,
             if out[name] is True:
                 out[name] = CARD_OPT_IN
     return out
+
+
+def layout_note(variant: str, layout: str) -> Optional[str]:
+    """The reference's reason for declining its segmented-scan row on a
+    dense shape under ``RCA_EDGE_LAYOUT=coo|ell``, or None.  It declines
+    nothing here: the port's seg steps reduce the same sorted edges under
+    every layout (bitwise), so the ``kernels`` row keeps them, and under
+    ``ell`` a one-shot analysis runs the gather tables instead."""
+    if variant != "dense" or layout == "hybrid":
+        return None
+    return f"RCA_EDGE_LAYOUT={layout} pins the scan layout"
 
 
 def default_row(device) -> str:

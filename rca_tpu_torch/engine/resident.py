@@ -124,10 +124,13 @@ class ResidentSession:
 
     def _current_plan(self):
         """The session's plan, re-made when the registry now engages
-        another row for its shape (an ``RCA_KERNEL`` flip), so a request
-        always runs the row a restaged one would."""
+        another row for its shape (an ``RCA_KERNEL`` flip) or the edge
+        layout changed (``RCA_EDGE_LAYOUT``), so a request always runs what
+        a restaged one would."""
+        from rca_tpu_torch.engine.runner import plan_layout
+
         row = self._elected_row()
-        if row != self._row:
+        if row != self._row or self._plan.layout != plan_layout():
             self._row = row
             self._plan = self.engine.plan_for(self._n_pad, self._e_pad,
                                               self._src_raw, self._dst_raw)
@@ -203,6 +206,7 @@ class ResidentSession:
             stacked_dev=stacked,
             attribution_ctx=self.engine._attribution_ctx(
                 features, self._src_raw, self._dst_raw, names),
+            plan=self._plan,
         )
 
     def _stage_and_propagate(self, features, changed, kk):

@@ -17,7 +17,10 @@ diagnostics, and the inputs stay behind its lazy attribution.  With
 ``RCA_RESIDENT`` on (the default), ``analyze_arrays`` goes through a
 :class:`rca_tpu_torch.engine.resident.ResidentCache`: a repeat call over
 a known graph writes only its changed rows into a buffer pinned on the
-device, bitwise equal to restaging.
+device, bitwise equal to restaging.  ``RCA_EDGE_LAYOUT`` picks the scans'
+edge layout (:func:`plan_layout`): under ``ell`` a one-shot analysis runs
+over the full-ELL tables (:mod:`.ell`) and skips the resident path, and a
+batch loops over its lanes, as the reference's does.
 
 Device rule: ``GraphEngine()`` runs on ``cuda`` and raises where there is
 no CUDA device; ``device="cpu"`` runs on the CPU, where the registry picks
@@ -33,8 +36,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from rca_tpu_torch.config import RCAConfig, bucket_for, resident_enabled
-from rca_tpu_torch.engine.ell import up_ell_for
+from rca_tpu_torch.config import (
+    RCAConfig,
+    bucket_for,
+    edge_layout,
+    resident_enabled,
+)
+from rca_tpu_torch.engine.ell import ell_tables_for, up_ell_for
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
 from rca_tpu_torch.engine.propagate import KernelPlan, Propagation
 from rca_tpu_torch.engine.segscan import build_seg_layouts
@@ -67,10 +75,13 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
     cap on hub-heavy topologies) even where the shape's row elected it;
     the plan then runs the device's default row (``registry.default_row``)
     and says so in ``plan.kernel``, so the stamped row is always the one
-    that ran."""
+    that ran.  ``plan.layout`` is :func:`plan_layout`'s: under ``coo``
+    (and ``ell``, whose one-shot tables only ``analyze_arrays`` runs) the
+    plan carries no hybrid up-table."""
     from rca_tpu_torch.engine.doubling import doubling_layouts_for
     from rca_tpu_torch.engine.registry import default_row, engaged_kernel
 
+    layout = plan_layout()
     kernel = engaged_kernel(n_pad, e_pad, steps=steps, variant=variant,
                             device=device)
     down_seg, up_seg = build_seg_layouts(n_pad, e_pad, dep_src, dep_dst,
@@ -82,19 +93,32 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
         if dbl is None:
             kernel = default_row(device)
     up_ell = (up_ell_for(n_pad, dep_src, dep_dst, device)
-              if kernel == "torch" else None)
-    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl)
+              if kernel == "torch" and layout == "hybrid" else None)
+    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl, layout)
+
+
+def plan_layout() -> str:
+    """The edge layout a staged plan runs: ``RCA_EDGE_LAYOUT``'s, with
+    ``ell`` run in its ``coo`` form (only a one-shot analysis stages the
+    full-ELL tables, as the reference's ``kernel_plan`` gives every other
+    surface its COO form).  The sharded engine stages no plan here and
+    keeps its per-shard steps under every layout, as the reference's
+    does."""
+    layout = edge_layout()
+    return "coo" if layout == "ell" else layout
 
 
 def propagate_auto(model: Propagation, features, dep_dst, n_live: int,
-                   plan: KernelPlan, persist: bool = False):
+                   plan: KernelPlan, persist: bool = False, ell=None):
     """The propagation body behind every ranked surface (one-shot, the
     batch lanes, the batch delta, attribution, the resident request, the
     streaming tick): the plan's ``kernel`` picks the front and the steps in
     :mod:`.propagate`, so the engaged row cannot drift between the call
     surfaces.  ``persist`` (the streaming flush) leaves the sanitized rows
-    in ``features``.  Returns ``(a, h, u, m, score, n_bad)``."""
-    return model(features, dep_dst, n_live, plan, persist=persist)
+    in ``features``; ``ell`` (a one-shot analysis under
+    ``RCA_EDGE_LAYOUT=ell``) runs the full-ELL recursions after the
+    plan's front.  Returns ``(a, h, u, m, score, n_bad)``."""
+    return model(features, dep_dst, n_live, plan, persist=persist, ell=ell)
 
 
 def topk_diag(stacked, idx):
@@ -116,14 +140,15 @@ def top_k(score: torch.Tensor, k: int):
 
 
 def propagate_ranked(model: Propagation, features, dep_dst, n_live: int,
-                     kk: int, plan: KernelPlan, persist: bool = False):
+                     kk: int, plan: KernelPlan, persist: bool = False,
+                     ell=None):
     """One ranked analysis on the device from the raw padded features, or
     each lane's of ``[B, n_pad, C]`` lanes.  Returns ``(stacked, diag,
     vals, idx, n_bad)``, all device tensors (``[4, n_pad]`` / ``[B, 4,
-    n_pad]`` stacks, ``n_bad`` across the lanes).  ``persist``: see
-    :func:`propagate_auto`."""
+    n_pad]`` stacks, ``n_bad`` across the lanes).  ``persist`` and
+    ``ell``: see :func:`propagate_auto`."""
     a, h, u, m, score, n_bad = propagate_auto(model, features, dep_dst,
-                                              n_live, plan, persist)
+                                              n_live, plan, persist, ell)
     vals, idx = top_k(score, kk)
     stacked = torch.stack([a, u, m, score], dim=-2)
     return stacked, topk_diag(stacked, idx), vals, idx, n_bad
@@ -182,7 +207,9 @@ class EngineResult:
     ``impact``/``score``) are LAZY — the device-parked ``[4, n_pad]`` stack
     moves to the host on the first access — and so is the causelens
     provenance block (:meth:`attribution`), computed from the retained
-    inputs on first call."""
+    inputs on first call.  ``kernel`` and ``layout`` stamp the registry
+    row and the edge layout this call ran (None on a surface that stages
+    no plan, the sharded engine's)."""
 
     def __init__(
         self,
@@ -195,6 +222,8 @@ class EngineResult:
         sanitized_rows: int = 0,
         stacked_dev: object = None,
         attribution_ctx: object = None,
+        kernel: Optional[str] = None,
+        layout: Optional[str] = None,
     ):
         self._service_names = service_names
         self.ranked = ranked
@@ -203,6 +232,8 @@ class EngineResult:
         self.n_edges = n_edges
         self.engine = engine
         self.sanitized_rows = int(sanitized_rows)
+        self.kernel = kernel
+        self.layout = layout
         self._stacked: Optional[np.ndarray] = None
         self._stacked_dev = stacked_dev
         self._attribution_ctx = attribution_ctx
@@ -274,11 +305,13 @@ class EngineResult:
 def render_result(diag, vals, idx, names: Optional[Sequence[str]], n: int,
                   k: int, latency_ms: float, n_edges: int, engine: str,
                   sanitized_rows: int = 0, stacked_dev: object = None,
-                  attribution_ctx: object = None) -> EngineResult:
+                  attribution_ctx: object = None,
+                  plan: Optional[KernelPlan] = None) -> EngineResult:
     """Host-side rendering from the ``[4, kk]`` top-k gather (host numpy);
     pad slots (index >= n) are skipped.  Unnamed services render as
     ``svc-<i>``.  ``attribution_ctx`` (:func:`make_attribution_ctx`) is
-    what the result's lazy :meth:`EngineResult.attribution` runs on."""
+    what the result's lazy :meth:`EngineResult.attribution` runs on;
+    ``plan`` stamps its row and layout on the result."""
     diag = np.asarray(diag)
     names = list(names) if names is not None else None
     ranked = []
@@ -304,6 +337,8 @@ def render_result(diag, vals, idx, names: Optional[Sequence[str]], n: int,
         sanitized_rows=int(sanitized_rows),
         stacked_dev=stacked_dev,
         attribution_ctx=attribution_ctx,
+        kernel=None if plan is None else plan.kernel,
+        layout=None if plan is None else plan.layout,
     )
 
 
@@ -507,8 +542,11 @@ class GraphEngine(EngineAPI):
     ) -> EngineResult:
         n = features.shape[0]
         k = k or min(self.config.top_k_root_causes, n)
-        if self._resident_cache is not None and not timed:
-            # the resident path; ``timed`` keeps the restaged method
+        full_ell = edge_layout() == "ell"
+        if self._resident_cache is not None and not timed and not full_ell:
+            # the resident path; ``timed`` keeps the restaged method, and
+            # the full-ELL tables have no resident twin (the reference's
+            # neither)
             return self._resident_cache.analyze(features, dep_src, dep_dst,
                                                 names, k)
         f, s, d = self._pad(np.asarray(features, np.float32), dep_src, dep_dst)
@@ -516,11 +554,17 @@ class GraphEngine(EngineAPI):
         kk = min(k + 8, n_pad)
         dev = self.device
         plan = self.plan_for(n_pad, e_pad, dep_src, dep_dst)
+        ell = None
+        if full_ell:
+            # the row's front over the plan's up layout, then the
+            # recursions over the width-capped tables
+            ell = ell_tables_for(n_pad, dep_src, dep_dst, dev)
+            plan = plan._replace(layout="ell")
         fd = torch.from_numpy(f).to(dev)
         dd = torch.from_numpy(d.astype(np.int64)).to(dev)
 
         def run():
-            return propagate_ranked(self.model, fd, dd, n, kk, plan)
+            return propagate_ranked(self.model, fd, dd, n, kk, plan, ell=ell)
 
         stacked, diag, vals, idx, n_bad, latency_ms = timed_fetch(run, timed)
         return render_result(
@@ -528,6 +572,7 @@ class GraphEngine(EngineAPI):
             engine="single", sanitized_rows=n_bad, stacked_dev=stacked,
             attribution_ctx=self._attribution_ctx(features, dep_src, dep_dst,
                                                   names),
+            plan=plan,
         )
 
     def analyze_batch(
@@ -545,6 +590,12 @@ class GraphEngine(EngineAPI):
         features; ``latency_ms`` is the batch's wall over B, and
         ``sanitized_rows`` counts across the batch (a poisoned row poisons
         every hypothesis built from the same snapshot)."""
+        if edge_layout() == "ell":
+            # the full-ELL tables have no batched body: a loop of solo
+            # analyses, so every lane is its solo run (the reference's
+            # loop too)
+            return super().analyze_batch(features_batch, dep_src, dep_dst,
+                                         names, k=k)
         features_batch = np.asarray(features_batch, np.float32)
         lanes, n = features_batch.shape[0], features_batch.shape[1]
         k = k or min(self.config.top_k_root_causes, n)
@@ -571,6 +622,7 @@ class GraphEngine(EngineAPI):
                 sanitized_rows=n_bad, stacked_dev=stacked[b],
                 attribution_ctx=self._attribution_ctx(
                     features_batch[b], dep_src, dep_dst, names),
+                plan=plan,
             )
             for b in range(lanes)
         ]

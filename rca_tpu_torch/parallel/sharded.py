@@ -561,6 +561,7 @@ class ShardedResidentSession(ResidentSession):
         self._aw, self._hw = (w[0] for w in _stage_weights(
             self._mesh, self.engine.params))
         self._buffers = None
+        self._plan = None  # per-shard steps: no dense plan to stamp
 
     def _request_rows(self, features):
         from rca_tpu_torch.engine.runner import finite_mask_rows_np

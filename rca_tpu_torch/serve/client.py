@@ -72,6 +72,7 @@ class ServeClient:
         deadline_ms: Optional[float] = None,
         trace_parent=None,
         explain: bool = False,
+        investigation_id: Optional[str] = None,
     ) -> ServeRequest:
         """Queue one analyze request; returns immediately with the
         request future (``queue_full``/``shed`` outcomes are already
@@ -86,7 +87,7 @@ class ServeClient:
             tenant=tenant, features=features, dep_src=dep_src,
             dep_dst=dep_dst, names=names, k=k, priority=priority,
             deadline_s=deadline_s, trace_parent=trace_parent,
-            explain=explain,
+            explain=explain, investigation_id=investigation_id,
         )
         self.loop.submit(req)
         return req

@@ -101,6 +101,7 @@ class BatchHandle:
     dispatched_at: float          # scheduler-clock stamp at dispatch
     kernel: str = "torch"         # engaged registry row for this shape
     resident_delta: bool = False  # lanes rode the delta path
+    plan: object = None           # runner KernelPlan (dense), else None
 
 
 class BatchDispatcher:
@@ -287,6 +288,7 @@ class BatchDispatcher:
             # serve loop passes its scheduler clock's ``now``
             dispatched_at=now if now is not None else self._clock(),
             kernel=gs.kernel, resident_delta=deltas is not None,
+            plan=gs.plan,
         )
 
     def _dispatch_full(
@@ -402,5 +404,6 @@ class BatchDispatcher:
                 # the request's own copied arrays back the lazy attribution
                 attribution_ctx=self.engine._attribution_ctx(
                     features, req.dep_src, req.dep_dst, req.names),
+                plan=handle.plan,
             ))
         return results

@@ -87,6 +87,7 @@ class ServeLoop:
         fault_hook: Optional[Callable[[str], None]] = None,
         breaker: Optional[CircuitBreaker] = None,
         dispatcher: Optional[BatchDispatcher] = None,
+        store=None,
         recorder=None,
         tracer=None,
         kernelscope: Optional[bool] = None,
@@ -114,8 +115,12 @@ class ServeLoop:
             dispatcher.metrics = self.metrics
         # response delivery is shared with the serve pool: the sink owns
         # the last-known ladder and the exactly-once accounting
+        # the optional investigation store: an ok response naming an
+        # investigation appends a serve note there (the store's fcntl
+        # locking makes that safe from the worker thread)
+        self.store = store
         self.sink = CompletionSink(self.metrics, clock, tracer=self.tracer,
-                                   recorder=recorder)
+                                   store=store, recorder=recorder)
         self.worker = ReplicaWorker(
             0, config=self.config, clock=clock, sink=self.sink,
             metrics=self.metrics, dispatcher=dispatcher, queue=self.queue,

@@ -68,6 +68,7 @@ class ServePool:
         config: Optional[ServeConfig] = None,
         clock: Callable[[], float] = time.monotonic,
         fault_hook: Optional[Callable[[str], None]] = None,
+        store=None,
         recorder=None,
         devices=None,
         dispatchers: Optional[Sequence] = None,
@@ -84,7 +85,8 @@ class ServePool:
         ``devices`` (default: the visible CUDA devices).  ``dispatchers``
         (tests) builds one stub replica per entry instead.  ``recorder``
         writes one ``serve`` frame per ``ok`` response, whichever replica
-        served it."""
+        served it; ``store`` (an investigation store) takes each ``ok``
+        response's serve note and explained provenance, as the loop's."""
         self.config = config or ServeConfig.from_env()
         self.clock = clock
         self.queue = RequestQueue(self.config.queue_cap, clock=clock)
@@ -98,8 +100,9 @@ class ServePool:
         # context, the router records queue/steal spans, replicas record
         # batch/dispatch/fetch, the sink closes the root
         self.tracer = tracer if tracer is not None else default_tracer()
+        self.store = store
         self.sink = CompletionSink(self.metrics, clock, tracer=self.tracer,
-                                   recorder=recorder)
+                                   store=store, recorder=recorder)
         self.steal = bool(self.config.steal)
         self._route_lock = make_lock("ServePool._route_lock")
         self._home: dict = {}          # GraphKey -> replica_id (sticky)

@@ -81,14 +81,22 @@ class CompletionSink:
       response whose completion won writes one frame under the sink's
       lock, so N replica workers write one frame per request.  A failed
       frame is a recorded fault (``serve.record``), never a failed
-      response.
+      response;
+    - **the investigation store's notes** (``store``): an ``ok`` response
+      whose request names an investigation appends a serve note there
+      (and the recording's path when a recorder is attached), and an
+      explained one lands its provenance block, which ``why`` renders.
+      Both are written before the completion, so a caller that reads the
+      store after ``result()`` sees them; a store failure is a recorded
+      fault, never a failed response.
     """
 
     def __init__(self, metrics, clock: Callable[[], float], tracer=None,
-                 recorder=None):
+                 recorder=None, store=None):
         self.metrics = metrics
         self.clock = clock
         self.recorder = recorder
+        self.store = store
         # the sink is where every request terminates exactly once, so the
         # root ``serve.request`` span and the duration sample belong here
         self.tracer = tracer if tracer is not None else default_tracer()
@@ -164,6 +172,11 @@ class CompletionSink:
                 }
         queue_ms = max(0.0, (dispatched_at - req.enqueued_at) * 1e3)
         self.metrics.answered(req.tenant, queue_ms)
+        self._store_note(req, result)
+        if (provenance is not None and self.store is not None
+                and req.investigation_id is not None):
+            with suppressed("serve.store_provenance"):
+                self.store.set_provenance(req.investigation_id, provenance)
         won = self._complete(req, ServeResponse(
             status="ok", request_id=req.request_id, tenant=req.tenant,
             ranked=ranked, queue_ms=round(queue_ms, 3), batch_size=width,
@@ -201,6 +214,28 @@ class CompletionSink:
             status="error", request_id=req.request_id, tenant=req.tenant,
             detail=detail,
         ))
+
+    def _store_note(self, req: ServeRequest, result) -> None:
+        """The investigation-store append of one served request, safe from
+        any worker thread (the store locks its files); a store failure
+        never fails the response."""
+        if self.store is None or req.investigation_id is None:
+            return
+        top = result.ranked[0]["component"] if result.ranked else None
+        with suppressed("serve.store_note"):
+            self.store.add_message(
+                req.investigation_id, "serve",
+                {
+                    "request_id": req.request_id,
+                    "tenant": req.tenant,
+                    "top_component": top,
+                    "engine": result.engine,
+                },
+            )
+            if self.recorder is not None:
+                self.store.set_recording_ref(
+                    req.investigation_id, str(self.recorder.path)
+                )
 
 
 class ReplicaWorker:

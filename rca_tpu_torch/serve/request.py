@@ -107,6 +107,9 @@ class ServeRequest:
     # the provenance block after the fetch (one extra pass, charged to the
     # explaining request only)
     explain: bool = False
+    # optional investigation-store target: an ``ok`` response appends a
+    # serve note there, and an explained one lands its provenance block
+    investigation_id: Optional[str] = None
     # tracing: ``trace_parent`` is the caller's span context; ``trace`` is
     # THIS request's root-span identity, minted at admission when tracing
     # is on — every span the scheduler records for this request parents

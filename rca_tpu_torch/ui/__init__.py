@@ -1,0 +1,19 @@
+"""UI surface: the pure render helpers (the Streamlit app is not ported)."""
+
+from rca_tpu_torch.ui.render import (
+    finding_markdown,
+    initial_suggestions,
+    report_markdown,
+    response_markdown,
+    root_causes_markdown,
+    topology_plot_data,
+)
+
+__all__ = [
+    "finding_markdown",
+    "initial_suggestions",
+    "report_markdown",
+    "response_markdown",
+    "root_causes_markdown",
+    "topology_plot_data",
+]

@@ -16,8 +16,11 @@
   with their replays, the mint and the bisect, an analysis (one-shot,
   resident, batched, streamed) under ``RCA_KERNEL=quantized`` and
   ``RCA_KERNEL=doubling``, a fit with ``train``, its gate and its JSON
-  checkpoint, and ``python -m rca_tpu_torch train``; the native scanner
-  loaded is the one built from ``rca_tpu_torch/native/``;
+  checkpoint, and ``python -m rca_tpu_torch train``, the investigation
+  layer (store, LLM layer, loggers, render helpers, hypotheses) with
+  ``chat``, ``suggest``, ``report`` and ``investigations`` and an
+  analysis under ``RCA_EDGE_LAYOUT=ell``; the native scanner loaded is
+  the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   included), the streaming sessions, ``replay`` and ``chaos`` raise (or
   exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
@@ -430,6 +433,61 @@ def test_variants_and_training_load_no_jax():
                        for m in out["modules"]), name
 
 
+_INVESTIGATE_PROBE = """
+import json, os, runpy, sys, tempfile
+import rca_tpu_torch.coordinator.hypotheses
+import rca_tpu_torch.llm
+import rca_tpu_torch.llm.prompts
+import rca_tpu_torch.obslog
+import rca_tpu_torch.store
+import rca_tpu_torch.ui.render
+from rca_tpu_torch import GraphEngine
+from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+log_dir = tempfile.mkdtemp()
+codes = []
+for argv in (["chat", "--fixture", "5svc", "--investigation", "new",
+              "why is the database down?"],
+             ["suggest", "--fixture", "5svc",
+              '{"type": "run_agent", "agent_type": "comprehensive"}'],
+             ["report", "--fixture", "5svc", "--llm-agents", "--out",
+              os.path.join(log_dir, "r.md")],
+             ["investigations"]):
+    sys.argv = ["rca_tpu_torch", *argv, "--device", "cpu", "--log-dir",
+                log_dir]
+    if argv[0] == "investigations":
+        sys.argv = sys.argv[:2] + ["--log-dir", log_dir]
+    try:
+        runpy.run_module("rca_tpu_torch", run_name="__main__")
+    except SystemExit as exc:
+        codes.append(exc.code)
+os.environ["RCA_EDGE_LAYOUT"] = "ell"
+case = synthetic_cascade_arrays(200, n_roots=2, seed=1)
+ell = GraphEngine(device="cpu").analyze_case(case).top_components()
+print(json.dumps({"codes": codes, "ell": ell,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_investigation_layer_loads_no_jax_and_no_rca_tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", _INVESTIGATE_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["codes"] == [0, 0, 0, 0]
+    assert out["ell"]
+    for module in ("store", "store.investigations", "llm", "llm.client",
+                   "llm.providers", "llm.tools", "llm.prompts", "obslog",
+                   "obslog.evidence", "obslog.prompts", "ui.render",
+                   "coordinator.hypotheses", "coordinator.followups",
+                   "coordinator.structured", "agents.llm_agent"):
+        assert f"rca_tpu_torch.{module}" in out["modules"], module
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+    for name in ("openai", "anthropic", "streamlit"):
+        assert name not in out["modules"], name
+
+
 def _probe_env():
     return {**os.environ, "RCA_EXPLAIN": "1", "RCA_KERNEL_CACHE": "off"}
 
@@ -531,6 +589,23 @@ def test_coordinator_and_cli_without_device_raise_on_a_host_without_cuda(
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert '"status"' not in proc.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["chat", "--fixture", "5svc", "hello?"],
+    ["suggest", "--fixture", "5svc", '{"type": "query", "query": "x"}'],
+    ["report", "--fixture", "5svc"],
+])
+def test_investigation_commands_without_device_fail_without_cuda(
+        argv, no_cuda, tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", *argv, "--log-dir",
+         str(tmp_path)], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=180,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_streaming_without_device_raises_on_a_host_without_cuda(no_cuda):

@@ -455,9 +455,18 @@ def test_replay_cli_exit_codes(recorded, tmp_path, capsys):
     assert main(["replay", perturbed, "--bisect", "--device", "cpu",
                  "--dump", str(tmp_path / "d.json"), "--compact"]) == 1
     assert json.loads(capsys.readouterr().out)["first_divergent_tick"] == 23
-    assert main(["replay", path, "--investigation", "x", "--device",
-                 "cpu"]) == 2
-    assert "A3" in capsys.readouterr().err
+    # --investigation resolves the log from the store's recording_ref
+    from rca_tpu_torch.store import InvestigationStore
+
+    store_root = str(tmp_path / "store")
+    assert main(["replay", "--investigation", "x", "--log-dir", store_root,
+                 "--device", "cpu"]) == 1
+    assert "recording_ref" in json.loads(capsys.readouterr().out)["error"]
+    inv = InvestigationStore(root=store_root).create_investigation(
+        "replayed", recording_ref=path)
+    assert main(["replay", "--investigation", inv["id"], "--log-dir",
+                 store_root, "--device", "cpu", "--compact"]) == 0
+    capsys.readouterr()
 
 
 # -- explain digests and the trace timeline -----------------------------------
