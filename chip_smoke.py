@@ -12,7 +12,14 @@
                                        # cards alone
 
 Phases, each printing one line; any failure exits non-zero before the
-verdict line:
+verdict line.  "The main path's counts" below are a dense analysis's
+launches on the ``kernels`` row: ``evidence_front`` and
+``seg_contrast_step`` once, then the two recursions, which the plan runs
+as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
+(1 / 1 / 1 / 1: both layouts fit one CTA's shared memory) and as
+``seg_up_step`` / ``seg_down_step`` 8 times each above (1 / 1 / 8 / 8 at
+10,000 and 49,999); ``noisy_or_pair`` and the flagged scans never
+(:func:`main_launches`).
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rca_tpu_torch/csrc`` (one ``nvcc`` per
@@ -27,7 +34,14 @@ verdict line:
    up-step bitwise, the segmented sum and the down-step allclose at rtol
    1e-5 / atol 1e-6, and every kernel bitwise-equal to itself over two
    runs.  The steps run over the tier's real layouts and over a star
-   layout (all 4096 edges in one segment, longer than a block);
+   layout (all 4096 edges in one segment, longer than a block).  The
+   fused recursions ``seg_up_steps`` / ``seg_down_steps`` run over the
+   same layouts, the star and two degenerate ones (no edges; self-loops
+   and duplicate edges) at 0, 1, 8 and 13 steps flat and at 8 over 2, 4,
+   8 and 16 lanes: bitwise the same number of per-step launches, bitwise
+   over two runs, each lane bitwise its flat launch, ``u`` bitwise its
+   plain version and ``m`` at rtol 1e-5 / atol 1e-6 (at 2047 only: the
+   49,999 layouts do not fit one CTA, and the plan runs them per step);
 4. the kernel registry at both tiers, with a fresh cache file: the
    ``kernels`` row is elected by timing with ``torch`` timed beside it, a
    second engine reads the cache (``source == "cache"``), and under
@@ -35,10 +49,9 @@ verdict line:
    ranks the same top-k;
 5. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
    both tiers (the registry engaging ``kernels``) with the launch
-   counters set to 0 just before; each
-   analysis must launch ``evidence_front`` and ``seg_contrast_step`` once,
-   ``seg_up_step`` and ``seg_down_step`` 8 times each, and
-   ``noisy_or_pair`` and the flagged scans never.  Each result
+   counters set to 0 just before; the plan must fuse the recursions at
+   2047 and not at 49,999, and each analysis must launch the main path's
+   counts.  Each result
    is held against the port's own CPU run (plain versions) of the same
    case — top-k and ``sanitized_rows`` identical, ``u`` bitwise, scores
    allclose at rtol 1e-5 / atol 1e-6 — and against itself (two card runs
@@ -47,13 +60,14 @@ verdict line:
    ``entry()`` step must reproduce the engine's scores;
 6. the hypothesis batch, 8 lanes per tier (each of the top candidates
    made healthy in its lane, NaN/Inf rows in two lanes): one
-   ``analyze_batch`` launches ``evidence_front`` / ``seg_contrast_step`` /
-   ``seg_up_step`` / ``seg_down_step`` 1 / 1 / 8 / 8 times for the whole
+   ``analyze_batch`` launches the main path's counts for the whole
    batch, every lane is bitwise equal to a solo card analysis of its
    features, each batched launch agrees with its batched plain version
-   (the front, the contrast and ``u`` bitwise, the down-step at rtol
-   1e-5 / atol 1e-6), the batch delta is bitwise equal to full staging,
-   and each batched launch is timed beside its bound and plain version;
+   (the front, the contrast and ``u`` bitwise, the down-steps at rtol
+   1e-5 / atol 1e-6; the fused recursions also bitwise their per-step
+   launches), the batch delta is bitwise equal to full staging, and each
+   batched launch is timed beside its bound and plain version (the fused
+   recursions beside their 8 per-step launches too);
 7. the capture layer: the native log scanner and the C sanitize
    extension are built with g++ from ``rca_tpu_torch/native/`` into the
    port's own cache (the scanner must load; the sanitize extension must
@@ -76,9 +90,8 @@ verdict line:
    a comprehensive analysis (capture, features, graph, the six agents, the
    engine, the findings JSON) on the card over the 5-service fixture, the
    50-service fixture and a 2047-service cascade, each with the launch
-   counters set to 0 just before: each analysis must launch
-   ``evidence_front`` / ``seg_contrast_step`` / ``seg_up_step`` /
-   ``seg_down_step`` 1 / 1 / 8 / 8 times and nothing else, finish with
+   counters set to 0 just before: each analysis must launch the main
+   path's counts (fused: 1 / 1 / 1 / 1) and nothing else, finish with
    the torch backend and no fallback, rank a fault root first (the
    database and the api-gateway first and second at 5 services), match
    the port's own CPU run (agents' findings and groups byte-identical,
@@ -98,9 +111,9 @@ verdict line:
    50-service fixture and the 2047-service cascade, and
    ``analyze_arrays(...).attribution()`` at 49,999 services, the sweep on
    the registry's ``dense`` row (``kernels``: the base run and the
-   counterfactual lanes launch ``evidence_front`` / ``seg_contrast_step``
-   / ``seg_up_step`` / ``seg_down_step`` 2 / 2 / 16 / 16 times, counted
-   from 0 just before) and the saliency on its ``attribution`` row
+   counterfactual lanes launch the main path's counts twice, per step at
+   49,999: 2 / 2 / 16 / 16, counted from 0 just before) and the saliency
+   on its ``attribution`` row
    (``torch``): the provenance block is there with saliency, every
    candidate's reconstruction error is at most 1e-5, it equals the port's
    CPU block (blame paths and counterfactual order outside drops within
@@ -111,8 +124,8 @@ verdict line:
 10. resident sessions at both tiers: a seeded request sequence (first,
    identical, deltas of 1 / 8 / 64 rows with NaN and Inf rows, a delete,
    a delta wider than ``n_pad / 2``, the heal, identical again) through
-   ``GraphEngine()`` (``RCA_RESIDENT`` on): every request launches 1 / 1
-   / 8 / 8, is bitwise ``GraphEngine(resident=False)`` of the same
+   ``GraphEngine()`` (``RCA_RESIDENT`` on): every request launches the
+   main path's counts, is bitwise ``GraphEngine(resident=False)`` of the same
    features (the ``[4, n_pad]`` stack, the top-k with its tie order,
    ``sanitized_rows``) and the session's upload and fetch bytes are what
    the reference's formula predicts; the host walls of a delta request,
@@ -120,9 +133,9 @@ verdict line:
 11. streaming ticks at 2047, 10,000 (BASELINE.md row 4's size) and 49,999
    services: 30 ticks of a ``StreamingSession`` (deltas of 1 / 8 / 64
    rows with NaN/Inf, deletes, a delta wider than ``n_pad / 2``, quiet
-   ticks, one ``set_all`` carrying NaN rows): each tick launches 1 / 1 /
-   8 / 8, the ``evidence_front`` launch persisting (counted apart in
-   ``PERSIST_LAUNCHES``) on delta ticks only, the buffer is
+   ticks, one ``set_all`` carrying NaN rows): each tick launches the
+   main path's counts, the ``evidence_front`` launch persisting (counted
+   apart in ``PERSIST_LAUNCHES``) on delta ticks only, the buffer is
    bitwise its plain version's (a twin session on the ``torch`` row,
    whose ranking it matches within rtol 1e-5 / atol 1e-6), a manual
    depth-2 pipeline is the serial run shifted by one, bitwise, every
@@ -177,22 +190,23 @@ verdict line:
    and with seeded dispatch/fetch faults (every request resolved, every
    ok answer bitwise its solo run); then per tier a ``BatchDispatcher``
    driven at widths 1, 2, 3, 4, 8 and 16, full staging and delta staging
-   (a NaN row in one lane), each batch 1 / 1 / 8 / 8 launches, its
+   (a NaN row in one lane), each batch the main path's counts, its
    ``dispatch`` under ``torch.cuda.set_sync_debug_mode("error")`` and
    every lane bitwise its solo card analysis; each main-path kernel's
    launch over 1, 2, 4 and 16 lanes against its batched plain version and
-   timed; 64 requests (dense and sparse perturbations, 4 tenants, 4
+   timed (the fused recursions beside their 8 per-step launches); 64
+   requests (dense and sparse perturbations, 4 tenants, 4
    submitter threads) through a ``ServeLoop`` (max batch 16) and through
    a ``max_batch = 1`` loop, in turns, twice, after one warm load: every
-   response ok and bitwise its solo run, every device batch 1 / 1 / 8 / 8
-   launches and sync-free, with analyses per second, device batches, mean
+   response ok and bitwise its solo run, every device batch the main
+   path's counts and sync-free, with analyses per second, device batches, mean
    width and per-tenant queue wait and submit → completion p50 / p99;
    then the same requests through a pool of two dense replicas on the
    card with replica 0 killed mid-wave and through a ``dense,sharded@4``
    pool: every response ok, no double completion, every answer bitwise
    its own kind's solo engine, every dispatch sync-free and counted on
    its own (one lock over the replicas' device calls), each dense batch
-   1 / 1 / 8 / 8 launches and each sharded batch 32 / 32 / 4 launches of
+   the main path's counts and each sharded batch 32 / 32 / 4 launches of
    the per-shard entries;
 15. flight recording and replay (``rca_tpu_torch.replay``): 20 polls
    of the live mix over a 10,000-service cascade world at depth 2 on the
@@ -213,9 +227,10 @@ verdict line:
 16. the ``quantized`` and ``doubling`` registry rows at both tiers beside
    ``kernels`` and ``torch`` (``RCA_KERNEL`` names each; the card's race
    leaves them out): one restaged ``analyze_case`` per row counted from
-   0 (``kernels`` 1 / 1 / 8 / 8; ``doubling`` 1 / 1 / 0 / 0 where it
-   engages, or a plan that says ``kernels`` and 1 / 1 / 8 / 8 where the
-   frontier cap declines the graph, and it must engage at 2047;
+   0 (``kernels`` the main path's counts; ``doubling`` 1 / 1 / 0 / 0
+   where it engages, or a plan that says ``kernels`` and the main path's
+   counts where the frontier cap declines the graph, and it must engage at
+   2047;
    ``quantized`` and ``torch`` none), doubling's ``u`` bitwise the
    ``kernels`` row's with scores at rtol 1e-5 / atol 1e-6 and the same
    top-k, ``quantized`` in rank parity with ``kernels``, every row
@@ -224,7 +239,7 @@ verdict line:
    streaming session under ``RCA_KERNEL=doubling``, bitwise their solo
    analyses.  Then the ``layouts`` leg at both tiers: one restaged
    ``analyze_case`` per ``RCA_EDGE_LAYOUT`` counted from 0 (``hybrid``
-   and ``coo`` 1 / 1 / 8 / 8; ``ell`` 1 / 1 / 0 / 0 and 8
+   and ``coo`` the main path's counts; ``ell`` 1 / 1 / 0 / 0 and 8
    ``segscan_sum``, the front's kernels, then the gather tables with the
    overflow's flagged sum), each result and the registry row stamped
    with the ``kernels`` row and the layout, ``coo``'s ``u`` bitwise
@@ -254,7 +269,7 @@ verdict line:
    ``use_llm_agents=True``: every output equals the port's CPU run of the
    same sequence without the volatile keys (ids, clocks, ``latency_ms``,
    ``profile``), the evidence files too, the top cause is an injected
-   root and the ``run_agent`` suggestion launches 1 / 1 / 8 / 8; each
+   root and the ``run_agent`` suggestion launches 1 / 1 / 1 / 1; each
    stage's host wall (median of 5).  Then ``python -m rca_tpu_torch chat
    --investigation new``, ``suggest`` and ``report --out`` over
    ``--fixture 50svc`` in subprocesses, one explained request naming the
@@ -273,10 +288,17 @@ verdict line:
    ``front_call_ms`` and its bound) beside the front it replaces, the
    sanitize's torch ops, the ``noisy_or_pair`` kernel, the error-source
    scatter and the fold (``plain_front_ms`` / ``plain_front_call_ms``);
-   the persisting ``evidence_front`` launch (``persist_*``); the
-   end-to-end ``analyze_arrays`` wall time at both tiers, restaged.
+   the persisting ``evidence_front`` launch (``persist_*``); at 2047 each
+   fused recursion beside the 8 per-step launches it replaces
+   (``per_step_ms`` / ``per_step_call_ms``); the end-to-end
+   ``analyze_arrays`` wall time at both tiers, restaged, and at 2047 again
+   with the recursions fused and per step in turns
+   (``analyze_arrays_fused_ms`` / ``analyze_arrays_per_step_ms``; with
+   ``--profile`` also the 2047 analysis's device profile run per step).
 
-The line before the last is the ``{"kernels": [...]}`` JSON (the
+The line before the last is the ``{"kernels": [...]}`` JSON (the fused
+recursions' rows with their 2047-service numbers, where the plan runs
+them, each with its per-step composition; the
 per-shard entries as rows of their own, with their launches over one
 sharded analysis at 49,999 services on 4 shards; every dense kernel with
 its launches per sharded analysis beside its dense count; every kernel
@@ -288,7 +310,7 @@ per batch and its batched times (``serve_batch``: at 1, 2, 4 and 16
 lanes),
 and the launches counted on a delta tick, a quiet tick and an 8-row
 resident delta request at 49,999 services, ``evidence_front`` also its
-persisting launches there; the four tick kernels with
+persisting launches there; the tick kernels with
 ``replay_launches``, over the 20 replayed ticks of the 10,000-service
 tape, and ``variant_launches``, per analysis on the ``doubling`` and
 ``quantized`` rows at each tier; every main-path kernel with
@@ -304,6 +326,7 @@ goes to ``DIR/chip_smoke.json`` and each profile table to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -395,6 +418,197 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: the two recursions' fused kernels (csrc/segsteps.cu) and the per-step
+#: kernels they replace where the plan fuses them (csrc/segstep.cu)
+FUSED_KERNELS = ("seg_up_steps", "seg_down_steps")
+STEP_KERNELS = ("seg_up_step", "seg_down_step")
+#: the depths the fused recursions are checked at: none (no launch), one,
+#: the engine's 8 and 13 (config.propagation_steps sets the depth)
+CHECK_STEPS = (0, 1, 8, 13)
+#: the lanes they are checked and timed over: the serve widths
+RECURSION_LANES = (1, 2, 4, 8, 16)
+
+
+def fused(services: int) -> bool:
+    """Whether the engine's plan runs each recursion as one launch at this
+    many services: where both layouts fit one CTA's shared memory, every
+    graph up to the 2047-service tier.  The 10,000 and 49,999 tiers do not
+    fit and run one launch per step."""
+    return services <= 2047
+
+
+def main_launches(services: int, times: int = 1) -> dict:
+    """Every kernel's launches over ``times`` dense analyses (requests,
+    ticks, device batches) of a graph of ``services`` on the ``kernels``
+    row: ``evidence_front`` and ``seg_contrast_step`` once each, then
+    ``seg_up_steps`` and ``seg_down_steps`` once each where the plan fuses
+    the recursions, else ``seg_up_step`` and ``seg_down_step`` 8 times."""
+    one, eight = (times, 0) if fused(services) else (0, 8 * times)
+    return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
+            "evidence_front": times, "seg_contrast_step": times,
+            "seg_up_steps": one, "seg_down_steps": one,
+            "seg_up_step": eight, "seg_down_step": eight}
+
+
+def recursion_runs(up, down, h, a_ex, inv_deg, decay: float, steps: int):
+    """The fused recursions over the layouts ``up`` / ``down`` on the card,
+    each with the ``steps`` per-step launches it replaces and its plain
+    version: ``{name: (fused, per_step, plain)}``."""
+    import torch
+    from rca_tpu_torch.engine.segscan import (
+        down_seg_step,
+        down_seg_steps,
+        down_seg_steps_plain,
+        up_seg_step,
+        up_seg_steps,
+        up_seg_steps_plain,
+    )
+
+    def up_per_step():
+        u = torch.zeros_like(h)
+        for _ in range(steps):
+            u = up_seg_step(u, h, decay, up)
+        return u
+
+    def down_per_step():
+        m = torch.zeros_like(a_ex)
+        for _ in range(steps):
+            m = down_seg_step(m, a_ex, decay, down, inv_deg)
+        return m
+
+    return {
+        "seg_up_steps": (
+            lambda: up_seg_steps(h, decay, steps, up), up_per_step,
+            lambda: up_seg_steps_plain(h, decay, steps, up)),
+        "seg_down_steps": (
+            lambda: down_seg_steps(a_ex, decay, steps, down, inv_deg),
+            down_per_step,
+            lambda: down_seg_steps_plain(a_ex, decay, steps, down, inv_deg)),
+    }
+
+
+def per_step_plans():
+    """A context in which every plan runs the two recursions per step,
+    where it would fuse them: the walls' and the profile's comparison."""
+    return mock.patch("rca_tpu_torch.engine.runner.fused_steps_fit",
+                      return_value=False)
+
+
+def plain_recursion_ms(plain) -> float:
+    """``cuda_ms`` of a recursion's plain version over 5 samples of 2
+    calls: it enqueues some thousand torch ops a call (10-20 ms of host
+    time), and the queued samples spin the card for 4x that each."""
+    return cuda_ms(plain, reps=5, inner=2)
+
+
+def recursion_bounds(up, down, lanes: int, steps: int = 8) -> dict:
+    """Each fused recursion's bound: one pass over the CSR fields it reads
+    (offsets, other endpoints, long ids), its read-only vectors and its
+    output, at 3.35 TB/s; operations 3 per edge and 1 per node a step."""
+    out = {}
+    for name, seg, shared in (("seg_up_steps", up, 0),
+                              ("seg_down_steps", down, 1)):
+        n_pad = seg.offsets.shape[0] - 1
+        e_pad = seg.other32.shape[0]
+        csr = (n_pad + 1 + e_pad + seg.long_ids.shape[0]) * 4
+        vec = (2 * lanes + shared) * n_pad * 4
+        out[name] = bound_ms(csr + vec, lanes * steps * (3 * e_pad + n_pad))
+    return out
+
+
+def check_recursions(label, up, down, inv_deg, rng, decay: float) -> dict:
+    """The fused recursions over the layouts ``up`` / ``down`` (on the
+    card) at every depth of ``CHECK_STEPS`` on a flat vector, and at the
+    engine's 8 over every lane count of ``RECURSION_LANES``: bitwise
+    ``steps`` per-step launches, bitwise over two runs, each lane bitwise
+    its own flat launch, ``seg_up_steps`` bitwise its plain version and
+    ``seg_down_steps`` within rtol 1e-5 / atol 1e-6 of it.  Returns each
+    kernel's largest error against plain."""
+    import numpy as np
+    import torch
+
+    n_pad = up.offsets.shape[0] - 1
+    dev = up.offsets.device
+    errs = dict.fromkeys(FUSED_KERNELS, 0.0)
+    cases = [(None, s) for s in CHECK_STEPS] + [
+        (b, 8) for b in RECURSION_LANES[1:]]
+    for lanes, steps in cases:
+        shape = (n_pad,) if lanes is None else (lanes, n_pad)
+        x = torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(
+            np.float32)).to(dev)
+        runs = recursion_runs(up, down, x, x, inv_deg, decay, steps)
+        for name, (kernel, per_step, plain) in runs.items():
+            got, again, want, ref = kernel(), kernel(), per_step(), plain()
+            torch.cuda.synchronize()
+            where = f"{name}, {label}, {steps} steps, lanes {lanes}"
+            if not torch.equal(got, again):
+                fail(f"{where}: not deterministic")
+            if not torch.equal(got, want):
+                fail(f"{where}: not bitwise {steps} per-step launches")
+            if name == "seg_up_steps" and not torch.equal(got, ref):
+                fail(f"{where}: not bitwise equal to plain")
+            if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
+                fail(f"{where}: disagrees with plain")
+            if lanes is not None:
+                for b in range(lanes):
+                    solo = recursion_runs(up, down, x[b], x[b], inv_deg,
+                                          decay, steps)[name][0]()
+                    if not torch.equal(got[b], solo):
+                        fail(f"{where}: lane {b} differs from its flat "
+                             f"launch")
+            errs[name] = max(errs[name], float((got - ref).abs().max()))
+    phase("check", kernel="seg_up_steps + seg_down_steps", layout=label,
+          n_pad=n_pad, steps=list(CHECK_STEPS),
+          lanes=list(RECURSION_LANES), bitwise_per_step=True,
+          bitwise_lanes=True, max_abs_err=errs)
+    return errs
+
+
+def time_recursions(up, down, inv_deg, rng, decay: float,
+                    lanes: int = 1) -> dict:
+    """Each fused recursion at the engine's 8 steps over ``lanes`` lanes
+    (a flat vector for 1): its device time (``ms``) and cost to a caller
+    (``call_ms``) beside the 8 per-step launches it replaces
+    (``per_step_ms`` / ``per_step_call_ms``), its plain version and its
+    bound, all in this run."""
+    import numpy as np
+    import torch
+
+    n_pad = up.offsets.shape[0] - 1
+    shape = (n_pad,) if lanes == 1 else (lanes, n_pad)
+    x = torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(
+        np.float32)).to(up.offsets.device)
+    bounds = recursion_bounds(up, down, lanes)
+    out = {}
+    for name, (kernel, per_step, plain) in recursion_runs(
+            up, down, x, x, inv_deg, decay, 8).items():
+        out[name] = {
+            "ms": cuda_ms(kernel), "call_ms": cuda_ms(kernel, queued=False),
+            "per_step_ms": cuda_ms(per_step),
+            "per_step_call_ms": cuda_ms(per_step, queued=False),
+            "plain_ms": plain_recursion_ms(plain), "library_ms": None,
+            "bound": bounds[name]}
+    return out
+
+
+def degenerate_layouts(rng) -> dict:
+    """Small layouts the fused recursions must get right: no edges at all
+    (every slot a padding self-loop on the dummy), and self-loops with
+    duplicate edges."""
+    import numpy as np
+    from rca_tpu_torch.engine.segscan import build_seg_layout
+
+    loops = np.arange(50, dtype=np.int32)
+    seg = np.concatenate([loops, np.full(20, 3), np.full(40, 9)])
+    other = np.concatenate([loops, np.full(20, 5), rng.integers(0, 63, 40)])
+    return {
+        "no edges": build_seg_layout(64, 128, np.zeros(0, np.int32),
+                                     np.zeros(0, np.int32)),
+        "self-loops and duplicates": build_seg_layout(
+            64, 128, seg.astype(np.int32), other.astype(np.int32)),
+    }
 
 
 def main(argv) -> int:
@@ -499,7 +713,8 @@ def main(argv) -> int:
     kin = {}   # per tier: kernel inputs on the card, for timing
     errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0,
             "seg_up_step": 0.0, "seg_down_step": 0.0, "evidence_front": 0.0,
-            "seg_contrast_step": 0.0}
+            "seg_contrast_step": 0.0, "seg_up_steps": 0.0,
+            "seg_down_steps": 0.0}
     decay = params.decay
     contrast = params.error_contrast
 
@@ -637,6 +852,13 @@ def main(argv) -> int:
             "seg_down_step": check_steps(f"down, {n} services", down_d,
                                          inv_deg, ["seg_down_step"]),
         }
+        # the fused recursions over the same layouts, where the plan runs
+        # them, against the per-step launches they replace
+        if fused(n):
+            for name, err in check_recursions(f"{n} services", up_d, down_d,
+                                              inv_deg, rng, decay).items():
+                errs[name] = max(errs[name], err)
+            kin[n]["recursion"] = (up_d, down_d, inv_deg)
 
         # the front on raw features: a row whose only non-finite value is
         # its error rate, a NaN beside a finite error rate (its e must
@@ -668,9 +890,17 @@ def main(argv) -> int:
     # block path reduces a run 16 times its width
     star = build_seg_layout(2048, 4096, np.full(4096, 7, np.int32),
                             rng.integers(0, 2047, 4096).astype(np.int32))
-    check_steps("star, 4096 edges in one segment", star.to(dev),
-                torch.full((2048,), 1.0 / 4096, dtype=torch.float32,
-                           device=dev), ["seg_up_step", "seg_down_step"])
+    star_d = star.to(dev)
+    star_inv = torch.full((2048,), 1.0 / 4096, dtype=torch.float32,
+                          device=dev)
+    check_steps("star, 4096 edges in one segment", star_d, star_inv,
+                ["seg_up_step", "seg_down_step"])
+    check_recursions("star, 4096 edges in one segment", star_d, star_d,
+                     star_inv, rng, decay)
+    for label, layout in degenerate_layouts(rng).items():
+        seg_d = layout.to(dev)
+        check_recursions(label, seg_d, seg_d, torch.full(
+            (64,), 0.25, dtype=torch.float32, device=dev), rng, decay)
 
     # -- 4. the registry elects the kernels row by timing ------------------
     engine = GraphEngine()
@@ -682,21 +912,23 @@ def main(argv) -> int:
         if row.winner != "kernels":
             fail(f"the registry engages {row.winner!r} ({row.source}) at "
                  f"{n} services")
+    for n in cases:
+        plan = engine.plan_for(*shapes[n], cases[n].dep_src,
+                               cases[n].dep_dst)
+        if plan.steps_fused != fused(n):
+            fail(f"the plan at {n} services says steps_fused="
+                 f"{plan.steps_fused}, want {fused(n)}")
     reset_launches()
     results = {}
     for i, n in enumerate(cases, start=1):
         results[n] = engine.analyze_case(cases[n])
-        want = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-                "seg_up_step": 8 * i, "seg_down_step": 8 * i,
-                "evidence_front": i, "seg_contrast_step": i}
+        want = {k: sum(main_launches(m)[k] for m in list(cases)[:i])
+                for k in LAUNCHES}
         if LAUNCHES != want:
             fail(f"launch counts {LAUNCHES} after {i} analyses, want {want}")
-    main_launches = dict(LAUNCHES)
-    phase("main_path", launches=main_launches,
-          per_analysis={"evidence_front": 1, "seg_contrast_step": 1,
-                        "seg_up_step": 8, "seg_down_step": 8,
-                        "noisy_or_pair": 0, "segscan_sum": 0,
-                        "segscan_max": 0})
+    path_launches = dict(LAUNCHES)
+    phase("main_path", launches=path_launches,
+          per_analysis={str(n): main_launches(n) for n in cases})
 
     # -- 6. the hypothesis batch, one launch per kernel and step ----------
     record["batch"] = batch_phase(engine, cases, shapes, aw, hw, params)
@@ -851,6 +1083,9 @@ def main(argv) -> int:
                 "library_ms": None,
                 "bound": bound_ms(n_bytes, 3 * e_pad + n_pad),
             }
+        # the fused recursions beside the 8 per-step launches they replace
+        if fused(n):
+            t.update(time_recursions(*kin[n]["recursion"], rng, decay))
 
         # the front: features read once, the weights, the up layout's CSR,
         # the [n_pad] vectors between and out of the two launches
@@ -925,6 +1160,14 @@ def main(argv) -> int:
                                     case.dep_dst, case.names)
 
         t["analyze_arrays_ms"] = host_ms(analyze)
+        if fused(n):
+            # the same analysis fused (as planned) and per step, in turns
+            walls = {True: [], False: []}
+            for on in (True, False, False, True):
+                with contextlib.nullcontext() if on else per_step_plans():
+                    walls[on] += host_samples(analyze, reps=10)
+            t["analyze_arrays_fused_ms"] = float(np.median(walls[True]))
+            t["analyze_arrays_per_step_ms"] = float(np.median(walls[False]))
         t["analyze_timed_latency_ms"] = engine.analyze_case(
             case, timed=True).latency_ms
         times[n] = t
@@ -934,9 +1177,12 @@ def main(argv) -> int:
         record["sweep"] = sweep(cases, shapes, kin, decay)
 
     if args.profile:
-        for n in cases:
-            profile(restaged, cases[n], times[n]["analyze_arrays_ms"],
-                    args.out)
+        record["profile"] = {
+            str(n): profile(restaged, cases[n], times[n]["analyze_arrays_ms"],
+                            args.out,
+                            times[n]["analyze_arrays_per_step_ms"]
+                            if fused(n) else None)
+            for n in cases}
 
     big = TIERS[-1][0]
     sources = {
@@ -959,6 +1205,14 @@ def main(argv) -> int:
         "seg_down_step": ("rca_tpu_torch/csrc/segstep.cu",
                           "rca_tpu/engine/segscan.py:136 "
                           "(step down_seg_step :197)"),
+        "seg_up_steps": ("rca_tpu_torch/csrc/segsteps.cu",
+                         "rca_tpu/engine/segscan.py:141 (step up_seg_step "
+                         ":206, 8 steps under lax.scan, rca_tpu/engine/"
+                         "propagate.py:303)"),
+        "seg_down_steps": ("rca_tpu_torch/csrc/segsteps.cu",
+                           "rca_tpu/engine/segscan.py:136 (step "
+                           "down_seg_step :197, 8 steps under lax.scan, "
+                           "rca_tpu/engine/propagate.py:342)"),
     }
     stream_counts = record["stream"][str(big)]["tick_launches"]
     resident_counts = next(
@@ -966,21 +1220,26 @@ def main(argv) -> int:
         if r["request"] == "delta_8_nan_inf")
     kernels = []
     for name, (src, replaces) in sources.items():
-        t = times[big][name]
+        # the fused recursions run on the plan at 2047 services; at 49,999
+        # the plan runs the per-step kernels, and those are the numbers
+        tier = 2047 if name in FUSED_KERNELS else big
+        t = times[tier][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_launches[name],
+            "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": t["ms"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "tier_services": big, "at_2047": times[2047][name],
+            "tier_services": tier, "at_2047": times[2047][name],
+            "at_49999": times[big].get(name),
             "snapshot_launches": record["snapshot"]["launches"][name],
             # counted in the stream and resident phases of this run
             "tick_launches": {
                 "delta_tick": stream_counts["delta"][name],
                 "quiet_tick": stream_counts["quiet"][name],
                 "resident_delta_request": resident_counts["launches"][name]},
-            **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms")
+            **{key: t[key] for key in ("scan_step_ms", "scan_step_call_ms",
+                                       "per_step_ms", "per_step_call_ms")
                if key in t},
         })
         serve = record["serve"]
@@ -1022,13 +1281,15 @@ def main(argv) -> int:
                 f"{row}_{tier}": record["variants"][tier]["launches"][row][
                     name] for tier in map(str, cases)
                 for row in ("doubling", "quantized")}
-        if name in BATCH_LAUNCHES:
+        if name in TICK_KERNELS:
             batch = record["batch"]
             kernels[-1].update(
-                batch_lanes=BATCH, batch_launches=batch["launches"][name],
-                batch=batch["times"][str(big)][name],
+                batch_lanes=BATCH, batch_launches={
+                    tier: counts[name]
+                    for tier, counts in batch["launches"].items()},
+                batch=batch["times"][str(big)].get(name),
                 batch_at_2047=batch["times"]["2047"][name],
-                serve_batch={lanes: t[name] for lanes, t
+                serve_batch={lanes: t.get(name) for lanes, t
                              in serve["batched"][str(big)].items()},
                 serve_batch_at_2047={lanes: t[name] for lanes, t
                                      in serve["batched"]["2047"].items()})
@@ -1101,11 +1362,6 @@ def main(argv) -> int:
 
 
 BATCH = 8
-BATCH_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
-                  "seg_up_step": 8, "seg_down_step": 8}
-#: one attribution's sweep: the base run and one batch of the
-#: counterfactual lanes
-SWEEP_LAUNCHES = {k: 2 * v for k, v in BATCH_LAUNCHES.items()}
 
 
 def registry_phase(engine, cases, shapes) -> dict:
@@ -1183,7 +1439,9 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
     ``ft`` of ``case``'s graph against its batched plain version (the
     front, the contrast and ``u`` bitwise, the down-step within rtol 1e-5
     / atol 1e-6; each bitwise over two runs), then timed beside its bound
-    and plain version.  Returns ``(checks, times)``."""
+    and plain version; where the plan fuses the recursions, the fused
+    kernels also bitwise their 8 per-step launches and timed beside them.
+    Returns ``(checks, times)``."""
     import numpy as np
     import torch
     from rca_tpu_torch.engine.evidence import (
@@ -1238,6 +1496,13 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
         "seg_down_step": bound_ms(csr + n_pad * 4 + 3 * vec,
                                   lanes * (3 * e_pad + n_pad)),
     }
+    per_step = {}
+    if fused(n):
+        bounds.update(recursion_bounds(up, down, lanes))
+        for name, (kernel, steps, plain) in recursion_runs(
+                up, down, h, a_raw, inv_deg, decay, 8).items():
+            runs[name] = (kernel, plain)
+            per_step[name] = steps
     checks, times = [], {}
     for name, (kernel, plain) in runs.items():
         got, again, ref = kernel(), kernel(), plain()
@@ -1247,13 +1512,16 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
         for g, a, r in zip(got, again, ref):
             if not torch.equal(g, a):
                 fail(f"batched {name} not deterministic at {n} x {lanes}")
-            if name == "seg_down_step":
+            if name in ("seg_down_step", "seg_down_steps"):
                 ok = torch.allclose(g, r, rtol=1e-5, atol=1e-6)
             else:
                 ok = torch.equal(g, r)
             if not ok:
                 fail(f"batched {name} disagrees with its batched plain "
                      f"version at {n} x {lanes}")
+            if name in per_step and not torch.equal(g, per_step[name]()):
+                fail(f"batched {name} is not bitwise its 8 per-step "
+                     f"launches at {n} x {lanes}")
         err = max(float((g.float() - r.float()).abs().max())
                   for g, r in zip(got, ref))
         check = {"kernel": name, "services": n, "lanes": lanes,
@@ -1264,8 +1532,13 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
         phase("batch_check", **check)
         times[name] = {"ms": cuda_ms(kernel),
                        "call_ms": cuda_ms(kernel, queued=False),
-                       "plain_ms": cuda_ms(plain),
+                       "plain_ms": (plain_recursion_ms(plain)
+                                    if name in per_step else cuda_ms(plain)),
                        "bound": bounds[name], "max_abs_err": err}
+        if name in per_step:
+            times[name].update(
+                per_step_ms=cuda_ms(per_step[name]),
+                per_step_call_ms=cuda_ms(per_step[name], queued=False))
     return checks, times
 
 
@@ -1287,11 +1560,10 @@ def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
 
     dev = engine.device
     rng = np.random.default_rng(61)
-    out = {"times": {}, "checks": []}
-    want = {name: 0 for name in LAUNCHES}
-    want.update(BATCH_LAUNCHES)
+    out = {"times": {}, "checks": [], "launches": {}}
     for n, case in cases.items():
         n_pad, e_pad = shapes[n]
+        want = main_launches(n)
         batch = _hypothesis_batch(engine, case)
         reset_launches()
         t0 = time.perf_counter()
@@ -1302,7 +1574,7 @@ def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
         if launches != want:
             fail(f"launch counts {launches} for one batch of {BATCH} at {n},"
                  f" want {want}")
-        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["launches"][str(n)] = launches
         if lanes[0].sanitized_rows != 3:
             fail(f"the batch counted {lanes[0].sanitized_rows} bad rows")
         for b, lane in enumerate(lanes):
@@ -1596,8 +1868,6 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
     from rca_tpu_torch.serve import serve_selftest
 
     t_phase = time.perf_counter()
-    want = {name: 0 for name in LAUNCHES}
-    want.update(BATCH_LAUNCHES)
     # a sharded device batch: every per-shard entry on each of sp shards
     want_sharded = _shard_launches(SHARD_SP)
     want_shard = {name: want_sharded[name] for name in SHARD_SOURCES}
@@ -1625,6 +1895,7 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
     rng = np.random.default_rng(97)
     for n, case in cases.items():
         n_pad, e_pad = shapes[n]
+        want = main_launches(n)
         solo_cache = {}
 
         def solo(f, eng=engine, c=case):
@@ -1682,7 +1953,7 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
             out["by_width"].setdefault(disp._b_pad(w), launches)
         out["widths"][str(n)] = per_width
         phase("serve_widths", services=n, widths=list(SERVE_WIDTHS),
-              per_batch=BATCH_LAUNCHES, bitwise_solo=True, sync_free=True)
+              per_batch=want, bitwise_solo=True, sync_free=True)
 
         # -- each lane count's batched launches against the plain ones ---
         times = {}
@@ -1855,7 +2126,7 @@ def attribution_phase(engine, big_case, profile_it: bool = False,
     there, with saliency and every candidate's reconstruction error at most
     1e-5, equal to the port's CPU block under the CPU tests' tolerances
     (``_blocks_agree``) and identical over two card runs; the sweep runs
-    through the kernels (``SWEEP_LAUNCHES`` per attribution at 49,999,
+    through the kernels (``main_launches`` of two analyses at 49,999,
     counted from 0 just before), the saliency on the ``attribution`` row
     (``torch``); the attribution's wall time is recorded, and with
     ``profile_it`` its device time by op (``device_profile``)."""
@@ -1910,9 +2181,10 @@ def attribution_phase(engine, big_case, profile_it: bool = False,
         walls.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             sweep_launches = {k: v for k, v in LAUNCHES.items() if v}
-    if sweep_launches != SWEEP_LAUNCHES:
-        fail(f"the attribution launched {sweep_launches}, want "
-             f"{SWEEP_LAUNCHES}")
+    # the base run and one batch of the counterfactual lanes
+    want = {k: v for k, v in main_launches(case.n, 2).items() if v}
+    if sweep_launches != want:
+        fail(f"the attribution launched {sweep_launches}, want {want}")
     if any(_dumps(b) != _dumps(blocks[0]) for b in blocks[1:]):
         fail("two card runs give different blocks at 49,999 services")
     block = blocks[0]["attribution"]
@@ -1966,9 +2238,6 @@ def hypotheses_phase() -> dict:
     return out
 
 
-SNAPSHOT_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
-                     "seg_up_step": 8, "seg_down_step": 8,
-                     "noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0}
 
 
 def _causes_match(got, want, label):
@@ -2060,9 +2329,10 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
         if rec["status"] != "completed":
             fail(f"comprehensive analysis {rec['status']} at {label}: "
                  f"{rec.get('error')}")
-        if launches != SNAPSHOT_LAUNCHES:
+        # every world here is at most 2047 services: the fused recursions
+        if launches != main_launches(2047):
             fail(f"launch counts {launches} for one analysis at {label}, "
-                 f"want {SNAPSHOT_LAUNCHES}")
+                 f"want {main_launches(2047)}")
         for name, count in launches.items():
             total[name] += count
         res = rec["results"]
@@ -2148,7 +2418,7 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
     walls = {"columnar": [], "dict": []}
     profiles = {"columnar": [], "dict": []}
 
-    def analysis(path):
+    def timed_run(path):
         with mock.patch.dict(os.environ, {
                 "RCA_COLUMNAR": "1" if path == "columnar" else "0"}):
             t0 = time.perf_counter()
@@ -2156,11 +2426,11 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
             return (time.perf_counter() - t0) * 1e3, rec
 
     for path in ("columnar", "dict"):
-        analysis(path)
+        timed_run(path)
     for i in range(5):
         for path in (("columnar", "dict") if i % 2 == 0
                      else ("dict", "columnar")):
-            wall, rec = analysis(path)
+            wall, rec = timed_run(path)
             walls[path].append(wall)
             profiles[path].append(rec["results"]["profile"])
     client = MockClusterClient(world)
@@ -2490,11 +2760,6 @@ def capture_phase(smi: str) -> dict:
     return out
 
 
-#: launches of the four main-path kernels per resident request and per
-#: streaming tick (delta or quiet), every other kernel 0
-TICK_LAUNCHES = {"evidence_front": 1, "seg_contrast_step": 1,
-                 "seg_up_step": 8, "seg_down_step": 8, "noisy_or_pair": 0,
-                 "segscan_sum": 0, "segscan_max": 0}
 STREAM_SIZES = (2047, 10000, 49999)
 
 
@@ -2583,7 +2848,7 @@ def resident_phase(cases, shapes) -> dict:
             persisting = PERSIST_LAUNCHES["evidence_front"]
             ref = restaged.analyze_arrays(f, case.dep_src, case.dep_dst,
                                           case.names)
-            if launches != TICK_LAUNCHES or persisting:
+            if launches != main_launches(n) or persisting:
                 fail(f"resident {label} at {n}: launches {launches}, "
                      f"{persisting} persisting")
             if not torch.equal(_bits(torch.from_numpy(
@@ -2736,7 +3001,7 @@ def stream_phase(engine, cases, profile_it: bool = False,
             got = serial.fetch(handle)
             launches = dict(LAUNCHES)
             persisting = PERSIST_LAUNCHES["evidence_front"]
-            if launches != TICK_LAUNCHES or \
+            if launches != main_launches(n) or \
                     persisting != int(step[0] == "delta"):
                 fail(f"stream tick {t} ({step[0]}) at {n}: launches "
                      f"{launches}, {persisting} persisting")
@@ -3138,9 +3403,10 @@ def live_phase() -> dict:
     return out
 
 
-#: the four kernels of a tick (``evidence_front`` persisting apart)
-TICK_KERNELS = ("evidence_front", "seg_contrast_step", "seg_up_step",
-                "seg_down_step")
+#: the kernels of a tick (``evidence_front`` persisting apart): the front's
+#: two, then the fused recursions or the per-step kernels
+TICK_KERNELS = ("evidence_front", "seg_contrast_step", *FUSED_KERNELS,
+                *STEP_KERNELS)
 
 
 def _launch_snapshot() -> dict:
@@ -3298,7 +3564,8 @@ def replay_phase(cases, smi: str) -> dict:
             fail(f"replay 10k: launches per tick {replay_ticks} differ from "
                  f"the recorded session's {rec_ticks}")
         for name in TICK_KERNELS:
-            if not sum(t[name] for t in replay_ticks):
+            if main_launches(10000)[name] and not sum(
+                    t[name] for t in replay_ticks):
                 fail(f"replay 10k: {name} never launched")
         med_rec = float(np.median(walls["recorded"]))
         med_plain = float(np.median(walls["unrecorded"]))
@@ -3403,11 +3670,10 @@ def replay_phase(cases, smi: str) -> dict:
 # -- the quantized and doubling rows, and training ---------------------------
 
 VARIANT_ROWS = ("kernels", "doubling", "quantized", "torch")
-MAIN_LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-                 "seg_up_step": 8, "seg_down_step": 8, "evidence_front": 1,
-                 "seg_contrast_step": 1}
-DOUBLING_LAUNCHES = {**MAIN_LAUNCHES, "seg_up_step": 0, "seg_down_step": 0}
-NO_LAUNCHES = {name: 0 for name in MAIN_LAUNCHES}
+#: the doubling row: the front's two kernels, no seg step
+DOUBLING_LAUNCHES = {**main_launches(2047), "seg_up_steps": 0,
+                     "seg_down_steps": 0}
+NO_LAUNCHES = dict.fromkeys(DOUBLING_LAUNCHES, 0)
 TRAIN_MODES = ("standard", "crashing_victims", "correlated_noise",
                "adversarial")
 
@@ -3470,8 +3736,9 @@ def variants_phase(cases, shapes, smi: str) -> dict:
                 fail(f"the {row} row is not bitwise equal to itself at {n}")
             res[row] = first
         engaged = plans["doubling"] == "doubling"
-        want = {"kernels": MAIN_LAUNCHES,
-                "doubling": DOUBLING_LAUNCHES if engaged else MAIN_LAUNCHES,
+        want = {"kernels": main_launches(n),
+                "doubling": DOUBLING_LAUNCHES if engaged
+                else main_launches(n),
                 "quantized": NO_LAUNCHES, "torch": NO_LAUNCHES}
         for row in VARIANT_ROWS:
             if counts[row] != want[row]:
@@ -3517,13 +3784,18 @@ LAYOUTS = ("hybrid", "coo", "ell")
 #: seg steps over the same sorted edges as ``hybrid``; ``ell`` runs the K1
 #: front, then its gather tables with the overflow's flagged segmented sum
 #: (``segscan_sum``) once a step
-LAYOUT_LAUNCHES = {"hybrid": MAIN_LAUNCHES, "coo": MAIN_LAUNCHES,
-                   "ell": {**DOUBLING_LAUNCHES, "segscan_sum": 8}}
+def layout_launches(services: int) -> dict:
+    """Launches per analysis under each edge layout: ``hybrid`` and
+    ``coo`` the main path's; ``ell`` the front's and the overflow's
+    flagged sum once a step."""
+    return {"hybrid": main_launches(services),
+            "coo": main_launches(services),
+            "ell": {**DOUBLING_LAUNCHES, "segscan_sum": 8}}
 
 
 def _layouts_leg(cases, shapes, smi: str) -> dict:
     """``RCA_EDGE_LAYOUT`` on the card at both tiers: one restaged
-    ``analyze_case`` per layout counted from 0 (:data:`LAYOUT_LAUNCHES`),
+    ``analyze_case`` per layout counted from 0 (:func:`layout_launches`),
     each result stamped with the ``kernels`` row and its layout, the dense
     registry row keyed by the layout; ``coo``'s ``u`` bitwise ``hybrid``'s
     with scores at rtol 1e-5 / atol 1e-6, ``ell``'s ``u`` bitwise and
@@ -3580,9 +3852,9 @@ def _layouts_leg(cases, shapes, smi: str) -> dict:
             if not np.array_equal(first.full_diagnostics(),
                                   again.full_diagnostics()):
                 fail(f"the {layout} layout is not bitwise itself at {n}")
-            if counts[layout] != LAYOUT_LAUNCHES[layout]:
+            if counts[layout] != layout_launches(n)[layout]:
                 fail(f"{layout} launched {counts[layout]} at {n}, want "
-                     f"{LAYOUT_LAUNCHES[layout]}")
+                     f"{layout_launches(n)[layout]}")
             if (stamps[layout]["kernel"] != "kernels"
                     or stamps[layout]["layout"] != layout
                     or stamps[layout]["row_layout"] != layout):
@@ -4017,9 +4289,9 @@ def investigate_phase(smi: str) -> dict:
         if top["component"] not in roots:
             fail(f"the investigation's top cause {top['component']} is "
                  f"not an injected root {roots}")
-        if run_agent_launches != MAIN_LAUNCHES:
+        if run_agent_launches != main_launches(2047):
             fail(f"the run_agent suggestion launched {run_agent_launches}, "
-                 f"want {MAIN_LAUNCHES}")
+                 f"want {main_launches(2047)}")
         files = {}
         for name in ("card", "cpu"):
             root = os.path.join(tmp, name, "evidence")
@@ -4172,7 +4444,8 @@ def _shard_launches(sp: int) -> dict:
     """The kernel launches of one sharded analysis over ``sp`` shards."""
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "evidence_front": sp, "seg_contrast_step": sp,
-            "seg_up_step": 8 * sp, "seg_down_step": 8 * sp}
+            "seg_up_step": 8 * sp, "seg_down_step": 8 * sp,
+            "seg_up_steps": 0, "seg_down_steps": 0}
 
 
 def _hub_case(n: int, block: int, seed: int):
@@ -4893,17 +5166,28 @@ def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
             "top_device_ops": [[e.key[:60], dev_us(e) / calls] for e in top]}
 
 
-def profile(engine, case, host_ms_per_analysis: float, out=None) -> None:
-    """Device time by kernel over 5 analyses after 3 warm ones."""
-    p = device_profile(lambda: engine.analyze_case(case),
-                       host_ms_per_analysis, out, str(case.n), calls=5,
-                       warm=3)
-    phase("profile", services=case.n,
-          device_us_per_analysis=p["device_us_per_call"],
-          launches_per_analysis=p["launches_per_call"],
-          device_kernels_per_analysis=p["device_kernels_per_call"],
-          host_ms_per_analysis=host_ms_per_analysis,
-          device_busy_share=p["device_busy_share"])
+def profile(engine, case, host_ms_per_analysis: float, out=None,
+            per_step_host_ms=None) -> dict:
+    """Device time by kernel over 5 analyses after 3 warm ones; with
+    ``per_step_host_ms`` (a tier whose plan fuses the recursions) also
+    the same analysis run per step, beside it."""
+    runs = {"plan": (host_ms_per_analysis, False)}
+    if per_step_host_ms is not None:
+        runs["per_step"] = (per_step_host_ms, True)
+    got = {}
+    for label, (host, per_step) in runs.items():
+        name = str(case.n) + ("_per_step" if per_step else "")
+        with per_step_plans() if per_step else contextlib.nullcontext():
+            p = device_profile(lambda: engine.analyze_case(case), host, out,
+                               name, calls=5, warm=3)
+        got[label] = {"device_us_per_analysis": p["device_us_per_call"],
+                      "launches_per_analysis": p["launches_per_call"],
+                      "device_kernels_per_analysis":
+                          p["device_kernels_per_call"],
+                      "host_ms_per_analysis": host,
+                      "device_busy_share": p["device_busy_share"]}
+        phase("profile", services=case.n, run=label, **got[label])
+    return got
 
 
 if __name__ == "__main__":

@@ -357,6 +357,7 @@ def cmd_kernels(args) -> int:
         get_registry,
         kernel_table,
         layout_note,
+        steps_note,
     )
     from rca_tpu_torch.engine.runner import resolve_device
 
@@ -424,6 +425,9 @@ def cmd_kernels(args) -> int:
                 else:
                     detail = f"not raced (decision source: {row['source']})"
                 print(f"  {k:8s} {detail}")
+            if row["variant"] == "dense":
+                steps = steps_note(row["n_pad"], row["e_pad"], device)
+                print(f"  steps    {steps}")
             note = layout_note(row["variant"], row["layout"])
             if note:
                 print(f"  note     the reference declines its segscan row "

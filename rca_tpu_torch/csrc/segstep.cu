@@ -1,11 +1,17 @@
 // One propagation seg step per launch, for Hopper (sm_90a).
 //
-// Replaces, on the engine's main path, the TPU kernels
-// rca_tpu/engine/segscan.py::pallas_segscan and ::pallas_segscan_max
-// together with the step bodies around them, ::down_seg_step and
-// ::up_seg_step (gather, flagged scan, s[ends], where, epilogue).  Over the
-// CSR form of one scan direction (segment s owns the sorted edges
-// [offsets[s], offsets[s+1]), o_e = other[e] is the edge's other endpoint):
+// Replaces the TPU kernels rca_tpu/engine/segscan.py::pallas_segscan and
+// ::pallas_segscan_max together with the step bodies around them,
+// ::down_seg_step and ::up_seg_step (gather, flagged scan, s[ends], where,
+// epilogue).  Where the per-step entries run: the contrast step on every
+// analysis (the front's second launch); the up and down steps where the
+// engine's plan does not fuse a recursion into one launch (segsteps.cu)
+// because the graph does not fit one CTA's shared memory (the 10,000 and
+// 49,999-service tiers: 8 launches each way); the *_shard entries of the
+// node-sharded engine, whose steps a collective separates; and as the
+// bitwise yardstick of segsteps.cu's kernels.  Over the CSR form of one
+// scan direction (segment s owns the sorted edges [offsets[s],
+// offsets[s+1]), o_e = other[e] is the edge's other endpoint):
 //
 //   up   (explain-away, K3):  u'[s] = max(u[s], max_e max(h[o_e], g*u[o_e]))
 //   down (impact, K2):        m'[d] = inv_deg[d] * sum_e (a_ex[o_e] + g*m[o_e])
@@ -71,7 +77,10 @@
 // gathers are indexed, so neither TMA nor the tensor cores apply; what the
 // design buys is one launch per step in place of a gather, three scan
 // launches and the epilogue's ops, and no edge-sized intermediate in
-// device memory.
+// device memory.  A launch costs the card 4-6 us whatever the graph, which
+// is what segsteps.cu removes where a recursion fits one CTA; above, the
+// gathers of a step need the whole card, which these launches spread
+// over.
 //
 // Rounding: every product and sum is spelled with an _rn intrinsic so nvcc
 // cannot contract a*b+c into an fma; the per-edge values and the epilogues

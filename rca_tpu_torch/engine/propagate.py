@@ -20,9 +20,11 @@ names (:mod:`rca_tpu_torch.engine.registry`); the plan's ``kernel`` is
 the one place the row is decided, and the body branches on it once:
 
 - ``kernels``: the front (finite-mask sanitize, evidence pair, contrast)
-  and every seg step go through the port's kernels on the card
-  (:mod:`.evidence`: two launches; :mod:`.segscan`: one launch per step,
-  each for all lanes); on the CPU through their plain versions;
+  and the recursions go through the port's kernels on the card
+  (:mod:`.evidence`: two launches; :mod:`.segscan`: one launch per
+  recursion where the plan's ``steps_fused`` says the graph fits one
+  CTA's shared memory, else one launch per step, each for all lanes);
+  on the CPU through their plain versions;
 - ``torch``: plain PyTorch ops on every device, differentiable with the
   reference's gradient at ties, which attribution's saliency needs: the
   front's plain version, the up-steps over the plan's hybrid up-table
@@ -78,8 +80,10 @@ from rca_tpu_torch.engine.segscan import (
     SegLayout,
     down_seg_step,
     down_seg_step_plain,
+    down_seg_steps,
     up_seg_step,
     up_seg_step_plain,
+    up_seg_steps,
 )
 
 
@@ -89,7 +93,9 @@ class KernelPlan(NamedTuple):
     seg layouts (the front's contrast the up layout); the ``torch`` row on
     the ``hybrid`` layout also the up-table, the ``doubling`` row also its
     frontier layouts.  ``layout`` is ``hybrid``, ``coo`` or ``ell``: the
-    stamp of what ran, beside the row."""
+    stamp of what ran, beside the row.  ``steps_fused``: the ``kernels``
+    row runs each recursion as one launch (the graph fits one CTA's
+    shared memory on the CUDA device), else one launch per step."""
 
     kernel: str                       # the engaged row (config.KERNELS)
     down_seg: SegLayout
@@ -97,6 +103,7 @@ class KernelPlan(NamedTuple):
     up_ell: Optional[UpEll] = None    # the torch row's hybrid up-table
     dbl: Optional[DoublingLayout] = None  # the doubling row's frontiers
     layout: str = "hybrid"            # the edge layout (RCA_EDGE_LAYOUT)
+    steps_fused: bool = False         # one launch per recursion
 
 
 def _row(plan: KernelPlan) -> str:
@@ -165,7 +172,8 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
                    explain_strength: float, impact_bonus: float,
                    n_live: Optional[int], plan: KernelPlan):
     """Propagation from precomputed ``[..., n_pad]`` evidence on the
-    plan's row: the seg-step wrappers (``kernels``), plain ops over the
+    plan's row: the fused recursions or the seg-step wrappers
+    (``kernels``), plain ops over the
     up-table (the segmented max under ``coo``) and the sorted segment sum
     (``torch``), the log-depth scans (``doubling``) or the int8-message
     steps (``quantized``).  Returns
@@ -178,7 +186,10 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
         return a, h, u, m, combine_score(a, h, u, m, explain_strength,
                                          impact_bonus)
 
-    u = torch.zeros_like(a)
+    # a fused recursion starts from zeros itself; the loops start here
+    fused = row == "kernels" and plan.steps_fused
+    u = (up_seg_steps(h, decay, steps, plan.up_seg) if fused
+         else torch.zeros_like(a))
     if row == "torch" and plan.up_ell is None:
         # the coo layout: the segmented max over the up layout's edges
         for _ in range(steps):
@@ -191,7 +202,7 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
         src, dst = segment_sources(plan.up_seg), plan.up_seg.other_sorted
         for _ in range(steps):
             u = quant_up_step(u, h, decay, src, dst)
-    else:
+    elif not fused:
         # each step reads its input at other segments' nodes, so it writes
         # a fresh vector: two buffers per recursion, alternating
         spare = torch.empty_like(a)
@@ -201,14 +212,15 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
     a_ex = background_excess(a, n_live)
     inv_deg = inverse_degree(a, dep_dst)
 
-    m = torch.zeros_like(a)
+    m = (down_seg_steps(a_ex, decay, steps, plan.down_seg, inv_deg) if fused
+         else torch.zeros_like(a))
     if row == "torch":
         for _ in range(steps):
             m = down_seg_step_plain(m, a_ex, decay, plan.down_seg, inv_deg)
     elif row == "quantized":
         for _ in range(steps):
             m = quant_imp_step(m, a_ex, decay, plan.down_seg, inv_deg)
-    else:
+    elif not fused:
         spare = torch.empty_like(a)
         for _ in range(steps):
             m, spare = down_seg_step(m, a_ex, decay, plan.down_seg, inv_deg,

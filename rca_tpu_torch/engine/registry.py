@@ -92,8 +92,8 @@ _HASHED = ("csrc/*.cu", "engine/evidence.py", "engine/segscan.py",
 #: why the attribution variant cannot engage the kernels row
 ATTRIBUTION_DECLINE = (
     "no backward kernel: the front and the seg steps (evidence_front, "
-    "seg_contrast_step, seg_up_step, seg_down_step) have none, so saliency "
-    "differentiates the torch row"
+    "seg_contrast_step, seg_up_steps, seg_down_steps) have none, so "
+    "saliency differentiates the torch row"
 )
 
 #: why the card's race leaves out the quantized and doubling rows
@@ -406,6 +406,29 @@ def layout_note(variant: str, layout: str) -> Optional[str]:
     return f"RCA_EDGE_LAYOUT={layout} pins the scan layout"
 
 
+def steps_note(n_pad: int, e_pad: Optional[int], device) -> str:
+    """What a dense ``kernels`` plan of this shape runs for its two
+    recursions on ``device`` (:func:`.segscan.fused_steps_fit`): on a CUDA
+    device one fused launch each where both layouts of the race's graph
+    of the shape fit one CTA's shared memory, else one launch per step;
+    elsewhere the loop of plain steps."""
+    if torch.device(device).type != "cuda":
+        return (f"per step: the fused recursions are CUDA kernels; on "
+                f"{device} the plan runs the plain steps")
+    from rca_tpu_torch.engine.segscan import build_seg_layouts, steps_smem
+
+    _, e_pad, src, dst = _timing_harness(n_pad, e_pad)
+    live = src != n_pad - 1
+    layouts = build_seg_layouts(n_pad, e_pad, src[live], dst[live])
+    need, limit = max(steps_smem(seg, device) for seg in layouts)
+    if need <= limit:
+        return (f"fused: one launch per recursion, one CTA per lane "
+                f"({need} of {limit} bytes of shared memory)")
+    return (f"one launch per step: a recursion needs {need} bytes of "
+            f"shared memory in one CTA, above the {limit} the device "
+            f"allows")
+
+
 def default_row(device) -> str:
     """The row a shape engages on ``device`` when nothing else is asked
     for: ``kernels`` on the card (the race always elects it there),
@@ -456,7 +479,10 @@ def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
     from rca_tpu_torch.engine.doubling import doubling_layouts_for
     from rca_tpu_torch.engine.propagate import KernelPlan, propagate
     from rca_tpu_torch.engine.ell import up_ell_for
-    from rca_tpu_torch.engine.segscan import build_seg_layouts
+    from rca_tpu_torch.engine.segscan import (
+        build_seg_layouts,
+        fused_steps_fit,
+    )
     from rca_tpu_torch.features.schema import NUM_SERVICE_FEATURES
 
     n, e_pad, src, dst = _timing_harness(n_pad, e_pad)
@@ -479,7 +505,9 @@ def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
                                  "graph")
         plan = KernelPlan(kernel, down_seg, up_seg,
                           up_ell_for(n_pad, *raw, device)
-                          if kernel == "torch" else None, dbl)
+                          if kernel == "torch" else None, dbl,
+                          steps_fused=kernel == "kernels" and fused_steps_fit(
+                              down_seg, up_seg, device))
 
         def call():
             return propagate(f, dd, w, w, steps, 0.7, 0.85, 1.6, n, plan,

@@ -2,25 +2,26 @@
 rendering.
 
 Counterpart of the JAX package's ``engine/runner.py`` for one-shot and
-batched analysis.  The host pads node/edge arrays to shape buckets, asks
-the kernel registry which row this shape engages (:func:`kernel_plan`, THE
-dispatch seam), builds that row's layouts on the engine's device, and runs
-one ranked analysis (:func:`propagate_ranked`): the evidence front, 8
-up-steps and 8 down-steps, the score, top-k, and the ``[4, k]`` diagnostic
-gather.  On the ``kernels`` row the front is two kernel launches and each
-step one launch; on the ``torch`` row every op is plain PyTorch.  A
-hypothesis batch (:meth:`GraphEngine.analyze_batch`) runs the same body on
-``[B, n_pad, C]`` lanes of one graph: one launch per kernel and step for
-the whole batch.  Only top-k-sized values cross to the host; the full
-``[4, n_pad]`` stack stays on the device behind the result's lazy
-diagnostics, and the inputs stay behind its lazy attribution.  With
-``RCA_RESIDENT`` on (the default), ``analyze_arrays`` goes through a
+batched analysis. The host pads node/edge arrays to shape buckets, asks
+the kernel registry which row this shape engages (:func:`kernel_plan`,
+THE dispatch seam), builds that row's layouts on the engine's device,
+and runs one ranked analysis (:func:`propagate_ranked`): the evidence
+front, 8 up-steps and 8 down-steps, the score, top-k, and the ``[4, k]``
+diagnostic gather. On the ``kernels`` row the front is two kernel
+launches and each recursion one launch (one per step above the fused
+kernels' capacity); on the ``torch`` row every op is plain PyTorch. A
+hypothesis batch (:meth:`GraphEngine.analyze_batch`) runs the same body
+on ``[B, n_pad, C]`` lanes of one graph: each launch covers the whole
+batch. Only top-k-sized values cross to the host; the full ``[4,
+n_pad]`` stack stays on the device behind the result's lazy diagnostics,
+and the inputs stay behind its lazy attribution. With ``RCA_RESIDENT``
+on (the default), ``analyze_arrays`` goes through a
 :class:`rca_tpu_torch.engine.resident.ResidentCache`: a repeat call over
 a known graph writes only its changed rows into a buffer pinned on the
-device, bitwise equal to restaging.  ``RCA_EDGE_LAYOUT`` picks the scans'
-edge layout (:func:`plan_layout`): under ``ell`` a one-shot analysis runs
-over the full-ELL tables (:mod:`.ell`) and skips the resident path, and a
-batch loops over its lanes, as the reference's does.
+device, bitwise equal to restaging. ``RCA_EDGE_LAYOUT`` picks the scans'
+edge layout (:func:`plan_layout`): under ``ell`` a one-shot analysis
+runs over the full-ELL tables (:mod:`.ell`) and skips the resident path,
+and a batch loops over its lanes, as the reference's does.
 
 Device rule: ``GraphEngine()`` runs on ``cuda`` and raises where there is
 no CUDA device; ``device="cpu"`` runs on the CPU, where the registry picks
@@ -45,7 +46,7 @@ from rca_tpu_torch.config import (
 from rca_tpu_torch.engine.ell import ell_tables_for, up_ell_for
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
 from rca_tpu_torch.engine.propagate import KernelPlan, Propagation
-from rca_tpu_torch.engine.segscan import build_seg_layouts
+from rca_tpu_torch.engine.segscan import build_seg_layouts, fused_steps_fit
 
 
 def resolve_device(device=None) -> torch.device:
@@ -77,7 +78,11 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
     and says so in ``plan.kernel``, so the stamped row is always the one
     that ran.  ``plan.layout`` is :func:`plan_layout`'s: under ``coo``
     (and ``ell``, whose one-shot tables only ``analyze_arrays`` runs) the
-    plan carries no hybrid up-table."""
+    plan carries no hybrid up-table.  ``plan.steps_fused`` is the
+    capacity decision of the ``kernels`` row: both recursions run as one
+    launch each where both layouts fit one CTA's shared memory on the
+    CUDA ``device`` (:func:`.segscan.fused_steps_fit`), else one launch
+    per step; the plan says which, and no launch falls back."""
     from rca_tpu_torch.engine.doubling import doubling_layouts_for
     from rca_tpu_torch.engine.registry import default_row, engaged_kernel
 
@@ -94,7 +99,8 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
             kernel = default_row(device)
     up_ell = (up_ell_for(n_pad, dep_src, dep_dst, device)
               if kernel == "torch" and layout == "hybrid" else None)
-    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl, layout)
+    fused = kernel == "kernels" and fused_steps_fit(down_seg, up_seg, device)
+    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl, layout, fused)
 
 
 def plan_layout() -> str:
@@ -585,8 +591,10 @@ class GraphEngine(EngineAPI):
     ) -> List[EngineResult]:
         """Score ``[B, S, C]`` fault-hypothesis feature sets over ONE graph
         in one ranked dispatch: the lanes share the plan, and on the
-        ``kernels`` row every kernel launches once per step for the whole
-        batch.  Each lane is bitwise equal to :meth:`analyze_arrays` of its
+        ``kernels`` row every kernel launches for the whole batch: once
+        each where the plan fuses the recursions
+        (``KernelPlan.steps_fused``), else the per-step kernels 8 times.
+        Each lane is bitwise equal to :meth:`analyze_arrays` of its
         features; ``latency_ms`` is the batch's wall over B, and
         ``sanitized_rows`` counts across the batch (a poisoned row poisons
         every hypothesis built from the same snapshot)."""

@@ -11,10 +11,16 @@ On CUDA tensors each step is one launch of a hand-written kernel in
 reduces each segment of the layout's CSR form where it lies, gather and
 epilogue included; it replaces the TPU kernels ``pallas_segscan`` /
 ``pallas_segscan_max`` with the step bodies around them (the source note
-says what bounds it).  On CPU tensors the steps compute their plain
-versions (:func:`down_seg_step_plain` / :func:`up_seg_step_plain`): the
-reference's composition of a gather, a flagged inclusive segmented scan of
-the sorted per-edge values, and each segment's total read at its last
+says what bounds it).  Where the graph fits one CTA's shared memory the
+engine's main path runs each whole recursion in one launch instead
+(:func:`down_seg_steps` / :func:`up_seg_steps`, ``csrc/segsteps.cu``:
+one CTA per lane, the layout and the evolving vector in its shared
+memory), bitwise equal to the per-step launches; those stay for larger
+graphs, for the node-sharded engine and as the yardstick.  On CPU
+tensors the steps compute their plain versions
+(:func:`down_seg_step_plain` / :func:`up_seg_step_plain`): the
+reference's composition of a gather, a flagged inclusive segmented scan
+of the sorted per-edge values, and each segment's total read at its last
 element (``s[ends]``), so float error is bounded by the longest segment.
 
 The flagged scans themselves stay as the twins of the reference's public
@@ -29,7 +35,9 @@ in the reference's four fields.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import operator
 from typing import NamedTuple
 
 import numpy as np
@@ -398,6 +406,127 @@ def as_float32(x: float) -> float:
     """``x`` rounded to float32: the value torch multiplies a float32
     tensor by when it is given the Python float ``x``."""
     return float(np.float32(x))
+
+
+# -- the fused recursions (csrc/segsteps.cu) ---------------------------------
+
+def fused_steps_fit(down_seg, up_seg, device) -> bool:
+    """Whether both recursions over these layouts run fused on ``device``:
+    the plan's ``steps_fused``.  Only on a CUDA device (elsewhere both
+    paths compute the same loop of plain steps), and only where each
+    layout fits one CTA's shared memory there (:func:`steps_smem`)."""
+    if torch.device(device).type != "cuda":
+        return False
+    return all(need <= limit for need, limit in (
+        steps_smem(seg, device) for seg in (down_seg, up_seg)))
+
+
+def steps_smem(seg: SegLayout, device) -> tuple:
+    """``(need, limit)``: the dynamic shared memory a fused launch over
+    ``seg`` takes and the most one CTA may take on the CUDA ``device``,
+    both from the kernel library (``csrc/segsteps.cu``), so the plan and
+    the launch count alike."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    need, limit = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    with torch.cuda.device(torch.device(device)):
+        check(library().rca_seg_steps_smem(
+            seg.offsets.shape[0] - 1, seg.other32.shape[0],
+            seg.long_ids.shape[0], ctypes.byref(need), ctypes.byref(limit)),
+            "seg_steps shared memory")
+    return need.value, limit.value
+
+
+def up_seg_steps_plain(h, decay: float, steps: int, seg: SegLayout,
+                       out=None):
+    """The explain-away recursion in plain PyTorch: ``u_0 = 0``, then
+    ``steps`` of :func:`up_seg_step_plain`.  ``h`` is ``[n_pad]`` or
+    ``[B, n_pad]`` lanes; ``out`` receives ``u_steps``."""
+    u = torch.zeros_like(h)
+    for _ in range(steps):
+        u = up_seg_step_plain(u, h, decay, seg)
+    return u if out is None else out.copy_(u)
+
+
+def down_seg_steps_plain(a_ex, decay: float, steps: int, seg: SegLayout,
+                         inv_deg, out=None):
+    """The impact recursion in plain PyTorch: ``m_0 = 0``, then ``steps``
+    of :func:`down_seg_step_plain`.  Lanes and ``out`` as in
+    :func:`up_seg_steps_plain`; ``inv_deg`` is ``[n_pad]``, shared."""
+    m = torch.zeros_like(a_ex)
+    for _ in range(steps):
+        m = down_seg_step_plain(m, a_ex, decay, seg, inv_deg)
+    return m if out is None else out.copy_(m)
+
+
+def _step_count(name: str, steps) -> int:
+    steps = operator.index(steps)
+    if steps < 0:
+        raise ValueError(f"{name}: steps must be >= 0, got {steps}")
+    return steps
+
+
+def launch_steps(entry: str, name: str, seg: SegLayout, steps: int,
+                 lanes: int, out, *args):
+    """One launch of a fused recursion, ``steps`` >= 1 steps over
+    ``lanes`` lanes (one CTA per lane), on the output's device and its
+    current stream.  A layout above the CTA's shared memory raises: the
+    plan runs the per-step kernels for it."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = getattr(library(), entry)(
+            *args, steps, seg.offsets.data_ptr(), seg.other32.data_ptr(),
+            seg.long_ids.data_ptr(), seg.long_ids.shape[0],
+            seg.other32.shape[0], lanes, seg.offsets.shape[0] - 1,
+            out.data_ptr(), stream,
+        )
+    check(err, name)
+    count_launch(name)
+    return out
+
+
+def up_seg_steps(h, decay: float, steps: int, seg: SegLayout, out=None):
+    """The explain-away recursion, ``u_0 = 0``, ``u_{k+1}[s] = max(u_k[s],
+    max over (s, d) of max(h[d], decay*u_k[d]))``, returning ``u_steps``,
+    on ``[n_pad]`` vectors or ``[B, n_pad]`` lanes: on CUDA tensors one
+    launch of the ``seg_up_steps`` kernel for every step and lane (none
+    for ``steps == 0``), bitwise ``steps`` launches of
+    :func:`up_seg_step`, into ``out`` (fresh when not given); on CPU
+    tensors :func:`up_seg_steps_plain`."""
+    steps = _step_count("seg_up_steps", steps)
+    lanes, _ = check_step("seg_up_steps", seg, out, {"h": h})
+    if not lanes:
+        return up_seg_steps_plain(h, decay, steps, seg, out=out)
+    out = torch.empty_like(h) if out is None else out
+    if steps == 0:
+        return out.zero_()
+    return launch_steps("rca_seg_up_steps", "seg_up_steps", seg, steps,
+                        lanes, out, h.data_ptr(), as_float32(decay))
+
+
+def down_seg_steps(a_ex, decay: float, steps: int, seg: SegLayout, inv_deg,
+                   out=None):
+    """The impact recursion, ``m_0 = 0``, ``m_{k+1}[d] = inv_deg[d] * sum
+    over (s, d) of (a_ex[s] + decay*m_k[s])``, returning ``m_steps``, on
+    ``[n_pad]`` vectors or ``[B, n_pad]`` lanes (``inv_deg`` ``[n_pad]``,
+    shared): on CUDA tensors one launch of the ``seg_down_steps`` kernel
+    for every step and lane (none for ``steps == 0``), bitwise ``steps``
+    launches of :func:`down_seg_step`, into ``out`` (fresh when not
+    given); on CPU tensors :func:`down_seg_steps_plain`."""
+    steps = _step_count("seg_down_steps", steps)
+    lanes, _ = check_step("seg_down_steps", seg, out, {"a_ex": a_ex},
+                          {"inv_deg": inv_deg})
+    if not lanes:
+        return down_seg_steps_plain(a_ex, decay, steps, seg, inv_deg,
+                                    out=out)
+    out = torch.empty_like(a_ex) if out is None else out
+    if steps == 0:
+        return out.zero_()
+    return launch_steps("rca_seg_down_steps", "seg_down_steps", seg, steps,
+                        lanes, out, a_ex.data_ptr(), inv_deg.data_ptr(),
+                        as_float32(decay))
 
 
 # -- the per-shard entries (the node-sharded engine) -------------------------

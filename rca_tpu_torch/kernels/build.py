@@ -60,6 +60,10 @@ _SIGNATURES = {
                                 _I, _P, _P),
     "rca_seg_contrast_step_shard": (_P, _P, _F, _I, _I, _P, _P, _P, _I, _P,
                                     _I, _I, _I, _P, _P),
+    "rca_seg_up_steps": (_P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "rca_seg_down_steps": (_P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                           _P),
+    "rca_seg_steps_smem": (_I, _I, _I, _P, _P),
 }
 
 

@@ -398,11 +398,13 @@ def test_layouts_on_card_run_the_kernels(layout, monkeypatch):
     engine.analyze_arrays(feats, src, dst, names)
     reset_launches()
     got = engine.analyze_arrays(feats, src, dst, names)
-    steps = 8 if layout == "coo" else 0
-    assert LAUNCHES == {"noisy_or_pair": 0, "segscan_sum": 8 - steps,
-                        "segscan_max": 0, "seg_up_step": steps,
-                        "seg_down_step": steps, "evidence_front": 1,
-                        "seg_contrast_step": 1}
+    # coo: each recursion fused into one launch at 2047 services
+    fused = int(layout == "coo")
+    assert LAUNCHES == {"noisy_or_pair": 0, "segscan_sum": 8 * (1 - fused),
+                        "segscan_max": 0, "seg_up_step": 0,
+                        "seg_down_step": 0, "evidence_front": 1,
+                        "seg_contrast_step": 1, "seg_up_steps": fused,
+                        "seg_down_steps": fused}
     assert got.layout == layout
     cpu = GraphEngine(device="cpu", resident=False).analyze_arrays(
         feats, src, dst, names)
