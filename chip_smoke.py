@@ -276,7 +276,35 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    investigation through ``ServeLoop(store=...)``, whose provenance and
    serve note must land in the store, and ``investigations`` and ``why``
    (which must print the stored blame tree), every command exiting 0;
-19. times from CUDA events (median of 20 samples after warm-up): each
+19. the gateway (``rca_tpu_torch.gateway``) in front of a ``ServeLoop``
+   on the card, every wire request served in a device batch of the
+   kernels: at 2047 services a concurrency-16 load over 4 tenants, then
+   the serve phase's 64-request mix over the wire and in process, in
+   turns (every wire ranking equal to its in-process answer and its solo
+   card analysis, every device batch the main path's counts and
+   sync-free, nothing degraded, the registry row ``kernels`` and named by
+   ``/metrics``, ``/v1/subscribe`` receiving every wire response; the
+   wire and in-process submit → response p50 / p99, device batches, mean
+   width, and the host ms of ``encode_analyze``, ``json.dumps``,
+   ``json.loads`` and ``decode_analyze`` per request); at 49,999 a
+   gateway with ``max_body`` 32 MiB serves 4 requests, each bitwise its
+   solo analysis at the main path's counts per device batch, with the
+   codec's ms on the 15 MB body, and the same request declared to a
+   default-cap gateway gets 413 before its body is read, with no device
+   batch, launch or queue entry; the front door: 429 and 503 with
+   ``Retry-After`` and its jittered ms header (a saturated queue of cap
+   1, a deadline already past), 400, 404, ``/healthz`` 200 and 503 once
+   the plane stops, ``?explain=1`` with its provenance read back from
+   ``/v1/explain/<trace_id>``, one TLS request with a bearer token
+   (``tests/fixtures/gateway_*.pem``) bitwise the plain answer; then
+   ``python -m rca_tpu_torch serve --listen 127.0.0.1:0 --max-batch 8``
+   in a subprocess (its banner, 16 requests bitwise their in-process
+   answers, exit 0 on SIGTERM) and the ``canary`` command over
+   ``--fixture 20svc --rounds 1``: ``--mode both`` and ``--mode
+   multicluster`` exit 0, ``--candidate-decay 0.5`` exits 1 naming the
+   bisected tick, and ``--listen-url`` against the subprocess's gateway
+   mints a recording that replays bitwise;
+20. times from CUDA events (median of 20 samples after warm-up): each
    kernel's device time (``ms``, launches queued behind a sleep kernel so
    the host's per-call cost is hidden) and its per-call cost to a caller
    (``call_ms``) beside its bound, its plain version and, where one
@@ -315,8 +343,9 @@ persisting launches there; the tick kernels with
 tape, and ``variant_launches``, per analysis on the ``doubling`` and
 ``quantized`` rows at each tier; every main-path kernel with
 ``layout_launches``, per analysis under each ``RCA_EDGE_LAYOUT`` at each
-tier, and ``investigate_launches``, over the investigation's
-``run_agent`` suggestion);
+tier, ``investigate_launches``, over the investigation's
+``run_agent`` suggestion, and ``gateway_launches``, per device batch
+behind the gateway at each tier and over the gateway's loads);
 the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
@@ -1021,7 +1050,10 @@ def main(argv) -> int:
     # -- 18. the investigation layer ---------------------------------------
     record["investigate"] = investigate_phase(smi)
 
-    # -- 19. times ---------------------------------------------------------
+    # -- 19. the gateway -----------------------------------------------------
+    record["gateway"] = gateway_phase(engine, cases, shapes, smi)
+
+    # -- 20. times ---------------------------------------------------------
     # the analysis walls restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
@@ -1265,6 +1297,16 @@ def main(argv) -> int:
             for tier in map(str, cases) for layout in LAYOUTS}
         kernels[-1]["investigate_launches"] = record["investigate"]["2047"][
             "run_agent_launches"][name]
+        # per device batch behind the gateway at each tier, and over the
+        # 2047-service mix (wire and in process) and the 49,999 requests
+        gateway = record["gateway"]
+        kernels[-1]["gateway_launches"] = {
+            "per_batch": {tier: counts[name] for tier, counts
+                          in gateway["per_batch"].items()},
+            "load": {tier: gateway[tier]["launches"][name]
+                     for tier in ("2047", "49999")},
+            "load_batches": {tier: gateway[tier]["device_batches"]
+                             for tier in ("2047", "49999")}}
         if name == "segscan_sum":
             # the ell layout's overflow sum at each tier's overflow shape
             kernels[-1]["ell_overflow_scan"] = {
@@ -4424,6 +4466,498 @@ def investigate_phase(smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     phase("investigate", seconds=out["seconds"])
+    return out
+
+
+#: the gateway phase: the clients of its first load, the body cap of the
+#: 49,999-service gateway and its requests, and the committed certificate
+#: pair its TLS request uses
+GATEWAY_THREADS = 16
+GATEWAY_BIG_CAP = 32 << 20
+GATEWAY_BIG_REQUESTS = 4
+GATEWAY_CERT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures", "gateway_cert.pem")
+GATEWAY_KEY = os.path.join(os.path.dirname(GATEWAY_CERT), "gateway_key.pem")
+
+
+def _closed_loop(items, send, threads: int) -> tuple:
+    """``send(i, item)`` for every item by ``threads`` closed-loop clients
+    (client ``w`` sends items ``w``, ``w + threads``, ...): the answers in
+    item order, each request's wall in ms (submit to answer) and the whole
+    load's wall in s."""
+    from rca_tpu_torch.util.threads import make_thread
+
+    answers = [None] * len(items)
+    walls = [0.0] * len(items)
+
+    def client(w: int) -> None:
+        for i in range(w, len(items), threads):
+            t0 = time.perf_counter()
+            answers[i] = send(i, items[i])
+            walls[i] = (time.perf_counter() - t0) * 1e3
+
+    ts = [make_thread(client, name=f"smoke-gateway-{w}", daemon=True,
+                      args=(w,)) for w in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    if any(t.is_alive() for t in ts):
+        fail("a gateway client did not finish within 600 s")
+    return answers, walls, time.perf_counter() - t0
+
+
+def _quantiles(walls) -> dict:
+    import numpy as np
+
+    return {q: float(np.percentile(walls, p, method="nearest"))
+            for q, p in (("p50_ms", 50), ("p99_ms", 99))}
+
+
+def _wire_ok(label, code, body, want_ranked) -> None:
+    """One wire answer: 200, ``ok``, not degraded, ranked as ``want``."""
+    if code != 200 or body.get("status") != "ok" or body.get("degraded"):
+        fail(f"gateway ({label}): HTTP {code}, {body.get('status')}, "
+             f"degraded {body.get('degraded')}: {body.get('detail')}")
+    if body["ranked"] != want_ranked:
+        fail(f"gateway ({label}): the wire ranking differs from its "
+             f"in-process answer")
+
+
+def _raw_http(host, port, method, path, body=None, headers=None,
+              declared=None):
+    """One plain HTTP request: ``(status, json body, headers)``.  With
+    ``declared`` only the headers go out, ``Content-Length`` set to it."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    try:
+        if declared is None:
+            conn.request(method, path, body=body, headers=headers or {})
+        else:
+            conn.putrequest(method, path)
+            for key, value in (headers or {}).items():
+                conn.putheader(key, value)
+            conn.putheader("Content-Length", str(declared))
+            conn.endheaders()
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read()), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def gateway_phase(engine, cases, shapes, smi: str, cli=()) -> dict:
+    """The wire front door on the card (``rca_tpu_torch.gateway``), every
+    request served in a device batch of the plane's kernels:
+
+    - 2047 services: ``GatewayServer(ServeLoop(engine))`` takes a
+      concurrency-16 load over 4 tenants, then the serve phase's 64-request
+      mix over the wire and in process, in turns; every wire ranking equals
+      its in-process answer and its solo card analysis, every device batch
+      launches the main path's counts, nothing is degraded, the registry
+      row is ``kernels`` (``/metrics`` names it), ``/v1/subscribe`` gets
+      every wire response; the wire and in-process latencies and the JSON
+      codec's host ms per request;
+    - 49,999 services: a gateway with ``max_body`` 32 MiB serves 4
+      requests, each bitwise its solo analysis at the main path's counts
+      per batch; the 15.4 MB request to a default-cap gateway gets 413
+      with no device batch, launch or queue entry;
+    - the front door: 429 with ``Retry-After`` from a saturated queue of
+      cap 1, 503 from a shed deadline, 400, 404, ``/healthz`` 200 then 503
+      once the plane stops, ``?explain=1`` and ``/v1/explain/<trace_id>``,
+      one TLS request with a bearer token bitwise the plain answer;
+    - ``python -m rca_tpu_torch serve --listen`` in a subprocess (16
+      requests bitwise in process, exit 0 on SIGTERM) and the ``canary``
+      command: ``--mode both`` exits 0, a perturbed decay exits 1 naming
+      the bisected tick, ``--listen-url`` against the subprocess's gateway
+      mints a recording that replays bitwise, ``--mode multicluster``
+      exits 0.
+
+    ``cli`` is appended to every command line run here."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    from rca_tpu_torch.config import ServeConfig
+    from rca_tpu_torch.engine.registry import get_registry
+    from rca_tpu_torch.gateway import (
+        GatewayClient,
+        GatewayServer,
+        decode_analyze,
+        encode_analyze,
+    )
+    from rca_tpu_torch.kernels import LAUNCHES
+    from rca_tpu_torch.observability.spans import TRACE_HEADER, Tracer
+    from rca_tpu_torch.resilience.policy import drain_faults
+    from rca_tpu_torch.serve import ServeClient, ServeLoop, ServeRequest
+    from rca_tpu_torch.util.threads import make_thread
+
+    t_phase = time.perf_counter()
+    small, big = TIERS[0][0], TIERS[-1][0]
+    rng = np.random.default_rng(1515)
+    out = {"nvidia_smi": smi, "per_batch": {}}
+    drain_faults()
+    solo_cache = {}
+
+    def solo(f, c):
+        key = (id(c), f.tobytes())
+        if key not in solo_cache:
+            solo_cache[key] = engine.analyze_arrays(
+                f, c.dep_src, c.dep_dst, c.names, k=SERVE_K).ranked
+        return solo_cache[key]
+
+    def perturbed(c, count):
+        return [np.clip(c.features + rng.uniform(0, 0.05, c.features.shape),
+                        0, 1).astype(np.float32) for _ in range(count)]
+
+    def plane(c, counted=True, tracer=None):
+        """A ServeLoop over ``engine`` warmed on ``c``'s graph (one device
+        batch), each later batch counted and sync-checked unless
+        ``counted`` is false."""
+        loop = ServeLoop(engine=engine, config=ServeConfig(
+            max_batch=16, queue_cap=4 * SERVE_REQUESTS), tracer=tracer)
+        warm = ServeRequest("warm", c.features, c.dep_src, c.dep_dst,
+                            k=SERVE_K)
+        loop.dispatcher.fetch(loop.dispatcher.dispatch([warm]))
+        log: list = []
+        if counted:
+            _counting_dispatch(loop.dispatcher, log)
+        return loop, log
+
+    def batches_ok(log, n, label):
+        want = main_launches(n)
+        for e in log:
+            if e["launches"] != want:
+                fail(f"gateway ({label}): a device batch of {e['width']} "
+                     f"launched {e['launches']}, not {want}")
+        out["per_batch"][str(n)] = want
+        return {"device_batches": len(log),
+                "mean_width": float(np.mean([e["width"] for e in log])),
+                "delta_batches": sum(1 for e in log if e["delta"]),
+                "launches": {k: sum(e["launches"][k] for e in log)
+                             for k in want}}
+
+    def codec_ms(c, f, reps):
+        body = encode_analyze(f, c.dep_src, c.dep_dst, names=c.names,
+                              k=SERVE_K)
+        payload = json.dumps(body)
+        loaded = json.loads(payload)
+        return {
+            "body_bytes": len(payload.encode()),
+            "encode_analyze_ms": host_ms(lambda: encode_analyze(
+                f, c.dep_src, c.dep_dst, names=c.names, k=SERVE_K),
+                reps=reps),
+            "json_dumps_ms": host_ms(lambda: json.dumps(body), reps=reps),
+            "json_loads_ms": host_ms(lambda: json.loads(payload), reps=reps),
+            "decode_analyze_ms": host_ms(lambda: decode_analyze(loaded),
+                                         reps=reps),
+        }, payload
+
+    # -- 2047 services: the loads -------------------------------------------
+    case = cases[small]
+    loop, log = plane(case)
+    loop.start()
+    try:
+        with GatewayServer(loop, port=0) as gw:
+            cl = GatewayClient(gw.host, gw.port, timeout_s=300)
+            inproc = ServeClient(loop)
+            feats = perturbed(case, 2 * GATEWAY_THREADS)
+            answers, walls, wall_s = _closed_loop(
+                feats, lambda i, f: cl.analyze(
+                    f, case.dep_src, case.dep_dst, names=case.names,
+                    tenant=f"tenant-{'abcd'[i % 4]}", k=SERVE_K),
+                GATEWAY_THREADS)
+            for i, (f, (code, body, _)) in enumerate(zip(feats, answers)):
+                _wire_ok(f"concurrency {GATEWAY_THREADS}, request {i}", code,
+                         body, solo(f, case))
+                resp = inproc.analyze(f, case.dep_src, case.dep_dst,
+                                      names=case.names, tenant="oracle",
+                                      k=SERVE_K, timeout_s=300)
+                if not resp.ok or resp.ranked != body["ranked"]:
+                    fail(f"gateway: request {i} in process ranks otherwise")
+            row = {"requests": len(feats), "clients": GATEWAY_THREADS,
+                   "wall_s": wall_s, **_quantiles(walls)}
+            phase("gateway", services=small, load="concurrency", smi=smi,
+                  **row)
+            out["concurrency"] = row
+
+            # the serve phase's mix, over the wire and in process, in turns;
+            # the subscription takes every wire response
+            items = _serve_features(case, rng)
+            events: list = []
+            sub = make_thread(lambda: events.extend(cl.subscribe(
+                max_events=2 * len(items), idle_s=120.0, timeout_s=600.0)),
+                name="smoke-gateway-subscriber", daemon=True)
+            sub.start()
+            for _ in range(400):
+                if gw.hub.subscriber_count():
+                    break
+                time.sleep(0.01)
+            turns = {"wire": [], "in_process": []}
+            walls_s = {"wire": [], "in_process": []}
+            wire_ids = []
+            for label in ("wire", "in_process", "in_process", "wire"):
+                if label == "wire":
+                    answers, walls, wall_s = _closed_loop(
+                        items, lambda i, f: cl.analyze(
+                            f, case.dep_src, case.dep_dst, names=case.names,
+                            tenant=f"tenant-{'abcd'[i % 4]}", k=SERVE_K), 4)
+                    for i, (f, (code, body, _)) in enumerate(
+                            zip(items, answers)):
+                        _wire_ok(f"mix, request {i}", code, body,
+                                 solo(f, case))
+                        wire_ids.append(body["request_id"])
+                else:
+                    answers, walls, wall_s = _closed_loop(
+                        items, lambda i, f: inproc.submit(
+                            f, case.dep_src, case.dep_dst, names=case.names,
+                            tenant=f"tenant-{'abcd'[i % 4]}",
+                            k=SERVE_K).result(300), 4)
+                    for i, (f, resp) in enumerate(zip(items, answers)):
+                        if not resp.ok or resp.ranked != solo(f, case):
+                            fail(f"gateway: in-process mix request {i} "
+                                 f"{resp.status} or ranked otherwise")
+                turns[label] += walls
+                walls_s[label].append(wall_s)
+            sub.join(300)
+            if sub.is_alive() or sorted(e["request_id"] for e in events) \
+                    != sorted(wire_ids):
+                fail(f"gateway: the subscription got {len(events)} of "
+                     f"{len(wire_ids)} wire responses")
+            metrics = cl.metrics_text()
+            for needle in ('rca_serve_requests_total{outcome="answered",'
+                           'tenant="tenant-a"}',
+                           f'kernel="kernels",n_pad="{shapes[small][0]}"'):
+                if needle not in metrics:
+                    fail(f"gateway: /metrics does not name {needle}")
+        row = get_registry().resolve(*shapes[small], device=engine.device)
+        if row.winner != "kernels":
+            fail(f"gateway: the registry row at {small}: {row.to_dict()}")
+    finally:
+        loop.stop()
+    codec, _ = codec_ms(case, items[0], reps=20)
+    mix = {
+        "requests": len(items), "clients": 4, "turns": 2,
+        "wire": {**_quantiles(turns["wire"]), "wall_s": walls_s["wire"]},
+        "in_process": {**_quantiles(turns["in_process"]),
+                       "wall_s": walls_s["in_process"]},
+        "subscribed_events": len(events), "codec": codec,
+        **batches_ok(log, small, f"{small} services")}
+    mix["wire_overhead_p50_ms"] = mix["wire"]["p50_ms"] - mix[
+        "in_process"]["p50_ms"]
+    phase("gateway", services=small, load="mix", smi=smi, **mix)
+    out["2047"] = mix
+
+    # -- 49,999 services: a raised body cap, and the default cap's 413 ----
+    case = cases[big]
+    loop, log = plane(case)
+    loop.start()
+    try:
+        with GatewayServer(loop, port=0, max_body=GATEWAY_BIG_CAP) as gw, \
+                GatewayServer(loop, port=0) as capped:
+            cl = GatewayClient(gw.host, gw.port, timeout_s=600)
+            feats = perturbed(case, GATEWAY_BIG_REQUESTS)
+            answers, walls, wall_s = _closed_loop(
+                feats, lambda i, f: cl.analyze(
+                    f, case.dep_src, case.dep_dst, names=case.names,
+                    tenant=f"tenant-{'abcd'[i % 4]}", k=SERVE_K),
+                GATEWAY_BIG_REQUESTS)
+            for i, (f, (code, body, _)) in enumerate(zip(feats, answers)):
+                _wire_ok(f"{big} services, request {i}", code, body,
+                         solo(f, case))
+            codec, payload = codec_ms(case, feats[0], reps=3)
+            served = batches_ok(log, big, f"{big} services")
+            before = (loop.device_batches, len(loop.queue), dict(LAUNCHES))
+            status, body, _ = _raw_http(
+                capped.host, capped.port, "POST", "/v1/analyze",
+                headers={"Content-Type": "application/json"},
+                declared=len(payload.encode()))
+            after = (loop.device_batches, len(loop.queue), dict(LAUNCHES))
+            if status != 413 or "RCA_GATEWAY_MAX_BODY" not in body["detail"] \
+                    or after != before or capped.metrics.snapshot()[
+                        "body_rejections"] != 1:
+                fail(f"gateway: the default cap answered {status} "
+                     f"({body.get('detail')}); batches, queue and launches "
+                     f"{before[:2]} -> {after[:2]}")
+    finally:
+        loop.stop()
+    row = {"requests": len(feats), "clients": len(feats),
+           "max_body": GATEWAY_BIG_CAP, "wall_s": wall_s, **_quantiles(walls),
+           "codec": codec, "default_cap_status": status,
+           "default_cap": capped.max_body, **served}
+    phase("gateway", services=big, load="raised cap", smi=smi, **row)
+    out["49999"] = row
+
+    # -- the front door ------------------------------------------------------
+    case = cases[small]
+    f = items[1]
+    body_bytes = json.dumps(encode_analyze(
+        f, case.dep_src, case.dep_dst, names=case.names, k=SERVE_K)).encode()
+    door = {}
+    # spans on, so an explained answer is kept under its trace id
+    loop, _ = plane(case, counted=False, tracer=Tracer(seed=11))
+    loop.start()
+    try:
+        with GatewayServer(loop, port=0) as gw, GatewayServer(
+                loop, port=0, tls=(GATEWAY_CERT, GATEWAY_KEY),
+                tokens={"smoke-token": ("tls-tenant", None)}) as tls_gw:
+            cl = GatewayClient(gw.host, gw.port, timeout_s=300)
+            code, plain, _ = cl.analyze(f, case.dep_src, case.dep_dst,
+                                        names=case.names, k=SERVE_K)
+            _wire_ok("plain", code, plain, solo(f, case))
+            code, secure, _ = GatewayClient(
+                tls_gw.host, tls_gw.port, tls=True, ca_file=GATEWAY_CERT,
+                token="smoke-token", timeout_s=300).analyze(
+                f, case.dep_src, case.dep_dst, names=case.names, k=SERVE_K)
+            _wire_ok("TLS with a bearer token", code, secure,
+                     plain["ranked"])
+            if secure["tenant"] != "tls-tenant":
+                fail(f"gateway: the token bound {secure['tenant']}")
+            status, explained, hdrs = _raw_http(
+                gw.host, gw.port, "POST", "/v1/analyze?explain=1",
+                body=body_bytes,
+                headers={"Content-Type": "application/json"})
+            _wire_ok("?explain=1", status, explained, plain["ranked"])
+            trace_id = explained.get("trace_id")
+            if not explained.get("provenance") or not trace_id or \
+                    not hdrs.get(TRACE_HEADER, "").startswith(trace_id):
+                fail("gateway: ?explain=1 carried no provenance or trace")
+            status, kept, _ = _raw_http(gw.host, gw.port, "GET",
+                                        f"/v1/explain/{trace_id}")
+            if status != 200 or kept["provenance"] != explained["provenance"]:
+                fail(f"gateway: /v1/explain/{trace_id} answered {status}")
+            door.update(tls=True, explain=True)
+            for label, argv in (
+                    ("400", ("POST", "/v1/analyze", b"{not json",
+                             {"Content-Type": "application/json"})),
+                    ("404", ("GET", "/v1/nope", None, None))):
+                status = _raw_http(gw.host, gw.port, *argv)[0]
+                if str(status) != label:
+                    fail(f"gateway: {label} case answered {status}")
+                door[label] = status
+            if cl.healthz()[0] != 200:
+                fail("gateway: /healthz on a running plane is not 200")
+            loop.stop()
+            code, health = cl.healthz()
+            if code != 503 or not health.get("stopped"):
+                fail(f"gateway: /healthz after the plane stopped: {code}")
+            door["healthz"] = [200, code]
+    finally:
+        loop.stop()
+    # backpressure on a queue of cap 1 that one request holds (the loop is
+    # not started, so it stays full) and a deadline already past
+    loop = ServeLoop(engine=engine, config=ServeConfig(queue_cap=1))
+    loop.submit(ServeRequest("holder", case.features, case.dep_src,
+                             case.dep_dst))
+    with GatewayServer(loop, port=0) as gw:
+        cl = GatewayClient(gw.host, gw.port, timeout_s=60)
+        for label, kw in (("429", {}), ("503", {"deadline_ms": -1.0})):
+            code, body, hdrs = cl.analyze(f, case.dep_src, case.dep_dst,
+                                          k=SERVE_K, **kw)
+            if str(code) != label or int(hdrs.get("Retry-After", 0)) < 1 \
+                    or "X-RCA-Retry-After-Ms" not in hdrs:
+                fail(f"gateway: the {label} case answered {code} "
+                     f"({body.get('status')}) with {hdrs}")
+            door[label] = {"status": body["status"],
+                           "retry_after": hdrs["Retry-After"],
+                           "retry_after_ms": hdrs["X-RCA-Retry-After-Ms"]}
+    loop.queue.pop()
+    phase("gateway", leg="front door", **door)
+    out["front_door"] = door
+    faults = drain_faults()
+    if any(not f["op"].startswith("gateway.") for f in faults):
+        fail(f"gateway: faults recorded: {faults}")
+
+    # -- serve --listen and the canary, as commands --------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
+    cmd = [sys.executable, "-m", "rca_tpu_torch"]
+    canary = [*cmd, "canary", "--fixture", "20svc", "--rounds", "1",
+              "--no-store", "--compact"]
+    t0 = time.perf_counter()
+    procs = {}
+    serve = None
+    try:
+        for label, argv in (("both", ["--mode", "both"]),
+                            ("perturbed", ["--candidate-decay", "0.5"]),
+                            ("multicluster", ["--mode", "multicluster"])):
+            procs[label] = subprocess.Popen(
+                [*canary, "--out", os.path.join(tmp, label), *argv, *cli],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        serve = subprocess.Popen(
+            [*cmd, "serve", "--listen", "127.0.0.1:0", "--max-batch", "8",
+             "--log-dir", os.path.join(tmp, "logs"), *cli],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        banner: list = []
+        reader = make_thread(lambda: banner.append(serve.stdout.readline()),
+                             name="smoke-gateway-banner", daemon=True)
+        reader.start()
+        reader.join(300)
+        if not banner or not banner[0]:
+            fail("serve --listen printed no banner within 300 s")
+        info = json.loads(banner[0])
+        if info["endpoints"] != ["/v1/analyze", "/v1/subscribe",
+                                 "/v1/traces", "/metrics", "/healthz"]:
+            fail(f"serve --listen banner: {info}")
+        host, port = info["listening"].rsplit(":", 1)
+        cl = GatewayClient(host, int(port), timeout_s=300)
+        feats = perturbed(case, 16)
+        answers, walls, _ = _closed_loop(
+            feats, lambda i, f: cl.analyze(
+                f, case.dep_src, case.dep_dst, names=case.names,
+                tenant=f"t{i % 4}", k=SERVE_K), 16)
+        for i, (f, (code, body, _)) in enumerate(zip(feats, answers)):
+            _wire_ok(f"serve --listen, request {i}", code, body,
+                     solo(f, case))
+        listened = subprocess.run(
+            [*canary, "--out", os.path.join(tmp, "listen"), "--listen-url",
+             f"http://{host}:{port}", "--requests", "4", *cli],
+            capture_output=True, text=True, timeout=600)
+        serve.send_signal(signal.SIGTERM)
+        _, err = serve.communicate(timeout=120)
+        if serve.returncode != 0:
+            fail(f"serve --listen exited {serve.returncode} on SIGTERM: "
+                 f"{err[-2000:]}")
+        reports = {"listen": (listened.returncode, listened.stdout,
+                              listened.stderr)}
+        for label, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            reports[label] = (p.returncode, stdout, stderr)
+    finally:
+        for p in [*procs.values(), serve]:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    commands = {"serve_listen": {"requests": len(feats),
+                                 **_quantiles(walls), "exit": 0}}
+    for label, (rc, stdout, stderr) in reports.items():
+        want_rc = 1 if label == "perturbed" else 0
+        if rc != want_rc:
+            fail(f"canary ({label}) exited {rc}, not {want_rc}: "
+                 f"{stderr[-2000:]}")
+        report = json.loads(stdout)
+        recs = report["recordings"]
+        if label == "perturbed":
+            tick = (report["first_divergence"] or {}).get("tick")
+            if not isinstance(tick, int):
+                fail(f"canary (perturbed) named no tick: {report}")
+            commands[label] = {"exit": rc, "tick": tick,
+                               "probes": recs[0].get("probes")}
+        else:
+            if not report["ok"] or not recs or not all(
+                    r["parity_ok"] for r in recs) or (
+                    label == "listen" and report["mode"] != "gateway"):
+                fail(f"canary ({label}): {report}")
+            commands[label] = {"exit": rc, "recordings": [
+                {k: r.get(k) for k in ("mode", "ticks", "requests")}
+                for r in recs]}
+    commands["seconds"] = time.perf_counter() - t0
+    phase("gateway", leg="commands", **commands)
+    out["commands"] = commands
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("gateway", seconds=out["seconds"])
     return out
 
 

@@ -27,8 +27,14 @@ that the port has).
   — ``--selftest`` checks its contract (every request answered or shed,
   coalesced rankings bitwise equal to solo ones; ``--chaos`` injects
   seeded dispatch/fetch faults, ``--replicas`` / ``--replica-mix`` /
-  ``--kill-replica`` run the pool), without it a synthetic ``<N>svc``
-  load prints the per-tenant metrics;
+  ``--kill-replica`` run the pool), ``--listen HOST:PORT`` serves it
+  over HTTP through the gateway until SIGTERM, without either a
+  synthetic ``<N>svc`` load prints the per-tenant metrics;
+- ``python -m rca_tpu_torch canary``: the replay-driven regression
+  canary (sample, mint, replay against a candidate; exit 1 names the
+  bisected tick); ``--listen-url`` samples through a running gateway;
+- ``python -m rca_tpu_torch fleet URL``: a federation gateway's worker
+  table from its ``/healthz`` (exit 1 against a gateway with no fleet);
 - ``python -m rca_tpu_torch replay``: re-drive the engine from a flight
   recording (``stream --record`` / ``serve --record`` / ``chaos
   --record``) and check parity tick for tick or request for request;
@@ -505,7 +511,6 @@ def cmd_stream(args) -> int:
 #: serve modes that are not ported yet, and the module (its A-id in
 #: ROADMAP.md) that ports each
 _SERVE_NOT_PORTED = {
-    "listen": "the gateway (A9)",
     "federation": "the cross-process federation (A14)",
     "autoscale": "the autoscaler (A14)",
 }
@@ -518,7 +523,8 @@ def cmd_serve(args) -> int:
     only when the contract holds.  Without it, a synthetic load over a
     ``<N>svc`` graph prints throughput, the per-tenant metrics and the
     plane's kernelscope summary (the registry row that served the shape);
-    it exits 0 only when every request was served ok."""
+    it exits 0 only when every request was served ok.  ``--listen``
+    serves over the wire instead (:func:`_serve_listen`)."""
     import time
 
     import numpy as np
@@ -542,6 +548,8 @@ def cmd_serve(args) -> int:
     if args.no_steal:
         overrides["steal"] = False
     config = ServeConfig.from_env(**overrides)
+    if args.listen:
+        return _serve_listen(args, config)
     indent = None if args.compact else 2
     if args.selftest:
         from rca_tpu_torch.serve import serve_selftest
@@ -619,6 +627,203 @@ def cmd_serve(args) -> int:
         "kernelscope": loop.kernelscope_summary(),
     }, indent=indent, default=str))
     return 0 if by_status.get("ok", 0) == args.requests else 1
+
+
+#: the routes a ``serve --listen`` banner names
+_LISTEN_ENDPOINTS = ["/v1/analyze", "/v1/subscribe", "/v1/traces",
+                     "/metrics", "/healthz"]
+
+
+def _serve_listen(args, config) -> int:
+    """``serve --listen HOST:PORT``: start the serving plane (a
+    ``ServeLoop``, or the pool when more than one replica resolves) on
+    ``--device``, put the gateway in front, print ONE JSON line naming the
+    bound address (port 0 = kernel-chosen, so callers read it here) and
+    serve until SIGTERM / SIGINT.  The shutdown summary goes to stderr, so
+    stdout stays machine-readable.  ``--record`` flight-records every
+    served request; wire requests naming an ``investigation_id`` land
+    serve notes in the store under ``--log-dir``."""
+    import signal
+    import threading
+
+    from rca_tpu_torch.config import gateway_port
+    from rca_tpu_torch.engine import make_engine
+    from rca_tpu_torch.engine.runner import resolve_device
+    from rca_tpu_torch.gateway import GatewayServer
+    from rca_tpu_torch.parallel.mesh import visible_devices
+    from rca_tpu_torch.serve import ServeLoop, ServePool
+    from rca_tpu_torch.store import InvestigationStore
+    from rca_tpu_torch.util.net import parse_hostport
+
+    host, port = parse_hostport(args.listen, gateway_port())
+    recorder = None
+    if args.record:
+        from rca_tpu_torch.replay import Recorder
+
+        recorder = Recorder(args.record, mode="serve")
+    store = InvestigationStore(root=_log_dir(args))
+    pooled = len(config.replica_specs()) > 1
+    if pooled:
+        loop = ServePool(config=config, recorder=recorder, store=store,
+                         devices=visible_devices(resolve_device(args.device)))
+    else:
+        loop = ServeLoop(engine=make_engine(device=args.device),
+                         config=config, recorder=recorder, store=store)
+    loop.start()
+    gw = GatewayServer(loop, host=host, port=port)
+    gw.start()
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    print(json.dumps({
+        "listening": gw.address,
+        "replicas": len(loop.replicas) if pooled else 1,
+        "tls": gw.tls_context is not None,
+        "authn": bool(gw.tokens),
+        "max_body": gw.max_body,
+        "endpoints": list(_LISTEN_ENDPOINTS),
+        **({"recording": recorder.path} if recorder is not None else {}),
+    }), flush=True)
+    try:
+        while not stop.is_set():
+            stop.wait(0.5)
+    finally:
+        gw.close()
+        loop.stop()
+        if recorder is not None:
+            recorder.close()
+        snap = gw.metrics.snapshot()
+        print(json.dumps({
+            "stopped": True,
+            "gateway_requests": {
+                f"{route}:{code}": n
+                for (route, code), n in snap["requests"].items()
+            },
+            "metrics": loop.metrics.summary(),
+        }, default=str), file=sys.stderr)
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """``fleet URL``: the operator's view of a running elastic federation,
+    one ``/healthz`` call rendered as a worker table.  ``--json`` prints
+    the raw health body.  A gateway with no fleet in its ``/healthz`` (any
+    gateway of the port: the federation is not ported) exits 1."""
+    from rca_tpu_torch.gateway.client import GatewayClient
+
+    client = GatewayClient.from_url(
+        args.url, token=args.token, ca_file=args.ca_file,
+        cert_file=args.cert_file, key_file=args.key_file,
+        timeout_s=args.timeout,
+    )
+    status, body = client.healthz()
+    if args.json:
+        print(json.dumps(body, indent=2, default=str))
+        return 0 if status == 200 else 1
+    fleet = body.get("fleet")
+    if fleet is None:
+        print(json.dumps({
+            "error": "not a federation gateway (no fleet in /healthz)",
+            "health": body,
+        }, indent=2, default=str))
+        return 1
+    cols = ("worker", "state", "outstanding", "served", "shapes",
+            "mem_bytes", "engine", "pid")
+    rows = [
+        (str(w.get("worker_id")), str(w.get("state")),
+         str(w.get("outstanding")), str(w.get("served")),
+         str(w.get("shapes_known")), str(w.get("mem_bytes") or "-"),
+         str(w.get("engine") or "-"), str(w.get("pid") or "-"))
+        for w in fleet
+    ]
+    widths = [
+        max(len(cols[i]), *(len(r[i]) for r in rows)) if rows
+        else len(cols[i])
+        for i in range(len(cols))
+    ]
+    print("  ".join(c.ljust(widths[i]) for i, c in enumerate(cols)))
+    for r in rows:
+        print("  ".join(v.ljust(widths[i]) for i, v in enumerate(r)))
+    line = {
+        "ok": body.get("ok"),
+        "queue_depth": body.get("queue_depth"),
+        "pending": body.get("pending"),
+    }
+    auto = body.get("autoscale")
+    if auto:
+        line["autoscale"] = {
+            "bounds": f"{auto.get('min')}:{auto.get('max')}",
+            "running": auto.get("running"),
+            "decisions": auto.get("decisions"),
+            "last": (auto.get("last_decision") or {}).get("action"),
+        }
+    print(json.dumps(line, default=str))
+    return 0 if status == 200 and body.get("ok") else 1
+
+
+def cmd_canary(args) -> int:
+    """The replay-driven regression canary: sample live investigations
+    into minted recordings (each stamped into the store as a replayable
+    ``recording_ref``), replay them — and any ``--corpus`` recordings —
+    against the candidate build or config on ``--device``, and exit 1 on
+    a ranking divergence; the report names the bisected tick (stream) or
+    request index (serve)."""
+    import glob
+    import os
+
+    from rca_tpu_torch.gateway import build_candidate_engine, run_canary
+
+    m = re.fullmatch(r"(\d+)svc", args.fixture or "20svc")
+    if not m:
+        raise SystemExit(
+            f"canary needs a synthetic fixture (<N>svc), got "
+            f"{args.fixture!r}"
+        )
+    candidate, info = build_candidate_engine(
+        kind=args.candidate_engine,
+        weights=args.candidate_weights,
+        decay=args.candidate_decay,
+        explain_strength=args.candidate_explain_strength,
+        impact_bonus=args.candidate_impact_bonus,
+        device=args.device,
+    )
+    corpus = []
+    if args.corpus:
+        if os.path.isdir(args.corpus):
+            corpus = sorted(glob.glob(os.path.join(args.corpus, "*.rcz")))
+        else:
+            corpus = [args.corpus]
+    store = None
+    if not args.no_store:
+        from rca_tpu_torch.store import InvestigationStore
+
+        store = InvestigationStore(root=_log_dir(args))
+    report = run_canary(
+        args.out,
+        rounds=args.rounds,
+        ticks=args.ticks,
+        services=int(m.group(1)),
+        seed=args.seed,
+        sample_rate=args.sample_rate,
+        mode=args.mode,
+        k=args.top,
+        candidate=candidate,
+        candidate_info=info,
+        corpus=corpus,
+        store=store,
+        serve_requests=args.requests,
+        listen_url=args.listen_url,
+        token=args.token,
+        ca_file=args.ca_file,
+        device=args.device,
+    )
+    print(json.dumps(report, indent=None if args.compact else 2,
+                     default=str))
+    return 0 if report["ok"] else 1
 
 
 def cmd_chaos(args) -> int:
@@ -1011,6 +1216,17 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--record", default=None, metavar="PATH",
                     help="flight-record every served request (load demo) "
                     "to PATH; re-run them solo with `replay PATH`")
+    sp.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="serve over the wire: the gateway (POST "
+                    "/v1/analyze, GET /v1/subscribe, /v1/traces, /metrics, "
+                    "/healthz) in front of the scheduler until SIGTERM; "
+                    "port 0 binds an ephemeral port (the bound address is "
+                    "the first stdout line); default port "
+                    "$RCA_GATEWAY_PORT")
+    sp.add_argument("--log-dir", default=None, dest="log_dir",
+                    help="investigation store of --listen: wire requests "
+                    "naming an investigation_id append serve notes there "
+                    "(default: $RCA_LOG_DIR or logs)")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--compact", action="store_true")
@@ -1018,6 +1234,106 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument(f"--{flag}", default=None, metavar="ARG",
                         help=f"not ported yet (exits 2): {what}")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser(
+        "fleet",
+        help="status table of a running elastic federation: one /healthz "
+        "call rendered as worker rows (exit 1 against a gateway with no "
+        "fleet)",
+    )
+    sp.add_argument("url", metavar="URL",
+                    help="gateway address, http[s]://host:port")
+    sp.add_argument("--token", default=None,
+                    help="bearer token for a gateway with "
+                    "RCA_GATEWAY_TOKENS set")
+    sp.add_argument("--ca-file", default=None, dest="ca_file",
+                    metavar="PEM",
+                    help="verify a TLS gateway against this cert")
+    sp.add_argument("--cert-file", default=None, dest="cert_file",
+                    metavar="PEM",
+                    help="client certificate for an mTLS gateway "
+                    "(RCA_GATEWAY_TLS_CLIENT_CA)")
+    sp.add_argument("--key-file", default=None, dest="key_file",
+                    metavar="PEM",
+                    help="client key (defaults to the cert file)")
+    sp.add_argument("--timeout", type=float, default=10.0)
+    sp.add_argument("--json", action="store_true",
+                    help="print the raw /healthz body instead of the "
+                    "rendered table")
+    sp.set_defaults(fn=cmd_fleet)
+
+    sp = sub.add_parser(
+        "canary",
+        help="replay-driven regression canary: sample live investigations "
+        "into minted recordings, replay them against a candidate build or "
+        "config, exit 1 on ranking divergence (the bisected tick is in "
+        "the report)",
+    )
+    sp.add_argument("--out", default="logs/canary",
+                    help="directory the minted canary corpus grows in")
+    sp.add_argument("--corpus", default=None, metavar="PATH",
+                    help="existing recordings added to the replay gate (a "
+                    "directory of *.rcz, or one file)")
+    sp.add_argument("--rounds", type=int, default=2,
+                    help="sampling rounds (each records one session at "
+                    "the sample rate)")
+    sp.add_argument("--ticks", type=int, default=12,
+                    help="streaming ticks per sampled session")
+    sp.add_argument("--requests", type=int, default=8,
+                    help="serve requests per sampled wave (mode "
+                    "serve/both, or --listen-url)")
+    sp.add_argument("--fixture", default="20svc",
+                    help="<N>svc synthetic world per sampled session")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--sample-rate", type=float, default=None,
+                    dest="sample_rate",
+                    help="per-round recording probability (override "
+                    "$RCA_CANARY_SAMPLE_RATE; default 1.0)")
+    sp.add_argument("--mode", default="stream",
+                    choices=["stream", "serve", "both", "multicluster"],
+                    help="what each round samples: streaming "
+                    "investigations (bisect names the exact tick), serve "
+                    "waves (first divergent request index), both, or "
+                    "merged multi-cluster sessions captured through the "
+                    "live columnar adapter")
+    sp.add_argument("--listen-url", default=None, dest="listen_url",
+                    metavar="URL",
+                    help="sample through a RUNNING gateway "
+                    "(http[s]://host:port) instead of in process; "
+                    "overrides --mode")
+    sp.add_argument("--token", default=None,
+                    help="bearer token for a --listen-url gateway with "
+                    "RCA_GATEWAY_TOKENS set")
+    sp.add_argument("--ca-file", default=None, dest="ca_file",
+                    metavar="PEM",
+                    help="verify a --listen-url TLS gateway against this "
+                    "cert")
+    sp.add_argument("--top", type=int, default=5)
+    sp.add_argument("--candidate-engine", default="auto",
+                    dest="candidate_engine",
+                    help="auto (= current build, recorded kind) | single "
+                    "| sharded (needs more than one device)")
+    sp.add_argument("--candidate-weights", default=None,
+                    dest="candidate_weights", metavar="CKPT",
+                    help="candidate scoring checkpoint (rca-weights-v1 "
+                    "JSON) the corpus replays against")
+    sp.add_argument("--candidate-decay", type=float, default=None,
+                    dest="candidate_decay",
+                    help="perturb the candidate's per-hop decay")
+    sp.add_argument("--candidate-explain-strength", type=float,
+                    default=None, dest="candidate_explain_strength")
+    sp.add_argument("--candidate-impact-bonus", type=float,
+                    default=None, dest="candidate_impact_bonus")
+    sp.add_argument("--no-store", action="store_true", dest="no_store",
+                    help="skip stamping sampled recordings into the "
+                    "investigation store")
+    sp.add_argument("--log-dir", default=None, dest="log_dir",
+                    help="the investigation store (default: $RCA_LOG_DIR "
+                    "or logs)")
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_canary)
 
     sp = sub.add_parser(
         "replay",

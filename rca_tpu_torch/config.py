@@ -27,8 +27,12 @@ scheduler's: :class:`ServeConfig` (``RCA_SERVE_MAX_BATCH``,
 ``RCA_SERVE_STEAL``, ``RCA_SERVE_REPLICA_MIX``) with
 :func:`parse_replica_mix`, :func:`serve_graph_cache_cap`
 (``RCA_SERVE_GRAPH_CACHE``) and :func:`slo_ms` (``RCA_SLO_MS``), read
-through the float accessor :func:`env_float`, and the investigation
-layer's :func:`log_dir` (``RCA_LOG_DIR``).
+through the float accessor :func:`env_float`, the investigation
+layer's :func:`log_dir` (``RCA_LOG_DIR``), and the gateway's and the
+canary's: :func:`gateway_port`, :func:`gateway_max_body`,
+:func:`canary_sample_rate`, :func:`gateway_tls_files`,
+:func:`gateway_tls_client_ca`, :func:`gateway_tokens` and
+:func:`gateway_tenant_rps`.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 
 def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -426,6 +430,126 @@ class ServeConfig:
 def _serve_env_int(name: str, default: int) -> int:
     """One ``RCA_SERVE_*`` integer knob, range-checked."""
     return env_int(name, default, *_SERVE_ENV_RANGES[name])
+
+
+# -- the gateway and the canary ------------------------------------------------
+# the wire front door (rca_tpu_torch/gateway) and the replay canary, each
+# knob checked here so a typo'd value fails loudly:
+#
+#   RCA_GATEWAY_PORT        [0, 65535]  default listen port of `serve
+#                           --listen` when the spec omits one (default
+#                           8321; 0 = an ephemeral port, printed)
+#   RCA_GATEWAY_MAX_BODY    [1024, 1 GiB]  largest request body accepted,
+#                           bytes (default 8 MiB; larger bodies get 413
+#                           before a byte of them is read)
+#   RCA_CANARY_SAMPLE_RATE  [0.0, 1.0]  probability `canary` records a
+#                           sampling round (default 1.0)
+#   RCA_GATEWAY_TLS_CERT /  PEM cert chain and key: both set wrap the
+#   RCA_GATEWAY_TLS_KEY     listener in TLS; one without the other fails
+#   RCA_GATEWAY_TLS_CLIENT_CA  PEM CA bundle for mutual TLS (needs the
+#                           pair above): the listener demands and verifies
+#                           a client certificate at the handshake
+#   RCA_GATEWAY_TOKENS      bearer tokens, ``token:tenant[:expires_unix]``
+#                           comma-separated: every route but /healthz then
+#                           needs ``Authorization: Bearer``, checked before
+#                           the body is read, and the token's tenant binds
+#                           the request (another X-RCA-Tenant is a 403)
+#   RCA_GATEWAY_TENANT_RPS  [0, 1e6]  per-tenant token bucket at the wire,
+#                           requests per second (0 = off, the default)
+
+
+def gateway_port() -> int:
+    """``RCA_GATEWAY_PORT``: the gateway's default listen port."""
+    return env_int("RCA_GATEWAY_PORT", 8321, 0, 65535)
+
+
+def gateway_max_body() -> int:
+    """``RCA_GATEWAY_MAX_BODY``: the request-body byte cap (413 beyond)."""
+    return env_int("RCA_GATEWAY_MAX_BODY", 8 * 1024 * 1024, 1024, 1 << 30)
+
+
+def canary_sample_rate() -> float:
+    """``RCA_CANARY_SAMPLE_RATE``: the per-round recording probability."""
+    return env_float("RCA_CANARY_SAMPLE_RATE", 1.0, 0.0, 1.0)
+
+
+def gateway_tls_files() -> Optional[Tuple[str, str]]:
+    """``RCA_GATEWAY_TLS_CERT`` / ``RCA_GATEWAY_TLS_KEY`` as a checked
+    pair: both set → ``(cert, key)``; neither → None (plaintext); one
+    without the other raises."""
+    cert = (env_raw("RCA_GATEWAY_TLS_CERT") or "").strip()
+    key = (env_raw("RCA_GATEWAY_TLS_KEY") or "").strip()
+    if not cert and not key:
+        return None
+    if not (cert and key):
+        raise ValueError(
+            "RCA_GATEWAY_TLS_CERT and RCA_GATEWAY_TLS_KEY must be set "
+            "together (a half-configured TLS gateway would silently "
+            "serve plaintext)"
+        )
+    return cert, key
+
+
+def gateway_tls_client_ca() -> Optional[str]:
+    """``RCA_GATEWAY_TLS_CLIENT_CA``: the PEM CA bundle that makes the TLS
+    gateway mutual; set without the cert/key pair it raises."""
+    ca = (env_raw("RCA_GATEWAY_TLS_CLIENT_CA") or "").strip()
+    if not ca:
+        return None
+    if gateway_tls_files() is None:
+        raise ValueError(
+            "RCA_GATEWAY_TLS_CLIENT_CA requires RCA_GATEWAY_TLS_CERT/"
+            "RCA_GATEWAY_TLS_KEY (client-cert verification needs a TLS "
+            "listener to verify on)"
+        )
+    return ca
+
+
+def parse_gateway_tokens(spec: str) -> Dict[str, Tuple[str, Optional[float]]]:
+    """``RCA_GATEWAY_TOKENS`` → ``{token: (tenant, expires_unix | None)}``.
+
+    Comma-separated ``token:tenant[:expires_unix]``; tokens and tenants
+    non-empty, tokens unique.  A malformed spec raises: a typo'd token
+    list must not run the gateway open."""
+    out: Dict[str, Tuple[str, Optional[float]]] = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        fields = part.split(":")
+        if len(fields) not in (2, 3) or not fields[0] or not fields[1]:
+            raise ValueError(
+                f"RCA_GATEWAY_TOKENS entry {part!r}: expected "
+                "'token:tenant[:expires_unix]'"
+            )
+        expires: Optional[float] = None
+        if len(fields) == 3:
+            try:
+                expires = float(fields[2])
+            except ValueError:
+                raise ValueError(
+                    f"RCA_GATEWAY_TOKENS entry {part!r}: expiry "
+                    f"{fields[2]!r} is not a number"
+                )
+        if fields[0] in out:
+            raise ValueError(
+                f"RCA_GATEWAY_TOKENS: duplicate token {fields[0][:4]}…"
+            )
+        out[fields[0]] = (fields[1], expires)
+    return out
+
+
+def gateway_tokens() -> Dict[str, Tuple[str, Optional[float]]]:
+    """``RCA_GATEWAY_TOKENS`` parsed; an empty dict turns authn off."""
+    return parse_gateway_tokens(env_raw("RCA_GATEWAY_TOKENS") or "")
+
+
+def gateway_tenant_rps() -> float:
+    """``RCA_GATEWAY_TENANT_RPS``: the per-tenant token-bucket rate at the
+    gateway, requests per second ([0, 1e6]; 0 = off, the default).  Each
+    tenant gets its own bucket with one second's burst, and a request over
+    it gets 429 with ``Retry-After`` without touching the serve queue."""
+    return env_float("RCA_GATEWAY_TENANT_RPS", 0.0, 0.0, 1e6)
 
 
 @dataclasses.dataclass(frozen=True)

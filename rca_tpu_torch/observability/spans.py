@@ -1,9 +1,11 @@
 """Spans and the tracer seam: the port's copy of
-``rca_tpu.observability.spans`` (the wire header of the gateway comes
-with serving).
+``rca_tpu.observability.spans``.
 
 A :class:`Span` is one named time interval inside a trace; a trace is
 every span sharing a ``trace_id``, connected by ``parent_id`` edges.
+Context enters at the gateway through the ``X-RCA-Trace`` header
+(``<trace_id>-<span_id>``, minted when absent, echoed in responses) and
+rides the serve request through the queue, the batcher and the replica.
 Spans are opened only through a :class:`Tracer`: ``tracer.span(...)`` as a
 ``with`` block, or ``tracer.record(...)`` for a phase whose ends are known
 timestamps.  The tracer times through an injectable ``clock``, mints ids
@@ -26,6 +28,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from rca_tpu_torch.config import trace_buffer_cap, trace_enabled
 
+#: the wire header carrying trace context across the gateway boundary
+TRACE_HEADER = "X-RCA-Trace"
+
 
 @dataclasses.dataclass(frozen=True)
 class SpanContext:
@@ -33,6 +38,27 @@ class SpanContext:
 
     trace_id: str   # 16 hex chars
     span_id: str    # 8 hex chars
+
+    def to_wire(self) -> str:
+        return f"{self.trace_id}-{self.span_id}"
+
+    @staticmethod
+    def from_wire(value: Optional[str]) -> Optional["SpanContext"]:
+        """Parse an ``X-RCA-Trace`` header; None for anything malformed (a
+        bad header starts a fresh trace, it never fails the request)."""
+        if not value or not isinstance(value, str):
+            return None
+        parts = value.strip().split("-")
+        if len(parts) != 2:
+            return None
+        trace_id, span_id = parts
+        if not (1 <= len(trace_id) <= 32 and 1 <= len(span_id) <= 16):
+            return None
+        try:
+            int(trace_id, 16), int(span_id, 16)
+        except ValueError:
+            return None
+        return SpanContext(trace_id, span_id)
 
 
 @dataclasses.dataclass
@@ -55,6 +81,14 @@ class Span:
             "start": self.start, "end": self.end,
             "attrs": dict(self.attrs),
         }
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Span":
+        return Span(
+            name=d["name"], trace_id=d["trace_id"], span_id=d["span_id"],
+            parent_id=d.get("parent_id"), start=float(d["start"]),
+            end=float(d["end"]), attrs=dict(d.get("attrs") or {}),
+        )
 
 
 class Tracer:
@@ -175,6 +209,10 @@ class Tracer:
             out = out[-limit:]
         return out
 
+    def clear(self) -> None:
+        with self._lock:
+            self._buffer.clear()
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {
@@ -203,6 +241,13 @@ def default_tracer() -> Tracer:
     if _DEFAULT is None:
         _DEFAULT = Tracer() if trace_enabled() else NULL_TRACER
     return _DEFAULT
+
+
+def set_default_tracer(tracer: Optional[Tracer]) -> None:
+    """Override the process tracer (None: resolve it from the environment
+    again on next use)."""
+    global _DEFAULT
+    _DEFAULT = tracer
 
 
 _PROFILING = False

@@ -57,6 +57,10 @@ class PhaseStats:
         i = min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))
         return round(s[i], 3)
 
+    def phases(self) -> List[str]:
+        """The phases with samples, in first-recorded order."""
+        return list(self._samples)
+
     def snapshot(self) -> "PhaseStats":
         """A deep-copied twin of the current samples, taken under the
         holder's lock so quantiles are derived off it."""

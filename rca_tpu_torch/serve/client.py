@@ -92,6 +92,18 @@ class ServeClient:
         self.loop.submit(req)
         return req
 
+    def submit_many(
+        self, features_batch: Sequence[np.ndarray], dep_src, dep_dst,
+        **kwargs,
+    ) -> List[ServeRequest]:
+        """A hypothesis sweep as individual requests over one graph, so
+        they coalesce into one shape bucket and, queue permitting, one
+        device batch."""
+        return [
+            self.submit(f, dep_src, dep_dst, **kwargs)
+            for f in features_batch
+        ]
+
     def analyze(
         self, features, dep_src, dep_dst,
         timeout_s: float = DEFAULT_TIMEOUT_S, **kwargs,

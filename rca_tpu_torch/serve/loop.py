@@ -180,6 +180,12 @@ class ServeLoop:
             self._thread.join(timeout)
             self._thread = None
 
+    @property
+    def stopped(self) -> bool:
+        """Whether :meth:`stop` was called (a loop never started is not
+        stopped: requests queued on it wait for :meth:`start`)."""
+        return self._stop.is_set()
+
     def kernelscope_summary(self) -> dict:
         """See :func:`kernelscope_summary`."""
         return kernelscope_summary(self.recompile_monitor)

@@ -50,6 +50,7 @@ from rca_tpu_torch.observability.spans import default_tracer
 from rca_tpu_torch.serve.metrics import ServeMetrics
 from rca_tpu_torch.serve.queue import RequestQueue
 from rca_tpu_torch.serve.replica import (
+    STAGE_AHEAD_BATCHES,
     CompletionSink,
     ReplicaWorker,
     build_replica_engines,
@@ -195,6 +196,17 @@ class ServePool:
     @property
     def device_batches(self) -> int:
         return sum(r.device_batches for r in self.replicas)
+
+    def occupancy(self) -> float:
+        """Fraction of the live replicas' staging capacity in use (each
+        replica's staged and in-flight requests over its stage-ahead cap);
+        1.0 when no replica is alive.  The gateway's ``/healthz`` shows it
+        for a pool."""
+        live = [r for r in self.replicas if r.alive()]
+        if not live:
+            return 1.0
+        cap = max(1, self.config.max_batch * STAGE_AHEAD_BATCHES * len(live))
+        return min(1.0, sum(r.occupancy() for r in live) / cap)
 
     # -- admission (same contract as ServeLoop.submit) -----------------------
     def submit(self, req: ServeRequest) -> bool:

@@ -70,6 +70,12 @@ class RequestQueue:
         with self._cond:
             return self._size
 
+    def depth_by_tenant(self) -> Dict[str, int]:
+        """Queued requests per tenant (tenants with an empty lane left
+        out)."""
+        with self._cond:
+            return {t: len(dq) for t, dq in self._lanes.items() if dq}
+
     # -- admission -----------------------------------------------------------
     def submit(self, req: ServeRequest) -> bool:
         """Admit a request; False when the queue is at capacity (the

@@ -18,9 +18,13 @@
   ``RCA_KERNEL=doubling``, a fit with ``train``, its gate and its JSON
   checkpoint, and ``python -m rca_tpu_torch train``, the investigation
   layer (store, LLM layer, loggers, render helpers, hypotheses) with
-  ``chat``, ``suggest``, ``report`` and ``investigations`` and an
-  analysis under ``RCA_EDGE_LAYOUT=ell``; the native scanner loaded is
-  the one built from ``rca_tpu_torch/native/``;
+  ``chat``, ``suggest``, ``report`` and ``investigations``, an analysis
+  under ``RCA_EDGE_LAYOUT=ell``, a gateway analysis over the wire with
+  its ``/metrics``, the canary (in process, through a gateway and as
+  ``canary --mode multicluster``), ``fleet``, the merged multi-cluster
+  client and a ``serve --listen`` subprocess (its own modules read at
+  exit); the native scanner loaded is the one built from
+  ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   included), the streaming sessions, ``replay`` and ``chaos`` raise (or
   exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
@@ -490,6 +494,98 @@ def test_investigation_layer_loads_no_jax_and_no_rca_tpu():
 
 def _probe_env():
     return {**os.environ, "RCA_EXPLAIN": "1", "RCA_KERNEL_CACHE": "off"}
+
+
+_GATEWAY_PROBE = """
+import json, os, runpy, signal, subprocess, sys, tempfile
+import rca_tpu_torch.gateway
+from rca_tpu_torch import GraphEngine
+from rca_tpu_torch.cluster.clusterset import ClusterSet
+from rca_tpu_torch.cluster.generator import (synthetic_cascade_arrays,
+                                             synthetic_cascade_world)
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.gateway import GatewayClient, GatewayServer, run_canary
+from rca_tpu_torch.serve import ServeLoop
+tmp = tempfile.mkdtemp()
+case = synthetic_cascade_arrays(48, n_roots=1, seed=3)
+with ServeLoop(engine=GraphEngine(device="cpu")) as loop, GatewayServer(
+        loop, port=0) as gw:
+    cl = GatewayClient(gw.host, gw.port, timeout_s=60)
+    code, body, _ = cl.analyze(case.features, case.dep_src, case.dep_dst,
+                               names=case.names, k=3)
+    metrics = "rca_serve_requests_total" in cl.metrics_text()
+    url = f"http://{gw.host}:{gw.port}"
+    canary = run_canary(os.path.join(tmp, "c"), rounds=1, ticks=4,
+                        services=12, seed=1, mode="both", serve_requests=2,
+                        device="cpu")["ok"]
+    wire_canary = run_canary(os.path.join(tmp, "w"), rounds=1, services=12,
+                             serve_requests=2, listen_url=url,
+                             device="cpu")["ok"]
+    codes = []
+    for argv in (["canary", "--fixture", "12svc", "--rounds", "1",
+                  "--ticks", "4", "--mode", "multicluster", "--out",
+                  os.path.join(tmp, "m"), "--no-store", "--device", "cpu"],
+                 ["fleet", url]):
+        sys.argv = ["rca_tpu_torch", *argv]
+        try:
+            runpy.run_module("rca_tpu_torch", run_name="__main__")
+        except SystemExit as exc:
+            codes.append(exc.code)
+merged = ClusterSet({c: MockClusterClient(synthetic_cascade_world(
+    12, n_roots=1, seed=i)) for i, c in enumerate("ab")}).merged_client()
+pods = len(merged.get_pods("synthetic"))
+merged.get_columnar("synthetic")
+merged.close()
+child = (
+    "import atexit, json, runpy, sys\\n"
+    "atexit.register(lambda: print(json.dumps(sorted(sys.modules)),"
+    " file=sys.stderr, flush=True))\\n"
+    "sys.argv = ['rca_tpu_torch', 'serve', '--listen', '127.0.0.1:0',"
+    " '--device', 'cpu', '--log-dir', sys.argv[1]]\\n"
+    "runpy.run_module('rca_tpu_torch', run_name='__main__')\\n")
+proc = subprocess.Popen([sys.executable, "-c", child, tmp],
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True)
+try:
+    info = json.loads(proc.stdout.readline())
+    host, port = info["listening"].rsplit(":", 1)
+    sub_code = GatewayClient(host, int(port), timeout_s=60).analyze(
+        case.features, case.dep_src, case.dep_dst, k=3)[0]
+    proc.send_signal(signal.SIGTERM)
+    _, err = proc.communicate(timeout=60)
+finally:
+    if proc.poll() is None:
+        proc.kill()
+print(json.dumps({"code": code, "metrics": metrics, "canary": canary,
+                  "wire_canary": wire_canary, "codes": codes, "pods": pods,
+                  "sub": [sub_code, proc.returncode],
+                  "sub_modules": json.loads(err.strip().splitlines()[-1]),
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_gateway_canary_and_clusterset_load_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _GATEWAY_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300,
+        env={**_probe_env(), "RCA_EXPLAIN": "0"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (out["code"], out["metrics"], out["canary"],
+            out["wire_canary"]) == (200, True, True, True)
+    # the multicluster canary holds; the port's gateway has no fleet
+    assert out["codes"] == [0, 1]
+    assert out["pods"] > 0
+    assert out["sub"] == [200, 0]
+    for module in ("gateway", "gateway.server", "gateway.wire",
+                   "gateway.export", "gateway.client", "gateway.canary",
+                   "cluster.clusterset", "util.net", "cli"):
+        assert f"rca_tpu_torch.{module}" in out["modules"], module
+    for module in ("gateway.server", "util.net", "serve.loop"):
+        assert f"rca_tpu_torch.{module}" in out["sub_modules"], module
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+    assert [m for m in out["sub_modules"] if _forbidden(m)] == []
 
 
 def test_port_analysis_loads_no_jax_and_no_rca_tpu():

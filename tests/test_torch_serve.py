@@ -1039,9 +1039,17 @@ def test_serve_cli_selftest_and_load():
     ("--listen", "A9"), ("--federation", "A14"), ("--autoscale", "A14"),
 ])
 def test_serve_cli_unported_modes_exit_2(capsys, flag, item):
+    """``--federation`` and ``--autoscale`` exit 2 naming A14.  The
+    gateway (``--listen``, A9) is ported: in front of the unported
+    federation it still exits 2, naming A14, before a socket is bound."""
     from rca_tpu_torch.cli import main
 
-    assert main(["serve", flag, "x", "--device", "cpu"]) == 2
+    argv = ["serve", flag, "x", "--device", "cpu"]
+    if flag == "--listen":
+        argv = ["serve", "--listen", "127.0.0.1:0", "--federation", "2",
+                "--device", "cpu"]
+        item = "A14"
+    assert main(argv) == 2
     out = capsys.readouterr()
     assert "not ported yet" in out.err and item in out.err
     assert out.out == ""
