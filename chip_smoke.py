@@ -13,13 +13,14 @@
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
-launches on the ``kernels`` row: ``evidence_front`` and
-``seg_contrast_step`` once, then the two recursions, which the plan runs
+launches on the ``kernels`` row: ``evidence_front_fused`` once (the whole
+front, ``csrc/front.cu``), then the two recursions, which the plan runs
 as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
-(1 / 1 / 1 / 1: both layouts fit one CTA's shared memory) and as
-``seg_up_step`` / ``seg_down_step`` 8 times each above (1 / 1 / 8 / 8 at
-10,000 and 49,999); ``noisy_or_pair`` and the flagged scans never
-(:func:`main_launches`).
+(1 / 1 / 1: both layouts fit one CTA's shared memory) and as
+``seg_up_step`` / ``seg_down_step`` 8 times each above (1 / 8 / 8 at
+10,000 and 49,999); the front's two halves ``evidence_front`` /
+``seg_contrast_step`` only in the node-sharded engine, ``noisy_or_pair``
+and the flagged scans never (:func:`main_launches`).
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rca_tpu_torch/csrc`` (one ``nvcc`` per
@@ -29,8 +30,12 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    2048, ``e_pad`` 4096; 49,999 services: ``n_pad`` 53,248, ``e_pad``
    106,496): the evidence pair allclose at rtol 1e-6 / atol 1e-7, the
    evidence front (``evidence_front`` row pass, ``seg_contrast_step``,
-   and the two as the engine calls them) bitwise on raw features with
-   NaN/Inf rows and on an all-NaN input, the segmented max and the
+   and the two in a row) bitwise on raw features with NaN/Inf rows and
+   on an all-NaN input, and the fused front ``evidence_front_fused``
+   bitwise those two launches and the plain version over 1, 2, 4 and 16
+   lanes, at the packaged contrast weight and at 0, reading and
+   persisting (the persisted rows bitwise too), also over the star and
+   the degenerate layouts below; the segmented max and the
    up-step bitwise, the segmented sum and the down-step allclose at rtol
    1e-5 / atol 1e-6, and every kernel bitwise-equal to itself over two
    runs.  The steps run over the tier's real layouts and over a star
@@ -91,7 +96,7 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    engine, the findings JSON) on the card over the 5-service fixture, the
    50-service fixture and a 2047-service cascade, each with the launch
    counters set to 0 just before: each analysis must launch the main
-   path's counts (fused: 1 / 1 / 1 / 1) and nothing else, finish with
+   path's counts (fused: 1 / 1 / 1) and nothing else, finish with
    the torch backend and no fallback, rank a fault root first (the
    database and the api-gateway first and second at 5 services), match
    the port's own CPU run (agents' findings and groups byte-identical,
@@ -112,7 +117,7 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    ``analyze_arrays(...).attribution()`` at 49,999 services, the sweep on
    the registry's ``dense`` row (``kernels``: the base run and the
    counterfactual lanes launch the main path's counts twice, per step at
-   49,999: 2 / 2 / 16 / 16, counted from 0 just before) and the saliency
+   49,999: 2 / 16 / 16, counted from 0 just before) and the saliency
    on its ``attribution`` row
    (``torch``): the provenance block is there with saliency, every
    candidate's reconstruction error is at most 1e-5, it equals the port's
@@ -227,7 +232,8 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
 16. the ``quantized`` and ``doubling`` registry rows at both tiers beside
    ``kernels`` and ``torch`` (``RCA_KERNEL`` names each; the card's race
    leaves them out): one restaged ``analyze_case`` per row counted from
-   0 (``kernels`` the main path's counts; ``doubling`` 1 / 1 / 0 / 0
+   0 (``kernels`` the main path's counts; ``doubling`` the front's one
+   launch and no seg step
    where it engages, or a plan that says ``kernels`` and the main path's
    counts where the frontier cap declines the graph, and it must engage at
    2047;
@@ -239,8 +245,8 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    streaming session under ``RCA_KERNEL=doubling``, bitwise their solo
    analyses.  Then the ``layouts`` leg at both tiers: one restaged
    ``analyze_case`` per ``RCA_EDGE_LAYOUT`` counted from 0 (``hybrid``
-   and ``coo`` the main path's counts; ``ell`` 1 / 1 / 0 / 0 and 8
-   ``segscan_sum``, the front's kernels, then the gather tables with the
+   and ``coo`` the main path's counts; ``ell`` the front's one launch
+   and 8 ``segscan_sum``, then the gather tables with the
    overflow's flagged sum), each result and the registry row stamped
    with the ``kernels`` row and the layout, ``coo``'s ``u`` bitwise
    ``hybrid``'s and its scores at rtol 1e-5 / atol 1e-6, ``ell``'s ``u``
@@ -269,7 +275,7 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    ``use_llm_agents=True``: every output equals the port's CPU run of the
    same sequence without the volatile keys (ids, clocks, ``latency_ms``,
    ``profile``), the evidence files too, the top cause is an injected
-   root and the ``run_agent`` suggestion launches 1 / 1 / 1 / 1; each
+   root and the ``run_agent`` suggestion launches 1 / 1 / 1; each
    stage's host wall (median of 5).  Then ``python -m rca_tpu_torch chat
    --investigation new``, ``suggest`` and ``report --out`` over
    ``--fixture 50svc`` in subprocesses, one explained request naming the
@@ -312,11 +318,14 @@ as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
    the port never calls it); for each seg-step kernel also the step as
    composed around the flagged-scan kernel (gather, scan, ``s[ends]``,
    ``where``, epilogue: ``scan_step_ms`` / ``scan_step_call_ms``, timed
-   the same way); the whole front (both launches: ``front_ms`` /
-   ``front_call_ms`` and its bound) beside the front it replaces, the
-   sanitize's torch ops, the ``noisy_or_pair`` kernel, the error-source
-   scatter and the fold (``plain_front_ms`` / ``plain_front_call_ms``);
-   the persisting ``evidence_front`` launch (``persist_*``); at 2047 each
+   the same way); the fused front ``evidence_front_fused`` (one launch;
+   its persisting launch ``persist_*``) in turns with the two-launch
+   front it replaced (``two_launch_ms`` / ``two_launch_call_ms``, also
+   the ``front`` row, ``front_ms`` / ``front_call_ms``, with its bound),
+   and that beside the first port's front, the sanitize's torch
+   ops, the ``noisy_or_pair`` kernel, the error-source scatter and the
+   fold (``plain_front_ms`` / ``plain_front_call_ms``); the persisting
+   ``evidence_front`` row pass (``persist_*``); at 2047 each
    fused recursion beside the 8 per-step launches it replaces
    (``per_step_ms`` / ``per_step_call_ms``); the end-to-end
    ``analyze_arrays`` wall time at both tiers, restaged, and at 2047 again
@@ -337,8 +346,8 @@ sharded batches; each main-path kernel also with its launches
 per batch and its batched times (``serve_batch``: at 1, 2, 4 and 16
 lanes),
 and the launches counted on a delta tick, a quiet tick and an 8-row
-resident delta request at 49,999 services, ``evidence_front`` also its
-persisting launches there; the tick kernels with
+resident delta request at 49,999 services, ``evidence_front_fused`` and
+``evidence_front`` also their persisting launches there; the tick kernels with
 ``replay_launches``, over the 20 replayed ticks of the 10,000-service
 tape, and ``variant_launches``, per analysis on the ``doubling`` and
 ``quantized`` rows at each tier; every main-path kernel with
@@ -471,12 +480,15 @@ def fused(services: int) -> bool:
 def main_launches(services: int, times: int = 1) -> dict:
     """Every kernel's launches over ``times`` dense analyses (requests,
     ticks, device batches) of a graph of ``services`` on the ``kernels``
-    row: ``evidence_front`` and ``seg_contrast_step`` once each, then
-    ``seg_up_steps`` and ``seg_down_steps`` once each where the plan fuses
-    the recursions, else ``seg_up_step`` and ``seg_down_step`` 8 times."""
+    row: ``evidence_front_fused`` once (the whole front; the row pass
+    ``evidence_front`` and ``seg_contrast_step`` run only in the sharded
+    engine), then ``seg_up_steps`` and ``seg_down_steps`` once each where
+    the plan fuses the recursions, else ``seg_up_step`` and
+    ``seg_down_step`` 8 times."""
     one, eight = (times, 0) if fused(services) else (0, 8 * times)
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-            "evidence_front": times, "seg_contrast_step": times,
+            "evidence_front": 0, "seg_contrast_step": 0,
+            "evidence_front_fused": times,
             "seg_up_steps": one, "seg_down_steps": one,
             "seg_up_step": eight, "seg_down_step": eight}
 
@@ -622,6 +634,90 @@ def time_recursions(up, down, inv_deg, rng, decay: float,
     return out
 
 
+#: the lane counts the fused front is checked at: the serve widths
+FRONT_LANES = (1, 2, 4, 16)
+
+
+def two_launch_front(ft, aw, hw, weight: float, up, persist: bool = False):
+    """The front as two launches, the row pass (``evidence_front``) then
+    the contrast (``seg_contrast_step``, none at weight 0): what the fused
+    front replaced on the dense path, and its bitwise yardstick."""
+    from rca_tpu_torch.engine.evidence import (
+        evidence_front_rows,
+        seg_contrast_step,
+    )
+
+    a, h, e, n_bad = evidence_front_rows(ft, aw, hw, persist)
+    if weight:
+        a = seg_contrast_step(a, e, weight, up)
+    return a, h, n_bad
+
+
+def lanes_of(ft, lanes: int, rng):
+    """``[lanes, n_pad, C]`` copies of the raw features ``ft`` (a flat
+    ``[n_pad, C]`` copy for 1), every lane past the first scaled by its
+    own factor, so the lanes differ and keep the NaN/Inf rows."""
+    import numpy as np
+    import torch
+
+    if lanes == 1:
+        return ft.clone()
+    scale = torch.from_numpy(rng.uniform(0.5, 1.0, (lanes, 1, 1)).astype(
+        np.float32)).to(ft.device)
+    scale[0] = 1.0
+    return ft.expand(lanes, *ft.shape) * scale
+
+
+def check_fused_front(label, ft, up, aw, hw, contrast: float, rng,
+                      lanes_list=FRONT_LANES) -> int:
+    """The fused front (one launch) over the raw features ``ft`` on the
+    up layout ``up``, at each lane count of ``lanes_list``, at the
+    packaged contrast weight and at 0, reading and persisting: ``a``,
+    ``h``, ``n_bad`` and the persisted rows bitwise the two-launch front's
+    and the plain version's, and bitwise over two runs (reading: the same
+    input; persisting: a second copy).  Returns the bad-row count of one
+    lane."""
+    import torch
+    from rca_tpu_torch.engine.evidence import (
+        evidence_front,
+        evidence_front_plain,
+    )
+
+    for lanes in lanes_list:
+        x = lanes_of(ft, lanes, rng)
+        for weight in (contrast, 0.0):
+            for persist in (False, True):
+                runs = [x.clone() for _ in range(4)]
+                got = evidence_front(runs[0], aw, hw, weight, up, persist)
+                again = evidence_front(runs[1], aw, hw, weight, up, persist)
+                want = two_launch_front(runs[2], aw, hw, weight, up, persist)
+                plain = evidence_front_plain(runs[3], aw, hw, weight, up,
+                                             persist)
+                torch.cuda.synchronize()
+                where = (f"evidence_front_fused ({label}, {lanes} lanes, "
+                         f"weight {weight}, persist {persist})")
+                for g, a, w, p in zip(got, again, want, plain):
+                    if not torch.equal(g, a):
+                        fail(f"{where} not deterministic")
+                    if not torch.equal(g, w):
+                        fail(f"{where} not bitwise the two-launch front")
+                    if not torch.equal(g, p):
+                        fail(f"{where} not bitwise equal to plain")
+                # bit patterns: the inputs hold NaN
+                if not all(torch.equal(_bits(runs[0]), _bits(r))
+                           for r in runs[1:]):
+                    fail(f"{where}: the persisted rows differ")
+                if not persist and not torch.equal(_bits(runs[0]),
+                                                   _bits(x)):
+                    fail(f"{where} wrote its input")
+    n_bad = int(evidence_front(ft, aw, hw, contrast, up)[2])
+    phase("check", kernel="evidence_front_fused", input=label,
+          n_pad=int(up.offsets.shape[0] - 1), lanes=list(lanes_list),
+          bad_rows=n_bad, max_abs_err=0.0, bitwise_two_launch=True,
+          bitwise_plain=True)
+    return n_bad
+
+
 def degenerate_layouts(rng) -> dict:
     """Small layouts the fused recursions must get right: no edges at all
     (every slot a padding self-loop on the dummy), and self-loops with
@@ -674,6 +770,8 @@ def main(argv) -> int:
         evidence_front_rows_plain,
         finite_mask_rows,
         fold_error_contrast,
+        front_cap,
+        front_grid,
         noisy_or_pair,
         noisy_or_pair_plain,
         seg_contrast_step,
@@ -743,15 +841,17 @@ def main(argv) -> int:
     errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0,
             "seg_up_step": 0.0, "seg_down_step": 0.0, "evidence_front": 0.0,
             "seg_contrast_step": 0.0, "seg_up_steps": 0.0,
-            "seg_down_steps": 0.0}
+            "seg_down_steps": 0.0, "evidence_front_fused": 0.0}
     decay = params.decay
     contrast = params.error_contrast
 
-    def check_front(label, ft, up_d):
+    def check_front(label, ft, up_d, lanes_list=FRONT_LANES):
         """The front's kernels against their plain versions on raw
-        features ``ft`` over the up layout ``up_d``: each launch and the
-        pair of them, at the packaged contrast weight and at 0, bitwise
-        and bitwise over two runs.  Returns the bad-row count."""
+        features ``ft`` over the up layout ``up_d``: the row pass, the
+        contrast and the pair of them, at the packaged contrast weight and
+        at 0, bitwise and bitwise over two runs; then the fused front
+        bitwise the pair and the plain version over ``lanes_list``
+        (:func:`check_fused_front`).  Returns the bad-row count."""
         def same(got, again, want, what):
             for g, a, w in zip(got, again, want):
                 if not torch.equal(g, a):
@@ -768,14 +868,17 @@ def main(argv) -> int:
              [seg_contrast_step_plain(a_raw, e, contrast, up_d)],
              "seg_contrast_step")
         for weight in (contrast, 0.0):
-            same(evidence_front(ft, aw, hw, weight, up_d),
-                 evidence_front(ft, aw, hw, weight, up_d),
+            same(two_launch_front(ft, aw, hw, weight, up_d),
+                 two_launch_front(ft, aw, hw, weight, up_d),
                  evidence_front_plain(ft, aw, hw, weight, up_d),
                  f"evidence_front + seg_contrast_step at weight {weight}")
         torch.cuda.synchronize()
         phase("check", kernel="evidence_front + seg_contrast_step",
               input=label, n_pad=int(ft.shape[0]), bad_rows=int(n_bad),
               max_abs_err=0.0, bitwise=True)
+        if check_fused_front(label, ft, up_d, aw, hw, contrast, rng,
+                             lanes_list) != int(n_bad):
+            fail(f"the fused front counted other bad rows ({label})")
         return int(n_bad)
 
     def check_steps(label, seg, inv_deg, names):
@@ -909,7 +1012,7 @@ def main(argv) -> int:
                                np.int64)).to(dev)}
         if n == TIERS[0][0]:
             nan_all = torch.full_like(pt, float("nan"))
-            if check_front("every row NaN", nan_all, up_d) != n_pad:
+            if check_front("every row NaN", nan_all, up_d, (1, 2)) != n_pad:
                 fail("the front did not count every row of an all-NaN input")
             a_all, h_all, _ = evidence_front(nan_all, aw, hw, contrast, up_d)
             if a_all.any() or h_all.any():
@@ -926,10 +1029,21 @@ def main(argv) -> int:
                 ["seg_up_step", "seg_down_step"])
     check_recursions("star, 4096 edges in one segment", star_d, star_d,
                      star_inv, rng, decay)
+    # the fused front where one up segment outgrows a CTA's stride, and
+    # over ragged tiles (64 rows)
+    star_f = torch.from_numpy(rng.uniform(-0.2, 1.2, (2048, C)).astype(
+        np.float32)).to(dev)
+    star_f[[5, 7], [3, SvcF.ERROR_RATE]] = float("nan")
+    check_front("star, 4096 edges in one segment", star_f, star_d, (1, 3))
     for label, layout in degenerate_layouts(rng).items():
         seg_d = layout.to(dev)
         check_recursions(label, seg_d, seg_d, torch.full(
             (64,), 0.25, dtype=torch.float32, device=dev), rng, decay)
+        small = torch.from_numpy(rng.uniform(-0.2, 1.2, (64, C)).astype(
+            np.float32)).to(dev)
+        small[3, 4] = float("inf")
+        small[9, SvcF.ERROR_RATE] = float("nan")
+        check_front(label, small, seg_d, (1, 3))
 
     # -- 4. the registry elects the kernels row by timing ------------------
     engine = GraphEngine()
@@ -1173,8 +1287,16 @@ def main(argv) -> int:
             return a, h, n_bad
 
         def front():
+            return two_launch_front(pt, aw, hw, contrast, up_d)
+
+        def fused_front():
             return evidence_front(pt, aw, hw, contrast, up_d)
 
+        # the front's bytes: features and weights read once, the up
+        # layout's CSR and bins, a and h written, the count
+        front_bound = bound_ms(
+            feat_bytes + csr_bytes + n_pad * 4 + 2 * n_pad * 4 + 4,
+            noisy_ops + e_pad + 6 * n_pad)
         t["front"] = {
             "ms": cuda_ms(front),
             "call_ms": cuda_ms(front, queued=False),
@@ -1182,8 +1304,31 @@ def main(argv) -> int:
             "plain_front_call_ms": cuda_ms(replaced_front, queued=False),
             "plain_ms": cuda_ms(lambda: evidence_front_plain(
                 pt, aw, hw, contrast, up_d)),
-            "bound": bound_ms(feat_bytes + csr_bytes + 2 * n_pad * 4 + 4,
-                              noisy_ops + e_pad + 6 * n_pad),
+            "bound": front_bound,
+        }
+        # the fused front, in turns with the two-launch front above
+        fused_buf = pt.clone()
+        cap = front_cap(torch.cuda.current_device(), C, False)
+        t["evidence_front_fused"] = {
+            "ms": cuda_ms(fused_front),
+            "call_ms": cuda_ms(fused_front, queued=False),
+            "plain_ms": t["front"]["plain_ms"],
+            "library_ms": None,
+            "bound": front_bound,
+            "two_launch_ms": cuda_ms(front),
+            "two_launch_call_ms": cuda_ms(front, queued=False),
+            "ms_again": cuda_ms(fused_front),
+            # the flush's persisting launch over a buffer its warm-up
+            # calls already sanitized (no row written when timed)
+            "persist_ms": cuda_ms(lambda: evidence_front(
+                fused_buf, aw, hw, contrast, up_d, persist=True)),
+            "persist_call_ms": cuda_ms(lambda: evidence_front(
+                fused_buf, aw, hw, contrast, up_d, persist=True),
+                queued=False),
+            # the cooperative grid these launches took, and its bound
+            "grid": front_grid(n_pad, 1, up_d.long_ids.shape[0],
+                               up_d.short_ids.shape[0], True, cap),
+            "co_resident_ctas": cap,
         }
         case = cases[n]
 
@@ -1225,6 +1370,11 @@ def main(argv) -> int:
                               "rca_tpu/engine/pallas_kernels.py:52 (the "
                               "front's contrast, rca_tpu/engine/"
                               "propagate.py:174, :186)"),
+        "evidence_front_fused": ("rca_tpu_torch/csrc/front.cu",
+                                 "rca_tpu/engine/pallas_kernels.py:63 "
+                                 "(noisy_or_pair_pallas :52, with "
+                                 "rca_tpu/engine/propagate.py:132, :174, "
+                                 ":186)"),
         "noisy_or_pair": ("rca_tpu_torch/csrc/evidence.cu",
                           "rca_tpu/engine/pallas_kernels.py:52"),
         "segscan_sum": ("rca_tpu_torch/csrc/segscan.cu",
@@ -1335,6 +1485,14 @@ def main(argv) -> int:
                              in serve["batched"][str(big)].items()},
                 serve_batch_at_2047={lanes: t[name] for lanes, t
                                      in serve["batched"]["2047"].items()})
+        if name == "evidence_front_fused":
+            kernels[-1]["persist_launches"] = {
+                "delta_tick": stream_counts["delta"][f"{name}_persist"],
+                "quiet_tick": stream_counts["quiet"][f"{name}_persist"],
+                "resident_delta_request": resident_counts["persist_launches"]}
+            kernels[-1].update({key: t[key] for key in (
+                "two_launch_ms", "two_launch_call_ms", "ms_again",
+                "persist_ms", "persist_call_ms")})
         if name == "evidence_front":
             front = times[big]["front"]
             persist = times[big]["evidence_front_persist"]
@@ -1487,6 +1645,8 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
     import numpy as np
     import torch
     from rca_tpu_torch.engine.evidence import (
+        evidence_front,
+        evidence_front_plain,
         evidence_front_rows,
         evidence_front_rows_plain,
         seg_contrast_step,
@@ -1514,6 +1674,9 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
                              .astype(np.float32)).to(dev)
             for _ in range(2))
     runs = {
+        "evidence_front_fused": (
+            lambda: evidence_front(ft, aw, hw, contrast, up),
+            lambda: evidence_front_plain(ft, aw, hw, contrast, up)),
         "evidence_front": (lambda: evidence_front_rows(ft, aw, hw),
                            lambda: evidence_front_rows_plain(ft, aw, hw)),
         "seg_contrast_step": (
@@ -1529,6 +1692,9 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
     vec = lanes * n_pad * 4
     noisy_ops = lanes * n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
     bounds = {
+        "evidence_front_fused": bound_ms(
+            lanes * n_pad * C * 4 + 2 * C * 4 + csr + n_pad * 4 + 2 * vec
+            + 4, noisy_ops + lanes * (e_pad + 6 * n_pad)),
         "evidence_front": bound_ms(lanes * n_pad * C * 4 + 2 * C * 4
                                    + 3 * vec + 4, noisy_ops),
         "seg_contrast_step": bound_ms(csr + 3 * vec,
@@ -1538,13 +1704,16 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
         "seg_down_step": bound_ms(csr + n_pad * 4 + 3 * vec,
                                   lanes * (3 * e_pad + n_pad)),
     }
-    per_step = {}
+    # what each fused kernel replaced: (its composition, the key its
+    # times go under)
+    replaced = {"evidence_front_fused": (
+        lambda: two_launch_front(ft, aw, hw, contrast, up), "two_launch")}
     if fused(n):
         bounds.update(recursion_bounds(up, down, lanes))
         for name, (kernel, steps, plain) in recursion_runs(
                 up, down, h, a_raw, inv_deg, decay, 8).items():
             runs[name] = (kernel, plain)
-            per_step[name] = steps
+            replaced[name] = (steps, "per_step")
     checks, times = [], {}
     for name, (kernel, plain) in runs.items():
         got, again, ref = kernel(), kernel(), plain()
@@ -1561,9 +1730,13 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
             if not ok:
                 fail(f"batched {name} disagrees with its batched plain "
                      f"version at {n} x {lanes}")
-            if name in per_step and not torch.equal(g, per_step[name]()):
-                fail(f"batched {name} is not bitwise its 8 per-step "
-                     f"launches at {n} x {lanes}")
+        if name in replaced:
+            composed = replaced[name][0]()
+            composed = (composed if isinstance(composed, tuple)
+                        else (composed,))
+            if not all(torch.equal(g, c) for g, c in zip(got, composed)):
+                fail(f"batched {name} is not bitwise the launches it "
+                     f"replaced at {n} x {lanes}")
         err = max(float((g.float() - r.float()).abs().max())
                   for g, r in zip(got, ref))
         check = {"kernel": name, "services": n, "lanes": lanes,
@@ -1572,15 +1745,17 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
                                 for g, r in zip(got, ref))}
         checks.append(check)
         phase("batch_check", **check)
+        recursion = name in FUSED_KERNELS
         times[name] = {"ms": cuda_ms(kernel),
                        "call_ms": cuda_ms(kernel, queued=False),
-                       "plain_ms": (plain_recursion_ms(plain)
-                                    if name in per_step else cuda_ms(plain)),
+                       "plain_ms": (plain_recursion_ms(plain) if recursion
+                                    else cuda_ms(plain)),
                        "bound": bounds[name], "max_abs_err": err}
-        if name in per_step:
-            times[name].update(
-                per_step_ms=cuda_ms(per_step[name]),
-                per_step_call_ms=cuda_ms(per_step[name], queued=False))
+        if name in replaced:
+            composed, key = replaced[name]
+            times[name].update({
+                f"{key}_ms": cuda_ms(composed),
+                f"{key}_call_ms": cuda_ms(composed, queued=False)})
     return checks, times
 
 
@@ -2851,8 +3026,8 @@ def resident_phase(cases, shapes) -> dict:
     """Resident sessions on the card at both tiers: every request of the
     seeded sequence is bitwise equal to ``GraphEngine(resident=False)``
     of the same features (the ``[4, n_pad]`` stack, the top-k with its tie
-    order, ``sanitized_rows``), launches 1 / 1 / 8 / 8, and moves the bytes
-    the reference's formula predicts; then the host wall of a delta
+    order, ``sanitized_rows``), launches the main path's counts, and moves
+    the bytes the reference's formula predicts; then the host wall of a delta
     request beside a restaged one."""
     import numpy as np
     import torch
@@ -2887,7 +3062,7 @@ def resident_phase(cases, shapes) -> dict:
             got = res.analyze_arrays(f, case.dep_src, case.dep_dst,
                                      case.names)
             launches = dict(LAUNCHES)
-            persisting = PERSIST_LAUNCHES["evidence_front"]
+            persisting = sum(PERSIST_LAUNCHES.values())
             ref = restaged.analyze_arrays(f, case.dep_src, case.dep_dst,
                                           case.names)
             if launches != main_launches(n) or persisting:
@@ -2981,8 +3156,9 @@ def _stream_script(n, n_pad, rng):
 def stream_phase(engine, cases, profile_it: bool = False,
                  out_dir=None) -> dict:
     """``StreamingSession`` on the card at 2047, 10,000 and 49,999
-    services over a 30-tick script: each tick launches 1 / 1 / 8 / 8
-    (``evidence_front`` persisting on delta ticks), its buffer is bitwise
+    services over a 30-tick script: each tick launches the main path's
+    counts (``evidence_front_fused`` persisting on delta ticks only, and
+    no persisting row pass), its buffer is bitwise
     the plain version's (a twin session on the ``torch`` row), its ranking
     the plain twin's within rtol 1e-5 / atol 1e-6, manual depth-2
     pipelining is serial shifted by one, bitwise, every ``dispatch`` runs
@@ -2995,11 +3171,7 @@ def stream_phase(engine, cases, profile_it: bool = False,
     from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
     from rca_tpu_torch.config import RCAConfig, bucket_for
     from rca_tpu_torch.engine.streaming import StreamingSession
-    from rca_tpu_torch.kernels import (
-        LAUNCHES,
-        PERSIST_LAUNCHES,
-        reset_launches,
-    )
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
     from rca_tpu_torch.observability.kernelscope import leak_gate
 
     def stage(session, step, start):
@@ -3041,14 +3213,14 @@ def stream_phase(engine, cases, profile_it: bool = False,
             reset_launches()
             handle = _no_sync(serial.dispatch)
             got = serial.fetch(handle)
-            launches = dict(LAUNCHES)
-            persisting = PERSIST_LAUNCHES["evidence_front"]
-            if launches != main_launches(n) or \
-                    persisting != int(step[0] == "delta"):
+            launches = _launch_snapshot()
+            persisting = launches["evidence_front_fused_persist"]
+            if {k: launches[k] for k in LAUNCHES} != main_launches(n) or \
+                    persisting != int(step[0] == "delta") or \
+                    launches["evidence_front_persist"]:
                 fail(f"stream tick {t} ({step[0]}) at {n}: launches "
                      f"{launches}, {persisting} persisting")
-            counted.setdefault(step[0], dict(
-                launches, evidence_front_persist=persisting))
+            counted.setdefault(step[0], launches)
             want = plain.tick()
             if not torch.equal(_bits(serial._features),
                                _bits(plain._features)):
@@ -3445,17 +3617,19 @@ def live_phase() -> dict:
     return out
 
 
-#: the kernels of a tick (``evidence_front`` persisting apart): the front's
-#: two, then the fused recursions or the per-step kernels
-TICK_KERNELS = ("evidence_front", "seg_contrast_step", *FUSED_KERNELS,
-                *STEP_KERNELS)
+#: the kernels of a tick (the front's persisting launches apart): the
+#: front, then the fused recursions or the per-step kernels, and the
+#: front's two halves, which a dense tick no longer launches
+TICK_KERNELS = ("evidence_front_fused", *FUSED_KERNELS, *STEP_KERNELS,
+                "evidence_front", "seg_contrast_step")
 
 
 def _launch_snapshot() -> dict:
     from rca_tpu_torch.kernels import LAUNCHES, PERSIST_LAUNCHES
 
-    return {**LAUNCHES, "evidence_front_persist":
-            PERSIST_LAUNCHES["evidence_front"]}
+    return {**LAUNCHES,
+            **{f"{name}_persist": count
+               for name, count in PERSIST_LAUNCHES.items()}}
 
 
 def _counted_polls(per_tick: list, faults: list):
@@ -3712,7 +3886,7 @@ def replay_phase(cases, smi: str) -> dict:
 # -- the quantized and doubling rows, and training ---------------------------
 
 VARIANT_ROWS = ("kernels", "doubling", "quantized", "torch")
-#: the doubling row: the front's two kernels, no seg step
+#: the doubling row: the front's one kernel, no seg step
 DOUBLING_LAUNCHES = {**main_launches(2047), "seg_up_steps": 0,
                      "seg_down_steps": 0}
 NO_LAUNCHES = dict.fromkeys(DOUBLING_LAUNCHES, 0)
@@ -3737,10 +3911,10 @@ def variants_phase(cases, shapes, smi: str) -> dict:
     """The ``quantized`` and ``doubling`` rows on the card, at both tiers,
     beside ``kernels`` and ``torch``: ``GraphEngine().analyze_case`` on
     each row (restaged), the launch counters set to 0 just before one
-    analysis.  ``kernels`` launches 1 / 1 / 8 / 8; ``doubling`` launches
-    ``evidence_front`` and ``seg_contrast_step`` once and no seg step, or,
-    where the frontier cap declines the graph, its plan says ``kernels``
-    and it launches 1 / 1 / 8 / 8 (the 2047 tier must engage); its ``u``
+    analysis.  ``kernels`` launches the main path's counts; ``doubling``
+    launches ``evidence_front_fused`` once and no seg step, or, where the
+    frontier cap declines the graph, its plan says ``kernels`` and it
+    launches the main path's counts (the 2047 tier must engage); its ``u``
     is bitwise the ``kernels`` row's, its scores within rtol 1e-5 / atol
     1e-6, its top-k identical.  ``quantized`` launches none of the port's
     kernels (its reference has no Pallas body) and keeps rank parity with
@@ -4270,7 +4444,7 @@ def investigate_phase(smi: str) -> dict:
     the volatile keys are gone (ids, clocks, ``latency_ms``, ``profile``;
     the fusion summary's device and wall), and so do the evidence files;
     the top root cause is an injected root, and the ``run_agent``
-    suggestion launches the main path's kernels 1 / 1 / 8 / 8.  Each
+    suggestion launches the main path's counts.  Each
     stage's host wall, median of 5.  Then the store on the serve plane:
     ``python -m rca_tpu_torch chat --investigation new`` over ``--fixture
     50svc`` makes an investigation, one explained request naming it goes
@@ -4979,7 +5153,8 @@ def _shard_launches(sp: int) -> dict:
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "evidence_front": sp, "seg_contrast_step": sp,
             "seg_up_step": 8 * sp, "seg_down_step": 8 * sp,
-            "seg_up_steps": 0, "seg_down_steps": 0}
+            "seg_up_steps": 0, "seg_down_steps": 0,
+            "evidence_front_fused": 0}
 
 
 def _hub_case(n: int, block: int, seed: int):
@@ -5683,7 +5858,8 @@ def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
 
     device_us = sum(dev_us(e) for e in on_device) / calls
     launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel")) / calls
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchCooperativeKernel")) / calls
     kernels = sum(e.count for e in on_device
                   if not e.key.startswith(("Memcpy", "Memset"))) / calls
     if out_dir:

@@ -1,6 +1,5 @@
 // The propagation's evidence front for Hopper (sm_90a): the fused noisy-OR
-// pair (rca_noisy_or_pair) and the front pass that does its work on the
-// engine's main path (rca_evidence_front).
+// pair (rca_noisy_or_pair) and the front's row pass (rca_evidence_front).
 //
 // Both replace the TPU kernel rca_tpu/engine/pallas_kernels.py::
 // noisy_or_pair_pallas (body _pair_kernel): one read of each feature
@@ -17,7 +16,10 @@
 // straight from device memory.  It stays as the twin of the reference's
 // public noisy_or_pair_pallas; the main path does not launch it.
 //
-// rca_evidence_front: the row pass of the main path.  Over the RAW padded
+// rca_evidence_front: the row pass.  The node-sharded engine runs it on
+// each shard's rows between its collectives, and it stays as the bitwise
+// yardstick of the dense main path's front, which runs the row pass and
+// the contrast in one launch (front.cu).  Over the RAW padded
 // features it also does the reference's finite-mask sanitize
 // (rca_tpu/engine/propagate.py::finite_mask_rows: a row with any NaN/Inf
 // counts as a row of zeros) and takes the error rate
@@ -55,53 +57,21 @@
 // design's gain is the launches it removes around it (the sanitize's six
 // torch ops, the error rate's clip and the clean matrix's round trip).
 //
-// Rounding: spelled with explicit _rn intrinsics so nvcc cannot contract
-// on its own.  Every factor but the last is one fused multiply-add
-// (1 - x*w rounded once), the last is a multiply then a subtract, the
-// factors multiply left to right, then 1 - p: the rounding sequence of the
-// reference's compiled propagation on the CPU (XLA fuses all but the last
-// factor) and of the plain version, so h, which feeds the order-free max
-// of the up-scan, and with it u come out bit-equal.  A bad row goes
-// through the same sequence on zeros, as the reference's zeroed row does.
+// Rounding: the noisy-OR's sequence in front_row.cuh (shared with the
+// fused front, front.cu), the reference's compiled propagation's on the
+// CPU and the plain version's, so h, which feeds the order-free max of
+// the up-scan, and with it u come out bit-equal.  A bad row goes through
+// the same sequence on zeros, as the reference's zeroed row does.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "front_row.cuh"
+
 namespace {
 
-constexpr int kMaxChannels = 32;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float clip01(float v) {
-  return fminf(fmaxf(v, 0.0f), 1.0f);
-}
-
-// false for NaN (every comparison with it fails) and for +-Inf
-__device__ __forceinline__ bool finite_value(float v) {
-  return fabsf(v) <= 3.402823466e+38f;   // FLT_MAX
-}
-
-// The noisy-OR pair of one row in the rounding sequence above, over the
-// clipped row, or over zeros where ``zero`` (a sanitized row).
-__device__ __forceinline__ void noisy_or_row(const float* row, bool zero,
-                                             const float* wa, const float* wh,
-                                             int n_channels, float* a,
-                                             float* h) {
-  float pa = 1.0f;
-  float ph = 1.0f;
-  const int last = n_channels - 1;
-  for (int c = 0; c < last; ++c) {
-    const float x = zero ? 0.0f : clip01(row[c]);
-    pa = __fmul_rn(pa, __fmaf_rn(-x, wa[c], 1.0f));
-    ph = __fmul_rn(ph, __fmaf_rn(-x, wh[c], 1.0f));
-  }
-  const float x = zero ? 0.0f : clip01(row[last]);
-  pa = __fmul_rn(pa, __fsub_rn(1.0f, __fmul_rn(x, wa[last])));
-  ph = __fmul_rn(ph, __fsub_rn(1.0f, __fmul_rn(x, wh[last])));
-  *a = __fsub_rn(1.0f, pa);
-  *h = __fsub_rn(1.0f, ph);
-}
 
 __global__ void noisy_or_pair_kernel(const float* __restrict__ features,
                                      const float* __restrict__ anomaly_w,
@@ -141,20 +111,6 @@ __device__ __forceinline__ void stage_tile(const float* src, float* tile,
   for (int i = done + threadIdx.x; i < count; i += kThreads) {
     tile[i] = kReadOnly ? __ldg(src + i) : src[i];
   }
-}
-
-// One thread's row pass over its staged row: the sanitize (a row with any
-// NaN/Inf is a row of zeros), the pair and the error rate.  Returns
-// whether the row was bad.
-__device__ __forceinline__ bool front_row(const float* row, const float* wa,
-                                          const float* wh, int n_channels,
-                                          int err_col, float* a_raw,
-                                          float* h, float* e) {
-  bool bad = false;
-  for (int c = 0; c < n_channels; ++c) bad |= !finite_value(row[c]);
-  noisy_or_row(row, bad, wa, wh, n_channels, a_raw, h);
-  *e = bad ? 0.0f : clip01(row[err_col]);
-  return bad;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -3,11 +3,13 @@
 // Replaces the TPU kernels rca_tpu/engine/segscan.py::pallas_segscan and
 // ::pallas_segscan_max together with the step bodies around them,
 // ::down_seg_step and ::up_seg_step (gather, flagged scan, s[ends], where,
-// epilogue).  Where the per-step entries run: the contrast step on every
-// analysis (the front's second launch); the up and down steps where the
-// engine's plan does not fuse a recursion into one launch (segsteps.cu)
-// because the graph does not fit one CTA's shared memory (the 10,000 and
-// 49,999-service tiers: 8 launches each way); the *_shard entries of the
+// epilogue).  Where the per-step entries run: the contrast step in the
+// node-sharded engine and as the yardstick of the dense front, which
+// reduces its segments the same way inside its one launch (front.cu);
+// the up and down steps where the engine's plan does not fuse a
+// recursion into one launch (segsteps.cu) because the graph does not fit
+// one CTA's shared memory (the 10,000 and 49,999-service tiers: 8
+// launches each way); the *_shard entries of the
 // node-sharded engine, whose steps a collective separates; and as the
 // bitwise yardstick of segsteps.cu's kernels.  Over the CSR form of one
 // scan direction (segment s owns the sorted edges [offsets[s],
@@ -90,6 +92,8 @@
 // than the plain version's doubling scan.
 
 #include <cuda_runtime.h>
+
+#include "front_row.cuh"
 
 namespace {
 
@@ -180,10 +184,8 @@ struct ContrastStep {
   }
   __device__ __forceinline__ float finish(int s, int base,
                                           float dep_max) const {
-    const float excess =
-        fmaxf(__fsub_rn(__ldg(e + base + s), dep_max), 0.0f);
-    const float keep = __fsub_rn(1.0f, __fmul_rn(weight, excess));
-    return __fsub_rn(1.0f, __fmul_rn(__fsub_rn(1.0f, __ldg(a_raw + s)), keep));
+    return contrast_fold(__ldg(a_raw + s), __ldg(e + base + s), dep_max,
+                         weight);
   }
 };
 

@@ -5,17 +5,23 @@ front of its ranked propagation (``engine/runner.py::_propagate_ranked``
 and ``engine/propagate.py``): the finite-mask sanitize, the noisy-OR
 evidence pair and the error-source contrast.
 
-- :func:`evidence_front` is the engine's front.  On CUDA tensors it is
-  two launches of hand-written kernels: the row pass in
-  ``csrc/evidence.cu`` (:func:`evidence_front_rows`: sanitize, the pair,
-  the error rate and the bad-row count over the raw features; with
-  ``persist`` also the sanitized rows written back into its input, the
-  streaming flush's launch) and the
-  contrast step in ``csrc/segstep.cu`` (:func:`seg_contrast_step`,
-  skipped when the contrast's weight is 0, as the reference skips it).
-  On CPU tensors it computes :func:`evidence_front_plain`, the reference's
-  composition of :func:`finite_mask_rows`, :func:`noisy_or_pair_plain`,
+- :func:`evidence_front` is the engine's dense front.  On CUDA tensors
+  it is one cooperative launch of the hand-written kernel in
+  ``csrc/front.cu`` (counted as ``evidence_front_fused``): the row pass
+  (sanitize, the pair, the error rate and the bad-row count over the raw
+  features; with ``persist`` also the sanitized rows written back into
+  its input, the streaming flush's launch), one grid barrier, then the
+  error-source contrast over the up layout (no fold when the contrast's
+  weight is 0, as the reference skips it).  On CPU tensors it computes
+  :func:`evidence_front_plain`, the reference's composition of
+  :func:`finite_mask_rows`, :func:`noisy_or_pair_plain`,
   :func:`error_source_excess` and :func:`fold_error_contrast`.
+- The front's two halves stay as launches of their own: the row pass in
+  ``csrc/evidence.cu`` (:func:`evidence_front_rows`) and the contrast
+  step in ``csrc/segstep.cu`` (:func:`seg_contrast_step`,
+  :func:`seg_contrast_step_shard`).  The node-sharded engine runs them
+  between its collectives, and the fused launch is bitwise equal to
+  the two in a row.
 - :func:`noisy_or_pair` is the twin of the reference's public
   ``noisy_or_pair_pallas``: the pair alone, one kernel launch on a CUDA
   tensor, :func:`noisy_or_pair_plain` on a CPU tensor.  The engine does
@@ -45,6 +51,9 @@ version's too.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from rca_tpu_torch.engine.segscan import (
@@ -62,6 +71,9 @@ from rca_tpu_torch.kernels import count_launch
 #: the widest feature row the kernels take (their weights sit in shared
 #: memory)
 MAX_CHANNELS = 32
+#: rows per tile of the fused front's row pass, which is also its threads
+#: per CTA and the short segments one CTA of its contrast reduces
+FRONT_TILE_ROWS = 256
 
 
 def clip01(x: torch.Tensor) -> torch.Tensor:
@@ -316,16 +328,54 @@ def seg_contrast_step_shard(a_raw: torch.Tensor, e_full: torch.Tensor,
                        as_float32(weight), int(base), n_val, shard=True)
 
 
+def front_grid(n_rows: int, lanes: int, n_long: int, n_short: int,
+               fold: bool, cap: int) -> int:
+    """CTAs of the fused front's cooperative launch: as many as its work
+    has items, the row pass's tiles of ``n_rows`` rows or, where the
+    contrast runs (``fold``), its ``lanes`` x (the ``n_long`` long
+    segments + the blocks of ``n_short`` short ones) if there are more,
+    and never more than ``cap``, the CTAs that can be resident at once
+    (every CTA of a cooperative launch must be)."""
+    if cap < 1:
+        raise ValueError(f"evidence_front_fused: no CTA of the front fits "
+                         f"the device (co-resident bound {cap})")
+    tiles = -(-n_rows // FRONT_TILE_ROWS)
+    segments = lanes * (n_long + -(-n_short // FRONT_TILE_ROWS)) if fold \
+        else 0
+    return min(max(tiles, segments, 1), cap)
+
+
+_ERR_COL = int(SvcF.ERROR_RATE)
+
+
+@functools.lru_cache(maxsize=None)
+def front_cap(device_index: int, n_channels: int, persist: bool) -> int:
+    """The most CTAs of the fused front (``persist``: its persisting form)
+    that CUDA device ``device_index`` holds at once, from the kernel
+    library's occupancy query; read once per device and width."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(library().rca_evidence_front_fused_cap(
+            n_channels, int(persist), ctypes.byref(out)),
+            "evidence_front_fused co-resident bound")
+    return out.value
+
+
 def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
                    hard_w: torch.Tensor, error_contrast: float,
                    up_seg: SegLayout, persist: bool = False):
     """``(a, h, n_bad)`` from the RAW padded ``[n_pad, C]`` features, or
     ``[B, n_pad, C]`` lanes, over the up layout ``up_seg`` (its tensors on
-    the features' device): on CUDA tensors :func:`evidence_front_rows`
-    then, unless ``error_contrast`` is 0, :func:`seg_contrast_step`, one
-    launch each for all lanes; on CPU tensors
-    :func:`evidence_front_plain`.  ``persist`` leaves the sanitized rows
-    in ``features`` (the streaming flush)."""
+    the features' device): on CUDA tensors one launch of the
+    ``evidence_front_fused`` kernel for all lanes, bitwise
+    :func:`evidence_front_rows` then, unless ``error_contrast`` is 0,
+    :func:`seg_contrast_step`; on CPU tensors
+    :func:`evidence_front_plain`.  ``a`` and ``h`` are views of one
+    buffer; ``n_bad`` is a 0-dim int32 tensor counting across the lanes.
+    ``persist`` leaves the sanitized rows in ``features`` (the streaming
+    flush), which must then be contiguous."""
     on_card = _check_rows(features, anomaly_w, hard_w)
     if not isinstance(up_seg.offsets, torch.Tensor):
         raise TypeError("evidence_front: the layout is on the host; move it "
@@ -337,11 +387,42 @@ def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
     if n_pad != features.shape[-2]:
         raise ValueError(f"evidence_front: layout of {n_pad} segments, "
                          f"features of {features.shape[-2]} rows")
+    if persist and not features.is_contiguous():
+        raise ValueError("evidence_front: a persisting launch writes its "
+                         "input in place, which must be contiguous")
     if not on_card:
         return evidence_front_plain(features, anomaly_w, hard_w,
                                     error_contrast, up_seg, persist)
-    a, h, e, n_bad = evidence_front_rows(features, anomaly_w, hard_w,
-                                         persist)
-    if error_contrast:
-        a = seg_contrast_step(a, e, error_contrast, up_seg)
-    return a, h, n_bad
+    from rca_tpu_torch.kernels.build import check, library
+
+    features = features.contiguous()
+    anomaly_w = anomaly_w.contiguous()
+    hard_w = hard_w.contiguous()
+    n_channels = features.shape[-1]
+    n_rows = features.numel() // n_channels
+    device = features.device
+    out = torch.empty((3,) + features.shape[:-1], dtype=torch.float32,
+                      device=device)
+    a, h, e = out[0], out[1], out[2]
+    if n_rows == 0:
+        return a, h, torch.zeros((), dtype=torch.int32, device=device)
+    fold = bool(error_contrast)
+    n_long = up_seg.long_ids.shape[0]
+    n_short = up_seg.short_ids.shape[0]
+    with torch.cuda.device(device):
+        grid = front_grid(n_rows, n_rows // n_pad, n_long, n_short, fold,
+                          front_cap(device.index, n_channels, bool(persist)))
+        counts = torch.empty(grid + 1, dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = library().rca_evidence_front_fused(
+            features.data_ptr(), anomaly_w.data_ptr(), hard_w.data_ptr(),
+            a.data_ptr(), h.data_ptr(), e.data_ptr(), counts.data_ptr(),
+            n_rows // n_pad, n_pad, n_channels, _ERR_COL,
+            as_float32(error_contrast) if fold else 0.0, int(fold),
+            int(persist), up_seg.offsets.data_ptr(),
+            up_seg.other32.data_ptr(), up_seg.long_ids.data_ptr(), n_long,
+            up_seg.short_ids.data_ptr(), n_short, grid, stream,
+        )
+    check(err, "evidence_front_fused")
+    count_launch("evidence_front_fused", persist=bool(persist))
+    return a, h, counts[0]

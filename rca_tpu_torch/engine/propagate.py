@@ -21,7 +21,7 @@ the one place the row is decided, and the body branches on it once:
 
 - ``kernels``: the front (finite-mask sanitize, evidence pair, contrast)
   and the recursions go through the port's kernels on the card
-  (:mod:`.evidence`: two launches; :mod:`.segscan`: one launch per
+  (:mod:`.evidence`: one launch; :mod:`.segscan`: one launch per
   recursion where the plan's ``steps_fused`` says the graph fits one
   CTA's shared memory, else one launch per step, each for all lanes);
   on the CPU through their plain versions;
@@ -239,7 +239,7 @@ def propagate(features, dep_dst, anomaly_w, hard_w, steps: int, decay: float,
               n_live: Optional[int], plan: KernelPlan,
               error_contrast: float = 0.0, persist: bool = False, ell=None):
     """The evidence front (sanitize, evidence pair, error-source contrast:
-    two kernels on the card for the ``kernels`` and ``doubling`` rows,
+    one kernel launch on the card for the ``kernels`` and ``doubling`` rows,
     the plain version for the ``torch`` row, the bf16 front for the
     ``quantized`` row), then the core, both on the plan's row.
     ``features`` is the RAW padded ``[n_pad, C]`` float32 matrix or

@@ -9,8 +9,9 @@ propagation rows the shape engages, WHY (``forced`` / ``cpu-default`` /
 - ``torch``: plain PyTorch ops, the default and the counterpart of the
   reference's ``xla`` row: the front's plain version, the up-steps over the
   hybrid up-table, the down-steps as a sorted segment sum;
-- ``kernels``: the hand-written CUDA kernels (``csrc/``), two launches for
-  the front and one per seg step; on a CPU tensor their plain versions;
+- ``kernels``: the hand-written CUDA kernels (``csrc/``), one launch for
+  the front and one per recursion (or per seg step, where the graph
+  does not fit one CTA); on a CPU tensor their plain versions;
 - ``quantized``: bf16 evidence and int8 messages (``engine/quantized.py``),
   plain ops on every device, held to the f32 rows by rank parity;
 - ``doubling``: the ``kernels`` row's front, then the scans in log depth
@@ -85,14 +86,15 @@ _CACHE_VERSION = 1
 
 #: the sources whose edit re-times every shape: the kernels, their
 #: wrappers, the propagation body and this registry
-_HASHED = ("csrc/*.cu", "engine/evidence.py", "engine/segscan.py",
-           "engine/ell.py", "engine/propagate.py", "engine/registry.py",
-           "engine/quantized.py", "engine/doubling.py", "kernels/build.py")
+_HASHED = ("csrc/*.cu", "csrc/*.cuh", "engine/evidence.py",
+           "engine/segscan.py", "engine/ell.py", "engine/propagate.py",
+           "engine/registry.py", "engine/quantized.py", "engine/doubling.py",
+           "kernels/build.py")
 
 #: why the attribution variant cannot engage the kernels row
 ATTRIBUTION_DECLINE = (
-    "no backward kernel: the front and the seg steps (evidence_front, "
-    "seg_contrast_step, seg_up_steps, seg_down_steps) have none, so "
+    "no backward kernel: the front and the seg steps "
+    "(evidence_front_fused, seg_up_steps, seg_down_steps) have none, so "
     "saliency differentiates the torch row"
 )
 

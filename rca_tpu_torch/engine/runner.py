@@ -7,8 +7,8 @@ the kernel registry which row this shape engages (:func:`kernel_plan`,
 THE dispatch seam), builds that row's layouts on the engine's device,
 and runs one ranked analysis (:func:`propagate_ranked`): the evidence
 front, 8 up-steps and 8 down-steps, the score, top-k, and the ``[4, k]``
-diagnostic gather. On the ``kernels`` row the front is two kernel
-launches and each recursion one launch (one per step above the fused
+diagnostic gather. On the ``kernels`` row the front is one kernel
+launch and each recursion one launch (one per step above the fused
 kernels' capacity); on the ``torch`` row every op is plain PyTorch. A
 hypothesis batch (:meth:`GraphEngine.analyze_batch`) runs the same body
 on ``[B, n_pad, C]`` lanes of one graph: each launch covers the whole

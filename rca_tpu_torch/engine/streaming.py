@@ -7,10 +7,11 @@ device for the whole session; between ticks only the changed rows travel
 host→device.  A delta tick is one flush: an ``index_copy_`` of the padded
 delta rows into the buffer, in place on the current stream, then the
 ranked propagation whose front sanitizes the buffer and PERSISTS the
-zeroed rows (the ``evidence_front`` kernel's persisting launch on the
-card), so a NaN/Inf row reads as "no signal" until a clean row arrives.
-On the ``kernels`` row that is 1 / 1 / 8 / 8 launches of the four
-main-path kernels, with no separate sanitize pass.  A quiet tick runs the
+zeroed rows (the ``evidence_front_fused`` kernel's persisting launch on
+the card), so a NaN/Inf row reads as "no signal" until a clean row
+arrives.  On the ``kernels`` row that is one launch for the front, then
+one per recursion where the plan fuses them, else 8 per recursion, with
+no separate sanitize pass.  A quiet tick runs the
 same ranked propagation over the buffer without writing it.
 
 The tick is split in two host-visible halves so callers can pipeline

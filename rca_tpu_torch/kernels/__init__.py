@@ -7,7 +7,8 @@ nowhere else, so a run can show that the main path went through the
 kernels (the plain versions used on CPU tensors do not count).  The counts
 are taken under a lock: serve threads launch concurrently, and a lost
 update would misreport a run.  :data:`PERSIST_LAUNCHES` counts, apart, the
-``evidence_front`` launches that persist the sanitize into their input,
+``evidence_front`` and ``evidence_front_fused`` launches that persist the
+sanitize into their input,
 and :data:`SHARD_LAUNCHES` the launches of the seg steps' per-shard
 entries (the node-sharded engine), which count in :data:`LAUNCHES` too.
 """
@@ -16,8 +17,9 @@ import threading
 
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
-            "seg_contrast_step": 0, "seg_up_steps": 0, "seg_down_steps": 0}
-PERSIST_LAUNCHES = {"evidence_front": 0}
+            "seg_contrast_step": 0, "seg_up_steps": 0, "seg_down_steps": 0,
+            "evidence_front_fused": 0}
+PERSIST_LAUNCHES = {"evidence_front": 0, "evidence_front_fused": 0}
 SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
                   "seg_contrast_step": 0}
 
@@ -27,8 +29,8 @@ _LOCK = threading.Lock()
 
 def count_launch(name: str, persist: bool = False,
                  shard: bool = False) -> None:
-    """One launch of kernel ``name`` (a persisting ``evidence_front``
-    launch or a per-shard entry counted apart too)."""
+    """One launch of kernel ``name`` (a persisting front launch or a
+    per-shard entry counted apart too)."""
     with _LOCK:
         LAUNCHES[name] += 1
         if persist:

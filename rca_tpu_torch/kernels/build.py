@@ -54,6 +54,10 @@ _SIGNATURES = {
                            _P),
     "rca_seg_contrast_step": (_P, _P, _F, _P, _P, _P, _I, _P, _I, _I, _I,
                               _P, _P),
+    "rca_evidence_front_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _I, _I, _P, _P, _P, _I, _P, _I,
+                                 _I, _P),
+    "rca_evidence_front_fused_cap": (_I, _I, _P),
     "rca_seg_up_step_shard": (_P, _P, _F, _I, _I, _P, _P, _P, _I, _P, _I,
                               _I, _I, _P, _P),
     "rca_seg_down_step_shard": (_P, _P, _F, _I, _P, _P, _P, _I, _P, _I, _I,
@@ -87,7 +91,8 @@ def find_nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha1(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    for src in sources():
+    # the sources and the headers they include
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librca_kernels-{h.hexdigest()[:16]}.so"

@@ -7,7 +7,7 @@ propagation over ``[b_pad, n_pad, C]`` lanes of that graph, and renders
 per-request :class:`rca_tpu_torch.engine.runner.EngineResult` objects at
 fetch time.  On the card's ``kernels`` row that is the hypothesis batch's
 body (``GraphEngine.analyze_batch``), for the whole batch at any width:
-``evidence_front`` and ``seg_contrast_step`` once each, then
+``evidence_front_fused`` once (the front), then
 ``seg_up_steps`` and ``seg_down_steps`` once each where the plan fuses
 the recursions (``KernelPlan.steps_fused``), else ``seg_up_step`` and
 ``seg_down_step`` 8 times each.

@@ -309,4 +309,5 @@ def test_batched_kernels_match_their_plain_versions_on_card():
         port_segscan.down_seg_step(a, h, 0.7, down, inv_deg),
         port_segscan.down_seg_step_plain(a, h, 0.7, down, inv_deg),
         rtol=1e-5, atol=1e-6)
-    assert LAUNCHES["evidence_front"] == before["evidence_front"] + 1
+    assert (LAUNCHES["evidence_front_fused"]
+            == before["evidence_front_fused"] + 1)

@@ -402,9 +402,9 @@ def test_layouts_on_card_run_the_kernels(layout, monkeypatch):
     fused = int(layout == "coo")
     assert LAUNCHES == {"noisy_or_pair": 0, "segscan_sum": 8 * (1 - fused),
                         "segscan_max": 0, "seg_up_step": 0,
-                        "seg_down_step": 0, "evidence_front": 1,
-                        "seg_contrast_step": 1, "seg_up_steps": fused,
-                        "seg_down_steps": fused}
+                        "seg_down_step": 0, "evidence_front": 0,
+                        "seg_contrast_step": 0, "seg_up_steps": fused,
+                        "seg_down_steps": fused, "evidence_front_fused": 1}
     assert got.layout == layout
     cpu = GraphEngine(device="cpu", resident=False).analyze_arrays(
         feats, src, dst, names)
