@@ -331,7 +331,25 @@ and the flagged scans never (:func:`main_launches`).
    ``analyze_arrays`` wall time at both tiers, restaged, and at 2047 again
    with the recursions fused and per step in turns
    (``analyze_arrays_fused_ms`` / ``analyze_arrays_per_step_ms``; with
-   ``--profile`` also the 2047 analysis's device profile run per step).
+   ``--profile`` also the 2047 analysis's device profile run per step);
+21. the instruments (``observe``): ``python -m rca_tpu_torch profile
+   --services 10000 --ticks 20`` in a subprocess, whose Chrome trace must
+   hold 20 ``rca_tick`` ranges, 20 ``tick.dispatch`` and 20
+   ``tick.fetch`` annotations and the main path's device kernels of 20
+   ticks at 10,000 services by symbol (``evidence_front_fused`` 20,
+   ``seg_up_step`` / ``seg_down_step`` 160 each, no other kernel of the
+   port), its ``ms_per_tick`` beside the same 20 polls unprofiled;
+   ``python -m rca_tpu_torch kernels --services 2047,49999 --edges ...
+   --cost-max-pad 65536 --json`` in a subprocess, every dense row with
+   the model's ``flops`` / ``bytes_accessed`` (``basis`` ``"model"``)
+   and the allocator's ``peak_temp_bytes``, the 2047 row's front and
+   recursions moving the bytes behind phase 20's bounds (the recursions'
+   long segments apart), and the modelled bytes over 3.35 TB/s beside
+   the row's ``t_win_ms``; a ``/metrics`` scrape of a ``ServeLoop`` after
+   the dense rows' capture in this process sampling the three
+   ``rca_kernel_cost_*`` families without capturing anything, the loop's
+   recompile window closed once it stops; ``run_tracecheck()`` on the
+   card ``ok`` on all four entries.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (the fused
 recursions' rows with their 2047-service numbers, where the plan runs
@@ -354,8 +372,9 @@ tape, and ``variant_launches``, per analysis on the ``doubling`` and
 ``layout_launches``, per analysis under each ``RCA_EDGE_LAYOUT`` at each
 tier, ``investigate_launches``, over the investigation's
 ``run_agent`` suggestion, and ``gateway_launches``, per device batch
-behind the gateway at each tier and over the gateway's loads);
-the last line
+behind the gateway at each tier and over the gateway's loads, and
+``profile_events``, its device events in the ``observe`` phase's trace
+of 20 ticks at 10,000 services); the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
 ``DIR/profile_<services>.txt``.  Imports nothing of JAX or ``rca_tpu``.
@@ -372,10 +391,6 @@ import sys
 import time
 from unittest import mock
 
-# published peaks of one H100 SXM (data sheet, dense): HBM bytes/s and
-# float32 operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 TIERS = ((2047, 3, 0), (49999, 3, 0))   # (services, roots, seed)
 C = 13
 
@@ -452,10 +467,13 @@ def host_ms(fn, reps: int = 20) -> float:
     return float(np.median(host_samples(fn, reps)))
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(work) -> tuple:
+    """``(ms, bound_by, bytes)``: the bound of ``work``, a ``(bytes,
+    operations)`` pair of ``rca_tpu_torch/kernels/cost.py``, at the card's
+    published peaks (``cost.bound_ms``), and the bytes behind it."""
+    from rca_tpu_torch.kernels.cost import bound_ms
+
+    return (*bound_ms(*work), work[0])
 
 
 #: the two recursions' fused kernels (csrc/segsteps.cu) and the per-step
@@ -545,18 +563,17 @@ def plain_recursion_ms(plain) -> float:
 
 
 def recursion_bounds(up, down, lanes: int, steps: int = 8) -> dict:
-    """Each fused recursion's bound: one pass over the CSR fields it reads
-    (offsets, other endpoints, long ids), its read-only vectors and its
-    output, at 3.35 TB/s; operations 3 per edge and 1 per node a step."""
-    out = {}
-    for name, seg, shared in (("seg_up_steps", up, 0),
-                              ("seg_down_steps", down, 1)):
-        n_pad = seg.offsets.shape[0] - 1
-        e_pad = seg.other32.shape[0]
-        csr = (n_pad + 1 + e_pad + seg.long_ids.shape[0]) * 4
-        vec = (2 * lanes + shared) * n_pad * 4
-        out[name] = bound_ms(csr + vec, lanes * steps * (3 * e_pad + n_pad))
-    return out
+    """Each fused recursion's bound over its layout (``cost.up_steps`` /
+    ``cost.down_steps``: one pass over the CSR and the long ids, the
+    vectors read and written; 3 operations an edge and 1 a node a
+    step)."""
+    from rca_tpu_torch.kernels import cost
+
+    return {name: bound(work(seg.offsets.shape[0] - 1, seg.other32.shape[0],
+                             seg.long_ids.shape[0], lanes, steps))
+            for name, seg, work in (("seg_up_steps", up, cost.up_steps),
+                                    ("seg_down_steps", down,
+                                     cost.down_steps))}
 
 
 def check_recursions(label, up, down, inv_deg, rng, decay: float) -> dict:
@@ -791,7 +808,7 @@ def main(argv) -> int:
     from rca_tpu_torch.engine.registry import get_registry
     from rca_tpu_torch.entry import entry
     from rca_tpu_torch.features.schema import SvcF
-    from rca_tpu_torch.kernels import LAUNCHES, build, reset_launches
+    from rca_tpu_torch.kernels import LAUNCHES, build, cost, reset_launches
 
     record = {"argv": list(argv)}
     dev = torch.device("cuda")
@@ -1181,8 +1198,7 @@ def main(argv) -> int:
                                queued=False),
             "plain_ms": cuda_ms(lambda: noisy_or_pair_plain(ft, aw, hw)),
             "library_ms": None,
-            "bound": bound_ms(n_pad * C * 4 + 2 * C * 4 + 2 * n_pad * 4,
-                              n_pad * (C * 2 * 3 + 2 * 2 + 2)),
+            "bound": bound(cost.noisy_or_pair(n_pad)),
         }}
         for op, fn_k in (("sum", segscan_sum), ("max", segscan_max)):
             x, flags, lengths = kin[n]["seg"][op]
@@ -1192,14 +1208,11 @@ def main(argv) -> int:
                 "plain_ms": cuda_ms(lambda: segscan_plain(x, flags, op)),
                 "library_ms": cuda_ms(
                     lambda: torch.segment_reduce(x, op, lengths=lengths)),
-                "bound": bound_ms(3 * e_pad * 4, e_pad),
+                "bound": bound(cost.segscan(e_pad)),
             }
         st = kin[n]["step"]
         up, down = st["seg_up_step"], st["seg_down_step"]
         out = torch.empty(n_pad, dtype=torch.float32, device=dev)
-        # bytes: other (int32 per edge) + offsets + the node vectors read
-        # once + the output; operations: 3 per edge, 1 per node
-        csr_bytes = e_pad * 4 + (n_pad + 1) * 4
         steps = {
             "seg_up_step": (
                 lambda: up_seg_step(up["u"], up["h"], decay, up["seg"],
@@ -1208,7 +1221,7 @@ def main(argv) -> int:
                                           up["seg"]),
                 lambda: up_seg_step_plain(up["u"], up["h"], decay,
                                           up["seg"], scan=segscan_max),
-                csr_bytes + 3 * n_pad * 4),
+                cost.up_step(n_pad, e_pad)),
             "seg_down_step": (
                 lambda: down_seg_step(down["m"], down["a_ex"], decay,
                                       down["seg"], down["inv_deg"], out=out),
@@ -1217,9 +1230,9 @@ def main(argv) -> int:
                 lambda: down_seg_step_plain(down["m"], down["a_ex"], decay,
                                             down["seg"], down["inv_deg"],
                                             scan=segscan_sum),
-                csr_bytes + 4 * n_pad * 4),
+                cost.down_step(n_pad, e_pad)),
         }
-        for name, (kernel, plain, scan_step, n_bytes) in steps.items():
+        for name, (kernel, plain, scan_step, work) in steps.items():
             t[name] = {
                 "ms": cuda_ms(kernel),
                 "call_ms": cuda_ms(kernel, queued=False),
@@ -1227,7 +1240,7 @@ def main(argv) -> int:
                 "scan_step_ms": cuda_ms(scan_step),
                 "scan_step_call_ms": cuda_ms(scan_step, queued=False),
                 "library_ms": None,
-                "bound": bound_ms(n_bytes, 3 * e_pad + n_pad),
+                "bound": bound(work),
             }
         # the fused recursions beside the 8 per-step launches they replace
         if fused(n):
@@ -1238,8 +1251,6 @@ def main(argv) -> int:
         fr = kin[n]["front"]
         pt, up_d = fr["features"], fr["up"]
         a_raw, _, e, _ = evidence_front_rows(pt, aw, hw)
-        feat_bytes = n_pad * C * 4 + 2 * C * 4
-        noisy_ops = n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
         t["evidence_front"] = {
             "ms": cuda_ms(lambda: evidence_front_rows(pt, aw, hw)),
             "call_ms": cuda_ms(lambda: evidence_front_rows(pt, aw, hw),
@@ -1247,7 +1258,7 @@ def main(argv) -> int:
             "plain_ms": cuda_ms(lambda: evidence_front_rows_plain(pt, aw,
                                                                   hw)),
             "library_ms": None,
-            "bound": bound_ms(feat_bytes + 3 * n_pad * 4 + 4, noisy_ops),
+            "bound": bound(cost.front_rows(n_pad)),
         }
         # the flush's persisting launch, over a buffer whose bad rows the
         # warm-up calls already zeroed: each timed call writes no row, so
@@ -1262,7 +1273,7 @@ def main(argv) -> int:
             "plain_ms": cuda_ms(lambda: evidence_front_rows_plain(
                 plain_buf, aw, hw, persist=True)),
             "library_ms": None,
-            "bound": bound_ms(feat_bytes + 3 * n_pad * 4 + 4, noisy_ops),
+            "bound": bound(cost.front_rows(n_pad)),
         }
         t["seg_contrast_step"] = {
             "ms": cuda_ms(lambda: seg_contrast_step(a_raw, e, contrast,
@@ -1272,7 +1283,7 @@ def main(argv) -> int:
             "plain_ms": cuda_ms(lambda: seg_contrast_step_plain(
                 a_raw, e, contrast, up_d)),
             "library_ms": None,
-            "bound": bound_ms(csr_bytes + 3 * n_pad * 4, e_pad + 6 * n_pad),
+            "bound": bound(cost.contrast(n_pad, e_pad)),
         }
 
         def replaced_front():
@@ -1292,11 +1303,7 @@ def main(argv) -> int:
         def fused_front():
             return evidence_front(pt, aw, hw, contrast, up_d)
 
-        # the front's bytes: features and weights read once, the up
-        # layout's CSR and bins, a and h written, the count
-        front_bound = bound_ms(
-            feat_bytes + csr_bytes + n_pad * 4 + 2 * n_pad * 4 + 4,
-            noisy_ops + e_pad + 6 * n_pad)
+        front_bound = bound(cost.front(n_pad, e_pad))
         t["front"] = {
             "ms": cuda_ms(front),
             "call_ms": cuda_ms(front, queued=False),
@@ -1349,6 +1356,9 @@ def main(argv) -> int:
             case, timed=True).latency_ms
         times[n] = t
         phase("times", services=n, **t)
+
+    # -- 21. the instruments: profile, cost, /metrics, tracecheck --------
+    record["observe"] = observe_phase(engine, cases, shapes, times, kin, smi)
 
     if args.sweep:
         record["sweep"] = sweep(cases, shapes, kin, decay)
@@ -1447,6 +1457,9 @@ def main(argv) -> int:
             for tier in map(str, cases) for layout in LAYOUTS}
         kernels[-1]["investigate_launches"] = record["investigate"]["2047"][
             "run_agent_launches"][name]
+        # device events in the profile of 20 live ticks at 10,000 services
+        kernels[-1]["profile_events"] = record["observe"]["profile"][
+            "device_kernels"][name]
         # per device batch behind the gateway at each tier, and over the
         # 2047-service mix (wire and in process) and the 49,999 requests
         gateway = record["gateway"]
@@ -1659,6 +1672,7 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
         up_seg_step,
         up_seg_step_plain,
     )
+    from rca_tpu_torch.kernels import cost
 
     dev, lanes, n = ft.device, ft.shape[0], case.n
     down, up = build_seg_layouts(n_pad, e_pad, case.dep_src,
@@ -1688,21 +1702,12 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
             lambda: down_seg_step(m, a_raw, decay, down, inv_deg),
             lambda: down_seg_step_plain(m, a_raw, decay, down, inv_deg)),
     }
-    csr = e_pad * 4 + (n_pad + 1) * 4
-    vec = lanes * n_pad * 4
-    noisy_ops = lanes * n_pad * (C * (1 + 2 + 2 * 2) + 2 * 2 + 2 + 2)
     bounds = {
-        "evidence_front_fused": bound_ms(
-            lanes * n_pad * C * 4 + 2 * C * 4 + csr + n_pad * 4 + 2 * vec
-            + 4, noisy_ops + lanes * (e_pad + 6 * n_pad)),
-        "evidence_front": bound_ms(lanes * n_pad * C * 4 + 2 * C * 4
-                                   + 3 * vec + 4, noisy_ops),
-        "seg_contrast_step": bound_ms(csr + 3 * vec,
-                                      lanes * (e_pad + 6 * n_pad)),
-        "seg_up_step": bound_ms(csr + 3 * vec,
-                                lanes * (3 * e_pad + n_pad)),
-        "seg_down_step": bound_ms(csr + n_pad * 4 + 3 * vec,
-                                  lanes * (3 * e_pad + n_pad)),
+        "evidence_front_fused": bound(cost.front(n_pad, e_pad, lanes)),
+        "evidence_front": bound(cost.front_rows(n_pad, lanes)),
+        "seg_contrast_step": bound(cost.contrast(n_pad, e_pad, lanes)),
+        "seg_up_step": bound(cost.up_step(n_pad, e_pad, lanes)),
+        "seg_down_step": bound(cost.down_step(n_pad, e_pad, lanes)),
     }
     # what each fused kernel replaced: (its composition, the key its
     # times go under)
@@ -2619,15 +2624,15 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
 
     products = 2 * levels - 1      # forward levels + backward levels
     bc_ms = host_ms(bc, reps=5)
-    bound, bound_by = bound_ms(
+    bound_ms, bound_by, _ = bound((
         4 * (len(src) * 2 + n_pad),            # the edges in, bc out
-        products * 2.0 * n_pad ** 3)           # the [n, n] products
+        products * 2.0 * n_pad ** 3))          # the [n, n] products
     out["betweenness"] = {
         "services": n, "edges": int(len(src)), "n_pad": n_pad,
         "levels": levels, "finite": finite, "products": products,
         "max_abs_err": float(np.abs(got - exact).max()),
         "ms": bc_ms, "python_float64_ms": python_ms,
-        "bound_ms": bound, "bound_by": bound_by}
+        "bound_ms": bound_ms, "bound_by": bound_by}
     phase("betweenness", **out["betweenness"])
 
     # the stage profile at 2047, columnar (the default) and dict in turns:
@@ -4029,7 +4034,7 @@ def _layouts_leg(cases, shapes, smi: str) -> dict:
     from rca_tpu_torch.engine.propagate import background_excess
     from rca_tpu_torch.engine.registry import get_registry
     from rca_tpu_torch.engine.segscan import segscan_plain, segscan_sum
-    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+    from rca_tpu_torch.kernels import LAUNCHES, cost, reset_launches
 
     out = {}
     for n, case in cases.items():
@@ -4122,7 +4127,7 @@ def _layouts_leg(cases, shapes, smi: str) -> dict:
                                                           "sum")),
                 "library_ms": cuda_ms(lambda: torch.segment_reduce(
                     x, "sum", lengths=lengths)),
-                "bound": bound_ms(3 * o_pad * 4, o_pad)},
+                "bound": bound(cost.segscan(o_pad))},
             "launches": counts, "stamps": stamps,
             "analyze_arrays_ms": walls,
             "coo_score_max_abs_err": float(
@@ -5148,6 +5153,242 @@ SHARD_SOURCES = {
 }
 
 
+#: the profile capture's world and length: BASELINE.md row 4's size, where
+#: the plan runs the recursions per step
+PROFILE_SERVICES = 10000
+PROFILE_TICKS = 20
+#: the cost model's and the bounds' tiers
+COST_TIERS = (2047, 49999)
+#: the cost families of /metrics
+COST_FAMILIES = ("rca_kernel_cost_flops", "rca_kernel_cost_bytes_accessed",
+                 "rca_kernel_peak_temp_bytes")
+#: a closed recompile window's snapshot
+CLOSED_WINDOW = {"enabled": False, "compiles": 0, "recompiles": 0,
+                 "recompiles_post_warm": 0, "recompiled": []}
+
+
+def _profile_capture(smi: str, device, cli=()) -> dict:
+    """``python -m rca_tpu_torch profile`` at 10,000 services for 20 ticks
+    in its own process, its Chrome trace parsed: 20 ``rca_tick`` ranges,
+    the ``tick.dispatch`` / ``tick.fetch`` annotations of every tick, and
+    the device kernels of the main path's per-step plan, 1 + 8 + 8 a tick
+    (``evidence_front_fused``, ``seg_up_step``, ``seg_down_step``), no
+    other kernel of the port; then the same 20 polls unprofiled in this
+    process, for the profiler's cost per tick."""
+    import tempfile
+
+    import numpy as np
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.engine import make_engine
+    from rca_tpu_torch.engine.live import LiveStreamingSession
+    from rca_tpu_torch.observability.profile import (
+        KERNEL_SYMBOLS,
+        device_kernel_counts,
+    )
+    from rca_tpu_torch.observability.spans import Tracer
+
+    with tempfile.TemporaryDirectory(prefix="rca_profile_") as tmp:
+        out_dir = os.path.join(tmp, "profile")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rca_tpu_torch", "profile", "--services",
+             str(PROFILE_SERVICES), "--ticks", str(PROFILE_TICKS), "--out",
+             out_dir, "--compact", *cli], capture_output=True, text=True,
+            timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"python -m rca_tpu_torch profile exited {proc.returncode}:"
+                 f" {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        traces = [f for f in os.listdir(out_dir) if f.endswith(".json")]
+        if len(traces) != 1:
+            fail(f"profile: {len(traces)} trace files in {out_dir}")
+        trace_bytes = os.path.getsize(os.path.join(out_dir, traces[0]))
+        with open(os.path.join(out_dir, traces[0]), encoding="utf-8") as f:
+            trace = json.load(f)
+    spans = {name: [e["dur"] / 1e3 for e in trace["traceEvents"]
+                    if e.get("name") == name
+                    and e.get("cat") == "user_annotation"]
+             for name in ("rca_tick", "tick.dispatch", "tick.fetch")}
+    ranges = {name: len(durs) for name, durs in spans.items()}
+    kernels = device_kernel_counts(trace)
+    want = main_launches(PROFILE_SERVICES, PROFILE_TICKS)
+    want = {name: want.get(name, 0) for name in KERNEL_SYMBOLS}
+    got = {name: kernels[name] for name in KERNEL_SYMBOLS}
+    if any(n != PROFILE_TICKS for n in ranges.values()):
+        fail(f"profile: annotation ranges {ranges}, want {PROFILE_TICKS} "
+             f"each")
+    if got != want:
+        fail(f"profile: device kernels {got}, want {want}")
+    if summary["kernel_by_shape"] != {"10240": "kernels"} or \
+            summary["device"] != "cuda" or summary["profile_files"] < 1:
+        fail(f"profile: summary {summary}")
+
+    # the same polls unprofiled, with a recording tracer as the capture's
+    world = synthetic_cascade_world(PROFILE_SERVICES, n_roots=1, seed=7,
+                                    namespace="profile")
+    session = LiveStreamingSession(MockClusterClient(world), "profile", k=5,
+                                   tracer=Tracer(),
+                                   engine=make_engine(device=device))
+    walls, captures = [], []
+    for _ in range(PROFILE_TICKS):
+        t0 = time.perf_counter()
+        captures.append(session.poll()["capture_ms"])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = float(np.mean(walls))
+    out = {"services": PROFILE_SERVICES, "ticks": PROFILE_TICKS,
+           "ranges": ranges, "device_kernels": kernels,
+           "ms_per_tick": summary["ms_per_tick"],
+           "unprofiled_ms_per_tick": plain_ms,
+           # the profiled ranges' host ms (median), without the profiler's
+           # start-up, and the unprofiled polls' walls and capture ms
+           "range_ms_median": {name: float(np.median(durs))
+                               for name, durs in spans.items()},
+           "unprofiled_poll_ms": walls, "unprofiled_capture_ms": captures,
+           "wall_ms": summary["wall_ms"],
+           "spans_recorded": summary["spans_recorded"],
+           "kernel_by_shape": summary["kernel_by_shape"],
+           "trace_bytes": trace_bytes, "command_seconds": seconds,
+           "card": smi}
+    phase("observe_profile", **out)
+    return out
+
+
+def _cost_capture(cases, shapes, times, kin, smi: str, cli=()) -> dict:
+    """``python -m rca_tpu_torch kernels`` at the two tiers' shapes with the
+    cost capture up to 65,536 padded nodes: every dense row carries the
+    model's ``flops`` and ``bytes_accessed`` (``basis`` ``"model"``) and
+    the allocator's ``peak_temp_bytes``; the 2047 row's front and
+    recursions move the bytes behind the ``times`` phase's bounds (the
+    recursions' counted over the harness's long segments, not the
+    cascade's: 4 bytes a long segment apart).  Prints the modelled bytes
+    over 3.35 TB/s beside the row's measured ``t_win_ms``."""
+    from rca_tpu_torch.kernels import cost
+
+    cmd = [sys.executable, "-m", "rca_tpu_torch", "kernels", "--services",
+           ",".join(str(n) for n in COST_TIERS), "--edges",
+           ",".join(str(len(cases[n].dep_src)) for n in COST_TIERS),
+           "--cost-max-pad", "65536", "--json", "--compact", *cli]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"kernels --cost-max-pad exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    rows = json.loads(proc.stdout)["rows"]
+    out = {"rows": {}, "command_seconds": seconds, "card": smi}
+    for n in COST_TIERS:
+        n_pad, e_pad = shapes[n]
+        row = next((r for r in rows if r["variant"] == "dense"
+                    and (r["n_pad"], r["e_pad"]) == (n_pad, e_pad)), None)
+        c = (row or {}).get("cost") or {}
+        if row is None or row["winner"] != "kernels" or \
+                c.get("basis") != "model" or not all(
+                    c.get(key, 0) > 0 for key in (
+                        "flops", "bytes_accessed", "peak_temp_bytes",
+                        "output_bytes")):
+            fail(f"kernels: the dense row at {n} has no measured cost: "
+                 f"{row}")
+        t_win = row["timings_ms"].get("kernels")
+        out["rows"][str(n)] = {
+            "n_pad": n_pad, "e_pad": e_pad, "source": row["source"],
+            **{key: c.get(key) for key in ("flops", "bytes_accessed",
+                                       "peak_temp_bytes", "output_bytes",
+                                       "argument_bytes", "stages",
+                                       "n_long")},
+            "bytes_over_hbm_ms": c["bytes_accessed"]
+            / cost.HBM_BYTES_PER_S * 1e3,
+            "t_win_ms": t_win}
+    # the 2047 row's front and recursions against the times phase's bounds
+    row = out["rows"][str(COST_TIERS[0])]
+    up_d, down_d, _ = kin[COST_TIERS[0]]["recursion"]
+    tier_long = [int(up_d.long_ids.shape[0]), int(down_d.long_ids.shape[0])]
+    t = times[COST_TIERS[0]]
+    same = {
+        "front": (row["stages"]["front"][0],
+                  t["evidence_front_fused"]["bound"][2]),
+        "up": (row["stages"]["up"][0] - 4 * row["n_long"][0],
+               t["seg_up_steps"]["bound"][2] - 4 * tier_long[0]),
+        "down": (row["stages"]["down"][0] - 4 * row["n_long"][1],
+                 t["seg_down_steps"]["bound"][2] - 4 * tier_long[1]),
+    }
+    if any(a != b for a, b in same.values()):
+        fail(f"kernels: the 2047 row's modelled bytes {same} differ from "
+             f"the times phase's bounds")
+    out["same_as_times"] = same
+    out["tier_long"] = tier_long
+    phase("observe_cost", **out)
+    return out
+
+
+def observe_phase(engine, cases, shapes, times, kin, smi: str,
+                  cli=()) -> dict:
+    """The port's instruments on the card: the ``profile`` capture
+    (:func:`_profile_capture`), the registry's cost (:func:`_cost_capture`),
+    a ``/metrics`` scrape that samples the three cost families without
+    capturing anything, ``run_tracecheck()`` ``ok`` on every entry, and a
+    serve loop whose recompile window closes when it stops.  ``cli``
+    extends the two commands' arguments (``("--device", "cpu")`` rehearses
+    the phase on the CPU, where its checks of the card fail)."""
+    from rca_tpu_torch.analysis import run_tracecheck
+    from rca_tpu_torch.engine.registry import get_registry, kernel_table
+    from rca_tpu_torch.gateway import GatewayServer
+    from rca_tpu_torch.gateway.client import GatewayClient
+    from rca_tpu_torch.serve import ServeClient, ServeLoop
+
+    out = {"profile": _profile_capture(smi, engine.device, cli),
+           "cost": _cost_capture(cases, shapes, times, kin, smi, cli)}
+
+    # the serve plane's /metrics after the dense rows' capture in this
+    # process; then the loop stops and its window closes
+    reg = get_registry()
+    for n in COST_TIERS:
+        reg.ensure_cost(reg.resolve(*shapes[n], device=engine.device))
+    captured = sum(r["cost"] is not None for r in kernel_table())
+    case = cases[COST_TIERS[0]]
+    loop = ServeLoop(engine=engine).start()
+    try:
+        with GatewayServer(loop, port=0) as gw:
+            client = ServeClient(loop)
+            reqs = [client.submit(case.features, case.dep_src, case.dep_dst,
+                                  names=case.names, tenant=f"t{i % 2}", k=5)
+                    for i in range(8)]
+            if any(r.result(120.0).status != "ok" for r in reqs):
+                fail("observe: a served request was not ok")
+            text = GatewayClient(gw.host, gw.port,
+                                 timeout_s=120.0).metrics_text()
+        scope = loop.kernelscope_summary()
+    finally:
+        loop.stop()
+    closed = loop.recompile_monitor.snapshot()
+    samples = {family: sum(1 for line in text.splitlines()
+                           if line.startswith(family + "{"))
+               for family in COST_FAMILIES}
+    if not all(samples.values()):
+        fail(f"observe: /metrics cost samples {samples}")
+    if sum(r["cost"] is not None for r in kernel_table()) != captured:
+        fail("observe: a /metrics scrape captured a cost")
+    if not scope["enabled"] or scope["recompiles"] or closed != CLOSED_WINDOW \
+            or loop.kernelscope_summary()["enabled"]:
+        fail(f"observe: the serve loop's window: open {scope}, after stop "
+             f"{closed}")
+    out["metrics"] = {"cost_samples": samples, "captured_rows": captured}
+    out["monitor"] = {"open": {key: scope[key] for key in CLOSED_WINDOW},
+                      "closed": closed}
+    phase("observe_metrics", **out["metrics"], monitor=out["monitor"])
+
+    trace = run_tracecheck(device=engine.device)
+    if not trace["ok"]:
+        fail(f"tracecheck on the card: {trace}")
+    out["tracecheck"] = trace
+    phase("observe_tracecheck", ok=trace["ok"], entries={
+        e["entry"]: {"warmup_compiles": e["warmup_compiles"],
+                     "recompiles": e["recompiles"], "wall_ms": e["wall_ms"]}
+        for e in trace["entries"]}, card=smi)
+    return out
+
+
 def _shard_launches(sp: int) -> dict:
     """The kernel launches of one sharded analysis over ``sp`` shards."""
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
@@ -5234,7 +5475,12 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         up_seg_step_shard_plain,
     )
     from rca_tpu_torch.engine.streaming import StreamingSession
-    from rca_tpu_torch.kernels import LAUNCHES, SHARD_LAUNCHES, reset_launches
+    from rca_tpu_torch.kernels import (
+        LAUNCHES,
+        SHARD_LAUNCHES,
+        cost,
+        reset_launches,
+    )
     from rca_tpu_torch.parallel import collectives
     from rca_tpu_torch.parallel.mesh import make_mesh
     from rca_tpu_torch.parallel.sharded import shard_plans
@@ -5641,36 +5887,32 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         n_dst = len(np.unique(dsts))
         n_dst_own = len(np.union1d(dsts, np.arange(base, base + b_k)))
         n_src = len(np.unique(graph.src_global[k][real]))
-        up_csr = e_k * 4 + (b_k + 1) * 4 + b_k * 4
-        dn_csr = e_k * 4 + (np_k + 1) * 4 + np_k * 4
         runs = {
             "seg_up_step": (
                 lambda: up_seg_step_shard(vec["u"], vec["h"], decay,
                                           plan.up[k], base, out=up_out),
                 lambda: up_seg_step_shard_plain(vec["u"], vec["h"], decay,
                                                 plan.up[k], base),
-                bound_ms(up_csr + (n_dst + n_dst_own + b_k) * 4,
-                         3 * e_k + b_k)),
+                bound(cost.up_step_shard(e_k, b_k, n_dst, n_dst_own))),
             "seg_down_step": (
                 lambda: down_seg_step_shard(vec["m"], vec["a_ex"], decay,
                                             plan.dn[k], out=dn_out),
                 lambda: down_seg_step_shard_plain(vec["m"], vec["a_ex"],
                                                   decay, plan.dn[k]),
-                bound_ms(dn_csr + (2 * n_src + np_k) * 4, 3 * e_k)),
+                bound(cost.down_step_shard(e_k, np_k, n_src))),
             "seg_contrast_step": (
                 lambda: seg_contrast_step_shard(a_raw, vec["e"], weight,
                                                 plan.up[k], base),
                 lambda: seg_contrast_step_shard_plain(
                     a_raw, vec["e"], weight, plan.up[k], base),
-                bound_ms(up_csr + (n_dst_own + 2 * b_k) * 4,
-                         e_k + 7 * b_k)),
+                bound(cost.contrast_shard(e_k, b_k, n_dst_own))),
         }
-        for name, (kernel, plain, bound) in runs.items():
+        for name, (kernel, plain, limit) in runs.items():
             t[name] = {"shard": k, "edges": e_k, "distinct_dst": n_dst,
                        "distinct_src": n_src, "ms": cuda_ms(kernel),
                        "call_ms": cuda_ms(kernel, queued=False),
                        "plain_ms": cuda_ms(plain), "library_ms": None,
-                       "bound": bound}
+                       "bound": limit}
         times[n] = t
         phase("sharded_times", services=n, sp=SHARD_SP, **t)
     out["times"] = {str(n): t for n, t in times.items()}

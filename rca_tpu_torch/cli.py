@@ -18,8 +18,10 @@ that the port has).
 - ``python -m rca_tpu_torch hypotheses``: the what-if-healthy batch over
   the top candidates, every hypothesis a lane of one batched analysis;
 - ``python -m rca_tpu_torch kernels``: the kernel registry's table, each
-  row with its engaged kernel, why, its timings and every candidate's
-  eligibility;
+  row with its engaged kernel, why, its timings, its cost (``--no-cost``,
+  ``--cost-max-pad``) and every candidate's eligibility;
+- ``python -m rca_tpu_torch profile``: a ``torch.profiler`` trace of N
+  live ticks over a synthetic world, and the capture's summary;
 - ``python -m rca_tpu_torch stream``: the live streaming session, one
   JSON line per poll (``--pipeline-depth 2`` overlaps each tick's device
   work with the next poll's capture);
@@ -351,12 +353,29 @@ def _ints(raw: str, flag: str):
     return out
 
 
+def cmd_profile(args) -> int:
+    """A ``torch.profiler`` capture around ``--ticks`` polls of a live
+    session over a synthetic world (``observability/profile.py``): the
+    Chrome trace under ``--out``, the summary (the row each shape engaged
+    included) as JSON on stdout."""
+    from rca_tpu_torch.observability.profile import profile_ticks
+
+    summary = profile_ticks(args.out, ticks=args.ticks,
+                            services=args.services, seed=args.seed,
+                            device=args.device)
+    print(json.dumps(summary, indent=None if args.compact else 2))
+    return 0
+
+
 def cmd_kernels(args) -> int:
     """The kernel registry as a table: one row per ``(variant, n_pad,
-    e_pad)`` on the device, with the engaged row, why it won and the
-    timings of the race.  ``--services`` (paired with ``--edges``)
-    resolves the dense and the attribution rows of those graph sizes
-    first; ``--explain`` prints every candidate per row: engaged, its
+    e_pad)`` on the device, with the engaged row, why it won, the timings
+    of the race and the row's cost (the model's operations and bytes of
+    the canonical call, the allocator's peak and the output bytes of one
+    run of the winner; ``--no-cost`` skips the run, ``--cost-max-pad``
+    bounds it).  ``--services`` (paired with ``--edges``) resolves the
+    dense and the attribution rows of those graph sizes first;
+    ``--explain`` prints every candidate per row: engaged, its
     eligibility reason, or the timing it lost with."""
     from rca_tpu_torch.config import KERNELS, RCAConfig, bucket_for
     from rca_tpu_torch.engine.registry import (
@@ -384,7 +403,8 @@ def cmd_kernels(args) -> int:
             n_pad = -(-bucket_for(n + 1, buckets) // args.sp) * args.sp
             reg.resolve(n_pad, e_pad=bucket_for(-(-e // args.sp), buckets),
                         variant="sharded", device=device)
-    rows = kernel_table()
+    rows = kernel_table(ensure_cost=not args.no_cost,
+                        cost_max_pad=args.cost_max_pad)
     if args.json:
         print(json.dumps({"rows": rows},
                          indent=None if args.compact else 2))
@@ -396,17 +416,22 @@ def cmd_kernels(args) -> int:
         return f"{x:.4g}" if isinstance(x, float) else str(x)
 
     cols = ("n_pad", "e_pad", "variant", "backend", "winner", "source",
-            "layout", "t_torch_ms", "t_win_ms")
+            "layout", "t_torch_ms", "t_win_ms", "flops", "bytes",
+            "peak_temp", "output")
     table = [cols]
     for row in rows:
         timings = row["timings_ms"]
+        cost = row["cost"] or {}
         # attribution rows time the whole causelens attribution, under
         # "attribution" rather than the winner's name
         t_win = timings.get("attribution" if row["variant"] == "attribution"
                             else row["winner"])
         table.append((str(row["n_pad"]), fmt(row["e_pad"]), row["variant"],
                       row["backend"], row["winner"], row["source"],
-                      row["layout"], fmt(timings.get("torch")), fmt(t_win)))
+                      row["layout"], fmt(timings.get("torch")), fmt(t_win),
+                      fmt(cost.get("flops")), fmt(cost.get("bytes_accessed")),
+                      fmt(cost.get("peak_temp_bytes")),
+                      fmt(cost.get("output_bytes"))))
     widths = [max(len(r[i]) for r in table) for i in range(len(cols))]
     for i, r in enumerate(table):
         print("  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip())
@@ -605,6 +630,8 @@ def cmd_serve(args) -> int:
             for i in range(args.requests)
         ]
         responses = [r.result(timeout=300.0) for r in reqs]
+        # before the plane stops: stopping closes its recompile window
+        kernelscope = loop.kernelscope_summary()
     wall_s = time.perf_counter() - t0
     if recorder is not None:
         recorder.close()
@@ -624,7 +651,7 @@ def cmd_serve(args) -> int:
         ),
         "device_batches": loop.device_batches,
         "metrics": loop.metrics.summary(),
-        "kernelscope": loop.kernelscope_summary(),
+        "kernelscope": kernelscope,
     }, indent=indent, default=str))
     return 0 if by_status.get("ok", 0) == args.requests else 1
 
@@ -1134,12 +1161,36 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--sp", type=int, default=0,
                     help="also resolve the node-sharded engine's row for "
                     "this many shards (default 0: none)")
+    sp.add_argument("--no-cost", action="store_true", dest="no_cost",
+                    help="skip the cost capture (one run of each row's "
+                    "winner at its shape)")
+    sp.add_argument("--cost-max-pad", type=int, default=4096,
+                    dest="cost_max_pad",
+                    help="largest padded shape the cost capture may run "
+                    "(default 4096; bigger rows still show winner and "
+                    "timings)")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--json", action="store_true",
                     help="machine-readable rows instead of the table")
     sp.add_argument("--compact", action="store_true")
     sp.set_defaults(fn=cmd_kernels)
+
+    sp = sub.add_parser(
+        "profile",
+        help="torch.profiler capture around N live ticks: a Chrome trace "
+        "(Perfetto-loadable) and the row each shape engaged",
+    )
+    sp.add_argument("--out", default="logs/profile", metavar="DIR",
+                    help="profile output directory (default logs/profile)")
+    sp.add_argument("--ticks", type=int, default=20)
+    sp.add_argument("--services", type=int, default=200,
+                    help="synthetic world size the capture runs over")
+    sp.add_argument("--seed", type=int, default=7)
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_profile)
 
     sp = sub.add_parser(
         "stream", help="poll-driven live streaming analysis (1 Hz loop)"

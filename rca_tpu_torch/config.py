@@ -13,7 +13,9 @@ registry's knobs: :func:`kernel_cache_path` (``RCA_KERNEL_CACHE``),
 :func:`resident_enabled` (``RCA_RESIDENT``) and :func:`resident_cache_cap`
 (``RCA_RESIDENT_CACHE``), the live session's :func:`pipeline_depth_from_env`
 (``RCA_PIPELINE_DEPTH``), tracing (``RCA_TRACE``, ``RCA_TRACE_BUFFER``),
-kernelscope (``RCA_KERNELSCOPE``, ``RCA_MEM_SAMPLE_EVERY``),
+kernelscope (``RCA_KERNELSCOPE``, ``RCA_MEM_SAMPLE_EVERY``), the
+correlate stage's device trace :func:`device_profile_dir`
+(``RCA_TORCH_PROFILE``),
 :func:`compile_cache_status`, which in the port describes the kernel build
 directory, and the capture layer's knobs: :func:`columnar_enabled`
 (``RCA_COLUMNAR``), the live columnar feed's :func:`ingest_topo_every`
@@ -227,6 +229,13 @@ def kernelscope_enabled() -> bool:
     """``RCA_KERNELSCOPE``: the recompile monitor and the device-memory
     accountant of the live session's health record (default on)."""
     return _flag_on("RCA_KERNELSCOPE", "1")
+
+
+def device_profile_dir() -> Optional[str]:
+    """``RCA_TORCH_PROFILE=<dir>``: a ``torch.profiler`` trace of each
+    comprehensive analysis's correlate stage under ``<dir>/correlate``
+    (unset: no trace)."""
+    return env_raw("RCA_TORCH_PROFILE") or None
 
 
 def memory_sample_every() -> int:

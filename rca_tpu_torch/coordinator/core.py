@@ -36,7 +36,7 @@ from rca_tpu_torch.coordinator.structured import (
 )
 from rca_tpu_torch.llm import LLMClient, OfflineProvider
 from rca_tpu_torch.obslog import EvidenceLogger
-from rca_tpu_torch.obslog.profiling import StageTimer
+from rca_tpu_torch.obslog.profiling import StageTimer, maybe_device_profile
 
 
 def _now() -> str:
@@ -223,7 +223,8 @@ class RCACoordinator:
             with timer.stage(f"agent.{agent_type}"):
                 res = self._agent_for(agent_type).analyze(ctx)
             results[agent_type] = res.to_dict()
-        with timer.stage("correlate"):
+        with timer.stage("correlate"), maybe_device_profile("correlate",
+                                                           self.device):
             correlated = correlate_findings(
                 results, ctx=ctx, backend=self.backend, engine=self.engine,
             )

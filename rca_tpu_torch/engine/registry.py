@@ -89,7 +89,7 @@ _CACHE_VERSION = 1
 _HASHED = ("csrc/*.cu", "csrc/*.cuh", "engine/evidence.py",
            "engine/segscan.py", "engine/ell.py", "engine/propagate.py",
            "engine/registry.py", "engine/quantized.py", "engine/doubling.py",
-           "kernels/build.py")
+           "kernels/build.py", "kernels/cost.py")
 
 #: why the attribution variant cannot engage the kernels row
 ATTRIBUTION_DECLINE = (
@@ -152,6 +152,7 @@ class KernelRow:
     timings_ms: Dict[str, Optional[float]] = dataclasses.field(
         default_factory=dict
     )
+    cost: Optional[Dict[str, Any]] = None  # _capture_cost's, once asked
 
     def to_dict(self) -> Dict[str, Any]:
         return {
@@ -165,7 +166,15 @@ class KernelRow:
             "source": self.source,
             "eligible": dict(self.eligible),
             "timings_ms": dict(self.timings_ms),
+            "cost": dict(self.cost) if self.cost is not None else None,
         }
+
+
+def _cache_key(variant: str, n_pad: int, e_pad: Optional[int], steps: int,
+               backend: str, layout: str) -> str:
+    key = f"{variant}:{n_pad}:{e_pad}:{steps}:{backend}"
+    # the torch row's up-steps differ by layout
+    return key if layout == "hybrid" else f"{key}:{layout}"
 
 
 class KernelRegistry:
@@ -230,6 +239,8 @@ class KernelRegistry:
         rows = self._read_rows(path, header) or {}
         rows[key] = {"winner": row.winner,
                      "timings_ms": dict(row.timings_ms)}
+        if row.cost is not None:
+            rows[key]["cost"] = dict(row.cost)
         try:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             tmp = f"{path}.tmp.{os.getpid()}"
@@ -316,15 +327,14 @@ class KernelRegistry:
             row.winner = "kernels"
             row.source = "sharded"
             return row
-        cache_key = f"{variant}:{n_pad}:{e_pad}:{steps}:{backend}"
-        if layout != "hybrid":
-            # the torch row's up-steps differ by layout
-            cache_key += f":{layout}"
+        cache_key = _cache_key(variant, n_pad, e_pad, steps, backend, layout)
         cached = self._load_cached(cache_key, device)
         if cached is not None and cached["winner"] == "kernels":
             row.winner = "kernels"
             row.source = "cache"
             row.timings_ms = dict(cached.get("timings_ms") or {})
+            if cached.get("cost"):
+                row.cost = dict(cached["cost"])
             return row
         candidates = [k for k in KERNELS if eligible.get(k) is True]
         row.timings_ms = _time_candidates(n_pad, e_pad, steps, candidates,
@@ -341,14 +351,47 @@ class KernelRegistry:
         self._store_cached(cache_key, row, device)
         return row
 
+    # -- cost --------------------------------------------------------------
+    def ensure_cost(self, row: KernelRow) -> KernelRow:
+        """Capture the cost of a row that lacks it (:func:`_capture_cost`:
+        one canonical call of the row's winner at its shape, on its
+        device), and persist it with a timed or cached row.  Explicit,
+        never automatic: a ``/metrics`` scrape must not launch work on the
+        card, so the ``kernels`` command and ``chip_smoke.py`` call this and
+        the serve surfaces export whatever is already captured.  Runs under
+        the election lock, so a capture never overlaps a race on the
+        card."""
+        if row.cost is not None:
+            return row
+        with self._elect_lock:
+            if row.cost is None:
+                device = torch.device(row.backend)
+                row.cost = _capture_cost(row.n_pad, row.e_pad, row.winner,
+                                         row.steps, device)
+                if row.source in ("timed", "cache"):
+                    self._store_cached(
+                        _cache_key(row.variant, row.n_pad, row.e_pad,
+                                   row.steps, row.backend, row.layout),
+                        row, device)
+        return row
+
     # -- reading -------------------------------------------------------------
-    def table(self) -> List[Dict[str, Any]]:
-        """Every resolved row, smallest shape first."""
+    def table(self, ensure_cost: bool = False,
+              cost_max_pad: int = 4096) -> List[Dict[str, Any]]:
+        """Every resolved row, smallest shape first.  ``ensure_cost``
+        captures the missing cost of rows with ``n_pad <= cost_max_pad``
+        (the cap bounds what a table dump may run; a bigger row still shows
+        its winner and timings)."""
         with self._lock:
             rows = sorted(self._rows.values(),
                           key=lambda r: (r.variant, r.n_pad, r.e_pad or -1,
                                          r.backend))
-        return [row.to_dict() for row in rows]
+        out = []
+        for row in rows:
+            if ensure_cost and row.cost is None and row.n_pad <= cost_max_pad:
+                self.ensure_cost(row)
+            out.append(row.to_dict())
+        return out
 
     def clear(self) -> None:
         with self._lock:
@@ -469,22 +512,14 @@ def _timing_harness(n_pad: int, e_pad: Optional[int]):
     return n, e_pad, src, dst
 
 
-def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
-                     candidates, device: torch.device,
-                     reps: int = 5) -> Dict[str, float]:
-    """Host wall per call of each candidate's FULL propagation (front and
-    both recursions, as the engine runs it) at this padded shape on the
-    card: one warm call, then the best of 3 runs of ``reps`` calls, each
-    run ending in a synchronize.  A candidate that fails raises."""
+def _harness_inputs(n_pad: int, e_pad: Optional[int], device):
+    """The race's and the cost capture's inputs over
+    :func:`_timing_harness`'s ring: ``(n, e_pad, raw, f, w, dd, down_seg,
+    up_seg)``, the raw live edges, seeded features and weights, the padded
+    int64 destinations and both seg layouts on ``device``."""
     import numpy as np
 
-    from rca_tpu_torch.engine.doubling import doubling_layouts_for
-    from rca_tpu_torch.engine.propagate import KernelPlan, propagate
-    from rca_tpu_torch.engine.ell import up_ell_for
-    from rca_tpu_torch.engine.segscan import (
-        build_seg_layouts,
-        fused_steps_fit,
-    )
+    from rca_tpu_torch.engine.segscan import build_seg_layouts
     from rca_tpu_torch.features.schema import NUM_SERVICE_FEATURES
 
     n, e_pad, src, dst = _timing_harness(n_pad, e_pad)
@@ -496,20 +531,45 @@ def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
                          .astype(np.float32)).to(device)
     dd = torch.from_numpy(dst.astype(np.int64)).to(device)
     down_seg, up_seg = build_seg_layouts(n_pad, e_pad, *raw, device=device)
+    return n, e_pad, raw, f, w, dd, down_seg, up_seg
+
+
+def _harness_plan(kernel: str, n_pad: int, e_pad: int, raw, steps: int,
+                  down_seg, up_seg, device):
+    """``kernel``'s plan over the harness graph, its layouts as
+    ``runner.kernel_plan`` builds them."""
+    from rca_tpu_torch.engine.doubling import doubling_layouts_for
+    from rca_tpu_torch.engine.ell import up_ell_for
+    from rca_tpu_torch.engine.propagate import KernelPlan
+    from rca_tpu_torch.engine.segscan import fused_steps_fit
+
+    dbl = None
+    if kernel == "doubling":
+        dbl = doubling_layouts_for(n_pad, e_pad, *raw, steps, device)
+        if dbl is None:
+            raise ValueError("doubling frontier declined the harness graph")
+    return KernelPlan(kernel, down_seg, up_seg,
+                      up_ell_for(n_pad, *raw, device)
+                      if kernel == "torch" else None, dbl,
+                      steps_fused=kernel == "kernels" and fused_steps_fit(
+                          down_seg, up_seg, device))
+
+
+def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
+                     candidates, device: torch.device,
+                     reps: int = 5) -> Dict[str, float]:
+    """Host wall per call of each candidate's FULL propagation (front and
+    both recursions, as the engine runs it) at this padded shape on the
+    card: one warm call, then the best of 3 runs of ``reps`` calls, each
+    run ending in a synchronize.  A candidate that fails raises."""
+    from rca_tpu_torch.engine.propagate import propagate
+
+    n, e_pad, raw, f, w, dd, down_seg, up_seg = _harness_inputs(
+        n_pad, e_pad, device)
 
     def timed(kernel: str) -> float:
-        # each row's layouts, as runner.kernel_plan builds them
-        dbl = None
-        if kernel == "doubling":
-            dbl = doubling_layouts_for(n_pad, e_pad, *raw, steps, device)
-            if dbl is None:
-                raise ValueError("doubling frontier declined the harness "
-                                 "graph")
-        plan = KernelPlan(kernel, down_seg, up_seg,
-                          up_ell_for(n_pad, *raw, device)
-                          if kernel == "torch" else None, dbl,
-                          steps_fused=kernel == "kernels" and fused_steps_fit(
-                              down_seg, up_seg, device))
+        plan = _harness_plan(kernel, n_pad, e_pad, raw, steps, down_seg,
+                             up_seg, device)
 
         def call():
             return propagate(f, dd, w, w, steps, 0.7, 0.85, 1.6, n, plan,
@@ -527,6 +587,91 @@ def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,
         return min(runs) * 1e3 / reps
 
     return {k: timed(k) for k in candidates}
+
+
+#: why a CPU row carries no peak: torch's CPU allocator keeps no statistics
+CPU_MEMORY_UNAVAILABLE = (
+    "cpu: the CPU allocator keeps no allocation statistics "
+    "(torch.cuda.max_memory_allocated is CUDA's)")
+
+
+def _tensor_bytes(obj) -> int:
+    """The bytes of every tensor in ``obj``: a tensor, a tuple or list (a
+    ``KernelPlan``), or a dataclass of them (a layout)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(x) for x in obj)
+    if dataclasses.is_dataclass(obj):
+        return sum(_tensor_bytes(getattr(obj, field.name))
+                   for field in dataclasses.fields(obj))
+    return 0
+
+
+def _capture_cost(n_pad: int, e_pad: Optional[int], winner: str,
+                  steps: int = 8, device="cpu") -> Dict[str, Any]:
+    """The cost of the canonical ranked propagation at this padded shape:
+    the row's own ``winner`` run once on ``device`` over
+    :func:`_timing_harness`'s ring (the front, both recursions, the score,
+    the top-k of ``k = min(13, n_pad)`` and its diagnostic gather).
+
+    ``flops`` and ``bytes_accessed`` are the cost model's
+    (:func:`rca_tpu_torch.kernels.cost.propagation`) for the work the call
+    does, the same whichever row does it, so rows of different winners
+    compare; ``basis: "model"`` says so, ``stages`` keeps each stage's
+    ``[bytes, operations]`` and ``n_long`` the harness layouts' long
+    segments (up, down) that the recursions' bytes count.
+    ``output_bytes`` and ``argument_bytes`` are counted from the call's
+    tensors (the arguments: the features, the destinations, the weights
+    and the plan's layouts).  On a CUDA device
+    ``peak_temp_bytes`` is the allocator's peak during the call less what
+    was allocated before it (the call's outputs included: they are live
+    at its end); on the CPU ``memory_unavailable`` says why there is
+    none.  A winner that cannot run returns ``{"unavailable": reason}``:
+    the capture never runs another row in its place."""
+    from rca_tpu_torch.engine.propagate import propagate
+    from rca_tpu_torch.engine.runner import top_k, topk_diag
+    from rca_tpu_torch.kernels import cost
+
+    device = torch.device(device)
+    n_pad = int(n_pad)
+    kk = min(13, n_pad)
+    try:
+        n, e_pad, raw, f, w, dd, down_seg, up_seg = _harness_inputs(
+            n_pad, e_pad, device)
+        plan = _harness_plan(winner, n_pad, e_pad, raw, steps, down_seg,
+                             up_seg, device)
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(device)
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        a, h, u, m, score, n_bad = propagate(
+            f, dd, w, w, steps, 0.7, 0.85, 1.6, n, plan, error_contrast=0.7)
+        vals, idx = top_k(score, kk)
+        stacked = torch.stack([a, u, m, score], dim=-2)
+        outputs = (stacked, topk_diag(stacked, idx), vals, idx, n_bad)
+        if cuda:
+            torch.cuda.synchronize(device)
+            peak = torch.cuda.max_memory_allocated(device) - before
+    except (RuntimeError, ValueError, OSError) as exc:
+        return {"unavailable": f"run: {type(exc).__name__}: {exc}"}
+    n_long = [int(up_seg.long_ids.shape[0]), int(down_seg.long_ids.shape[0])]
+    stages = cost.propagation(n_pad, e_pad, *n_long, kk, steps)
+    out: Dict[str, Any] = {
+        "kernel": winner, "k": kk, "basis": "model",
+        "flops": float(sum(ops for _, ops in stages.values())),
+        "bytes_accessed": float(sum(b for b, _ in stages.values())),
+        "stages": {name: list(c) for name, c in stages.items()},
+        "n_long": n_long,
+        "output_bytes": _tensor_bytes(outputs),
+        "argument_bytes": _tensor_bytes((f, dd, w, w, plan)),
+    }
+    if cuda:
+        out["peak_temp_bytes"] = int(peak)
+    else:
+        out["memory_unavailable"] = CPU_MEMORY_UNAVAILABLE
+    return out
 
 
 # -- the process registry and the module-level seam ---------------------------
@@ -556,7 +701,10 @@ def engaged_kernel(n_pad: int, e_pad: Optional[int] = None, steps: int = 8,
                                   variant=variant, device=device).winner
 
 
-def kernel_table() -> List[Dict[str, Any]]:
-    """Every resolved row as dicts: the ``kernels`` CLI and
-    ``chip_smoke.py`` read THIS."""
-    return get_registry().table()
+def kernel_table(ensure_cost: bool = False,
+                 cost_max_pad: int = 4096) -> List[Dict[str, Any]]:
+    """Every resolved row as dicts: the ``kernels`` CLI, the serve planes'
+    ``/metrics`` and ``chip_smoke.py`` read THIS, so they agree by
+    construction (``ensure_cost``: see :meth:`KernelRegistry.table`)."""
+    return get_registry().table(ensure_cost=ensure_cost,
+                                cost_max_pad=cost_max_pad)

@@ -15,9 +15,12 @@ buckets and ``_sum`` / ``_count``) beside the SLO burn counters.
 The help strings say what the port counts: a "compile" is a build of the
 kernel library or a registry plan election (kernelscope), device memory
 is the CUDA caching allocator's bytes in use (which has no live-buffer
-count, so ``rca_device_live_buffers`` carries no sample), and the
-registry captures no per-kernel cost analysis, so the
-``rca_kernel_cost_*`` families carry no sample either.
+count, so ``rca_device_live_buffers`` carries no sample), and a row's
+cost is the registry's capture (``KernelRegistry.ensure_cost``): the
+cost model's operations and bytes of the canonical call, sampled for
+every captured row, and the CUDA allocator's peak during one run of the
+winner, sampled for every row captured on the card.  A scrape exports
+what is captured and never captures.
 """
 
 from __future__ import annotations
@@ -105,24 +108,25 @@ def render_metrics_text(
                       n_pad=str(row["n_pad"]), variant=row["variant"],
                       kernel=row["winner"], source=row["source"])
             _head(out, "rca_kernel_cost_flops", "gauge",
-                  "cost analysis of the winner per shape (not captured "
-                  "by the port's registry: no sample)")
+                  "operations of the canonical call per shape, from the "
+                  "cost model (absent until captured)")
             for row in rows:
                 cost = row.get("cost") or {}
                 _line(out, "rca_kernel_cost_flops", cost.get("flops"),
                       ts=now_ms, n_pad=str(row["n_pad"]),
                       variant=row["variant"])
             _head(out, "rca_kernel_cost_bytes_accessed", "gauge",
-                  "bytes accessed by the winner per shape (not "
-                  "captured: no sample)")
+                  "bytes the canonical call moves per shape, from the "
+                  "cost model (absent until captured)")
             for row in rows:
                 cost = row.get("cost") or {}
                 _line(out, "rca_kernel_cost_bytes_accessed",
                       cost.get("bytes_accessed"), ts=now_ms,
                       n_pad=str(row["n_pad"]), variant=row["variant"])
             _head(out, "rca_kernel_peak_temp_bytes", "gauge",
-                  "peak temporary memory of the winner per shape (not "
-                  "captured: no sample)")
+                  "CUDA allocator peak over one run of the winner per "
+                  "shape, less what was allocated before it (absent until "
+                  "captured on a card)")
             for row in rows:
                 cost = row.get("cost") or {}
                 _line(out, "rca_kernel_peak_temp_bytes",

@@ -63,8 +63,12 @@ def note_compile(name: str, signature) -> None:
 class RecompileMonitor:
     """One session's view over the compile log: counts since ``start()``
     (and since ``mark_warm()``), so concurrent sessions each read their
-    own window (``start()`` opens it).  Disabled monitors are free no-ops
-    with the same surface."""
+    own window.  ``start()`` opens the window and ``stop()`` closes it
+    (or use the monitor as a context manager); a closed monitor reports
+    the disabled form, and a later ``start()`` opens a fresh window.  The
+    log is passive (the compiles note themselves), so opening and closing
+    a window installs and removes nothing.  Disabled monitors
+    (``RCA_KERNELSCOPE=0``) are free no-ops with the same surface."""
 
     def __init__(self, enabled: Optional[bool] = None):
         self.enabled = (
@@ -78,7 +82,17 @@ class RecompileMonitor:
         if self.enabled and not self._started:
             self._started = True
             self._start_seq = _LOG.seq()
+            self._warm_seq = None
         return self
+
+    def stop(self) -> None:
+        self._started = False
+
+    def __enter__(self) -> "RecompileMonitor":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
 
     def mark_warm(self) -> None:
         """The end of warm-up: ``recompiles_post_warm`` counts from here."""

@@ -253,6 +253,13 @@ def set_default_tracer(tracer: Optional[Tracer]) -> None:
 _PROFILING = False
 
 
+def profiling_active() -> bool:
+    """Whether a ``profile`` capture is in progress: device annotations
+    engage only then (``record_function`` is cheap but not free, and
+    outside a capture there is no trace to annotate)."""
+    return _PROFILING
+
+
 def set_profiling(active: bool) -> None:
     """Mark a profile as being taken: device annotations engage only
     then."""

@@ -1,14 +1,20 @@
-"""Per-stage latency timing: the port's copy of ``StageTimer`` and
-``PhaseStats`` from ``rca_tpu.obslog.profiling``.  Every comprehensive
-analysis carries the stage breakdown under ``results["profile"]``; the
-serving scheduler's per-tenant queue times and per-replica occupancy
-samples ride ``PhaseStats``."""
+"""Per-stage latency timing and the optional device trace: the port's
+copy of ``StageTimer`` and ``PhaseStats`` from ``rca_tpu.obslog.profiling``,
+and :func:`maybe_device_profile`, the twin of its ``maybe_jax_profile``.
+Every comprehensive analysis carries the stage breakdown under
+``results["profile"]``, and ``RCA_TORCH_PROFILE=<dir>`` wraps its
+correlate stage in a ``torch.profiler`` trace; the serving scheduler's
+per-tenant queue times and per-replica occupancy samples ride
+``PhaseStats``."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict, List, Optional
+
+from rca_tpu_torch.config import device_profile_dir
 
 
 class StageTimer:
@@ -67,3 +73,28 @@ class PhaseStats:
         twin = PhaseStats()
         twin._samples = {k: list(v) for k, v in self._samples.items()}
         return twin
+
+
+@contextlib.contextmanager
+def maybe_device_profile(tag: str, device):
+    """A ``torch.profiler`` trace of the block when ``RCA_TORCH_PROFILE=<dir>``
+    is set, written as Chrome trace JSON (Perfetto loads it) to
+    ``<dir>/<tag>/<tag>.<pid>.<ns>.json``; a no-op otherwise.  CPU and CUDA
+    activities where the block's work runs on a CUDA ``device``, the CPU's
+    alone elsewhere."""
+    trace_dir = device_profile_dir()
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out_dir = os.path.join(trace_dir, tag)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        out_dir, f"{tag}.{os.getpid()}.{time.time_ns()}.json"))

@@ -179,6 +179,7 @@ class ServeLoop:
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
+        self.recompile_monitor.stop()
 
     @property
     def stopped(self) -> bool:

@@ -158,6 +158,7 @@ class ServePool:
         return kernelscope_summary(self.recompile_monitor)
 
     def stop(self, timeout: float = 10.0) -> None:
+        self.recompile_monitor.stop()
         for r in self.replicas:
             r.request_stop()
         self.queue.kick()

@@ -23,11 +23,14 @@
   its ``/metrics``, the canary (in process, through a gateway and as
   ``canary --mode multicluster``), ``fleet``, the merged multi-cluster
   client and a ``serve --listen`` subprocess (its own modules read at
-  exit); the native scanner loaded is the one built from
+  exit), the instruments (``profile_ticks``, ``ensure_cost``,
+  ``run_tracecheck``, a comprehensive analysis under
+  ``RCA_TORCH_PROFILE``); the native scanner loaded is the one built from
   ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
-  included), the streaming sessions, ``replay`` and ``chaos`` raise (or
-  exit non-zero) unless the caller asks for the CPU, and ``chip_smoke.py``
+  and ``profile`` included), the streaming sessions, ``replay``,
+  ``chaos`` and the recompile gate raise (or exit non-zero) unless the
+  caller asks for the CPU, and ``chip_smoke.py``
   exits non-zero with no verdict line;
 - on a card (tests marked ``cuda``) the engine runs through the kernels
   and agrees with its own CPU run.
@@ -588,6 +591,46 @@ def test_gateway_canary_and_clusterset_load_no_jax():
     assert [m for m in out["sub_modules"] if _forbidden(m)] == []
 
 
+_OBSERVE_PROBE = """
+import json, os, sys, tempfile
+from rca_tpu_torch.analysis import run_tracecheck
+from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.coordinator import RCACoordinator
+from rca_tpu_torch.engine.registry import get_registry
+from rca_tpu_torch.observability.profile import profile_ticks
+out_dir = sys.argv[1]
+summary = profile_ticks(os.path.join(out_dir, "profile"), ticks=2,
+                        services=16, device="cpu")
+reg = get_registry()
+cost = reg.ensure_cost(reg.resolve(64, device="cpu")).cost
+gate = run_tracecheck(device="cpu")
+os.environ["RCA_TORCH_PROFILE"] = out_dir
+rec = RCACoordinator(MockClusterClient(synthetic_cascade_world(
+    50, n_roots=1, seed=7, namespace="synthetic")), backend="torch",
+    device="cpu").run_analysis("comprehensive", "synthetic")
+print(json.dumps({"ticks": summary["ticks"], "basis": cost["basis"],
+                  "gate": gate["ok"], "status": rec["status"],
+                  "traced": sorted(os.listdir(out_dir)),
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_instruments_load_no_jax_and_no_rca_tpu(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", _OBSERVE_PROBE, str(tmp_path)], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300, env=_probe_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (out["ticks"], out["basis"], out["gate"], out["status"]) == (
+        2, "model", True, "completed")
+    assert out["traced"] == ["correlate", "profile"]
+    for module in ("analysis.tracecheck", "observability.profile",
+                   "kernels.cost"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
 def test_port_analysis_loads_no_jax_and_no_rca_tpu():
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=str(ROOT), capture_output=True,
@@ -738,6 +781,23 @@ def test_replay_and_chaos_without_device_fail_on_a_host_without_cuda(
         assert proc.returncode != 0, argv
         assert "CUDA" in proc.stderr, argv
         assert '"parity_ok"' not in proc.stdout, argv
+
+
+def test_profile_and_tracecheck_without_device_fail_without_cuda(
+        no_cuda, tmp_path):
+    from rca_tpu_torch.analysis import run_tracecheck
+    from rca_tpu_torch.observability.profile import profile_ticks
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_ticks(str(tmp_path / "p"), ticks=1, services=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_tracecheck(["engine.analyze_case"])
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "profile", "--out",
+         str(tmp_path / "cli"), "--ticks", "1", "--services", "16"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=180)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert '"ticks"' not in proc.stdout
 
 
 def test_engine_rejects_an_unsupported_device():
