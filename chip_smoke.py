@@ -10,6 +10,8 @@
     python3 chip_smoke.py --multi-card # two cards or more: the build, then
                                        # the sharded engine over distinct
                                        # cards alone
+    python3 chip_smoke.py --federation-only  # the build, then the
+                                       # federation phase alone
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
@@ -349,7 +351,34 @@ and the flagged scans never (:func:`main_launches`).
    the dense rows' capture in this process sampling the three
    ``rca_kernel_cost_*`` families without capturing anything, the loop's
    recompile window closed once it stops; ``run_tracecheck()`` on the
-   card ``ok`` on all four entries.
+   card ``ok`` on all four entries;
+22. the cross-process plane (``federation``): at 2047 services the serve
+   cell's 64-request mix and at 49,999 4 requests (15 MB bodies) through
+   a ``FederationPlane`` of 3 worker processes on the card
+   (``RCA_KERNEL=kernels``, ``RCA_SHARD=0``; each its own CUDA context),
+   in turns with the same load on an in-process 3-replica ``ServePool``
+   (federation, pool, pool, federation): every answer ok and bitwise its
+   solo analysis in this process, submit → completion p50 / p99 beside
+   the pool's, worker start-up to ready, each worker's hello and drain
+   report (its launches, counted from 0 in a fresh process: the main
+   path's per device batch, nothing else; its registry rows, all
+   ``kernels``), no double completion, stale response or reroute; beside
+   the 2047 load an ingest worker that ticks two clusters and never makes
+   a CUDA context (its hello reports no device, ``nvidia-smi`` lists no
+   context of its pid); the kill wave, ``federation_selftest(workers=3,
+   kill_worker=True)`` at 2047, whose workers read the row this process
+   elected from ``RCA_KERNEL_CACHE`` (``source == "cache"``), every
+   request terminal, ``recovery_ms``; ``serve --federation 3
+   --kill-worker``, ``ingest`` and ``serve --listen --federation 2`` (4
+   requests over the wire bitwise solo, ``fleet URL``'s worker table)
+   as subprocesses at once, then ``chaos --ticks 200 --no-autoscale``,
+   which must observe ``process_kill``, ``worker_hang``,
+   ``coordinator_partition`` and ``ingest_death``; and
+   ``initialize_distributed`` with a named coordinator, world size 1, on
+   NCCL, one all-reduce, the group destroyed.  Every line carries the
+   card's name and power limit.  Phase 2's build runs as two processes
+   started at once on the cold build directory; both must load the same
+   library.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (the fused
 recursions' rows with their 2047-service numbers, where the plan runs
@@ -374,7 +403,9 @@ tier, ``investigate_launches``, over the investigation's
 ``run_agent`` suggestion, and ``gateway_launches``, per device batch
 behind the gateway at each tier and over the gateway's loads, and
 ``profile_events``, its device events in the ``observe`` phase's trace
-of 20 ticks at 10,000 services); the last line
+of 20 ticks at 10,000 services, and ``federation_launches``, summed over
+the worker processes of each federation load leg with their device
+batches, and over the kill wave's survivors); the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
 ``DIR/profile_<services>.txt``.  Imports nothing of JAX or ``rca_tpu``.
@@ -753,6 +784,40 @@ def degenerate_layouts(rng) -> dict:
     }
 
 
+_COLD_LOAD = """
+import json, os, sys
+from rca_tpu_torch.kernels import build
+lib = build.library(verbose=sys.argv[1] == "1")
+print(json.dumps({"pid": os.getpid(), "library": build._library_path().name,
+                  "nvcc_seconds": build.BUILD_SECONDS,
+                  "loaded": lib is not None}))
+"""
+
+
+def cold_loads() -> list:
+    """Two processes that load the kernel library at once (the first
+    prints ``nvcc``'s output, ``-Xptxas -v``): each must exit 0 having
+    loaded the same library."""
+    procs = [subprocess.Popen([sys.executable, "-c", _COLD_LOAD, verbose],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for verbose in ("1", "0")]
+    out = []
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=900)
+        if p.returncode != 0:
+            fail(f"a concurrent kernel build exited {p.returncode}: "
+                 f"{stderr[-3000:]}")
+        lines = stdout.strip().splitlines()
+        if lines[:-1]:
+            print("\n".join(lines[:-1]), flush=True)
+        out.append(json.loads(lines[-1]))
+    if len({b["library"] for b in out}) != 1 or not all(
+            b["loaded"] for b in out):
+        fail(f"the concurrent kernel builds disagree: {out}")
+    return out
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -770,6 +835,8 @@ def main(argv) -> int:
                              "sharded engine over distinct cards alone "
                              "(bitwise logical shards, the walls of "
                              "make_engine() beside the dense engine)")
+    parser.add_argument("--federation-only", action="store_true",
+                        help="build, then run the federation phase alone")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -817,11 +884,15 @@ def main(argv) -> int:
     print(smi, flush=True)
 
     # -- 2. build ---------------------------------------------------------
+    # two processes start at once on a cold build directory, as two
+    # federation workers would: each builds in a private directory and
+    # renames, and both must load the library
     t0 = time.perf_counter()
-    build.library(verbose=True)
+    loads = cold_loads()
+    build.library()
     record["build_s"] = time.perf_counter() - t0
-    phase("build", seconds=record["build_s"],
-          nvcc_seconds=build.BUILD_SECONDS)
+    phase("build", seconds=record["build_s"], cold_loads=loads,
+          nvcc_seconds=max(b["nvcc_seconds"] for b in loads))
 
     # -- inputs: both tiers, generated once --------------------------------
     cases, shapes, padded = {}, {}, {}
@@ -837,9 +908,16 @@ def main(argv) -> int:
               n_pad=f.shape[0], e_pad=len(s),
               seconds=time.perf_counter() - t0)
 
-    if args.multi_card:
-        record["multi_card"] = multi_card_phase(
-            cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
+    if args.multi_card or args.federation_only:
+        if args.multi_card:
+            record["multi_card"] = multi_card_phase(
+                cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
+        else:
+            # the full run's registry phase points the election here
+            cache = build.BUILD_DIR / "chip_smoke_kernel_cache.json"
+            cache.unlink(missing_ok=True)
+            os.environ["RCA_KERNEL_CACHE"] = str(cache)
+            record["federation"] = federation_phase(cases, smi)
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()}
         if args.out:
@@ -1360,6 +1438,9 @@ def main(argv) -> int:
     # -- 21. the instruments: profile, cost, /metrics, tracecheck --------
     record["observe"] = observe_phase(engine, cases, shapes, times, kin, smi)
 
+    # -- 22. the cross-process plane: worker processes on the card -------
+    record["federation"] = federation_phase(cases, smi)
+
     if args.sweep:
         record["sweep"] = sweep(cases, shapes, kin, decay)
 
@@ -1460,6 +1541,17 @@ def main(argv) -> int:
         # device events in the profile of 20 live ticks at 10,000 services
         kernels[-1]["profile_events"] = record["observe"]["profile"][
             "device_kernels"][name]
+        # launches in the federation's worker processes, summed over the
+        # workers of each load leg (fresh processes: counted from 0, read
+        # from each worker's drain report), and their device batches
+        fed = record["federation"]
+        kernels[-1]["federation_launches"] = {
+            "load": {tier: fed[tier]["launches"][name]
+                     for tier in ("2047", "49999")},
+            "load_batches": {tier: fed[tier]["device_batches"]
+                             for tier in ("2047", "49999")},
+            "kill_wave": sum(w.get(name, 0) for w in fed["kill_wave"][
+                "worker_launches"].values())}
         # per device batch behind the gateway at each tier, and over the
         # 2047-service mix (wire and in process) and the 49,999 requests
         gateway = record["gateway"]
@@ -3691,7 +3783,7 @@ def replay_phase(cases, smi: str) -> dict:
 
     - 20 polls of the live mix over ``synthetic_cascade_world(10000,
       n_roots=3, seed=0)`` at depth 2 on the columnar capture, recorded
-      and unrecorded in turns (twice each, a fresh world each run): the
+      and unrecorded in turns (once each, a fresh world each run): the
       tape holds ``coldiff`` frames; ``replay_stream`` gives ``parity_ok``
       bitwise, no unconsumed call, ``kernels`` on every tick, and per
       tick the launches of the recorded poll; the record overhead per
@@ -3743,7 +3835,8 @@ def replay_phase(cases, smi: str) -> dict:
         drain_faults()
         walls = {"recorded": [], "unrecorded": []}
         rec_ticks: list = []
-        for turn in range(2):
+        # one turn each keeps the whole run inside about 800 s
+        for turn in range(1):
             walls["unrecorded"] += _recorded_live(
                 synthetic_cascade_world(10000, n_roots=3, seed=0), ops,
                 None, [])[1]
@@ -5921,6 +6014,546 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
                        for (n, sp), v in counted.items()}
     out["all_launches"] = {f"{n}x{sp}": v["all"]
                            for (n, sp), v in counted.items()}
+    return out
+
+
+FED_WORKERS = 3
+FED_BIG_REQUESTS = 4
+#: the load legs' worker environment: the kernels row forced, so a kernel
+#: fault fails loudly instead of electing plain ops, and the dense engine
+#: pinned on worker and oracle alike
+FED_ENV = {"RCA_KERNEL": "kernels", "RCA_SHARD": "0"}
+
+
+def _fed_e2e(reqs, resps) -> dict:
+    """Submit → completion p50 / p99 in ms (nearest rank) over a load, from
+    the plane's own stamps (admission ``enqueued_at``, the sink's
+    ``completed_at``)."""
+    import numpy as np
+
+    walls = [1e3 * (resp.completed_at - req.enqueued_at)
+             for req, resp in zip(reqs, resps)]
+    return {"e2e_ms_p50": float(np.percentile(walls, 50, method="nearest")),
+            "e2e_ms_p99": float(np.percentile(walls, 99, method="nearest"))}
+
+
+def _fed_parity(oracle, items, resps) -> tuple:
+    """How many ok answers were checked against a solo analysis in this
+    process, and whether every one was bitwise equal."""
+    checked, same = 0, True
+    for (case, f), resp in zip(items, resps):
+        if resp.status != "ok":
+            continue
+        solo = oracle.analyze_arrays(f, case.dep_src, case.dep_dst,
+                                     case.names, k=SERVE_K)
+        checked += 1
+        same = same and [dict(r) for r in solo.ranked] == resp.ranked
+    return checked, same
+
+
+def _fed_hellos(plane) -> dict:
+    with plane._lock:
+        return {str(wid): {key: w.hello.get(key) for key in (
+            "pid", "role", "engine", "local_devices", "process_count",
+            "registry", "headroom")}
+            for wid, w in sorted(plane.workers.items())}
+
+
+def _compute_apps() -> list:
+    """The contexts ``nvidia-smi`` lists on the card, as ``pid, memory``
+    lines (a container may show every pid as 1: count them, do not match
+    them)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def _fed_codec(case, f, reps: int) -> dict:
+    """Host ms (median of ``reps``) of one request's trip through the
+    federation's frame codec: the coordinator's ``encode_request`` and
+    ``json.dumps`` (the router thread), the worker's ``json.loads`` and
+    ``decode_request_kwargs`` (its read thread), and the frame's bytes."""
+    import numpy as np
+    from rca_tpu_torch.serve import ServeRequest
+    from rca_tpu_torch.serve.fedwire import (
+        decode_request_kwargs,
+        encode_request,
+    )
+
+    req = ServeRequest("t", f, case.dep_src, case.dep_dst, names=case.names,
+                       k=SERVE_K)
+    enc, dec = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        payload = json.dumps(encode_request(req), separators=(",", ":"))
+        t1 = time.perf_counter()
+        ServeRequest(**decode_request_kwargs(json.loads(payload)))
+        t2 = time.perf_counter()
+        enc.append((t1 - t0) * 1e3)
+        dec.append((t2 - t1) * 1e3)
+    return {"encode_ms": float(np.median(enc)),
+            "decode_ms": float(np.median(dec)),
+            "frame_bytes": len(payload.encode("utf-8")), "reps": reps}
+
+
+def _fed_heartbeats(plane) -> dict:
+    """Each worker's heartbeat timing over its lease (the plane's worker
+    table): the longest gap between two heartbeats it sent, between two
+    read in this process, and from a send to its reading."""
+    return {str(row["worker_id"]): {k: row[k] for k in (
+        "lease_renewals", "hb_send_gap_max_s", "hb_recv_gap_max_s",
+        "hb_lag_max_s")} for row in plane.worker_table()}
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """The longest garbage collection of this process inside the block,
+    in ms (``{"max_ms": ...}``, filled on exit): a collection holds every
+    thread here, the federation's readers and lease monitor among them."""
+    import gc
+
+    out, started = {"max_ms": 0.0, "count": 0}, [0.0]
+
+    def note(stage, _info):
+        if stage == "start":
+            started[0] = time.perf_counter()
+        else:
+            out["count"] += 1
+            out["max_ms"] = max(out["max_ms"],
+                                1e3 * (time.perf_counter() - started[0]))
+
+    gc.callbacks.append(note)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(note)
+
+
+def _fed_load_leg(n, case, feats, device, smi, heartbeat_s=None,
+                  lease_misses=None, ingest: bool = False) -> dict:
+    """One load leg: ``FED_WORKERS`` worker processes under a
+    ``FederationPlane`` (``FED_ENV``), ``feats`` over ``case``'s graph
+    submitted by 4 threads as 4 tenants, in turns with the same load on an
+    in-process ``ServePool`` of as many dense replicas (federation, pool,
+    pool, federation); every ok answer bitwise its solo analysis in this
+    process; then each worker drained, its launch counters (a fresh
+    process: counted from 0) read from its report.  The leases are the
+    plane's defaults unless ``heartbeat_s`` / ``lease_misses`` say
+    otherwise, and each worker's heartbeat timing is printed.  ``ingest``
+    also joins an ingest worker and checks it never made a CUDA context:
+    its hello reports no devices and no headroom, and the card's count of
+    contexts does not grow while it joins and ticks."""
+    from rca_tpu_torch.config import ServeConfig
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.parallel.mesh import visible_devices
+    from rca_tpu_torch.serve import ServePool
+    from rca_tpu_torch.serve.federation import FederationPlane
+
+    items = [(case, f) for f in feats]
+    env = {**FED_ENV, "RCA_KERNEL_CACHE": os.environ.get(
+        "RCA_KERNEL_CACHE", "off")}
+    config = ServeConfig(max_batch=16, queue_cap=4 * SERVE_REQUESTS)
+    out = {"services": n, "requests": len(feats), "rounds": []}
+    with mock.patch.dict(os.environ, FED_ENV):
+        oracle = GraphEngine(device=device)
+        plane = FederationPlane(
+            workers=FED_WORKERS, config=config, device=device,
+            worker_env=env, heartbeat_s=heartbeat_s,
+            lease_misses=lease_misses)
+        t0 = time.perf_counter()
+        plane.start()
+        try:
+            if not plane.wait_ready(FED_WORKERS, timeout_s=300.0):
+                fail(f"federation at {n}: {plane.worker_table()}; "
+                     + "; ".join(w.proc.output()[1][-1500:]
+                                 for w in plane.workers.values() if w.proc))
+            out["startup_s"] = time.perf_counter() - t0
+            spawned = {e["worker_id"]: e["t"] for e in plane.events
+                       if e["event"] == "worker_spawned"}
+            out["worker_startup_s"] = {
+                str(e["worker_id"]): e["t"] - spawned[e["worker_id"]]
+                for e in plane.events if e["event"] == "worker_joined"}
+            out["hellos"] = _fed_hellos(plane)
+            out["lease_ttl_s"] = plane.leases.ttl_s
+            gc_fed = {"max_ms": 0.0, "count": 0}
+            for label in ("federation", "pool", "pool", "federation"):
+                if label == "federation":
+                    with _gc_pauses() as gc_round:
+                        reqs, resps, wall_s = _submit_load(plane, items)
+                    gc_fed["count"] += gc_round["count"]
+                    gc_fed["max_ms"] = max(gc_fed["max_ms"],
+                                           gc_round["max_ms"])
+                else:
+                    pool = ServePool(config=ServeConfig(
+                        max_batch=16, queue_cap=4 * SERVE_REQUESTS,
+                        replicas=FED_WORKERS),
+                        devices=visible_devices(device))
+                    with pool:
+                        reqs, resps, wall_s = _submit_load(pool, items)
+                checked, same = _fed_parity(oracle, items, resps)
+                by_status: dict = {}
+                for r in resps:
+                    by_status[r.status] = by_status.get(r.status, 0) + 1
+                row = {"plane": label, "wall_s": wall_s,
+                       "analyses_per_s": by_status.get("ok", 0) / wall_s,
+                       **_fed_e2e(reqs, resps), "by_status": by_status,
+                       "parity_checked": checked, "parity_ok": same}
+                if by_status != {"ok": len(items)} or not same:
+                    fail(f"federation at {n}, {label}: {row}")
+                out["rounds"].append(row)
+                phase("federation", leg=f"load {n}", **row, smi=smi)
+            out["heartbeats"] = _fed_heartbeats(plane)
+            out["stall_max_s"] = plane.stall_max_s
+            out["gc_pauses"] = gc_fed
+            if ingest:
+                apps_before = _compute_apps()
+                plane.spawn_worker(FED_WORKERS, role="ingest")
+                if not plane.wait_ready(FED_WORKERS + 1, timeout_s=300.0):
+                    fail(f"federation: the ingest worker never joined: "
+                         f"{plane.worker_table()}")
+                plane.register_clusters({
+                    f"c{j}": {"digest": f"smoke-{j}", "services": 20,
+                              "seed": j, "namespace": "synthetic"}
+                    for j in range(2)})
+                t_end = time.perf_counter() + 120.0
+                while time.perf_counter() < t_end and min(
+                        c["ticks"] for c in plane.ingest_status().values()
+                ) < 3:
+                    time.sleep(0.05)
+                apps = _compute_apps()
+                hello = _fed_hellos(plane)[str(FED_WORKERS)]
+                status = plane.ingest_status()
+                out["ingest"] = {
+                    "hello": hello, "clusters": status,
+                    "compute_apps_before": len(apps_before),
+                    "compute_apps_after": len(apps),
+                    "compute_apps": apps}
+                # this process and its serve workers hold a context each;
+                # a listing that shows fewer could not see the ingest
+                # worker's either
+                if (hello["local_devices"] is not None
+                        or hello["headroom"] is not None
+                        or len(apps_before) < FED_WORKERS + 1
+                        or len(apps) > len(apps_before)
+                        or min(c["ticks"] for c in status.values()) < 3):
+                    fail(f"federation: the ingest worker touched the card "
+                         f"or never ticked: {out['ingest']}")
+                phase("federation", leg=f"ingest worker beside {n}",
+                      **out["ingest"])
+            out["double_completions"] = plane.sink.double_completions
+            out["stale_responses"] = plane.stale_responses
+            out["reroutes"] = plane.reroutes
+            out["fault_classes"] = plane.fault_classes_observed()
+            t1 = time.perf_counter()
+            reports = plane.drain_all(timeout_s=120.0)
+            out["drain_s"] = time.perf_counter() - t1
+        finally:
+            plane.stop()
+    serve_reports = {wid: r for wid, r in reports.items()
+                     if wid < FED_WORKERS}
+    if sorted(serve_reports) != list(range(FED_WORKERS)):
+        fail(f"federation at {n}: drain reports {sorted(reports)}")
+    if (out["double_completions"] or out["stale_responses"]
+            or out["reroutes"] or out["fault_classes"]):
+        fail(f"federation at {n}: a fault in a clean load: "
+             f"{out['double_completions']} double completions, "
+             f"{out['stale_responses']} stale, {out['reroutes']} reroutes, "
+             f"{out['fault_classes']}; lease {out['lease_ttl_s']} s, "
+             f"heartbeats {out['heartbeats']}, this process's longest "
+             f"stall {out['stall_max_s']} s, collections {out['gc_pauses']}"
+             )
+    batches = sum(r["device_batches"] for r in serve_reports.values())
+    launches = {k: sum(r["launches"][k] for r in serve_reports.values())
+                for k in next(iter(serve_reports.values()))["launches"]}
+    want = main_launches(n, batches)
+    if launches != want or not batches:
+        fail(f"federation at {n}: the workers launched {launches} over "
+             f"{batches} device batches, not {want}")
+    out.update(device_batches=batches, launches=launches,
+               persist_launches={k: sum(r["persist_launches"][k]
+                                        for r in serve_reports.values())
+                                 for k in ("evidence_front",
+                                           "evidence_front_fused")},
+               workers={str(wid): {
+                   "served": r["served"],
+                   "device_batches": r["device_batches"],
+                   "rows": [row for row in r["kernel_rows"]
+                            if row["variant"] == "dense"]}
+                   for wid, r in sorted(serve_reports.items())})
+    rows = [row for w in out["workers"].values() for row in w["rows"]]
+    if not rows or any(row["winner"] != "kernels" for row in rows):
+        fail(f"federation at {n}: a worker served without the kernels "
+             f"row: {out['workers']}")
+    out["frame_codec"] = _fed_codec(case, feats[0], 5 if n <= 2047 else 3)
+    phase("federation", leg=f"load {n} workers",
+          frame_codec=out["frame_codec"], startup_s=out["startup_s"],
+          worker_startup_s=out["worker_startup_s"], hellos=out["hellos"],
+          lease_ttl_s=out["lease_ttl_s"], heartbeats=out["heartbeats"],
+          stall_max_s=out["stall_max_s"], gc_pauses=out["gc_pauses"],
+          workers=out["workers"], device_batches=batches,
+          launches={k: v for k, v in launches.items() if v},
+          double_completions=0, stale_responses=0, reroutes=0, smi=smi)
+    return out
+
+
+def _fed_kill_wave(device, smi) -> dict:
+    """``federation_selftest(workers=3, kill_worker=True)`` at 2047
+    services: one worker SIGKILLed mid-wave.  The workers carry no
+    ``RCA_KERNEL``: they inherit ``RCA_KERNEL_CACHE`` and read the row this
+    process elected for the shape, so no worker races it again."""
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.registry import KernelRegistry
+    from rca_tpu_torch.serve.federation import federation_selftest
+
+    cache = os.environ.get("RCA_KERNEL_CACHE", "off")
+    case = synthetic_cascade_arrays(2047, n_roots=1, seed=0)
+    f, s, _ = GraphEngine(device="cpu")._pad(case.features, case.dep_src,
+                                             case.dep_dst)
+    # the election, once, in this process: a fresh registry reads the
+    # shape's row from the cache file or times it and writes it there
+    elected = KernelRegistry().resolve(f.shape[0], len(s), device=device)
+    t0 = time.perf_counter()
+    out = federation_selftest(
+        workers=FED_WORKERS, n_requests=36, seed=0, kill_worker=True,
+        services=(2047,), device=device, heartbeat_s=0.5,
+        worker_env={"RCA_KERNEL_CACHE": cache}, ready_timeout_s=300.0,
+        timeout_s=300.0)
+    out["seconds"] = time.perf_counter() - t0
+    out["elected"] = {"n_pad": elected.n_pad, "e_pad": elected.e_pad,
+                      "winner": elected.winner, "source": elected.source}
+    statuses = set(out["by_status"])
+    rows = [row for r in out["drain_reports"].values()
+            for row in r.get("kernel_rows", [])
+            if row["variant"] == "dense"]
+    if (not out["ok"] or not out["parity_ok"] or statuses - {"ok", "shed"}
+            or out["double_completions"] or out.get("recovery_ms") is None
+            or "process_kill" not in out["fault_classes_observed"]
+            or len(out["drain_reports"]) != FED_WORKERS - 1):
+        fail("federation kill wave: " + json.dumps(
+            {k: v for k, v in out.items() if k != "worker_table"},
+            default=str))
+    if device != "cpu" and (elected.winner != "kernels" or not rows or any(
+            (row["winner"], row["source"]) != ("kernels", "cache")
+            for row in rows)):
+        fail(f"federation kill wave: a worker elected its own row: "
+             f"{rows} (this process elected {out['elected']})")
+    keep = ("ok", "workers", "requests", "startup_s", "by_status",
+            "parity_checked", "parity_ok", "double_completions",
+            "stale_responses", "reroutes", "fault_classes_observed",
+            "killed_worker", "recovery_ms", "detect_ms", "seconds",
+            "elected", "hellos")
+    summary = {k: out[k] for k in keep if k in out}
+    summary["worker_rows"] = {wid: [
+        {k: row[k] for k in ("n_pad", "e_pad", "winner", "source")}
+        for row in r.get("kernel_rows", []) if row["variant"] == "dense"]
+        for wid, r in out["drain_reports"].items()}
+    summary["worker_launches"] = {
+        wid: {k: v for k, v in r["launches"].items() if v}
+        for wid, r in out["drain_reports"].items()}
+    phase("federation", leg="kill wave 2047", **summary, smi=smi)
+    return summary
+
+
+def _fed_commands(case, device, smi, cli=()) -> dict:
+    """The federation's commands as subprocesses on the card, the
+    workers under ``RCA_KERNEL=kernels``: ``serve --federation 3
+    --kill-worker``, ``ingest`` and ``serve --listen --federation 2``
+    (a few requests over the wire, each bitwise its solo analysis, and
+    ``fleet URL`` against it) together; then ``chaos --ticks 200
+    --no-autoscale`` alone, whose federation and ingest legs must observe
+    ``process_kill``, ``worker_hang``, ``coordinator_partition`` and
+    ``ingest_death``."""
+    import signal
+
+    import numpy as np
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.gateway import GatewayClient
+    from rca_tpu_torch.util.threads import make_thread
+
+    cmd = [sys.executable, "-m", "rca_tpu_torch"]
+    env = {**os.environ, **FED_ENV}
+    out = {}
+    t0 = time.perf_counter()
+    procs, listen = {}, None
+    try:
+        # ``ingest`` takes no --device: its workers never touch the card
+        for label, argv in (
+                ("serve_federation_kill", ["serve", "--federation", "3",
+                                           "--kill-worker", "--compact",
+                                           *cli]),
+                ("ingest", ["ingest", "--workers", "2", "--clusters", "3",
+                            "--duration", "3", "--compact"])):
+            procs[label] = subprocess.Popen(
+                [*cmd, *argv], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        listen = subprocess.Popen(
+            [*cmd, "serve", "--listen", "127.0.0.1:0", "--federation", "2",
+             *cli], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        banner: list = []
+        reader = make_thread(lambda: banner.append(listen.stdout.readline()),
+                             name="smoke-federation-banner", daemon=True)
+        reader.start()
+        reader.join(300)
+        if not banner or not banner[0]:
+            err = listen.communicate(timeout=60)[1] \
+                if listen.poll() is not None else ""
+            fail(f"serve --listen --federation 2 printed no banner in 300 s "
+                 f"(exit {listen.poll()}): {err[-2000:]}")
+        info = json.loads(banner[0])
+        if info.get("workers") != 2 or "control" not in info:
+            fail(f"serve --listen --federation 2 banner: {info}")
+        host, port = info["listening"].rsplit(":", 1)
+        client = GatewayClient(host, int(port), timeout_s=300)
+        with mock.patch.dict(os.environ, FED_ENV):
+            oracle = GraphEngine(device=device)
+            rng = np.random.default_rng(18)
+            wire = []
+            for i, f in enumerate(_serve_features(case, rng, 4)):
+                code, body, _ = client.analyze(
+                    f, case.dep_src, case.dep_dst, names=case.names,
+                    tenant=f"t{i}", k=SERVE_K)
+                want = oracle.analyze_arrays(f, case.dep_src, case.dep_dst,
+                                             case.names, k=SERVE_K).ranked
+                _wire_ok(f"serve --listen --federation 2, request {i}",
+                         code, body, want)
+                wire.append(code)
+        fleet = subprocess.run([*cmd, "fleet", f"http://{host}:{port}"],
+                               capture_output=True, text=True, timeout=120)
+        rows = fleet.stdout.splitlines()
+        if fleet.returncode != 0 or len(rows) < 4 or [
+                r.split()[1] for r in rows[1:3]] != ["live", "live"]:
+            fail(f"fleet exited {fleet.returncode}: {fleet.stdout[-1500:]}"
+                 f"{fleet.stderr[-1500:]}")
+        listen.send_signal(signal.SIGTERM)
+        _, err = listen.communicate(timeout=120)
+        if listen.returncode != 0:
+            fail(f"serve --listen --federation 2 exited "
+                 f"{listen.returncode}: {err[-2000:]}")
+        out["serve_listen_federation"] = {
+            "exit": 0, "wire_codes": wire, "fleet_rows": rows[:3],
+            "fleet_line": json.loads(rows[-1])}
+        for label, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail(f"{label} exited {p.returncode}: {stderr[-2000:]}")
+            body = json.loads(stdout.strip().splitlines()[-1])
+            if not body["ok"]:
+                fail(f"{label}: {body}")
+            if label == "ingest":
+                out[label] = {"exit": 0, "clusters": {
+                    c: {k: v[k] for k in ("owner", "epoch", "ticks",
+                                          "double_applied")}
+                    for c, v in body["clusters"].items()},
+                    "double_applied": body["double_applied"]}
+            else:
+                out[label] = {"exit": 0, **{k: body.get(k) for k in (
+                    "by_status", "parity_checked", "parity_ok",
+                    "double_completions", "stale_responses", "reroutes",
+                    "fault_classes_observed", "recovery_ms",
+                    "startup_s")}}
+    finally:
+        for p in [*procs.values(), listen]:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    out["together_s"] = time.perf_counter() - t0
+    phase("federation", leg="commands", **out, smi=smi)
+    t1 = time.perf_counter()
+    chaos = subprocess.run(
+        [*cmd, "chaos", "--ticks", "200", "--no-autoscale", "--compact",
+         *cli], env=env, capture_output=True, text=True, timeout=900)
+    if chaos.returncode != 0:
+        fail(f"chaos --ticks 200 --no-autoscale exited {chaos.returncode}: "
+             f"{chaos.stdout[-1500:]} {chaos.stderr[-1500:]}")
+    report = json.loads(chaos.stdout.strip().splitlines()[-1])
+    classes = sorted(set(report["federation"]["fault_classes_observed"])
+                     | set(report["ingest"]["fault_classes_observed"]))
+    if not {"process_kill", "worker_hang", "coordinator_partition",
+            "ingest_death"} <= set(classes):
+        fail(f"chaos observed {classes}")
+    out["chaos"] = {
+        "exit": 0, "seconds": time.perf_counter() - t1,
+        "fault_classes_observed": classes,
+        "federation": {k: report["federation"][k] for k in (
+            "requests", "by_status", "double_completions",
+            "stale_responses", "reroutes", "rejoins",
+            "detect_lag_ms_max")},
+        "ingest": {k: report["ingest"][k] for k in (
+            "victim", "victim_clusters", "double_applied",
+            "stale_stats_dropped")},
+        "uncaught_exceptions": report["uncaught_exceptions"],
+        "parity_ok": report["parity_ok"]}
+    phase("federation", leg="chaos", **out["chaos"], smi=smi)
+    return out
+
+
+def _fed_nccl(device, smi) -> dict:
+    """``initialize_distributed`` with a named coordinator, world size 1,
+    NCCL on the card (gloo for ``device="cpu"``): its dict, one
+    all-reduce, then the group destroyed."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from rca_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    info = initialize_distributed(f"127.0.0.1:{port}", num_processes=1,
+                                  process_id=0, device=device)
+    backend = dist.get_backend()
+    x = torch.ones(4, device=device)
+    dist.all_reduce(x)
+    total = float(x.sum().item())
+    shutdown_distributed()
+    out = {"info": info, "backend": backend, "all_reduce_sum": total,
+           "destroyed": not dist.is_initialized(),
+           "seconds": time.perf_counter() - t0}
+    want = "gloo" if device == "cpu" else "nccl"
+    if (backend != want or not info["initialized"] or total != 4.0
+            or info["process_count"] != 1 or not out["destroyed"]):
+        fail(f"initialize_distributed: {out}")
+    phase("federation", leg="initialize_distributed", **out, smi=smi)
+    return out
+
+
+def federation_phase(cases, smi: str, device="cuda", cli=()) -> dict:
+    """The cross-process serve plane on the card: the load legs (3 worker
+    processes, ``RCA_KERNEL=kernels``) at 2047 services (the serve cell's
+    64-request mix) and at 49,999 (4 requests, 15 MB bodies), each in
+    turns with an in-process pool; the kill wave; the commands; the
+    NCCL bootstrap."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    out = {}
+    rng = np.random.default_rng(18)
+    small, big = TIERS[0][0], TIERS[-1][0]
+    # 2047 runs on the plane's default lease, so a worker declared dead
+    # under ordinary load fails here; at 49,999 a 15 MB body holds the
+    # interpreter lock for ~0.5 s on either side, and that leg's leases
+    # get room (5 s)
+    out[str(small)] = _fed_load_leg(
+        small, cases[small], _serve_features(cases[small], rng), device, smi,
+        ingest=True)
+    out[str(big)] = _fed_load_leg(
+        big, cases[big], _serve_features(cases[big], rng,
+                                         FED_BIG_REQUESTS),
+        device, smi, heartbeat_s=1.0, lease_misses=5)
+    out["kill_wave"] = _fed_kill_wave(device, smi)
+    out["commands"] = _fed_commands(cases[small], device, smi, cli)
+    out["nccl"] = _fed_nccl(device, smi)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("federation", seconds=out["seconds"], smi=smi)
     return out
 
 

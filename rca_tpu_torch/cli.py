@@ -29,9 +29,17 @@ that the port has).
   — ``--selftest`` checks its contract (every request answered or shed,
   coalesced rankings bitwise equal to solo ones; ``--chaos`` injects
   seeded dispatch/fetch faults, ``--replicas`` / ``--replica-mix`` /
-  ``--kill-replica`` run the pool), ``--listen HOST:PORT`` serves it
-  over HTTP through the gateway until SIGTERM, without either a
-  synthetic ``<N>svc`` load prints the per-tenant metrics;
+  ``--kill-replica`` run the pool), ``--federation N`` runs the
+  cross-process federation's selftest over N worker processes
+  (``--kill-worker`` SIGKILLs one mid-wave, ``--bind-external`` joins
+  them through the host's non-loopback address), ``--listen HOST:PORT``
+  serves it over HTTP through the gateway until SIGTERM (in front of a
+  federation of N workers with ``--federation N``), without any of them
+  a synthetic ``<N>svc`` load prints the per-tenant metrics;
+- ``python -m rca_tpu_torch ingest``: the federated capture fleet:
+  ingest-class worker processes own synthetic clusters' columnar
+  mirrors, one owner each, and the coordinator's cluster table arbitrates
+  their ticks exactly once;
 - ``python -m rca_tpu_torch canary``: the replay-driven regression
   canary (sample, mint, replay against a candidate; exit 1 names the
   bisected tick); ``--listen-url`` samples through a running gateway;
@@ -42,7 +50,10 @@ that the port has).
   --record``) and check parity tick for tick or request for request;
   ``--seek``, ``--bisect``, ``--mint`` and ``--trace-out``;
 - ``python -m rca_tpu_torch chaos``: the seeded chaos soak of the live
-  session (five fault classes), exit 0 only when its contract holds;
+  session (five fault classes) and, from 100 ticks, the federation's
+  process-level legs (``process_kill``, ``worker_hang``,
+  ``coordinator_partition``, ``ingest_death``), exit 0 only when its
+  contract holds;
 - ``python -m rca_tpu_torch train``: fit the propagation weights on
   synthetic cascades, gate them (``shippability_report``) and write the
   JSON checkpoint that ``RCA_WEIGHTS`` loads.
@@ -536,8 +547,7 @@ def cmd_stream(args) -> int:
 #: serve modes that are not ported yet, and the module (its A-id in
 #: ROADMAP.md) that ports each
 _SERVE_NOT_PORTED = {
-    "federation": "the cross-process federation (A14)",
-    "autoscale": "the autoscaler (A14)",
+    "autoscale": "the autoscaler's controller (A14)",
 }
 
 
@@ -549,7 +559,12 @@ def cmd_serve(args) -> int:
     ``<N>svc`` graph prints throughput, the per-tenant metrics and the
     plane's kernelscope summary (the registry row that served the shape);
     it exits 0 only when every request was served ok.  ``--listen``
-    serves over the wire instead (:func:`_serve_listen`)."""
+    serves over the wire instead (:func:`_serve_listen`); ``--federation
+    N`` (or ``--kill-worker``) runs the cross-process selftest: N worker
+    processes on ``--device``, wire load, optionally one SIGKILLed
+    mid-wave; exit 0 only when every request is terminal, every ok
+    ranking is bitwise a solo analysis in this process and no request
+    completed twice."""
     import time
 
     import numpy as np
@@ -576,6 +591,21 @@ def cmd_serve(args) -> int:
     if args.listen:
         return _serve_listen(args, config)
     indent = None if args.compact else 2
+    if args.federation is not None or args.kill_worker:
+        from rca_tpu_torch.serve.federation import federation_selftest
+
+        summary = federation_selftest(
+            workers=args.federation or 3,
+            n_requests=args.requests,
+            seed=args.seed,
+            kill_worker=args.kill_worker,
+            submitters=args.submitters,
+            config=config,
+            bind_external=args.bind_external,
+            device=args.device,
+        )
+        print(json.dumps(summary, indent=indent, default=str))
+        return 0 if summary["ok"] else 1
     if args.selftest:
         from rca_tpu_torch.serve import serve_selftest
 
@@ -669,7 +699,10 @@ def _serve_listen(args, config) -> int:
     serve until SIGTERM / SIGINT.  The shutdown summary goes to stderr, so
     stdout stays machine-readable.  ``--record`` flight-records every
     served request; wire requests naming an ``investigation_id`` land
-    serve notes in the store under ``--log-dir``."""
+    serve notes in the store under ``--log-dir``.  With ``--federation
+    N`` the gateway fronts a :class:`FederationPlane` of N worker
+    processes on ``--device`` instead (its ``/healthz`` carries the
+    worker table that ``fleet`` reads)."""
     import signal
     import threading
 
@@ -689,14 +722,44 @@ def _serve_listen(args, config) -> int:
 
         recorder = Recorder(args.record, mode="serve")
     store = InvestigationStore(root=_log_dir(args))
+    federated = args.federation
     pooled = len(config.replica_specs()) > 1
-    if pooled:
+    if federated and recorder is not None:
+        raise SystemExit(
+            "--record is not supported with --federation: serve frames "
+            "live in the worker processes (use `canary --listen-url` to "
+            "mint recordings off the live gateway)"
+        )
+    if federated:
+        # the front door over a whole worker fleet
+        from rca_tpu_torch.serve.federation import FederationPlane
+
+        plane_kwargs = {}
+        if args.bind_external:
+            from rca_tpu_torch.util.net import primary_host_ip
+
+            plane_kwargs.update(
+                host="0.0.0.0", advertise_host=primary_host_ip(),
+            )
+        loop = FederationPlane(
+            workers=federated, config=config, store=store,
+            device=args.device, **plane_kwargs,
+        )
+        loop.start()
+        if not loop.wait_ready(federated, timeout_s=120.0):
+            loop.stop()
+            raise SystemExit(
+                f"federation: only {len(loop.live_workers())}/"
+                f"{federated} workers joined"
+            )
+    elif pooled:
         loop = ServePool(config=config, recorder=recorder, store=store,
                          devices=visible_devices(resolve_device(args.device)))
+        loop.start()
     else:
         loop = ServeLoop(engine=make_engine(device=args.device),
                          config=config, recorder=recorder, store=store)
-    loop.start()
+        loop.start()
     gw = GatewayServer(loop, host=host, port=port)
     gw.start()
     stop = threading.Event()
@@ -708,7 +771,9 @@ def _serve_listen(args, config) -> int:
     signal.signal(signal.SIGINT, _on_signal)
     print(json.dumps({
         "listening": gw.address,
-        "replicas": len(loop.replicas) if pooled else 1,
+        **({"workers": len(loop.live_workers()), "control": loop.address}
+           if federated else
+           {"replicas": len(loop.replicas) if pooled else 1}),
         "tls": gw.tls_context is not None,
         "authn": bool(gw.tokens),
         "max_body": gw.max_body,
@@ -736,10 +801,11 @@ def _serve_listen(args, config) -> int:
 
 
 def cmd_fleet(args) -> int:
-    """``fleet URL``: the operator's view of a running elastic federation,
-    one ``/healthz`` call rendered as a worker table.  ``--json`` prints
-    the raw health body.  A gateway with no fleet in its ``/healthz`` (any
-    gateway of the port: the federation is not ported) exits 1."""
+    """``fleet URL``: the operator's view of a running federation, one
+    ``/healthz`` call rendered as a worker table (state, outstanding,
+    served, placement evidence, engine, pid).  ``--json`` prints the raw
+    health body.  A gateway with no fleet in its ``/healthz`` (one in
+    front of a loop or a pool) exits 1."""
     from rca_tpu_torch.gateway.client import GatewayClient
 
     client = GatewayClient.from_url(
@@ -858,10 +924,18 @@ def cmd_chaos(args) -> int:
     :class:`ChaosClusterClient` for N ticks, scored on the resilience
     contract: no uncaught exception, every fault class observed (from 100
     ticks), fault-free ticks bitwise a fault-free baseline, and with
-    ``--record`` the replay of its own recording in parity.  Exit 0 only
-    when the contract holds; exit 2 when the soak would need the
-    federation, autoscale and ingest legs (``--ticks`` >= 100 without
-    ``--no-federation``), which are not ported."""
+    ``--record`` the replay of its own recording in parity.  From 100
+    ticks (without ``--no-federation``) the soak adds the process-level
+    legs: the federation's (``process_kill``, ``worker_hang``,
+    ``coordinator_partition`` against a live fleet of
+    ``--federation-workers`` worker processes on ``--device``, gated on
+    every request terminal, no double completion, every class observed
+    and a rejoin) and, without ``--no-ingest``, the ingest fleet's
+    ``ingest_death`` (gated on the move to a survivor, the reclaim on
+    rejoin and no double-applied capture tick).  Exit 0 only when the
+    contract holds; exit 2 when it would need the ``scaling_storm`` leg,
+    which comes with the autoscaler's controller (pass
+    ``--no-autoscale``)."""
     from rca_tpu_torch.config import chaos_seed
     from rca_tpu_torch.resilience.chaos import ChaosConfig, run_chaos_soak
 
@@ -870,10 +944,12 @@ def cmd_chaos(args) -> int:
         raise SystemExit(
             f"chaos needs a synthetic fixture (<N>svc), got {args.fixture!r}"
         )
-    if args.ticks >= 100 and not args.no_federation:
+    federation = args.ticks >= 100 and not args.no_federation
+    if federation and not args.no_autoscale:
         print("rca_tpu_torch chaos: at --ticks >= 100 the soak adds the "
-              "federation, autoscale and ingest legs, which come with the "
-              "cross-process plane (A14, not ported yet); pass "
+              "scaling_storm leg, which comes with the autoscaler's "
+              "controller (A14, not ported yet); pass --no-autoscale to "
+              "run the federation and ingest legs without it, or "
               "--no-federation to soak the live session alone",
               file=sys.stderr)
         return 2
@@ -895,18 +971,101 @@ def cmd_chaos(args) -> int:
         record_path=args.record, pipeline_depth=args.pipeline_depth,
         device=args.device,
     )
-    print(json.dumps(summary, indent=None if args.compact else 2))
+    # the federation leg: the three PROCESS-level fault classes driven
+    # against a live worker fleet under wire load
+    fed_ok = True
+    if federation:
+        from rca_tpu_torch.serve.federation import run_federation_chaos
+
+        summary["federation"] = run_federation_chaos(
+            seed=seed, workers=args.federation_workers, device=args.device,
+        )
+        fed_ok = summary["federation"]["ok"]
+    # the ingest leg: SIGKILL the ingest worker that owns capture
+    # mirrors mid-soak; the coordinator's cluster table must move them
+    # to a survivor and apply no tick twice
+    ingest_ok = True
+    if federation and not args.no_ingest:
+        from rca_tpu_torch.serve.federation import (
+            INGEST_FAULT_CLASS,
+            run_ingest_chaos,
+        )
+
+        summary["ingest"] = run_ingest_chaos(seed=seed)
+        ingest_ok = (
+            summary["ingest"]["ok"]
+            and INGEST_FAULT_CLASS
+            in summary["ingest"]["fault_classes_observed"]
+            and summary["ingest"]["double_applied"] == 0
+        )
+    print(json.dumps(summary, indent=None if args.compact else 2,
+                     default=str))
     scope = summary["kernelscope"]
     ok = (
         summary["uncaught_exceptions"] == 0
         and summary["parity_ok"]
         and (summary["all_classes_observed"] or args.ticks < 100)
+        and fed_ok
+        and ingest_ok
         # --record adds the record → replay parity leg
         and summary.get("replay", {}).get("parity_ok", True)
         and scope["recompiles_post_warm"] == 0
         and scope["memory_gate"].get("ok", True)
     )
     return 0 if ok else 1
+
+
+def cmd_ingest(args) -> int:
+    """The federated capture fleet: spawn ``--workers`` ingest-class
+    worker processes, register ``--clusters`` synthetic clusters
+    (rendezvous-routed, exactly one capture-mirror owner each), soak for
+    ``--duration`` seconds, and print the coordinator's cluster table:
+    owner, epoch, ticks, sweep latency, coldiff bytes.  Exits 0 only when
+    every cluster is owned and ticking with no double-applied tick.  The
+    ingest workers never touch the card, so the command takes no
+    ``--device``."""
+    import time
+
+    from rca_tpu_torch.serve.federation import FederationPlane
+
+    plane = FederationPlane(
+        workers=0, heartbeat_s=args.heartbeat_s, spawn_workers=False,
+    )
+    with plane:
+        for i in range(args.workers):
+            plane.spawn_worker(i, role="ingest")
+        if not plane.wait_ready(args.workers, timeout_s=90.0):
+            print(json.dumps({"ok": False, "error": "workers never joined",
+                              "workers": plane.worker_table()}))
+            return 1
+        specs = {
+            f"c{j}": {
+                "digest": f"ingest-{args.seed}-{j}",
+                "services": args.services,
+                "pods_per_service": args.pods_per_service,
+                "seed": args.seed + j,
+                "namespace": "synthetic",
+            }
+            for j in range(args.clusters)
+        }
+        plane.register_clusters(specs)
+        deadline = time.monotonic() + args.duration
+        while time.monotonic() < deadline:
+            time.sleep(0.1)
+        status = plane.ingest_status()
+        double = sum(c["double_applied"] for c in status.values())
+        summary = {
+            "clusters": status,
+            "workers": plane.worker_table(),
+            "double_applied": double,
+            "stale_stats_dropped": plane.ingest_stale,
+            "ok": bool(status) and double == 0 and all(
+                c["owner"] is not None and c["ticks"] > 0
+                for c in status.values()
+            ),
+        }
+    print(json.dumps(summary, indent=None if args.compact else 2))
+    return 0 if summary["ok"] else 1
 
 
 def _replay_engine(choice: Optional[str], device):
@@ -1281,6 +1440,23 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--compact", action="store_true")
+    sp.add_argument("--federation", type=int, default=None, metavar="N",
+                    help="cross-process federation: N worker PROCESSES on "
+                    "--device under one control plane.  Alone: run the "
+                    "federation selftest (every request terminal, rankings "
+                    "bitwise a solo analysis, no double completion).  With "
+                    "--listen: the gateway fronts the federation instead "
+                    "of an in-process plane")
+    sp.add_argument("--kill-worker", action="store_true",
+                    dest="kill_worker",
+                    help="federation selftest chaos: SIGKILL one worker "
+                    "process mid-wave; drain-and-reroute must leave every "
+                    "request terminal with no double completion")
+    sp.add_argument("--bind-external", action="store_true",
+                    dest="bind_external",
+                    help="bind the federation control port on 0.0.0.0 and "
+                    "advertise this host's primary IP, so workers on other "
+                    "hosts can join through --connect")
     for flag, what in _SERVE_NOT_PORTED.items():
         sp.add_argument(f"--{flag}", default=None, metavar="ARG",
                         help=f"not ported yet (exits 2): {what}")
@@ -1459,13 +1635,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tick pipeline depth of the soaked session")
     sp.add_argument("--no-federation", action="store_true",
                     dest="no_federation",
-                    help="soak the live session alone: without it, "
-                    "--ticks >= 100 asks for the federation, autoscale "
-                    "and ingest legs, which are not ported (exits 2)")
+                    help="soak the live session alone: skip the "
+                    "process-level legs (worker kill / hang / partition "
+                    "over a live fleet, the ingest owner's death)")
+    sp.add_argument("--federation-workers", type=int, default=3,
+                    dest="federation_workers",
+                    help="worker processes in the federation chaos leg")
+    sp.add_argument("--no-autoscale", action="store_true",
+                    dest="no_autoscale",
+                    help="skip the scaling_storm leg, which comes with the "
+                    "autoscaler's controller: without it (or "
+                    "--no-federation), --ticks >= 100 exits 2")
+    sp.add_argument("--no-ingest", action="store_true", dest="no_ingest",
+                    help="skip the ingest_death leg (SIGKILL the "
+                    "capture-mirror owner; exactly-once tick gate)")
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.add_argument("--compact", action="store_true")
     sp.set_defaults(fn=cmd_chaos)
+
+    sp = sub.add_parser(
+        "ingest",
+        help="federated capture fleet: ingest-class workers owning "
+        "columnar cluster mirrors, rendezvous-routed",
+    )
+    sp.add_argument("--workers", type=int, default=2,
+                    help="ingest worker processes")
+    sp.add_argument("--clusters", type=int, default=3,
+                    help="synthetic clusters to register")
+    sp.add_argument("--services", type=int, default=20,
+                    help="services per synthetic cluster")
+    sp.add_argument("--pods-per-service", type=int, default=1,
+                    dest="pods_per_service")
+    sp.add_argument("--duration", type=float, default=5.0,
+                    help="soak seconds before scoring")
+    sp.add_argument("--heartbeat-s", type=float, default=0.25,
+                    dest="heartbeat_s")
+    sp.add_argument("--seed", type=int, default=17)
+    sp.add_argument("--compact", action="store_true")
+    sp.set_defaults(fn=cmd_ingest)
 
     sp = sub.add_parser("train", help="fit propagation weights on "
                         "synthetic cascades; save a JSON checkpoint")

@@ -34,7 +34,10 @@ layer's :func:`log_dir` (``RCA_LOG_DIR``), and the gateway's and the
 canary's: :func:`gateway_port`, :func:`gateway_max_body`,
 :func:`canary_sample_rate`, :func:`gateway_tls_files`,
 :func:`gateway_tls_client_ca`, :func:`gateway_tokens` and
-:func:`gateway_tenant_rps`.
+:func:`gateway_tenant_rps`, and the cross-process plane's:
+:func:`fed_workers`, :func:`fed_heartbeat_s`, :func:`fed_lease_misses`,
+:func:`fed_window` (``RCA_FED_*``), :func:`ingest_tick_s`
+(``RCA_INGEST_TICK_S``), :func:`env_int_opt` and :func:`environ_copy`.
 """
 
 from __future__ import annotations
@@ -559,6 +562,53 @@ def gateway_tenant_rps() -> float:
     tenant gets its own bucket with one second's burst, and a request over
     it gets 429 with ``Retry-After`` without touching the serve queue."""
     return env_float("RCA_GATEWAY_TENANT_RPS", 0.0, 0.0, 1e6)
+
+
+# -- the cross-process plane ---------------------------------------------------
+# the federation's knobs keep the reference's names, ranges and defaults;
+# the bootstrap reads torchrun's WORLD_SIZE / RANK / LOCAL_RANK through
+# env_int_opt (unset means "not given", 0 is a real rank)
+
+
+def env_int_opt(name: str, lo: int, hi: int) -> Optional[int]:
+    """Like :func:`env_int` but unset/empty means None (knobs where 0 is
+    a meaningful value and absence is a signal of its own)."""
+    raw = (os.environ.get(name) or "").strip()
+    if not raw:
+        return None
+    return env_int(name, 0, lo, hi)
+
+
+def environ_copy() -> Dict[str, str]:
+    """A snapshot of the FULL environment, for spawning child processes
+    (the federation's workers inherit the parent's ``RCA_*`` knobs and
+    overlay their own)."""
+    return dict(os.environ)
+
+
+def fed_workers() -> int:
+    """``RCA_FED_WORKERS``: worker processes under the federation."""
+    return env_int("RCA_FED_WORKERS", 2, 1, 64)
+
+
+def fed_heartbeat_s() -> float:
+    """``RCA_FED_HEARTBEAT_S``: worker heartbeat interval (seconds)."""
+    return env_float("RCA_FED_HEARTBEAT_S", 0.5, 0.01, 60.0)
+
+
+def fed_lease_misses() -> int:
+    """``RCA_FED_LEASE_MISSES``: missed heartbeats before lease expiry."""
+    return env_int("RCA_FED_LEASE_MISSES", 3, 2, 100)
+
+
+def fed_window() -> int:
+    """``RCA_FED_WINDOW``: per-worker outstanding-request window."""
+    return env_int("RCA_FED_WINDOW", 64, 1, 4096)
+
+
+def ingest_tick_s() -> float:
+    """``RCA_INGEST_TICK_S``: ingest-worker capture cadence (seconds)."""
+    return env_float("RCA_INGEST_TICK_S", 0.05, 0.0, 60.0)
 
 
 @dataclasses.dataclass(frozen=True)

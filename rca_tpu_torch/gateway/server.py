@@ -2,8 +2,9 @@
 of ``rca_tpu.gateway.server``).
 
 :class:`GatewayServer` puts an HTTP/1.1 surface (the standard library
-only) in front of a started :class:`rca_tpu_torch.serve.loop.ServeLoop`
-or :class:`rca_tpu_torch.serve.pool.ServePool`, mapped onto the
+only) in front of a started :class:`rca_tpu_torch.serve.loop.ServeLoop`,
+:class:`rca_tpu_torch.serve.pool.ServePool` or
+:class:`rca_tpu_torch.serve.federation.FederationPlane`, mapped onto the
 ``ServeRequest`` / ``ServeResponse`` contract through
 :mod:`rca_tpu_torch.gateway.wire`:
 
@@ -20,7 +21,9 @@ or :class:`rca_tpu_torch.serve.pool.ServePool`, mapped onto the
 - ``GET /metrics``       the Prometheus exposition of the serving plane's
   per-tenant / per-replica counters and the gateway's own;
 - ``GET /healthz``       breaker-fed liveness: 200 while the plane is
-  routable (any live replica whose breaker is not open), 503 otherwise.
+  routable (any live replica whose breaker is not open; for a
+  federation, any worker holding a live lease, with the worker table
+  under ``fleet``), 503 otherwise.
 
 With ``RCA_GATEWAY_TOKENS`` every route but ``/healthz`` needs a bearer
 token, checked before the body is read; with a TLS pair the listener
@@ -897,11 +900,17 @@ class GatewayServer:
 
     # -- health (breaker-fed) -------------------------------------------------
     def health(self) -> Dict[str, Any]:
-        """Liveness from breaker state: a pool is healthy while ANY replica
-        is routable (alive, breaker not open); a single loop while its
-        breaker is not open and it has not been stopped (a stopped loop
-        serves nothing more, so it reports ``"stopped": true`` and 503)."""
+        """Liveness from breaker state: a federation is healthy while ANY
+        worker process holds a live lease (its ``health()``: the worker
+        table under ``fleet``, the ingest ring's clusters under
+        ``ingest``); a pool while ANY replica is routable (alive, breaker
+        not open); a single loop while its breaker is not open and it has
+        not been stopped (a stopped loop serves nothing more, so it
+        reports ``"stopped": true`` and 503)."""
         loop = self.loop
+        if hasattr(loop, "workers") and hasattr(loop, "health"):
+            # a federation plane: lease-fed liveness
+            return loop.health()
         if hasattr(loop, "replicas"):
             states = {
                 str(r.replica_id): (

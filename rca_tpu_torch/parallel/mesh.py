@@ -104,3 +104,47 @@ def carve_device_groups(sizes: Sequence[int], devices: Sequence) -> list:
         )
         cursor = (cursor + size) % len(devices)
     return groups
+
+
+def make_multislice_mesh(
+    n_slices: int,
+    per_slice_axes: Sequence[Tuple[str, int]],
+    devices: Optional[Sequence] = None,
+    slice_axis: str = "slice",
+) -> DeviceMesh:
+    """Multi-slice mesh: an outer axis over groups of devices, each group
+    laid out with ``per_slice_axes`` (the reference's cross-slice axis).
+    Devices that carry a ``slice_index`` are grouped by it (the first
+    ``n_slices`` slices that can fill a group); devices without one (a
+    ``torch.device`` never has it) are grouped contiguously."""
+    devices = list(devices if devices is not None else visible_devices())
+    per_slice = int(np.prod([s for _, s in per_slice_axes]))
+    need = n_slices * per_slice
+    if need > len(devices):
+        raise ValueError(
+            f"multislice mesh needs {need} devices "
+            f"({n_slices} slices x {per_slice}), have {len(devices)}"
+        )
+    devices = devices[:need]
+    slice_ids = {getattr(d, "slice_index", None) for d in devices}
+    if None not in slice_ids and len(slice_ids) >= n_slices:
+        by_slice: dict = {}
+        for d in devices:
+            by_slice.setdefault(d.slice_index, []).append(d)
+        # every slice that can fill per_slice, then the first n_slices
+        # of them (an undersized early slice must not abandon the
+        # slice-aware grouping when later slices qualify)
+        groups = [
+            group[:per_slice]
+            for _, group in sorted(by_slice.items())
+            if len(group) >= per_slice
+        ][:n_slices]
+        if len(groups) == n_slices:
+            devices = [d for group in groups for d in group]
+    sizes = (n_slices, *(int(s) for _, s in per_slice_axes))
+    names = (slice_axis, *(a for a, _ in per_slice_axes))
+    grid = np.empty(need, dtype=object)
+    for i, d in enumerate(devices):
+        grid[i] = (d if isinstance(d, torch.device)
+                   or hasattr(d, "slice_index") else torch.device(d))
+    return DeviceMesh(grid.reshape(sizes), names)

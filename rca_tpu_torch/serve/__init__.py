@@ -1,7 +1,7 @@
-"""Multi-tenant serving scheduler in one process: continuous
-shape-bucketed batching on the card (the port's copy of
-``rca_tpu.serve``; the cross-process federation, its workers and the
-autoscaler are not ported yet).
+"""Multi-tenant serving scheduler: continuous shape-bucketed batching on
+the card, in one process or over a federation of worker processes (the
+port's copy of ``rca_tpu.serve``; the autoscaler's controller is not
+ported yet, only its rule tables).
 
 Every other entry point (``analyze``, ``hypotheses``, ``stream``) owns the
 device; two concurrent investigations serialize with no batching, though
@@ -24,6 +24,13 @@ more than one.  This package is the serving layer:
   over carved device groups) behind the shared queue, shape-bucket-sticky
   routing, per-replica breakers, work-stealing failover with exactly-once
   completion;
+- :mod:`.federation` / :mod:`.worker` / :mod:`.fedwire` /
+  :mod:`.ingest` — the cross-process plane: worker processes (each with
+  its own CUDA context) with lease-based liveness, consistent-hash
+  routing on the graph digest, drain-and-reroute on process death under
+  the same exactly-once contract across the wire, and ingest workers
+  owning cluster capture mirrors; :mod:`.autoscale` holds the placement
+  and scale-rule tables;
 - :mod:`.client` — the in-process client, the coordinator's EngineAPI
   facade and the ``python -m rca_tpu_torch serve --selftest`` harness;
 - :mod:`.metrics` — per-tenant queue, duration and occupancy metrics.

@@ -1,6 +1,6 @@
 """Per-tenant serving metrics (the port's copy of
-``rca_tpu.serve.metrics``; the autoscaler's signals come with the
-federation).
+``rca_tpu.serve.metrics``; the autoscaler's signals come with its
+controller).
 
 One :class:`ServeMetrics` per :class:`rca_tpu_torch.serve.loop.ServeLoop`
 or :class:`rca_tpu_torch.serve.pool.ServePool`: counters per tenant
@@ -9,7 +9,8 @@ samples per tenant (p50/p99 through
 :class:`rca_tpu_torch.obslog.profiling.PhaseStats`), submit→completion
 duration histograms with the SLO burn count, the queue depth peak, batch
 occupancy per device dispatch, the prepared-graph cache and resident
-reuse, and the pool's per-replica rows.  Everything is thread-safe: the
+reuse, the pool's per-replica rows and the federation's placement
+outcomes.  Everything is thread-safe: the
 submit path and the serve workers record concurrently; :meth:`snapshot`
 copies under the lock and :meth:`summary` derives off it.
 """
@@ -55,6 +56,9 @@ class ServeMetrics:
         # work-steal accounting, the last reported breaker/liveness state
         self._replicas: Dict[int, Dict[str, object]] = {}
         self._replica_occ = PhaseStats()   # one phase per replica id
+        # the federation's routing picks: preferred = a registry/headroom-
+        # informed pick, rendezvous = the hash-ring fallback
+        self._placement: Dict[str, int] = {"preferred": 0, "rendezvous": 0}
 
     def _tenant(self, tenant: str) -> Dict[str, int]:
         return self._counts.setdefault(
@@ -165,6 +169,13 @@ class ServeMetrics:
         with self._lock:
             self._replica(replica_id)["state"] = state
 
+    # -- federation ----------------------------------------------------------
+    def placement(self, outcome: str) -> None:
+        """One routing pick: ``preferred`` (registry/headroom-informed)
+        or ``rendezvous`` (the hash-ring fallback)."""
+        with self._lock:
+            self._placement[outcome] += 1
+
     # -- reporting -----------------------------------------------------------
     def snapshot(self) -> Dict[str, object]:
         """One consistent deep copy of all raw state, taken under the
@@ -192,6 +203,7 @@ class ServeMetrics:
                 },
                 "slo_breaches": dict(self._slo_breaches),
                 "slo_ms": self.slo_ms_target,
+                "placement": dict(self._placement),
             }
 
     def summary(self) -> Dict[str, object]:
@@ -253,4 +265,18 @@ class ServeMetrics:
             "rejected_total": sum(
                 c["rejected"] for c in counts.values()
             ),
+            **self._placement_summary(snap),
         }
+
+    @staticmethod
+    def _placement_summary(snap: Dict[str, object]) -> Dict[str, object]:
+        """The placement block, only when the federation routed anything:
+        a loop's or a pool's summary keeps its keys."""
+        placement: Dict[str, int] = snap["placement"]   # type: ignore
+        picks = sum(placement.values())
+        if picks == 0:
+            return {}
+        return {"placement": {
+            **placement,
+            "hit_rate": round(placement["preferred"] / picks, 4),
+        }}

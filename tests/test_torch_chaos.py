@@ -11,8 +11,9 @@ JAX package's.
   soak (exact), no uncaught exception, fault-free ticks bitwise the
   baseline, and with a recorder the replay leg in parity;
 - ``python -m rca_tpu_torch chaos``: exit 0 when the contract holds, 2
-  at ``--ticks`` >= 100 without ``--no-federation`` (the legs of A14 are
-  not ported), and ``RCA_CHAOS_SEED`` parsed as the reference parses it.
+  at ``--ticks`` >= 100 without ``--no-federation`` or ``--no-autoscale``
+  (the ``scaling_storm`` leg of A14 is not ported), and
+  ``RCA_CHAOS_SEED`` parsed as the reference parses it.
 """
 
 import json
@@ -164,7 +165,7 @@ def test_chaos_cli_exit_codes(tmp_path, capsys):
     assert summary["seed"] == 7 and summary["replay"]["parity_ok"]
     assert main(["replay", rec, "--device", "cpu", "--compact"]) == 0
     capsys.readouterr()
-    # the federation, autoscale and ingest legs belong to A14
+    # the scaling_storm leg belongs to A14
     assert main(["chaos", "--fixture", "20svc", "--ticks", "100",
                  "--device", "cpu"]) == 2
     out = capsys.readouterr()

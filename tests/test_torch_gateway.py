@@ -903,7 +903,9 @@ def test_serve_listen_subprocess(tmp_path, engine, case):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--listen", "127.0.0.1:0", "--federation", "2"],
+    # the federation is ported; in front of it the unported autoscaler
+    # still exits 2 before a worker is spawned
+    ["--listen", "127.0.0.1:0", "--federation", "2", "--autoscale", "1:2"],
     ["--listen", "127.0.0.1:0", "--autoscale", "1:2"],
 ])
 def test_serve_federation_and_autoscale_exit_2(argv):

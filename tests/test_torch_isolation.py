@@ -25,12 +25,16 @@
   client and a ``serve --listen`` subprocess (its own modules read at
   exit), the instruments (``profile_ticks``, ``ensure_cost``,
   ``run_tracecheck``, a comprehensive analysis under
-  ``RCA_TORCH_PROFILE``); the native scanner loaded is the one built from
-  ``rca_tpu_torch/native/``;
+  ``RCA_TORCH_PROFILE``), and the federation's worker processes of both
+  roles, ``python -m rca_tpu_torch.serve.worker --device cpu`` serving a
+  request and ``--role ingest`` ticking a cluster (their own modules read
+  at exit; the ingest worker never initialises CUDA); the native scanner
+  loaded is the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   and ``profile`` included), the streaming sessions, ``replay``,
-  ``chaos`` and the recompile gate raise (or exit non-zero) unless the
-  caller asks for the CPU, and ``chip_smoke.py``
+  ``chaos``, the recompile gate and a federation serve worker raise (or
+  exit non-zero, naming the cause) unless the caller asks for the CPU,
+  and ``chip_smoke.py``
   exits non-zero with no verdict line;
 - on a card (tests marked ``cuda``) the engine runs through the kernels
   and agrees with its own CPU run.
@@ -42,6 +46,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -577,7 +582,7 @@ def test_gateway_canary_and_clusterset_load_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert (out["code"], out["metrics"], out["canary"],
             out["wire_canary"]) == (200, True, True, True)
-    # the multicluster canary holds; the port's gateway has no fleet
+    # the multicluster canary holds; a loop's gateway has no fleet
     assert out["codes"] == [0, 1]
     assert out["pods"] > 0
     assert out["sub"] == [200, 0]
@@ -665,6 +670,81 @@ def test_port_cli_loads_no_jax_and_no_rca_tpu():
     assert out["codes"] == [0, 0, 0]
     assert "rca_tpu_torch.cli" in out["modules"]
     assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+_WORKER_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "def _dump():\n"
+    "    import torch\n"
+    "    print(json.dumps({'modules': sorted(sys.modules),"
+    " 'cuda': torch.cuda.is_initialized()}), file=sys.stderr, flush=True)\n"
+    "atexit.register(_dump)\n"
+    "sys.argv = ['rca_tpu_torch.serve.worker', *sys.argv[1:]]\n"
+    "runpy.run_module('rca_tpu_torch.serve.worker', run_name='__main__')\n")
+
+
+def test_federation_workers_of_both_roles_load_no_jax():
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+    from rca_tpu_torch.serve import ServeRequest
+    from rca_tpu_torch.serve.federation import FederationPlane
+    from rca_tpu_torch.util.procs import spawn_worker
+
+    plane = FederationPlane(workers=2, spawn_workers=False, heartbeat_s=1.0,
+                            device="cpu").start()
+    procs = {}
+    try:
+        for wid, role in ((0, "serve"), (1, "ingest")):
+            procs[role] = spawn_worker(f"iso-{role}", [
+                sys.executable, "-c", _WORKER_CHILD, "--connect",
+                plane.address, "--worker-id", str(wid), "--role", role,
+                "--device", "cpu"])
+        assert plane.wait_ready(2, timeout_s=240.0), plane.worker_table()
+        case = synthetic_cascade_arrays(24, n_roots=1, seed=0)
+        req = ServeRequest(tenant="t", features=case.features,
+                           dep_src=case.dep_src, dep_dst=case.dep_dst,
+                           names=case.names, k=3)
+        plane.submit(req)
+        assert req.result(120.0).ok
+        plane.register_clusters({"c0": {"digest": "d0", "services": 6}})
+        deadline = time.monotonic() + 120.0
+        while (time.monotonic() < deadline
+               and plane.ingest_status()["c0"]["ticks"] < 2):
+            time.sleep(0.05)
+        assert plane.ingest_status()["c0"]["ticks"] >= 2
+        for wid in (0, 1):
+            assert plane.drain_worker(wid)
+        for proc in procs.values():
+            assert proc.join(120.0) == 0
+    finally:
+        plane.stop()
+        for proc in procs.values():
+            proc.kill()
+    deadline = time.monotonic() + 30.0
+    dumps = {}
+    while time.monotonic() < deadline and len(dumps) < 2:
+        for role, proc in procs.items():
+            lines = [ln for ln in proc.output()[1].splitlines()
+                     if ln.startswith('{"modules"')]
+            if lines:
+                dumps[role] = json.loads(lines[-1])
+        time.sleep(0.05)
+    assert sorted(dumps) == ["ingest", "serve"]
+    for role, dump in dumps.items():
+        assert "rca_tpu_torch.serve.fedwire" in dump["modules"], role
+        assert [m for m in dump["modules"] if _forbidden(m)] == [], role
+    assert "rca_tpu_torch.serve.ingest" in dumps["ingest"]["modules"]
+    assert not dumps["ingest"]["cuda"]
+
+
+def test_serve_worker_without_device_fails_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch.serve.worker", "--connect",
+         "127.0.0.1:9", "--worker-id", "0"], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+    assert '"worker"' not in proc.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

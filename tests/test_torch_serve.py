@@ -1039,16 +1039,20 @@ def test_serve_cli_selftest_and_load():
     ("--listen", "A9"), ("--federation", "A14"), ("--autoscale", "A14"),
 ])
 def test_serve_cli_unported_modes_exit_2(capsys, flag, item):
-    """``--federation`` and ``--autoscale`` exit 2 naming A14.  The
-    gateway (``--listen``, A9) is ported: in front of the unported
-    federation it still exits 2, naming A14, before a socket is bound."""
+    """``--autoscale`` exits 2 naming A14 (the autoscaler's controller).
+    The gateway (``--listen``, A9) and the federation (``--federation``)
+    are ported: with ``--autoscale`` each still exits 2, naming A14,
+    before a socket is bound or a worker spawned."""
     from rca_tpu_torch.cli import main
 
     argv = ["serve", flag, "x", "--device", "cpu"]
     if flag == "--listen":
-        argv = ["serve", "--listen", "127.0.0.1:0", "--federation", "2",
+        argv = ["serve", "--listen", "127.0.0.1:0", "--autoscale", "1:2",
                 "--device", "cpu"]
         item = "A14"
+    elif flag == "--federation":
+        argv = ["serve", "--federation", "2", "--autoscale", "1:2",
+                "--device", "cpu"]
     assert main(argv) == 2
     out = capsys.readouterr()
     assert "not ported yet" in out.err and item in out.err
