@@ -12,6 +12,8 @@
                                        # cards alone
     python3 chip_smoke.py --federation-only  # the build, then the
                                        # federation phase alone
+    python3 chip_smoke.py --autoscale-only   # the build, then the
+                                       # autoscale phase alone
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
@@ -371,14 +373,45 @@ and the flagged scans never (:func:`main_launches`).
    request terminal, ``recovery_ms``; ``serve --federation 3
    --kill-worker``, ``ingest`` and ``serve --listen --federation 2`` (4
    requests over the wire bitwise solo, ``fleet URL``'s worker table)
-   as subprocesses at once, then ``chaos --ticks 200 --no-autoscale``,
-   which must observe ``process_kill``, ``worker_hang``,
-   ``coordinator_partition`` and ``ingest_death``; and
+   as subprocesses at once, then (under ``--federation-only``; the full
+   run leaves it to phase 23's ``chaos --ticks 200``, the same legs and
+   the storm) ``chaos --ticks 200 --no-autoscale``, which must observe
+   ``process_kill``, ``worker_hang``, ``coordinator_partition`` and
+   ``ingest_death``; and
    ``initialize_distributed`` with a named coordinator, world size 1, on
    NCCL, one all-reduce, the group destroyed.  Every line carries the
    card's name and power limit.  Phase 2's build runs as two processes
    started at once on the cold build directory; both must load the same
-   library.
+   library;
+23. the elastic fleet (``autoscale``), every line with the card's name
+   and power limit: ``run_scale_ramp_soak(seed=0, min_workers=2,
+   max_workers=8)`` at 2047 services on the card (``RCA_KERNEL=kernels``,
+   ``RCA_SHARD=0``; the thread fleet on one engine): the reference's
+   gates, every ok answer bitwise its solo analysis in this process, no
+   double completion, and the launches over the soak exactly the main
+   path's per device batch (1 / 1 / 1), with ``ramp_up_s``,
+   ``ramp_down_s``, request p50 / p99, ``scale_decision_ms_p50`` and
+   ``placement_hit_rate``; a ``FederationPlane(workers=2)`` of worker
+   processes at 2047 on the default lease under an
+   ``AutoscaleController`` on the plane's ``spawn_worker`` with the
+   soak's table inside 2..4, walked 2→4→2 by a closed-loop load: every
+   request terminal and every ok answer bitwise solo, no double
+   completion, reroute or ``worker_down``, every worker reading the row
+   this process elected from ``RCA_KERNEL_CACHE`` (``source ==
+   "cache"``), ``nvidia-smi``'s contexts two more at the peak and back at
+   the end (its ``pid, used_memory`` listing at the peak), spawn → lease
+   per worker, each worker's heartbeat gaps, and the launches summed over
+   the four drain reports the main path's per device batch;
+   ``run_scaling_storm(seed=7)`` in thread mode and over worker
+   processes, each ``ok`` with ``scaling_storm`` observed, no double
+   completion, stale drops within their bound and no worker down but the
+   three its races cause, over processes the contexts back to their count
+   once it ends; then ``serve --autoscale 2:4`` and ``serve
+   --listen 127.0.0.1:0 --federation 2 --autoscale 2:4`` (4 wire requests
+   bitwise solo, ``fleet URL`` showing the bounds and a running
+   controller) as subprocesses at once, and ``chaos --ticks 200``, which
+   must observe ``process_kill``, ``worker_hang``,
+   ``coordinator_partition``, ``ingest_death`` and ``scaling_storm``.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (the fused
 recursions' rows with their 2047-service numbers, where the plan runs
@@ -405,7 +438,9 @@ behind the gateway at each tier and over the gateway's loads, and
 ``profile_events``, its device events in the ``observe`` phase's trace
 of 20 ticks at 10,000 services, and ``federation_launches``, summed over
 the worker processes of each federation load leg with their device
-batches, and over the kill wave's survivors); the last line
+batches, and over the kill wave's survivors, and ``autoscale_launches``,
+over the thread soak's fleet and the process fleet's four workers at
+2047, with their device batches); the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
 goes to ``DIR/chip_smoke.json`` and each profile table to
 ``DIR/profile_<services>.txt``.  Imports nothing of JAX or ``rca_tpu``.
@@ -837,6 +872,8 @@ def main(argv) -> int:
                              "make_engine() beside the dense engine)")
     parser.add_argument("--federation-only", action="store_true",
                         help="build, then run the federation phase alone")
+    parser.add_argument("--autoscale-only", action="store_true",
+                        help="build, then run the autoscale phase alone")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -908,7 +945,7 @@ def main(argv) -> int:
               n_pad=f.shape[0], e_pad=len(s),
               seconds=time.perf_counter() - t0)
 
-    if args.multi_card or args.federation_only:
+    if args.multi_card or args.federation_only or args.autoscale_only:
         if args.multi_card:
             record["multi_card"] = multi_card_phase(
                 cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
@@ -917,7 +954,10 @@ def main(argv) -> int:
             cache = build.BUILD_DIR / "chip_smoke_kernel_cache.json"
             cache.unlink(missing_ok=True)
             os.environ["RCA_KERNEL_CACHE"] = str(cache)
-            record["federation"] = federation_phase(cases, smi)
+            if args.federation_only:
+                record["federation"] = federation_phase(cases, smi)
+            else:
+                record["autoscale"] = autoscale_phase(cases, smi)
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()}
         if args.out:
@@ -1439,7 +1479,12 @@ def main(argv) -> int:
     record["observe"] = observe_phase(engine, cases, shapes, times, kin, smi)
 
     # -- 22. the cross-process plane: worker processes on the card -------
-    record["federation"] = federation_phase(cases, smi)
+    # (its ``chaos --ticks 200 --no-autoscale`` is left to phase 23's
+    # ``chaos --ticks 200``: the same legs and the storm)
+    record["federation"] = federation_phase(cases, smi, chaos=False)
+
+    # -- 23. the elastic fleet: the autoscaler's controller on the card ---
+    record["autoscale"] = autoscale_phase(cases, smi)
 
     if args.sweep:
         record["sweep"] = sweep(cases, shapes, kin, decay)
@@ -1552,6 +1597,16 @@ def main(argv) -> int:
                              for tier in ("2047", "49999")},
             "kill_wave": sum(w.get(name, 0) for w in fed["kill_wave"][
                 "worker_launches"].values())}
+        # launches of the elastic fleet at 2047, with their device
+        # batches: the thread soak's (one engine in this process) and the
+        # process fleet's, summed over its four drain reports
+        scale = record["autoscale"]
+        kernels[-1]["autoscale_launches"] = {
+            leg: scale[leg]["launches"].get(name, 0)
+            for leg in ("thread", "process")}
+        kernels[-1]["autoscale_launches"].update({
+            f"{leg}_batches": scale[leg]["device_batches"]
+            for leg in ("thread", "process")})
         # per device batch behind the gateway at each tier, and over the
         # 2047-service mix (wire and in process) and the 49,999 requests
         gateway = record["gateway"]
@@ -6357,15 +6412,17 @@ def _fed_kill_wave(device, smi) -> dict:
     return summary
 
 
-def _fed_commands(case, device, smi, cli=()) -> dict:
+def _fed_commands(case, device, smi, cli=(), chaos: bool = True) -> dict:
     """The federation's commands as subprocesses on the card, the
     workers under ``RCA_KERNEL=kernels``: ``serve --federation 3
     --kill-worker``, ``ingest`` and ``serve --listen --federation 2``
     (a few requests over the wire, each bitwise its solo analysis, and
-    ``fleet URL`` against it) together; then ``chaos --ticks 200
-    --no-autoscale`` alone, whose federation and ingest legs must observe
-    ``process_kill``, ``worker_hang``, ``coordinator_partition`` and
-    ``ingest_death``."""
+    ``fleet URL`` against it) together; then, with ``chaos``, ``chaos
+    --ticks 200 --no-autoscale`` alone, whose federation and ingest legs
+    must observe ``process_kill``, ``worker_hang``,
+    ``coordinator_partition`` and ``ingest_death`` (the full run leaves
+    it to the autoscale phase's ``chaos --ticks 200``, which runs the
+    same legs and the storm)."""
     import signal
 
     import numpy as np
@@ -6462,21 +6519,54 @@ def _fed_commands(case, device, smi, cli=()) -> dict:
                 p.communicate(timeout=30)
     out["together_s"] = time.perf_counter() - t0
     phase("federation", leg="commands", **out, smi=smi)
-    t1 = time.perf_counter()
+    if chaos:
+        out["chaos"] = _chaos_command(env, smi, "federation",
+                                      ["--no-autoscale", *cli])
+    return out
+
+
+#: what ``chaos --ticks 200`` must observe, without and with its
+#: ``scaling_storm`` leg
+CHAOS_CLASSES = ("process_kill", "worker_hang", "coordinator_partition",
+                 "ingest_death")
+
+
+def _chaos_command(env, smi, label: str, argv) -> dict:
+    """``chaos --ticks 200`` as a subprocess (``argv`` adds its flags):
+    exit 0, every fault class of its legs observed (``scaling_storm``
+    too unless ``--no-autoscale``); a failure names each gate."""
+    t0 = time.perf_counter()
     chaos = subprocess.run(
-        [*cmd, "chaos", "--ticks", "200", "--no-autoscale", "--compact",
-         *cli], env=env, capture_output=True, text=True, timeout=900)
-    if chaos.returncode != 0:
-        fail(f"chaos --ticks 200 --no-autoscale exited {chaos.returncode}: "
-             f"{chaos.stdout[-1500:]} {chaos.stderr[-1500:]}")
-    report = json.loads(chaos.stdout.strip().splitlines()[-1])
-    classes = sorted(set(report["federation"]["fault_classes_observed"])
-                     | set(report["ingest"]["fault_classes_observed"]))
-    if not {"process_kill", "worker_hang", "coordinator_partition",
-            "ingest_death"} <= set(classes):
-        fail(f"chaos observed {classes}")
-    out["chaos"] = {
-        "exit": 0, "seconds": time.perf_counter() - t1,
+        [sys.executable, "-m", "rca_tpu_torch", "chaos", "--ticks", "200",
+         "--compact", *argv], env=env, capture_output=True, text=True,
+        timeout=900)
+    try:
+        report = json.loads(chaos.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        report = {}
+    legs = [leg for leg in ("federation", "autoscale", "ingest")
+            if leg in report]
+    gates = {
+        "exit": chaos.returncode,
+        "uncaught_exceptions": report.get("uncaught_exceptions"),
+        "parity_ok": report.get("parity_ok"),
+        "all_classes_observed": report.get("all_classes_observed"),
+        "recompiles_post_warm": report.get("kernelscope", {}).get(
+            "recompiles_post_warm"),
+        "memory_gate": report.get("kernelscope", {}).get("memory_gate"),
+        **{f"{leg}_ok": report[leg].get("ok") for leg in legs}}
+    classes = sorted({c for leg in legs
+                      for c in report[leg].get("fault_classes_observed", [])})
+    want = set(CHAOS_CLASSES) | (
+        set() if "--no-autoscale" in argv else {"scaling_storm"})
+    if chaos.returncode != 0 or not want <= set(classes):
+        fail(f"chaos --ticks 200 {' '.join(argv)} ({label}): {gates}, "
+             f"observed {classes}; "
+             + "; ".join(f"{leg}: {json.dumps(report[leg], default=str)[:1200]}"
+                         for leg in legs if not report[leg].get("ok"))
+             + f" {chaos.stderr[-1500:]}")
+    out = {
+        **gates, "seconds": time.perf_counter() - t0,
         "fault_classes_observed": classes,
         "federation": {k: report["federation"][k] for k in (
             "requests", "by_status", "double_completions",
@@ -6484,10 +6574,12 @@ def _fed_commands(case, device, smi, cli=()) -> dict:
             "detect_lag_ms_max")},
         "ingest": {k: report["ingest"][k] for k in (
             "victim", "victim_clusters", "double_applied",
-            "stale_stats_dropped")},
-        "uncaught_exceptions": report["uncaught_exceptions"],
-        "parity_ok": report["parity_ok"]}
-    phase("federation", leg="chaos", **out["chaos"], smi=smi)
+            "stale_stats_dropped")}}
+    if "autoscale" in report:
+        out["autoscale"] = {k: report["autoscale"][k] for k in (
+            "ok", "requests", "by_status", "double_completions",
+            "stale_responses", "stale_bound", "reroutes", "phases")}
+    phase(label, leg="chaos", **out, smi=smi)
     return out
 
 
@@ -6526,12 +6618,13 @@ def _fed_nccl(device, smi) -> dict:
     return out
 
 
-def federation_phase(cases, smi: str, device="cuda", cli=()) -> dict:
+def federation_phase(cases, smi: str, device="cuda", cli=(),
+                     chaos: bool = True) -> dict:
     """The cross-process serve plane on the card: the load legs (3 worker
     processes, ``RCA_KERNEL=kernels``) at 2047 services (the serve cell's
     64-request mix) and at 49,999 (4 requests, 15 MB bodies), each in
-    turns with an in-process pool; the kill wave; the commands; the
-    NCCL bootstrap."""
+    turns with an in-process pool; the kill wave; the commands (``chaos``
+    also ``chaos --ticks 200 --no-autoscale``); the NCCL bootstrap."""
     import numpy as np
 
     t_phase = time.perf_counter()
@@ -6550,10 +6643,480 @@ def federation_phase(cases, smi: str, device="cuda", cli=()) -> dict:
                                          FED_BIG_REQUESTS),
         device, smi, heartbeat_s=1.0, lease_misses=5)
     out["kill_wave"] = _fed_kill_wave(device, smi)
-    out["commands"] = _fed_commands(cases[small], device, smi, cli)
+    out["commands"] = _fed_commands(cases[small], device, smi, cli, chaos)
     out["nccl"] = _fed_nccl(device, smi)
     out["seconds"] = time.perf_counter() - t_phase
     phase("federation", seconds=out["seconds"], smi=smi)
+    return out
+
+
+AUTOSCALE_SERVICES = 2047
+#: the process leg's fleet bounds and closed-loop submitters
+AUTOSCALE_PROC = (2, 4)
+AUTOSCALE_THREADS = 12
+
+
+def _main_path_per_batch(launches: dict, batches: int, label: str) -> None:
+    """Fail unless ``launches`` over ``batches`` device batches are
+    exactly the main path's at 2047 services (1 / 1 / 1 a batch)."""
+    want = main_launches(AUTOSCALE_SERVICES, batches)
+    if launches != want or not batches:
+        fail(f"autoscale ({label}): {launches} over {batches} device "
+             f"batches, not {want}")
+
+
+def _kept_parity(oracle, kept, label: str) -> int:
+    """Every terminal, every ok answer bitwise its solo analysis here."""
+    checked = 0
+    for req in kept:
+        if not req.done():
+            fail(f"autoscale ({label}): request {req.request_id} never "
+                 f"completed")
+        resp = req.response
+        if resp.status != "ok":
+            continue
+        want = oracle.analyze_arrays(req.features, req.dep_src, req.dep_dst,
+                                     req.names, k=req.k).ranked
+        if resp.ranked != [dict(r) for r in want]:
+            fail(f"autoscale ({label}): request {req.request_id} differs "
+                 f"from its solo analysis")
+        checked += 1
+    return checked
+
+
+@contextlib.contextmanager
+def _plane_tables(tables: list):
+    """Keep each ``FederationPlane``'s worker table and events as it
+    stops (the soaks build their own planes)."""
+    from rca_tpu_torch.serve.federation import FederationPlane
+
+    stop = FederationPlane.stop
+
+    def keep(self, *args, **kwargs):
+        tables.append({"workers": self.worker_table(),
+                       "events": list(self.events),
+                       "stall_max_s": self.stall_max_s})
+        return stop(self, *args, **kwargs)
+
+    with mock.patch.object(FederationPlane, "stop", keep):
+        yield
+
+
+def _autoscale_thread_leg(device, smi) -> dict:
+    """``run_scale_ramp_soak(seed=0, min_workers=2, max_workers=8)`` at
+    2047 services on the card (``FED_ENV``): the reference's gates, every
+    ok answer bitwise its solo analysis here, no double completion, and
+    the launches over the soak exactly the main path's per device batch
+    of the thread fleet (one engine, the counters of this process)."""
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+    from rca_tpu_torch.serve import autoscale
+    from rca_tpu_torch.serve.federation import FederationPlane
+
+    kept, members, tables = [], [], []
+    submit = FederationPlane.submit
+
+    def keep(self, req):
+        kept.append(req)
+        return submit(self, req)
+
+    class Member(autoscale.ThreadWorker):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            members.append(self)
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, FED_ENV), \
+            mock.patch.object(FederationPlane, "submit", keep), \
+            mock.patch.object(autoscale, "ThreadWorker", Member), \
+            _plane_tables(tables):
+        oracle = GraphEngine(device=device)
+        reset_launches()
+        out = autoscale.run_scale_ramp_soak(
+            seed=0, min_workers=2, max_workers=8,
+            services=(AUTOSCALE_SERVICES,), device=device)
+        launches = dict(LAUNCHES)
+        batches = sum(m.loop.device_batches for m in members)
+        checked = _kept_parity(oracle, kept, "thread soak")
+    out["seconds"] = time.perf_counter() - t0
+    if not out["ok"] or out["double_completions"] or not checked:
+        fail("autoscale (thread soak): " + json.dumps(out, default=str))
+    _main_path_per_batch(launches, batches, "thread soak")
+    table = tables[-1]
+    keys = ("ok", "requests", "by_status", "ramp_up_s", "ramp_down_s",
+            "scale_ups", "scale_downs", "request_ms_p50", "request_ms_p99",
+            "queue_ms_p99_after_up", "queue_ms_p99_final",
+            "scale_decision_ms_p50", "placement", "placement_hit_rate",
+            "double_completions", "stale_responses", "reroutes", "seconds")
+    leg = {**{k: out[k] for k in keys}, "members": len(members),
+           "parity_checked": checked, "device_batches": batches,
+           "launches": launches,
+           "worker_downs": [e for e in table["events"]
+                            if e["event"] == "worker_down"],
+           "heartbeats": {str(w["worker_id"]): w["hb_send_gap_max_s"]
+                          for w in table["workers"]},
+           "stall_max_s": table["stall_max_s"]}
+    phase("autoscale", leg="thread 2->8->2 at 2047", **{
+        k: v for k, v in leg.items() if k != "launches"},
+        launches={k: v for k, v in launches.items() if v}, smi=smi)
+    return leg
+
+
+def _autoscale_process_leg(case, device, smi) -> dict:
+    """A ``FederationPlane(workers=2)`` of worker processes at 2047 on the
+    default lease, an ``AutoscaleController`` on the plane's own
+    ``spawn_worker`` with the soak's fast table inside 2..4, and a
+    closed-loop load (``AUTOSCALE_THREADS`` submitters until the fleet
+    peaks, then one trickle until it is back at 2): every request
+    terminal and every ok answer bitwise solo here, no double completion,
+    reroute or ``worker_down``, each worker reading the row this process
+    elected from ``RCA_KERNEL_CACHE``, ``nvidia-smi``'s contexts two more
+    at the peak and back at the end, and the launches summed over the
+    four drain reports the main path's per device batch."""
+    import threading
+
+    import numpy as np
+    from rca_tpu_torch.config import ServeConfig
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.registry import KernelRegistry
+    from rca_tpu_torch.serve.autoscale import (
+        AutoscaleController,
+        ScaleRule,
+        ScaleRuleSet,
+    )
+    from rca_tpu_torch.serve.federation import FederationPlane
+    from rca_tpu_torch.serve.request import ServeRequest
+    from rca_tpu_torch.util.threads import make_lock, make_thread
+
+    lo, hi = AUTOSCALE_PROC
+    cache = os.environ.get("RCA_KERNEL_CACHE", "off")
+    # the soak's table (rca_tpu_torch/serve/autoscale.py,
+    # run_scale_ramp_soak)
+    rules = ScaleRuleSet(rules=(
+        ScaleRule("soak-depth", "queue_depth", ">", 4.0, 0.10, "up", 2),
+        ScaleRule("soak-occupancy", "occupancy", ">", 0.85, 0.15, "up", 2),
+        ScaleRule("soak-idle", "occupancy", "<", 0.20, 0.70, "down", 2),
+    ))
+    f, s, _ = GraphEngine(device="cpu")._pad(case.features, case.dep_src,
+                                             case.dep_dst)
+    out = {"services": AUTOSCALE_SERVICES, "bounds": f"{lo}:{hi}"}
+    kept, lock = [], make_lock("smoke.autoscale.kept")
+    rng = np.random.default_rng(19)
+    surge, stop = threading.Event(), threading.Event()
+
+    def one() -> ServeRequest:
+        with lock:
+            feats = np.clip(case.features + rng.uniform(
+                0, 0.05, case.features.shape), 0, 1).astype(np.float32)
+        req = ServeRequest(tenant=f"as-{len(kept) % 3}", features=feats,
+                           dep_src=case.dep_src, dep_dst=case.dep_dst,
+                           names=case.names, k=3)
+        with lock:
+            kept.append(req)
+        return req
+
+    def closed_loop(trickle: bool) -> None:
+        while not stop.is_set() and (trickle or not surge.is_set()):
+            req = one()
+            plane.submit(req)
+            try:
+                req.result(120.0)
+            except TimeoutError:
+                pass
+            if trickle:
+                stop.wait(0.05)
+
+    with mock.patch.dict(os.environ, {"RCA_SHARD": "0"}):
+        elected = KernelRegistry().resolve(f.shape[0], len(s), device=device)
+        oracle = GraphEngine(device=device)
+        plane = FederationPlane(
+            workers=lo, config=ServeConfig(max_batch=16, queue_cap=1024),
+            device=device, window=4,
+            worker_env={"RCA_KERNEL_CACHE": cache, "RCA_SHARD": "0"})
+        controller = AutoscaleController(
+            plane, min_workers=lo, max_workers=hi, rules=rules,
+            cooldown_s=0.35, interval_s=0.05)
+        plane.start()
+        threads = []
+        try:
+            if not plane.wait_ready(lo, timeout_s=300.0):
+                fail(f"autoscale (process): {plane.worker_table()}")
+            apps_before = _compute_apps()
+            controller.start(spawn_min=False)
+            t0 = time.perf_counter()
+            threads = [make_thread(closed_loop, name=f"smoke-as-{i}",
+                                   daemon=True, args=(False,))
+                       for i in range(AUTOSCALE_THREADS)]
+            for t in threads:
+                t.start()
+            t_end = t0 + 300.0
+            while (time.perf_counter() < t_end
+                   and len(plane.scale_status()["live"]) < hi):
+                time.sleep(0.05)
+            out["ramp_up_s"] = time.perf_counter() - t0
+            out["peaked"] = len(plane.scale_status()["live"]) >= hi
+            apps_peak = _compute_apps()
+            surge.set()
+            for t in threads:
+                t.join(180.0)
+            trickle = make_thread(closed_loop, name="smoke-as-trickle",
+                                  daemon=True, args=(True,))
+            threads.append(trickle)
+            t1 = time.perf_counter()
+            trickle.start()
+            t_end = t1 + 120.0
+            while (time.perf_counter() < t_end
+                   and len(plane.scale_status()["live"]) > lo):
+                time.sleep(0.05)
+            out["ramp_down_s"] = time.perf_counter() - t1
+            out["shrunk"] = len(plane.scale_status()["live"]) <= lo
+            stop.set()
+            trickle.join(180.0)
+            controller.stop()
+            # the drained workers' processes end; their contexts with them
+            t_end = time.perf_counter() + 60.0
+            apps_end = _compute_apps()
+            while (len(apps_end) > len(apps_before)
+                   and time.perf_counter() < t_end):
+                time.sleep(0.5)
+                apps_end = _compute_apps()
+            resps = [r.result(120.0) for r in kept]
+            out["heartbeats"] = _fed_heartbeats(plane)
+            out["stall_max_s"] = plane.stall_max_s
+            out["double_completions"] = plane.sink.double_completions
+            out["stale_responses"] = plane.stale_responses
+            out["reroutes"] = plane.reroutes
+            out["fault_classes"] = plane.fault_classes_observed()
+            out["decisions"] = [
+                {k: d.get(k) for k in ("rule", "action", "from", "to",
+                                       "spawning", "workers", "decision_ms")}
+                for d in controller.decisions if d["action"] in ("up",
+                                                                 "down")]
+            out["clamps_while_spawning"] = sum(
+                1 for d in controller.decisions
+                if d["action"] == "clamped" and d.get("spawning"))
+            events = list(plane.events)
+            reports = plane.drain_all(timeout_s=120.0)
+        finally:
+            stop.set()
+            surge.set()
+            controller.stop()
+            for t in threads:
+                t.join(30.0)
+            plane.stop()
+    for e in events + list(plane.events):
+        if e["event"] == "worker_drained" and e["worker_id"] not in reports:
+            reports[e["worker_id"]] = {k: v for k, v in e.items()
+                                       if k not in ("event", "worker_id",
+                                                    "t")}
+    spawned = {e["worker_id"]: e["t"] for e in events
+               if e["event"] == "worker_spawned"}
+    out["spawn_to_lease_s"] = {
+        str(e["worker_id"]): e["t"] - spawned[e["worker_id"]]
+        for e in events if e["event"] == "worker_joined"
+        and e["worker_id"] in spawned}
+    out["scale_ups"] = sum(e["event"] == "scale_up" for e in events)
+    out["scale_downs"] = sum(e["event"] == "scale_down" for e in events)
+    by_status: dict = {}
+    for r in resps:
+        by_status[r.status] = by_status.get(r.status, 0) + 1
+    out.update(requests=len(kept), by_status=by_status,
+               parity_checked=_kept_parity(oracle, kept, "process"),
+               compute_apps_before=len(apps_before),
+               compute_apps_peak=len(apps_peak),
+               compute_apps_end=len(apps_end), compute_apps=apps_peak,
+               elected={"winner": elected.winner, "source": elected.source})
+    walls = sorted(1e3 * (r.completed_at - q.enqueued_at)
+                   for q, r in zip(kept, resps) if r.status == "ok")
+    if walls:
+        out["e2e_ms_p50"] = walls[len(walls) // 2]
+        out["e2e_ms_p99"] = walls[min(len(walls) - 1,
+                                      int(len(walls) * 0.99))]
+    rows = {wid: [(row["winner"], row["source"])
+                  for row in r.get("kernel_rows", [])
+                  if row["variant"] == "dense"]
+            for wid, r in reports.items()}
+    out["worker_rows"] = {str(w): v for w, v in sorted(rows.items())}
+    batches = sum(r.get("device_batches", 0) for r in reports.values())
+    launches = {k: sum(r["launches"][k] for r in reports.values())
+                for k in next(iter(reports.values()))["launches"]} \
+        if reports else {}
+    out.update(device_batches=batches, launches=launches,
+               drain_reports=sorted(reports))
+    phase("autoscale", leg="process 2->4->2 at 2047", **{
+        k: v for k, v in out.items() if k != "launches"},
+        launches={k: v for k, v in launches.items() if v}, smi=smi)
+    problems = []
+    if not (out["peaked"] and out["shrunk"]):
+        problems.append("the fleet did not walk 2->4->2")
+    if by_status != {"ok": len(kept)}:
+        problems.append(f"statuses {by_status}")
+    if (out["double_completions"] or out["reroutes"]
+            or out["fault_classes"]):
+        problems.append("a fault in a clean leg")
+    if sorted(reports) != list(range(hi)):
+        problems.append(f"drain reports {sorted(reports)}")
+    if device != "cpu" and (elected.winner != "kernels" or any(
+            v != [("kernels", "cache")] for v in rows.values())):
+        problems.append(f"a worker did not read the elected row: {rows}")
+    if not (len(apps_peak) == len(apps_before) + hi - lo
+            and len(apps_end) == len(apps_before)):
+        problems.append("the contexts did not follow the fleet")
+    if problems:
+        fail(f"autoscale (process): {problems}")
+    _main_path_per_batch(launches, batches, "process")
+    return out
+
+
+def _autoscale_storms(device, smi) -> dict:
+    """``run_scaling_storm(seed=7)`` in thread mode, then over worker
+    processes (``FED_ENV``): each ``ok``, ``scaling_storm`` observed, no
+    double completion, stale drops within their bound, and no worker
+    down but the three the races kill, hang and partition; over
+    processes ``nvidia-smi``'s contexts back to their count before the
+    storm once it ends (its first race SIGKILLs a worker the moment it
+    joins, its context freshly built)."""
+    from rca_tpu_torch.serve.autoscale import run_scaling_storm
+
+    out = {}
+    for mode in ("thread", "process"):
+        tables = []
+        apps_before = _compute_apps()
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, FED_ENV), _plane_tables(tables):
+            res = run_scaling_storm(seed=7, worker_mode=mode, device=device)
+        res["seconds"] = time.perf_counter() - t0
+        t_end = time.perf_counter() + 60.0
+        apps = _compute_apps()
+        while len(apps) > len(apps_before) and time.perf_counter() < t_end:
+            time.sleep(0.5)
+            apps = _compute_apps()
+        res["compute_apps_before"] = len(apps_before)
+        res["compute_apps_after"] = len(apps)
+        downs = sorted((e["worker_id"], e.get("class"))
+                       for e in tables[-1]["events"]
+                       if e["event"] == "worker_down")
+        ph = res["phases"]
+        want = sorted([(ph[0]["worker"], "process_kill"),
+                       (ph[1]["worker"], "worker_hang"),
+                       (ph[2]["partitioned"], "coordinator_partition")])
+        res["worker_downs"] = downs
+        res["heartbeats"] = {str(w["worker_id"]): w["hb_send_gap_max_s"]
+                             for w in tables[-1]["workers"]}
+        res["stall_max_s"] = tables[-1]["stall_max_s"]
+        phase("autoscale", leg=f"scaling_storm {mode}", **res, smi=smi)
+        if (not res["ok"] or "scaling_storm"
+                not in res["fault_classes_observed"]
+                or res["double_completions"]
+                or res["stale_responses"] > res["stale_bound"]
+                or downs != want or len(apps) != len(apps_before)):
+            fail(f"autoscale (storm, {mode}): downs {downs}, want {want}, "
+                 f"contexts {len(apps_before)} before, {len(apps)} after")
+        out[mode] = res
+    return out
+
+
+def _autoscale_commands(case, device, smi, cli=()) -> dict:
+    """``serve --autoscale 2:4`` and ``serve --listen 127.0.0.1:0
+    --federation 2 --autoscale 2:4`` (4 wire requests at 2047, each
+    bitwise its solo analysis; ``fleet URL`` showing the bounds ``2:4``
+    and a running controller) as subprocesses at once, then ``chaos
+    --ticks 200`` without ``--no-autoscale``, which must observe
+    ``process_kill``, ``worker_hang``, ``coordinator_partition``,
+    ``ingest_death`` and ``scaling_storm``."""
+    import signal
+
+    import numpy as np
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.gateway import GatewayClient
+    from rca_tpu_torch.util.threads import make_thread
+
+    cmd = [sys.executable, "-m", "rca_tpu_torch"]
+    env = {**os.environ, **FED_ENV}
+    out = {}
+    soak = listen = None
+    t0 = time.perf_counter()
+    try:
+        soak = subprocess.Popen(
+            [*cmd, "serve", "--autoscale", "2:4", "--compact", *cli],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        listen = subprocess.Popen(
+            [*cmd, "serve", "--listen", "127.0.0.1:0", "--federation", "2",
+             "--autoscale", "2:4", *cli], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        banner: list = []
+        reader = make_thread(lambda: banner.append(listen.stdout.readline()),
+                             name="smoke-autoscale-banner", daemon=True)
+        reader.start()
+        reader.join(300)
+        if not banner or not banner[0]:
+            fail("serve --listen --federation 2 --autoscale 2:4 printed no "
+                 "banner in 300 s")
+        info = json.loads(banner[0])
+        if info.get("autoscale") != "2:4" or info.get("workers") != 2:
+            fail(f"serve --listen --autoscale banner: {info}")
+        host, port = info["listening"].rsplit(":", 1)
+        client = GatewayClient(host, int(port), timeout_s=300)
+        with mock.patch.dict(os.environ, FED_ENV):
+            oracle = GraphEngine(device=device)
+            rng = np.random.default_rng(20)
+            for i, f in enumerate(_serve_features(case, rng, 4)):
+                code, body, _ = client.analyze(
+                    f, case.dep_src, case.dep_dst, names=case.names,
+                    tenant=f"t{i}", k=SERVE_K)
+                want = oracle.analyze_arrays(f, case.dep_src, case.dep_dst,
+                                             case.names, k=SERVE_K).ranked
+                _wire_ok(f"serve --listen --autoscale, request {i}", code,
+                         body, want)
+        fleet = subprocess.run([*cmd, "fleet", f"http://{host}:{port}"],
+                               capture_output=True, text=True, timeout=120)
+        rows = fleet.stdout.splitlines()
+        line = json.loads(rows[-1]) if rows else {}
+        auto = line.get("autoscale") or {}
+        if (fleet.returncode != 0 or auto.get("bounds") != "2:4"
+                or auto.get("running") is not True):
+            fail(f"fleet exited {fleet.returncode}: {fleet.stdout[-1500:]}"
+                 f"{fleet.stderr[-1500:]}")
+        listen.send_signal(signal.SIGTERM)
+        _, err = listen.communicate(timeout=120)
+        if listen.returncode != 0:
+            fail(f"serve --listen --autoscale exited {listen.returncode}: "
+                 f"{err[-2000:]}")
+        out["serve_listen_autoscale"] = {"exit": 0, "banner": info,
+                                         "fleet_rows": rows[:3],
+                                         "fleet_line": line}
+        stdout, stderr = soak.communicate(timeout=600)
+        if soak.returncode != 0:
+            fail(f"serve --autoscale 2:4 exited {soak.returncode}: "
+                 f"{stdout[-1500:]} {stderr[-1500:]}")
+        body = json.loads(stdout.strip().splitlines()[-1])
+        out["serve_autoscale"] = {"exit": 0, **{k: body[k] for k in (
+            "ok", "requests", "by_status", "ramp_up_s", "ramp_down_s",
+            "request_ms_p50", "request_ms_p99", "scale_decision_ms_p50",
+            "placement_hit_rate", "double_completions")}}
+    finally:
+        for p in (soak, listen):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    out["together_s"] = time.perf_counter() - t0
+    phase("autoscale", leg="commands", **out, smi=smi)
+    out["chaos"] = _chaos_command(env, smi, "autoscale", list(cli))
+    return out
+
+
+def autoscale_phase(cases, smi: str, device="cuda", cli=()) -> dict:
+    """The elastic fleet on the card: the thread soak 2→8→2 and the
+    process fleet 2→4→2 at 2047, both storms, the commands."""
+    t_phase = time.perf_counter()
+    case = cases[AUTOSCALE_SERVICES]
+    out = {"thread": _autoscale_thread_leg(device, smi),
+           "process": _autoscale_process_leg(case, device, smi),
+           "storm": _autoscale_storms(device, smi),
+           "commands": _autoscale_commands(case, device, smi, cli)}
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("autoscale", seconds=out["seconds"], smi=smi)
     return out
 
 

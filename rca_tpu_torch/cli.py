@@ -544,11 +544,19 @@ def cmd_stream(args) -> int:
     return 0
 
 
-#: serve modes that are not ported yet, and the module (its A-id in
-#: ROADMAP.md) that ports each
-_SERVE_NOT_PORTED = {
-    "autoscale": "the autoscaler's controller (A14)",
-}
+def _parse_autoscale(spec: str):
+    """``MIN:MAX`` → (min, max) with loud validation."""
+    m = re.fullmatch(r"(\d+):(\d+)", (spec or "").strip())
+    if not m:
+        raise SystemExit(
+            f"--autoscale wants MIN:MAX (e.g. 2:8), got {spec!r}"
+        )
+    mn, mx = int(m.group(1)), int(m.group(2))
+    if not 1 <= mn <= mx:
+        raise SystemExit(
+            f"--autoscale {spec!r}: need 1 <= MIN <= MAX"
+        )
+    return mn, mx
 
 
 def cmd_serve(args) -> int:
@@ -559,23 +567,22 @@ def cmd_serve(args) -> int:
     ``<N>svc`` graph prints throughput, the per-tenant metrics and the
     plane's kernelscope summary (the registry row that served the shape);
     it exits 0 only when every request was served ok.  ``--listen``
-    serves over the wire instead (:func:`_serve_listen`); ``--federation
-    N`` (or ``--kill-worker``) runs the cross-process selftest: N worker
-    processes on ``--device``, wire load, optionally one SIGKILLed
-    mid-wave; exit 0 only when every request is terminal, every ok
-    ranking is bitwise a solo analysis in this process and no request
-    completed twice."""
+    serves over the wire instead (:func:`_serve_listen`).  ``--autoscale
+    MIN:MAX`` alone runs the load-ramp soak: a thread fleet on one engine
+    on ``--device`` scales MIN→MAX→MIN under continuous traffic; exit 0
+    only when every request is terminal, none completed twice and the
+    windowed queue p99 stayed bounded through both transitions.
+    ``--federation N`` (or ``--kill-worker``) runs the cross-process
+    selftest: N worker processes on ``--device``, wire load, optionally
+    one SIGKILLed mid-wave; exit 0 only when every request is terminal,
+    every ok ranking is bitwise a solo analysis in this process and no
+    request completed twice."""
     import time
 
     import numpy as np
 
     from rca_tpu_torch.config import ServeConfig
 
-    for flag, what in _SERVE_NOT_PORTED.items():
-        if getattr(args, flag):
-            print(f"rca_tpu_torch serve: --{flag} is not ported yet: it "
-                  f"comes with {what}", file=sys.stderr)
-            return 2
     overrides = {
         k: v for k, v in (
             ("max_batch", args.max_batch),
@@ -591,6 +598,16 @@ def cmd_serve(args) -> int:
     if args.listen:
         return _serve_listen(args, config)
     indent = None if args.compact else 2
+    if args.autoscale and args.federation is None:
+        from rca_tpu_torch.serve.autoscale import run_scale_ramp_soak
+
+        mn, mx = _parse_autoscale(args.autoscale)
+        summary = run_scale_ramp_soak(
+            seed=args.seed, min_workers=mn, max_workers=mx,
+            config=config, device=args.device,
+        )
+        print(json.dumps(summary, indent=indent, default=str))
+        return 0 if summary["ok"] else 1
     if args.federation is not None or args.kill_worker:
         from rca_tpu_torch.serve.federation import federation_selftest
 
@@ -702,7 +719,10 @@ def _serve_listen(args, config) -> int:
     serve notes in the store under ``--log-dir``.  With ``--federation
     N`` the gateway fronts a :class:`FederationPlane` of N worker
     processes on ``--device`` instead (its ``/healthz`` carries the
-    worker table that ``fleet`` reads)."""
+    worker table that ``fleet`` reads); ``--autoscale MIN:MAX`` then
+    attaches an :class:`AutoscaleController` that walks the fleet inside
+    MIN..MAX (N must lie in those bounds; ``--autoscale`` without
+    ``--federation`` is refused)."""
     import signal
     import threading
 
@@ -730,6 +750,23 @@ def _serve_listen(args, config) -> int:
             "live in the worker processes (use `canary --listen-url` to "
             "mint recordings off the live gateway)"
         )
+    autoscale_spec = args.autoscale
+    if autoscale_spec and not federated:
+        raise SystemExit(
+            "--autoscale with --listen needs --federation N (an elastic "
+            "fleet is a federation property; in-process pools resize "
+            "via RCA_SERVE_REPLICAS)"
+        )
+    if autoscale_spec:
+        # --federation N is the starting width and must sit inside the
+        # bounds: refused before a worker is spawned
+        bounds = _parse_autoscale(autoscale_spec)
+        if not bounds[0] <= federated <= bounds[1]:
+            raise SystemExit(
+                f"--autoscale {autoscale_spec}: --federation "
+                f"{federated} is outside [{bounds[0]}, {bounds[1]}]"
+            )
+    controller = None
     if federated:
         # the front door over a whole worker fleet
         from rca_tpu_torch.serve.federation import FederationPlane
@@ -752,6 +789,16 @@ def _serve_listen(args, config) -> int:
                 f"federation: only {len(loop.live_workers())}/"
                 f"{federated} workers joined"
             )
+        if autoscale_spec:
+            # the controller watches queue-time p99 / SLO burn /
+            # occupancy and walks the fleet inside MIN..MAX through
+            # SCALE_RULES
+            from rca_tpu_torch.serve.autoscale import AutoscaleController
+
+            controller = AutoscaleController(
+                loop, min_workers=bounds[0], max_workers=bounds[1],
+            )
+            controller.start(spawn_min=False)
     elif pooled:
         loop = ServePool(config=config, recorder=recorder, store=store,
                          devices=visible_devices(resolve_device(args.device)))
@@ -774,6 +821,9 @@ def _serve_listen(args, config) -> int:
         **({"workers": len(loop.live_workers()), "control": loop.address}
            if federated else
            {"replicas": len(loop.replicas) if pooled else 1}),
+        **({"autoscale": f"{controller.min_workers}:"
+                         f"{controller.max_workers}"}
+           if controller is not None else {}),
         "tls": gw.tls_context is not None,
         "authn": bool(gw.tokens),
         "max_body": gw.max_body,
@@ -784,6 +834,8 @@ def _serve_listen(args, config) -> int:
         while not stop.is_set():
             stop.wait(0.5)
     finally:
+        if controller is not None:
+            controller.stop()
         gw.close()
         loop.stop()
         if recorder is not None:
@@ -930,12 +982,13 @@ def cmd_chaos(args) -> int:
     ``coordinator_partition`` against a live fleet of
     ``--federation-workers`` worker processes on ``--device``, gated on
     every request terminal, no double completion, every class observed
-    and a rejoin) and, without ``--no-ingest``, the ingest fleet's
-    ``ingest_death`` (gated on the move to a survivor, the reclaim on
-    rejoin and no double-applied capture tick).  Exit 0 only when the
-    contract holds; exit 2 when it would need the ``scaling_storm`` leg,
-    which comes with the autoscaler's controller (pass
-    ``--no-autoscale``)."""
+    and a rejoin), without ``--no-autoscale`` the elastic fleet's
+    ``scaling_storm`` (forced scale transitions racing those faults on a
+    thread fleet on ``--device``, gated on every request terminal, no
+    double completion, bounded stale drops and every race observed) and,
+    without ``--no-ingest``, the ingest fleet's ``ingest_death`` (gated
+    on the move to a survivor, the reclaim on rejoin and no double-applied
+    capture tick).  Exit 0 only when the contract holds."""
     from rca_tpu_torch.config import chaos_seed
     from rca_tpu_torch.resilience.chaos import ChaosConfig, run_chaos_soak
 
@@ -945,14 +998,6 @@ def cmd_chaos(args) -> int:
             f"chaos needs a synthetic fixture (<N>svc), got {args.fixture!r}"
         )
     federation = args.ticks >= 100 and not args.no_federation
-    if federation and not args.no_autoscale:
-        print("rca_tpu_torch chaos: at --ticks >= 100 the soak adds the "
-              "scaling_storm leg, which comes with the autoscaler's "
-              "controller (A14, not ported yet); pass --no-autoscale to "
-              "run the federation and ingest legs without it, or "
-              "--no-federation to soak the live session alone",
-              file=sys.stderr)
-        return 2
     n_services = int(m.group(1))
     seed = args.seed if args.seed is not None else chaos_seed()
 
@@ -981,6 +1026,20 @@ def cmd_chaos(args) -> int:
             seed=seed, workers=args.federation_workers, device=args.device,
         )
         fed_ok = summary["federation"]["ok"]
+    # the scaling_storm leg: forced scale transitions racing the
+    # federation's fault seams (scale-up vs SIGKILL, rejoin vs drain,
+    # partition during scale-down)
+    auto_ok = True
+    if federation and not args.no_autoscale:
+        from rca_tpu_torch.serve.autoscale import run_scaling_storm
+
+        summary["autoscale"] = run_scaling_storm(seed=seed,
+                                                 device=args.device)
+        auto_ok = (
+            summary["autoscale"]["ok"]
+            and "scaling_storm"
+            in summary["autoscale"]["fault_classes_observed"]
+        )
     # the ingest leg: SIGKILL the ingest worker that owns capture
     # mirrors mid-soak; the coordinator's cluster table must move them
     # to a survivor and apply no tick twice
@@ -1006,6 +1065,7 @@ def cmd_chaos(args) -> int:
         and summary["parity_ok"]
         and (summary["all_classes_observed"] or args.ticks < 100)
         and fed_ok
+        and auto_ok
         and ingest_ok
         # --record adds the record → replay parity leg
         and summary.get("replay", {}).get("parity_ok", True)
@@ -1457,9 +1517,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bind the federation control port on 0.0.0.0 and "
                     "advertise this host's primary IP, so workers on other "
                     "hosts can join through --connect")
-    for flag, what in _SERVE_NOT_PORTED.items():
-        sp.add_argument(f"--{flag}", default=None, metavar="ARG",
-                        help=f"not ported yet (exits 2): {what}")
+    sp.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                    help="elastic fleet bounds.  Alone: run the load-ramp "
+                    "soak (a thread fleet on --device scales MIN→MAX→MIN "
+                    "under continuous traffic; exit 0 only when every "
+                    "request is terminal, none completed twice and the "
+                    "windowed queue p99 stayed bounded).  With --listen "
+                    "--federation N: attach the SCALE_RULES controller to "
+                    "the live fleet (N within MIN..MAX)")
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser(
@@ -1643,9 +1708,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="worker processes in the federation chaos leg")
     sp.add_argument("--no-autoscale", action="store_true",
                     dest="no_autoscale",
-                    help="skip the scaling_storm leg, which comes with the "
-                    "autoscaler's controller: without it (or "
-                    "--no-federation), --ticks >= 100 exits 2")
+                    help="skip the scaling_storm leg (forced scale "
+                    "transitions racing worker kill / hang / partition "
+                    "on a thread fleet)")
     sp.add_argument("--no-ingest", action="store_true", dest="no_ingest",
                     help="skip the ingest_death leg (SIGKILL the "
                     "capture-mirror owner; exactly-once tick gate)")

@@ -36,7 +36,9 @@ canary's: :func:`gateway_port`, :func:`gateway_max_body`,
 :func:`gateway_tls_client_ca`, :func:`gateway_tokens` and
 :func:`gateway_tenant_rps`, and the cross-process plane's:
 :func:`fed_workers`, :func:`fed_heartbeat_s`, :func:`fed_lease_misses`,
-:func:`fed_window` (``RCA_FED_*``), :func:`ingest_tick_s`
+:func:`fed_window`, the autoscaler's :func:`fed_scale_min`,
+:func:`fed_scale_max`, :func:`fed_scale_cooldown_s` and
+:func:`fed_scale_interval_s` (``RCA_FED_*``), :func:`ingest_tick_s`
 (``RCA_INGEST_TICK_S``), :func:`env_int_opt` and :func:`environ_copy`.
 """
 
@@ -565,7 +567,10 @@ def gateway_tenant_rps() -> float:
 
 
 # -- the cross-process plane ---------------------------------------------------
-# the federation's knobs keep the reference's names, ranges and defaults;
+# the federation's knobs keep the reference's names, ranges and defaults
+# (the autoscaler's: RCA_FED_SCALE_MIN [1, 64] default 1, RCA_FED_SCALE_MAX
+# [1, 64] default 8, RCA_FED_SCALE_COOLDOWN_S [0.05, 600] default 10.0,
+# RCA_FED_SCALE_INTERVAL_S [0.01, 60] default 1.0);
 # the bootstrap reads torchrun's WORLD_SIZE / RANK / LOCAL_RANK through
 # env_int_opt (unset means "not given", 0 is a real rank)
 
@@ -604,6 +609,26 @@ def fed_lease_misses() -> int:
 def fed_window() -> int:
     """``RCA_FED_WINDOW``: per-worker outstanding-request window."""
     return env_int("RCA_FED_WINDOW", 64, 1, 4096)
+
+
+def fed_scale_min() -> int:
+    """``RCA_FED_SCALE_MIN``: autoscaler fleet floor."""
+    return env_int("RCA_FED_SCALE_MIN", 1, 1, 64)
+
+
+def fed_scale_max() -> int:
+    """``RCA_FED_SCALE_MAX``: autoscaler fleet ceiling."""
+    return env_int("RCA_FED_SCALE_MAX", 8, 1, 64)
+
+
+def fed_scale_cooldown_s() -> float:
+    """``RCA_FED_SCALE_COOLDOWN_S``: quiet period after a scale action."""
+    return env_float("RCA_FED_SCALE_COOLDOWN_S", 10.0, 0.05, 600.0)
+
+
+def fed_scale_interval_s() -> float:
+    """``RCA_FED_SCALE_INTERVAL_S``: controller sweep cadence (seconds)."""
+    return env_float("RCA_FED_SCALE_INTERVAL_S", 1.0, 0.01, 60.0)
 
 
 def ingest_tick_s() -> float:

@@ -1,5 +1,5 @@
 """Cross-process serve federation: the control plane (the port's copy of
-``rca_tpu.serve.federation``, less the autoscaler's controller).
+``rca_tpu.serve.federation``).
 
 The serve pool is N replica threads in ONE process: a single process
 death takes the whole plane down.  :class:`FederationPlane` closes that
@@ -57,8 +57,9 @@ Retirement goes through :meth:`FederationPlane.drain_worker`: the worker
 leaves the ring first, finishes its in-flight work, answers
 ``drained``, and only then is its process terminated, so a retirement is
 invisible to the exactly-once contract (and never counted as a fault).
-The autoscaler's controller, which drives it, comes in the next slice of
-the port; ``autoscaler`` stays None until then.
+The autoscaler's controller (:class:`rca_tpu_torch.serve.autoscale.
+AutoscaleController`) drives it, and registers itself as ``autoscaler``
+so ``/healthz`` reports the elastic state.
 
 Concurrency: all threads named via :mod:`rca_tpu_torch.util.threads`;
 ``FederationPlane._lock`` guards the worker table, ring, and pending map
@@ -363,6 +364,9 @@ class _WorkerHandle:
         self.hb_send_gap_max_s = 0.0
         self.hb_recv_gap_max_s = 0.0
         self.hb_lag_max_s = 0.0
+        # a process this plane spawned that has not said hello yet: the
+        # autoscaler counts it as capacity on its way
+        self.awaiting_hello = False
 
     def note_heartbeat(self, sent_at: Optional[float], now: float) -> None:
         """Fold one heartbeat read at ``now`` into the timing maxima."""
@@ -506,7 +510,7 @@ class FederationPlane:
         # multi-host: the address workers DIAL may differ from the bind
         # address (bind 0.0.0.0, advertise the host's reachable IP); an
         # attached autoscale controller registers itself here so
-        # /healthz can report the elastic state (None in this slice)
+        # /healthz can report the elastic state
         self.advertise_host = advertise_host
         self.autoscaler = None
 
@@ -596,6 +600,8 @@ class FederationPlane:
                 int(worker_id), _WorkerHandle(worker_id)
             )
             handle.proc = proc
+            handle.role = str(role)
+            handle.awaiting_hello = True
         self._event("worker_spawned", worker_id, pid=proc.pid)
         return proc
 
@@ -814,9 +820,11 @@ class FederationPlane:
     def scale_status(self) -> Dict[str, Any]:
         """The fleet in one lock acquisition (what the autoscaler's
         controller reads): routable workers, retirements in progress, the
-        per-worker outstanding map (the scale-down victim policy), and
-        the next NEVER-REUSED worker id (reusing a retired id would
-        alias its late, stale responses onto a fresh worker)."""
+        serve processes spawned here that have not said hello yet (alive:
+        capacity on its way), the per-worker outstanding map (the
+        scale-down victim policy), and the next NEVER-REUSED worker id
+        (reusing a retired id would alias its late, stale responses onto
+        a fresh worker)."""
         with self._lock:
             live = sorted(
                 w.worker_id for w in self.workers.values()
@@ -826,13 +834,18 @@ class FederationPlane:
                 w.worker_id for w in self.workers.values()
                 if w.live and w.draining
             )
+            spawning = sorted(
+                w.worker_id for w in self.workers.values()
+                if w.awaiting_hello and w.role == "serve"
+                and w.proc is not None and w.proc.alive()
+            )
             outstanding = {
                 w.worker_id: w.outstanding
                 for w in self.workers.values() if w.live
             }
             next_id = max(self.workers) + 1 if self.workers else 0
         return {
-            "live": live, "draining": draining,
+            "live": live, "draining": draining, "spawning": spawning,
             "outstanding": outstanding, "next_id": next_id,
         }
 
@@ -886,6 +899,7 @@ class FederationPlane:
             w.lease = lease
             w.hello = dict(hello)
             w.live = True
+            w.awaiting_hello = False
             w.partitioned_until = 0.0
             w.hb_last_sent = w.hb_last_recv = None   # a fresh lease
             # a hello on a NEW connection is a new process: any drain

@@ -1,6 +1,5 @@
 """Per-tenant serving metrics (the port's copy of
-``rca_tpu.serve.metrics``; the autoscaler's signals come with its
-controller).
+``rca_tpu.serve.metrics``).
 
 One :class:`ServeMetrics` per :class:`rca_tpu_torch.serve.loop.ServeLoop`
 or :class:`rca_tpu_torch.serve.pool.ServePool`: counters per tenant
@@ -9,14 +8,16 @@ samples per tenant (p50/p99 through
 :class:`rca_tpu_torch.obslog.profiling.PhaseStats`), submit→completion
 duration histograms with the SLO burn count, the queue depth peak, batch
 occupancy per device dispatch, the prepared-graph cache and resident
-reuse, the pool's per-replica rows and the federation's placement
-outcomes.  Everything is thread-safe: the
+reuse, the pool's per-replica rows, the federation's placement
+outcomes and the autoscaler's signals (a windowed queue-time p99, the
+SLO-burn total) and action counters.  Everything is thread-safe: the
 submit path and the serve workers record concurrently; :meth:`snapshot`
 copies under the lock and :meth:`summary` derives off it.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Optional
 
 from rca_tpu_torch.config import slo_ms
@@ -26,6 +27,17 @@ from rca_tpu_torch.util.threads import make_lock
 
 _COUNTER_KEYS = (
     "submitted", "answered", "shed", "rejected", "degraded", "errors",
+)
+
+#: recent time-in-queue samples kept for the autoscaler's WINDOWED p99.
+#: PhaseStats quantiles are all-time: after one surge the all-time p99
+#: never falls again, so a scale-down signal fed by it could never fire;
+#: the controller reads this bounded window instead
+_RECENT_QUEUE_CAP = 512
+
+_SCALE_EVENTS = (
+    "scale_ups", "scale_downs", "holds", "cooldown_skips", "clamps",
+    "forced",
 )
 
 
@@ -56,8 +68,14 @@ class ServeMetrics:
         # work-steal accounting, the last reported breaker/liveness state
         self._replicas: Dict[int, Dict[str, object]] = {}
         self._replica_occ = PhaseStats()   # one phase per replica id
-        # the federation's routing picks: preferred = a registry/headroom-
-        # informed pick, rendezvous = the hash-ring fallback
+        # the autoscaler's windowed queue-time signal and its action
+        # counters; the federation's routing picks: preferred = a
+        # registry/headroom-informed pick, rendezvous = the hash-ring
+        # fallback
+        self._recent_queue_ms: "collections.deque[float]" = (
+            collections.deque(maxlen=_RECENT_QUEUE_CAP)
+        )
+        self._scale_events: Dict[str, int] = {k: 0 for k in _SCALE_EVENTS}
         self._placement: Dict[str, int] = {"preferred": 0, "rendezvous": 0}
 
     def _tenant(self, tenant: str) -> Dict[str, int]:
@@ -75,6 +93,7 @@ class ServeMetrics:
         with self._lock:
             self._tenant(tenant)["answered"] += 1
             self._queue_ms.record(tenant, queue_ms)
+            self._recent_queue_ms.append(float(queue_ms))
 
     def shed(self, tenant: str) -> None:
         with self._lock:
@@ -169,12 +188,36 @@ class ServeMetrics:
         with self._lock:
             self._replica(replica_id)["state"] = state
 
-    # -- federation ----------------------------------------------------------
+    # -- federation and its autoscaler ----------------------------------------
+    def scale_event(self, kind: str) -> None:
+        """One autoscaler outcome: ``scale_ups``/``scale_downs``/
+        ``holds``/``cooldown_skips``/``clamps``/``forced``."""
+        with self._lock:
+            self._scale_events[kind] += 1
+
     def placement(self, outcome: str) -> None:
         """One routing pick: ``preferred`` (registry/headroom-informed)
         or ``rendezvous`` (the hash-ring fallback)."""
         with self._lock:
             self._placement[outcome] += 1
+
+    def autoscale_signals(self) -> Dict[str, object]:
+        """The controller's metric-side inputs in one lock acquisition:
+        the WINDOWED cross-tenant queue-time p99 (the last
+        ``_RECENT_QUEUE_CAP`` answers) and the running SLO-breach total
+        (the controller differentiates it into a burn between sweeps)."""
+        with self._lock:
+            recent = sorted(self._recent_queue_ms)
+            breaches = sum(self._slo_breaches.values())
+        p99 = (
+            recent[min(len(recent) - 1, int(len(recent) * 0.99))]
+            if recent else None
+        )
+        return {
+            "queue_ms_p99_recent": p99,
+            "recent_samples": len(recent),
+            "slo_breach_total": breaches,
+        }
 
     # -- reporting -----------------------------------------------------------
     def snapshot(self) -> Dict[str, object]:
@@ -203,6 +246,7 @@ class ServeMetrics:
                 },
                 "slo_breaches": dict(self._slo_breaches),
                 "slo_ms": self.slo_ms_target,
+                "scale_events": dict(self._scale_events),
                 "placement": dict(self._placement),
             }
 
@@ -265,18 +309,26 @@ class ServeMetrics:
             "rejected_total": sum(
                 c["rejected"] for c in counts.values()
             ),
-            **self._placement_summary(snap),
+            **self._autoscale_summary(snap),
         }
 
     @staticmethod
-    def _placement_summary(snap: Dict[str, object]) -> Dict[str, object]:
-        """The placement block, only when the federation routed anything:
-        a loop's or a pool's summary keeps its keys."""
+    def _autoscale_summary(snap: Dict[str, object]) -> Dict[str, object]:
+        """The autoscale and placement blocks, only when the autoscaler
+        acted or the federation routed anything: a loop's or a pool's
+        summary keeps its keys."""
+        events: Dict[str, int] = snap["scale_events"]   # type: ignore
         placement: Dict[str, int] = snap["placement"]   # type: ignore
         picks = sum(placement.values())
-        if picks == 0:
+        if not any(events.values()) and picks == 0:
             return {}
-        return {"placement": {
-            **placement,
-            "hit_rate": round(placement["preferred"] / picks, 4),
-        }}
+        return {
+            "autoscale": dict(events),
+            "placement": {
+                **placement,
+                "hit_rate": (
+                    round(placement["preferred"] / picks, 4)
+                    if picks else None
+                ),
+            },
+        }

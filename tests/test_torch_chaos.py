@@ -10,9 +10,9 @@ JAX package's.
   ``faults_injected`` counts and resilience counters as the reference's
   soak (exact), no uncaught exception, fault-free ticks bitwise the
   baseline, and with a recorder the replay leg in parity;
-- ``python -m rca_tpu_torch chaos``: exit 0 when the contract holds, 2
-  at ``--ticks`` >= 100 without ``--no-federation`` or ``--no-autoscale``
-  (the ``scaling_storm`` leg of A14 is not ported), and
+- ``python -m rca_tpu_torch chaos``: exit 0 when the contract holds, at
+  ``--ticks`` >= 100 with the federation, ``scaling_storm`` and ingest
+  legs (A14) or with ``--no-federation`` without them, and
   ``RCA_CHAOS_SEED`` parsed as the reference parses it.
 """
 
@@ -165,12 +165,14 @@ def test_chaos_cli_exit_codes(tmp_path, capsys):
     assert summary["seed"] == 7 and summary["replay"]["parity_ok"]
     assert main(["replay", rec, "--device", "cpu", "--compact"]) == 0
     capsys.readouterr()
-    # the scaling_storm leg belongs to A14
+    # from 100 ticks the process-level legs run, the scaling_storm leg
+    # (A14) among them
     assert main(["chaos", "--fixture", "20svc", "--ticks", "100",
-                 "--device", "cpu"]) == 2
-    out = capsys.readouterr()
-    assert "A14" in out.err and "--no-federation" in out.err
-    assert out.out == ""
+                 "--device", "cpu", "--compact"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["autoscale"]["ok"] and "scaling_storm" in summary[
+        "autoscale"]["fault_classes_observed"]
+    assert summary["federation"]["ok"] and summary["ingest"]["ok"]
     assert main(["chaos", "--fixture", "20svc", "--ticks", "100",
                  "--no-federation", "--seed", "11", "--device", "cpu",
                  "--compact"]) == 0

@@ -12,8 +12,8 @@
   with their rejoins, and the ingest owner's death (moved, reclaimed, no
   tick applied twice);
 - the CLI: ``serve --federation 2`` and ``--kill-worker``, ``ingest``,
-  and the two modes that still exit 2 naming A14 (``serve --autoscale``,
-  ``chaos --ticks 100`` without ``--no-autoscale``).
+  ``serve --autoscale 2:3`` (the ramp soak) and ``chaos --ticks 100``
+  with its ``scaling_storm`` leg.
 
 The lease timings are generous (a 1 s heartbeat where the contract does
 not need a fast one): these run beside other test files on a loaded
@@ -167,11 +167,22 @@ def test_ingest_cli_on_the_cpu():
 
 
 def test_autoscale_modes_exit_2_naming_a14(capsys):
+    """The two modes that exited 2 naming A14 now run: ``serve
+    --autoscale 2:3`` the ramp soak on the CPU, and ``chaos`` from 100
+    ticks, without ``--no-autoscale``, its ``scaling_storm`` leg beside
+    the federation and ingest legs."""
     from rca_tpu_torch.cli import main
 
-    assert main(["serve", "--autoscale", "1:2", "--device", "cpu"]) == 2
-    assert "A14" in capsys.readouterr().err
+    assert main(["serve", "--autoscale", "2:3", "--device", "cpu",
+                 "--compact"]) == 0
+    soak = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert soak["ok"] and (soak["min_workers"], soak["max_workers"]) == (2, 3)
+    assert soak["double_completions"] == 0 and soak["shrunk"]
     assert main(["chaos", "--fixture", "12svc", "--ticks", "100",
-                 "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "A14" in err and "--no-autoscale" in err
+                 "--device", "cpu", "--compact"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    storm = report["autoscale"]
+    assert storm["ok"] and storm["worker_mode"] == "thread"
+    assert "scaling_storm" in storm["fault_classes_observed"]
+    assert storm["double_completions"] == 0
+    assert report["federation"]["ok"] and report["ingest"]["ok"]

@@ -903,16 +903,23 @@ def test_serve_listen_subprocess(tmp_path, engine, case):
 
 
 @pytest.mark.parametrize("argv", [
-    # the federation is ported; in front of it the unported autoscaler
-    # still exits 2 before a worker is spawned
-    ["--listen", "127.0.0.1:0", "--federation", "2", "--autoscale", "1:2"],
+    # a starting width outside the autoscaler's bounds, and --autoscale
+    # in front of a loop: both refused before a socket is bound or a
+    # worker spawned, with the reference's messages
+    ["--listen", "127.0.0.1:0", "--federation", "2", "--autoscale", "3:4"],
     ["--listen", "127.0.0.1:0", "--autoscale", "1:2"],
 ])
 def test_serve_federation_and_autoscale_exit_2(argv):
     proc = subprocess.run(
         [sys.executable, "-m", "rca_tpu_torch", "serve", *argv, "--device",
          "cpu"], cwd=str(ROOT), capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and "A14" in proc.stderr
+    want = ("--autoscale 3:4: --federation 2 is outside [3, 4]"
+            if "--federation" in argv else
+            "--autoscale with --listen needs --federation N (an elastic "
+            "fleet is a federation property; in-process pools resize via "
+            "RCA_SERVE_REPLICAS)")
+    assert proc.returncode == 1
+    assert proc.stderr.strip().splitlines()[-1] == want
     assert proc.stdout == ""
 
 

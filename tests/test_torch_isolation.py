@@ -28,11 +28,14 @@
   ``RCA_TORCH_PROFILE``), and the federation's worker processes of both
   roles, ``python -m rca_tpu_torch.serve.worker --device cpu`` serving a
   request and ``--role ingest`` ticking a cluster (their own modules read
-  at exit; the ingest worker never initialises CUDA); the native scanner
+  at exit; the ingest worker never initialises CUDA), and the elastic
+  fleet (a thread-mode ramp soak, a controller attached to a plane with
+  its thread spawner); the native scanner
   loaded is the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   and ``profile`` included), the streaming sessions, ``replay``,
-  ``chaos``, the recompile gate and a federation serve worker raise (or
+  ``chaos``, the recompile gate, a federation serve worker and a thread
+  fleet member (with the soak and ``serve --autoscale``) raise (or
   exit non-zero, naming the cause) unless the caller asks for the CPU,
   and ``chip_smoke.py``
   exits non-zero with no verdict line;
@@ -734,6 +737,69 @@ def test_federation_workers_of_both_roles_load_no_jax():
         assert [m for m in dump["modules"] if _forbidden(m)] == [], role
     assert "rca_tpu_torch.serve.ingest" in dumps["ingest"]["modules"]
     assert not dumps["ingest"]["cuda"]
+
+
+_AUTOSCALE_PROBE = """
+import json, sys
+from rca_tpu_torch.serve.autoscale import (AutoscaleController,
+                                           run_scale_ramp_soak,
+                                           thread_fleet_spawner)
+from rca_tpu_torch.serve.federation import FederationPlane
+soak = run_scale_ramp_soak(seed=0, min_workers=2, max_workers=3,
+                           device="cpu")
+plane = FederationPlane(workers=0, spawn_workers=False, heartbeat_s=1.0,
+                        device="cpu").start()
+fleet = {}
+ctl = AutoscaleController(plane, min_workers=1, max_workers=2,
+                          interval_s=0.05,
+                          spawner=thread_fleet_spawner(plane, fleet,
+                                                       device="cpu"))
+try:
+    ctl.start()
+    ready = plane.wait_ready(1, timeout_s=60.0)
+    health = plane.health()["autoscale"]
+finally:
+    ctl.stop()
+    plane.stop()
+    for tw in fleet.values():
+        tw.close(5.0)
+print(json.dumps({"soak": soak["ok"], "ready": ready,
+                  "running": health["running"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_elastic_fleet_loads_no_jax_and_no_rca_tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", _AUTOSCALE_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=240, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["soak"] and out["ready"] and out["running"]
+    assert "rca_tpu_torch.serve.autoscale" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+def test_thread_fleet_without_device_fails_without_cuda(no_cuda):
+    """A thread fleet member, the soak and ``serve --autoscale`` without
+    ``--device cpu`` raise (or exit non-zero naming CUDA) on a host
+    without a card: none serves from the CPU in the card's place."""
+    from rca_tpu_torch.serve.autoscale import (
+        ThreadWorker,
+        run_scale_ramp_soak,
+    )
+
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ThreadWorker(0, "127.0.0.1", 9, device=device)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scale_ramp_soak()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rca_tpu_torch", "serve", "--autoscale",
+         "2:3"], cwd=str(ROOT), capture_output=True, text=True, timeout=180)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_serve_worker_without_device_fails_without_cuda(no_cuda):

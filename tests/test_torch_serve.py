@@ -1038,22 +1038,43 @@ def test_serve_cli_selftest_and_load():
 @pytest.mark.parametrize("flag,item", [
     ("--listen", "A9"), ("--federation", "A14"), ("--autoscale", "A14"),
 ])
-def test_serve_cli_unported_modes_exit_2(capsys, flag, item):
-    """``--autoscale`` exits 2 naming A14 (the autoscaler's controller).
-    The gateway (``--listen``, A9) and the federation (``--federation``)
-    are ported: with ``--autoscale`` each still exits 2, naming A14,
-    before a socket is bound or a worker spawned."""
+def test_serve_cli_unported_modes_exit_2(capsys, tmp_path, flag, item):
+    """The serve modes around ``--autoscale`` (A14, the autoscaler's
+    controller; ``--listen`` is A9's gateway), each against the
+    reference's CLI: ``--listen --autoscale`` without ``--federation`` is
+    refused with the reference's message, as is ``--federation N`` outside
+    ``[MIN, MAX]`` (before a worker is spawned); ``--autoscale 2:3`` alone
+    runs the ramp soak on the CPU, exits 0 and prints the reference
+    soak's keys."""
+    from rca_tpu.cli import main as ref_main
     from rca_tpu_torch.cli import main
 
-    argv = ["serve", flag, "x", "--device", "cpu"]
+    log_dir = ["--log-dir", str(tmp_path)]
+    if flag == "--autoscale":
+        argv = ["serve", "--autoscale", "2:3", "--seed", "0", "--compact"]
+        assert main([*argv, "--device", "cpu"]) == 0, item
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert ref_main(argv) == 0
+        ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert set(out) == set(ref)
+        for key in ("ok", "worker_mode", "min_workers", "max_workers",
+                    "all_terminal", "double_completions", "peaked",
+                    "shrunk", "p99_ok", "placement_hit_rate"):
+            assert out[key] == ref[key], key
+        assert out["ok"] and out["by_status"] == {"ok": out["requests"]}
+        return
     if flag == "--listen":
         argv = ["serve", "--listen", "127.0.0.1:0", "--autoscale", "1:2",
-                "--device", "cpu"]
-        item = "A14"
-    elif flag == "--federation":
-        argv = ["serve", "--federation", "2", "--autoscale", "1:2",
-                "--device", "cpu"]
-    assert main(argv) == 2
-    out = capsys.readouterr()
-    assert "not ported yet" in out.err and item in out.err
-    assert out.out == ""
+                *log_dir]
+        with pytest.raises(SystemExit) as theirs:
+            ref_main(argv)
+        want = str(theirs.value.code)
+    else:
+        argv = ["serve", "--listen", "127.0.0.1:0", "--federation", "2",
+                "--autoscale", "3:4", *log_dir]
+        want = "--autoscale 3:4: --federation 2 is outside [3, 4]"
+    with pytest.raises(SystemExit) as mine:
+        main([*argv, "--device", "cpu"])
+    assert str(mine.value.code) == want, item
+    assert "--federation" in want
+    assert capsys.readouterr().out == ""
