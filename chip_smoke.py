@@ -14,6 +14,8 @@
                                        # federation phase alone
     python3 chip_smoke.py --autoscale-only   # the build, then the
                                        # autoscale phase alone
+    python3 chip_smoke.py --lint-only  # the build, then the lint
+                                       # phase alone
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
@@ -412,6 +414,20 @@ and the flagged scans never (:func:`main_launches`).
    controller) as subprocesses at once, and ``chaos --ticks 200``, which
    must observe ``process_kill``, ``worker_hang``,
    ``coordinator_partition``, ``ingest_death`` and ``scaling_storm``.
+24. ``lint``: the analysis plane on the card (:func:`lint_phase`).
+   ``python -m rca_tpu_torch lint --json`` and ``python -m rca_tpu_torch
+   lint --tracecheck --specsan`` start as subprocesses; the first must
+   exit 0 with no finding and an empty baseline (its files scanned and
+   wall printed), the second exit 0.  Meanwhile specsan
+   (``run_specsan(seed=0, device="cuda")``) runs its session leg at 2047
+   and 49,999 services and its serve leg once: ``ok``, no violation,
+   every budgeted surface of the dense path confirmed (the sharded
+   engine's three named as unexercised), per surface the calls and the
+   largest transfer beside its budget, the legs' rankings bitwise those
+   of the same legs run uncaptured first, and the launches of the main
+   path's kernels: ``evidence_front_fused``, ``seg_down_steps`` and
+   ``seg_up_steps`` at 2047 and in the serve leg, 8 + 8
+   ``seg_down_step`` / ``seg_up_step`` a front launch at 49,999.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (the fused
 recursions' rows with their 2047-service numbers, where the plan runs
@@ -874,6 +890,8 @@ def main(argv) -> int:
                         help="build, then run the federation phase alone")
     parser.add_argument("--autoscale-only", action="store_true",
                         help="build, then run the autoscale phase alone")
+    parser.add_argument("--lint-only", action="store_true",
+                        help="build, then run the lint phase alone")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -945,7 +963,8 @@ def main(argv) -> int:
               n_pad=f.shape[0], e_pad=len(s),
               seconds=time.perf_counter() - t0)
 
-    if args.multi_card or args.federation_only or args.autoscale_only:
+    if (args.multi_card or args.federation_only or args.autoscale_only
+            or args.lint_only):
         if args.multi_card:
             record["multi_card"] = multi_card_phase(
                 cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
@@ -956,6 +975,8 @@ def main(argv) -> int:
             os.environ["RCA_KERNEL_CACHE"] = str(cache)
             if args.federation_only:
                 record["federation"] = federation_phase(cases, smi)
+            elif args.lint_only:
+                record["lint"] = lint_phase(smi)
             else:
                 record["autoscale"] = autoscale_phase(cases, smi)
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1485,6 +1506,9 @@ def main(argv) -> int:
 
     # -- 23. the elastic fleet: the autoscaler's controller on the card ---
     record["autoscale"] = autoscale_phase(cases, smi)
+
+    # -- 24. the analysis plane: lint, specsan, the CLI's runtime checks --
+    record["lint"] = lint_phase(smi)
 
     if args.sweep:
         record["sweep"] = sweep(cases, shapes, kin, decay)
@@ -7118,6 +7142,146 @@ def autoscale_phase(cases, smi: str, device="cuda", cli=()) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     phase("autoscale", seconds=out["seconds"], smi=smi)
     return out
+
+
+LINT_SIZES = (2047, 49999)
+
+
+def _lint_launches(launches: dict) -> None:
+    """The main path's kernels in specsan's legs: the fused front and the
+    fused recursions at 2047 and in the serve leg (the selftest's graphs
+    are smaller), the front and 8 + 8 per-step launches a front above."""
+    for leg, counts in launches.items():
+        front = counts["evidence_front_fused"]
+        if front < 1:
+            fail(f"lint: no evidence_front_fused launch in {leg}: {counts}")
+        if leg in ("session@2047", "serve"):
+            if counts["seg_down_steps"] < 1 or counts["seg_up_steps"] < 1:
+                fail(f"lint: the fused recursions did not run in {leg}: "
+                     f"{counts}")
+        elif (counts["seg_down_step"], counts["seg_up_step"]) != (
+                8 * front, 8 * front) or counts["seg_down_steps"] \
+                or counts["seg_up_steps"]:
+            fail(f"lint: {leg} is not 8 + 8 per-step launches a front: "
+                 f"{counts}")
+
+
+def lint_phase(smi: str) -> dict:
+    """The analysis plane on the card: the lint and the CLI's runtime
+    checks as subprocesses while specsan runs here (the module
+    docstring, item 24)."""
+    from rca_tpu_torch.analysis.core import (
+        default_baseline_path,
+        load_baseline,
+    )
+    from rca_tpu_torch.analysis.dataplane.contracts import FETCH_BUDGETS
+    from rca_tpu_torch.analysis.dataplane.specsan import (
+        SHARDED_SURFACES,
+        run_legs,
+        run_specsan,
+    )
+
+    import threading
+
+    t_phase = time.perf_counter()
+    print(smi, flush=True)
+    procs, outputs, walls, waiters = {}, {}, {}, []
+
+    def wait(label, proc, t0):
+        outputs[label] = proc.communicate(timeout=600)
+        walls[label] = time.perf_counter() - t0
+
+    for label, extra in (("lint", ["--json"]),
+                         ("lint_runtime", ["--tracecheck", "--specsan"])):
+        t0 = time.perf_counter()
+        procs[label] = subprocess.Popen(
+            [sys.executable, "-m", "rca_tpu_torch", "lint", *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        waiters.append(threading.Thread(target=wait,
+                                        args=(label, procs[label], t0)))
+        waiters[-1].start()
+    try:
+        # the legs uncaptured first: they elect every shape's row, and
+        # the captured run must equal them bitwise
+        plain = run_legs(None, seed=0, services=LINT_SIZES, device="cuda")
+        t0 = time.perf_counter()
+        report = run_specsan(seed=0, services=LINT_SIZES, device="cuda")
+        specsan_s = time.perf_counter() - t0
+        for waiter in waiters:
+            waiter.join()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if set(outputs) != set(procs):
+        fail(f"lint: a subprocess did not finish: {sorted(outputs)}")
+
+    # the lint: exit 0, no finding, an empty baseline
+    out, err = outputs["lint"]
+    try:
+        lint = json.loads(out)
+    except ValueError:
+        fail(f"lint --json printed no JSON (exit {procs['lint'].returncode})"
+             f": {out[-500:]} {err[-1500:]}")
+    baseline = load_baseline(default_baseline_path())
+    if procs["lint"].returncode != 0 or lint["findings"] or baseline \
+            or lint["baselined"]:
+        fail(f"lint: exit {procs['lint'].returncode}, findings "
+             f"{lint['findings'][:5]}, baseline {baseline[:5]}")
+    phase("lint", leg="rules", files_scanned=lint["files_scanned"],
+          wall_ms=lint["wall_ms"], process_s=walls["lint"],
+          findings=0, baseline_entries=0, smi=smi)
+
+    # specsan: ok, no violation, the dense path's surfaces confirmed
+    if not report["ok"] or report["violations"]:
+        fail(f"specsan: ok {report['ok']}, violations "
+             f"{report['violations'][:5]}, serve {report['serve']}")
+    budgeted = {f"{p}::{f}" for p, f in FETCH_BUDGETS}
+    if set(report["surfaces_confirmed"]) != budgeted - SHARDED_SURFACES:
+        fail(f"specsan: confirmed {report['surfaces_confirmed']}, want "
+             f"{sorted(budgeted - SHARDED_SURFACES)}")
+    if any(plain["sessions"][n][key] != report["sessions"][n][key]
+           for n in plain["sessions"]
+           for key in ("rankings", "one_shot_top1", "batch_lanes")) or any(
+            plain["serve"][k] != report["serve"][k]
+            for k in ("ok", "parity_ok", "by_status")):
+        fail("specsan: a captured leg differs from its uncaptured run")
+    _lint_launches(report["launches"])
+    for leg, surfaces in report["legs"].items():
+        phase("lint", leg=f"specsan {leg}", surfaces={
+            name: {"calls": row["calls"], "max_bytes": row["max_nbytes"],
+                   "budget_bytes": row.get("budget_bytes"),
+                   "bulk": FETCH_BUDGETS[tuple(name.split("::"))].bulk}
+            for name, row in surfaces.items()},
+            launches={k: v for k, v in report["launches"][leg].items()
+                      if v})
+    phase("lint", leg="specsan", ok=True, violations=0,
+          fetches=report["fetches"],
+          confirmed=len(report["surfaces_confirmed"]),
+          unexercised=report["surfaces_unexercised"],
+          seconds=specsan_s, serve=report["serve"],
+          bitwise_uncaptured=True, smi=smi)
+
+    # the CLI's rules + tracecheck + specsan on the card: exit 0
+    out, err = outputs["lint_runtime"]
+    if procs["lint_runtime"].returncode != 0:
+        fail(f"lint --tracecheck --specsan: exit "
+             f"{procs['lint_runtime'].returncode}: {out[-1500:]} "
+             f"{err[-1500:]}")
+    summary = [line for line in out.splitlines()
+               if line.startswith(("tracecheck:", "specsan:", "graftlint:"))]
+    phase("lint", leg="cli runtime", exit=0, process_s=walls["lint_runtime"],
+          summary=summary, smi=smi)
+    seconds = time.perf_counter() - t_phase
+    phase("lint", seconds=seconds, smi=smi)
+    return {"files_scanned": lint["files_scanned"],
+            "lint_wall_ms": lint["wall_ms"], "lint_process_s": walls["lint"],
+            "runtime_process_s": walls["lint_runtime"],
+            "specsan_s": specsan_s, "fetches": report["fetches"],
+            "legs": report["legs"], "launches": report["launches"],
+            "unexercised": report["surfaces_unexercised"],
+            "cli_summary": summary, "seconds": seconds}
 
 
 def _no_sync(fn):

@@ -1,7 +1,42 @@
-"""The port's analysis plane: :func:`run_tracecheck`, the runtime recompile
-gate (``tracecheck.py``).  The static rules and the ``lint`` command are
-not ported yet."""
+"""graftlint for the port: static rules over ``rca_tpu_torch/``,
+``chip_smoke.py`` and ``tests/test_torch_*.py``, with the runtime
+recompile gate (``tracecheck.py``) and the fetch-budget cross-check
+(``dataplane/specsan.py``).
 
+Usage::
+
+    python -m rca_tpu_torch.analysis            # or: python -m rca_tpu_torch lint
+    python -m rca_tpu_torch.analysis --json
+    python -m rca_tpu_torch.analysis --tracecheck --specsan
+
+Programmatic surface: :func:`run_lint` (static rules),
+:func:`run_tracecheck` (runtime recompile gate), :func:`all_rules`.
+"""
+
+from rca_tpu_torch.analysis.core import (
+    Finding,
+    LintResult,
+    Rule,
+    all_rules,
+    default_baseline_path,
+    load_baseline,
+    register,
+    repo_root,
+    run_lint,
+    write_baseline,
+)
 from rca_tpu_torch.analysis.tracecheck import run_tracecheck
 
-__all__ = ["run_tracecheck"]
+__all__ = [
+    "Finding",
+    "LintResult",
+    "Rule",
+    "all_rules",
+    "default_baseline_path",
+    "load_baseline",
+    "register",
+    "repo_root",
+    "run_lint",
+    "run_tracecheck",
+    "write_baseline",
+]

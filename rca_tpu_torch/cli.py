@@ -56,7 +56,10 @@ that the port has).
   contract holds;
 - ``python -m rca_tpu_torch train``: fit the propagation weights on
   synthetic cascades, gate them (``shippability_report``) and write the
-  JSON checkpoint that ``RCA_WEIGHTS`` loads.
+  JSON checkpoint that ``RCA_WEIGHTS`` loads;
+- ``python -m rca_tpu_torch lint``: graftlint over the port (the rules,
+  ``--tracecheck``, ``--specsan``, ``--all``); every argument goes to
+  :mod:`rca_tpu_torch.analysis.__main__`, with its exit codes.
 
 ``RCA_KERNEL`` forces a kernel registry row for ``analyze``,
 ``hypotheses`` and ``stream``: ``torch``, ``kernels``, ``quantized`` or
@@ -1216,6 +1219,15 @@ def cmd_replay(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_lint(args) -> int:
+    """graftlint: delegate to the analyzer CLI so ``lint ...`` and
+    ``python -m rca_tpu_torch.analysis ...`` are the same tool with the
+    same exit-code contract (0 clean / 1 findings / 2 usage error)."""
+    from rca_tpu_torch.analysis.__main__ import main as lint_main
+
+    return lint_main(args.lint_args)
+
+
 def cmd_train(args) -> int:
     """Fit, gate, save: the reference's ``train`` with its JSON keys and
     exit codes.  The gate runs only when a checkpoint is asked for, and a
@@ -1759,9 +1771,27 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser(
+        "lint",
+        help="graftlint over the port: tick-sync and fetch-seam "
+        "contracts, kernel dispatch, RNG, lock/thread/env discipline, "
+        "swallowed faults; --tracecheck and --specsan add the runtime "
+        "checks",
+        add_help=False,  # every flag (incl. --help) goes to the analyzer
+    )
+    sp.set_defaults(fn=cmd_lint, lint_args=[])
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    if argv is None:
+        argv = sys.argv[1:]
+    # `lint` forwards its whole tail to the analyzer's own parser
+    # (argparse.REMAINDER cannot: it refuses leading optionals)
+    if argv and argv[0] == "lint":
+        from rca_tpu_torch.analysis.__main__ import main as lint_main
+
+        return lint_main(list(argv[1:]))
+    args = build_parser().parse_args(argv)
     return args.fn(args)

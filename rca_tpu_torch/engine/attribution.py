@@ -43,6 +43,7 @@ from rca_tpu_torch.config import (
     explain_paths,
     explain_topm,
 )
+from rca_tpu_torch.engine.fetch import device_get
 from rca_tpu_torch.features.schema import SERVICE_FEATURE_NAMES, SvcF
 
 #: provenance block schema (bumped whenever the block layout changes)
@@ -146,6 +147,13 @@ def _error_source_excess_np(clipped: np.ndarray, dep_src, dep_dst):
     return np.maximum(e - dep_max, 0.0)
 
 
+def _int32(tensors):
+    """Index tensors cast to int32 on the device before they cross to the
+    host, as the fetch contract declares them (half the bytes of int64)."""
+    return [t.to(torch.int32) if t.dtype == torch.int64 else t
+            for t in tensors]
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -241,14 +249,13 @@ def compute_attribution(ctx: AttributionContext, ranked: List[dict],
             torch.from_numpy(mask_rows.astype(np.int64)).to(device),
             path_len=paths)
     (diag, deltas, path_edge, path_term, path_dst, path_hard,
-     path_up) = (t.cpu().numpy() for t in out)
+     path_up) = device_get(*_int32(out))
 
     sal_cand = sal_vals = sal_idx = None
     saliency_note = None
     try:
-        sal_cand, sal_vals, sal_idx = (
-            t.cpu().numpy() for t in attribution_saliency(
-                model, fd, dd, grad_plan, n, cand_t, m=min(m_rows, n_pad)))
+        sal_cand, sal_vals, sal_idx = device_get(*_int32(attribution_saliency(
+            model, fd, dd, grad_plan, n, cand_t, m=min(m_rows, n_pad))))
     except Exception as exc:  # noqa: BLE001 - saliency is best-effort
         # the counterfactual and channel attribution stand; the block
         # says why the gradient is missing

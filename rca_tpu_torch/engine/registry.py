@@ -67,7 +67,6 @@ import dataclasses
 import hashlib
 import json
 import os
-import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -76,11 +75,13 @@ import torch
 from rca_tpu_torch.config import (
     KERNELS,
     edge_layout,
+    env_raw,
     forced_kernel,
     kernel_cache_path,
 )
 from rca_tpu_torch.kernels.build import PKG_DIR
 from rca_tpu_torch.observability.kernelscope import note_compile
+from rca_tpu_torch.util.threads import make_lock
 
 _CACHE_VERSION = 1
 
@@ -107,7 +108,7 @@ def _env_key() -> str:
     ``RCA_EDGE_LAYOUT``: a test flipping either mid-process re-decides
     instead of reading a stale verdict, and a row decided under one
     layout never serves another."""
-    return ":".join((os.environ.get("RCA_KERNEL", "").strip().lower(),
+    return ":".join((env_raw("RCA_KERNEL", "").strip().lower(),
                      edge_layout()))
 
 
@@ -188,8 +189,8 @@ class KernelRegistry:
     ``_lock`` and never wait on an election."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._elect_lock = threading.Lock()
+        self._lock = make_lock("KernelRegistry._lock")
+        self._elect_lock = make_lock("KernelRegistry._elect_lock")
         self._rows: Dict[Tuple, KernelRow] = {}
 
     # -- cache file (RCA_KERNEL_CACHE, read per lookup) --------------------
@@ -677,7 +678,7 @@ def _capture_cost(n_pad: int, e_pad: Optional[int], winner: str,
 # -- the process registry and the module-level seam ---------------------------
 
 _REGISTRY: Optional[KernelRegistry] = None
-_REGISTRY_LOCK = threading.Lock()
+_REGISTRY_LOCK = make_lock("registry._REGISTRY_LOCK")
 
 
 def get_registry() -> KernelRegistry:

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import collections
 import hashlib
-import threading
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -39,6 +38,8 @@ import numpy as np
 import torch
 
 from rca_tpu_torch.config import bucket_for, resident_cache_cap
+from rca_tpu_torch.engine.fetch import HostCopy
+from rca_tpu_torch.util.threads import make_lock
 
 GraphDigest = Tuple[int, int, int, str]
 
@@ -169,8 +170,6 @@ class ResidentSession:
         """The session's one sync point: the ``[4, kk]`` gather, the top-k
         pair (indices as int32, cast on the device) and the bad-row count
         when the device counted it (a host count is not fetched)."""
-        from rca_tpu_torch.engine.runner import HostCopy
-
         on_device = torch.is_tensor(n_bad)
         fetched = HostCopy(diag, vals, idx.to(torch.int32),
                            *((n_bad,) if on_device else ())).numpy()
@@ -256,7 +255,7 @@ class ResidentCache:
         self._sessions: "collections.OrderedDict[GraphDigest, ResidentSession]" = (
             collections.OrderedDict()
         )
-        self._lock = threading.Lock()
+        self._lock = make_lock("ResidentCache._lock")
         self.hits = 0
         self.misses = 0
         self.evictions = 0

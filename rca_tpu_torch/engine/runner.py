@@ -44,6 +44,7 @@ from rca_tpu_torch.config import (
     resident_enabled,
 )
 from rca_tpu_torch.engine.ell import ell_tables_for, up_ell_for
+from rca_tpu_torch.engine.fetch import device_get
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
 from rca_tpu_torch.engine.propagate import KernelPlan, Propagation
 from rca_tpu_torch.engine.segscan import build_seg_layouts, fused_steps_fit
@@ -260,7 +261,10 @@ class EngineResult:
         if self._stacked is None:
             if self._stacked_dev is None:
                 raise ValueError("EngineResult carries no diagnostic stack")
-            self._stacked = self._stacked_dev.cpu().numpy()
+            stack = self._stacked_dev
+            # a sharded stack joins its shards' blocks on the host
+            self._stacked = (device_get(stack) if torch.is_tensor(stack)
+                             else stack.numpy())
             self._stacked_dev = None
         return self._stacked
 
@@ -391,57 +395,33 @@ def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-class HostCopy:
-    """Device→host copies started without a host sync: each tensor goes
-    into a pinned host buffer of its own (non-blocking, on the current
-    stream) and an event is recorded after them; :meth:`numpy` waits on
-    that event, the one sync, and returns the arrays.  CPU tensors are
-    their own host copies (``ready`` is None)."""
-
-    def __init__(self, *tensors: torch.Tensor):
-        self.ready = None
-        if tensors[0].device.type != "cuda":
-            self.tensors = tensors
-            return
-        with torch.cuda.device(tensors[0].device):
-            self.tensors = tuple(
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
-                    t, non_blocking=True)
-                for t in tensors)
-            self.ready = torch.cuda.Event()
-            self.ready.record()
-
-    def numpy(self):
-        if self.ready is not None:
-            self.ready.synchronize()
-        return tuple(t.numpy() for t in self.tensors)
-
-
-def _fetch(out):
-    stacked, diag, vals, idx, n_bad = out
-    # the top-k pair's .cpu() is the sync point; diag and n_bad are as small
-    return (stacked, diag.cpu().numpy(), vals.cpu().numpy(),
-            idx.cpu().numpy(), int(n_bad.cpu()))
-
-
 def timed_fetch(run, timed: bool):
     """Run ``run()`` (which returns the five device values of
-    :func:`propagate_ranked`) and fetch the top-k-sized ones.  ``timed``:
-    one warm run, then the median host wall of 10 runs, each ending in the
-    synchronizing top-k fetch."""
+    :func:`propagate_ranked`) and fetch the top-k-sized ones; the ``[4,
+    n_pad]`` stack stays on the device.  ``timed``: one warm run (the
+    shape's election, the kernel library's build; the port compiles
+    nothing ahead of time, so it ends in a top-k pair fetch), then the
+    median host wall of 10 runs, each ending in the synchronizing fetch of
+    the top-k pair, and the last run's ``[4, kk]`` gather and bad-row count
+    fetched once.  Indices cross as int32, cast on the device."""
     if timed:
-        _fetch(run())
+        out = run()
+        device_get(out[2], out[3].to(torch.int32))
         reps = []
         for _ in range(10):
             t0 = time.perf_counter()
-            out = _fetch(run())
+            stacked, diag, vals, idx, n_bad = run()
+            vals, idx = device_get(vals, idx.to(torch.int32))
             reps.append((time.perf_counter() - t0) * 1e3)
         latency_ms = float(np.median(reps))
+        diag, n_bad = device_get(diag, n_bad)
     else:
         t0 = time.perf_counter()
-        out = _fetch(run())
+        stacked, diag, vals, idx, n_bad = run()
+        diag, vals, idx, n_bad = device_get(diag, vals, idx.to(torch.int32),
+                                            n_bad)
         latency_ms = (time.perf_counter() - t0) * 1e3
-    return (*out, latency_ms)
+    return stacked, diag, vals, idx, int(n_bad), latency_ms
 
 
 class EngineAPI:
@@ -620,8 +600,10 @@ class GraphEngine(EngineAPI):
         t0 = time.perf_counter()
         fd = torch.from_numpy(fb).to(dev)
         dd = torch.from_numpy(d.astype(np.int64)).to(dev)
-        stacked, diag, vals, idx, n_bad = _fetch(propagate_ranked(
-            self.model, fd, dd, n, kk, plan))
+        stacked, diag, vals, idx, n_bad = propagate_ranked(
+            self.model, fd, dd, n, kk, plan)
+        diag, vals, idx, n_bad = device_get(diag, vals, idx.to(torch.int32),
+                                            n_bad)
         latency_ms = (time.perf_counter() - t0) * 1e3
         return [
             render_result(

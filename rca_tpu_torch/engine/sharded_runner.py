@@ -201,7 +201,9 @@ class ShardedGraphEngine(EngineAPI):
         """Hypothesis batch on the FULL mesh: lanes split over ``dp`` (the
         batch padded up to a multiple of dp with zero lanes, dropped from
         the result), nodes over ``sp``."""
-        from rca_tpu_torch.engine.runner import HostCopy
+        import torch
+
+        from rca_tpu_torch.engine.fetch import HostCopy
         from rca_tpu_torch.parallel.sharded import (
             ShardedStack,
             stage_batch_ranked,
@@ -219,7 +221,8 @@ class ShardedGraphEngine(EngineAPI):
         t0 = time.perf_counter()
         grid, diag, vals, idx = stage_batch_ranked(self.mesh, fb, graph,
                                                    self.params, kk)
-        diag, vals, idx = HostCopy(diag, vals, idx).numpy()
+        # indices cross as int32, cast on the device
+        diag, vals, idx = HostCopy(diag, vals, idx.to(torch.int32)).numpy()
         latency_ms = (time.perf_counter() - t0) * 1e3
         per = b_pad // self.dp
         return [

@@ -39,10 +39,10 @@ import numpy as np
 import torch
 
 from rca_tpu_torch.config import bucket_for
+from rca_tpu_torch.engine.fetch import HostCopy
 from rca_tpu_torch.engine.resident import pow2_pad
 from rca_tpu_torch.engine.runner import (
     GraphEngine,
-    HostCopy,
     propagate_ranked,
     upload,
 )

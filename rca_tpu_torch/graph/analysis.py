@@ -224,6 +224,7 @@ def betweenness_centrality(
         np.add.at(deg, dst, 1.0)
         return deg / max(1.0, deg.max())
     if _BC_DEVICE_MIN_NODES <= n <= _BC_DEVICE_MAX_NODES:
+        from rca_tpu_torch.engine.fetch import device_get
         from rca_tpu_torch.engine.runner import resolve_device
 
         # nodes padded to a multiple of 256 as the JAX package pads them:
@@ -232,7 +233,7 @@ def betweenness_centrality(
         bc_dev, finite, _ = _bc_kernel(src, dst, n_pad,
                                        resolve_device(device))
         if finite:
-            bc = bc_dev.cpu().numpy().astype(np.float64)[:n]
+            bc = device_get(bc_dev).astype(np.float64)[:n]
             if normalized and n > 2:
                 bc /= (n - 1) * (n - 2)
             return bc

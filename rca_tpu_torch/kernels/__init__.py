@@ -13,7 +13,7 @@ and :data:`SHARD_LAUNCHES` the launches of the seg steps' per-shard
 entries (the node-sharded engine), which count in :data:`LAUNCHES` too.
 """
 
-import threading
+from rca_tpu_torch.util.threads import make_lock
 
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
@@ -24,7 +24,7 @@ SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
                   "seg_contrast_step": 0}
 
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("kernels._LOCK")
 
 
 def count_launch(name: str, persist: bool = False,

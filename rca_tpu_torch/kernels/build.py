@@ -19,14 +19,15 @@ import ctypes
 import hashlib
 import os
 import shutil
-import subprocess
 import tempfile
-import threading
 import time
 from pathlib import Path
 from typing import Optional
 
+from rca_tpu_torch.config import env_raw
 from rca_tpu_torch.observability.kernelscope import note_compile
+from rca_tpu_torch.util.procs import WorkerProc, spawn_worker
+from rca_tpu_torch.util.threads import make_lock
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -34,7 +35,7 @@ BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("build._LOCK")
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last build took (0.0 when the library was already built)
 BUILD_SECONDS = 0.0
@@ -80,7 +81,7 @@ def find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+    for home in (env_raw("CUDA_HOME"), "/usr/local/cuda"):
         if home and Path(home, "bin", "nvcc").is_file():
             return str(Path(home, "bin", "nvcc"))
     raise RuntimeError(
@@ -98,19 +99,19 @@ def _library_path() -> Path:
     return BUILD_DIR / f"librca_kernels-{h.hexdigest()[:16]}.so"
 
 
-def _start(cmd) -> subprocess.Popen:
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+def _start(what: str, cmd) -> WorkerProc:
+    """One ``nvcc`` started, its output drained by the procs seam."""
+    return spawn_worker(f"nvcc-{what}", cmd)
 
 
 def _finish(procs, verbose: bool) -> None:
     """Wait for every ``(what, process)``, then raise on the first that
     failed."""
-    done = [(what, proc, "".join(proc.communicate())) for what, proc in procs]
-    for what, proc, output in done:
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):"
-                               f"\n{output}")
+    done = [(what, *proc.communicate()) for what, proc in procs]
+    for what, code, out, err in done:
+        output = out + err
+        if code != 0:
+            raise RuntimeError(f"nvcc failed on {what} ({code}):\n{output}")
         if verbose:
             print(output, end="")
 
@@ -131,12 +132,12 @@ def build(verbose: bool = False) -> Path:
     # never leaves a half-written library under the final name
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objects = [str(Path(tmp, src.stem + ".o")) for src in sources()]
-        _finish([(src.name, _start([nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *ptxas,
-                                    "-c", "-o", obj, str(src)]))
-                 for src, obj in zip(sources(), objects)], verbose)
+        _finish([(src.name, _start(src.stem, [
+            nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *ptxas, "-c", "-o", obj,
+            str(src)])) for src, obj in zip(sources(), objects)], verbose)
         lib = str(Path(tmp, out.name))
-        _finish([("the link", _start([nvcc, *ARCH_FLAGS, "-shared", "-o",
-                                      lib, *objects]))], verbose)
+        _finish([("the link", _start("link", [
+            nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objects]))], verbose)
         os.replace(lib, out)
     BUILD_SECONDS = time.perf_counter() - t0
     note_compile("kernel library", out.name)

@@ -17,11 +17,11 @@ no-ops.
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Any, Dict, List, Optional
 
 from rca_tpu_torch.config import kernelscope_enabled, memory_sample_every
+from rca_tpu_torch.util.threads import make_lock
 
 
 class _CompileLog:
@@ -30,7 +30,7 @@ class _CompileLog:
     signature."""
 
     def __init__(self, cap: int = 4096):
-        self._lock = threading.Lock()
+        self._lock = make_lock("kernelscope._CompileLog._lock")
         self._events: "deque[Dict[str, Any]]" = deque(maxlen=cap)
         self._last: Dict[str, int] = {}
         self._seq = 0

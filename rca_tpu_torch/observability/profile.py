@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import tempfile
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -121,8 +122,10 @@ def profile_ticks(
     finally:
         set_profiling(False)
     wall_ms = (clock() - t0) * 1e3
-    path = os.path.join(out_dir,
-                        f"rca_ticks.{os.getpid()}.{time.time_ns()}.json")
+    # a fresh name per capture without reading the wall clock
+    fd, path = tempfile.mkstemp(prefix=f"rca_ticks.{os.getpid()}.",
+                                suffix=".json", dir=out_dir)
+    os.close(fd)
     prof.export_chrome_trace(path)
     if dev.type == "cuda":
         with open(path, encoding="utf-8") as f:

@@ -21,12 +21,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import random
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from rca_tpu_torch.config import trace_buffer_cap, trace_enabled
+from rca_tpu_torch.util.threads import make_lock
 
 #: the wire header carrying trace context across the gateway boundary
 TRACE_HEADER = "X-RCA-Trace"
@@ -108,7 +108,7 @@ class Tracer:
             raise ValueError(f"trace buffer cap must be >= 1, got {cap}")
         self.clock = clock
         self._rng = random.Random(seed)
-        self._lock = threading.Lock()
+        self._lock = make_lock("Tracer._lock")
         self._buffer: "deque[Span]" = deque(maxlen=self.cap)
         self.dropped = 0
         self.recorded = 0

@@ -44,6 +44,7 @@ from rca_tpu_torch.engine.evidence import (
     seg_contrast_step_shard,
     seg_contrast_step_shard_plain,
 )
+from rca_tpu_torch.engine.fetch import device_get
 from rca_tpu_torch.engine.propagate import background_excess, combine_score
 from rca_tpu_torch.engine.resident import ResidentSession
 from rca_tpu_torch.engine.runner import top_k, topk_diag
@@ -365,14 +366,15 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
 
 class ShardedStack:
     """The diagnostic stack of a sharded analysis, left on its shards: the
-    shards' ``[..., 4, block]`` blocks.  ``cpu()`` joins them on the host
-    (the lazy full-diagnostics fetch); ``stack[b]`` is lane ``b``."""
+    shards' ``[..., 4, block]`` blocks.  ``numpy()`` joins them on the host
+    (the lazy full-diagnostics fetch, one block a copy); ``stack[b]`` is
+    lane ``b``."""
 
     def __init__(self, blocks: Sequence[torch.Tensor]):
         self.blocks = list(blocks)
 
-    def cpu(self) -> torch.Tensor:
-        return torch.cat([b.cpu() for b in self.blocks], dim=-1)
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([device_get(b) for b in self.blocks], axis=-1)
 
     def __getitem__(self, lane) -> "ShardedStack":
         return ShardedStack([b[lane] for b in self.blocks])

@@ -30,7 +30,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from rca_tpu_torch.engine.runner import HostCopy, finite_mask_rows_np
+from rca_tpu_torch.engine.fetch import HostCopy
+from rca_tpu_torch.engine.runner import finite_mask_rows_np
 from rca_tpu_torch.engine.streaming import StreamingHostState, TickHandle
 from rca_tpu_torch.observability.spans import device_annotation
 from rca_tpu_torch.parallel.sharded import (

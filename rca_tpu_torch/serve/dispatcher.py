@@ -14,7 +14,7 @@ the recursions (``KernelPlan.steps_fused``), else ``seg_up_step`` and
 
 :meth:`BatchDispatcher.dispatch` packs, pads, uploads through pinned
 memory, ENQUEUES the propagation and starts the top-k copies into pinned
-host buffers (:class:`rca_tpu_torch.engine.runner.HostCopy`), and returns
+host buffers (:class:`rca_tpu_torch.engine.fetch.HostCopy`), and returns
 a :class:`BatchHandle` without a host sync.  :meth:`BatchDispatcher.fetch`
 waits on the handle's event — THE sync point of the serve path — so the
 serve loop dispatches batch N, assembles batch N+1 from the queue, and only
@@ -95,7 +95,7 @@ class BatchHandle:
 
     requests: List[ServeRequest]
     stacks: List[object]          # per request: [4, n_pad] device stack
-    copy: object                  # runner.HostCopy
+    copy: object                  # fetch.HostCopy
     n_bad: Optional[int]          # host count (sharded), else in ``copy``
     n: int                        # real (unpadded) service count
     engine_tag: str
@@ -255,7 +255,7 @@ class BatchDispatcher:
         """Stack, pad, upload and ENQUEUE one coalesced batch, start its
         top-k copies; returns without synchronizing.  All requests must
         share a graph_key (the batcher guarantees it)."""
-        from rca_tpu_torch.engine.runner import HostCopy
+        from rca_tpu_torch.engine.fetch import HostCopy
 
         if not batch:
             raise ValueError("empty batch")

@@ -124,6 +124,18 @@ class WorkerProc:
         except subprocess.TimeoutExpired:  # pragma: no cover - kernel lag
             return None
 
+    def communicate(self, timeout: Optional[float] = None
+                    ) -> Tuple[int, str, str]:
+        """Wait for the child to exit and its pipes to drain; returns
+        ``(exit code, stdout, stderr)`` (the bounded buffers' contents).
+        Raises ``subprocess.TimeoutExpired`` when the child outlives
+        ``timeout``."""
+        code = self.proc.wait(timeout)
+        for reader in self._readers:
+            reader.join()
+        out, err = self.output()
+        return code, out, err
+
     def join(self, timeout: Optional[float] = None) -> Optional[int]:
         """Wait for natural exit; returns the code, None on timeout."""
         try:

@@ -30,7 +30,8 @@
   request and ``--role ingest`` ticking a cluster (their own modules read
   at exit; the ingest worker never initialises CUDA), and the elastic
   fleet (a thread-mode ramp soak, a controller attached to a plane with
-  its thread spawner); the native scanner
+  its thread spawner), and the analysis plane (``lint --json`` over the
+  repository and specsan on the CPU); the native scanner
   loaded is the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   and ``profile`` included), the streaming sessions, ``replay``,
@@ -811,6 +812,32 @@ def test_serve_worker_without_device_fails_without_cuda(no_cuda):
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
     assert '"worker"' not in proc.stdout
+
+
+_LINT_PROBE = """
+import contextlib, io, json, sys
+from rca_tpu_torch.analysis.__main__ import main
+from rca_tpu_torch.analysis.dataplane.specsan import run_specsan
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    code = main(["--json"])
+report = run_specsan(device="cpu")
+print(json.dumps({"code": code, "clean": json.loads(out.getvalue())["clean"],
+                  "specsan": report["ok"], "modules": sorted(sys.modules)}))
+"""
+
+
+def test_lint_and_specsan_load_no_jax_and_no_rca_tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", _LINT_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300, env=_probe_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (out["code"], out["clean"], out["specsan"]) == (0, True, True)
+    for module in ("analysis.core", "analysis.rules.ticksync",
+                   "analysis.dataplane.specsan", "engine.fetch"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
