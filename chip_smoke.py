@@ -131,7 +131,11 @@ and the flagged scans never (:func:`main_launches`).
    1e-6, values within the CPU tests' tolerances) and a second card run
    bit for bit; the attribution is timed.
    ``python -m rca_tpu_torch hypotheses --fixture 50svc --seed 7
-   --compact`` must put the fixture's fault root first over a batch of 8;
+   --compact`` must put the fixture's fault root first over a batch of 8.
+   The commands of items 7, 8, 9, 12 and 17 (``analyze`` with no
+   cluster, ``analyze --fixture 50svc``, ``hypotheses``, ``stream``,
+   ``train``) start together here as subprocesses and are each held to
+   their gate (:func:`commands_phase`): their start-ups overlap;
 10. resident sessions at both tiers: a seeded request sequence (first,
    identical, deltas of 1 / 8 / 64 rows with NaN and Inf rows, a delete,
    a delta wider than ``n_pad / 2``, the heal, identical again) through
@@ -415,19 +419,37 @@ and the flagged scans never (:func:`main_launches`).
    must observe ``process_kill``, ``worker_hang``,
    ``coordinator_partition``, ``ingest_death`` and ``scaling_storm``.
 24. ``lint``: the analysis plane on the card (:func:`lint_phase`).
-   ``python -m rca_tpu_torch lint --json`` and ``python -m rca_tpu_torch
-   lint --tracecheck --specsan`` start as subprocesses; the first must
-   exit 0 with no finding and an empty baseline (its files scanned and
-   wall printed), the second exit 0.  Meanwhile specsan
-   (``run_specsan(seed=0, device="cuda")``) runs its session leg at 2047
-   and 49,999 services and its serve leg once: ``ok``, no violation,
-   every budgeted surface of the dense path confirmed (the sharded
-   engine's three named as unexercised), per surface the calls and the
-   largest transfer beside its budget, the legs' rankings bitwise those
-   of the same legs run uncaptured first, and the launches of the main
-   path's kernels: ``evidence_front_fused``, ``seg_down_steps`` and
-   ``seg_up_steps`` at 2047 and in the serve leg, 8 + 8
-   ``seg_down_step`` / ``seg_up_step`` a front launch at 49,999.
+   ``python -m rca_tpu_torch lint --all --json`` starts as one
+   subprocess (the rules, tracecheck, rsan and specsan in one
+   interpreter, one CUDA context and one parse of the tree): exit 0, no
+   finding, an empty baseline, tracecheck, specsan and rsan ok (its files
+   scanned, the rules' wall and rsan's acquires and locks printed).
+   Meanwhile specsan (``run_specsan(seed=0, device="cuda")``) runs its
+   session leg at 2047 and 49,999 services and its serve leg once:
+   ``ok``, no violation, every budgeted surface of the dense path
+   confirmed (the sharded engine's three named as unexercised), per
+   surface the calls and the largest transfer beside its budget, the
+   legs' rankings bitwise those of the same legs run uncaptured first,
+   and the launches of the main path's kernels: ``evidence_front_fused``,
+   ``seg_down_steps`` and ``seg_up_steps`` at 2047 and in the serve leg,
+   8 + 8 ``seg_down_step`` / ``seg_up_step`` a front launch at 49,999.
+   Then, specsan done (the sanitizer is process-global), the rsan leg:
+   ``run_rsan_crosscheck(seed=7, soak_ticks=40, device="cuda")`` on the
+   ``kernels`` row (``ok``, no contradiction, no observed race, at least
+   2 locks taken from at least 2 threads, 40 ticks with no uncaught
+   exception, every poll of the soak the main path's launches, the
+   sanitizer off after), and a sanitized two-replica ``ServePool`` at
+   2047: 8 submitter threads x 8 requests over 4 tenants, replica 0
+   killed after its first device batch, every ok answer bitwise its solo
+   analysis, no double completion, no observed race, no contradiction
+   against the port's static order graph, the pool's, the queue's, the
+   replicas' and the sink's locks taken from at least 2 threads, each
+   device batch the main path's launches.
+
+Every phase's wall lands in ``phase_seconds`` (the kernel checks, the
+main path, the comparison and the times included), each phase's record
+carries its ``seconds``, and a ``walls`` line prints their sum beside
+the run's wall.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (the fused
 recursions' rows with their 2047-service numbers, where the plan runs
@@ -456,9 +478,12 @@ of 20 ticks at 10,000 services, and ``federation_launches``, summed over
 the worker processes of each federation load leg with their device
 batches, and over the kill wave's survivors, and ``autoscale_launches``,
 over the thread soak's fleet and the process fleet's four workers at
-2047, with their device batches); the last line
+2047, with their device batches, and ``rsan_launches``, over the rsan
+cross-check's 40 soak ticks and the sanitized pool's device batches);
+the last line
 is ``{"ok": true, "device": {...}}``.  With ``--out DIR`` the full record
-goes to ``DIR/chip_smoke.json`` and each profile table to
+goes to ``DIR/chip_smoke.json``, every phase line as it prints to
+``DIR/phases.jsonl`` and each profile table to
 ``DIR/profile_<services>.txt``.  Imports nothing of JAX or ``rca_tpu``.
 """
 
@@ -477,12 +502,89 @@ TIERS = ((2047, 3, 0), (49999, 3, 0))   # (services, roots, seed)
 C = 13
 
 
+#: seeded inputs generated once per argument set (pickled), see _world
+_GENERATED: dict = {}
+
+
+def _generated(kind: str, n: int, n_roots: int, seed: int):
+    """``synthetic_cascade_world`` (``kind="world"``) or
+    ``synthetic_cascade_arrays`` (``"arrays"``) of ``n`` services,
+    generated once per argument set and handed out as fresh copies: a
+    session mutates its world, and a pickle round trip copies one bit for
+    bit in a tenth of a generation's time at 10,000 services.  A world
+    is built over the arrays of the same arguments (the generator's first
+    step), which are generated once too."""
+    import pickle
+
+    key = (kind, n, n_roots, seed)
+    if key not in _GENERATED:
+        from rca_tpu_torch.cluster import generator
+
+        if kind == "world":
+            _generated("arrays", n, n_roots, seed)
+            arrays = generator.synthetic_cascade_arrays
+
+            def reuse(n_, n_roots_, seed_, **kwargs):
+                if (n_, n_roots_, seed_) == (n, n_roots, seed) and not any(
+                        kwargs.get(k, v) != v for k, v in
+                        (("mode", "standard"), ("fault_mix", "crash"))):
+                    return pickle.loads(_GENERATED["arrays", n, n_roots,
+                                                   seed])
+                return arrays(n_, n_roots_, seed_, **kwargs)
+
+            with mock.patch.object(generator, "synthetic_cascade_arrays",
+                                   reuse):
+                made = generator.synthetic_cascade_world(
+                    n, n_roots=n_roots, seed=seed)
+            # derived lookup state keyed by list identity: each copy
+            # rebuilds its own on first use
+            made._pos_index.clear()
+        else:
+            made = generator.synthetic_cascade_arrays(
+                n, n_roots=n_roots, seed=seed)
+        _GENERATED[key] = pickle.dumps(made,
+                                       protocol=pickle.HIGHEST_PROTOCOL)
+    return pickle.loads(_GENERATED[key])
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+#: with ``--out``: the file every phase line is also appended to as it
+#: prints, with the seconds since the run began, so a run cut short still
+#: leaves the record of the phases it passed; and the run's start
+PHASE_LOG = None
+RUN_T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}, default=float), flush=True)
+    if PHASE_LOG is not None:
+        with open(PHASE_LOG, "a") as f:
+            f.write(json.dumps({"phase": name, **fields,
+                                "t_s": time.perf_counter() - RUN_T0},
+                               default=float) + "\n")
+
+
+def _timed(walls: dict, name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall kept in ``walls[name]`` and, where
+    the phase returns a record without one, as its ``seconds``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    walls[name] = time.perf_counter() - t0
+    if isinstance(out, dict):
+        out.setdefault("seconds", walls[name])
+    return out
+
+
+def _phase_walls(walls: dict, t_run: float, record: dict) -> None:
+    """Print every phase's wall, their sum and the run's wall beside it
+    (the rest is set-up between phases: imports, inputs, the verdict)."""
+    wall = time.perf_counter() - t_run
+    record["wall_s"] = wall
+    phase("walls", phase_seconds={k: round(v, 3) for k, v in walls.items()},
+          phase_sum=sum(walls.values()), wall=wall)
 
 
 def smi_line() -> str:
@@ -932,7 +1034,16 @@ def main(argv) -> int:
     from rca_tpu_torch.features.schema import SvcF
     from rca_tpu_torch.kernels import LAUNCHES, build, cost, reset_launches
 
+    t_run = time.perf_counter()
+    if args.out:
+        global PHASE_LOG, RUN_T0
+        RUN_T0 = t_run
+        os.makedirs(args.out, exist_ok=True)
+        PHASE_LOG = os.path.join(args.out, "phases.jsonl")
+        open(PHASE_LOG, "w").close()
     record = {"argv": list(argv)}
+    # every phase's wall, the kernel checks and the times included
+    phase_s = record["phase_seconds"] = {}
     dev = torch.device("cuda")
     smi = smi_line()
     record["nvidia_smi"] = smi
@@ -945,15 +1056,16 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     loads = cold_loads()
     build.library()
-    record["build_s"] = time.perf_counter() - t0
+    record["build_s"] = phase_s["build"] = time.perf_counter() - t0
     phase("build", seconds=record["build_s"], cold_loads=loads,
           nvcc_seconds=max(b["nvcc_seconds"] for b in loads))
 
     # -- inputs: both tiers, generated once --------------------------------
+    t_generate = time.perf_counter()
     cases, shapes, padded = {}, {}, {}
     for n, roots, seed in TIERS:
         t0 = time.perf_counter()
-        cases[n] = synthetic_cascade_arrays(n, n_roots=roots, seed=seed)
+        cases[n] = _generated("arrays", n, roots, seed)
         eng = GraphEngine(device="cpu")
         f, s, d = eng._pad(cases[n].features, cases[n].dep_src,
                            cases[n].dep_dst)
@@ -962,6 +1074,8 @@ def main(argv) -> int:
         phase("generate", services=n, edges=len(cases[n].dep_src),
               n_pad=f.shape[0], e_pad=len(s),
               seconds=time.perf_counter() - t0)
+
+    phase_s["generate"] = time.perf_counter() - t_generate
 
     if (args.multi_card or args.federation_only or args.autoscale_only
             or args.lint_only):
@@ -974,11 +1088,15 @@ def main(argv) -> int:
             cache.unlink(missing_ok=True)
             os.environ["RCA_KERNEL_CACHE"] = str(cache)
             if args.federation_only:
-                record["federation"] = federation_phase(cases, smi)
+                record["federation"] = _timed(phase_s, "federation",
+                                              federation_phase, cases, smi)
             elif args.lint_only:
-                record["lint"] = lint_phase(smi)
+                record["lint"] = _timed(phase_s, "lint", lint_phase, cases,
+                                        smi)
             else:
-                record["autoscale"] = autoscale_phase(cases, smi)
+                record["autoscale"] = _timed(phase_s, "autoscale",
+                                             autoscale_phase, cases, smi)
+            _phase_walls(phase_s, t_run, record)
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()}
         if args.out:
@@ -989,6 +1107,7 @@ def main(argv) -> int:
         return 0
 
     # -- 3. each kernel against its plain version, on the card -------------
+    t_check = time.perf_counter()
     rng = np.random.default_rng(20260)
     params = GraphEngine(device="cpu").params
     aw = torch.tensor(params.anomaly_weights, dtype=torch.float32, device=dev)
@@ -1201,11 +1320,15 @@ def main(argv) -> int:
         small[9, SvcF.ERROR_RATE] = float("nan")
         check_front(label, small, seg_d, (1, 3))
 
+    phase_s["check"] = time.perf_counter() - t_check
+
     # -- 4. the registry elects the kernels row by timing ------------------
     engine = GraphEngine()
-    record["registry"] = registry_phase(engine, cases, shapes)
+    record["registry"] = _timed(phase_s, "registry", registry_phase, engine,
+                                cases, shapes)
 
     # -- 5. the main path, through the kernels -----------------------------
+    t_main = time.perf_counter()
     for n in cases:
         row = get_registry().resolve(*shapes[n], device=dev)
         if row.winner != "kernels":
@@ -1228,10 +1351,13 @@ def main(argv) -> int:
     path_launches = dict(LAUNCHES)
     phase("main_path", launches=path_launches,
           per_analysis={str(n): main_launches(n) for n in cases})
+    phase_s["main_path"] = time.perf_counter() - t_main
 
     # -- 6. the hypothesis batch, one launch per kernel and step ----------
-    record["batch"] = batch_phase(engine, cases, shapes, aw, hw, params)
+    record["batch"] = _timed(phase_s, "batch", batch_phase, engine, cases,
+                             shapes, aw, hw, params)
 
+    t_compare = time.perf_counter()
     cpu = GraphEngine(device="cpu")
     checks = []
     for n in cases:
@@ -1287,44 +1413,55 @@ def main(argv) -> int:
         fail("entry() scores disagree with the engine's")
     phase("entry", n_pad=int(example[0].shape[0]),
           e_pad=int(example[1].shape[0]))
+    phase_s["compare"] = time.perf_counter() - t_compare
 
     # -- 7. the capture layer: native scanners, columnar against dict -----
-    record["capture"] = capture_phase(smi)
+    record["capture"] = _timed(phase_s, "capture", capture_phase, smi)
 
     # -- 8. the snapshot path, through the kernels -------------------------
-    record["snapshot"] = snapshot_phase(args.profile, args.out)
+    record["snapshot"] = _timed(phase_s, "snapshot", snapshot_phase,
+                                args.profile, args.out)
 
     # -- 9. attribution (sweep on the kernels) and the hypotheses command -
-    record["attribution"] = attribution_phase(
-        engine, cases[TIERS[-1][0]], args.profile, args.out)
-    record["hypotheses"] = hypotheses_phase()
+    record["attribution"] = _timed(
+        phase_s, "attribution", attribution_phase, engine,
+        cases[TIERS[-1][0]], args.profile, args.out)
+    record["commands"] = _timed(phase_s, "commands", commands_phase, smi)
 
     # -- 10-12. resident sessions, streaming ticks, the live session ------
-    record["resident"] = resident_phase(cases, shapes)
-    record["stream"] = stream_phase(engine, cases, args.profile, args.out)
-    record["live"] = live_phase()
+    record["resident"] = _timed(phase_s, "resident", resident_phase, cases,
+                                shapes)
+    record["stream"] = _timed(phase_s, "stream", stream_phase, engine, cases,
+                              args.profile, args.out)
+    record["live"] = _timed(phase_s, "live", live_phase)
 
     # -- 13. the node-sharded engine ---------------------------------------
-    record["sharded"] = sharded_phase(cases, shapes, args.profile, args.out)
+    record["sharded"] = _timed(phase_s, "sharded", sharded_phase, cases,
+                               shapes, args.profile, args.out)
 
     # -- 14. the serving scheduler -----------------------------------------
-    record["serve"] = serve_phase(engine, cases, shapes, aw, hw, params, smi)
+    record["serve"] = _timed(phase_s, "serve", serve_phase, engine, cases,
+                             shapes, aw, hw, params, smi)
 
     # -- 15. flight recording, replay and the chaos soak ------------------
-    record["replay"] = replay_phase(cases, smi)
+    record["replay"] = _timed(phase_s, "replay", replay_phase, cases, smi)
 
     # -- 16-17. the quantized and doubling rows; training ------------------
-    record["variants"] = variants_phase(cases, shapes, smi)
-    record["train"] = train_phase(smi)
+    record["variants"] = _timed(phase_s, "variants", variants_phase, cases,
+                                shapes, smi)
+    record["train"] = _timed(phase_s, "train", train_phase, smi)
 
     # -- 18. the investigation layer ---------------------------------------
-    record["investigate"] = investigate_phase(smi)
+    record["investigate"] = _timed(phase_s, "investigate", investigate_phase,
+                                   smi)
 
     # -- 19. the gateway -----------------------------------------------------
-    record["gateway"] = gateway_phase(engine, cases, shapes, smi)
+    record["gateway"] = _timed(phase_s, "gateway", gateway_phase, engine,
+                               cases, shapes, smi)
 
     # -- 20. times ---------------------------------------------------------
-    # the analysis walls restage every call, as they did before resident
+    t_times = time.perf_counter()
+    # the analysis phase_s restage every call, as they did before resident
     # sessions (the resident phase times its requests)
     restaged = GraphEngine(resident=False)
     times = {}
@@ -1496,19 +1633,24 @@ def main(argv) -> int:
         times[n] = t
         phase("times", services=n, **t)
 
+    phase_s["times"] = time.perf_counter() - t_times
+
     # -- 21. the instruments: profile, cost, /metrics, tracecheck --------
-    record["observe"] = observe_phase(engine, cases, shapes, times, kin, smi)
+    record["observe"] = _timed(phase_s, "observe", observe_phase, engine,
+                               cases, shapes, times, kin, smi)
 
     # -- 22. the cross-process plane: worker processes on the card -------
     # (its ``chaos --ticks 200 --no-autoscale`` is left to phase 23's
     # ``chaos --ticks 200``: the same legs and the storm)
-    record["federation"] = federation_phase(cases, smi, chaos=False)
+    record["federation"] = _timed(phase_s, "federation", federation_phase,
+                                  cases, smi, chaos=False)
 
     # -- 23. the elastic fleet: the autoscaler's controller on the card ---
-    record["autoscale"] = autoscale_phase(cases, smi)
+    record["autoscale"] = _timed(phase_s, "autoscale", autoscale_phase, cases,
+                                 smi)
 
-    # -- 24. the analysis plane: lint, specsan, the CLI's runtime checks --
-    record["lint"] = lint_phase(smi)
+    # -- 24. the analysis plane: lint --all, specsan, rsan ----------------
+    record["lint"] = _timed(phase_s, "lint", lint_phase, cases, smi)
 
     if args.sweep:
         record["sweep"] = sweep(cases, shapes, kin, decay)
@@ -1621,6 +1763,15 @@ def main(argv) -> int:
                              for tier in ("2047", "49999")},
             "kill_wave": sum(w.get(name, 0) for w in fed["kill_wave"][
                 "worker_launches"].values())}
+        # launches under the lock sanitizer: over the rsan cross-check's
+        # 40 soak ticks at 20 services, and over the sanitized pool's
+        # device batches at 2047, with their counts
+        rsan_legs = record["lint"]["rsan"]
+        kernels[-1]["rsan_launches"] = {
+            "soak": rsan_legs["soak"]["launches"][name],
+            "soak_ticks": rsan_legs["soak"]["soak_ticks"],
+            "pool": rsan_legs["pool"]["launches"][name],
+            "pool_batches": rsan_legs["pool"]["device_batches"]}
         # launches of the elastic fleet at 2047, with their device
         # batches: the thread soak's (one engine in this process) and the
         # process fleet's, summed over its four drain reports
@@ -1730,6 +1881,7 @@ def main(argv) -> int:
         if mod == "jax" or mod.startswith("jax.") or mod == "rca_tpu" \
                 or mod.startswith("rca_tpu."):
             fail(f"{mod} was imported")
+    _phase_walls(phase_s, t_run, record)
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -2096,11 +2248,11 @@ def _tenant_latency(reqs, resps) -> dict:
             for t, v in sorted(by.items())}
 
 
-def _submit_load(plane, items, kill=None) -> tuple:
+def _submit_load(plane, items, kill=None, threads: int = 4) -> tuple:
     """``items`` (``(case, features)`` pairs) submitted to ``plane`` (a
-    loop or a pool) by 4 threads as 4 tenants, ``kill()`` called once half
-    of them are in; returns the requests, their responses and the wall
-    from the first submit to the last answer."""
+    loop or a pool) by ``threads`` threads as 4 tenants, ``kill()`` called
+    once half of them are in; returns the requests, their responses and
+    the wall from the first submit to the last answer."""
     from rca_tpu_torch.serve import ServeClient
     from rca_tpu_torch.util.threads import make_thread
 
@@ -2109,7 +2261,7 @@ def _submit_load(plane, items, kill=None) -> tuple:
     client = ServeClient(plane)
 
     def submitter(w: int) -> None:
-        for i in range(w, len(items), 4):
+        for i in range(w, len(items), threads):
             if kill is not None and w == 0 and i >= len(items) // 2:
                 kill()
             case, f = items[i]
@@ -2117,12 +2269,12 @@ def _submit_load(plane, items, kill=None) -> tuple:
                 f, case.dep_src, case.dep_dst, names=case.names,
                 tenant=tenants[i % 4], k=SERVE_K)
 
-    threads = [make_thread(submitter, name=f"smoke-submit-{w}",
-                           daemon=True, args=(w,)) for w in range(4)]
+    workers = [make_thread(submitter, name=f"smoke-submit-{w}",
+                           daemon=True, args=(w,)) for w in range(threads)]
     t0 = time.perf_counter()
-    for t in threads:
+    for t in workers:
         t.start()
-    for t in threads:
+    for t in workers:
         t.join(60)
     resps = [r.result(120.0) for r in reqs]
     return reqs, resps, time.perf_counter() - t0
@@ -2178,10 +2330,12 @@ def _kill_after_first_batch(replica):
     return kill
 
 
-def _pool_load(engine, items, homes, mix: str, kill: bool) -> dict:
+def _pool_load(engine, items, homes, mix: str, kill: bool,
+               threads: int = 4) -> dict:
     """``items`` through a ``ServePool`` on the card, as
-    :func:`_submit_load` submits them: ``mix`` its replica kinds (``""``:
-    two dense replicas), ``kill`` kills replica 0 mid-wave.  Replica ``i``
+    :func:`_submit_load` submits them from ``threads`` threads: ``mix``
+    its replica kinds (``""``: two dense replicas), ``kill`` kills
+    replica 0 mid-wave.  Replica ``i``
     is warmed over the graph of ``homes[i]`` (so a graph no other replica
     holds is routed there), then every device batch is counted and
     sync-checked (:func:`_counting_dispatch`, one lock over the replicas'
@@ -2207,7 +2361,8 @@ def _pool_load(engine, items, homes, mix: str, kill: bool) -> dict:
     with pool:
         reqs, resps, wall_s = _submit_load(
             pool, items,
-            kill=_kill_after_first_batch(pool.replicas[0]) if kill else None)
+            kill=_kill_after_first_batch(pool.replicas[0]) if kill else None,
+            threads=threads)
     summary = pool.metrics.summary()
     return {
         "responses": resps, "log": log, "wall_s": wall_s,
@@ -2601,36 +2756,112 @@ def attribution_phase(engine, big_case, profile_it: bool = False,
     return out
 
 
-def hypotheses_phase() -> dict:
-    """``python -m rca_tpu_torch hypotheses --fixture 50svc --seed 7
-    --compact`` on the card in its own process: the top-supported
-    candidate is the fixture's fault root, over a batch of 8."""
+def commands_phase(smi: str, device="cuda", cli=()) -> dict:
+    """The port's commands that need nothing of the phases around them,
+    started together as subprocesses on the card so that each pays its
+    start-up (an interpreter, ``torch``, a CUDA context, the library)
+    beside the others, then each held to its gate: ``hypotheses
+    --fixture 50svc --seed 7`` puts the fixture's fault root first over
+    a batch of 8; ``analyze --fixture 50svc --seed 7`` ranks it first
+    with the torch engine; ``analyze`` with no fixture, no ``kubectl``
+    and a missing ``KUBECONFIG`` prints the reference's report for an
+    empty, unreachable cluster; ``stream --fixture 50svc --ticks 10
+    --pipeline-depth 2`` ranks it first after 10 undegraded lines; ``train
+    --iters 20 --allow-unshippable`` writes a checkpoint that
+    ``GraphEngine()`` loads under ``RCA_WEIGHTS``.  ``device`` / ``cli``
+    rehearse it on the CPU (``"cpu"``, ``("--device", "cpu")``)."""
+    import shutil
+    import tempfile
+
     from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.train import load_params
 
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_commands_")
+    weights = os.path.join(tmp, "weights.json")
+    argvs = {
+        "hypotheses": ["hypotheses", "--fixture", "50svc", "--seed", "7",
+                       "--compact"],
+        "analyze": ["analyze", "--fixture", "50svc", "--seed", "7",
+                    "--compact"],
+        "no_cluster": ["analyze", "--compact"],
+        "stream": ["stream", "--fixture", "50svc", "--ticks", "10",
+                   "--pipeline-depth", "2", "--interval", "0"],
+        "train": ["train", "--iters", "20", "--out", weights,
+                  "--allow-unshippable"]}
+    procs, stdout, done_s = {}, {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "rca_tpu_torch", "hypotheses", "--fixture",
-         "50svc", "--seed", "7", "--compact"], capture_output=True,
-        text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"python -m rca_tpu_torch hypotheses exited {proc.returncode}:"
-             f" {proc.stderr[-2000:]}")
-    got = json.loads(proc.stdout)
-    roots = synthetic_cascade_world(50, n_roots=1, seed=7).ground_truth[
-        "fault_roots"]
-    top = got["hypotheses"][0]
-    if got["batch_width"] != BATCH or top["candidate"] not in roots:
-        fail(f"hypotheses: {got['batch_width']} lanes, top {top} vs fault "
-             f"roots {roots}")
-    out = {"top": top["candidate"], "support": top["support"],
-           "batch_width": got["batch_width"], "engine": got["engine"],
-           "batch_latency_ms_per_hypothesis":
-               got["batch_latency_ms_per_hypothesis"],
-           "seconds": time.perf_counter() - t0}
-    phase("hypotheses", **out)
+    try:
+        for label, argv in argvs.items():
+            procs[label] = subprocess.Popen(
+                [sys.executable, "-m", "rca_tpu_torch", *argv, *cli],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=_no_kubectl_env(tmp) if label == "no_cluster" else None)
+        for label, proc in procs.items():
+            stdout[label], err = proc.communicate(timeout=600)
+            done_s[label] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"python -m rca_tpu_torch {' '.join(argvs[label])} "
+                     f"exited {proc.returncode}: {err[-2000:]}")
+        out = {"done_s": done_s}
+
+        got = json.loads(stdout["hypotheses"])
+        roots = synthetic_cascade_world(50, n_roots=1, seed=7).ground_truth[
+            "fault_roots"]
+        top = got["hypotheses"][0]
+        if got["batch_width"] != BATCH or top["candidate"] not in roots:
+            fail(f"hypotheses: {got['batch_width']} lanes, top {top} vs "
+                 f"fault roots {roots}")
+        out["hypotheses"] = {
+            "top": top["candidate"], "support": top["support"],
+            "batch_width": got["batch_width"], "engine": got["engine"],
+            "batch_latency_ms_per_hypothesis":
+                got["batch_latency_ms_per_hypothesis"]}
+
+        cli = json.loads(stdout["analyze"])
+        causes = cli.get("root_causes") or []
+        if cli.get("status") != "completed" or not causes or \
+                "explained_by_upstream" not in causes[0]:
+            fail(f"the CLI gave no engine ranking: "
+                 f"{stdout['analyze'][:500]}")
+        if causes[0]["component"] not in roots:
+            fail(f"the CLI's top-1 {causes[0]['component']} is not a fault "
+                 f"root {roots}")
+        out["analyze"] = {"top": causes[0]["component"]}
+
+        report = json.loads(stdout["no_cluster"])
+        if report != NO_CLUSTER_REPORT:
+            fail(f"analyze with no cluster printed {report}, the reference "
+                 f"prints {NO_CLUSTER_REPORT}")
+        out["no_cluster"] = {"report": report}
+
+        lines = [json.loads(line) for line in stdout["stream"].splitlines()]
+        roots_0 = synthetic_cascade_world(50, n_roots=1, seed=0).ground_truth[
+            "fault_roots"]
+        last = lines[-1]
+        if len(lines) != 10 or not last["ranked"] or \
+                last["ranked"][0]["component"] not in roots_0 or \
+                last.get("degraded") or last.get("pipeline_depth") != 2:
+            fail(f"stream: {len(lines)} lines, last {last}, roots {roots_0}")
+        out["stream"] = {"top": last["ranked"][0]["component"]}
+
+        cli = json.loads(stdout["train"].strip().splitlines()[-1])
+        with mock.patch.dict(os.environ, {"RCA_WEIGHTS": weights}):
+            loaded = GraphEngine(device=device).params
+        if cli["checkpoint"] != weights or loaded != load_params(weights):
+            fail(f"RCA_WEIGHTS did not load the train checkpoint: {cli}")
+        out["train"] = {"final_loss": cli["final_loss"],
+                        "ships": cli["shippability"]["ships"],
+                        "rca_weights_loaded": True}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    phase("commands", smi=smi, **out)
     return out
-
-
 
 
 def _causes_match(got, want, label):
@@ -2857,28 +3088,6 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
                                           "betweenness_2047")}
         phase("snapshot_device_profile", **out["device_profile_2047"])
 
-    # the user's entry point, in its own process, on the 50-service fixture
-    # (the CLI's <N>svc world with seed 7 is the one generated above)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "rca_tpu_torch", "analyze", "--fixture",
-         "50svc", "--seed", "7", "--compact"], capture_output=True,
-        text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"python -m rca_tpu_torch analyze exited {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
-    cli = json.loads(proc.stdout)
-    causes = cli.get("root_causes") or []
-    if cli.get("status") != "completed" or not causes or \
-            "explained_by_upstream" not in causes[0]:
-        fail(f"the CLI gave no engine ranking: {proc.stdout[:500]}")
-    roots_50 = worlds[1][1].ground_truth["fault_roots"]
-    if causes[0]["component"] not in roots_50:
-        fail(f"the CLI's top-1 {causes[0]['component']} is not a fault root "
-             f"{roots_50}")
-    out["cli"] = {"top": causes[0]["component"],
-                  "seconds": time.perf_counter() - t0}
-    phase("cli", **out["cli"])
     out["launches"] = total
     return out
 
@@ -3031,18 +3240,14 @@ def capture_phase(smi: str) -> dict:
     ``capture_ms`` / ``features_ms`` / ``graph_ms`` of each path beside
     each other (medians; the columnar path's first capture, which builds
     the master tables, and its diff capture through a persisted mirror
-    apart); then ``python -m rca_tpu_torch analyze --compact`` with no
-    fixture, no kubectl and a missing kubeconfig, which must print the
-    reference's report for an empty, unreachable cluster."""
+    apart).  (``analyze`` with no cluster runs in :func:`commands_phase`.)"""
     import dataclasses
-    import tempfile
 
     import numpy as np
     from rca_tpu_torch.cluster.columnar import (
         ColumnarClientState,
         digest_array_crc,
     )
-    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
     from rca_tpu_torch.cluster.mock_client import MockClusterClient
     from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
     from rca_tpu_torch.features.extract import extract_features
@@ -3066,7 +3271,7 @@ def capture_phase(smi: str) -> dict:
 
     for n in CAPTURE_SIZES:
         t0 = time.perf_counter()
-        world = synthetic_cascade_world(n, n_roots=3, seed=0)
+        world = _generated("world", n, 3, 0)
         generate_s = time.perf_counter() - t0
         if n == CAPTURE_SIZES[0]:
             out["native"] = _native_check(world, ns)
@@ -3134,22 +3339,6 @@ def capture_phase(smi: str) -> dict:
         phase("capture", services=n, card=smi, **row)
         del world, client, first, col, diff, dic, fs_col, fs_dict
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "rca_tpu_torch", "analyze", "--compact"],
-            capture_output=True, text=True, timeout=300,
-            env=_no_kubectl_env(tmp))
-    if proc.returncode != 0:
-        fail(f"analyze with no fixture exited {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
-    report = json.loads(proc.stdout)
-    if report != NO_CLUSTER_REPORT:
-        fail(f"analyze with no cluster printed {report}, the reference "
-             f"prints {NO_CLUSTER_REPORT}")
-    out["no_cluster_cli"] = {"report": report,
-                             "seconds": time.perf_counter() - t0}
-    phase("no_cluster_cli", **out["no_cluster_cli"])
     return out
 
 
@@ -3344,7 +3533,6 @@ def stream_phase(engine, cases, profile_it: bool = False,
     quiet tick)."""
     import numpy as np
     import torch
-    from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
     from rca_tpu_torch.config import RCAConfig, bucket_for
     from rca_tpu_torch.engine.streaming import StreamingSession
     from rca_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -3358,8 +3546,7 @@ def stream_phase(engine, cases, profile_it: bool = False,
 
     out = {}
     for n in STREAM_SIZES:
-        case = cases.get(n) or synthetic_cascade_arrays(n, n_roots=3,
-                                                        seed=0)
+        case = cases.get(n) or _generated("arrays", n, 3, 0)
         n_pad = bucket_for(n + 1, RCAConfig().shape_buckets)
         rng = np.random.default_rng(90 + n)
         script = _stream_script(n, n_pad, rng)
@@ -3644,10 +3831,8 @@ def live_phase() -> dict:
     depth 2 is depth 1 shifted by one, bitwise; nothing degraded, no rung
     taken, no fault; the ranking equals the port's CPU run (components and
     order exact, scores within rtol 1e-5 / atol 1e-6).  The ladder on the
-    card raises instead of taking the ``interpret`` rung.  Then
-    ``python -m rca_tpu_torch stream --fixture 50svc --ticks 10
-    --pipeline-depth 2`` in a subprocess, whose top-1 must be the
-    fixture's root."""
+    card raises instead of taking the ``interpret`` rung.  (The
+    ``stream`` command runs in :func:`commands_phase`.)"""
     import numpy as np
     from rca_tpu_torch.cluster.generator import synthetic_cascade_world
 
@@ -3705,11 +3890,9 @@ def live_phase() -> dict:
     phase("live_ladder", **out["ladder"])
 
     def world_10k():
-        return synthetic_cascade_world(10000, n_roots=3, seed=0)
+        return _generated("world", 10000, 3, 0)
 
-    t0 = time.perf_counter()
     roots = world_10k().ground_truth["fault_roots"]
-    generate_s = time.perf_counter() - t0
     ops = _op_sequence(29, 20)
     card = _live_run(world_10k, "synthetic", "cuda", 2, ops, 5)
     cpu = _live_run(world_10k, "synthetic", "cpu", 2, ops, 5)
@@ -3737,7 +3920,7 @@ def live_phase() -> dict:
     dispatch = [o["dispatch_ms"] for o in card[2:]]
     fetch = [o["fetch_ms"] for o in card[2:]]
     out["10k"] = {
-        "polls": 20, "generate_s": generate_s, "capture": "columnar",
+        "polls": 20, "capture": "columnar",
         **capture_times(card),
         "dict": capture_times(dict_run),
         "dict_ranked_as_columnar": sum(
@@ -3770,26 +3953,6 @@ def live_phase() -> dict:
                        "top": [r["component"] for r in fed[-1]["ranked"]],
                        "fault_roots": roots}
     phase("live", world="10k live feed", **out["10k_feed"])
-
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "rca_tpu_torch", "stream", "--fixture",
-         "50svc", "--ticks", "10", "--pipeline-depth", "2", "--interval",
-         "0"], capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"python -m rca_tpu_torch stream exited {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
-    lines = [json.loads(line) for line in proc.stdout.splitlines()]
-    roots = synthetic_cascade_world(50, n_roots=1, seed=0).ground_truth[
-        "fault_roots"]
-    last = lines[-1]
-    if len(lines) != 10 or not last["ranked"] or \
-            last["ranked"][0]["component"] not in roots or \
-            last.get("degraded") or last.get("pipeline_depth") != 2:
-        fail(f"stream: {len(lines)} lines, last {last}, roots {roots}")
-    out["cli"] = {"top": last["ranked"][0]["component"],
-                  "seconds": time.perf_counter() - t0}
-    phase("stream_cli", **out["cli"])
     return out
 
 
@@ -3917,14 +4080,12 @@ def replay_phase(cases, smi: str) -> dict:
         # one turn each keeps the whole run inside about 800 s
         for turn in range(1):
             walls["unrecorded"] += _recorded_live(
-                synthetic_cascade_world(10000, n_roots=3, seed=0), ops,
-                None, [])[1]
+                _generated("world", 10000, 3, 0), ops, None, [])[1]
             path = os.path.join(tmp, f"live{turn}")
             rec = Recorder(path, mode="stream")
             rec_ticks = []
             outs, w = _recorded_live(
-                synthetic_cascade_world(10000, n_roots=3, seed=0), ops, rec,
-                rec_ticks)
+                _generated("world", 10000, 3, 0), ops, rec, rec_ticks)
             walls["recorded"] += w
         no_faults("10k recording", [f["op"] for o in outs
                                     for f in o["health"]["faults"]])
@@ -4373,20 +4534,15 @@ def train_phase(smi: str) -> dict:
     the card (ms per iteration, the wall, the first and last loss);
     ``shippability_report`` of the card's fitted weights on the card
     (``kernels`` row) equal as a dict to the same report on
-    ``GraphEngine(device="cpu")``; then ``python -m rca_tpu_torch train
-    --iters 20 --out <tmp>.json --allow-unshippable`` exits 0 and
-    ``GraphEngine()`` under ``RCA_WEIGHTS`` loads its checkpoint."""
+    ``GraphEngine(device="cpu")``.  (The ``train`` command runs in
+    :func:`commands_phase`.)"""
     import dataclasses
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
-    from rca_tpu_torch.engine import GraphEngine
     from rca_tpu_torch.engine.runner import resolve_device
     from rca_tpu_torch.engine.train import (
         TrainConfig,
-        load_params,
         make_dataset,
         shippability_report,
         stage_dataset,
@@ -4428,25 +4584,6 @@ def train_phase(smi: str) -> dict:
     if card_report != cpu_report:
         fail(f"the gate on the card {card_report} vs on the CPU "
              f"{cpu_report}")
-    tmp = tempfile.mkdtemp(prefix="rca_train_")
-    try:
-        path = os.path.join(tmp, "weights.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "rca_tpu_torch", "train", "--iters", "20",
-             "--out", path, "--allow-unshippable"], capture_output=True,
-            text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"python -m rca_tpu_torch train exited {proc.returncode}: "
-                 f"{proc.stderr[-2000:]}")
-        cli = json.loads(proc.stdout.strip().splitlines()[-1])
-        with mock.patch.dict(os.environ, {"RCA_WEIGHTS": path}):
-            loaded = GraphEngine().params
-        if cli["checkpoint"] != path or loaded != load_params(path):
-            fail(f"RCA_WEIGHTS did not load the train checkpoint: {cli}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
     out = {
         "config": {"services": cfg.n_services, "cases": cfg.n_cases,
                    "iters": cfg.iters, "modes": list(cfg.modes)},
@@ -4461,9 +4598,6 @@ def train_phase(smi: str) -> dict:
         "holdout_adversarial_hit1": card_report["holdout_adversarial_hit1"],
         "gate_card_s": gate_card_s, "gate_cpu_s": gate_cpu_s,
         "gate_equal_cpu": True,
-        "cli": {"seconds": cli_s, "final_loss": cli["final_loss"],
-                "ships": cli["shippability"]["ships"],
-                "rca_weights_loaded": True},
         "seconds": time.perf_counter() - t_phase}
     phase("train", smi=smi, **out)
     return out
@@ -4626,9 +4760,10 @@ def investigate_phase(smi: str) -> dict:
     ``python -m rca_tpu_torch chat --investigation new`` over ``--fixture
     50svc`` makes an investigation, one explained request naming it goes
     through ``ServeLoop(store=...)`` on the card and its provenance must
-    land in the store; ``suggest``, ``report --out``, ``investigations``
-    and ``why`` run as subprocesses and exit 0, and ``why`` prints the
-    blame tree of the stored provenance."""
+    land in the store; ``suggest`` and ``report --out`` (started with
+    ``chat``), then ``investigations`` and ``why`` (started together)
+    run as subprocesses and exit 0, and ``why`` prints the blame tree of
+    the stored provenance."""
     import shutil
     import tempfile
 
@@ -4647,6 +4782,7 @@ def investigate_phase(smi: str) -> dict:
     from rca_tpu_torch.ui.render import report_markdown
 
     t_phase = time.perf_counter()
+    procs: list = []
     tmp = tempfile.mkdtemp(prefix="chip_smoke_investigate_")
     out = {}
     try:
@@ -4746,33 +4882,40 @@ def investigate_phase(smi: str) -> dict:
             "host_ms": walls}
         phase("investigate", services=2047, smi=smi, **out["2047"])
 
-        # the store on the serve plane, and the commands
+        # the store on the serve plane, and the commands: the ones that
+        # need nothing of each other start together, so their start-ups
+        # (interpreter, torch, a CUDA context, the library) overlap
         log_dir = os.path.join(tmp, "store")
 
-        def cli(*argv):
-            proc = subprocess.run(
+        def start(*argv):
+            procs.append(subprocess.Popen(
                 [sys.executable, "-m", "rca_tpu_torch", *argv,
-                 "--log-dir", log_dir], capture_output=True, text=True,
-                timeout=300)
+                 "--log-dir", log_dir], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+            return argv[0], procs[-1]
+
+        def cli(started):
+            name, proc = started
+            out, err = proc.communicate(timeout=300)
             if proc.returncode != 0:
-                fail(f"python -m rca_tpu_torch {argv[0]} exited "
-                     f"{proc.returncode}: {proc.stderr[-2000:]}")
-            return proc.stdout
+                fail(f"python -m rca_tpu_torch {name} exited "
+                     f"{proc.returncode}: {err[-2000:]}")
+            return out
 
         t0 = time.perf_counter()
-        chat = json.loads(cli("chat", "--fixture", "50svc", "--compact",
-                              "--investigation", "new",
-                              "why is the top service down?"))
-        iid = chat["investigation_id"]
-        suggested = json.loads(cli(
-            "suggest", "--fixture", "50svc", "--compact",
-            json.dumps({"type": "run_agent", "agent_type": "comprehensive"})))
         report_path = os.path.join(tmp, "report.md")
-        written = json.loads(cli("report", "--fixture", "50svc", "--out",
-                                 report_path))
-        with open(report_path) as f:
-            if not f.read().startswith("# Root Cause Analysis Report"):
-                fail("report --out wrote no report")
+        started = {
+            "chat": start("chat", "--fixture", "50svc", "--compact",
+                          "--investigation", "new",
+                          "why is the top service down?"),
+            "suggest": start(
+                "suggest", "--fixture", "50svc", "--compact",
+                json.dumps({"type": "run_agent",
+                            "agent_type": "comprehensive"})),
+            "report": start("report", "--fixture", "50svc", "--out",
+                            report_path)}
+        chat = json.loads(cli(started["chat"]))
+        iid = chat["investigation_id"]
         world50 = synthetic_cascade_world(50, n_roots=1, seed=0)
         snap = ClusterSnapshot.capture(MockClusterClient(world50), ns)
         fs = extract_features(snap)
@@ -4798,10 +4941,17 @@ def investigate_phase(smi: str) -> dict:
             fail("the served provenance did not land in the store")
         if not any(m["role"] == "serve" for m in stored["conversation"]):
             fail("the serve note did not land in the store")
-        listed = json.loads(cli("investigations"))
+        suggested = json.loads(cli(started["suggest"]))
+        written = json.loads(cli(started["report"]))
+        with open(report_path) as f:
+            if not f.read().startswith("# Root Cause Analysis Report"):
+                fail("report --out wrote no report")
+        started["investigations"] = start("investigations")
+        started["why"] = start("why", iid)
+        listed = json.loads(cli(started["investigations"]))
         if [row["id"] for row in listed] != [iid]:
             fail(f"investigations listed {listed}")
-        why = cli("why", iid)
+        why = cli(started["why"])
         tree = render_blame_tree(stored["provenance"])
         if tree not in why or not why.startswith(f"investigation {iid}"):
             fail(f"why did not print the stored blame tree: {why[:500]}")
@@ -4814,6 +4964,10 @@ def investigate_phase(smi: str) -> dict:
             "seconds": time.perf_counter() - t0}
         phase("investigate", leg="store and commands", **out["commands"])
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     phase("investigate", seconds=out["seconds"])
@@ -5625,10 +5779,7 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     ladder from ``full`` to ``single-device``; the times."""
     import numpy as np
     import torch
-    from rca_tpu_torch.cluster.generator import (
-        synthetic_cascade_arrays,
-        synthetic_cascade_world,
-    )
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
     from rca_tpu_torch.cluster.mock_client import MockClusterClient
     from rca_tpu_torch.engine import (
         GraphEngine,
@@ -5867,7 +6018,7 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
 
     # -- the streaming session at 10,000 services ---------------------------
     n = 10000
-    big = synthetic_cascade_arrays(n, n_roots=3, seed=0)
+    big = _generated("arrays", n, 3, 0)
     names = [f"svc-{i}" for i in range(n)]
     seng = ShardedGraphEngine(mesh=mesh(SHARD_SP))
     sharded_s = ShardedStreamingSession(names, big.dep_src, big.dep_dst, C,
@@ -6595,7 +6746,7 @@ def _chaos_command(env, smi, label: str, argv) -> dict:
         "federation": {k: report["federation"][k] for k in (
             "requests", "by_status", "double_completions",
             "stale_responses", "reroutes", "rejoins",
-            "detect_lag_ms_max")},
+            "detect_lag_ms_max", "phases")},
         "ingest": {k: report["ingest"][k] for k in (
             "victim", "victim_clusters", "double_applied",
             "stale_stats_dropped")}}
@@ -7145,6 +7296,12 @@ def autoscale_phase(cases, smi: str, device="cuda", cli=()) -> dict:
 
 
 LINT_SIZES = (2047, 49999)
+#: the rsan leg: the cross-check's chaos soak, and the sanitized pool's
+#: submitters and requests each at 2047 services
+RSAN_SOAK_TICKS = 40
+RSAN_SOAK_SERVICES = 20
+RSAN_POOL_THREADS = 8
+RSAN_POOL_EACH = 8
 
 
 def _lint_launches(launches: dict) -> None:
@@ -7166,10 +7323,164 @@ def _lint_launches(launches: dict) -> None:
                  f"{counts}")
 
 
-def lint_phase(smi: str) -> dict:
+def _rsan_soak(smi: str, device="cuda") -> dict:
+    """``run_rsan_crosscheck(seed=7, soak_ticks=40, device="cuda")`` on
+    the ``kernels`` row, every live poll of its soak counted from 0: ok,
+    no contradiction and no observed race, at least 2 locks taken from
+    at least 2 threads, 40 ticks with no uncaught exception, each tick
+    the main path's launches (a degraded tick none or those), and the
+    sanitizer off again after."""
+    from rca_tpu_torch.analysis.concurrency import rsan
+    from rca_tpu_torch.analysis.concurrency.crosscheck import (
+        run_rsan_crosscheck,
+    )
+    from rca_tpu_torch.engine.live import LiveStreamingSession
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    polls = []
+    real = LiveStreamingSession.poll
+
+    def poll(self):
+        reset_launches()
+        out = real(self)
+        polls.append({"launches": dict(LAUNCHES),
+                      "degraded": bool(out.get("degraded"))})
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"RCA_KERNEL": "kernels"}), \
+            mock.patch.object(LiveStreamingSession, "poll", poll):
+        report = run_rsan_crosscheck(seed=7, soak_ticks=RSAN_SOAK_TICKS,
+                                     device=device)
+    seconds = time.perf_counter() - t0
+    soak = report["soak"] or {}
+    if not report["ok"] or report["contradictions"] or \
+            report["races_observed"] or len(
+                report["multi_thread_locks"]) < 2 or soak.get(
+                "ticks") != RSAN_SOAK_TICKS or soak.get(
+                "uncaught_exceptions") or soak.get("kernel_paths") != {
+                "kernels": RSAN_SOAK_TICKS} or rsan.enabled():
+        fail("rsan cross-check: " + json.dumps({k: report[k] for k in (
+            "ok", "contradictions", "races_observed", "multi_thread_locks",
+            "stress", "soak")}, default=str))
+    # the first poll is the soak's fault-free baseline session's
+    want = main_launches(RSAN_SOAK_SERVICES)
+    ticks = polls[1:]
+    if len(polls) != RSAN_SOAK_TICKS + 1:
+        fail(f"rsan soak: {len(polls)} polls, want {RSAN_SOAK_TICKS + 1}")
+    for i, tick in enumerate(polls):
+        if tick["launches"] != want and not (
+                tick["degraded"] and not any(tick["launches"].values())):
+            fail(f"rsan soak: poll {i} launched {tick['launches']} "
+                 f"(degraded {tick['degraded']}), want {want}")
+    totals = {k: sum(t["launches"][k] for t in ticks) for k in want}
+    out = {"ok": True, "acquires": report["acquires"],
+           "locks_observed": report["locks_observed"],
+           "multi_thread_locks": report["multi_thread_locks"],
+           "observed_edges": report["observed_edges"],
+           "static_edges": len(report["static_edges"]),
+           "stress": report["stress"], "soak_ticks": RSAN_SOAK_TICKS,
+           "degraded_ticks": sum(t["degraded"] for t in ticks),
+           "launches": totals, "per_tick": want,
+           "crosscheck_ms": report["wall_ms"], "seconds": seconds}
+    phase("lint", leg="rsan cross-check", **{
+        k: v for k, v in out.items() if k not in ("launches", "per_tick")},
+        launches={k: v for k, v in totals.items() if v}, smi=smi)
+    return out
+
+
+def _rsan_pool(case, smi: str, device="cuda") -> dict:
+    """A started two-replica ``ServePool`` on the card at 2047 services
+    with every lock sanitized (:func:`_pool_load` from 8 submitter
+    threads, 64 requests over 4 tenants, replica 0 killed after its first
+    device batch).  Every ok answer bitwise its solo analysis, no double
+    completion, no observed race and no contradiction against the port's
+    static order graph, the pool's, the queue's, the replicas' and the
+    sink's locks taken from at least 2 threads, each device batch the
+    main path's launches."""
+    import numpy as np
+    from rca_tpu_torch.analysis.concurrency import model_for, rsan
+    from rca_tpu_torch.analysis.concurrency.crosscheck import (
+        order_contradictions,
+    )
+    from rca_tpu_torch.analysis.core import repo_root
+    from rca_tpu_torch.engine import GraphEngine
+
+    t0 = time.perf_counter()
+    total = RSAN_POOL_THREADS * RSAN_POOL_EACH
+    feats = _serve_features(case, np.random.default_rng(211), total)
+    oracle = GraphEngine(device=device)
+    was = rsan.enabled()
+    rsan.enable()
+    rsan.RSAN.reset()
+    try:
+        # the pool is built with the sanitizer on: its locks are shims
+        got = _pool_load(oracle, [(case, f) for f in feats], (case, case),
+                         "", True, threads=RSAN_POOL_THREADS)
+        edges = rsan.RSAN.order_edges()
+        lock_threads = rsan.RSAN.lock_threads()
+        races = rsan.RSAN.races_observed()
+        acquires = rsan.RSAN.acquires
+    finally:
+        rsan.RSAN.reset()
+        if not was:
+            rsan.disable()
+    contradictions = order_contradictions(
+        model_for(repo_root()).static_order_edges(), edges)
+    resps = got["responses"]
+    bad = [r.status for r in resps if r.status not in ("ok", "degraded",
+                                                        "error")]
+    if bad or got["double_completions"] or races or contradictions or \
+            got["breaker_state"]["0"] != "dead":
+        fail(f"rsan pool: statuses {bad}, double completions "
+             f"{got['double_completions']}, races {races}, contradictions "
+             f"{contradictions}, breakers {got['breaker_state']}")
+    oks = 0
+    for i, r in enumerate(resps):
+        if r.status != "ok":
+            continue
+        solo = oracle.analyze_arrays(feats[i], case.dep_src, case.dep_dst,
+                                     case.names, k=SERVE_K)
+        if not _same_as_solo(r.result, solo):
+            fail(f"rsan pool: request {i} differs from its solo analysis")
+        oks += 1
+    if not oks:
+        fail("rsan pool: no request answered ok")
+    contended = ("ServePool._route_lock", "RequestQueue._cond",
+                 "ReplicaWorker._lock", "CompletionSink._lock")
+    for name in contended:
+        if len(lock_threads.get(name, ())) < 2:
+            fail(f"rsan pool: {name} taken from "
+                 f"{lock_threads.get(name)} only")
+    want = main_launches(case.n)
+    for e in got["log"]:
+        if e["launches"] != want:
+            fail(f"rsan pool: replica {e['replica']} launched "
+                 f"{e['launches']} for a batch of {e['width']}, want {want}")
+    out = {"ok": True, "services": case.n, "requests": total,
+           "threads": RSAN_POOL_THREADS,
+           "by_status": {s: sum(r.status == s for r in resps)
+                         for s in sorted({r.status for r in resps})},
+           "parity_checked": oks, "double_completions": 0,
+           "device_batches": got["device_batches"],
+           "replica_batches": got["replica_batches"],
+           "acquires": acquires, "order_edges": sorted(map(list, edges)),
+           "lock_threads": {k: len(lock_threads[k]) for k in contended},
+           "launches": {k: sum(e["launches"][k] for e in got["log"])
+                        for k in want},
+           "per_batch": want, "wall_s": got["wall_s"],
+           "seconds": time.perf_counter() - t0}
+    phase("lint", leg="rsan pool at 2047", **{
+        k: v for k, v in out.items() if k not in ("launches", "per_batch")},
+        launches={k: v for k, v in out["launches"].items() if v}, smi=smi)
+    return out
+
+
+def lint_phase(cases, smi: str, device="cuda", cli=()) -> dict:
     """The analysis plane on the card: the lint and the CLI's runtime
-    checks as subprocesses while specsan runs here (the module
-    docstring, item 24)."""
+    checks as one subprocess while specsan, then rsan, run here (the
+    module docstring, item 24).  ``device`` / ``cli`` rehearse it on the
+    CPU (``"cpu"``, ``("--device", "cpu")``)."""
     from rca_tpu_torch.analysis.core import (
         default_baseline_path,
         load_baseline,
@@ -7181,59 +7492,62 @@ def lint_phase(smi: str) -> dict:
         run_specsan,
     )
 
-    import threading
-
     t_phase = time.perf_counter()
     print(smi, flush=True)
-    procs, outputs, walls, waiters = {}, {}, {}, []
-
-    def wait(label, proc, t0):
-        outputs[label] = proc.communicate(timeout=600)
-        walls[label] = time.perf_counter() - t0
-
-    for label, extra in (("lint", ["--json"]),
-                         ("lint_runtime", ["--tracecheck", "--specsan"])):
-        t0 = time.perf_counter()
-        procs[label] = subprocess.Popen(
-            [sys.executable, "-m", "rca_tpu_torch", "lint", *extra],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        waiters.append(threading.Thread(target=wait,
-                                        args=(label, procs[label], t0)))
-        waiters[-1].start()
+    # one interpreter, one torch import, one CUDA context and one parse of
+    # the tree for the rules, tracecheck, rsan and specsan
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rca_tpu_torch", "lint", "--all", "--json",
+         *cli],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         # the legs uncaptured first: they elect every shape's row, and
         # the captured run must equal them bitwise
-        plain = run_legs(None, seed=0, services=LINT_SIZES, device="cuda")
-        t0 = time.perf_counter()
-        report = run_specsan(seed=0, services=LINT_SIZES, device="cuda")
-        specsan_s = time.perf_counter() - t0
-        for waiter in waiters:
-            waiter.join()
+        plain = run_legs(None, seed=0, services=LINT_SIZES, device=device)
+        t1 = time.perf_counter()
+        report = run_specsan(seed=0, services=LINT_SIZES, device=device)
+        specsan_s = time.perf_counter() - t1
+        # rsan is process-global: its legs run after specsan, never beside
+        rsan_soak = _rsan_soak(smi, device)
+        rsan_pool = _rsan_pool(cases[2047], smi, device)
+        out, err = proc.communicate(timeout=600)
+        process_s = time.perf_counter() - t0
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    if set(outputs) != set(procs):
-        fail(f"lint: a subprocess did not finish: {sorted(outputs)}")
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
 
-    # the lint: exit 0, no finding, an empty baseline
-    out, err = outputs["lint"]
+    # the CLI: exit 0, no finding, an empty baseline, every check ok
     try:
         lint = json.loads(out)
     except ValueError:
-        fail(f"lint --json printed no JSON (exit {procs['lint'].returncode})"
+        fail(f"lint --all --json printed no JSON (exit {proc.returncode})"
              f": {out[-500:]} {err[-1500:]}")
     baseline = load_baseline(default_baseline_path())
-    if procs["lint"].returncode != 0 or lint["findings"] or baseline \
-            or lint["baselined"]:
-        fail(f"lint: exit {procs['lint'].returncode}, findings "
-             f"{lint['findings'][:5]}, baseline {baseline[:5]}")
-    phase("lint", leg="rules", files_scanned=lint["files_scanned"],
-          wall_ms=lint["wall_ms"], process_s=walls["lint"],
-          findings=0, baseline_entries=0, smi=smi)
+    if proc.returncode != 0 or lint["findings"] or baseline \
+            or lint["baselined"] or not lint["clean"]:
+        fail(f"lint --all: exit {proc.returncode}, findings "
+             f"{lint['findings'][:5]}, baseline {baseline[:5]}: "
+             f"{err[-1500:]}")
+    cli_rsan = lint["rsan"]
+    if not (lint["tracecheck"]["ok"] and lint["specsan"]["ok"]
+            and cli_rsan["ok"]) or cli_rsan["contradictions"] or \
+            cli_rsan["races_observed"]:
+        fail("lint --all: " + json.dumps({
+            "tracecheck": lint["tracecheck"]["ok"],
+            "specsan": lint["specsan"]["ok"], "rsan": cli_rsan},
+            default=str)[:3000])
+    phase("lint", leg="lint --all", exit=0,
+          files_scanned=lint["files_scanned"], wall_ms=lint["wall_ms"],
+          process_s=process_s, findings=0, baseline_entries=0,
+          tracecheck=[e["entry"] for e in lint["tracecheck"]["entries"]],
+          specsan_fetches=lint["specsan"]["fetches"],
+          rsan={k: cli_rsan[k] for k in (
+              "acquires", "locks_observed", "multi_thread_locks")},
+          smi=smi)
 
-    # specsan: ok, no violation, the dense path's surfaces confirmed
+    # specsan here: ok, no violation, the dense path's surfaces confirmed
     if not report["ok"] or report["violations"]:
         fail(f"specsan: ok {report['ok']}, violations "
              f"{report['violations'][:5]}, serve {report['serve']}")
@@ -7262,26 +7576,18 @@ def lint_phase(smi: str) -> dict:
           unexercised=report["surfaces_unexercised"],
           seconds=specsan_s, serve=report["serve"],
           bitwise_uncaptured=True, smi=smi)
-
-    # the CLI's rules + tracecheck + specsan on the card: exit 0
-    out, err = outputs["lint_runtime"]
-    if procs["lint_runtime"].returncode != 0:
-        fail(f"lint --tracecheck --specsan: exit "
-             f"{procs['lint_runtime'].returncode}: {out[-1500:]} "
-             f"{err[-1500:]}")
-    summary = [line for line in out.splitlines()
-               if line.startswith(("tracecheck:", "specsan:", "graftlint:"))]
-    phase("lint", leg="cli runtime", exit=0, process_s=walls["lint_runtime"],
-          summary=summary, smi=smi)
     seconds = time.perf_counter() - t_phase
     phase("lint", seconds=seconds, smi=smi)
     return {"files_scanned": lint["files_scanned"],
-            "lint_wall_ms": lint["wall_ms"], "lint_process_s": walls["lint"],
-            "runtime_process_s": walls["lint_runtime"],
+            "lint_wall_ms": lint["wall_ms"], "process_s": process_s,
+            "cli_rsan": {k: cli_rsan[k] for k in (
+                "acquires", "locks_observed", "multi_thread_locks",
+                "wall_ms")},
             "specsan_s": specsan_s, "fetches": report["fetches"],
             "legs": report["legs"], "launches": report["launches"],
             "unexercised": report["surfaces_unexercised"],
-            "cli_summary": summary, "seconds": seconds}
+            "rsan": {"soak": rsan_soak, "pool": rsan_pool},
+            "seconds": seconds}
 
 
 def _no_sync(fn):

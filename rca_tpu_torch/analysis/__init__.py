@@ -1,13 +1,16 @@
 """graftlint for the port: static rules over ``rca_tpu_torch/``,
-``chip_smoke.py`` and ``tests/test_torch_*.py``, with the runtime
-recompile gate (``tracecheck.py``) and the fetch-budget cross-check
-(``dataplane/specsan.py``).
+``chip_smoke.py`` and ``tests/test_torch_*.py`` (gravelock's race and
+lock-order rules over the port's concurrency model among them), with the
+runtime recompile gate (``tracecheck.py``), the runtime lock sanitizer's
+cross-check (``concurrency/crosscheck.py``) and the fetch-budget
+cross-check (``dataplane/specsan.py``).
 
 Usage::
 
     python -m rca_tpu_torch.analysis            # or: python -m rca_tpu_torch lint
     python -m rca_tpu_torch.analysis --json
-    python -m rca_tpu_torch.analysis --tracecheck --specsan
+    python -m rca_tpu_torch.analysis --rsan
+    python -m rca_tpu_torch.analysis --all --device cpu
 
 Programmatic surface: :func:`run_lint` (static rules),
 :func:`run_tracecheck` (runtime recompile gate), :func:`all_rules`.

@@ -4,21 +4,26 @@ the port's graftlint CLI (the twin of ``python -m rca_tpu.analysis``).
 Exit-code contract (stable for CI):
 
 - **0** — no findings (suppressed/baselined hits do not count); with
-  ``--tracecheck``, additionally no second-call compile; with
-  ``--specsan``, additionally every observed device→host transfer
-  unifies with the contract tables and fits its byte budget; ``--all`` =
-  the rules, ``--tracecheck`` and ``--specsan`` in one run with a single
-  summary, which names the check it did not run (``"not_run":
-  ["rsan"]``);
-- **1** — findings (or a tracecheck recompile, or a specsan failure);
+  ``--tracecheck``, additionally no second-call compile; with ``--rsan``,
+  additionally a clean runtime lock cross-check (no order contradiction,
+  no observed race, stress totals exact); with ``--specsan``,
+  additionally every observed device→host transfer unifies with the
+  contract tables and fits its byte budget; ``--all`` = the rules,
+  ``--tracecheck``, ``--rsan`` and ``--specsan`` in one run with a single
+  summary;
+- **1** — findings (or a tracecheck recompile, or an rsan / specsan
+  failure);
 - **2** — usage or internal error (unknown rule, malformed baseline,
-  ``--changed`` mixed with explicit paths, ``--rsan``, which is not
-  ported yet, or a device that does not exist).
+  ``--changed`` mixed with explicit paths, or a device that does not
+  exist).
 
 ``--changed`` lints only git-dirty files plus files whose content differs
 from the cached fingerprint index under ``.graftlint_torch/`` (refreshed
-by every default-scan run).  ``--tracecheck`` and ``--specsan`` run on
-``--device`` (the CUDA card unless the caller names the CPU).
+by every default-scan run); interprocedural rules still see the whole
+package, so per-file findings match a full run.  ``--tracecheck`` and
+``--specsan`` run on ``--device`` (the CUDA card unless the caller names
+the CPU); ``--rsan``'s stress drives the serve scheduler's host path and
+touches no device.
 
 ``--json`` emits one machine-readable JSON object on stdout and nothing
 else.
@@ -42,15 +47,6 @@ from rca_tpu_torch.analysis.core import (
     write_baseline,
 )
 
-#: the checks ``--all`` does not run yet, named in its summary
-NOT_RUN = ("rsan",)
-
-RSAN_NOT_PORTED = (
-    "graftlint: error: --rsan (the gravelock runtime cross-check) is not "
-    "ported yet: it is the second part of ROADMAP A16, with gravelock's "
-    "race-guard and lock-order rules"
-)
-
 EPILOG = """\
 suppressions:
   # graftlint: disable=<rule>[,<rule>]    on the flagged line
@@ -70,8 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
         description=("graftlint for the PyTorch port: static analysis — "
                      "tick-sync and fetch-seam contracts, kernel "
                      "dispatch, RNG, lock, thread and env discipline, "
-                     "swallowed faults — with the runtime recompile and "
-                     "fetch-budget checks"),
+                     "races and lock order, swallowed faults — with the "
+                     "runtime recompile, lock-sanitizer and fetch-budget "
+                     "checks"),
         epilog=EPILOG,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
@@ -98,8 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "files whose content differs from the cached "
                    ".graftlint_torch/ fingerprint index")
     p.add_argument("--rsan", action="store_true",
-                   help="the gravelock runtime cross-check: not ported "
-                   "yet (exits 2)")
+                   help="also run the gravelock runtime cross-check: a "
+                   "sanitized multi-thread stress whose observed lock "
+                   "orders and access pairs must agree with the static "
+                   "concurrency model")
     p.add_argument("--specsan", action="store_true",
                    help="also run the fetch-budget cross-check: a seeded "
                    "engine session + serve selftest with both entries of "
@@ -108,8 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "contract tables")
     p.add_argument("--all", action="store_true", dest="run_all",
                    help="the full gate: default rules + --tracecheck + "
-                   "--specsan in one run, one summary, one exit code "
-                   "(rsan is not ported yet, and the summary says so)")
+                   "--rsan + --specsan in one run, one summary, one "
+                   "exit code")
     p.add_argument("--device", default=None,
                    help="device of --tracecheck and --specsan (default: "
                    "the CUDA card; 'cpu' for the plain versions)")
@@ -120,11 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     root = args.root or repo_root()
-    if args.rsan:
-        print(RSAN_NOT_PORTED, file=sys.stderr)
-        return 2
     if args.run_all:
-        args.tracecheck = args.specsan = True
+        args.tracecheck = args.rsan = args.specsan = True
 
     if args.list_rules:
         rules = all_rules()
@@ -184,12 +180,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"{bpath}")
         return 0
 
-    trace = specsan_report = None
+    trace = rsan_report = specsan_report = None
     try:
         if args.tracecheck:
             from rca_tpu_torch.analysis.tracecheck import run_tracecheck
 
             trace = run_tracecheck(device=args.device)
+        if args.rsan:
+            from rca_tpu_torch.analysis.concurrency.crosscheck import (
+                run_rsan_crosscheck,
+            )
+
+            # the sanitizer is process-global: it runs before specsan,
+            # never beside it
+            rsan_report = run_rsan_crosscheck(root=root)
         if args.specsan:
             from rca_tpu_torch.analysis.dataplane.specsan import run_specsan
             from rca_tpu_torch.config import env_int
@@ -212,6 +216,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if trace is not None:
             out["tracecheck"] = trace
             out["clean"] = out["clean"] and trace["ok"]
+        if rsan_report is not None:
+            out["rsan"] = rsan_report
+            out["clean"] = out["clean"] and rsan_report["ok"]
         if specsan_report is not None:
             from rca_tpu_torch.analysis.dataplane.specsan import (
                 confirm_findings,
@@ -220,8 +227,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             confirm_findings(out["findings"], specsan_report)
             out["specsan"] = specsan_report
             out["clean"] = out["clean"] and specsan_report["ok"]
-        if args.run_all:
-            out["not_run"] = list(NOT_RUN)
         print(json.dumps(out))
         return 0 if out["clean"] else 1
 
@@ -248,6 +253,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"tracecheck: {e['entry']}: {status} "
                   f"[warmup {e['warmup_compiles']} compiles, "
                   f"{e['wall_ms']:.0f} ms]")
+    if rsan_report is not None:
+        r = rsan_report
+        print(f"rsan: {'ok' if r['ok'] else 'FAILED'} "
+              f"[{r['acquires']} acquires over "
+              f"{len(r['locks_observed'])} locks "
+              f"({len(r['multi_thread_locks'])} multi-thread), "
+              f"{len(r['observed_edges'])} order edges, "
+              f"{len(r['contradictions'])} contradiction(s), "
+              f"{len(r['races_observed'])} race(s) observed, "
+              f"{r['wall_ms']:.0f} ms]")
+        for c in r["contradictions"]:
+            print(f"rsan: ORDER CONTRADICTION {c['edge'][0]} -> "
+                  f"{c['edge'][1]} (threads {', '.join(c['threads'])}; "
+                  f"chain {' -> '.join(c['chain'])})")
+        for race in r["races_observed"]:
+            predicted = ("statically predicted" if
+                         race["statically_predicted"]
+                         else "NOT statically predicted — model gap")
+            print(f"rsan: OBSERVED RACE {race['owner']}.{race['attr']} "
+                  f"between {', '.join(race['threads'])} ({predicted})")
     if specsan_report is not None:
         s = specsan_report
         print(f"specsan: {'ok' if s['ok'] else 'FAILED'} "
@@ -269,9 +294,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"{detail} (shapes {v['shapes']}, dtypes "
                   f"{v['dtypes']}, {v['nbytes']} B)")
     clean = (result.clean and (trace is None or trace["ok"])
+             and (rsan_report is None or rsan_report["ok"])
              and (specsan_report is None or specsan_report["ok"]))
-    if args.run_all:
-        counts += f"; not run: {', '.join(NOT_RUN)} (ROADMAP A16)"
     print(f"graftlint: {'clean' if clean else 'FAILED'} ({counts})")
     return 0 if clean else 1
 

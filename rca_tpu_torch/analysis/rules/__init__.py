@@ -3,14 +3,17 @@ them all.
 
 One module per rule.  Seven keep the JAX package's meaning with the
 port's paths (``env``, ``faults``, ``threads``, ``locks``, ``spans``,
-``nondet``, ``dictscan``); four are redesigned for torch (``ticksync``,
-``residentfetch``, ``kerneldispatch``, ``rng``).  A new invariant is a
+``nondet``, ``dictscan``), and so do gravelock's two (``race-guard`` and
+``lock-order``, over the port's own concurrency model); four are
+redesigned for torch (``ticksync``, ``residentfetch``,
+``kerneldispatch``, ``rng``).  A new invariant is a
 new module here with a ``@register`` class.
 """
 
 from rca_tpu_torch.analysis.rules import dictscan       # noqa: F401
 from rca_tpu_torch.analysis.rules import env            # noqa: F401
 from rca_tpu_torch.analysis.rules import faults         # noqa: F401
+from rca_tpu_torch.analysis.rules import gravelock      # noqa: F401
 from rca_tpu_torch.analysis.rules import kerneldispatch  # noqa: F401
 from rca_tpu_torch.analysis.rules import locks          # noqa: F401
 from rca_tpu_torch.analysis.rules import nondet         # noqa: F401

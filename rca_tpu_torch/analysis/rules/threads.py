@@ -3,9 +3,10 @@ child processes are built in ONE place each.
 
 Raw ``threading.Thread(...)`` / ``threading.Lock()`` (and the rest of the
 lock family) construction anywhere in ``rca_tpu_torch/`` outside
-``rca_tpu_torch/util/threads.py`` is a finding.  The seam is what makes a
-stack dump and a later lock analysis trustworthy: every thread is named
-with an explicit daemon flag, and every lock carries its ``"Class.attr"``
+``rca_tpu_torch/util/threads.py`` (and the rsan shim, which wraps the raw
+primitives by definition) is a finding.  The seam is what makes a stack
+dump and gravelock's analyses trustworthy: every thread is named with an
+explicit daemon flag, and every lock carries its ``"Class.attr"``
 identity.
 
 The same discipline covers SOCKETS: raw ``socket.socket(...)`` (or
@@ -38,7 +39,8 @@ from rca_tpu_torch.analysis.core import FileContext, Finding, Rule, register
 SEAM = "rca_tpu_torch/util/threads.py"
 NET_SEAM = "rca_tpu_torch/util/net.py"
 PROC_SEAM = "rca_tpu_torch/util/procs.py"
-EXEMPT = (SEAM,)
+#: the rsan shim wraps the raw primitives by definition
+EXEMPT = (SEAM, "rca_tpu_torch/analysis/concurrency/rsan.py")
 NET_EXEMPT = (NET_SEAM,)
 PROC_EXEMPT = (PROC_SEAM,)
 
@@ -58,8 +60,9 @@ PROC_BANNED = {("subprocess", "Popen"), ("os", "fork")}
 
 MESSAGE = (
     "raw `threading.{name}(...)` construction outside {seam} — use "
-    "make_lock/make_condition/make_thread/spawn so the primitive is "
-    "named and visible to every stack dump and lock analysis"
+    "make_lock/make_rlock/make_condition/make_thread/spawn so the "
+    "primitive is named, rsan-shimmable, and visible to gravelock's "
+    "thread-root discovery"
 )
 
 NET_MESSAGE = (

@@ -39,7 +39,9 @@ canary's: :func:`gateway_port`, :func:`gateway_max_body`,
 :func:`fed_window`, the autoscaler's :func:`fed_scale_min`,
 :func:`fed_scale_max`, :func:`fed_scale_cooldown_s` and
 :func:`fed_scale_interval_s` (``RCA_FED_*``), :func:`ingest_tick_s`
-(``RCA_INGEST_TICK_S``), :func:`env_int_opt` and :func:`environ_copy`.
+(``RCA_INGEST_TICK_S``), :func:`env_int_opt` and :func:`environ_copy`,
+and the runtime lock sanitizer's switch :func:`rsan_enabled`
+(``RCA_RSAN``).
 """
 
 from __future__ import annotations
@@ -273,6 +275,18 @@ def columnar_enabled() -> bool:
     on; 0 restores the dict scans."""
     return env_str(
         "RCA_COLUMNAR", "1", choices=("0", "1", "on", "off"), lower=True,
+    ) in ("1", "on")
+
+
+def rsan_enabled() -> bool:
+    """``RCA_RSAN``: route the :mod:`rca_tpu_torch.util.threads`
+    constructors through the runtime lock sanitizer
+    (:mod:`rca_tpu_torch.analysis.concurrency.rsan`) so lock acquisition
+    orders and shared-state access pairs are recorded for the static
+    model's cross-check.  Default off — bare primitives, zero per-acquire
+    cost."""
+    return env_str(
+        "RCA_RSAN", "0", choices=("0", "1", "on", "off"), lower=True,
     ) in ("1", "on")
 
 

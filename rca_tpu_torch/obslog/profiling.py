@@ -63,6 +63,10 @@ class PhaseStats:
         i = min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))
         return round(s[i], 3)
 
+    def count(self, phase: str) -> int:
+        """How many samples one phase holds (0 for an unknown phase)."""
+        return len(self._samples.get(phase, []))
+
     def phases(self) -> List[str]:
         """The phases with samples, in first-recorded order."""
         return list(self._samples)

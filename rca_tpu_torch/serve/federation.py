@@ -367,6 +367,10 @@ class _WorkerHandle:
         # a process this plane spawned that has not said hello yet: the
         # autoscaler counts it as capacity on its way
         self.awaiting_hello = False
+        # this plane SIGKILLed the worker's process (the chaos seam): its
+        # down is a process_kill even when the lease expires before the
+        # socket's EOF arrives
+        self.killed = False
 
     def note_heartbeat(self, sent_at: Optional[float], now: float) -> None:
         """Fold one heartbeat read at ``now`` into the timing maxima."""
@@ -704,6 +708,8 @@ class FederationPlane:
             w = self.workers.get(int(worker_id))
             proc = w.proc if w is not None else None
             conn = w.conn if w is not None else None
+            if proc is not None:
+                w.killed = True
         if proc is not None:
             proc.kill()
             return True
@@ -1047,7 +1053,12 @@ class FederationPlane:
         fault class is derived from HOW it died: socket EOF means the
         process is gone (``process_kill``); lease expiry with the socket
         open during a partition window is ``coordinator_partition``;
-        lease expiry with an open socket otherwise is ``worker_hang``."""
+        lease expiry with an open socket otherwise is ``worker_hang``.
+        A process this plane SIGKILLed is a ``process_kill`` however its
+        down is detected: a CUDA process's exit can outlast the lease
+        before its socket closes.  The event's ``eof`` is true when the
+        process's own end (its socket's EOF, or its exit seen by the
+        monitor) convicted it, false when its lease did."""
         now = self.clock()
         with self._lock:
             w = self.workers.get(int(worker_id))
@@ -1067,7 +1078,7 @@ class FederationPlane:
                 # any ingest-owner loss is the same fault from the
                 # capture plane's point of view: mirrors must move
                 fault = INGEST_FAULT_CLASS
-            elif eof:
+            elif eof or w.killed:
                 fault = "process_kill"
             elif w.partitioned_until > 0.0:
                 fault = "coordinator_partition"
@@ -1084,7 +1095,7 @@ class FederationPlane:
         self._event(
             "worker_down", worker_id, **{
                 "class": fault, "reclaimed": len(reclaimed),
-                "detect_lag_ms": round(overdue * 1e3, 3),
+                "detect_lag_ms": round(overdue * 1e3, 3), "eof": bool(eof),
             },
         )
         for p in reclaimed:
@@ -1366,16 +1377,15 @@ class FederationPlane:
             if late > 0.0:
                 self.leases.credit(late)
                 self.stall_max_s = max(self.stall_max_s, late)
-            self.check_leases(now)
-            # belt and braces: a worker whose PROCESS is gone but whose
-            # socket teardown is lagging gets downed here too
+            # a worker whose PROCESS is gone or exiting while its socket
+            # teardown lags is downed as such BEFORE its lease is judged
             with self._lock:
-                gone = [
-                    w.worker_id for w in self.workers.values()
-                    if w.live and w.proc is not None and not w.proc.alive()
-                ]
-            for wid in gone:
-                self._worker_down(wid, eof=True)
+                procs = [(w.worker_id, w.proc) for w in self.workers.values()
+                         if w.live and w.proc is not None]
+            for wid, proc in procs:
+                if proc.exiting():
+                    self._worker_down(wid, eof=True)
+            self.check_leases(now)
             slept_at = self.clock()
 
     # -- health (gateway /healthz, the ``fleet`` command) ---------------------
@@ -1802,12 +1812,22 @@ def run_federation_chaos(
         # 3. process_kill — permanent; survivors absorb the keys
         live = plane.live_workers()
         kill_w = live[rng.randrange(len(live))]
+        t_k = plane.clock()
         plane.kill_worker(kill_w)
+        reap_ms = (plane.clock() - t_k) * 1e3
         kill_seen = wait_event(
             downed(kill_w, "process_kill"), plane.clock() + timeout_s / 4
         )
+        down = next((
+            {k: e.get(k) for k in ("class", "eof", "detect_lag_ms")}
+            | {"after_kill_ms": round((e["t"] - t_k) * 1e3, 3)}
+            for e in list(plane.events)
+            if e["event"] == "worker_down" and e["worker_id"] == kill_w
+            and e["t"] >= t_k
+        ), None)
         phases.append({"fault": "process_kill", "worker": kill_w,
-                       "observed": kill_seen})
+                       "observed": kill_seen,
+                       "reap_ms": round(reap_ms, 3), "down": down})
 
         # let the plane settle under load, then stop
         stop_load.wait(ttl)

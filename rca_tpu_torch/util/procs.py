@@ -37,6 +37,9 @@ from rca_tpu_torch.util.threads import make_lock, spawn
 #: buffers exist for failure reports, not log shipping
 CAPTURE_CAP = 256 * 1024
 
+#: the kernel's task flag for a process inside ``do_exit`` (Linux)
+_PF_EXITING = 0x4
+
 
 class WorkerProc:
     """One supervised child process: named, output-captured, with the
@@ -86,6 +89,24 @@ class WorkerProc:
     # -- state ---------------------------------------------------------------
     def alive(self) -> bool:
         return self.proc.poll() is None
+
+    def exiting(self) -> bool:
+        """True once the child has exited or is on its way out: reaped,
+        a zombie, or flagged ``PF_EXITING`` in ``/proc/<pid>/stat``
+        (Linux; elsewhere only the reap counts).  A SIGKILLed process
+        that held a CUDA context keeps its sockets open while the kernel
+        unmaps its device memory, which can take longer than a lease."""
+        if not self.alive():
+            return True
+        try:
+            with open(f"/proc/{self.pid}/stat", "rb") as fh:
+                stat = fh.read()
+        except OSError:
+            return False
+        # after "(comm) ": field 0 is the state, field 6 the flags
+        fields = stat[stat.rfind(b")") + 2:].split()
+        return (fields[0] in (b"Z", b"X")
+                or bool(int(fields[6]) & _PF_EXITING))
 
     @property
     def returncode(self) -> Optional[int]:

@@ -720,6 +720,44 @@ def test_scale_ramp_soak_2_8_2(monkeypatch):
     assert checked == out["by_status"]["ok"] >= 150
 
 
+def test_controller_and_thread_fleet_under_rsan():
+    """The autoscale controller over a thread fleet on the CPU with every
+    lock sanitized: a 2→4→2 ramp soak under eight closed-loop submitters
+    stays terminal and exactly-once, rsan observes no race and no
+    lock-order contradiction against the port's static model, and the
+    controller's, the plane's and the fleet's locks are taken from
+    several threads."""
+    from rca_tpu_torch.analysis.concurrency import model_for, rsan
+    from rca_tpu_torch.analysis.concurrency.crosscheck import (
+        order_contradictions,
+    )
+    from rca_tpu_torch.analysis.core import repo_root
+
+    was = rsan.enabled()
+    rsan.enable()
+    rsan.RSAN.reset()
+    try:
+        out = run_scale_ramp_soak(seed=0, min_workers=2, max_workers=4,
+                                  heavy_threads=8, heavy_requests_each=4,
+                                  device="cpu")
+        assert out["ok"], out
+        assert out["all_terminal"] and out["double_completions"] == 0
+        assert out["scale_ups"] >= 1 and out["scale_downs"] >= 1
+        assert rsan.RSAN.races_observed() == []
+        lt = rsan.RSAN.lock_threads()
+        for name in ("AutoscaleController._lock", "FederationPlane._lock",
+                     "LeaseTable._lock", "WorkerAgent._lock",
+                     "FrameConn._wlock", "RequestQueue._cond"):
+            assert len(lt.get(name, ())) >= 2, name
+        assert order_contradictions(
+            model_for(repo_root()).static_order_edges(),
+            rsan.RSAN.order_edges()) == []
+    finally:
+        rsan.RSAN.reset()
+        if not was:
+            rsan.disable()
+
+
 @pytest.mark.parametrize("mode", ["thread", "process"])
 def test_scaling_storm_chaos_gate(mode):
     """Every forced transition racing a fault seam observed, no double

@@ -390,6 +390,25 @@ def test_procs_kill_ladder_and_capture_cap():
     assert 0 < len(out) <= procs.CAPTURE_CAP
 
 
+def test_procs_exiting_reads_the_childs_state():
+    """``exiting`` is False while the child runs and True once it is
+    killed: reaped, or a zombie read from ``/proc`` before the reap."""
+    import os
+    import signal
+
+    from rca_tpu_torch.util import procs
+
+    w = procs.spawn_worker("sleeper", [
+        sys.executable, "-c", "import time; time.sleep(600)"])
+    try:
+        assert w.alive() and not w.exiting()
+        os.kill(w.pid, signal.SIGKILL)       # dead, not reaped yet
+        assert _wait(w.exiting, timeout_s=10.0)
+    finally:
+        w.kill()
+    assert w.exiting()
+
+
 def test_rejoin_backoff_is_the_references_for_the_same_seed():
     """Seeded, jittered, distinct delays: the port's worker agent and the
     reference's give the same sequence (both connect to a port plane)."""
@@ -600,6 +619,87 @@ def test_exactly_once_eight_threads_racing_worker_kill():
             f.close()
 
 
+def test_plane_and_leases_under_rsan():
+    """The federation plane's in-process parts with every lock sanitized:
+    eight threads hammer one ``LeaseTable`` (grant, renew, alive, sweep,
+    credit) while eight submitters race a worker kill through a plane
+    over three fake workers — every request terminal once, no observed
+    race, no lock-order contradiction against the port's static model,
+    and the lease table's, the plane's and the queue's locks taken from
+    several threads."""
+    from rca_tpu_torch.analysis.concurrency import model_for, rsan
+    from rca_tpu_torch.analysis.concurrency.crosscheck import (
+        order_contradictions,
+    )
+    from rca_tpu_torch.analysis.core import repo_root
+
+    was = rsan.enabled()
+    rsan.enable()
+    rsan.RSAN.reset()
+    try:
+        table = LeaseTable(heartbeat_s=1.0, lease_misses=3)
+
+        def leases(w):
+            for i in range(200):
+                lease = table.grant(w % 4)
+                table.renew(w % 4, lease.lease_id)
+                table.alive((w + 1) % 4)
+                table.expired_workers()
+                if i % 50 == 0:
+                    table.credit(0.001)
+
+        hammer = [threading.Thread(target=leases, args=(w,),
+                                   name=f"lease-{w}", daemon=True)
+                  for w in range(8)]
+        for t in hammer:
+            t.start()
+        for t in hammer:
+            t.join(30.0)
+        assert all(table.alive(w) for w in range(4))
+
+        plane = _plane()
+        fakes = _join(plane, 3)
+        all_reqs = []
+        lock = threading.Lock()
+        try:
+            def submitter(w):
+                for i in range(12):
+                    r = _req(tenant=f"t{w}", seed=(w * 31 + i) % 7,
+                             n=8 + (i % 3))
+                    with lock:
+                        all_reqs.append(r)
+                    plane.submit(r)
+                    if w == 0 and i == 4:
+                        fakes[1].close()
+            threads = [threading.Thread(target=submitter, args=(w,),
+                                        name=f"race-{w}", daemon=True)
+                       for w in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60.0)
+            responses = [r.result(30.0) for r in all_reqs]
+            assert len(responses) == 96
+            assert plane.sink.double_completions == 0
+        finally:
+            plane.stop()
+            for f in fakes:
+                f.close()
+
+        assert rsan.RSAN.races_observed() == []
+        lt = rsan.RSAN.lock_threads()
+        for name in ("LeaseTable._lock", "FederationPlane._lock",
+                     "RequestQueue._cond", "ServeMetrics._lock"):
+            assert len(lt.get(name, ())) >= 2, name
+        assert order_contradictions(
+            model_for(repo_root()).static_order_edges(),
+            rsan.RSAN.order_edges()) == []
+    finally:
+        rsan.RSAN.reset()
+        if not was:
+            rsan.disable()
+
+
 def test_hung_worker_late_answers_dropped_as_stale():
     plane = _plane()
     fakes = _join(plane, 2, behaviors={0: "hold"})
@@ -640,6 +740,76 @@ def test_mute_worker_expires_and_rejoins_with_fresh_lease():
                                  for e in list(plane.events)))
         assert 0 in plane.live_workers()
         assert fakes[0].rejected >= 1
+    finally:
+        plane.stop()
+        for f in fakes:
+            f.close()
+
+
+class _TearingDownProc:
+    """A SIGKILLed CUDA worker mid-exit: not reaped, its socket still
+    open.  ``flagged`` is whether ``/proc`` already shows it exiting."""
+
+    def __init__(self, flagged):
+        self.flagged = flagged
+        self.kills = 0
+
+    def alive(self):
+        return True
+
+    def exiting(self):
+        return self.flagged
+
+    def kill(self):
+        self.kills += 1
+
+    def terminate(self, grace_s=None):
+        return None
+
+
+def test_a_killed_worker_whose_lease_expires_before_its_eof_is_a_kill():
+    """The plane SIGKILLed the process, whose socket outlives the lease:
+    the lease monitor downs it, and the class is still process_kill."""
+    plane = _plane()
+    fakes = _join(plane, 2)
+    proc = _TearingDownProc(flagged=False)
+    try:
+        with plane._lock:
+            plane.workers[1].proc = proc
+        fakes[1].behavior = "mute"           # no heartbeat after the kill
+        assert plane.kill_worker(1) and proc.kills == 1
+        assert _wait(lambda: _downed(plane, wid=1))
+        down = [e for e in plane.events
+                if e["event"] == "worker_down" and e["worker_id"] == 1]
+        assert [(e["class"], e["eof"]) for e in down] == [
+            ("process_kill", False)]
+        assert plane.fault_classes_observed() == ["process_kill"]
+    finally:
+        plane.stop()
+        for f in fakes:
+            f.close()
+
+
+def test_an_exiting_process_is_downed_before_its_lease_is_judged():
+    """A process killed from outside the plane, exiting but not reaped
+    and its socket open: the monitor's sweep downs it as a process_kill
+    long before its 3 s lease would expire."""
+    plane = _plane(heartbeat_s=1.0)
+    fakes = _join(plane, 2, heartbeat_s=0.05)
+    proc = _TearingDownProc(flagged=False)
+    try:
+        with plane._lock:
+            plane.workers[0].proc = proc
+        fakes[0].behavior = "mute"
+        t0 = time.monotonic()
+        proc.flagged = True
+        assert _wait(lambda: _downed(plane, wid=0), timeout_s=10.0)
+        assert time.monotonic() - t0 < plane.leases.ttl_s
+        down = [e for e in plane.events
+                if e["event"] == "worker_down" and e["worker_id"] == 0]
+        assert [(e["class"], e["eof"]) for e in down] == [
+            ("process_kill", True)]
+        assert proc.kills == 0
     finally:
         plane.stop()
         for f in fakes:

@@ -44,6 +44,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -803,6 +804,12 @@ def test_mtls_client_certificate_enforced(engine, case):
             with pytest.raises((OSError, http.client.HTTPException)):
                 GatewayClient(gw.host, gw.port, tls=True, ca_file=CERT,
                               timeout_s=30, **kw).healthz()
+        # the client reads the server's alert before the server's
+        # connection thread counts its failed handshake
+        deadline = time.monotonic() + WAIT_S
+        while (gw.metrics.snapshot()["auth_rejections"] < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         assert gw.metrics.snapshot()["auth_rejections"] >= 2
 
 

@@ -31,7 +31,11 @@
   at exit; the ingest worker never initialises CUDA), and the elastic
   fleet (a thread-mode ramp soak, a controller attached to a plane with
   its thread spawner), and the analysis plane (``lint --json`` over the
-  repository and specsan on the CPU); the native scanner
+  repository and specsan on the CPU, ``lint --rsan`` and the sanitized
+  cross-check's chaos soak); with ``RCA_RSAN`` unset an analysis, a
+  streaming tick and a serve request import nothing of
+  ``analysis.concurrency`` and get bare ``threading`` primitives from
+  the seam; the native scanner
   loaded is the one built from ``rca_tpu_torch/native/``;
 - without a CUDA device the engine, the coordinator, the CLI (``stream``
   and ``profile`` included), the streaming sessions, ``replay``,
@@ -837,6 +841,86 @@ def test_lint_and_specsan_load_no_jax_and_no_rca_tpu():
     for module in ("analysis.core", "analysis.rules.ticksync",
                    "analysis.dataplane.specsan", "engine.fetch"):
         assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+_RSAN_PROBE = """
+import contextlib, io, json, sys
+from rca_tpu_torch.analysis.__main__ import main
+from rca_tpu_torch.analysis.concurrency import rsan
+from rca_tpu_torch.analysis.concurrency.crosscheck import run_rsan_crosscheck
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    code = main(["--rsan", "--json"])
+soak = run_rsan_crosscheck(seed=7, soak_ticks=8, device="cpu")
+print(json.dumps({"code": code, "rsan": json.loads(out.getvalue())["rsan"]["ok"],
+                  "soak": soak["ok"], "ticks": soak["soak"]["ticks"],
+                  "enabled": rsan.enabled(), "modules": sorted(sys.modules)}))
+"""
+
+
+def test_lint_rsan_and_the_sanitized_soak_load_no_jax_and_no_rca_tpu():
+    env = _probe_env()
+    env.pop("RCA_RSAN", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _RSAN_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (out["code"], out["rsan"], out["soak"], out["ticks"]) == (
+        0, True, True, 8)
+    assert out["enabled"] is False
+    for module in ("analysis.concurrency.rsan", "analysis.concurrency.model",
+                   "analysis.concurrency.crosscheck",
+                   "analysis.rules.gravelock", "resilience.chaos"):
+        assert f"rca_tpu_torch.{module}" in out["modules"]
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+_RSAN_OFF_PROBE = """
+import json, sys, threading
+import numpy as np
+from rca_tpu_torch import GraphEngine
+from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
+from rca_tpu_torch.engine import StreamingSession
+from rca_tpu_torch.serve import ServeClient
+from rca_tpu_torch.util.threads import make_condition, make_lock, make_rlock
+case = synthetic_cascade_arrays(120, n_roots=2, seed=1)
+engine = GraphEngine(device="cpu")
+top = engine.analyze_case(case).top_components()
+stream = StreamingSession(case.names, case.dep_src, case.dep_dst,
+                          num_features=13, engine=engine, k=3)
+stream.set_all(case.features)
+stream.update(3, case.features[3] * 0.5)
+tick = stream.fetch(stream.dispatch())
+with ServeClient(engine=engine) as client:
+    resp = client.analyze(case.features, case.dep_src, case.dep_dst,
+                          names=case.names)
+print(json.dumps({
+    "top": top, "served": resp.status,
+    "bare": [type(make_lock("p.l")) is type(threading.Lock()),
+             type(make_rlock("p.r")) is type(threading.RLock()),
+             type(make_condition("p.c")) is threading.Condition],
+    "modules": sorted(sys.modules)}))
+"""
+
+
+def test_sanitizer_off_leaves_bare_primitives_and_no_concurrency_module():
+    """``RCA_RSAN`` unset: the seam returns bare ``threading`` primitives
+    and an analysis, a streaming tick and a serve request import nothing
+    of the analysis plane's concurrency package."""
+    env = _probe_env()
+    env.pop("RCA_RSAN", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _RSAN_OFF_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=180, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["top"] and out["served"] == "ok"
+    assert out["bare"] == [True, True, True]
+    assert "rca_tpu_torch.serve.loop" in out["modules"]
+    assert [m for m in out["modules"]
+            if m.startswith("rca_tpu_torch.analysis.concurrency")] == []
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
 

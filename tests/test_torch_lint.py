@@ -38,6 +38,9 @@ KEPT = ("env-discipline", "swallowed-faults", "thread-discipline",
         "no-dict-scan")
 TORCH_RULES = ("tick-sync", "resident-fetch", "kernel-dispatch",
                "rng-key-reuse")
+#: gravelock's rules over the port's concurrency model
+#: (tests/test_torch_gravelock.py holds them to the reference's)
+GRAVELOCK_RULES = ("race-guard", "lock-order")
 
 
 def _reference_fixtures():
@@ -314,7 +317,11 @@ def test_scan_set_is_the_port_chip_smoke_and_its_tests():
 
 
 def test_eleven_rules_registered():
-    assert set(all_rules()) == set(KEPT) | set(TORCH_RULES)
+    """The eleven rules of the first part, and gravelock's two beside
+    them: 13 of the reference's 18."""
+    assert set(all_rules()) == set(KEPT) | set(TORCH_RULES) | set(
+        GRAVELOCK_RULES)
+    assert len(all_rules()) == 13
     for rule in all_rules().values():
         assert rule.summary and rule.why
 
@@ -362,22 +369,57 @@ def test_port_cli_lint_forwards_every_argument(tmp_path, capsys):
     assert [f["rule"] for f in out["findings"]] == ["env-discipline"]
 
 
-def test_rsan_exits_2_naming_the_roadmap(tmp_path, capsys):
-    root = _fake_repo(tmp_path, ("rca_tpu_torch/ok.py", "X = 1\n"))
-    assert port_main(["--root", root, "--rsan"]) == 2
-    assert "ROADMAP A16" in capsys.readouterr().err
+def test_rsan_exits_0_clean_and_1_on_a_racing_fixture(tmp_path, capsys):
+    """``--rsan`` runs the cross-check beside the rules: exit 0 on a clean
+    fake repo (the report's human line says ``rsan: ok``), exit 1 on one
+    whose fixture races, with the sanitizer's verdict still ok."""
+    clean = _fake_repo(tmp_path / "clean", ("rca_tpu_torch/ok.py",
+                                            "X = 1\n"))
+    assert port_main(["--root", clean, "--rsan"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2].startswith("rsan: ok [")
+    assert lines[-1].startswith("graftlint: clean")
+    racing = _fake_repo(tmp_path / "racing", ("rca_tpu_torch/serve/w.py", """\
+import threading
+
+class Worker:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._done = 0
+
+    def start(self):
+        threading.Thread(target=self._run, name="w", daemon=True).start()
+
+    def _run(self):
+        self._done += 1
+
+    def bump(self):
+        with self._lock:
+            self._done += 1
+"""))
+    assert port_main(["--root", racing, "--rsan", "--rules", "race-guard",
+                      "--json"]) == 1
+    out = json.loads(capsys.readouterr().out)
+    assert [f["rule"] for f in out["findings"]] == ["race-guard"]
+    assert out["rsan"]["ok"] is True and out["clean"] is False
 
 
-def test_all_names_the_check_it_did_not_run(tmp_path, capsys):
+def test_all_runs_every_check_in_one_summary(tmp_path, capsys):
+    """``--all`` = the rules + tracecheck + rsan + specsan: one JSON object
+    with an ``rsan`` report and no ``not_run``, one human summary."""
     root = _fake_repo(tmp_path, ("rca_tpu_torch/ok.py", "X = 1\n"))
     assert port_main(["--root", root, "--all", "--device", "cpu",
                       "--json"]) == 0
     out = json.loads(capsys.readouterr().out)
-    assert out["not_run"] == ["rsan"]
+    assert "not_run" not in out
     assert out["clean"] and out["tracecheck"]["ok"] and out["specsan"]["ok"]
+    assert out["rsan"]["ok"] and out["rsan"]["contradictions"] == []
+    assert out["rsan"]["races_observed"] == []
     assert port_main(["--root", root, "--all", "--device", "cpu"]) == 0
-    last = capsys.readouterr().out.strip().splitlines()[-1]
-    assert "not run: rsan" in last and last.startswith("graftlint: clean")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("rsan: ok [") for line in lines)
+    assert lines[-1].startswith("graftlint: clean")
+    assert "not run" not in lines[-1]
 
 
 def test_changed_reads_the_ports_own_index(tmp_path, capsys):

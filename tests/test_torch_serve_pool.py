@@ -452,6 +452,62 @@ def test_pool_stress_with_a_kill_completes_exactly_once():
         r.ok for r in resps)
 
 
+def test_pool_stress_under_rsan():
+    """The reference's ``test_pool_stress_under_rsan`` over the port's
+    pool: eight submitters through a STARTED pool of four stub replicas,
+    replica 0 killed mid-run, every lock sanitized — every request
+    resolved once, no observed race, no lock-order contradiction against
+    the port's static model, and the pool's locks taken from several
+    threads."""
+    from rca_tpu_torch.analysis.concurrency import model_for, rsan
+    from rca_tpu_torch.analysis.concurrency.crosscheck import (
+        order_contradictions,
+    )
+    from rca_tpu_torch.analysis.core import repo_root
+
+    was = rsan.enabled()
+    rsan.enable()
+    rsan.RSAN.reset()
+    try:
+        stubs = [StubDispatcher() for _ in range(4)]
+        pool = ServePool(dispatchers=stubs,
+                         config=ServeConfig(replicas=4, max_wait_us=0))
+        reqs = [[] for _ in range(8)]
+
+        def submitter(w: int) -> None:
+            for i in range(24):
+                r = _req(f"t{w % 3}", n=8 + 8 * (w % 2), seed=w * 100 + i)
+                reqs[w].append(r)
+                pool.submit(r)
+                if w == 0 and i == 12:
+                    pool.replicas[0].kill()
+
+        with pool:
+            threads = [threading.Thread(target=submitter, args=(w,))
+                       for w in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(30)
+            resps = [r.result(60.0) for lane in reqs for r in lane]
+        assert all(r.status in ("ok", "degraded", "error") for r in resps)
+        assert all(r.done() for lane in reqs for r in lane)
+        assert pool.sink.double_completions == 0
+
+        assert rsan.RSAN.races_observed() == []
+        lt = rsan.RSAN.lock_threads()
+        for lock in ("ServePool._route_lock", "ReplicaWorker._lock",
+                     "CompletionSink._lock", "RequestQueue._cond"):
+            assert len(lt.get(lock, ())) >= 2, lock
+        static_edges = model_for(repo_root()).static_order_edges()
+        assert order_contradictions(
+            static_edges, rsan.RSAN.order_edges()) == []
+    finally:
+        rsan.RSAN.reset()
+        if not was:
+            rsan.disable()
+
+
 # -- the real engine on the CPU ------------------------------------------------
 
 def test_pool_parity_vs_solo(engine):
