@@ -16,6 +16,9 @@
                                        # autoscale phase alone
     python3 chip_smoke.py --lint-only  # the build, then the lint
                                        # phase alone
+    python3 chip_smoke.py --snapshot-only  # the build, then the
+                                       # snapshot phase alone (with its
+                                       # OOM-chain and Stream-tab legs)
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
@@ -117,7 +120,21 @@ and the flagged scans never (:func:`main_launches`).
    ``--profile`` adds the device time and busy share of both).
    ``python -m rca_tpu_torch analyze --fixture 50svc --seed 7 --compact``
    (the same 50-service fixture) must exit 0 with a torch-engine ranking
-   whose first root cause is the fixture's fault root;
+   whose first root cause is the fixture's fault root.  Then BASELINE.md
+   row 3: ``measure_analyze`` over ``oom_chain_world(200)`` (the 200-pod
+   OOMKill chain, 67 services; the shape's registry row elected first)
+   on the card must complete on the torch backend with no fallback, put
+   the OOMKilled root first, give the CPU run's ``top5`` and launch the
+   main path's counts twice over its two analyses (2 / 2 / 2), with its
+   first and warm latencies and its engine latency printed; and the
+   app's Stream tab (``rca_tpu_torch/ui/app.py::_render_stream_tab``,
+   driven by a scripted stand-in for ``st``) over the phase's 5-service
+   and 2047-service worlds, started then polled 3 times on the card and
+   on the CPU: each poll the main path's counts (1 / 1 / 1), the history
+   ticking 1..3, the ranked table's components in the CPU run's order
+   with scores within rtol 1e-5 / atol 1e-6, ``database`` first at 5
+   services; ``python -m rca_tpu_torch ui``, started with the phase (the
+   card's host has no streamlit), must exit 1 with its message;
 9. attribution: ``RCA_EXPLAIN=1`` comprehensive analyses over the
    50-service fixture and the 2047-service cascade, and
    ``analyze_arrays(...).attribution()`` at 49,999 services, the sweep on
@@ -422,8 +439,10 @@ and the flagged scans never (:func:`main_launches`).
    ``python -m rca_tpu_torch lint --all --json`` starts as one
    subprocess (the rules, tracecheck, rsan and specsan in one
    interpreter, one CUDA context and one parse of the tree): exit 0, no
-   finding, an empty baseline, tracecheck, specsan and rsan ok (its files
-   scanned, the rules' wall and rsan's acquires and locks printed).
+   finding, an empty baseline, tracecheck, specsan and rsan ok, 15
+   rules run with ``dtype-discipline`` and ``shape-contract`` among them
+   (its files scanned, the rules' wall, those two rules' walls and rsan's
+   acquires and locks printed).
    Meanwhile specsan (``run_specsan(seed=0, device="cuda")``) runs its
    session leg at 2047 and 49,999 services and its serve leg once:
    ``ok``, no violation, every budgeted surface of the dense path
@@ -471,7 +490,9 @@ tape, and ``variant_launches``, per analysis on the ``doubling`` and
 ``quantized`` rows at each tier; every main-path kernel with
 ``layout_launches``, per analysis under each ``RCA_EDGE_LAYOUT`` at each
 tier, ``investigate_launches``, over the investigation's
-``run_agent`` suggestion, and ``gateway_launches``, per device batch
+``run_agent`` suggestion, ``oomchain_launches``, over the OOM chain's two
+analyses, and ``ui_launches``, over the Stream tab's 3 polls per world,
+and ``gateway_launches``, per device batch
 behind the gateway at each tier and over the gateway's loads, and
 ``profile_events``, its device events in the ``observe`` phase's trace
 of 20 ticks at 10,000 services, and ``federation_launches``, summed over
@@ -994,6 +1015,9 @@ def main(argv) -> int:
                         help="build, then run the autoscale phase alone")
     parser.add_argument("--lint-only", action="store_true",
                         help="build, then run the lint phase alone")
+    parser.add_argument("--snapshot-only", action="store_true",
+                        help="build, then run the snapshot phase alone "
+                             "(the OOM chain and the Stream tab included)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1078,7 +1102,7 @@ def main(argv) -> int:
     phase_s["generate"] = time.perf_counter() - t_generate
 
     if (args.multi_card or args.federation_only or args.autoscale_only
-            or args.lint_only):
+            or args.lint_only or args.snapshot_only):
         if args.multi_card:
             record["multi_card"] = multi_card_phase(
                 cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
@@ -1093,6 +1117,10 @@ def main(argv) -> int:
             elif args.lint_only:
                 record["lint"] = _timed(phase_s, "lint", lint_phase, cases,
                                         smi)
+            elif args.snapshot_only:
+                record["snapshot"] = _timed(phase_s, "snapshot",
+                                            snapshot_phase, smi, args.profile,
+                                            args.out)
             else:
                 record["autoscale"] = _timed(phase_s, "autoscale",
                                              autoscale_phase, cases, smi)
@@ -1419,7 +1447,7 @@ def main(argv) -> int:
     record["capture"] = _timed(phase_s, "capture", capture_phase, smi)
 
     # -- 8. the snapshot path, through the kernels -------------------------
-    record["snapshot"] = _timed(phase_s, "snapshot", snapshot_phase,
+    record["snapshot"] = _timed(phase_s, "snapshot", snapshot_phase, smi,
                                 args.profile, args.out)
 
     # -- 9. attribution (sweep on the kernels) and the hypotheses command -
@@ -1749,6 +1777,13 @@ def main(argv) -> int:
             for tier in map(str, cases) for layout in LAYOUTS}
         kernels[-1]["investigate_launches"] = record["investigate"]["2047"][
             "run_agent_launches"][name]
+        # over the OOM chain's two analyses, and over the app's Stream tab
+        # polls per world (snapshot phase)
+        snap = record["snapshot"]
+        kernels[-1]["oomchain_launches"] = snap["oomchain"]["launches"][name]
+        kernels[-1]["ui_launches"] = {
+            label: sum(counts[name] for counts in row["launches_per_poll"])
+            for label, row in snap["ui"].items()}
         # device events in the profile of 20 live ticks at 10,000 services
         kernels[-1]["profile_events"] = record["observe"]["profile"][
             "device_kernels"][name]
@@ -2902,10 +2937,11 @@ def _without_times(results: dict) -> str:
     return _dumps(out)
 
 
-def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
+def snapshot_phase(smi: str, profile_it: bool = False, out_dir=None) -> dict:
     """Comprehensive analyses through the port's coordinator on the card
-    (phase 8 of the module docstring); ``profile_it`` adds a
-    ``torch.profiler`` table of the 2047-service analysis and of its
+    (phase 8 of the module docstring), then the OOM chain's measurement
+    and the app's Stream tab over the phase's worlds; ``profile_it`` adds
+    a ``torch.profiler`` table of the 2047-service analysis and of its
     betweenness pass."""
     import numpy as np
     import torch
@@ -2919,6 +2955,9 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
     from rca_tpu_torch.kernels import LAUNCHES, reset_launches
 
     out = {"worlds": []}
+    # ``ui`` with no streamlit (exit 1) starts here and is read at the
+    # end: its start-up overlaps the analyses
+    ui_cli = _ui_command()
     worlds = []
     for label, make, ns in (
             ("5svc", five_service_world, NS),
@@ -3089,6 +3128,199 @@ def snapshot_phase(profile_it: bool = False, out_dir=None) -> dict:
         phase("snapshot_device_profile", **out["device_profile_2047"])
 
     out["launches"] = total
+    out["oomchain"] = _oomchain_leg(smi)
+    out["ui"] = _ui_leg(worlds, smi)
+    out["ui_command"] = _ui_command_done(ui_cli)
+    phase("ui", leg="ui command", **out["ui_command"], smi=smi)
+    return out
+
+
+def _ui_command():
+    """``python -m rca_tpu_torch ui`` as a subprocess, started: the card's
+    host has no streamlit, so it must exit 1 with its message."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "rca_tpu_torch", "ui"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _ui_command_done(proc) -> dict:
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    if proc.returncode != 1 or "streamlit is not installed" not in err \
+            or "python -m rca_tpu_torch analyze --fixture 5svc" not in err:
+        fail(f"ui without streamlit: exit {proc.returncode}: {out[-500:]} "
+             f"{err[-1500:]}")
+    return {"exit": proc.returncode, "stderr": err.strip()}
+
+
+def _oomchain_leg(smi: str, device="cuda") -> dict:
+    """BASELINE.md row 3 on the card: ``measure_analyze`` over the
+    200-pod OOMKill chain (two comprehensive analyses), its launches
+    counted from 0 (the shape's registry row elected first: its race
+    launches kernels), held to the same measurement on the CPU."""
+    import numpy as np
+    from rca_tpu_torch.agents import AnalysisContext
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.cluster.oomchain import (
+        OOM_NS,
+        OOM_ROOT,
+        measure_analyze,
+        oom_chain_world,
+    )
+    from rca_tpu_torch.cluster.snapshot import ClusterSnapshot
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    world = oom_chain_world(200)
+    engine = GraphEngine(device=device)
+    ctx = AnalysisContext(ClusterSnapshot.capture(MockClusterClient(world),
+                                                  OOM_NS), device=device)
+    src, dst = ctx.dep_edges
+    n = ctx.features.num_services
+    f, s, _ = engine._pad(np.zeros((n, C), np.float32), src, dst)
+    engine.plan_for(f.shape[0], len(s), src, dst)
+    reset_launches()
+    card = measure_analyze(MockClusterClient(world), OOM_NS, OOM_ROOT,
+                           device=device)
+    launches = dict(LAUNCHES)
+    cpu = measure_analyze(MockClusterClient(world), OOM_NS, OOM_ROOT,
+                          device="cpu")
+    if card["status"] != "completed" or card["backend"] != "torch" \
+            or card["fallback_reason"] is not None:
+        fail(f"oomchain on {device}: {card}")
+    if not card["hit1"] or card["top5"] != cpu["top5"]:
+        fail(f"oomchain top5 {card['top5']} on {device}, {cpu['top5']} "
+             f"on the CPU")
+    if device != "cpu" and launches != main_launches(2047, times=2):
+        fail(f"oomchain launches {launches}, want "
+             f"{main_launches(2047, times=2)} over the two analyses")
+    row = {key: card[key] for key in (
+        "metric", "environment", "status", "backend", "engine",
+        "fallback_reason", "latency_first_run_ms", "latency_warm_ms",
+        "engine_latency_ms", "top5", "hit1", "hit3")}
+    row.update(services=n, edges=int(len(src)), launches=launches,
+               cpu={key: cpu[key] for key in (
+                   "latency_first_run_ms", "latency_warm_ms",
+                   "engine_latency_ms")},
+               seconds=time.perf_counter() - t0)
+    phase("oomchain", **{**row, "launches": _nonzero(launches)}, smi=smi)
+    return row
+
+
+def _nonzero(launches: dict) -> dict:
+    """The kernels a count saw launch, for a phase line."""
+    return {name: count for name, count in launches.items() if count}
+
+
+#: the Stream tab's polls per world on the card and on the CPU
+UI_POLLS = 3
+
+
+class _ScriptedSt:
+    """A stand-in for ``st`` that the app's Stream tab runs on: scripted
+    buttons, the tables it draws recorded."""
+
+    def __init__(self):
+        self.session_state = {}
+        self.buttons = {}
+        self.frames = []
+
+    def button(self, label):
+        return self.buttons.get(label, False)
+
+    def checkbox(self, label, value=False, key=None):
+        return False
+
+    def dataframe(self, data):
+        self.frames.append(data)
+
+    def markdown(self, text):
+        pass
+
+    def caption(self, text):
+        pass
+
+    def info(self, text):
+        pass
+
+
+def _stream_tab_polls(world, ns, device) -> dict:
+    """The app's Stream tab on ``device``: start the stream, then
+    ``UI_POLLS`` polls, each counted from 0; the ranked table and the
+    history of each poll."""
+    from rca_tpu_torch.cluster.mock_client import MockClusterClient
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+    from rca_tpu_torch.ui.app import _render_stream_tab
+
+    client = MockClusterClient(world)
+    st = _ScriptedSt()
+    st.buttons = {"Start / reset stream": True}
+    t0 = time.perf_counter()
+    _render_stream_tab(st, client, ns, device=device)
+    start_ms = (time.perf_counter() - t0) * 1e3
+    polls = []
+    st.buttons = {"Poll now": True}
+    for _ in range(UI_POLLS):
+        reset_launches()
+        t0 = time.perf_counter()
+        _render_stream_tab(st, client, ns, device=device)
+        polls.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": dict(LAUNCHES),
+                      "ranked": st.frames[-2], "history": st.frames[-1]})
+    return {"start_ms": start_ms, "polls": polls}
+
+
+def _ui_leg(worlds, smi: str, device="cuda") -> dict:
+    """The app's Stream tab (``rca_tpu_torch/ui/app.py``) ranking on the
+    card over the phase's 5-service and 2047-service worlds: the main
+    path's launches each poll, the history ticking 1..3, the rankings
+    those of the same polls on the CPU."""
+    import numpy as np
+
+    out = {}
+    for label, world, ns in worlds:
+        if label not in ("5svc", "2047svc"):
+            continue
+        t0 = time.perf_counter()
+        card = _stream_tab_polls(world, ns, device)
+        cpu = _stream_tab_polls(world, ns, "cpu")
+        history = card["polls"][-1]["history"]
+        if [h["tick"] for h in history] != list(range(1, UI_POLLS + 1)):
+            fail(f"ui {label}: history ticks {[h['tick'] for h in history]}")
+        for i, (got, want) in enumerate(zip(card["polls"], cpu["polls"])):
+            if device != "cpu" and got["launches"] != main_launches(2047):
+                fail(f"ui {label} poll {i + 1}: launches {got['launches']}"
+                     f", want {main_launches(2047)}")
+            names = [r["component"] for r in got["ranked"]]
+            if names != [r["component"] for r in want["ranked"]]:
+                fail(f"ui {label} poll {i + 1}: ranked {names} on "
+                     f"{device}, {[r['component'] for r in want['ranked']]}"
+                     " on the CPU")
+            scores = [[r["score"] for r in p["ranked"]] for p in (got, want)]
+            if not np.allclose(*scores, rtol=1e-5, atol=1e-6):
+                fail(f"ui {label} poll {i + 1}: scores {scores}")
+            if label == "5svc" and names[0] != "database":
+                fail(f"ui 5svc poll {i + 1}: top {names[0]}")
+        row = {
+            "world": label, "services": len(world.services[ns]),
+            "polls": UI_POLLS, "top": card["polls"][-1]["ranked"][0][
+                "component"],
+            "launches_per_poll": [p["launches"] for p in card["polls"]],
+            "poll_ms": [p["wall_ms"] for p in card["polls"]],
+            "start_ms": card["start_ms"],
+            "cpu_poll_ms": [p["wall_ms"] for p in cpu["polls"]],
+            "history": [h["tick"] for h in history],
+            "seconds": time.perf_counter() - t0}
+        out[label] = row
+        phase("ui", leg=f"stream tab {label}", **{
+            **row, "launches_per_poll": [
+                _nonzero(counts) for counts in row["launches_per_poll"]]},
+            smi=smi)
     return out
 
 
@@ -7143,6 +7375,22 @@ def _autoscale_process_leg(case, device, smi) -> dict:
     return out
 
 
+#: the plane events a storm's fault timeline keeps
+TIMELINE_EVENTS = ("worker_joined", "rejoin", "worker_down",
+                   "partition_start", "stale_lease_rejected",
+                   "drain_started", "worker_scaled_down")
+
+
+def _fault_timeline(events) -> list:
+    """The plane's fault events, ms from the first: joins, rejoins, downs
+    (with their class and detection lag), partitions, stale leases and
+    drains — what it takes to read a storm that downs a worker twice."""
+    kept = [e for e in events if e["event"] in TIMELINE_EVENTS]
+    t0 = kept[0]["t"] if kept else 0.0
+    return [[round((e["t"] - t0) * 1e3, 1), e["event"], e["worker_id"],
+             e.get("class"), e.get("detect_lag_ms")] for e in kept]
+
+
 def _autoscale_storms(device, smi) -> dict:
     """``run_scaling_storm(seed=7)`` in thread mode, then over worker
     processes (``FED_ENV``): each ``ok``, ``scaling_storm`` observed, no
@@ -7179,6 +7427,7 @@ def _autoscale_storms(device, smi) -> dict:
         res["heartbeats"] = {str(w["worker_id"]): w["hb_send_gap_max_s"]
                              for w in tables[-1]["workers"]}
         res["stall_max_s"] = tables[-1]["stall_max_s"]
+        res["timeline"] = _fault_timeline(tables[-1]["events"])
         phase("autoscale", leg=f"scaling_storm {mode}", **res, smi=smi)
         if (not res["ok"] or "scaling_storm"
                 not in res["fault_classes_observed"]
@@ -7186,7 +7435,8 @@ def _autoscale_storms(device, smi) -> dict:
                 or res["stale_responses"] > res["stale_bound"]
                 or downs != want or len(apps) != len(apps_before)):
             fail(f"autoscale (storm, {mode}): downs {downs}, want {want}, "
-                 f"contexts {len(apps_before)} before, {len(apps)} after")
+                 f"contexts {len(apps_before)} before, {len(apps)} after; "
+                 f"timeline {res['timeline']}")
         out[mode] = res
     return out
 
@@ -7296,6 +7546,8 @@ def autoscale_phase(cases, smi: str, device="cuda", cli=()) -> dict:
 
 
 LINT_SIZES = (2047, 49999)
+#: graftspec's static rules: the lint's 15 rules must include them
+GRAFTSPEC_RULES = ("dtype-discipline", "shape-contract")
 #: the rsan leg: the cross-check's chaos soak, and the sanitized pool's
 #: submitters and requests each at 2047 services
 RSAN_SOAK_TICKS = 40
@@ -7530,6 +7782,11 @@ def lint_phase(cases, smi: str, device="cuda", cli=()) -> dict:
         fail(f"lint --all: exit {proc.returncode}, findings "
              f"{lint['findings'][:5]}, baseline {baseline[:5]}: "
              f"{err[-1500:]}")
+    # the port's 15 rules, graftspec's static two among them
+    per_rule = lint["per_rule_ms"]
+    if len(per_rule) != 15 or not set(GRAFTSPEC_RULES) <= set(per_rule):
+        fail(f"lint --all ran {sorted(per_rule)}, want 15 rules with "
+             f"{GRAFTSPEC_RULES}")
     cli_rsan = lint["rsan"]
     if not (lint["tracecheck"]["ok"] and lint["specsan"]["ok"]
             and cli_rsan["ok"]) or cli_rsan["contradictions"] or \
@@ -7540,6 +7797,8 @@ def lint_phase(cases, smi: str, device="cuda", cli=()) -> dict:
             default=str)[:3000])
     phase("lint", leg="lint --all", exit=0,
           files_scanned=lint["files_scanned"], wall_ms=lint["wall_ms"],
+          rules=len(per_rule),
+          graftspec_ms={r: per_rule[r] for r in GRAFTSPEC_RULES},
           process_s=process_s, findings=0, baseline_entries=0,
           tracecheck=[e["entry"] for e in lint["tracecheck"]["entries"]],
           specsan_fetches=lint["specsan"]["fetches"],
@@ -7580,6 +7839,8 @@ def lint_phase(cases, smi: str, device="cuda", cli=()) -> dict:
     phase("lint", seconds=seconds, smi=smi)
     return {"files_scanned": lint["files_scanned"],
             "lint_wall_ms": lint["wall_ms"], "process_s": process_s,
+            "rules": sorted(per_rule),
+            "graftspec_ms": {r: per_rule[r] for r in GRAFTSPEC_RULES},
             "cli_rsan": {k: cli_rsan[k] for k in (
                 "acquires", "locks_observed", "multi_thread_locks",
                 "wall_ms")},

@@ -1,9 +1,13 @@
 """graftlint for the port: static rules over ``rca_tpu_torch/``,
-``chip_smoke.py`` and ``tests/test_torch_*.py`` (gravelock's race and
-lock-order rules over the port's concurrency model among them), with the
-runtime recompile gate (``tracecheck.py``), the runtime lock sanitizer's
-cross-check (``concurrency/crosscheck.py``) and the fetch-budget
-cross-check (``dataplane/specsan.py``).
+``chip_smoke.py`` and ``tests/test_torch_*.py`` — 15 of the JAX package's
+18: gravelock's race and lock-order rules over the port's concurrency
+model, and graftspec's ``dtype-discipline`` and ``shape-contract`` over
+the port's abstract interpreter of torch ops (``dataplane/absint.py``),
+among them; ``tracer-leak``, ``retrace-hazard`` and ``donation-guard``
+have no subject in the port (no jit, no trace, no donated buffer) — with
+the runtime recompile gate (``tracecheck.py``), the runtime lock
+sanitizer's cross-check (``concurrency/crosscheck.py``) and the
+fetch-budget cross-check (``dataplane/specsan.py``).
 
 Usage::
 

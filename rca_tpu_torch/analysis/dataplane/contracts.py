@@ -1,36 +1,48 @@
-"""graftspec contract tables, the runtime half: the byte budgets of the
-port's device→host transfers (the twin of
-``rca_tpu.analysis.dataplane.contracts``'s ``FETCH_BUDGETS``).
+"""graftspec contract tables for the port (the twin of
+``rca_tpu.analysis.dataplane.contracts``): the byte budgets of its
+device→host transfers, and the static half's shape, dtype and staging
+tables.
 
-:data:`FETCH_BUDGETS` is the quantitative side of the ``resident-fetch``
-allowlist: every audited fetch surface — the ``(path, function)`` that
-calls the seam (:mod:`rca_tpu_torch.engine.fetch`) — declares the named
-result roles it may move (symbolic shapes + dtypes) and a per-call byte
-budget as an expression over the shape symbols.
-:func:`budget_violations` proves, over the whole :data:`SYMBOL_GRID`, that
-the declared roles always fit the declared budget; specsan
-(:mod:`rca_tpu_torch.analysis.dataplane.specsan`) proves the OBSERVED
-transfers unify with the declared roles at run time.
-
-The roles and budget expressions are the JAX package's; the keys are the
-port's functions.  Where the port starts a copy in one function and syncs
-in another (``HostCopy`` in a ``dispatch``, ``numpy()`` in a ``fetch``),
-the budget keys the function that STARTS the copy, which is where the
-bytes are decided.  :data:`REFERENCE_SURFACES` maps each port surface to
-the JAX package's surface(s) it stands for.
+- :data:`FETCH_BUDGETS` is the quantitative side of the
+  ``resident-fetch`` allowlist: every audited fetch surface — the
+  ``(path, function)`` that calls the seam
+  (:mod:`rca_tpu_torch.engine.fetch`) — declares the named result roles
+  it may move (symbolic shapes + dtypes) and a per-call byte budget as an
+  expression over the shape symbols.  :func:`budget_violations` proves,
+  over the whole :data:`SYMBOL_GRID`, that the declared roles always fit
+  the declared budget; specsan
+  (:mod:`rca_tpu_torch.analysis.dataplane.specsan`) proves the OBSERVED
+  transfers unify with the declared roles at run time.  The roles and
+  budget expressions are the JAX package's; the keys are the port's
+  functions.  Where the port starts a copy in one function and syncs in
+  another (``HostCopy`` in a ``dispatch``, ``numpy()`` in a ``fetch``),
+  the budget keys the function that STARTS the copy, which is where the
+  bytes are decided.  :data:`REFERENCE_SURFACES` maps each port surface
+  to the JAX package's surface(s) it stands for.
+- :data:`RANKED_SIGNATURES` — the symbolic (shape, dtype) contract of the
+  port's ranked bodies, the plain functions that enqueue the kernels (the
+  port has no jit): the input facts the abstract interpreter
+  (:mod:`rca_tpu_torch.analysis.dataplane.absint`) seeds each body with,
+  and the output facts its returned expressions must prove.  A drift is
+  a ``shape-contract`` finding.  :data:`REFERENCE_SIGNATURES` maps each
+  to the JAX package's ``JIT_SIGNATURES`` entries, and
+  :data:`SIGNATURE_DEVIATIONS` names where the port's outputs differ.
+- :data:`DTYPE_RULES` — low precision is legal only in
+  ``engine/quantized.py``, and float64 staging nowhere in the staging
+  modules (:data:`DATAPLANE_MODULES`); :data:`DEVICE_BODY_MODULES` are
+  the modules whose functions ``dtype-discipline`` interprets for
+  implicit promotions.
 
 Shape expressions are tuples of ints (exact dims) and symbol names:
 ``k`` top-k width, ``n_pad`` padded service count, ``B`` padded batch
-lanes, ``C`` feature channels, ``E`` padded edge count, ``m``
-counterfactual rows, ``P`` blame-path hops.  The static half of the JAX
-package's file (jit signatures, dtype scopes, donation) has no subject
-here yet.
+lanes, ``C`` feature channels, ``E`` padded edge count, ``u`` padded
+delta rows, ``m`` counterfactual rows, ``P`` blame-path hops.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, NamedTuple, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 Dim = Union[int, str]
 
@@ -39,6 +51,14 @@ ITEMSIZE = {
     "float32": 4, "int32": 4, "float64": 8, "int64": 8,
     "bfloat16": 2, "float16": 2, "int8": 1, "uint8": 1, "bool": 1,
 }
+
+#: dtypes legal only inside the quantized kernel module (torch's float8
+#: names beside the JAX package's)
+LOW_PRECISION_DTYPES = frozenset({
+    "bfloat16", "float16", "int8",
+    "float8_e4m3fn", "float8_e5m2", "float8_e4m3b11_fnuz",
+    "float8_e4m3fnuz", "float8_e5m2fnuz",
+})
 
 #: sample values per symbol for the static budget-domination proof;
 #: every combination is checked, so a budget expression that ever under-
@@ -67,6 +87,26 @@ class Role(NamedTuple):
     name: str
     shape: Tuple[Dim, ...]
     dtype: str
+
+
+class Fact(NamedTuple):
+    """An abstract (shape, dtype) value: ``None`` means unknown — the
+    interpreter only ever *proves* with known facts, never guesses."""
+
+    shape: Optional[Tuple[Optional[Dim], ...]]
+    dtype: Optional[str]
+
+
+UNKNOWN = Fact(None, None)
+
+
+class Sym(NamedTuple):
+    """An integer value bound to a shape symbol: a signature's integer
+    argument (``kk`` → ``k``) or a dim read off a known shape
+    (``x.shape[0]``).  ``dim`` is None for an integer the interpreter
+    cannot name."""
+
+    dim: Optional[Dim]
 
 
 class FetchBudget(NamedTuple):
@@ -171,6 +211,117 @@ REFERENCE_SURFACES: Dict[Tuple[str, str], Tuple[Tuple[str, str], ...]] = {
         ("rca_tpu/parallel/streaming.py", "fetch"),),
     ("rca_tpu_torch/serve/dispatcher.py", "dispatch"): (
         ("rca_tpu/serve/dispatcher.py", "fetch"),),
+}
+
+
+_STREAMING = "rca_tpu_torch/engine/streaming.py"
+
+#: the device staging modules: pow2 padding, explicit-dtype staging, and
+#: dummy-row fills are enforced here.  The sharded/parallel layouts pad
+#: to data-parallel multiples and per-shard maxima by design, so they
+#: are deliberately NOT in this scope (their shape stability is pinned
+#: per graph, not per bucket).
+DATAPLANE_MODULES = frozenset({
+    _RUNNER,
+    "rca_tpu_torch/engine/resident.py",
+    _STREAMING,
+    "rca_tpu_torch/serve/dispatcher.py",
+    "rca_tpu_torch/engine/ell.py",
+})
+
+DTYPE_RULES = {
+    # bf16/f16/f8/int8 live ONLY in the quantized row's module — anywhere
+    # else an implicit f32<->low-precision promotion silently changes
+    # ranking arithmetic (SCORE_EPS is calibrated per dtype)
+    "low_precision_ok": frozenset({"rca_tpu_torch/engine/quantized.py"}),
+    # float64 staging doubles upload bytes and moves every downstream op
+    # to the card's slow float64 path; forbidden in the staging modules
+    "no_float64_staging": DATAPLANE_MODULES,
+}
+
+#: the modules whose functions are device bodies (the port's twin of the
+#: JAX package's jit functions): every function here, and every entry of
+#: RANKED_SIGNATURES, is interpreted for implicit promotions
+DEVICE_BODY_MODULES = DATAPLANE_MODULES | frozenset({
+    "rca_tpu_torch/engine/propagate.py",
+    "rca_tpu_torch/engine/evidence.py",
+    "rca_tpu_torch/engine/segscan.py",
+})
+
+_RANKED_OUTPUTS = (
+    _r("stacked", (4, "n_pad")), _r("diag", (4, "k")), _r("vals", ("k",)),
+    _r("idx", ("k",), "int64"), _r("n_bad", (), "int32"),
+)
+
+#: symbolic signatures of the port's ranked bodies: the input facts the
+#: interpreter seeds each body with (a :class:`Sym` binds an integer
+#: argument to its symbol), and the output facts the returned expressions
+#: must prove equal to, positionally.  What the port's code gives:
+#: top-k indices are int64 on the device (``torch.sort``) and become
+#: int32 only in the fetch seam; the delta bodies write the ``[n_pad, C]``
+#: buffer in place (``index_copy_``) and do not return it; ``n_bad`` comes
+#: out of the model's call, whose summary leaves its dtype to the model
+#: (every front gives a 0-dim int32, which the CPU tests pin).  The
+#: resident request's body is ``propagate_ranked`` itself.
+RANKED_SIGNATURES: Dict[Tuple[str, str], Dict[str, object]] = {
+    (_RUNNER, "propagate_ranked"): {
+        "inputs": {
+            "features": Fact(("n_pad", "C"), "float32"),
+            "dep_dst": Fact(("E",), "int64"),
+            "kk": Sym("k"),
+        },
+        "outputs": _RANKED_OUTPUTS,
+    },
+    # a hypothesis batch staged as a delta over the resident base: the
+    # ranked outputs gain the lane dim ``B``
+    (_RUNNER, "propagate_ranked_batch_delta"): {
+        "inputs": {
+            "base": Fact(("n_pad", "C"), "float32"),
+            "idx_b": Fact(("B", "u"), "int64"),
+            "rows_b": Fact(("B", "u", "C"), "float32"),
+            "dep_dst": Fact(("E",), "int64"),
+            "kk": Sym("k"),
+        },
+        "outputs": (
+            _r("stacked", ("B", 4, "n_pad")), _r("diag", ("B", 4, "k")),
+            _r("vals", ("B", "k")), _r("idx", ("B", "k"), "int64"),
+            _r("n_bad", (), "int32"),
+        ),
+        "lanes": "B",
+    },
+    (_STREAMING, "flush_propagate_ranked"): {
+        "inputs": {
+            "features": Fact(("n_pad", "C"), "float32"),
+            "idx": Fact(("u",), "int64"),
+            "rows": Fact(("u", "C"), "float32"),
+            "dep_dst": Fact(("E",), "int64"),
+            "kk": Sym("k"),
+        },
+        "outputs": (
+            _r("vals", ("k",)), _r("idx", ("k",), "int64"),
+            _r("n_bad", (), "int32"),
+        ),
+    },
+}
+
+#: port ranked body -> the JAX package's JIT_SIGNATURES entries it stands
+#: for (a ``lanes`` entry against its twin with the lane dim dropped)
+REFERENCE_SIGNATURES: Dict[Tuple[str, str], Tuple[Tuple[str, str], ...]] = {
+    (_RUNNER, "propagate_ranked"): (
+        ("rca_tpu/engine/runner.py", "_propagate_ranked"),
+        ("rca_tpu/engine/resident.py", "_resident_delta_ranked")),
+    (_RUNNER, "propagate_ranked_batch_delta"): (
+        ("rca_tpu/engine/runner.py", "_propagate_ranked"),),
+    (_STREAMING, "flush_propagate_ranked"): (
+        ("rca_tpu/engine/streaming.py", "_flush_propagate_ranked"),),
+}
+
+#: role -> why the port's ranked bodies differ from their twins there
+SIGNATURE_DEVIATIONS: Dict[str, str] = {
+    "idx": "int64 on the device (torch.sort); the fetch seam casts the "
+           "top-k indices to int32 on the card",
+    "features": "the delta bodies write the buffer in place "
+                "(index_copy_) instead of returning it",
 }
 
 

@@ -57,6 +57,9 @@ that the port has).
 - ``python -m rca_tpu_torch train``: fit the propagation weights on
   synthetic cascades, gate them (``shippability_report``) and write the
   JSON checkpoint that ``RCA_WEIGHTS`` loads;
+- ``python -m rca_tpu_torch ui``: the Streamlit app
+  (:mod:`rca_tpu_torch.ui.app`) on ``--port`` over ``--device``; exit 1
+  when ``streamlit`` is not installed;
 - ``python -m rca_tpu_torch lint``: graftlint over the port (the rules,
   ``--tracecheck``, ``--specsan``, ``--all``); every argument goes to
   :mod:`rca_tpu_torch.analysis.__main__`, with its exit codes.
@@ -1228,6 +1231,31 @@ def cmd_lint(args) -> int:
     return lint_main(args.lint_args)
 
 
+def cmd_ui(args) -> int:
+    """Launch the Streamlit app on ``--port`` with the app's ``--device``;
+    exit 1 when ``streamlit`` is not installed (the CLI covers the same
+    ground)."""
+    try:
+        import streamlit  # noqa: F401
+    except ImportError:
+        print(
+            "streamlit is not installed; the coordinator API and CLI expose "
+            "the same capabilities (try: python -m rca_tpu_torch analyze "
+            "--fixture 5svc).",
+            file=sys.stderr,
+        )
+        return 1
+    import subprocess
+
+    from rca_tpu_torch.ui import app as ui_app
+
+    return subprocess.call(
+        [sys.executable, "-m", "streamlit", "run", ui_app.__file__,
+         "--server.port", str(args.port), "--",
+         "--device", args.device or "cuda"]
+    )
+
+
 def cmd_train(args) -> int:
     """Fit, gate, save: the reference's ``train`` with its JSON keys and
     exit codes.  The gate runs only when a checkpoint is asked for, and a
@@ -1771,6 +1799,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="cuda | cpu (default: cuda)")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("ui", help="launch the Streamlit app")
+    sp.add_argument("--port", type=int, default=5000)
+    sp.add_argument("--device", default=None,
+                    help="cuda | cpu (default: cuda)")
+    sp.set_defaults(fn=cmd_ui)
 
     sp = sub.add_parser(
         "lint",

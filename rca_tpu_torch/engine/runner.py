@@ -261,10 +261,10 @@ class EngineResult:
         if self._stacked is None:
             if self._stacked_dev is None:
                 raise ValueError("EngineResult carries no diagnostic stack")
-            stack = self._stacked_dev
+            stacked = self._stacked_dev
             # a sharded stack joins its shards' blocks on the host
-            self._stacked = (device_get(stack) if torch.is_tensor(stack)
-                             else stack.numpy())
+            self._stacked = (device_get(stacked) if torch.is_tensor(stacked)
+                             else stacked.numpy())
             self._stacked_dev = None
         return self._stacked
 

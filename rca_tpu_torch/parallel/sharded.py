@@ -374,7 +374,9 @@ class ShardedStack:
         self.blocks = list(blocks)
 
     def numpy(self) -> np.ndarray:
-        return np.concatenate([device_get(b) for b in self.blocks], axis=-1)
+        # each block is a [..., 4, block] slice of the stacked role
+        return np.concatenate([device_get(stacked) for stacked in self.blocks],
+                              axis=-1)
 
     def __getitem__(self, lane) -> "ShardedStack":
         return ShardedStack([b[lane] for b in self.blocks])

@@ -887,7 +887,8 @@ class FederationPlane:
             # rejoin with a stale lease: refused — the worker re-hellos
             # WITHOUT a lease and gets a fresh grant (tested)
             self._event("stale_lease_rejected", worker_id)
-            conn.send({"t": "reject", "reason": "stale_lease"})
+            conn.send({"t": "reject", "reason": "stale_lease",
+                       "lease_id": str(presented)})
             return None
         lease = self.leases.grant(worker_id)
         with self._lock:
@@ -975,8 +976,13 @@ class FederationPlane:
                     conn.send({"t": "hb_ack", "seq": msg.get("seq", 0)})
                 else:
                     # stale/expired lease: the worker was declared dead;
-                    # make it re-hello explicitly
-                    conn.send({"t": "reject", "reason": "stale_lease"})
+                    # make it re-hello explicitly.  The reject names the
+                    # lease it refuses: every heartbeat still in flight
+                    # on the old lease is refused too, and a worker that
+                    # has already re-helloed must not drop its fresh
+                    # lease for those
+                    conn.send({"t": "reject", "reason": "stale_lease",
+                               "lease_id": str(msg.get("lease_id"))})
             elif t == "resp" and handle is not None:
                 self._on_response(handle, msg)
             elif t == "ingest_stat" and handle is not None:

@@ -29,7 +29,10 @@ frame          direction  meaning
                           'no evidence': the worker places by pure
                           rendezvous
 ``lease``      c → w      lease grant: lease_id + ttl_s + heartbeat_s
-``reject``     c → w      hello/heartbeat refused (stale_lease, bad_proto)
+``reject``     c → w      hello/heartbeat refused (stale_lease, bad_proto);
+                          a stale_lease reject names the refused
+                          ``lease_id`` (an optional field: a worker
+                          ignores a reject of a lease it no longer holds)
 ``hb``         w → c      heartbeat (renews the lease)
 ``hb_ack``     c → w      heartbeat acknowledged
 ``req``        c → w      one analyze request (gateway-wire analyze body)

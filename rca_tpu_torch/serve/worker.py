@@ -28,7 +28,9 @@ Protocol behaviour (see :mod:`rca_tpu_torch.serve.fedwire`):
 - hello → lease; heartbeats on the granted cadence renew it;
 - a ``reject`` (stale lease: this worker was declared dead while it
   was hung or partitioned) triggers an explicit RE-HELLO for a fresh
-  lease: rejoin is loud, never a silent resurrection;
+  lease: rejoin is loud, never a silent resurrection.  A reject that
+  names a lease this worker no longer holds (a heartbeat that crossed
+  its re-hello) is ignored;
 - ``req`` frames become local :class:`ServeRequest` submissions; each
   completion is answered with a ``resp`` frame.  A request that was
   rerouted while this worker was presumed dead may still complete here;
@@ -353,6 +355,16 @@ class WorkerAgent:
                 self._rejoin_attempts = 0   # granted: backoff re-arms
             elif t == "reject":
                 if str(msg.get("reason")) == "stale_lease":
+                    refused = msg.get("lease_id")
+                    with self._lock:
+                        held = self.lease_id
+                    if refused is not None and str(refused) != held:
+                        # a reject of a lease this worker no longer holds
+                        # (a heartbeat sent before its re-hello): the
+                        # fresh hello is on the wire already, and dropping
+                        # the lease it brings would re-hello again, past
+                        # the TTL of the lease granted meanwhile
+                        continue
                     # declared dead while hung/partitioned: rejoin with
                     # an explicit fresh hello (stale lease dropped) —
                     # after a jittered backoff, so a healing partition's

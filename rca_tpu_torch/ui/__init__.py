@@ -1,4 +1,5 @@
-"""UI surface: the pure render helpers (the Streamlit app is not ported)."""
+"""UI surface: the Streamlit app (thin, ``app.py``; it imports without
+streamlit) + pure render helpers."""
 
 from rca_tpu_torch.ui.render import (
     finding_markdown,

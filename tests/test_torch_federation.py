@@ -746,6 +746,66 @@ def test_mute_worker_expires_and_rejoins_with_fresh_lease():
             f.close()
 
 
+@pytest.mark.parametrize("names_lease", [True, False])
+def test_a_reject_of_a_lease_no_longer_held_keeps_the_fresh_one(
+        names_lease):
+    """Heartbeats on the old lease that crossed the worker's re-hello are
+    refused one by one.  The worker re-hellos once and keeps the lease
+    that hello brings: it used to drop it on the second reject, re-hello
+    again and let the lease granted meanwhile lapse, a second down (a
+    ``worker_hang``) of a worker that had just rejoined.  A reject that
+    names no lease (the reference's coordinator) still re-hellos."""
+    from rca_tpu_torch.serve.ingest import NullServePlane
+    from rca_tpu_torch.serve.worker import WorkerAgent
+    from rca_tpu_torch.util.net import bound_address, make_server_socket
+
+    server = make_server_socket("test-coordinator", "127.0.0.1", 0)
+    host, port = bound_address(server)
+    server.settimeout(10.0)
+    agent = WorkerAgent(0, host, port, NullServePlane(),
+                        sleeper=lambda s: None)
+    runner = spawn(agent.run, name="stale-reject-agent", daemon=True)
+    client, _ = server.accept()
+    client.settimeout(10.0)
+    coord = FrameConn(client, name="test-coordinator")
+
+    def frames_until(kind):
+        while True:
+            msg = coord.recv()
+            assert msg is not None, f"worker closed before a {kind}"
+            if msg["t"] == kind:
+                return msg
+
+    try:
+        assert frames_until("hello").get("lease_id") is None
+        # a cadence far past the test: no heartbeat of its own
+        coord.send({"t": "lease", "lease_id": "L0", "ttl_s": 600.0,
+                    "heartbeat_s": 300.0})
+        assert _wait(lambda: agent.lease_id == "L0")
+        refusal = {"t": "reject", "reason": "stale_lease"}
+        if names_lease:
+            refusal["lease_id"] = "L0"
+        coord.send(refusal)
+        coord.send(refusal)      # a second heartbeat that was in flight
+        assert frames_until("hello").get("lease_id") is None
+        coord.send({"t": "lease", "lease_id": "L1", "ttl_s": 600.0,
+                    "heartbeat_s": 300.0})
+        if names_lease:
+            assert _wait(lambda: agent.lease_id == "L1")
+            coord.send({"t": "drain"})
+            assert frames_until("drained")["t"] == "drained"
+            assert len(agent.rejoin_delays) == 1
+        else:
+            # the reference's behaviour: each reject re-hellos
+            assert frames_until("hello").get("lease_id") is None
+            assert len(agent.rejoin_delays) == 2
+    finally:
+        coord.close()
+        server.close()
+        runner.join(10.0)
+    assert not runner.is_alive()
+
+
 class _TearingDownProc:
     """A SIGKILLed CUDA worker mid-exit: not reaped, its socket still
     open.  ``flagged`` is whether ``/proc`` already shows it exiting."""

@@ -786,6 +786,74 @@ def test_elastic_fleet_loads_no_jax_and_no_rca_tpu():
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
 
+_GRAFTSPEC_UI_PROBE = """
+import json, runpy, sys
+from rca_tpu_torch.analysis import run_lint
+from rca_tpu_torch.analysis.dataplane import absint
+from rca_tpu_torch.cluster.fixtures import NS, five_service_world
+from rca_tpu_torch.cluster.mock_client import MockClusterClient
+from rca_tpu_torch.cluster.oomchain import (OOM_NS, OOM_ROOT,
+                                            measure_analyze, oom_chain_world)
+from rca_tpu_torch.ui import app
+lint = run_lint(rules=["dtype-discipline", "shape-contract"],
+                use_baseline=False)
+oom = measure_analyze(MockClusterClient(oom_chain_world(200)), OOM_NS,
+                      OOM_ROOT, device="cpu")
+
+class St:
+    session_state = {}
+    frames = []
+    def button(self, label):
+        return True
+    def checkbox(self, label, value=False, key=None):
+        return False
+    def dataframe(self, data):
+        self.frames.append(data)
+    def markdown(self, text):
+        pass
+    def caption(self, text):
+        pass
+
+st = St()
+app._render_stream_tab(st, MockClusterClient(five_service_world()), NS,
+                       device="cpu")
+codes = []
+sys.argv = ["rca_tpu_torch", "ui", "--device", "cpu"]
+try:
+    runpy.run_module("rca_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    codes.append(exc.code)
+print(json.dumps({"lint": len(lint.findings), "hit1": oom["hit1"],
+                  "backend": oom["backend"],
+                  "top": st.frames[0][0]["component"], "codes": codes,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_graftspec_oomchain_and_ui_load_no_jax_and_no_streamlit():
+    """The two graftspec rules over the repository, the OOM chain's
+    measurement, the app's Stream tab and ``ui`` (exit 1: no streamlit)
+    load neither ``jax`` nor ``rca_tpu``, nor ``streamlit`` or
+    ``plotly``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _GRAFTSPEC_UI_PROBE], cwd=str(ROOT),
+        capture_output=True, text=True, timeout=240, env=_probe_env(),
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["lint"] == 0
+    assert (out["hit1"], out["backend"]) == (True, "torch")
+    assert out["top"] == "database"
+    assert out["codes"] == [1]
+    for module in ("analysis.dataplane.absint", "analysis.rules.shapecontract",
+                   "analysis.rules.dtypediscipline", "cluster.oomchain",
+                   "ui.app", "engine.live"):
+        assert f"rca_tpu_torch.{module}" in out["modules"], module
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+    for name in ("streamlit", "plotly"):
+        assert name not in out["modules"], name
+
+
 def test_thread_fleet_without_device_fails_without_cuda(no_cuda):
     """A thread fleet member, the soak and ``serve --autoscale`` without
     ``--device cpu`` raise (or exit non-zero naming CUDA) on a host

@@ -41,6 +41,9 @@ TORCH_RULES = ("tick-sync", "resident-fetch", "kernel-dispatch",
 #: gravelock's rules over the port's concurrency model
 #: (tests/test_torch_gravelock.py holds them to the reference's)
 GRAVELOCK_RULES = ("race-guard", "lock-order")
+#: graftspec's static half over the port's abstract interpreter
+#: (tests/test_torch_dataplane.py holds them to the reference's)
+GRAFTSPEC_RULES = ("dtype-discipline", "shape-contract")
 
 
 def _reference_fixtures():
@@ -317,11 +320,11 @@ def test_scan_set_is_the_port_chip_smoke_and_its_tests():
 
 
 def test_eleven_rules_registered():
-    """The eleven rules of the first part, and gravelock's two beside
-    them: 13 of the reference's 18."""
+    """The eleven rules of the first part, gravelock's two and graftspec's
+    static two beside them: 15 of the reference's 18."""
     assert set(all_rules()) == set(KEPT) | set(TORCH_RULES) | set(
-        GRAVELOCK_RULES)
-    assert len(all_rules()) == 13
+        GRAVELOCK_RULES) | set(GRAFTSPEC_RULES)
+    assert len(all_rules()) == 15
     for rule in all_rules().values():
         assert rule.summary and rule.why
 
