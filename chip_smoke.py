@@ -19,15 +19,20 @@
     python3 chip_smoke.py --snapshot-only  # the build, then the
                                        # snapshot phase alone (with its
                                        # OOM-chain and Stream-tab legs)
+    python3 chip_smoke.py --recursions-only  # the build, then the
+                                       # recursions phase alone (the grid
+                                       # kernels' checks and times)
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
 launches on the ``kernels`` row: ``evidence_front_fused`` once (the whole
-front, ``csrc/front.cu``), then the two recursions, which the plan runs
-as ``seg_up_steps`` / ``seg_down_steps`` once each up to 2047 services
-(1 / 1 / 1: both layouts fit one CTA's shared memory) and as
-``seg_up_step`` / ``seg_down_step`` 8 times each above (1 / 8 / 8 at
-10,000 and 49,999); the front's two halves ``evidence_front`` /
+front, ``csrc/front.cu``), then the two recursions once each in the form
+the plan names (``KernelPlan.steps_form``): ``seg_up_steps`` /
+``seg_down_steps`` up to 2047 services (``cta``: both layouts fit one
+CTA's shared memory) and ``seg_up_steps_grid`` / ``seg_down_steps_grid``
+above (``grid``: one cooperative launch over the card, at 10,000 and
+49,999), 1 / 1 / 1 either way; the per-step ``seg_up_step`` /
+``seg_down_step`` and the front's two halves ``evidence_front`` /
 ``seg_contrast_step`` only in the node-sharded engine, ``noisy_or_pair``
 and the flagged scans never (:func:`main_launches`).
 
@@ -55,7 +60,15 @@ and the flagged scans never (:func:`main_launches`).
    8 and 16 lanes: bitwise the same number of per-step launches, bitwise
    over two runs, each lane bitwise its flat launch, ``u`` bitwise its
    plain version and ``m`` at rtol 1e-5 / atol 1e-6 (at 2047 only: the
-   49,999 layouts do not fit one CTA, and the plan runs them per step);
+   49,999 layouts do not fit one CTA).  Then the recursions phase
+   (:func:`recursions_phase`, alone with ``--recursions-only``): the grid
+   recursions ``seg_up_steps_grid`` / ``seg_down_steps_grid`` under the
+   same checks at 2047, 10,000 and 49,999 services, on the star and the
+   degenerate layouts (their even lanes with the dummy slot at 0, as the
+   engine gives it, so the padding run's shortcut runs beside the walk),
+   and timed at 10,000 and 49,999 beside the 8 per-step launches they
+   replace (at 2047 too, for the record, beside the times phase's
+   one-CTA kernels);
 4. the kernel registry at both tiers, with a fresh cache file: the
    ``kernels`` row is elected by timing with ``torch`` timed beside it, a
    second engine reads the cache (``source == "cache"``), and under
@@ -63,9 +76,9 @@ and the flagged scans never (:func:`main_launches`).
    ranks the same top-k;
 5. the main path: ``GraphEngine()`` on the card runs ``analyze_case`` at
    both tiers (the registry engaging ``kernels``) with the launch
-   counters set to 0 just before; the plan must fuse the recursions at
-   2047 and not at 49,999, and each analysis must launch the main path's
-   counts.  Each result
+   counters set to 0 just before; the plan's ``steps_form`` must be
+   ``cta`` at 2047 and ``grid`` at 49,999, and each analysis must launch
+   the main path's counts.  Each result
    is held against the port's own CPU run (plain versions) of the same
    case — top-k and ``sanitized_rows`` identical, ``u`` bitwise, scores
    allclose at rtol 1e-5 / atol 1e-6 — and against itself (two card runs
@@ -78,9 +91,10 @@ and the flagged scans never (:func:`main_launches`).
    batch, every lane is bitwise equal to a solo card analysis of its
    features, each batched launch agrees with its batched plain version
    (the front, the contrast and ``u`` bitwise, the down-steps at rtol
-   1e-5 / atol 1e-6; the fused recursions also bitwise their per-step
-   launches), the batch delta is bitwise equal to full staging, and each
-   batched launch is timed beside its bound and plain version (the fused
+   1e-5 / atol 1e-6; the one-launch recursions, one CTA a lane at 2047
+   and the grid at 49,999, also bitwise their per-step launches), the
+   batch delta is bitwise equal to full staging, and each batched launch
+   is timed beside its bound and plain version (the one-launch
    recursions beside their 8 per-step launches too);
 7. the capture layer: the native log scanner and the C sanitize
    extension are built with g++ from ``rca_tpu_torch/native/`` into the
@@ -139,8 +153,9 @@ and the flagged scans never (:func:`main_launches`).
    50-service fixture and the 2047-service cascade, and
    ``analyze_arrays(...).attribution()`` at 49,999 services, the sweep on
    the registry's ``dense`` row (``kernels``: the base run and the
-   counterfactual lanes launch the main path's counts twice, per step at
-   49,999: 2 / 16 / 16, counted from 0 just before) and the saliency
+   counterfactual lanes launch the main path's counts twice, the grid
+   recursions at 49,999: 2 / 2 / 2, counted from 0 just before) and the
+   saliency
    on its ``attribution`` row
    (``torch``): the provenance block is there with saliency, every
    candidate's reconstruction error is at most 1e-5, it equals the port's
@@ -355,17 +370,19 @@ and the flagged scans never (:func:`main_launches`).
    ``evidence_front`` row pass (``persist_*``); at 2047 each
    fused recursion beside the 8 per-step launches it replaces
    (``per_step_ms`` / ``per_step_call_ms``); the end-to-end
-   ``analyze_arrays`` wall time at both tiers, restaged, and at 2047 again
-   with the recursions fused and per step in turns
-   (``analyze_arrays_fused_ms`` / ``analyze_arrays_per_step_ms``; with
-   ``--profile`` also the 2047 analysis's device profile run per step);
+   ``analyze_arrays`` wall time at both tiers, restaged, and again with
+   the recursions in one launch each (one CTA a lane at 2047, the grid
+   at 49,999) and per step in turns (``analyze_arrays_fused_ms`` /
+   ``analyze_arrays_per_step_ms``; with ``--profile`` also each tier's
+   device profile run per step);
 21. the instruments (``observe``): ``python -m rca_tpu_torch profile
    --services 10000 --ticks 20`` in a subprocess, whose Chrome trace must
    hold 20 ``rca_tick`` ranges, 20 ``tick.dispatch`` and 20
    ``tick.fetch`` annotations and the main path's device kernels of 20
-   ticks at 10,000 services by symbol (``evidence_front_fused`` 20,
-   ``seg_up_step`` / ``seg_down_step`` 160 each, no other kernel of the
-   port), its ``ms_per_tick`` beside the same 20 polls unprofiled;
+   ticks at 10,000 services by symbol (``evidence_front_fused``,
+   ``seg_up_steps_grid`` / ``seg_down_steps_grid`` 20 each, no other
+   kernel of the port), its ``ms_per_tick`` beside the same 20 polls
+   unprofiled;
    ``python -m rca_tpu_torch kernels --services 2047,49999 --edges ...
    --cost-max-pad 65536 --json`` in a subprocess, every dense row with
    the model's ``flops`` / ``bytes_accessed`` (``basis`` ``"model"``)
@@ -451,7 +468,8 @@ and the flagged scans never (:func:`main_launches`).
    legs' rankings bitwise those of the same legs run uncaptured first,
    and the launches of the main path's kernels: ``evidence_front_fused``,
    ``seg_down_steps`` and ``seg_up_steps`` at 2047 and in the serve leg,
-   8 + 8 ``seg_down_step`` / ``seg_up_step`` a front launch at 49,999.
+   one ``seg_down_steps_grid`` / ``seg_up_steps_grid`` a front launch at
+   49,999, no per-step launch.
    Then, specsan done (the sanitizer is process-global), the rsan leg:
    ``run_rsan_crosscheck(seed=7, soak_ticks=40, device="cuda")`` on the
    ``kernels`` row (``ok``, no contradiction, no observed race, at least
@@ -470,9 +488,10 @@ main path, the comparison and the times included), each phase's record
 carries its ``seconds``, and a ``walls`` line prints their sum beside
 the run's wall.
 
-The line before the last is the ``{"kernels": [...]}`` JSON (the fused
-recursions' rows with their 2047-service numbers, where the plan runs
-them, each with its per-step composition; the
+The line before the last is the ``{"kernels": [...]}`` JSON (the one-CTA
+recursions' rows with their 2047-service numbers and the grid
+recursions' with their 49,999-service numbers (and ``at_10000``), where
+the plan runs them, each with its per-step composition; the
 per-shard entries as rows of their own, with their launches over one
 sharded analysis at 49,999 services on 4 shards; every dense kernel with
 its launches per sharded analysis beside its dense count; every kernel
@@ -681,10 +700,15 @@ def bound(work) -> tuple:
     return (*bound_ms(*work), work[0])
 
 
-#: the two recursions' fused kernels (csrc/segsteps.cu) and the per-step
-#: kernels they replace where the plan fuses them (csrc/segstep.cu)
+#: the two recursions' one-CTA kernels (csrc/segsteps.cu), their grid
+#: kernels (csrc/seggrid.cu) and the per-step kernels both replace on the
+#: dense path (csrc/segstep.cu)
 FUSED_KERNELS = ("seg_up_steps", "seg_down_steps")
+GRID_KERNELS = ("seg_up_steps_grid", "seg_down_steps_grid")
 STEP_KERNELS = ("seg_up_step", "seg_down_step")
+#: the tiers the grid recursions are checked at, and timed at (the last
+#: two) beside the per-step launches
+GRID_TIERS = (2047, 10000, 49999)
 #: the depths the fused recursions are checked at: none (no launch), one,
 #: the engine's 8 and 13 (config.propagation_steps sets the depth)
 CHECK_STEPS = (0, 1, 8, 13)
@@ -693,11 +717,18 @@ RECURSION_LANES = (1, 2, 4, 8, 16)
 
 
 def fused(services: int) -> bool:
-    """Whether the engine's plan runs each recursion as one launch at this
-    many services: where both layouts fit one CTA's shared memory, every
-    graph up to the 2047-service tier.  The 10,000 and 49,999 tiers do not
-    fit and run one launch per step."""
+    """Whether the engine's plan runs each recursion with one CTA a lane
+    at this many services (``steps_form`` ``cta``): where both layouts
+    fit one CTA's shared memory, every graph up to the 2047-service tier.
+    The 10,000 and 49,999 tiers do not fit and take the card's grid
+    (``grid``)."""
     return services <= 2047
+
+
+def whole_kernels(services: int) -> tuple:
+    """The two one-launch recursions the plan runs at this many
+    services, (up, down)."""
+    return FUSED_KERNELS if fused(services) else GRID_KERNELS
 
 
 def main_launches(services: int, times: int = 1) -> dict:
@@ -705,30 +736,40 @@ def main_launches(services: int, times: int = 1) -> dict:
     ticks, device batches) of a graph of ``services`` on the ``kernels``
     row: ``evidence_front_fused`` once (the whole front; the row pass
     ``evidence_front`` and ``seg_contrast_step`` run only in the sharded
-    engine), then ``seg_up_steps`` and ``seg_down_steps`` once each where
-    the plan fuses the recursions, else ``seg_up_step`` and
-    ``seg_down_step`` 8 times."""
-    one, eight = (times, 0) if fused(services) else (0, 8 * times)
-    return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-            "evidence_front": 0, "seg_contrast_step": 0,
-            "evidence_front_fused": times,
-            "seg_up_steps": one, "seg_down_steps": one,
-            "seg_up_step": eight, "seg_down_step": eight}
+    engine), then the two recursions once each, ``seg_up_steps`` and
+    ``seg_down_steps`` where the plan fuses them into one CTA a lane,
+    else ``seg_up_steps_grid`` and ``seg_down_steps_grid``; the per-step
+    ``seg_up_step`` and ``seg_down_step`` never."""
+    out = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
+           "evidence_front": 0, "seg_contrast_step": 0,
+           "evidence_front_fused": times, "seg_up_step": 0,
+           "seg_down_step": 0, **dict.fromkeys(FUSED_KERNELS, 0),
+           **dict.fromkeys(GRID_KERNELS, 0)}
+    out.update(dict.fromkeys(whole_kernels(services), times))
+    return out
 
 
-def recursion_runs(up, down, h, a_ex, inv_deg, decay: float, steps: int):
-    """The fused recursions over the layouts ``up`` / ``down`` on the card,
-    each with the ``steps`` per-step launches it replaces and its plain
-    version: ``{name: (fused, per_step, plain)}``."""
+def recursion_runs(up, down, h, a_ex, inv_deg, decay: float, steps: int,
+                   grid: bool = False):
+    """The one-CTA recursions (``grid``: the grid recursions) over the
+    layouts ``up`` / ``down`` on the card, each with the ``steps``
+    per-step launches it replaces and its plain version: ``{name:
+    (kernel, per_step, plain)}``."""
     import torch
     from rca_tpu_torch.engine.segscan import (
         down_seg_step,
         down_seg_steps,
+        down_seg_steps_grid,
         down_seg_steps_plain,
         up_seg_step,
         up_seg_steps,
+        up_seg_steps_grid,
         up_seg_steps_plain,
     )
+
+    up_steps, down_steps = ((up_seg_steps_grid, down_seg_steps_grid) if grid
+                            else (up_seg_steps, down_seg_steps))
+    up_name, down_name = GRID_KERNELS if grid else FUSED_KERNELS
 
     def up_per_step():
         u = torch.zeros_like(h)
@@ -743,11 +784,11 @@ def recursion_runs(up, down, h, a_ex, inv_deg, decay: float, steps: int):
         return m
 
     return {
-        "seg_up_steps": (
-            lambda: up_seg_steps(h, decay, steps, up), up_per_step,
+        up_name: (
+            lambda: up_steps(h, decay, steps, up), up_per_step,
             lambda: up_seg_steps_plain(h, decay, steps, up)),
-        "seg_down_steps": (
-            lambda: down_seg_steps(a_ex, decay, steps, down, inv_deg),
+        down_name: (
+            lambda: down_steps(a_ex, decay, steps, down, inv_deg),
             down_per_step,
             lambda: down_seg_steps_plain(a_ex, decay, steps, down, inv_deg)),
     }
@@ -755,9 +796,10 @@ def recursion_runs(up, down, h, a_ex, inv_deg, decay: float, steps: int):
 
 def per_step_plans():
     """A context in which every plan runs the two recursions per step,
-    where it would fuse them: the walls' and the profile's comparison."""
-    return mock.patch("rca_tpu_torch.engine.runner.fused_steps_fit",
-                      return_value=False)
+    whatever form it would name: the walls' and the profile's
+    comparison."""
+    return mock.patch("rca_tpu_torch.engine.runner.steps_form",
+                      return_value="step")
 
 
 def plain_recursion_ms(plain) -> float:
@@ -767,41 +809,48 @@ def plain_recursion_ms(plain) -> float:
     return cuda_ms(plain, reps=5, inner=2)
 
 
-def recursion_bounds(up, down, lanes: int, steps: int = 8) -> dict:
-    """Each fused recursion's bound over its layout (``cost.up_steps`` /
-    ``cost.down_steps``: one pass over the CSR and the long ids, the
-    vectors read and written; 3 operations an edge and 1 a node a
-    step)."""
+def recursion_bounds(up, down, lanes: int, steps: int = 8,
+                     grid: bool = False) -> dict:
+    """Each one-launch recursion's bound over its layout (``cost.up_steps``
+    / ``cost.down_steps``, whichever form runs it: one pass over the CSR
+    and the long ids, the vectors read and written; 3 operations an edge
+    and 1 a node a step)."""
     from rca_tpu_torch.kernels import cost
 
+    names = GRID_KERNELS if grid else FUSED_KERNELS
     return {name: bound(work(seg.offsets.shape[0] - 1, seg.other32.shape[0],
                              seg.long_ids.shape[0], lanes, steps))
-            for name, seg, work in (("seg_up_steps", up, cost.up_steps),
-                                    ("seg_down_steps", down,
-                                     cost.down_steps))}
+            for name, seg, work in ((names[0], up, cost.up_steps),
+                                    (names[1], down, cost.down_steps))}
 
 
-def check_recursions(label, up, down, inv_deg, rng, decay: float) -> dict:
-    """The fused recursions over the layouts ``up`` / ``down`` (on the
-    card) at every depth of ``CHECK_STEPS`` on a flat vector, and at the
-    engine's 8 over every lane count of ``RECURSION_LANES``: bitwise
-    ``steps`` per-step launches, bitwise over two runs, each lane bitwise
-    its own flat launch, ``seg_up_steps`` bitwise its plain version and
-    ``seg_down_steps`` within rtol 1e-5 / atol 1e-6 of it.  Returns each
-    kernel's largest error against plain."""
+def check_recursions(label, up, down, inv_deg, rng, decay: float,
+                     grid: bool = False) -> dict:
+    """The one-CTA recursions (``grid``: the grid recursions) over the
+    layouts ``up`` / ``down`` (on the card) at every depth of
+    ``CHECK_STEPS`` on a flat vector, and at the engine's 8 over every
+    lane count of ``RECURSION_LANES``: bitwise ``steps`` per-step
+    launches, bitwise over two runs, each lane bitwise its own flat
+    launch, the up recursion bitwise its plain version and the down
+    recursion within rtol 1e-5 / atol 1e-6 of it.  The even lanes carry
+    the dummy slot (the last) at 0, as the engine's inputs do, the rest
+    random.  Returns each kernel's largest error against plain."""
     import numpy as np
     import torch
 
     n_pad = up.offsets.shape[0] - 1
     dev = up.offsets.device
-    errs = dict.fromkeys(FUSED_KERNELS, 0.0)
+    names = GRID_KERNELS if grid else FUSED_KERNELS
+    errs = dict.fromkeys(names, 0.0)
     cases = [(None, s) for s in CHECK_STEPS] + [
         (b, 8) for b in RECURSION_LANES[1:]]
     for lanes, steps in cases:
         shape = (n_pad,) if lanes is None else (lanes, n_pad)
         x = torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(
             np.float32)).to(dev)
-        runs = recursion_runs(up, down, x, x, inv_deg, decay, steps)
+        if lanes is not None:
+            x[::2, -1] = 0.0
+        runs = recursion_runs(up, down, x, x, inv_deg, decay, steps, grid)
         for name, (kernel, per_step, plain) in runs.items():
             got, again, want, ref = kernel(), kernel(), per_step(), plain()
             torch.cuda.synchronize()
@@ -810,19 +859,19 @@ def check_recursions(label, up, down, inv_deg, rng, decay: float) -> dict:
                 fail(f"{where}: not deterministic")
             if not torch.equal(got, want):
                 fail(f"{where}: not bitwise {steps} per-step launches")
-            if name == "seg_up_steps" and not torch.equal(got, ref):
+            if name == names[0] and not torch.equal(got, ref):
                 fail(f"{where}: not bitwise equal to plain")
             if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
                 fail(f"{where}: disagrees with plain")
             if lanes is not None:
                 for b in range(lanes):
                     solo = recursion_runs(up, down, x[b], x[b], inv_deg,
-                                          decay, steps)[name][0]()
+                                          decay, steps, grid)[name][0]()
                     if not torch.equal(got[b], solo):
                         fail(f"{where}: lane {b} differs from its flat "
                              f"launch")
             errs[name] = max(errs[name], float((got - ref).abs().max()))
-    phase("check", kernel="seg_up_steps + seg_down_steps", layout=label,
+    phase("check", kernel=" + ".join(names), layout=label,
           n_pad=n_pad, steps=list(CHECK_STEPS),
           lanes=list(RECURSION_LANES), bitwise_per_step=True,
           bitwise_lanes=True, max_abs_err=errs)
@@ -830,12 +879,15 @@ def check_recursions(label, up, down, inv_deg, rng, decay: float) -> dict:
 
 
 def time_recursions(up, down, inv_deg, rng, decay: float,
-                    lanes: int = 1) -> dict:
-    """Each fused recursion at the engine's 8 steps over ``lanes`` lanes
-    (a flat vector for 1): its device time (``ms``) and cost to a caller
+                    lanes: int = 1, grid: bool = False,
+                    plain: bool = True) -> dict:
+    """Each one-CTA recursion (``grid``: each grid recursion) at the
+    engine's 8 steps over ``lanes`` lanes (a flat vector for 1), its
+    inputs' dummy slot at 0 as the engine gives it: its device time
+    (``ms``; ``one_step_ms`` for one step) and cost to a caller
     (``call_ms``) beside the 8 per-step launches it replaces
-    (``per_step_ms`` / ``per_step_call_ms``), its plain version and its
-    bound, all in this run."""
+    (``per_step_ms`` / ``per_step_call_ms``), its plain version (``plain``
+    False: None) and its bound, all in this run."""
     import numpy as np
     import torch
 
@@ -843,16 +895,94 @@ def time_recursions(up, down, inv_deg, rng, decay: float,
     shape = (n_pad,) if lanes == 1 else (lanes, n_pad)
     x = torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(
         np.float32)).to(up.offsets.device)
-    bounds = recursion_bounds(up, down, lanes)
+    x[..., -1] = 0.0
+    bounds = recursion_bounds(up, down, lanes, grid=grid)
+    one = recursion_runs(up, down, x, x, inv_deg, decay, 1, grid)
     out = {}
-    for name, (kernel, per_step, plain) in recursion_runs(
-            up, down, x, x, inv_deg, decay, 8).items():
+    for name, (kernel, per_step, plain_fn) in recursion_runs(
+            up, down, x, x, inv_deg, decay, 8, grid).items():
         out[name] = {
             "ms": cuda_ms(kernel), "call_ms": cuda_ms(kernel, queued=False),
+            # one step: the launch, its ramp and one step's work
+            "one_step_ms": cuda_ms(one[name][0]),
             "per_step_ms": cuda_ms(per_step),
             "per_step_call_ms": cuda_ms(per_step, queued=False),
-            "plain_ms": plain_recursion_ms(plain), "library_ms": None,
-            "bound": bounds[name]}
+            "plain_ms": plain_recursion_ms(plain_fn) if plain else None,
+            "library_ms": None, "bound": bounds[name]}
+    return out
+
+
+def tier_layouts(n: int, device):
+    """The engine's padded layouts of ``synthetic_cascade_arrays(n,
+    n_roots=3, seed=0)`` on ``device`` and its inverse in-degree (padded
+    edges included): ``(up, down, inv_deg)``."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.segscan import build_seg_layouts
+
+    case = _generated("arrays", n, 3, 0)
+    f, src, dst = GraphEngine(device="cpu")._pad(
+        case.features, case.dep_src, case.dep_dst)
+    n_pad, e_pad = f.shape[0], len(src)
+    down, up = build_seg_layouts(n_pad, e_pad, case.dep_src, case.dep_dst,
+                                 device=device)
+    inv_deg = torch.from_numpy((1.0 / np.maximum(np.bincount(
+        dst, minlength=n_pad), 1)).astype(np.float32)).to(device)
+    return up, down, inv_deg
+
+
+def recursions_phase(smi: str, decay: float) -> dict:
+    """The grid recursions on the card: at each tier of ``GRID_TIERS``
+    (``check_recursions(grid=True)``: every depth, every lane count,
+    bitwise the per-step launches, over two runs and lane by lane), on a
+    star whose one segment holds 4096 edges and on the degenerate
+    layouts; then their times beside the 8 per-step launches at 10,000
+    and 49,999, and at 2047 for the record (the times phase times the
+    one-CTA kernels there).
+    Returns the errors against plain and the times by tier."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine.segscan import build_seg_layout, steps_form
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2323)
+    out = {"errs": dict.fromkeys(GRID_KERNELS, 0.0), "times": {},
+           "forms": {}, "smi": smi}
+
+    def note(errs):
+        for name, err in errs.items():
+            out["errs"][name] = max(out["errs"][name], err)
+
+    layouts = {n: tier_layouts(n, dev) for n in GRID_TIERS}
+    for n, (up, down, inv_deg) in layouts.items():
+        out["forms"][str(n)] = steps_form(down, up, dev)
+        if out["forms"][str(n)] != ("cta" if fused(n) else "grid"):
+            fail(f"recursions: the form at {n} is {out['forms'][str(n)]}")
+        note(check_recursions(f"{n} services", up, down, inv_deg, rng,
+                              decay, grid=True))
+    star = build_seg_layout(2048, 4096, np.full(4096, 7, np.int32),
+                            rng.integers(0, 2047, 4096).astype(
+                                np.int32)).to(dev)
+    note(check_recursions("star, 4096 edges in one segment", star, star,
+                          torch.full((2048,), 1.0 / 4096, device=dev), rng,
+                          decay, grid=True))
+    for label, layout in degenerate_layouts(rng).items():
+        seg_d = layout.to(dev)
+        note(check_recursions(label, seg_d, seg_d, torch.full(
+            (64,), 0.25, dtype=torch.float32, device=dev), rng, decay,
+            grid=True))
+    for n, (up, down, inv_deg) in layouts.items():
+        # at 2047 the one-CTA kernels the plan runs there, and their plain
+        # versions (the same functions), are timed in the times phase
+        t = time_recursions(up, down, inv_deg, rng, decay, grid=True,
+                            plain=not fused(n))
+        for name in GRID_KERNELS:
+            t[name]["long_segments"] = int(
+                (up if name == GRID_KERNELS[0] else down).long_ids.shape[0])
+        out["times"][str(n)] = t
+        phase("recursions", services=n, smi=smi, **t)
+    phase("recursions", max_abs_err=out["errs"], forms=out["forms"])
     return out
 
 
@@ -1018,6 +1148,9 @@ def main(argv) -> int:
     parser.add_argument("--snapshot-only", action="store_true",
                         help="build, then run the snapshot phase alone "
                              "(the OOM chain and the Stream tab included)")
+    parser.add_argument("--recursions-only", action="store_true",
+                        help="build, then run the recursions phase alone "
+                             "(the grid recursions' checks and times)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1102,7 +1235,7 @@ def main(argv) -> int:
     phase_s["generate"] = time.perf_counter() - t_generate
 
     if (args.multi_card or args.federation_only or args.autoscale_only
-            or args.lint_only or args.snapshot_only):
+            or args.lint_only or args.snapshot_only or args.recursions_only):
         if args.multi_card:
             record["multi_card"] = multi_card_phase(
                 cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
@@ -1121,6 +1254,10 @@ def main(argv) -> int:
                 record["snapshot"] = _timed(phase_s, "snapshot",
                                             snapshot_phase, smi, args.profile,
                                             args.out)
+            elif args.recursions_only:
+                record["recursions"] = _timed(
+                    phase_s, "recursions", recursions_phase, smi,
+                    GraphEngine(device="cpu").params.decay)
             else:
                 record["autoscale"] = _timed(phase_s, "autoscale",
                                              autoscale_phase, cases, smi)
@@ -1144,7 +1281,8 @@ def main(argv) -> int:
     errs = {"noisy_or_pair": 0.0, "segscan_sum": 0.0, "segscan_max": 0.0,
             "seg_up_step": 0.0, "seg_down_step": 0.0, "evidence_front": 0.0,
             "seg_contrast_step": 0.0, "seg_up_steps": 0.0,
-            "seg_down_steps": 0.0, "evidence_front_fused": 0.0}
+            "seg_down_steps": 0.0, "evidence_front_fused": 0.0,
+            **dict.fromkeys(GRID_KERNELS, 0.0)}
     decay = params.decay
     contrast = params.error_contrast
 
@@ -1349,6 +1487,11 @@ def main(argv) -> int:
         check_front(label, small, seg_d, (1, 3))
 
     phase_s["check"] = time.perf_counter() - t_check
+    # the grid recursions at every tier, checked and timed
+    record["recursions"] = _timed(phase_s, "recursions", recursions_phase,
+                                  smi, decay)
+    for name, err in record["recursions"]["errs"].items():
+        errs[name] = err
 
     # -- 4. the registry elects the kernels row by timing ------------------
     engine = GraphEngine()
@@ -1365,9 +1508,10 @@ def main(argv) -> int:
     for n in cases:
         plan = engine.plan_for(*shapes[n], cases[n].dep_src,
                                cases[n].dep_dst)
-        if plan.steps_fused != fused(n):
-            fail(f"the plan at {n} services says steps_fused="
-                 f"{plan.steps_fused}, want {fused(n)}")
+        want_form = "cta" if fused(n) else "grid"
+        if plan.steps_form != want_form:
+            fail(f"the plan at {n} services says steps_form="
+                 f"{plan.steps_form!r}, want {want_form!r}")
     reset_launches()
     results = {}
     for i, n in enumerate(cases, start=1):
@@ -1648,14 +1792,15 @@ def main(argv) -> int:
                                     case.dep_dst, case.names)
 
         t["analyze_arrays_ms"] = host_ms(analyze)
-        if fused(n):
-            # the same analysis fused (as planned) and per step, in turns
-            walls = {True: [], False: []}
-            for on in (True, False, False, True):
-                with contextlib.nullcontext() if on else per_step_plans():
-                    walls[on] += host_samples(analyze, reps=10)
-            t["analyze_arrays_fused_ms"] = float(np.median(walls[True]))
-            t["analyze_arrays_per_step_ms"] = float(np.median(walls[False]))
+        # the same analysis with its recursions in one launch each (as
+        # planned: one CTA a lane at 2047, the grid above) and per step,
+        # in turns
+        walls = {True: [], False: []}
+        for on in (True, False, False, True):
+            with contextlib.nullcontext() if on else per_step_plans():
+                walls[on] += host_samples(analyze, reps=10)
+        t["analyze_arrays_fused_ms"] = float(np.median(walls[True]))
+        t["analyze_arrays_per_step_ms"] = float(np.median(walls[False]))
         t["analyze_timed_latency_ms"] = engine.analyze_case(
             case, timed=True).latency_ms
         times[n] = t
@@ -1687,8 +1832,7 @@ def main(argv) -> int:
         record["profile"] = {
             str(n): profile(restaged, cases[n], times[n]["analyze_arrays_ms"],
                             args.out,
-                            times[n]["analyze_arrays_per_step_ms"]
-                            if fused(n) else None)
+                            times[n]["analyze_arrays_per_step_ms"])
             for n in cases}
 
     big = TIERS[-1][0]
@@ -1720,30 +1864,46 @@ def main(argv) -> int:
         "seg_up_steps": ("rca_tpu_torch/csrc/segsteps.cu",
                          "rca_tpu/engine/segscan.py:141 (step up_seg_step "
                          ":206, 8 steps under lax.scan, rca_tpu/engine/"
-                         "propagate.py:303)"),
+                         "propagate.py:319)"),
         "seg_down_steps": ("rca_tpu_torch/csrc/segsteps.cu",
                            "rca_tpu/engine/segscan.py:136 (step "
                            "down_seg_step :197, 8 steps under lax.scan, "
-                           "rca_tpu/engine/propagate.py:342)"),
+                           "rca_tpu/engine/propagate.py:349)"),
+        "seg_up_steps_grid": ("rca_tpu_torch/csrc/seggrid.cu",
+                              "rca_tpu/engine/segscan.py:141 (step "
+                              "up_seg_step :206, 8 steps under lax.scan, "
+                              "rca_tpu/engine/propagate.py:319)"),
+        "seg_down_steps_grid": ("rca_tpu_torch/csrc/seggrid.cu",
+                                "rca_tpu/engine/segscan.py:136 (step "
+                                "down_seg_step :197, 8 steps under "
+                                "lax.scan, rca_tpu/engine/propagate.py:"
+                                "349)"),
     }
     stream_counts = record["stream"][str(big)]["tick_launches"]
     resident_counts = next(
         r for r in record["resident"][str(big)]["requests"]
         if r["request"] == "delta_8_nan_inf")
     kernels = []
+    grid_times = record["recursions"]["times"]
     for name, (src, replaces) in sources.items():
-        # the fused recursions run on the plan at 2047 services; at 49,999
-        # the plan runs the per-step kernels, and those are the numbers
+        # the one-CTA recursions run on the plan at 2047 services, the
+        # grid recursions at 49,999 (timed in the recursions phase, beside
+        # the 8 per-step launches)
         tier = 2047 if name in FUSED_KERNELS else big
-        t = times[tier][name]
+        t = (grid_times[str(big)] if name in GRID_KERNELS
+             else times[tier])[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": errs[name], "ms": t["ms"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "tier_services": tier, "at_2047": times[2047][name],
-            "at_49999": times[big].get(name),
+            "tier_services": tier,
+            "at_2047": (grid_times["2047"] if name in GRID_KERNELS
+                        else times[2047])[name],
+            "at_49999": (grid_times[str(big)] if name in GRID_KERNELS
+                         else times[big]).get(name),
+            "at_10000": grid_times["10000"].get(name),
             "snapshot_launches": record["snapshot"]["launches"][name],
             # counted in the stream and resident phases of this run
             "tick_launches": {
@@ -1850,10 +2010,10 @@ def main(argv) -> int:
                     tier: counts[name]
                     for tier, counts in batch["launches"].items()},
                 batch=batch["times"][str(big)].get(name),
-                batch_at_2047=batch["times"]["2047"][name],
+                batch_at_2047=batch["times"]["2047"].get(name),
                 serve_batch={lanes: t.get(name) for lanes, t
                              in serve["batched"][str(big)].items()},
-                serve_batch_at_2047={lanes: t[name] for lanes, t
+                serve_batch_at_2047={lanes: t.get(name) for lanes, t
                                      in serve["batched"]["2047"].items()})
         if name == "evidence_front_fused":
             kernels[-1]["persist_launches"] = {
@@ -2005,14 +2165,19 @@ def _hypothesis_batch(engine, case):
     return batch
 
 
-def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
+def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng,
+                     plain_recursions: bool = True):
     """Each main-path kernel's launch over the ``[B, n_pad, C]`` lanes
     ``ft`` of ``case``'s graph against its batched plain version (the
     front, the contrast and ``u`` bitwise, the down-step within rtol 1e-5
     / atol 1e-6; each bitwise over two runs), then timed beside its bound
-    and plain version; where the plan fuses the recursions, the fused
-    kernels also bitwise their 8 per-step launches and timed beside them.
-    Returns ``(checks, times)``."""
+    and plain version; the recursions in the form the plan runs at this
+    size (one CTA a lane, or the grid) also bitwise their 8 per-step
+    launches and timed beside them.  ``plain_recursions`` False leaves
+    the recursions' plain versions untimed (``plain_ms`` None; still
+    checked): the serve widths', whose loop of some thousand torch ops
+    the batch, times and recursions phases time already.  Returns
+    ``(checks, times)``."""
     import numpy as np
     import torch
     from rca_tpu_torch.engine.evidence import (
@@ -2071,12 +2236,13 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
     # times go under)
     replaced = {"evidence_front_fused": (
         lambda: two_launch_front(ft, aw, hw, contrast, up), "two_launch")}
-    if fused(n):
-        bounds.update(recursion_bounds(up, down, lanes))
-        for name, (kernel, steps, plain) in recursion_runs(
-                up, down, h, a_raw, inv_deg, decay, 8).items():
-            runs[name] = (kernel, plain)
-            replaced[name] = (steps, "per_step")
+    # the recursions in the form the plan runs at this size
+    grid = not fused(n)
+    bounds.update(recursion_bounds(up, down, lanes, grid=grid))
+    for name, (kernel, steps, plain) in recursion_runs(
+            up, down, h, a_raw, inv_deg, decay, 8, grid).items():
+        runs[name] = (kernel, plain)
+        replaced[name] = (steps, "per_step")
     checks, times = [], {}
     for name, (kernel, plain) in runs.items():
         got, again, ref = kernel(), kernel(), plain()
@@ -2086,7 +2252,8 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
         for g, a, r in zip(got, again, ref):
             if not torch.equal(g, a):
                 fail(f"batched {name} not deterministic at {n} x {lanes}")
-            if name in ("seg_down_step", "seg_down_steps"):
+            if name in ("seg_down_step", "seg_down_steps",
+                        "seg_down_steps_grid"):
                 ok = torch.allclose(g, r, rtol=1e-5, atol=1e-6)
             else:
                 ok = torch.equal(g, r)
@@ -2108,11 +2275,12 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
                                 for g, r in zip(got, ref))}
         checks.append(check)
         phase("batch_check", **check)
-        recursion = name in FUSED_KERNELS
+        recursion = name in FUSED_KERNELS + GRID_KERNELS
         times[name] = {"ms": cuda_ms(kernel),
                        "call_ms": cuda_ms(kernel, queued=False),
-                       "plain_ms": (plain_recursion_ms(plain) if recursion
-                                    else cuda_ms(plain)),
+                       "plain_ms": (cuda_ms(plain) if not recursion
+                                    else plain_recursion_ms(plain)
+                                    if plain_recursions else None),
                        "bound": bounds[name], "max_abs_err": err}
         if name in replaced:
             composed, key = replaced[name]
@@ -2124,7 +2292,7 @@ def _batched_kernels(ft, case, n_pad, e_pad, aw, hw, params, rng):
 
 def batch_phase(engine, cases, shapes, aw, hw, params) -> dict:
     """The hypothesis batch on the card (``BATCH`` lanes per tier): one
-    launch of each front kernel and one per step for the whole batch,
+    launch of each main-path kernel for the whole batch,
     every lane bitwise equal to a solo card analysis of its features; each
     batched kernel against its batched plain version (``u`` and the front
     bitwise, the down-step within rtol 1e-5 / atol 1e-6), the batch delta
@@ -2545,7 +2713,7 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
             fb[:, :n] = _serve_features(case, rng, lanes)
             _, times[str(lanes)] = _batched_kernels(
                 torch.from_numpy(fb).to(engine.device), case, n_pad, e_pad,
-                aw, hw, params, rng)
+                aw, hw, params, rng, plain_recursions=False)
         out["batched"][str(n)] = times
 
         # -- the load, coalesced and max_batch = 1, in turns (after one
@@ -4189,10 +4357,11 @@ def live_phase() -> dict:
 
 
 #: the kernels of a tick (the front's persisting launches apart): the
-#: front, then the fused recursions or the per-step kernels, and the
-#: front's two halves, which a dense tick no longer launches
-TICK_KERNELS = ("evidence_front_fused", *FUSED_KERNELS, *STEP_KERNELS,
-                "evidence_front", "seg_contrast_step")
+#: front, then the one-CTA or the grid recursions, and the per-step
+#: kernels and the front's two halves, which a dense tick no longer
+#: launches
+TICK_KERNELS = ("evidence_front_fused", *FUSED_KERNELS, *GRID_KERNELS,
+                *STEP_KERNELS, "evidence_front", "seg_contrast_step")
 
 
 def _launch_snapshot() -> dict:
@@ -5712,7 +5881,7 @@ SHARD_SOURCES = {
 
 
 #: the profile capture's world and length: BASELINE.md row 4's size, where
-#: the plan runs the recursions per step
+#: the plan runs the grid recursions
 PROFILE_SERVICES = 10000
 PROFILE_TICKS = 20
 #: the cost model's and the bounds' tiers
@@ -5729,9 +5898,9 @@ def _profile_capture(smi: str, device, cli=()) -> dict:
     """``python -m rca_tpu_torch profile`` at 10,000 services for 20 ticks
     in its own process, its Chrome trace parsed: 20 ``rca_tick`` ranges,
     the ``tick.dispatch`` / ``tick.fetch`` annotations of every tick, and
-    the device kernels of the main path's per-step plan, 1 + 8 + 8 a tick
-    (``evidence_front_fused``, ``seg_up_step``, ``seg_down_step``), no
-    other kernel of the port; then the same 20 polls unprofiled in this
+    the device kernels of the main path's grid plan, 1 + 1 + 1 a tick
+    (``evidence_front_fused``, ``seg_up_steps_grid``,
+    ``seg_down_steps_grid``), no other kernel of the port; then the same 20 polls unprofiled in this
     process, for the profiler's cost per tick."""
     import tempfile
 
@@ -5953,7 +6122,7 @@ def _shard_launches(sp: int) -> dict:
             "evidence_front": sp, "seg_contrast_step": sp,
             "seg_up_step": 8 * sp, "seg_down_step": 8 * sp,
             "seg_up_steps": 0, "seg_down_steps": 0,
-            "evidence_front_fused": 0}
+            "evidence_front_fused": 0, **dict.fromkeys(GRID_KERNELS, 0)}
 
 
 def _hub_case(n: int, block: int, seed: int):
@@ -7558,20 +7727,23 @@ RSAN_POOL_EACH = 8
 
 def _lint_launches(launches: dict) -> None:
     """The main path's kernels in specsan's legs: the fused front and the
-    fused recursions at 2047 and in the serve leg (the selftest's graphs
-    are smaller), the front and 8 + 8 per-step launches a front above."""
+    one-CTA recursions at 2047 and in the serve leg (the selftest's
+    graphs are smaller), the front and one grid launch of each recursion
+    a front above; the per-step kernels nowhere."""
     for leg, counts in launches.items():
         front = counts["evidence_front_fused"]
         if front < 1:
             fail(f"lint: no evidence_front_fused launch in {leg}: {counts}")
+        if counts["seg_down_step"] or counts["seg_up_step"]:
+            fail(f"lint: per-step launches in {leg}: {counts}")
         if leg in ("session@2047", "serve"):
             if counts["seg_down_steps"] < 1 or counts["seg_up_steps"] < 1:
                 fail(f"lint: the fused recursions did not run in {leg}: "
                      f"{counts}")
-        elif (counts["seg_down_step"], counts["seg_up_step"]) != (
-                8 * front, 8 * front) or counts["seg_down_steps"] \
+        elif (counts["seg_down_steps_grid"], counts["seg_up_steps_grid"]) \
+                != (front, front) or counts["seg_down_steps"] \
                 or counts["seg_up_steps"]:
-            fail(f"lint: {leg} is not 8 + 8 per-step launches a front: "
+            fail(f"lint: {leg} is not 1 + 1 grid launches a front: "
                  f"{counts}")
 
 
@@ -8048,8 +8220,8 @@ def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
 def profile(engine, case, host_ms_per_analysis: float, out=None,
             per_step_host_ms=None) -> dict:
     """Device time by kernel over 5 analyses after 3 warm ones; with
-    ``per_step_host_ms`` (a tier whose plan fuses the recursions) also
-    the same analysis run per step, beside it."""
+    ``per_step_host_ms`` also the same analysis with its recursions run
+    per step, beside it."""
     runs = {"plan": (host_ms_per_analysis, False)}
     if per_step_host_ms is not None:
         runs["per_step"] = (per_step_host_ms, True)

@@ -6,12 +6,10 @@
 // epilogue).  Where the per-step entries run: the contrast step in the
 // node-sharded engine and as the yardstick of the dense front, which
 // reduces its segments the same way inside its one launch (front.cu);
-// the up and down steps where the engine's plan does not fuse a
-// recursion into one launch (segsteps.cu) because the graph does not fit
-// one CTA's shared memory (the 10,000 and 49,999-service tiers: 8
-// launches each way); the *_shard entries of the
-// node-sharded engine, whose steps a collective separates; and as the
-// bitwise yardstick of segsteps.cu's kernels.  Over the CSR form of one
+// the *_shard entries of the node-sharded engine, whose steps a
+// collective separates; and as the bitwise yardstick of the one-launch
+// recursions the dense engine runs (segsteps.cu's one CTA a lane up to
+// the 2047-service tier, seggrid.cu's cooperative grid above).  Over the CSR form of one
 // scan direction (segment s owns the sorted edges [offsets[s],
 // offsets[s+1]), o_e = other[e] is the edge's other endpoint):
 //
@@ -80,9 +78,8 @@
 // design buys is one launch per step in place of a gather, three scan
 // launches and the epilogue's ops, and no edge-sized intermediate in
 // device memory.  A launch costs the card 4-6 us whatever the graph, which
-// is what segsteps.cu removes where a recursion fits one CTA; above, the
-// gathers of a step need the whole card, which these launches spread
-// over.
+// is what segsteps.cu removes where a recursion fits one CTA and
+// seggrid.cu, with a grid barrier a step, above.
 //
 // Rounding: every product and sum is spelled with an _rn intrinsic so nvcc
 // cannot contract a*b+c into an fma; the per-edge values and the epilogues

@@ -34,9 +34,9 @@
 //
 // Capacity: 6 words per node, 1 per edge and per long segment
 // (smem_bytes), within the device's opt-in shared memory per block, which
-// rca_seg_steps_smem reads; the engine's plan fuses only where both
-// layouts fit (the 2047-service tier: about 66 KB of the H100's 227 KB)
-// and runs the per-step kernels above.  Clusters of 2-16 CTAs sharing the
+// rca_seg_steps_smem reads; the engine's plan takes this form only where
+// both layouts fit (the 2047-service tier: about 66 KB of the H100's 227
+// KB) and the card-wide grid recursions of seggrid.cu above.  Clusters of 2-16 CTAs sharing the
 // state through distributed shared memory were built and ran slower than
 // the per-step launches at every size where one fits (PERF.md).
 //
@@ -302,7 +302,7 @@ int launch(const Op& op, int steps, const int* offsets, const int* other,
   }
   auto kernel = seg_steps_kernel<Op>;
   // a layout above the device's shared memory fails here: the plan runs
-  // the per-step kernels for it, so no launch of it is ever asked for
+  // the grid recursions for it, so no launch of it is ever asked for
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

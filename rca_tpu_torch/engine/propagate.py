@@ -21,10 +21,11 @@ the one place the row is decided, and the body branches on it once:
 
 - ``kernels``: the front (finite-mask sanitize, evidence pair, contrast)
   and the recursions go through the port's kernels on the card
-  (:mod:`.evidence`: one launch; :mod:`.segscan`: one launch per
-  recursion where the plan's ``steps_fused`` says the graph fits one
-  CTA's shared memory, else one launch per step, each for all lanes);
-  on the CPU through their plain versions;
+  (:mod:`.evidence`: one launch; :mod:`.segscan`: each recursion in the
+  form the plan's ``steps_form`` names, one launch with one CTA a lane
+  where the graph fits one CTA's shared memory (``cta``), else one
+  cooperative launch over the card (``grid``), each for all lanes); on
+  the CPU through their plain versions (``step``);
 - ``torch``: plain PyTorch ops on every device, differentiable with the
   reference's gradient at ties, which attribution's saliency needs: the
   front's plain version, the up-steps over the plan's hybrid up-table
@@ -77,14 +78,21 @@ from rca_tpu_torch.engine.quantized import (
     quantized_front,
 )
 from rca_tpu_torch.engine.segscan import (
+    STEPS_FORMS,
     SegLayout,
     down_seg_step,
     down_seg_step_plain,
     down_seg_steps,
+    down_seg_steps_grid,
     up_seg_step,
     up_seg_step_plain,
     up_seg_steps,
+    up_seg_steps_grid,
 )
+
+#: the one-launch recursions of each ``steps_form``, (up, down)
+_WHOLE = {"cta": (up_seg_steps, down_seg_steps),
+          "grid": (up_seg_steps_grid, down_seg_steps_grid)}
 
 
 class KernelPlan(NamedTuple):
@@ -93,9 +101,12 @@ class KernelPlan(NamedTuple):
     seg layouts (the front's contrast the up layout); the ``torch`` row on
     the ``hybrid`` layout also the up-table, the ``doubling`` row also its
     frontier layouts.  ``layout`` is ``hybrid``, ``coo`` or ``ell``: the
-    stamp of what ran, beside the row.  ``steps_fused``: the ``kernels``
-    row runs each recursion as one launch (the graph fits one CTA's
-    shared memory on the CUDA device), else one launch per step."""
+    stamp of what ran, beside the row.  ``steps_form`` (one of
+    :data:`.segscan.STEPS_FORMS`): the form of the ``kernels`` row's
+    recursions, ``cta`` (one launch each, one CTA a lane: the graph fits
+    one CTA's shared memory on the CUDA device), ``grid`` (one
+    cooperative launch each over the card) or ``step`` (one launch a
+    step; on the CPU the plain steps)."""
 
     kernel: str                       # the engaged row (config.KERNELS)
     down_seg: SegLayout
@@ -103,10 +114,12 @@ class KernelPlan(NamedTuple):
     up_ell: Optional[UpEll] = None    # the torch row's hybrid up-table
     dbl: Optional[DoublingLayout] = None  # the doubling row's frontiers
     layout: str = "hybrid"            # the edge layout (RCA_EDGE_LAYOUT)
-    steps_fused: bool = False         # one launch per recursion
+    steps_form: str = "step"          # the recursions' form
 
 
 def _row(plan: KernelPlan) -> str:
+    if plan.steps_form not in STEPS_FORMS:
+        raise ValueError(f"unknown steps form {plan.steps_form!r}")
     if plan.kernel in ("kernels", "quantized"):
         return plan.kernel
     if plan.kernel == "torch":
@@ -172,8 +185,8 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
                    explain_strength: float, impact_bonus: float,
                    n_live: Optional[int], plan: KernelPlan):
     """Propagation from precomputed ``[..., n_pad]`` evidence on the
-    plan's row: the fused recursions or the seg-step wrappers
-    (``kernels``), plain ops over the
+    plan's row: the one-launch recursions of the plan's ``steps_form`` or
+    the seg-step wrappers (``kernels``), plain ops over the
     up-table (the segmented max under ``coo``) and the sorted segment sum
     (``torch``), the log-depth scans (``doubling``) or the int8-message
     steps (``quantized``).  Returns
@@ -186,9 +199,9 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
         return a, h, u, m, combine_score(a, h, u, m, explain_strength,
                                          impact_bonus)
 
-    # a fused recursion starts from zeros itself; the loops start here
-    fused = row == "kernels" and plan.steps_fused
-    u = (up_seg_steps(h, decay, steps, plan.up_seg) if fused
+    # a one-launch recursion starts from zeros itself; the loops start here
+    whole = _WHOLE.get(plan.steps_form) if row == "kernels" else None
+    u = (whole[0](h, decay, steps, plan.up_seg) if whole
          else torch.zeros_like(a))
     if row == "torch" and plan.up_ell is None:
         # the coo layout: the segmented max over the up layout's edges
@@ -202,7 +215,7 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
         src, dst = segment_sources(plan.up_seg), plan.up_seg.other_sorted
         for _ in range(steps):
             u = quant_up_step(u, h, decay, src, dst)
-    elif not fused:
+    elif not whole:
         # each step reads its input at other segments' nodes, so it writes
         # a fresh vector: two buffers per recursion, alternating
         spare = torch.empty_like(a)
@@ -212,7 +225,7 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
     a_ex = background_excess(a, n_live)
     inv_deg = inverse_degree(a, dep_dst)
 
-    m = (down_seg_steps(a_ex, decay, steps, plan.down_seg, inv_deg) if fused
+    m = (whole[1](a_ex, decay, steps, plan.down_seg, inv_deg) if whole
          else torch.zeros_like(a))
     if row == "torch":
         for _ in range(steps):
@@ -220,7 +233,7 @@ def propagate_core(a, h, dep_dst, steps: int, decay: float,
     elif row == "quantized":
         for _ in range(steps):
             m = quant_imp_step(m, a_ex, decay, plan.down_seg, inv_deg)
-    elif not fused:
+    elif not whole:
         spare = torch.empty_like(a)
         for _ in range(steps):
             m, spare = down_seg_step(m, a_ex, decay, plan.down_seg, inv_deg,

@@ -95,7 +95,8 @@ _HASHED = ("csrc/*.cu", "csrc/*.cuh", "engine/evidence.py",
 #: why the attribution variant cannot engage the kernels row
 ATTRIBUTION_DECLINE = (
     "no backward kernel: the front and the seg steps "
-    "(evidence_front_fused, seg_up_steps, seg_down_steps) have none, so "
+    "(evidence_front_fused, seg_up_steps, seg_down_steps and their grid "
+    "forms) have none, so "
     "saliency differentiates the torch row"
 )
 
@@ -454,10 +455,11 @@ def layout_note(variant: str, layout: str) -> Optional[str]:
 
 def steps_note(n_pad: int, e_pad: Optional[int], device) -> str:
     """What a dense ``kernels`` plan of this shape runs for its two
-    recursions on ``device`` (:func:`.segscan.fused_steps_fit`): on a CUDA
-    device one fused launch each where both layouts of the race's graph
-    of the shape fit one CTA's shared memory, else one launch per step;
-    elsewhere the loop of plain steps."""
+    recursions on ``device`` (:func:`.segscan.steps_form`): on a CUDA
+    device one launch each, with one CTA a lane where both layouts of the
+    race's graph of the shape fit one CTA's shared memory, else one
+    cooperative launch over the card; elsewhere the loop of plain
+    steps."""
     if torch.device(device).type != "cuda":
         return (f"per step: the fused recursions are CUDA kernels; on "
                 f"{device} the plan runs the plain steps")
@@ -468,11 +470,11 @@ def steps_note(n_pad: int, e_pad: Optional[int], device) -> str:
     layouts = build_seg_layouts(n_pad, e_pad, src[live], dst[live])
     need, limit = max(steps_smem(seg, device) for seg in layouts)
     if need <= limit:
-        return (f"fused: one launch per recursion, one CTA per lane "
+        return (f"cta: one launch per recursion, one CTA per lane "
                 f"({need} of {limit} bytes of shared memory)")
-    return (f"one launch per step: a recursion needs {need} bytes of "
-            f"shared memory in one CTA, above the {limit} the device "
-            f"allows")
+    return (f"grid: one cooperative launch per recursion over the card: "
+            f"one CTA would need {need} bytes of shared memory, above the "
+            f"{limit} the device allows")
 
 
 def default_row(device) -> str:
@@ -542,7 +544,7 @@ def _harness_plan(kernel: str, n_pad: int, e_pad: int, raw, steps: int,
     from rca_tpu_torch.engine.doubling import doubling_layouts_for
     from rca_tpu_torch.engine.ell import up_ell_for
     from rca_tpu_torch.engine.propagate import KernelPlan
-    from rca_tpu_torch.engine.segscan import fused_steps_fit
+    from rca_tpu_torch.engine.segscan import steps_form
 
     dbl = None
     if kernel == "doubling":
@@ -552,8 +554,8 @@ def _harness_plan(kernel: str, n_pad: int, e_pad: int, raw, steps: int,
     return KernelPlan(kernel, down_seg, up_seg,
                       up_ell_for(n_pad, *raw, device)
                       if kernel == "torch" else None, dbl,
-                      steps_fused=kernel == "kernels" and fused_steps_fit(
-                          down_seg, up_seg, device))
+                      steps_form=steps_form(down_seg, up_seg, device)
+                      if kernel == "kernels" else "step")
 
 
 def _time_candidates(n_pad: int, e_pad: Optional[int], steps: int,

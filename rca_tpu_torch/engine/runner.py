@@ -47,7 +47,7 @@ from rca_tpu_torch.engine.ell import ell_tables_for, up_ell_for
 from rca_tpu_torch.engine.fetch import device_get
 from rca_tpu_torch.engine.params import PropagationParams, resolve_params
 from rca_tpu_torch.engine.propagate import KernelPlan, Propagation
-from rca_tpu_torch.engine.segscan import build_seg_layouts, fused_steps_fit
+from rca_tpu_torch.engine.segscan import build_seg_layouts, steps_form
 
 
 def resolve_device(device=None) -> torch.device:
@@ -79,11 +79,12 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
     and says so in ``plan.kernel``, so the stamped row is always the one
     that ran.  ``plan.layout`` is :func:`plan_layout`'s: under ``coo``
     (and ``ell``, whose one-shot tables only ``analyze_arrays`` runs) the
-    plan carries no hybrid up-table.  ``plan.steps_fused`` is the
-    capacity decision of the ``kernels`` row: both recursions run as one
-    launch each where both layouts fit one CTA's shared memory on the
-    CUDA ``device`` (:func:`.segscan.fused_steps_fit`), else one launch
-    per step; the plan says which, and no launch falls back."""
+    plan carries no hybrid up-table.  ``plan.steps_form`` is the
+    capacity decision of the ``kernels`` row (:func:`.segscan.steps_form`):
+    on the CUDA ``device`` both recursions run as one launch each, with
+    one CTA a lane where both layouts fit one CTA's shared memory
+    (``cta``), else as one cooperative launch over the card (``grid``);
+    the plan says which, and no launch falls back."""
     from rca_tpu_torch.engine.doubling import doubling_layouts_for
     from rca_tpu_torch.engine.registry import default_row, engaged_kernel
 
@@ -100,8 +101,9 @@ def kernel_plan(n_pad: int, e_pad: int, dep_src, dep_dst, device,
             kernel = default_row(device)
     up_ell = (up_ell_for(n_pad, dep_src, dep_dst, device)
               if kernel == "torch" and layout == "hybrid" else None)
-    fused = kernel == "kernels" and fused_steps_fit(down_seg, up_seg, device)
-    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl, layout, fused)
+    form = (steps_form(down_seg, up_seg, device) if kernel == "kernels"
+            else "step")
+    return KernelPlan(kernel, down_seg, up_seg, up_ell, dbl, layout, form)
 
 
 def plan_layout() -> str:
@@ -572,8 +574,9 @@ class GraphEngine(EngineAPI):
         """Score ``[B, S, C]`` fault-hypothesis feature sets over ONE graph
         in one ranked dispatch: the lanes share the plan, and on the
         ``kernels`` row every kernel launches for the whole batch: once
-        each where the plan fuses the recursions
-        (``KernelPlan.steps_fused``), else the per-step kernels 8 times.
+        each, the recursions in the form ``KernelPlan.steps_form``
+        names (one CTA a lane up to 2047 services, the card's grid
+        above).
         Each lane is bitwise equal to :meth:`analyze_arrays` of its
         features; ``latency_ms`` is the batch's wall over B, and
         ``sanitized_rows`` counts across the batch (a poisoned row poisons

@@ -11,12 +11,15 @@ On CUDA tensors each step is one launch of a hand-written kernel in
 reduces each segment of the layout's CSR form where it lies, gather and
 epilogue included; it replaces the TPU kernels ``pallas_segscan`` /
 ``pallas_segscan_max`` with the step bodies around them (the source note
-says what bounds it).  Where the graph fits one CTA's shared memory the
-engine's main path runs each whole recursion in one launch instead
-(:func:`down_seg_steps` / :func:`up_seg_steps`, ``csrc/segsteps.cu``:
-one CTA per lane, the layout and the evolving vector in its shared
-memory), bitwise equal to the per-step launches; those stay for larger
-graphs, for the node-sharded engine and as the yardstick.  On CPU
+says what bounds it).  The engine's main path runs each whole recursion
+in one launch instead, in the form the plan names (:func:`steps_form`):
+where the graph fits one CTA's shared memory :func:`down_seg_steps` /
+:func:`up_seg_steps` (``csrc/segsteps.cu``: one CTA per lane, the layout
+and the evolving vector in its shared memory), above it
+:func:`down_seg_steps_grid` / :func:`up_seg_steps_grid`
+(``csrc/seggrid.cu``: one cooperative launch over the card, a grid
+barrier a step), both bitwise equal to the per-step launches; those stay
+for the node-sharded engine and as the yardstick.  On CPU
 tensors the steps compute their plain versions
 (:func:`down_seg_step_plain` / :func:`up_seg_step_plain`): the
 reference's composition of a gather, a flagged inclusive segmented scan
@@ -36,6 +39,7 @@ in the reference's four fields.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import operator
 from typing import NamedTuple
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from rca_tpu_torch.kernels import count_launch
+from rca_tpu_torch.util.threads import make_lock
 
 _OPS = {"sum": 0, "max": 1}
 
@@ -120,8 +125,9 @@ class SegLayout(NamedTuple):
     reduction identity) — the reference's four fields, byte-equal — plus
     the CSR form the seg-step kernels read: the row pointer, the other
     endpoints as int32, and the segment ids split by length into the ones
-    a block reduces and the ones a thread reduces.  numpy on the host;
-    :meth:`to` moves it."""
+    a block reduces and the ones a thread reduces; and the same CSR in
+    the grid recursions' item order (:func:`item_layout`).  numpy on the
+    host; :meth:`to` moves it."""
 
     other_sorted: np.ndarray   # int32 [e_pad] — other endpoint, seg-sorted
     flags: np.ndarray          # float32 [e_pad], 1 = first edge of its run
@@ -132,6 +138,11 @@ class SegLayout(NamedTuple):
     other32: np.ndarray        # int32 [e_pad] — other_sorted, kept int32
     long_ids: np.ndarray       # int32 — segments of > SHORT_SEGMENT_MAX
     short_ids: np.ndarray      # int32 — the rest, empty ones included
+    item_seg: np.ndarray       # int32 [n_pad] — big, other long, short ids
+    item_offsets: np.ndarray   # int32 [n_pad + 1] — their edges' offsets
+    item_other: np.ndarray     # int32 [e_pad] — other32 in that order
+    n_big: int                 # the big segments, item_seg's first ones
+    pad_item: int              # the certified padding run's position, or -1
 
     def to(self, device) -> "SegLayout":
         """The layout as tensors on ``device``: the reference's index fields
@@ -149,6 +160,11 @@ class SegLayout(NamedTuple):
             other32=put(self.other32),
             long_ids=put(self.long_ids),
             short_ids=put(self.short_ids),
+            item_seg=put(self.item_seg),
+            item_offsets=put(self.item_offsets),
+            item_other=put(self.item_other),
+            n_big=self.n_big,
+            pad_item=self.pad_item,
         )
 
 
@@ -158,6 +174,11 @@ class SegLayout(NamedTuple):
 #: tried; the up-step barely moves): a thread's walk sets its warp's time,
 #: while shorter cuts launch many blocks for a few edges each.
 SHORT_SEGMENT_MAX = 16
+#: Longest segment that one warp of the grid recursions reduces
+#: (``csrc/seggrid.cu``): one load per lane and per played thread, all in
+#: flight; longer ones take a whole CTA each, a walk of several loads a
+#: thread.
+GRID_BIG_MIN = 256
 
 
 def build_seg_layout(n_pad: int, e_pad: int, seg_idx, other_idx,
@@ -180,6 +201,8 @@ def build_seg_layout(n_pad: int, e_pad: int, seg_idx, other_idx,
     flags[starts[counts > 0]] = 1.0
     other_sorted = other[order]
     long_seg = counts > short_max
+    long_ids = np.flatnonzero(long_seg).astype(np.int32)
+    short_ids = np.flatnonzero(~long_seg).astype(np.int32)
     return SegLayout(
         other_sorted=other_sorted,
         flags=flags,
@@ -187,9 +210,42 @@ def build_seg_layout(n_pad: int, e_pad: int, seg_idx, other_idx,
         has_edges=(counts > 0).astype(np.float32),
         offsets=np.concatenate([[0], ends]).astype(np.int32),
         other32=other_sorted,
-        long_ids=np.flatnonzero(long_seg).astype(np.int32),
-        short_ids=np.flatnonzero(~long_seg).astype(np.int32),
+        long_ids=long_ids,
+        short_ids=short_ids,
+        **item_layout(other_sorted, starts, counts, long_ids, short_ids),
     )
+
+
+def item_layout(other_sorted, starts, counts, long_ids, short_ids) -> dict:
+    """The CSR in the grid recursions' item order (``csrc/seggrid.cu``):
+    the big segments (more than ``GRID_BIG_MIN`` edges, ``n_big`` of
+    them), the other long ones, then the short ones (``item_seg``, each
+    kind in id order), each with its edges' other endpoints contiguous
+    (``item_other``, from ``item_offsets``), so a CTA's run of items owns
+    one run of edges.  ``pad_item`` is the position of the dummy slot's
+    segment where it is long and holds only padding self-loops (every
+    edge gathers the dummy itself, which the kernel's exact shortcut
+    needs), else -1."""
+    big = counts[long_ids] > GRID_BIG_MIN
+    item_seg = np.concatenate([long_ids[big], long_ids[~big],
+                               short_ids]).astype(np.int32)
+    n_item = counts[item_seg]
+    item_offsets = np.concatenate([[0], np.cumsum(n_item)]).astype(np.int32)
+    moved = np.repeat(starts[item_seg] - item_offsets[:-1], n_item)
+    dummy = len(counts) - 1
+    run = other_sorted[starts[dummy]:starts[dummy] + counts[dummy]]
+    # the dummy, the largest id, ends its kind's run of long segments
+    pad = (len(long_ids) > 0 and long_ids[-1] == dummy
+           and bool(np.all(run == dummy)))
+    n_big = int(big.sum())
+    return {
+        "item_seg": item_seg,
+        "item_offsets": item_offsets,
+        "item_other": other_sorted[np.arange(len(other_sorted)) + moved],
+        "n_big": n_big,
+        "pad_item": ((n_big if big[-1] else len(long_ids)) - 1 if pad
+                     else -1),
+    }
 
 
 def build_down_seg(n_pad: int, e_pad: int, dep_src, dep_dst,
@@ -410,15 +466,22 @@ def as_float32(x: float) -> float:
 
 # -- the fused recursions (csrc/segsteps.cu) ---------------------------------
 
-def fused_steps_fit(down_seg, up_seg, device) -> bool:
-    """Whether both recursions over these layouts run fused on ``device``:
-    the plan's ``steps_fused``.  Only on a CUDA device (elsewhere both
-    paths compute the same loop of plain steps), and only where each
-    layout fits one CTA's shared memory there (:func:`steps_smem`)."""
+#: the forms a plan's two recursions take (``KernelPlan.steps_form``):
+#: one launch a step (``step``), one launch with one CTA a lane (``cta``),
+#: one cooperative launch over the card (``grid``)
+STEPS_FORMS = ("step", "cta", "grid")
+
+
+def steps_form(down_seg, up_seg, device) -> str:
+    """The form of the ``kernels`` row's recursions over these layouts on
+    ``device``: ``cta`` where each layout fits one CTA's shared memory
+    there (:func:`steps_smem`), else ``grid``; off a CUDA device ``step``
+    (there every form computes the same loop of plain steps)."""
     if torch.device(device).type != "cuda":
-        return False
-    return all(need <= limit for need, limit in (
+        return "step"
+    fits = all(need <= limit for need, limit in (
         steps_smem(seg, device) for seg in (down_seg, up_seg)))
+    return "cta" if fits else "grid"
 
 
 def steps_smem(seg: SegLayout, device) -> tuple:
@@ -471,7 +534,7 @@ def launch_steps(entry: str, name: str, seg: SegLayout, steps: int,
     """One launch of a fused recursion, ``steps`` >= 1 steps over
     ``lanes`` lanes (one CTA per lane), on the output's device and its
     current stream.  A layout above the CTA's shared memory raises: the
-    plan runs the per-step kernels for it."""
+    plan runs the grid recursions for it."""
     from rca_tpu_torch.kernels.build import check, library
 
     with torch.cuda.device(out.device):
@@ -527,6 +590,144 @@ def down_seg_steps(a_ex, decay: float, steps: int, seg: SegLayout, inv_deg,
     return launch_steps("rca_seg_down_steps", "seg_down_steps", seg, steps,
                         lanes, out, a_ex.data_ptr(), inv_deg.data_ptr(),
                         as_float32(decay))
+
+
+# -- the grid recursions (csrc/seggrid.cu) -----------------------------------
+
+#: segments of one grid work item (``csrc/seggrid.cu``): one big segment
+#: (more than ``GRID_BIG_MIN`` edges) reduced by the whole CTA, 8 other
+#: long ones a warp each, 256 short ones a thread each
+GRID_LONG_ITEM = 8
+GRID_SHORT_ITEM = 256
+
+# Per device and stream, the double-buffered scratch of the grid
+# recursions' gathered values, kept between calls (a stream's launches
+# run in order, so they may share one buffer; serve threads call on
+# streams of their own).  Insertion-ordered dict as a bounded FIFO, under
+# its lock.
+_GRID_SCRATCH: dict = {}
+_GRID_SCRATCH_MAX = 16
+_GRID_SCRATCH_LOCK = make_lock("segscan._GRID_SCRATCH_LOCK")
+
+
+def grid_items(n_pad: int, n_long: int, n_big: int) -> int:
+    """Work items of one lane of a grid recursion over ``n_pad``
+    segments, ``n_long`` of them long and ``n_big`` of those big: the big
+    segments, the groups of the other long ones, then the blocks of short
+    ones."""
+    return (n_big + -(-(n_long - n_big) // GRID_LONG_ITEM)
+            + -(-(n_pad - n_long) // GRID_SHORT_ITEM))
+
+
+def steps_grid(n_items: int, lanes: int, cap: int) -> tuple:
+    """``(g_items, g_lanes)``: the grid of a grid recursion's cooperative
+    launch over ``lanes`` lanes of ``n_items`` items, ``g_items`` CTAs
+    along the items (one each while they fit under ``cap``) times
+    ``g_lanes`` along the lanes (as many as still fit), so the grid never
+    passes ``cap``, the CTAs that can be resident at once.  CTA ``c =
+    lg * g_items + jg`` takes items ``[jg * n_items // g_items, (jg + 1)
+    * n_items // g_items)`` of lanes ``[lg * lanes // g_lanes, (lg + 1) *
+    lanes // g_lanes)`` at every step (the kernel computes the ranges)."""
+    if cap < 1:
+        raise ValueError(f"seg_steps_grid: no CTA of the grid recursion "
+                         f"fits the device (co-resident bound {cap})")
+    g_items = min(n_items, cap)
+    return g_items, max(1, min(lanes, cap // g_items))
+
+
+@functools.lru_cache(maxsize=None)
+def grid_cap(device_index: int, down: bool) -> int:
+    """The most CTAs of the ``down`` (else up) grid recursion that CUDA
+    device ``device_index`` holds at once, from the kernel library's
+    occupancy query; read once per device and recursion."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(library().rca_seg_steps_grid_cap(int(down), ctypes.byref(out)),
+              "seg_steps_grid co-resident bound")
+    return out.value
+
+
+def grid_scratch(device, stream: int, floats: int) -> torch.Tensor:
+    """The ``stream``'s scratch of at least ``floats`` float32 on
+    ``device``, grown where a call needs more."""
+    key = (device.index, stream)
+    with _GRID_SCRATCH_LOCK:
+        buf = _GRID_SCRATCH.get(key)
+        if buf is None or buf.numel() < floats:
+            while len(_GRID_SCRATCH) >= _GRID_SCRATCH_MAX:
+                _GRID_SCRATCH.pop(next(iter(_GRID_SCRATCH)))
+            buf = _GRID_SCRATCH[key] = torch.empty(
+                floats, dtype=torch.float32, device=device)
+        return buf
+
+
+def launch_grid(entry: str, name: str, seg: SegLayout, steps: int,
+                lanes: int, out, *args):
+    """One cooperative launch of a grid recursion, ``steps`` >= 1 steps
+    over ``lanes`` lanes, on the output's device and its current stream.
+    A refused launch raises: there is no other form to fall back to."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    device = out.device
+    n_pad = seg.offsets.shape[0] - 1
+    n_long = seg.long_ids.shape[0]
+    grid = steps_grid(grid_items(n_pad, n_long, seg.n_big), lanes, grid_cap(
+        device.index, entry == "rca_seg_down_steps_grid"))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), entry)(
+            *args, steps, seg.item_seg.data_ptr(),
+            seg.item_offsets.data_ptr(), seg.item_other.data_ptr(), n_long,
+            seg.n_big, seg.pad_item, lanes, n_pad,
+            grid_scratch(device, stream, 2 * lanes * n_pad).data_ptr(),
+            out.data_ptr(), *grid, stream,
+        )
+    check(err, name)
+    count_launch(name)
+    return out
+
+
+def up_seg_steps_grid(h, decay: float, steps: int, seg: SegLayout,
+                      out=None):
+    """The explain-away recursion as :func:`up_seg_steps` computes it, for
+    graphs of any size: on CUDA tensors one cooperative launch of the
+    ``seg_up_steps_grid`` kernel over the card for every step and lane
+    (none for ``steps == 0``), bitwise ``steps`` launches of
+    :func:`up_seg_step`, into ``out`` (fresh when not given); on CPU
+    tensors :func:`up_seg_steps_plain`."""
+    steps = _step_count("seg_up_steps_grid", steps)
+    lanes, _ = check_step("seg_up_steps_grid", seg, out, {"h": h})
+    if not lanes:
+        return up_seg_steps_plain(h, decay, steps, seg, out=out)
+    out = torch.empty_like(h) if out is None else out
+    if steps == 0:
+        return out.zero_()
+    return launch_grid("rca_seg_up_steps_grid", "seg_up_steps_grid", seg,
+                       steps, lanes, out, h.data_ptr(), as_float32(decay))
+
+
+def down_seg_steps_grid(a_ex, decay: float, steps: int, seg: SegLayout,
+                        inv_deg, out=None):
+    """The impact recursion as :func:`down_seg_steps` computes it, for
+    graphs of any size: on CUDA tensors one cooperative launch of the
+    ``seg_down_steps_grid`` kernel over the card for every step and lane
+    (none for ``steps == 0``), bitwise ``steps`` launches of
+    :func:`down_seg_step`, into ``out`` (fresh when not given); on CPU
+    tensors :func:`down_seg_steps_plain`."""
+    steps = _step_count("seg_down_steps_grid", steps)
+    lanes, _ = check_step("seg_down_steps_grid", seg, out, {"a_ex": a_ex},
+                          {"inv_deg": inv_deg})
+    if not lanes:
+        return down_seg_steps_plain(a_ex, decay, steps, seg, inv_deg,
+                                    out=out)
+    out = torch.empty_like(a_ex) if out is None else out
+    if steps == 0:
+        return out.zero_()
+    return launch_grid("rca_seg_down_steps_grid", "seg_down_steps_grid", seg,
+                       steps, lanes, out, a_ex.data_ptr(),
+                       inv_deg.data_ptr(), as_float32(decay))
 
 
 # -- the per-shard entries (the node-sharded engine) -------------------------

@@ -18,7 +18,8 @@ from rca_tpu_torch.util.threads import make_lock
 LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_up_step": 0, "seg_down_step": 0, "evidence_front": 0,
             "seg_contrast_step": 0, "seg_up_steps": 0, "seg_down_steps": 0,
-            "evidence_front_fused": 0}
+            "evidence_front_fused": 0, "seg_up_steps_grid": 0,
+            "seg_down_steps_grid": 0}
 PERSIST_LAUNCHES = {"evidence_front": 0, "evidence_front_fused": 0}
 SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
                   "seg_contrast_step": 0}

@@ -122,16 +122,18 @@ def _steps(n_pad: int, e_pad: int, n_long: int, lanes: int, steps: int,
 
 def up_steps(n_pad: int, e_pad: int, n_long: int, lanes: int = 1,
              steps: int = 8) -> Cost:
-    """``seg_up_steps``, the fused explain-away recursion: one pass over the
-    CSR and its long-segment ids, ``h`` read, ``u`` written; each step's
-    operations."""
+    """``seg_up_steps``, the fused explain-away recursion, and its grid
+    form ``seg_up_steps_grid`` (the same work, so the bound reads the same
+    whatever form runs it): one pass over the CSR and its long-segment
+    ids, ``h`` read, ``u`` written; each step's operations."""
     return _steps(n_pad, e_pad, n_long, lanes, steps, 0)
 
 
 def down_steps(n_pad: int, e_pad: int, n_long: int, lanes: int = 1,
                steps: int = 8) -> Cost:
-    """``seg_down_steps``, the fused impact recursion: as :func:`up_steps`,
-    with ``a_ex`` and the shared inverse degree read, ``m`` written."""
+    """``seg_down_steps``, the fused impact recursion, and its grid form
+    ``seg_down_steps_grid``: as :func:`up_steps`, with ``a_ex`` and the
+    shared inverse degree read, ``m`` written."""
     return _steps(n_pad, e_pad, n_long, lanes, steps, 1)
 
 

@@ -43,6 +43,10 @@ KERNEL_SYMBOLS = {
     "seg_up_steps": re.compile(r"\bseg_steps_kernel<[\w\s():]*\bUpSteps>"),
     "seg_down_steps": re.compile(
         r"\bseg_steps_kernel<[\w\s():]*\bDownSteps>"),
+    "seg_up_steps_grid": re.compile(
+        r"\bseg_grid_kernel<[\w\s():]*\bUpGrid>"),
+    "seg_down_steps_grid": re.compile(
+        r"\bseg_grid_kernel<[\w\s():]*\bDownGrid>"),
     "segscan_sum": re.compile(r"\btile_scan_kernel<[^>]*\b0>"),
     "segscan_max": re.compile(r"\btile_scan_kernel<[^>]*\b1>"),
 }

@@ -15,9 +15,9 @@ more than one.  This package is the serving layer:
   flush policy;
 - :mod:`.dispatcher` — the coalesced device dispatch: one ranked
   propagation over ``[b_pad, n_pad, C]`` lanes, each main-path kernel
-  launched for the whole batch: once each where the plan fuses the
-  recursions (``KernelPlan.steps_fused``), else the per-step kernels 8
-  times each (dispatch never syncs; fetch is the one sync);
+  launched for the whole batch once, the recursions in the form
+  ``KernelPlan.steps_form`` names (dispatch never syncs; fetch is the
+  one sync);
 - :mod:`.loop` — the continuous-batching worker with breaker-gated
   degradation;
 - :mod:`.replica` / :mod:`.pool` — N engine replicas (a dense/sharded mix

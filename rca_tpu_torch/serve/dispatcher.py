@@ -7,10 +7,12 @@ propagation over ``[b_pad, n_pad, C]`` lanes of that graph, and renders
 per-request :class:`rca_tpu_torch.engine.runner.EngineResult` objects at
 fetch time.  On the card's ``kernels`` row that is the hypothesis batch's
 body (``GraphEngine.analyze_batch``), for the whole batch at any width:
-``evidence_front_fused`` once (the front), then
-``seg_up_steps`` and ``seg_down_steps`` once each where the plan fuses
-the recursions (``KernelPlan.steps_fused``), else ``seg_up_step`` and
-``seg_down_step`` 8 times each.
+``evidence_front_fused`` once (the front), then the two recursions once
+each in the form the plan names (``KernelPlan.steps_form``):
+``seg_up_steps`` and ``seg_down_steps`` where both layouts fit one CTA
+(``cta``, up to 2047 services), else ``seg_up_steps_grid`` and
+``seg_down_steps_grid``, one cooperative launch each over the card
+(``grid``).
 
 :meth:`BatchDispatcher.dispatch` packs, pads, uploads through pinned
 memory, ENQUEUES the propagation and starts the top-k copies into pinned

@@ -12,7 +12,7 @@ interpret mode, as the JAX package's own tests run them on the CPU) on the
 same numpy inputs: ``u`` bitwise (a float32 max does not depend on
 order), ``m`` at rtol 1e-5 / atol 1e-6 (the repo's segscan tolerance: the
 sum runs in another order).  They also pin the wrappers' input contract
-and the plan's decision to fuse, which only a CUDA device can take (the
+and the plan's ``steps_form``, which only a CUDA device can set (the
 kernel library counts the shared memory a layout needs and reads the
 device's limit).  The CUDA kernels run only on the card: the tests marked
 ``cuda`` hold them bitwise to the per-step launches there, and the plan
@@ -226,9 +226,10 @@ def _ring(n_pad):
 @pytest.mark.parametrize("row", ["kernels", "torch"])
 @pytest.mark.parametrize("n_pad", [2048, 53248])
 def test_kernel_plan_decides_steps_fused(n_pad, row, fresh, monkeypatch):
-    """Off a CUDA device both paths of the ``kernels`` row compute the
-    same loop of plain steps, so the plan never fuses there, whatever the
-    shape or row, and never asks the kernel library."""
+    """Off a CUDA device every form of the ``kernels`` row's recursions
+    computes the same loop of plain steps, so the plan's ``steps_form``
+    is ``step`` there, whatever the shape or row, and the plan never asks
+    the kernel library."""
     from rca_tpu_torch.kernels import build
 
     def no_library():
@@ -238,26 +239,27 @@ def test_kernel_plan_decides_steps_fused(n_pad, row, fresh, monkeypatch):
     src, dst = _ring(n_pad)
     monkeypatch.setenv("RCA_KERNEL", row)
     plan = kernel_plan(n_pad, 2 * n_pad, src, dst, "cpu")
-    assert plan.kernel == row and plan.steps_fused is False
-    assert port_segscan.fused_steps_fit(plan.down_seg, plan.up_seg,
-                                        "cpu") is False
+    assert plan.kernel == row and plan.steps_form == "step"
+    assert port_segscan.steps_form(plan.down_seg, plan.up_seg,
+                                   "cpu") == "step"
 
 
 def test_fused_plan_propagates_bitwise_the_per_step_plan(fresh, monkeypatch):
-    """A ``kernels`` plan with its recursions fused and the same plan per
-    step give the same bits for every output, one graph and a batch of
-    lanes (on the CPU the fused wrappers compute their plain versions)."""
+    """A ``kernels`` plan with its recursions fused into one CTA a lane
+    (``cta``) and the same plan per step give the same bits for every
+    output, one graph and a batch of lanes (on the CPU the fused wrappers
+    compute their plain versions)."""
     monkeypatch.setenv("RCA_KERNEL", "kernels")
     case = synthetic_cascade_arrays(700, n_roots=2, seed=3)
     engine = GraphEngine(device="cpu")
     f, src, dst = engine._pad(case.features, case.dep_src, case.dep_dst)
     plan = engine.plan_for(f.shape[0], len(src), case.dep_src, case.dep_dst)
-    assert plan.kernel == "kernels" and not plan.steps_fused
+    assert plan.kernel == "kernels" and plan.steps_form == "step"
     model = engine.model
     dd = torch.from_numpy(dst.astype(np.int64))
     for feats in (torch.from_numpy(f), torch.from_numpy(np.stack([f, f])).
                   mul_(torch.linspace(0.5, 1.0, 2)[:, None, None])):
-        fused = model(feats, dd, case.n, plan._replace(steps_fused=True))
+        fused = model(feats, dd, case.n, plan._replace(steps_form="cta"))
         steps = model(feats, dd, case.n, plan)
         for got, want in zip(fused, steps):
             assert torch.equal(got, want)
@@ -285,14 +287,16 @@ def cuda_device():
 @pytest.mark.parametrize("services,fused", [(2047, True), (49999, False)])
 def test_kernel_plan_fuses_where_the_graph_fits_on_card(services, fused,
                                                         cuda_device, fresh):
-    """On the card the ``kernels`` row fuses the recursions where both
-    layouts fit one CTA's shared memory (the 2047-service tier) and runs
-    one launch per step above (the 49,999-service tier)."""
+    """On the card the ``kernels`` row fuses the recursions into one CTA
+    a lane where both layouts fit one CTA's shared memory (the
+    2047-service tier, ``cta``) and runs them over the card's grid above
+    (the 49,999-service tier, ``grid``)."""
     case = synthetic_cascade_arrays(services, n_roots=3, seed=0)
     engine = GraphEngine(device=cuda_device)
     f, src, _ = engine._pad(case.features, case.dep_src, case.dep_dst)
     plan = engine.plan_for(f.shape[0], len(src), case.dep_src, case.dep_dst)
-    assert plan.kernel == "kernels" and plan.steps_fused is fused
+    assert plan.kernel == "kernels"
+    assert plan.steps_form == ("cta" if fused else "grid")
     fits = [need <= limit for need, limit in (
         port_segscan.steps_smem(seg, cuda_device)
         for seg in (plan.down_seg, plan.up_seg))]

@@ -463,6 +463,10 @@ _SYMBOLS = {
         "seg_up_steps",
     "seg_steps_kernel<(anonymous namespace)::DownSteps>(int, int const*)":
         "seg_down_steps",
+    "seg_grid_kernel<(anonymous namespace)::UpGrid>((anonymous namespace)"
+    "::GridArgs)": "seg_up_steps_grid",
+    "seg_grid_kernel<(anonymous namespace)::DownGrid>((anonymous namespace)"
+    "::GridArgs)": "seg_down_steps_grid",
     "tile_scan_kernel<0>(float const*, float const*)": "segscan_sum",
     "tile_scan_kernel<1>(float const*, float const*)": "segscan_max",
     "aggregate_scan_kernel<0>(float*, int*, int)": "other",

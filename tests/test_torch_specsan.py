@@ -359,6 +359,8 @@ def test_specsan_on_the_card_at_both_tiers():
     launches = report["launches"]
     assert launches["session@2047"]["evidence_front_fused"] > 0
     assert launches["session@2047"]["seg_down_steps"] > 0
+    # above one CTA each recursion is one cooperative launch a front
     big = launches["session@49999"]
-    assert big["seg_down_step"] == big["seg_up_step"] == \
-        8 * big["evidence_front_fused"] > 0
+    assert big["seg_down_steps_grid"] == big["seg_up_steps_grid"] == \
+        big["evidence_front_fused"] > 0
+    assert big["seg_down_step"] == big["seg_up_step"] == 0
