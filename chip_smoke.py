@@ -22,6 +22,9 @@
     python3 chip_smoke.py --recursions-only  # the build, then the
                                        # recursions phase alone (the grid
                                        # kernels' checks and times)
+    python3 chip_smoke.py --sharded-only  # the build, then the sharded
+                                       # phase alone (the shard
+                                       # recursions' checks and times)
 
 Phases, each printing one line; any failure exits non-zero before the
 verdict line.  "The main path's counts" below are a dense analysis's
@@ -207,31 +210,50 @@ and the flagged scans never (:func:`main_launches`).
    as the session over the mock's own columnar feed, with the same
    changed rows and a fault root first;
 13. the node-sharded engine (``ShardedGraphEngine`` over a mesh whose
-   device list repeats ``cuda:0``: logical shards; with two cards or more
-   also ``sp = 2`` over distinct cards, else a line saying the
-   collectives were device-local): the per-shard entries of
-   ``seg_up_step`` / ``seg_contrast_step`` (bitwise) and
+   device list repeats ``cuda:0``: logical shards, where the plan's
+   ``steps_form`` is ``shard_grid`` and each recursion one cooperative
+   launch over every shard of the card, ``seg_up_steps_shard`` /
+   ``seg_down_steps_shard`` (``csrc/segshard.cu``); with two cards or
+   more also ``sp = 2`` over distinct cards, the ``step`` form, else a
+   line saying the collectives were device-local): the per-shard entries
+   of ``seg_up_step`` / ``seg_contrast_step`` (bitwise) and
    ``seg_down_step`` (rtol 1e-5 / atol 1e-6) against their plain versions
    over the tiers' layouts, a star split across the shards and a hub cut
-   by a shard boundary; the engine at 2047 and 49,999 services with
-   ``sp = 4`` and at 49,999 with ``sp = 8``, restaged and resident, each
-   analysis counted from 0: ``evidence_front`` / ``seg_contrast_step`` /
-   ``seg_up_step`` / ``seg_down_step`` sp x 1 / 1 / 8 / 8 launches, the
-   collective bytes per step per shard equal to the reference's round-5
-   formula ``(sp - 1) * block * 4``, ``a`` / ``h`` / ``u`` bitwise the
-   dense engine on the card, ``m`` and scores within rtol 1e-5 / atol
-   1e-6, top-3 identical, ``sanitized_rows`` identical on NaN/Inf rows,
-   a second run and every resident request bitwise restaging;
-   ``analyze_batch`` on ``dp = 2, sp = 2`` (B = 8) lane by lane against
-   the dense batch; ``ShardedStreamingSession`` at 10,000 services, 30
-   ticks (sp x 1 / 1 / 8 / 8 launches a tick) ranking as the dense
-   session, its blocks bitwise a ``torch``-row twin's, every ``dispatch``
-   sync-free and one behind a sleep kernel pending; a live session over
-   the 50-service fixture on a sharded engine (20 polls, the root
-   first), whose failing dispatch steps the ladder to ``single-device``;
-   then the sharded and dense ``analyze_arrays`` walls, device times,
-   busy shares and launches, the tick walls, and each per-shard kernel's
-   card, call and plain time beside its bound;
+   by a shard boundary; the two shard recursions bitwise the per-step
+   composition they replace (the per-shard kernels between the
+   collectives) and through it the plain version (``u`` bitwise, ``m`` at
+   rtol 1e-5 / atol 1e-6), twice each, at 2047 and 49,999 services on 4
+   shards, at 49,999 on 8, on a dp = 2 row of 2 shards (4 and 8 lanes),
+   on the star and the hub, at 0, 1, 8 and 13 steps over 1, 8 and 16
+   lanes (NaN and Inf in the last lane); the engine at 2047 and 49,999
+   services with ``sp = 4`` and at 49,999 with ``sp = 8``, restaged and
+   resident, each analysis counted from 0: ``evidence_front`` /
+   ``seg_contrast_step`` sp launches and ``seg_up_steps_shard`` /
+   ``seg_down_steps_shard`` one each, the per-shard steps none, the
+   collectives moving only the one-time gathers of ``e``, ``h`` and ``a``
+   and the degree reduce-scatter (``(sp - 1) * block * 4`` bytes a call
+   through every shard, the reference's round-5 formula); then the same
+   analysis in the ``step`` form in the same run (sp x 8 / 8 per-shard
+   steps, 19 gathers and 9 reduce-scatters) bitwise the ``shard_grid``
+   one; ``a`` / ``h`` / ``u`` bitwise the dense engine on the card, ``m``
+   and scores within rtol 1e-5 / atol 1e-6, top-3 identical,
+   ``sanitized_rows`` identical on NaN/Inf rows, a second run and every
+   resident request bitwise restaging; ``analyze_batch`` on ``dp = 2, sp
+   = 2`` (B = 8, one launch per recursion a row) lane by lane against the
+   dense batch and bitwise the step form; ``ShardedStreamingSession`` at
+   10,000 services, 30 ticks (the sharded analysis's launches a tick)
+   ranking as the dense session, its blocks bitwise a ``torch``-row
+   twin's, every ``dispatch`` sync-free and one behind a sleep kernel
+   pending; a live session over the 50-service fixture on a sharded
+   engine (20 polls, the root first), whose failing dispatch steps the
+   ladder to ``single-device``; then the sharded and dense
+   ``analyze_arrays`` walls, device times, busy shares and launches, the
+   tick walls, each per-shard kernel's card, call and plain time beside
+   its bound, the shard recursions' card, call and plain time beside
+   their bound and the per-step composition's in the same call (at sp 4
+   and, at 49,999, sp 8), the sp = 4 walls of the two forms and the dense
+   engine in turns, and the allocator's peak over a 16-lane batch at
+   49,999 on 8 shards in each form (alone with ``--sharded-only``);
 14. the serving scheduler (``rca_tpu_torch.serve``): ``serve_selftest``
    on the card without chaos (every request ok or shed, nothing degraded)
    and with seeded dispatch/fetch faults (every request resolved, every
@@ -253,8 +275,9 @@ and the flagged scans never (:func:`main_launches`).
    pool: every response ok, no double completion, every answer bitwise
    its own kind's solo engine, every dispatch sync-free and counted on
    its own (one lock over the replicas' device calls), each dense batch
-   the main path's counts and each sharded batch 32 / 32 / 4 launches of
-   the per-shard entries;
+   the main path's counts and each sharded batch 1 / 1 launches of the
+   shard recursions ``seg_up_steps_shard`` / ``seg_down_steps_shard`` and
+   4 of the contrast, none of the per-shard steps;
 15. flight recording and replay (``rca_tpu_torch.replay``): 20 polls
    of the live mix over a 10,000-service cascade world at depth 2 on the
    columnar capture, recorded and unrecorded in turns (the record
@@ -492,8 +515,9 @@ The line before the last is the ``{"kernels": [...]}`` JSON (the one-CTA
 recursions' rows with their 2047-service numbers and the grid
 recursions' with their 49,999-service numbers (and ``at_10000``), where
 the plan runs them, each with its per-step composition; the
-per-shard entries as rows of their own, with their launches over one
-sharded analysis at 49,999 services on 4 shards; every dense kernel with
+node-sharded engine's kernels as rows of their own (the shard recursions
+with the per-step composition's time beside theirs), with their launches
+over one sharded analysis at 49,999 services on 4 logical shards; every dense kernel with
 its launches per sharded analysis beside its dense count; every kernel
 with ``serve_launches``, its launches per serve device batch by lane
 count and over each tier's coalesced load and pool runs, the per-shard
@@ -706,6 +730,9 @@ def bound(work) -> tuple:
 FUSED_KERNELS = ("seg_up_steps", "seg_down_steps")
 GRID_KERNELS = ("seg_up_steps_grid", "seg_down_steps_grid")
 STEP_KERNELS = ("seg_up_step", "seg_down_step")
+#: the node-sharded engine's recursions over every shard of one card
+#: (csrc/segshard.cu), which replace the per-shard steps there
+SHARD_KERNELS = ("seg_up_steps_shard", "seg_down_steps_shard")
 #: the tiers the grid recursions are checked at, and timed at (the last
 #: two) beside the per-step launches
 GRID_TIERS = (2047, 10000, 49999)
@@ -744,7 +771,8 @@ def main_launches(services: int, times: int = 1) -> dict:
            "evidence_front": 0, "seg_contrast_step": 0,
            "evidence_front_fused": times, "seg_up_step": 0,
            "seg_down_step": 0, **dict.fromkeys(FUSED_KERNELS, 0),
-           **dict.fromkeys(GRID_KERNELS, 0)}
+           **dict.fromkeys(GRID_KERNELS, 0),
+           **dict.fromkeys(SHARD_KERNELS, 0)}
     out.update(dict.fromkeys(whole_kernels(services), times))
     return out
 
@@ -1151,6 +1179,10 @@ def main(argv) -> int:
     parser.add_argument("--recursions-only", action="store_true",
                         help="build, then run the recursions phase alone "
                              "(the grid recursions' checks and times)")
+    parser.add_argument("--sharded-only", action="store_true",
+                        help="build, then run the sharded phase alone (the "
+                             "shard recursions' checks and times, the "
+                             "sharded engine in both forms)")
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1235,7 +1267,8 @@ def main(argv) -> int:
     phase_s["generate"] = time.perf_counter() - t_generate
 
     if (args.multi_card or args.federation_only or args.autoscale_only
-            or args.lint_only or args.snapshot_only or args.recursions_only):
+            or args.lint_only or args.snapshot_only or args.recursions_only
+            or args.sharded_only):
         if args.multi_card:
             record["multi_card"] = multi_card_phase(
                 cases, synthetic_cascade_arrays(10000, n_roots=3, seed=0))
@@ -1254,6 +1287,10 @@ def main(argv) -> int:
                 record["snapshot"] = _timed(phase_s, "snapshot",
                                             snapshot_phase, smi, args.profile,
                                             args.out)
+            elif args.sharded_only:
+                record["sharded"] = _timed(phase_s, "sharded", sharded_phase,
+                                           cases, shapes, args.profile,
+                                           args.out)
             elif args.recursions_only:
                 record["recursions"] = _timed(
                     phase_s, "recursions", recursions_phase, smi,
@@ -2041,20 +2078,27 @@ def main(argv) -> int:
                 plain_front_ms=front["plain_front_ms"],
                 plain_front_call_ms=front["plain_front_call_ms"])
 
-    # the per-shard entries, their launches counted over one sharded
-    # analysis at 49,999 services on 4 logical shards
+    # the node-sharded engine's kernels, their launches counted over one
+    # sharded analysis at 49,999 services on 4 logical shards (the plan's
+    # shard_grid form: the recursions over every shard of the card; the
+    # per-step entries run in the step form, over distinct cards)
     sharded = record["sharded"]
-    for name, replaces in SHARD_SOURCES.items():
+    for name, (src, replaces) in SHARD_SOURCES.items():
         t = sharded["times"][str(big)][name]
         kernels.append({
-            "name": f"{name} (per shard)", "route": "cuda",
-            "source": "rca_tpu_torch/csrc/segstep.cu", "replaces": replaces,
+            "name": name if name in SHARD_KERNELS else f"{name} (per shard)",
+            "route": "cuda", "source": src, "replaces": replaces,
             "launches": sharded["launches"][f"{big}x{SHARD_SP}"][name],
             "max_abs_err": sharded["errs"][name], "ms": t["ms"],
             "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None, "tier_services": big, "sp": SHARD_SP,
             "at_2047": sharded["times"]["2047"][name],
+            # the recursions: beside the per-step composition they replace
+            # (timed in the same call), at sp 8 too
+            **{key: t[key] for key in ("composition_ms",
+                                       "composition_call_ms", "at_sp8")
+               if key in t},
             "sharded_launches": sharded["launches"],
             # per device batch of the dense + sharded pool's sharded
             # replica (sp = 4), and over its batches at each tier
@@ -2606,8 +2650,9 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
     pool of two dense replicas with one killed mid-wave and through a
     dense + sharded pool.  Every ok answer bitwise equal to its solo card
     analysis on its own kind's engine, every dense device batch 1 / 1 / 8
-    / 8 launches and every sharded one 8·sp / 8·sp / sp per-shard
-    launches, every dispatch sync-free, each batched launch held against
+    / 8 launches and every sharded one (sp logical shards of the card)
+    1 / 1 launches of the shard recursions and sp of the contrast, none
+    of the per-shard steps, every dispatch sync-free, each batched launch held against
     its plain version and timed at 1, 2, 4 and 16 lanes."""
     import dataclasses
 
@@ -2619,7 +2664,8 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
     from rca_tpu_torch.serve import serve_selftest
 
     t_phase = time.perf_counter()
-    # a sharded device batch: every per-shard entry on each of sp shards
+    # a sharded device batch: each recursion once over the card's sp
+    # logical shards, the contrast once a shard
     want_sharded = _shard_launches(SHARD_SP)
     want_shard = {name: want_sharded[name] for name in SHARD_SOURCES}
     out = {"nvidia_smi": smi, "selftest": {}, "widths": {}, "load": {},
@@ -5868,15 +5914,33 @@ def gateway_phase(engine, cases, shapes, smi: str, cli=()) -> dict:
 
 
 SHARD_SP = 4
-#: the per-shard kernel entries and the TPU kernel each one replaces
+#: the lanes the shard recursions are checked over: one analysis (flat
+#: vectors), a hypothesis batch and the widest serve batch
+SHARD_LANES = (1, 8, 16)
+#: the node-sharded engine's kernels, their sources and the TPU kernel each
+#: one replaces: the per-shard entries (the ``step`` form's, and the
+#: contrast) and the recursions over every shard of one card
 SHARD_SOURCES = {
-    "seg_up_step": "rca_tpu/parallel/sharded.py:252 (pallas_segscan_max "
-                   "per shard, pl.pallas_call rca_tpu/engine/segscan.py:128)",
-    "seg_down_step": "rca_tpu/parallel/sharded.py:285 (pallas_segscan per "
-                     "shard, pl.pallas_call rca_tpu/engine/segscan.py:128)",
-    "seg_contrast_step": "rca_tpu/parallel/sharded.py:227-232 (the "
-                         "per-block contrast, beside the Pallas scans of "
-                         ":245-297)",
+    "seg_up_step": ("rca_tpu_torch/csrc/segstep.cu",
+                    "rca_tpu/parallel/sharded.py:252 (pallas_segscan_max "
+                    "per shard, pl.pallas_call rca_tpu/engine/segscan.py:"
+                    "128)"),
+    "seg_down_step": ("rca_tpu_torch/csrc/segstep.cu",
+                      "rca_tpu/parallel/sharded.py:285 (pallas_segscan per "
+                      "shard, pl.pallas_call rca_tpu/engine/segscan.py:"
+                      "128)"),
+    "seg_contrast_step": ("rca_tpu_torch/csrc/segstep.cu",
+                          "rca_tpu/parallel/sharded.py:227-232 (the "
+                          "per-block contrast, beside the Pallas scans of "
+                          ":245-297)"),
+    "seg_up_steps_shard": ("rca_tpu_torch/csrc/segshard.cu",
+                           "rca_tpu/parallel/sharded.py:252 (pallas_segscan"
+                           "_max per shard, 8 steps under lax.scan :246-254,"
+                           " pl.pallas_call rca_tpu/engine/segscan.py:128)"),
+    "seg_down_steps_shard": ("rca_tpu_torch/csrc/segshard.cu",
+                             "rca_tpu/parallel/sharded.py:285 (pallas_segscan"
+                             " per shard, 8 steps under lax.scan :280-289, "
+                             "pl.pallas_call rca_tpu/engine/segscan.py:128)"),
 }
 
 
@@ -6116,13 +6180,28 @@ def observe_phase(engine, cases, shapes, times, kin, smi: str,
     return out
 
 
-def _shard_launches(sp: int) -> dict:
-    """The kernel launches of one sharded analysis over ``sp`` shards."""
+def _shard_launches(sp: int, form: str = "shard_grid", dp: int = 1) -> dict:
+    """The kernel launches of one sharded analysis over ``dp`` rows of
+    ``sp`` shards in the plan's recursion ``form``: the front's two halves
+    once a shard, then each recursion once a row (``shard_grid``, every
+    shard of the row on one card) or 8 per-shard steps a shard
+    (``step``)."""
+    grid = form == "shard_grid"
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-            "evidence_front": sp, "seg_contrast_step": sp,
-            "seg_up_step": 8 * sp, "seg_down_step": 8 * sp,
+            "evidence_front": dp * sp, "seg_contrast_step": dp * sp,
+            "seg_up_step": 0 if grid else 8 * dp * sp,
+            "seg_down_step": 0 if grid else 8 * dp * sp,
             "seg_up_steps": 0, "seg_down_steps": 0,
-            "evidence_front_fused": 0, **dict.fromkeys(GRID_KERNELS, 0)}
+            "evidence_front_fused": 0, **dict.fromkeys(GRID_KERNELS, 0),
+            **dict.fromkeys(SHARD_KERNELS, dp if grid else 0)}
+
+
+def _step_form():
+    """Every sharded plan made in the ``step`` form, whatever its devices:
+    the per-step composition on logical shards, the yardstick the
+    ``shard_grid`` form is held to and timed beside."""
+    return mock.patch("rca_tpu_torch.parallel.sharded.shard_steps_form",
+                      lambda devices: "step")
 
 
 def _hub_case(n: int, block: int, seed: int):
@@ -6192,11 +6271,18 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         seg_contrast_step_shard,
         seg_contrast_step_shard_plain,
     )
+    from rca_tpu_torch.engine import segscan
     from rca_tpu_torch.engine.segscan import (
         down_seg_step_shard,
         down_seg_step_shard_plain,
+        down_seg_steps_shard,
+        down_seg_steps_shard_plain,
+        down_shard_recursion,
         up_seg_step_shard,
         up_seg_step_shard_plain,
+        up_seg_steps_shard,
+        up_seg_steps_shard_plain,
+        up_shard_recursion,
     )
     from rca_tpu_torch.engine.streaming import StreamingSession
     from rca_tpu_torch.kernels import (
@@ -6207,7 +6293,7 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     )
     from rca_tpu_torch.parallel import collectives
     from rca_tpu_torch.parallel.mesh import make_mesh
-    from rca_tpu_torch.parallel.sharded import shard_plans
+    from rca_tpu_torch.parallel.sharded import shard_plans, shard_steps_note
     from rca_tpu_torch.parallel.streaming import ShardedStreamingSession
 
     dev = torch.device("cuda", 0)
@@ -6219,7 +6305,8 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
 
     params = GraphEngine(device="cpu").params
     decay, weight = params.decay, params.error_contrast
-    out = {"sp": SHARD_SP}
+    out = {"sp": SHARD_SP, "steps_form": shard_steps_note(SHARD_SP, dev)}
+    phase("sharded_form", note=out["steps_form"])
     errs = {name: 0.0 for name in SHARD_SOURCES}
 
     # -- the per-shard entries against their plain versions ----------------
@@ -6271,17 +6358,109 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
               max_abs_err=dict(errs))
         return plan
 
+    # -- the recursions over every shard of the card, against the per-step
+    #    composition (the per-shard kernels between the collectives, as
+    #    the step form runs them) and through it the plain version -------
+    rec_cases = []
+
+    def check_recursions(label, graph, sp, lanes_list=SHARD_LANES):
+        (plan,) = shard_plans(mesh(sp), graph, "kernels")
+        if plan.steps_form != "shard_grid" or plan.grid is None:
+            fail(f"the plan over {sp} logical shards says "
+                 f"{plan.steps_form!r} ({label})")
+        block = plan.block
+        real = graph.mask > 0
+        deg = np.bincount(graph.dst_global[real], minlength=graph.n_pad)
+        inv = torch.from_numpy((1.0 / np.maximum(deg, 1)).astype(
+            np.float32)).to(dev)
+        inv_blk = [inv[k * block:(k + 1) * block] for k in range(sp)]
+        for lanes in lanes_list:
+            shape = (graph.n_pad,) if lanes == 1 else (lanes, graph.n_pad)
+            h = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+            a_ex = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+            # the background excess leaves most entries at 0; the last
+            # lane of a batch carries a NaN and an Inf
+            a_ex[..., rng.random(graph.n_pad) < 0.6] = 0.0
+            if lanes > 1:
+                h[-1, 11], a_ex[-1, 13], a_ex[-1, 17] = np.nan, np.nan, np.inf
+            h, a_ex = (torch.from_numpy(x).to(dev) for x in (h, a_ex))
+            for steps in CHECK_STEPS:
+                runs = {
+                    "seg_up_steps_shard": (
+                        lambda: up_seg_steps_shard(h, decay, steps, plan.up,
+                                                   plan.grid),
+                        lambda: torch.cat(up_shard_recursion(
+                            [h] * sp, decay, steps, plan.up,
+                            up_seg_step_shard), dim=-1),
+                        lambda: up_seg_steps_shard_plain(h, decay, steps,
+                                                         plan.up)),
+                    "seg_down_steps_shard": (
+                        lambda: down_seg_steps_shard(a_ex, decay, steps,
+                                                     plan.dn, plan.grid, inv),
+                        lambda: torch.cat(down_shard_recursion(
+                            [a_ex] * sp, decay, steps, plan.dn, inv_blk,
+                            down_seg_step_shard), dim=-1),
+                        lambda: down_seg_steps_shard_plain(
+                            a_ex, decay, steps, plan.dn, inv)),
+                }
+                for name, (kernel, composed, plain) in runs.items():
+                    k1, k2, want, ref = kernel(), kernel(), composed(), plain()
+                    torch.cuda.synchronize()
+                    case_ = f"({label}, {lanes} lanes, {steps} steps)"
+                    if not torch.equal(_bits(k1), _bits(k2)):
+                        fail(f"{name} not deterministic {case_}")
+                    if not torch.equal(_bits(k1), _bits(want)):
+                        fail(f"{name} not bitwise the per-step composition "
+                             f"{case_}")
+                    # the plain version on the finite lanes: on NaN and
+                    # Inf the kernels' fmaxf / sums and the plain scan's
+                    # torch.maximum / masked products part ways (the
+                    # engine's inputs are sanitized, so finite)
+                    if lanes > 1:
+                        k1, want, ref = k1[:-1], want[:-1], ref[:-1]
+                    if name == "seg_up_steps_shard" and not torch.equal(
+                            _bits(want), _bits(ref)):
+                        fail(f"{name}: the composition not bitwise the "
+                             f"plain version {case_}")
+                    if not torch.allclose(want, ref, rtol=1e-5, atol=1e-6):
+                        fail(f"{name}: the composition disagrees with the "
+                             f"plain version {case_}")
+                    if ref.numel():
+                        errs[name] = max(errs[name], float(
+                            (k1 - ref).abs().max()))
+        rec_cases.append(label)
+        phase("sharded_recursions", layout=label, sp=sp, n_pad=graph.n_pad,
+              block=block, pairs=plan.grid.pairs,
+              up_long=plan.grid.up_n_long, down_long=plan.grid.dn_n_long,
+              down_big=plan.grid.dn_n_big, lanes=list(lanes_list),
+              steps=list(CHECK_STEPS), runs_each=2,
+              max_abs_err={k: errs[k] for k in SHARD_KERNELS})
+
     eng4 = ShardedGraphEngine(mesh=mesh(SHARD_SP), resident=False)
     plans = {}
     for n in cases:
         g = eng4._shard(n, cases[n].dep_src, cases[n].dep_dst)
         plans[n] = (g, check_shards(f"{n} services", g, SHARD_SP))
+        check_recursions(f"{n} services", g, SHARD_SP)
+    g = ShardedGraphEngine(mesh=mesh(8), resident=False)._shard(
+        49999, cases[49999].dep_src, cases[49999].dep_dst)
+    check_recursions("49999 services", g, 8)
+    # the dp = 2 x sp = 2 batch's rows: 4 of its 8 lanes on 2 shards each
+    g = ShardedGraphEngine(mesh=mesh(2, dp=2), resident=False)._shard(
+        2047, cases[2047].dep_src, cases[2047].dep_dst)
+    check_recursions("2047 services, a dp = 2 row", g, 2, (4, BATCH))
     g = eng4._shard(2047, *_star_case(2047, 3))
     check_shards("star split across 4 shards", g, SHARD_SP)
+    check_recursions("star split across 4 shards", g, SHARD_SP)
     block = eng4._shard(2047, np.zeros(0, np.int32),
                         np.zeros(0, np.int32)).block
     g = eng4._shard(2047, *_hub_case(2047, block, 4))
     check_shards("hub cut by the boundary of shards 0 and 1", g, SHARD_SP)
+    check_recursions("hub cut by the boundary of shards 0 and 1", g,
+                     SHARD_SP)
+    out["recursion_checks"] = {"layouts": rec_cases,
+                               "lanes": list(SHARD_LANES),
+                               "steps": list(CHECK_STEPS)}
 
     # -- the engine against the dense engine on the card -------------------
     dense = GraphEngine(resident=False)
@@ -6310,17 +6489,43 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
             ccalls = dict(collectives.COLLECTIVE_CALLS)
             if launches != _shard_launches(sp):
                 fail(f"sharded launches at {n}, sp {sp}: {launches}")
-            if shard_l != {"seg_up_step": 8 * sp, "seg_down_step": 8 * sp,
-                           "seg_contrast_step": sp}:
+            if shard_l != {name: launches[name] for name in SHARD_SOURCES}:
                 fail(f"per-shard launches at {n}, sp {sp}: {shard_l}")
-            counted[(n, sp)] = {"shard": shard_l, "all": launches}
+            # the step form (the per-step composition) in the same run:
+            # its launches and collectives, and the same bits
+            with _step_form():
+                eng.analyze_arrays(feats, case.dep_src, case.dep_dst,
+                                   case.names)
+                torch.cuda.synchronize()
+                reset_launches()
+                collectives.reset_collectives()
+                stepped = eng.analyze_arrays(feats, case.dep_src,
+                                             case.dep_dst, case.names)
+                step_l = dict(LAUNCHES)
+                step_calls = dict(collectives.COLLECTIVE_CALLS)
+                step_bytes = dict(collectives.COLLECTIVE_BYTES)
+            if step_l != _shard_launches(sp, "step"):
+                fail(f"step-form launches at {n}, sp {sp}: {step_l}")
+            if not np.array_equal(_f32bits(stepped.full_diagnostics()),
+                                  _f32bits(got.full_diagnostics())):
+                fail(f"shard_grid not bitwise the step form at {n}, sp "
+                     f"{sp} ({label})")
+            counted[(n, sp)] = {"shard": shard_l, "all": launches,
+                                "step_form": step_l}
+            # per call (sp - 1) * block * 4 bytes through every shard:
+            # shard_grid moves e, h and a once and the degree once, the
+            # step form also u and m each step and the contributions
             per_call = (sp - 1) * graph.block * 4
-            budget = {"all_gather": 19 * sp * per_call,
-                      "reduce_scatter": 9 * sp * per_call}
-            if ccalls["all_gather"] != 19 or                     ccalls["reduce_scatter"] != 9 or any(
-                        cbytes[kind] != budget[kind] for kind in budget):
-                fail(f"collectives at {n}, sp {sp}: {ccalls} {cbytes}, "
-                     f"budget {budget}")
+            for form, calls, moved, (n_ag, n_rs) in (
+                    ("shard_grid", ccalls, cbytes, (3, 1)),
+                    ("step", step_calls, step_bytes, (19, 9))):
+                budget = {"all_gather": n_ag * sp * per_call,
+                          "reduce_scatter": n_rs * sp * per_call}
+                if calls["all_gather"] != n_ag or \
+                        calls["reduce_scatter"] != n_rs or any(
+                            moved[kind] != budget[kind] for kind in budget):
+                    fail(f"{form} collectives at {n}, sp {sp}: {calls} "
+                         f"{moved}, budget {budget}")
             again = eng.analyze_arrays(feats, case.dep_src, case.dep_dst,
                                        case.names)
             resident = [res.analyze_arrays(feats, case.dep_src,
@@ -6364,13 +6569,13 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
                    "n_pad": graph.n_pad, "block": graph.block,
                    "e_pad_per_shard": int(graph.src_local.shape[1]),
                    "launches": launches, "shard_launches": shard_l,
+                   "step_form_launches": step_l,
                    "collective_calls": ccalls,
                    "collective_bytes": cbytes,
-                   "bytes_per_step_per_shard": {
-                       "up_all_gather": per_call,
-                       "down_all_gather": per_call,
-                       "reduce_scatter": per_call,
-                       "round5_formula": per_call},
+                   "step_form_collective_calls": step_calls,
+                   "step_form_collective_bytes": step_bytes,
+                   "step_form_bitwise": True,
+                   "bytes_per_call_per_shard": per_call,
                    "top": got.top_components()[:3],
                    "top_k_identical": got.top_components()
                    == want.top_components(),
@@ -6405,16 +6610,31 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     for b in range(1, 8):
         batch[b, rng.choice(case.n, 12, replace=False)] = 0.0
     batch[3, 40, 2] = np.nan
-    got = ShardedGraphEngine(mesh=mesh(2, dp=2)).analyze_batch(
-        batch, case.dep_src, case.dep_dst, case.names)
+    beng = ShardedGraphEngine(mesh=mesh(2, dp=2))
+    beng.analyze_batch(batch, case.dep_src, case.dep_dst, case.names)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = beng.analyze_batch(batch, case.dep_src, case.dep_dst, case.names)
+    batch_l = dict(LAUNCHES)
+    # each recursion once a dp row: both rows' shards share the card
+    if batch_l != _shard_launches(2, dp=2):
+        fail(f"sharded batch launches on dp = 2, sp = 2: {batch_l}")
+    with _step_form():
+        stepped = ShardedGraphEngine(mesh=mesh(2, dp=2)).analyze_batch(
+            batch, case.dep_src, case.dep_dst, case.names)
     want = dense.analyze_batch(batch, case.dep_src, case.dep_dst, case.names)
     for b, (g_b, w_b) in enumerate(zip(got, want)):
         if g_b.top_components()[:3] != w_b.top_components()[:3] or \
                 not np.allclose(g_b.score, w_b.score, rtol=1e-5, atol=1e-6) \
                 or not np.array_equal(g_b.upstream, w_b.upstream):
             fail(f"sharded batch lane {b} disagrees with the dense lane")
+        if not np.array_equal(_f32bits(g_b.score),
+                              _f32bits(stepped[b].score)):
+            fail(f"sharded batch lane {b}: shard_grid not bitwise the step "
+                 f"form")
     out["batch"] = {"lanes": 8, "dp": 2, "sp": 2, "services": 2047,
-                    "engine": got[0].engine}
+                    "engine": got[0].engine, "launches": batch_l,
+                    "step_form_bitwise": True}
     phase("sharded_batch", **out["batch"])
 
     # -- the streaming session at 10,000 services ---------------------------
@@ -6579,14 +6799,30 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
             dense.analyze_arrays(case.features, case.dep_src, case.dep_dst,
                                  case.names)
 
-        t = {"analyze_arrays_ms": host_ms(sharded_call),
-             "dense_analyze_arrays_ms": host_ms(dense_call)}
-        for label, fn in (("sharded", sharded_call), ("dense", dense_call)):
-            p = device_profile(fn, t["analyze_arrays_ms"
-                                     if label == "sharded"
-                                     else "dense_analyze_arrays_ms"],
-                               out_dir if profile_it else None,
-                               f"{label}_{n}", calls=3, warm=2)
+        # the sharded analysis at sp 4 in both forms beside the dense one,
+        # in turns: dense, step, shard_grid, shard_grid, step, dense
+        walls = {"dense": [], "step": [], "shard_grid": []}
+        for form in ("dense", "step", "shard_grid", "shard_grid", "step",
+                     "dense"):
+            ctx = _step_form() if form == "step" else contextlib.nullcontext()
+            with ctx:
+                walls[form].append(host_ms(
+                    dense_call if form == "dense" else sharded_call,
+                    reps=10))
+        t = {"walls_ms": walls,
+             "analyze_arrays_ms": float(np.mean(walls["shard_grid"])),
+             "dense_analyze_arrays_ms": float(np.mean(walls["dense"]))}
+        # launches, device time and busy share of one analysis: the dense
+        # engine's and the sharded one's in both forms
+        for label, fn, wall in (
+                ("sharded", sharded_call, t["analyze_arrays_ms"]),
+                ("dense", dense_call, t["dense_analyze_arrays_ms"]),
+                ("step_form", sharded_call, float(np.mean(walls["step"])))):
+            ctx = (_step_form() if label == "step_form"
+                   else contextlib.nullcontext())
+            with ctx:
+                p = device_profile(fn, wall, out_dir if profile_it else None,
+                                   f"{label}_{n}", calls=3, warm=2)
             t[f"{label}_device_us"] = p["device_us_per_call"]
             t[f"{label}_busy_share"] = p["device_busy_share"]
             t[f"{label}_launches_per_call"] = p["launches_per_call"]
@@ -6632,19 +6868,155 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
                 bound(cost.contrast_shard(e_k, b_k, n_dst_own))),
         }
         for name, (kernel, plain, limit) in runs.items():
+            # the plain steps are host-bound (0.2-1 ms a call): a few
+            # samples of 2 calls time them as well as 20 of 10
             t[name] = {"shard": k, "edges": e_k, "distinct_dst": n_dst,
                        "distinct_src": n_src, "ms": cuda_ms(kernel),
                        "call_ms": cuda_ms(kernel, queued=False),
-                       "plain_ms": cuda_ms(plain), "library_ms": None,
-                       "bound": limit}
+                       "plain_ms": cuda_ms(plain, reps=5, inner=2),
+                       "library_ms": None, "bound": limit}
+        t.update(_time_shard_recursions(graph, SHARD_SP, rng, decay))
+        if n == 49999:
+            # 8 shards: the recursions (no plain version: the sp 4 rows
+            # time it) and an analysis's launches and device time in
+            # both forms
+            g8 = ShardedGraphEngine(mesh=mesh(8), resident=False)._shard(
+                n, case.dep_src, case.dep_dst)
+            for name, row in _time_shard_recursions(g8, 8, rng, decay,
+                                                    plain=False).items():
+                t[name]["at_sp8"] = row
+            sh8 = ShardedGraphEngine(mesh=mesh(8), resident=False)
+
+            def sp8_call():
+                sh8.analyze_arrays(case.features, case.dep_src,
+                                   case.dep_dst, case.names)
+
+            t["sp8_profiles"] = {}
+            for form in ("shard_grid", "step"):
+                ctx = (_step_form() if form == "step"
+                       else contextlib.nullcontext())
+                with ctx:
+                    p = device_profile(sp8_call, host_ms(sp8_call, reps=5),
+                                       None, f"sharded_sp8_{form}", calls=3,
+                                       warm=2)
+                t["sp8_profiles"][form] = {
+                    key: p[key] for key in ("device_us_per_call",
+                                            "launches_per_call",
+                                            "device_busy_share")}
         times[n] = t
         phase("sharded_times", services=n, sp=SHARD_SP, **t)
+    # the allocator's peak over a 16-lane batch at 49,999 services on 8
+    # logical shards in each form, the per-stream scratch made anew
+    case = cases[49999]
+    lanes16 = np.repeat(case.features[None], 16, axis=0)
+    peaks = {}
+    for form in ("step", "shard_grid"):
+        segscan._GRID_SCRATCH.clear()
+        eng16 = ShardedGraphEngine(mesh=mesh(8), resident=False)
+        ctx = _step_form() if form == "step" else contextlib.nullcontext()
+        with ctx:
+            eng16.analyze_batch(lanes16, case.dep_src, case.dep_dst,
+                                case.names)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            eng16.analyze_batch(lanes16, case.dep_src, case.dep_dst,
+                                case.names)
+            torch.cuda.synchronize()
+        peaks[form] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                       "resident_bytes": base}
+    g8 = ShardedGraphEngine(mesh=mesh(8), resident=False)._shard(
+        49999, case.dep_src, case.dep_dst)
+    (plan8,) = shard_plans(mesh(8), g8, "kernels")
+    peaks["scratch_floats"] = {
+        "up": 2 * 16 * g8.n_pad,
+        "down": 16 * (g8.n_pad + plan8.grid.pairs)}
+    out["peak_memory_16_lanes_sp8"] = peaks
+    phase("sharded_peak", services=49999, sp=8, lanes=16, **peaks)
     out["times"] = {str(n): t for n, t in times.items()}
     out["errs"] = errs
     out["launches"] = {f"{n}x{sp}": v["shard"]
                        for (n, sp), v in counted.items()}
     out["all_launches"] = {f"{n}x{sp}": v["all"]
                            for (n, sp), v in counted.items()}
+    out["step_form_launches"] = {f"{n}x{sp}": v["step_form"]
+                                 for (n, sp), v in counted.items()}
+    return out
+
+
+def _time_shard_recursions(graph, sp: int, rng, decay: float,
+                           plain: bool = True) -> dict:
+    """The two shard recursions over ``sp`` logical shards of ``cuda:0``
+    at one lane and 8 steps, as a sharded analysis runs them: card and call
+    ms beside the per-step composition they replace (the per-shard kernels
+    between the collectives, the same call), the plain version (``plain``)
+    and the bound of the function over this graph's real edges (the
+    dense recursions' model, the pairs' adds for down)."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine.segscan import (
+        down_seg_step_shard,
+        down_seg_steps_shard,
+        down_seg_steps_shard_plain,
+        down_shard_recursion,
+        up_seg_step_shard,
+        up_seg_steps_shard,
+        up_seg_steps_shard_plain,
+        up_shard_recursion,
+    )
+    from rca_tpu_torch.kernels import cost
+    from rca_tpu_torch.parallel.mesh import make_mesh
+    from rca_tpu_torch.parallel.sharded import shard_plans
+
+    dev = torch.device("cuda", 0)
+    (plan,) = shard_plans(make_mesh([("dp", 1), ("sp", sp)], [dev] * sp),
+                          graph, "kernels")
+    block, n_pad, e = plan.block, graph.n_pad, int(graph.mask.sum())
+    h, a_ex = (torch.from_numpy(rng.uniform(0, 1, n_pad).astype(
+        np.float32)).to(dev) for _ in range(2))
+    real = graph.mask > 0
+    inv = torch.from_numpy((1.0 / np.maximum(np.bincount(
+        graph.dst_global[real], minlength=n_pad), 1)).astype(
+        np.float32)).to(dev)
+    inv_blk = [inv[k * block:(k + 1) * block] for k in range(sp)]
+    u_out, m_out = torch.empty_like(h), torch.empty_like(a_ex)
+    runs = {
+        "seg_up_steps_shard": (
+            lambda: up_seg_steps_shard(h, decay, 8, plan.up, plan.grid,
+                                       out=u_out),
+            lambda: up_shard_recursion([h] * sp, decay, 8, plan.up,
+                                       up_seg_step_shard),
+            lambda: up_seg_steps_shard_plain(h, decay, 8, plan.up),
+            bound(cost.up_steps(n_pad, e, 0))),
+        "seg_down_steps_shard": (
+            lambda: down_seg_steps_shard(a_ex, decay, 8, plan.dn, plan.grid,
+                                         inv, out=m_out),
+            lambda: down_shard_recursion([a_ex] * sp, decay, 8, plan.dn,
+                                         inv_blk, down_seg_step_shard),
+            lambda: down_seg_steps_shard_plain(a_ex, decay, 8, plan.dn, inv),
+            bound(cost.down_steps(n_pad, e, 0,
+                                  pairs=plan.grid.pairs))),
+    }
+    out = {}
+    for name, (kernel, composed, plain_fn, limit) in runs.items():
+        # in turns: the composition, the kernel, the kernel, the
+        # composition; 2 compositions a sample, so the ~250 launches of
+        # one at sp 8 stay inside the device's launch queue while the
+        # sleep kernel holds the card (10 of them at a time would block
+        # the host and time it); the plain version, host-bound at 65-160
+        # ms a call, over 3 single calls
+        comp = [cuda_ms(composed, reps=10, inner=2)]
+        ms = [cuda_ms(kernel), cuda_ms(kernel)]
+        comp.append(cuda_ms(composed, reps=10, inner=2))
+        out[name] = {"sp": sp, "edges": e, "pairs": plan.grid.pairs,
+                     "ms": min(ms), "ms_runs": ms,
+                     "call_ms": cuda_ms(kernel, queued=False),
+                     "composition_ms": min(comp), "composition_runs": comp,
+                     "composition_call_ms": cuda_ms(composed, reps=10,
+                                                    inner=2, queued=False),
+                     "plain_ms": (cuda_ms(plain_fn, reps=3, inner=1)
+                                  if plain else None),
+                     "library_ms": None, "bound": limit}
     return out
 
 
@@ -8050,8 +8422,9 @@ def _tick_walls(session, rng):
 
 def multi_card_phase(cases, big, dense=None) -> dict:
     """The sharded engine over distinct cards (two or more): ``sp = 2``
-    over two cards bitwise two logical shards of ``cuda:0`` (restaged, at
-    49,999 services) and three sync-free streaming dispatches over them;
+    over two cards (the ``step`` form, 16 / 16 per-shard steps) bitwise
+    two logical shards of ``cuda:0`` (the ``shard_grid`` form; restaged,
+    at 49,999 services) and three sync-free streaming dispatches over them;
     then what a multi-card host runs, ``make_engine()`` with ``RCA_SHARD``
     unset (one shard on every card): its ``analyze_arrays`` wall
     (restaged, median of 20) at each tier and its tick wall at 10,000
@@ -8061,7 +8434,9 @@ def multi_card_phase(cases, big, dense=None) -> dict:
     import torch
     from rca_tpu_torch.engine import GraphEngine, ShardedGraphEngine, make_engine
     from rca_tpu_torch.engine.streaming import StreamingSession
+    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
     from rca_tpu_torch.parallel.mesh import make_mesh
+    from rca_tpu_torch.parallel.sharded import shard_plans
     from rca_tpu_torch.parallel.streaming import ShardedStreamingSession
 
     n_cards = torch.cuda.device_count()
@@ -8076,10 +8451,25 @@ def multi_card_phase(cases, big, dense=None) -> dict:
 
     cards = [torch.device("cuda", i) for i in range(2)]
     case = cases[49999]
+    # two logical shards run the shard_grid form, two cards the step form
+    over = ShardedGraphEngine(mesh=mesh(2, cards), resident=False)
+    graph = over._shard(case.n, case.dep_src, case.dep_dst)
+    forms = {label: shard_plans(m, graph, "kernels")[0].steps_form
+             for label, m in (("logical", mesh(2)),
+                              ("cards", mesh(2, cards)))}
+    if forms != {"logical": "shard_grid", "cards": "step"}:
+        fail(f"the sharded plans' forms: {forms}")
     a = ShardedGraphEngine(mesh=mesh(2), resident=False).analyze_arrays(
         case.features, case.dep_src, case.dep_dst, case.names)
-    b = ShardedGraphEngine(mesh=mesh(2, cards), resident=False).analyze_arrays(
-        case.features, case.dep_src, case.dep_dst, case.names)
+    over.analyze_arrays(case.features, case.dep_src, case.dep_dst,
+                        case.names)
+    torch.cuda.synchronize()
+    reset_launches()
+    b = over.analyze_arrays(case.features, case.dep_src, case.dep_dst,
+                            case.names)
+    cards_l = dict(LAUNCHES)
+    if cards_l != _shard_launches(2, "step"):
+        fail(f"sp = 2 over two cards: launches {cards_l}")
     if not np.array_equal(_f32bits(a.full_diagnostics()),
                           _f32bits(b.full_diagnostics())):
         fail("sp = 2 over two cards differs from two logical shards")
@@ -8116,6 +8506,7 @@ def multi_card_phase(cases, big, dense=None) -> dict:
                          ("logical", ShardedGraphEngine(mesh=mesh(sp))),
                          ("dense", GraphEngine()))}
     out = {"cards": n_cards, "sp": 2, "bitwise_logical": True,
+           "forms": forms, "launches_over_cards": cards_l,
            "sync_free_dispatches": 3, "make_engine": auto.engine_tag,
            "mesh": [str(d) for d in auto.mesh.flat], "walls_ms": walls}
     phase("sharded_multi_card", **out)

@@ -245,6 +245,8 @@ DTYPE_RULES = {
 DEVICE_BODY_MODULES = DATAPLANE_MODULES | frozenset({
     "rca_tpu_torch/engine/propagate.py",
     "rca_tpu_torch/engine/evidence.py",
+    # the seg steps, the one-launch, grid and shard recursions and their
+    # plain versions
     "rca_tpu_torch/engine/segscan.py",
 })
 

@@ -13,8 +13,8 @@ expressions (``_FRONTS[row]``, ``up = up_seg_step_shard if kern else
 ...``), so a REFERENCE to a target counts as a use, not only a call
 (imports do not).  Flagged inside ``rca_tpu_torch/``, outside the seam
 files: the CUDA kernels' wrappers (the front, its halves, the seg steps,
-the one-CTA and the grid recursions, the per-shard entries, the flagged
-scans), the shared propagation body (``propagate_core``), the layout
+the one-CTA and the grid recursions, the per-shard entries and the
+recursions over every shard of one card, the flagged scans), the shared propagation body (``propagate_core``), the layout
 assembly (``build_seg_layouts``), the ``quantized`` and ``doubling``
 rows' bodies and layout gates, and the attribution executables.
 ``chip_smoke.py`` and the tests are out of scope: measurement code calls
@@ -43,6 +43,8 @@ TARGETS = frozenset({
     "down_seg_steps",
     "up_seg_steps_grid",
     "down_seg_steps_grid",
+    "up_seg_steps_shard",
+    "down_seg_steps_shard",
     "up_seg_step_shard",
     "down_seg_step_shard",
     "segscan_sum",

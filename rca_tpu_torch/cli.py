@@ -393,7 +393,9 @@ def cmd_kernels(args) -> int:
     bounds it).  ``--services`` (paired with ``--edges``) resolves the
     dense and the attribution rows of those graph sizes first;
     ``--explain`` prints every candidate per row: engaged, its
-    eligibility reason, or the timing it lost with."""
+    eligibility reason, or the timing it lost with, and the form of a
+    dense or sharded row's recursions (``--sp``: over that many logical
+    shards of the device; with ``--json`` under ``shard_steps``)."""
     from rca_tpu_torch.config import KERNELS, RCAConfig, bucket_for
     from rca_tpu_torch.engine.registry import (
         get_registry,
@@ -402,6 +404,10 @@ def cmd_kernels(args) -> int:
         steps_note,
     )
     from rca_tpu_torch.engine.runner import resolve_device
+    from rca_tpu_torch.parallel.sharded import (
+        shard_steps_form,
+        shard_steps_note,
+    )
 
     device = resolve_device(args.device)
     reg = get_registry()
@@ -423,8 +429,13 @@ def cmd_kernels(args) -> int:
     rows = kernel_table(ensure_cost=not args.no_cost,
                         cost_max_pad=args.cost_max_pad)
     if args.json:
-        print(json.dumps({"rows": rows},
-                         indent=None if args.compact else 2))
+        out = {"rows": rows}
+        if args.sp:
+            # the sharded plan's recursions over sp logical shards here
+            out["shard_steps"] = {
+                "sp": args.sp, "form": shard_steps_form([device] * args.sp),
+                "note": shard_steps_note(args.sp, device)}
+        print(json.dumps(out, indent=None if args.compact else 2))
         return 0
 
     def fmt(x):
@@ -476,6 +487,8 @@ def cmd_kernels(args) -> int:
             if row["variant"] == "dense":
                 steps = steps_note(row["n_pad"], row["e_pad"], device)
                 print(f"  steps    {steps}")
+            elif row["variant"] == "sharded" and args.sp:
+                print(f"  steps    {shard_steps_note(args.sp, device)}")
             note = layout_note(row["variant"], row["layout"])
             if note:
                 print(f"  note     the reference declines its segscan row "

@@ -283,7 +283,7 @@ def seg_contrast_step(a_raw: torch.Tensor, e: torch.Tensor, weight: float,
     up layout ``seg``, on ``[S]`` vectors or ``[B, S]`` lanes: one launch
     of the ``seg_contrast_step`` kernel for all lanes on CUDA tensors,
     :func:`seg_contrast_step_plain` on CPU tensors."""
-    lanes, _ = check_step("seg_contrast_step", seg, None,
+    lanes, _ = check_step("seg_contrast_step", seg.offsets, None,
                           {"a_raw": a_raw, "e": e})
     if not lanes:
         return seg_contrast_step_plain(a_raw, e, weight, seg)
@@ -316,7 +316,7 @@ def seg_contrast_step_shard(a_raw: torch.Tensor, e_full: torch.Tensor,
     gathered ``e``: on CUDA tensors one launch of the
     ``seg_contrast_step`` kernel's per-shard entry, on CPU tensors
     :func:`seg_contrast_step_shard_plain`."""
-    lanes, n_val = check_step("seg_contrast_step", seg, None,
+    lanes, n_val = check_step("seg_contrast_step", seg.offsets, None,
                               {"e_full": e_full}, local={"a_raw": a_raw},
                               base=base)
     if not lanes:

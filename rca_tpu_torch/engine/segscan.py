@@ -19,7 +19,13 @@ and the evolving vector in its shared memory), above it
 :func:`down_seg_steps_grid` / :func:`up_seg_steps_grid`
 (``csrc/seggrid.cu``: one cooperative launch over the card, a grid
 barrier a step), both bitwise equal to the per-step launches; those stay
-for the node-sharded engine and as the yardstick.  On CPU
+for the node-sharded engine over distinct cards and as the yardstick.
+The node-sharded engine's shards on one card run
+:func:`up_seg_steps_shard` / :func:`down_seg_steps_shard` instead
+(``csrc/segshard.cu``: one cooperative launch per recursion over every
+shard, over the shards' joined layouts, :class:`ShardGrid`), bitwise the
+per-step composition of the per-shard entries and the collectives, whose
+plain form is their plain version.  On CPU
 tensors the steps compute their plain versions
 (:func:`down_seg_step_plain` / :func:`up_seg_step_plain`): the
 reference's composition of a gather, a flagged inclusive segmented scan
@@ -349,22 +355,23 @@ def up_seg_step_plain(u, h, decay: float, seg: SegLayout, out=None,
     return torch.maximum(u, upd, out=out)
 
 
-def check_step(name: str, seg, out, vectors: dict, shared: dict = None,
+def check_step(name: str, offsets, out, vectors: dict, shared: dict = None,
                local: dict = None, base: int = None):
     """The step kernels' input contract, held on every device: float32,
-    contiguous tensors on one device, the layout's tensors on that device,
-    and an output that is none of the inputs.  ``n_seg`` is the layout's
-    segment count.  A dense step (``base`` None): the lane ``vectors``
-    and ``out`` all ``[n_seg]`` or all ``[B, n_seg]``, the ``shared``
-    ones ``[n_seg]``.  A shard's step (``base`` given): the ``vectors``
-    ``[n_val]`` or ``[B, n_val]`` (the full gathered vectors), ``local``
-    and ``out`` ``[n_seg]`` or ``[B, n_seg]``, and ``base + n_seg <=
-    n_val``.  Returns ``(lanes, n_val)``: lanes is B (1 for flat vectors)
-    on CUDA tensors and 0 on CPU tensors."""
-    if not isinstance(seg.offsets, torch.Tensor):
+    contiguous tensors on one device, the layout's row pointer
+    ``offsets`` on that device, and an output that is none of the
+    inputs.  ``n_seg`` is the row pointer's segment count.  A dense step
+    (``base`` None): the lane ``vectors`` and ``out`` all ``[n_seg]`` or
+    all ``[B, n_seg]``, the ``shared`` ones ``[n_seg]``.  A shard's step
+    (``base`` given): the ``vectors`` ``[n_val]`` or ``[B, n_val]`` (the
+    full gathered vectors), ``local`` and ``out`` ``[n_seg]`` or ``[B,
+    n_seg]``, and ``base + n_seg <= n_val``.  Returns ``(lanes,
+    n_val)``: lanes is B (1 for flat vectors) on CUDA tensors and 0 on
+    CPU tensors."""
+    if not isinstance(offsets, torch.Tensor):
         raise TypeError(f"{name}: the layout is on the host; move it with "
                         f".to(device)")
-    n_seg = seg.offsets.shape[0] - 1
+    n_seg = offsets.shape[0] - 1
     first = next(iter(vectors.values()))
     device = first.device
     shape = tuple(first.shape)
@@ -391,8 +398,8 @@ def check_step(name: str, seg, out, vectors: dict, shared: dict = None,
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if seg.offsets.device != device:
-        raise ValueError(f"{name}: layout on {seg.offsets.device}, inputs "
+    if offsets.device != device:
+        raise ValueError(f"{name}: layout on {offsets.device}, inputs "
                          f"on {device}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {device}")
@@ -434,8 +441,8 @@ def down_seg_step(m, a_ex, decay: float, seg: SegLayout, inv_deg, out=None):
     lanes (``inv_deg`` ``[n_pad]``, shared): on CUDA tensors one launch of
     the ``seg_down_step`` kernel for all lanes into ``out`` (fresh when not
     given), on CPU tensors :func:`down_seg_step_plain`."""
-    lanes, _ = check_step("seg_down_step", seg, out, {"m": m, "a_ex": a_ex},
-                          {"inv_deg": inv_deg})
+    lanes, _ = check_step("seg_down_step", seg.offsets, out,
+                          {"m": m, "a_ex": a_ex}, {"inv_deg": inv_deg})
     if not lanes:
         return down_seg_step_plain(m, a_ex, decay, seg, inv_deg, out=out)
     return launch_step("rca_seg_down_step", "seg_down_step", seg, lanes,
@@ -450,7 +457,7 @@ def up_seg_step(u, h, decay: float, seg: SegLayout, out=None):
     lanes: on CUDA tensors one launch of the ``seg_up_step`` kernel for all
     lanes into ``out`` (fresh when not given), on CPU tensors
     :func:`up_seg_step_plain`."""
-    lanes, _ = check_step("seg_up_step", seg, out, {"u": u, "h": h})
+    lanes, _ = check_step("seg_up_step", seg.offsets, out, {"u": u, "h": h})
     if not lanes:
         return up_seg_step_plain(u, h, decay, seg, out=out)
     return launch_step("rca_seg_up_step", "seg_up_step", seg, lanes,
@@ -559,7 +566,7 @@ def up_seg_steps(h, decay: float, steps: int, seg: SegLayout, out=None):
     :func:`up_seg_step`, into ``out`` (fresh when not given); on CPU
     tensors :func:`up_seg_steps_plain`."""
     steps = _step_count("seg_up_steps", steps)
-    lanes, _ = check_step("seg_up_steps", seg, out, {"h": h})
+    lanes, _ = check_step("seg_up_steps", seg.offsets, out, {"h": h})
     if not lanes:
         return up_seg_steps_plain(h, decay, steps, seg, out=out)
     out = torch.empty_like(h) if out is None else out
@@ -579,8 +586,8 @@ def down_seg_steps(a_ex, decay: float, steps: int, seg: SegLayout, inv_deg,
     launches of :func:`down_seg_step`, into ``out`` (fresh when not
     given); on CPU tensors :func:`down_seg_steps_plain`."""
     steps = _step_count("seg_down_steps", steps)
-    lanes, _ = check_step("seg_down_steps", seg, out, {"a_ex": a_ex},
-                          {"inv_deg": inv_deg})
+    lanes, _ = check_step("seg_down_steps", seg.offsets, out,
+                          {"a_ex": a_ex}, {"inv_deg": inv_deg})
     if not lanes:
         return down_seg_steps_plain(a_ex, decay, steps, seg, inv_deg,
                                     out=out)
@@ -639,13 +646,28 @@ def steps_grid(n_items: int, lanes: int, cap: int) -> tuple:
 def grid_cap(device_index: int, down: bool) -> int:
     """The most CTAs of the ``down`` (else up) grid recursion that CUDA
     device ``device_index`` holds at once, from the kernel library's
-    occupancy query; read once per device and recursion."""
+    occupancy query; read once per device and recursion.  The up shard
+    recursion runs the up grid recursion's kernel, so this is its bound
+    too."""
     from rca_tpu_torch.kernels.build import check, library
 
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         check(library().rca_seg_steps_grid_cap(int(down), ctypes.byref(out)),
               "seg_steps_grid co-resident bound")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def shard_down_cap(device_index: int) -> int:
+    """The most CTAs of the impact shard recursion that CUDA device
+    ``device_index`` holds at once; read once per device."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(library().rca_seg_steps_shard_cap(ctypes.byref(out)),
+              "seg_down_steps_shard co-resident bound")
     return out.value
 
 
@@ -698,7 +720,7 @@ def up_seg_steps_grid(h, decay: float, steps: int, seg: SegLayout,
     :func:`up_seg_step`, into ``out`` (fresh when not given); on CPU
     tensors :func:`up_seg_steps_plain`."""
     steps = _step_count("seg_up_steps_grid", steps)
-    lanes, _ = check_step("seg_up_steps_grid", seg, out, {"h": h})
+    lanes, _ = check_step("seg_up_steps_grid", seg.offsets, out, {"h": h})
     if not lanes:
         return up_seg_steps_plain(h, decay, steps, seg, out=out)
     out = torch.empty_like(h) if out is None else out
@@ -717,8 +739,8 @@ def down_seg_steps_grid(a_ex, decay: float, steps: int, seg: SegLayout,
     :func:`down_seg_step`, into ``out`` (fresh when not given); on CPU
     tensors :func:`down_seg_steps_plain`."""
     steps = _step_count("seg_down_steps_grid", steps)
-    lanes, _ = check_step("seg_down_steps_grid", seg, out, {"a_ex": a_ex},
-                          {"inv_deg": inv_deg})
+    lanes, _ = check_step("seg_down_steps_grid", seg.offsets, out,
+                          {"a_ex": a_ex}, {"inv_deg": inv_deg})
     if not lanes:
         return down_seg_steps_plain(a_ex, decay, steps, seg, inv_deg,
                                     out=out)
@@ -787,7 +809,7 @@ def up_seg_step_shard(u_full, h_full, decay: float, seg: ShardSeg,
     sources, from full ``[n_pad]`` (or ``[B, n_pad]``) gathered vectors:
     on CUDA tensors one launch of the ``seg_up_step`` kernel's per-shard
     entry, on CPU tensors :func:`up_seg_step_shard_plain`."""
-    lanes, n_val = check_step("seg_up_step", seg, out,
+    lanes, n_val = check_step("seg_up_step", seg.offsets, out,
                               {"u_full": u_full, "h_full": h_full},
                               base=base)
     if not lanes:
@@ -807,7 +829,7 @@ def down_seg_step_shard(m_full, a_ex_full, decay: float, seg: ShardSeg,
     destination, from full ``[n_pad]`` (or ``[B, n_pad]``) vectors: on
     CUDA tensors one launch of the ``seg_down_step`` kernel's per-shard
     entry, on CPU tensors :func:`down_seg_step_shard_plain`."""
-    lanes, n_val = check_step("seg_down_step", seg, out,
+    lanes, n_val = check_step("seg_down_step", seg.offsets, out,
                               {"m_full": m_full, "a_ex_full": a_ex_full})
     if not lanes:
         return down_seg_step_shard_plain(m_full, a_ex_full, decay, seg,
@@ -817,3 +839,244 @@ def down_seg_step_shard(m_full, a_ex_full, decay: float, seg: ShardSeg,
     return launch_step("rca_seg_down_step_shard", "seg_down_step", seg,
                        lanes, out, m_full.data_ptr(), a_ex_full.data_ptr(),
                        as_float32(decay), n_val, shard=True)
+
+
+# -- every shard of one card (csrc/segshard.cu) -------------------------------
+
+class ShardGrid(NamedTuple):
+    """The recursions' layouts of every shard of one device, as the shard
+    recursions read them (``csrc/segshard.cu``), in the grid recursions'
+    item order (:func:`item_layout`):
+
+    - ``up_*``: the shards' up layouts (real edges only) joined in shard
+      order, one layout over the ``n_pad`` nodes, segment ``k * block + s``
+      holding shard ``k``'s own source ``s``;
+    - ``dn_*``: every (shard, destination) pair the shard's edges reach,
+      slot ``v`` in shard-major order, as one layout of ``pairs``
+      positions whose ``dn_seg`` are the slots;
+    - ``reach_offsets`` / ``reach``: each node's pair slots in shard order
+      (the fixed order the impact step adds the shards' contributions in).
+
+    numpy on the host; :meth:`to` moves it."""
+
+    up_seg: np.ndarray          # int32 [n_pad] node ids in item order
+    up_offsets: np.ndarray      # int32 [n_pad + 1]
+    up_other: np.ndarray        # int32 [e] the edges' destinations
+    up_n_long: int
+    up_n_big: int
+    dn_seg: np.ndarray          # int32 [pairs] pair slots in item order
+    dn_offsets: np.ndarray      # int32 [pairs + 1]
+    dn_other: np.ndarray        # int32 [e] the edges' sources
+    dn_n_long: int
+    dn_n_big: int
+    reach_offsets: np.ndarray   # int32 [n_pad + 1]
+    reach: np.ndarray           # int32 [pairs]
+
+    @property
+    def pairs(self) -> int:
+        return self.dn_seg.shape[0]
+
+    def to(self, device) -> "ShardGrid":
+        return ShardGrid(*(torch.from_numpy(f).to(device)
+                           if isinstance(f, np.ndarray) else f
+                           for f in self))
+
+
+def _joined_items(other, counts) -> tuple:
+    """:func:`item_layout` over segments of ``counts`` edges each, laid out
+    one after another in ``other``: ``(item_seg, item_offsets,
+    item_other, n_long, n_big)``.  No padding run: shard layouts hold real
+    edges only."""
+    counts = np.asarray(counts, np.int64)
+    if not len(counts):
+        empty = np.zeros(0, np.int32)
+        return empty, np.zeros(1, np.int32), empty, 0, 0
+    starts = np.cumsum(counts) - counts
+    long_seg = counts > SHORT_SEGMENT_MAX
+    long_ids = np.flatnonzero(long_seg).astype(np.int32)
+    items = item_layout(other, starts, counts, long_ids,
+                        np.flatnonzero(~long_seg).astype(np.int32))
+    return (items["item_seg"], items["item_offsets"], items["item_other"],
+            len(long_ids), items["n_big"])
+
+
+def build_shard_grid(up_offsets, up_other, dn_offsets, dn_other) -> ShardGrid:
+    """The :class:`ShardGrid` of ``sp`` shards from their per-shard CSR
+    layouts (``ShardedSegLayouts``' ``[sp, ...]`` fields: offsets over
+    real edges, the sorted other endpoints)."""
+    sp = len(up_offsets)
+    n_pad = dn_offsets.shape[1] - 1
+    up_counts = np.diff(up_offsets, axis=1).reshape(-1)
+    up = _joined_items(
+        np.concatenate([up_other[k][:up_offsets[k][-1]] for k in range(sp)]),
+        up_counts)
+    dn_counts = np.diff(dn_offsets, axis=1)
+    pair_shard, pair_dst = np.nonzero(dn_counts)   # shard-major
+    dn = _joined_items(
+        np.concatenate([dn_other[k][:dn_offsets[k][-1]] for k in range(sp)]),
+        dn_counts[pair_shard, pair_dst])
+    return ShardGrid(
+        *up, *dn,
+        reach_offsets=np.concatenate([[0], np.cumsum(np.bincount(
+            pair_dst, minlength=n_pad))]).astype(np.int32),
+        reach=np.lexsort((pair_shard, pair_dst)).astype(np.int32))
+
+
+def grid_shares(n_items: int, lanes: int, grid: tuple) -> list:
+    """What each CTA of a grid or shard recursion's launch of ``grid =
+    (g_items, g_lanes)`` CTAs takes at every step, as the kernel computes
+    it (``csrc/seggrid.cuh::share_of``): ``((j0, j1), (b0, b1))`` per CTA
+    in launch order, the items and lanes of its share."""
+    g_items, g_lanes = grid
+    return [((jg * n_items // g_items, (jg + 1) * n_items // g_items),
+             (lg * lanes // g_lanes, (lg + 1) * lanes // g_lanes))
+            for lg in range(g_lanes) for jg in range(g_items)]
+
+
+def up_shard_recursion(h_full, decay: float, steps: int, segs, step=None):
+    """The explain-away recursion of ``sp`` shards, step by step, as the
+    node-sharded engine composes it between collectives: each shard's
+    ``u`` block starts at 0; each step all-gathers the blocks onto every
+    shard's device and runs ``step`` (default
+    :func:`up_seg_step_shard_plain`) per shard over its up layout.
+    ``h_full``: each shard's gathered ``[..., n_pad]`` ``h`` on its
+    device.  Returns the ``[..., block]`` blocks."""
+    from rca_tpu_torch.parallel.collectives import all_gather
+
+    step = step or up_seg_step_shard_plain
+    block = segs[0].ends.shape[0]
+    devices = [h.device for h in h_full]
+    u_blk = [h.new_zeros(h.shape[:-1] + (block,)) for h in h_full]
+    for _ in range(steps):
+        u_full = all_gather(u_blk, devices)
+        u_blk = [step(u_full[k], h_full[k], decay, segs[k], k * block)
+                 for k in range(len(segs))]
+    return u_blk
+
+
+def down_shard_recursion(a_ex_full, decay: float, steps: int, segs,
+                         inv_deg_blk, step=None):
+    """The impact recursion of ``sp`` shards, step by step, as the
+    node-sharded engine composes it: each shard's ``m`` block starts at 0;
+    each step all-gathers the blocks, runs ``step`` (default
+    :func:`down_seg_step_shard_plain`) per shard for its unscaled
+    contributions, reduce-scatters them in shard order and scales each
+    block by its ``inv_deg_blk``.  Returns the ``[..., block]`` blocks."""
+    from rca_tpu_torch.parallel.collectives import all_gather, psum_scatter
+
+    step = step or down_seg_step_shard_plain
+    block = a_ex_full[0].shape[-1] // len(segs)
+    devices = [a.device for a in a_ex_full]
+    m_blk = [a.new_zeros(a.shape[:-1] + (block,)) for a in a_ex_full]
+    for _ in range(steps):
+        m_full = all_gather(m_blk, devices)
+        contrib = [step(m_full[k], a_ex_full[k], decay, segs[k])
+                   for k in range(len(segs))]
+        m_blk = [c * inv for c, inv in zip(psum_scatter(contrib, devices),
+                                           inv_deg_blk)]
+    return m_blk
+
+
+def up_seg_steps_shard_plain(h, decay: float, steps: int, segs, out=None):
+    """The explain-away recursion of the shards ``segs`` (their up
+    layouts) on ``h``'s device in plain PyTorch: the per-step composition
+    (:func:`up_shard_recursion` with the plain per-shard step and the
+    collectives), joined into ``[..., n_pad]``; ``out`` receives it."""
+    u = torch.cat(up_shard_recursion([h] * len(segs), decay, steps, segs),
+                  dim=-1)
+    return u if out is None else out.copy_(u)
+
+
+def down_seg_steps_shard_plain(a_ex, decay: float, steps: int, segs,
+                               inv_deg, out=None):
+    """The impact recursion of the shards ``segs`` (their down layouts) on
+    ``a_ex``'s device in plain PyTorch: the per-step composition
+    (:func:`down_shard_recursion`, ``inv_deg`` ``[n_pad]`` cut into the
+    shards' blocks), joined into ``[..., n_pad]``."""
+    block = a_ex.shape[-1] // len(segs)
+    m = torch.cat(down_shard_recursion(
+        [a_ex] * len(segs), decay, steps, segs,
+        [inv_deg[k * block:(k + 1) * block] for k in range(len(segs))]),
+        dim=-1)
+    return m if out is None else out.copy_(m)
+
+
+def launch_shard(name: str, n_seg: int, n_long: int, n_big: int,
+                 lanes: int, out, scratch_floats: int, args):
+    """One cooperative launch of a shard recursion ``name`` over a layout of
+    ``n_seg`` positions and ``lanes`` lanes, on the output's device and
+    its current stream, with the leading ``args`` and ``scratch_floats``
+    of the stream's scratch.  A refused launch raises: there is no other
+    form to fall back to."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    device = out.device
+    down = name == "seg_down_steps_shard"
+    grid = steps_grid(max(1, grid_items(n_seg, n_long, n_big)), lanes,
+                      shard_down_cap(device.index) if down
+                      else grid_cap(device.index, False))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        scratch = grid_scratch(device, stream, scratch_floats)
+        err = getattr(library(), f"rca_{name}")(
+            *args, lanes, out.shape[-1], scratch.data_ptr(),
+            out.data_ptr(), *grid, stream)
+    check(err, name)
+    count_launch(name, shard=True)
+    return out
+
+
+def up_seg_steps_shard(h, decay: float, steps: int, segs, grid: ShardGrid,
+                       out=None):
+    """The explain-away recursion of every shard of one device, ``u_0 =
+    0``, ``u_{k+1}[s] = max(u_k[s], max over the shard's edges (s, d) of
+    max(h[d], decay*u_k[d]))``, returning ``u_steps`` as ``[n_pad]`` or
+    ``[B, n_pad]`` lanes (each shard's block at ``k * block``): on CUDA
+    tensors one cooperative launch of the ``seg_up_steps_shard`` kernel
+    over ``grid`` for every step, shard and lane (none for ``steps ==
+    0``), bitwise the per-step composition; on CPU tensors
+    :func:`up_seg_steps_shard_plain` over the shards' layouts ``segs``."""
+    steps = _step_count("seg_up_steps_shard", steps)
+    lanes, n_pad = check_step("seg_up_steps_shard", grid.reach_offsets,
+                              out, {"h": h})
+    if not lanes:
+        return up_seg_steps_shard_plain(h, decay, steps, segs, out=out)
+    out = torch.empty_like(h) if out is None else out
+    if steps == 0:
+        return out.zero_()
+    return launch_shard(
+        "seg_up_steps_shard", n_pad, grid.up_n_long, grid.up_n_big, lanes,
+        out, 2 * lanes * n_pad,
+        (h.data_ptr(), as_float32(decay), steps, grid.up_seg.data_ptr(),
+         grid.up_offsets.data_ptr(), grid.up_other.data_ptr(),
+         grid.up_n_long, grid.up_n_big))
+
+
+def down_seg_steps_shard(a_ex, decay: float, steps: int, segs,
+                         grid: ShardGrid, inv_deg, out=None):
+    """The impact recursion of every shard of one device, ``m_0 = 0``,
+    ``m_{k+1}[i] = inv_deg[i] * (c_0[i] + c_1[i] + ... + c_{sp-1}[i])``
+    with ``c_j[d]`` the sum over shard ``j``'s edges ``(s, d)`` of
+    ``a_ex[s] + decay*m_k[s]``, the shards added in that order, returning
+    ``m_steps`` as ``[n_pad]`` or ``[B, n_pad]`` lanes (``inv_deg``
+    ``[n_pad]``, shared): on CUDA tensors one cooperative launch of the
+    ``seg_down_steps_shard`` kernel over ``grid`` (none for ``steps ==
+    0``), bitwise the per-step composition; on CPU tensors
+    :func:`down_seg_steps_shard_plain`."""
+    steps = _step_count("seg_down_steps_shard", steps)
+    lanes, n_pad = check_step("seg_down_steps_shard", grid.reach_offsets,
+                              out, {"a_ex": a_ex}, {"inv_deg": inv_deg})
+    if not lanes:
+        return down_seg_steps_shard_plain(a_ex, decay, steps, segs, inv_deg,
+                                          out=out)
+    out = torch.empty_like(a_ex) if out is None else out
+    if steps == 0:
+        return out.zero_()
+    pairs = grid.pairs
+    return launch_shard(
+        "seg_down_steps_shard", pairs, grid.dn_n_long, grid.dn_n_big, lanes,
+        out, lanes * (n_pad + pairs),
+        (a_ex.data_ptr(), inv_deg.data_ptr(), as_float32(decay), steps,
+         grid.dn_seg.data_ptr(), grid.dn_offsets.data_ptr(),
+         grid.dn_other.data_ptr(), pairs, grid.dn_n_long, grid.dn_n_big,
+         grid.reach_offsets.data_ptr(), grid.reach.data_ptr()))

@@ -74,6 +74,11 @@ _SIGNATURES = {
     "rca_seg_down_steps_grid": (_P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _P, _P, _I, _I, _P),
     "rca_seg_steps_grid_cap": (_I, _P),
+    "rca_seg_up_steps_shard": (_P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _P,
+                               _P, _I, _I, _P),
+    "rca_seg_down_steps_shard": (_P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P,
+                                 _P, _I, _I, _P, _P, _I, _I, _P),
+    "rca_seg_steps_shard_cap": (_P,),
 }
 
 

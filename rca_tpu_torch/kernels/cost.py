@@ -122,19 +122,25 @@ def _steps(n_pad: int, e_pad: int, n_long: int, lanes: int, steps: int,
 
 def up_steps(n_pad: int, e_pad: int, n_long: int, lanes: int = 1,
              steps: int = 8) -> Cost:
-    """``seg_up_steps``, the fused explain-away recursion, and its grid
-    form ``seg_up_steps_grid`` (the same work, so the bound reads the same
-    whatever form runs it): one pass over the CSR and its long-segment
-    ids, ``h`` read, ``u`` written; each step's operations."""
+    """``seg_up_steps``, the fused explain-away recursion, its grid form
+    ``seg_up_steps_grid`` and its shard form ``seg_up_steps_shard`` (the
+    same work, so the bound reads the same whatever form runs it; the
+    shard form over the real edges, ``n_long`` 0): one pass over the CSR
+    and its long-segment ids, ``h`` read, ``u`` written; each step's
+    operations."""
     return _steps(n_pad, e_pad, n_long, lanes, steps, 0)
 
 
 def down_steps(n_pad: int, e_pad: int, n_long: int, lanes: int = 1,
-               steps: int = 8) -> Cost:
-    """``seg_down_steps``, the fused impact recursion, and its grid form
-    ``seg_down_steps_grid``: as :func:`up_steps`, with ``a_ex`` and the
-    shared inverse degree read, ``m`` written."""
-    return _steps(n_pad, e_pad, n_long, lanes, steps, 1)
+               steps: int = 8, pairs: int = 0) -> Cost:
+    """``seg_down_steps``, the fused impact recursion, its grid form
+    ``seg_down_steps_grid`` and its shard form ``seg_down_steps_shard``:
+    as :func:`up_steps`, with ``a_ex`` and the shared inverse degree read,
+    ``m`` written; the shard form also adds each of its ``pairs``
+    (shard, destination) contributions a step, in the fixed shard
+    order."""
+    n_bytes, n_ops = _steps(n_pad, e_pad, n_long, lanes, steps, 1)
+    return n_bytes, n_ops + lanes * steps * pairs
 
 
 def up_step_shard(e_k: int, b_k: int, n_dst: int, n_dst_own: int) -> Cost:

@@ -47,6 +47,9 @@ KERNEL_SYMBOLS = {
         r"\bseg_grid_kernel<[\w\s():]*\bUpGrid>"),
     "seg_down_steps_grid": re.compile(
         r"\bseg_grid_kernel<[\w\s():]*\bDownGrid>"),
+    "seg_up_steps_shard": re.compile(
+        r"\bseg_grid_kernel<[\w\s():]*\bUpShard>"),
+    "seg_down_steps_shard": re.compile(r"\bseg_shard_down_kernel\b"),
     "segscan_sum": re.compile(r"\btile_scan_kernel<[^>]*\b0>"),
     "segscan_max": re.compile(r"\btile_scan_kernel<[^>]*\b1>"),
 }

@@ -16,7 +16,14 @@ exchanges cross-shard state with the collectives of
 Per shard and step that is one launch of a seg-step kernel's per-shard
 entry on the card (``csrc/segstep.cu``; on the CPU its plain version),
 the reference's ``pallas_segscan_max`` (``sharded.py:252``) and
-``pallas_segscan`` (``:285``) with the step bodies around them.  The front
+``pallas_segscan`` (``:285``) with the step bodies around them: the
+``step`` form of the plan (:func:`shard_steps_form`), where the shards
+span cards.  Where every shard of a ``dp`` row lies on one card (logical
+shards), the plan's form is ``shard_grid``: each recursion is one
+cooperative launch over every shard of the card (``csrc/segshard.cu``),
+``u`` and ``m`` one ``[..., n_pad]`` vector each whose blocks are the
+shards', and the exchange between steps a grid barrier, bitwise the
+``step`` form.  The front
 is ``evidence_front``'s row pass over the shard's ``[block, C]`` rows (one
 launch: the sanitize, ``a``, ``h``, ``e``) and the contrast's per-shard
 entry over the one-time ``e`` gather.  Hypothesis batches split over
@@ -50,12 +57,16 @@ from rca_tpu_torch.engine.resident import ResidentSession
 from rca_tpu_torch.engine.runner import top_k, topk_diag
 from rca_tpu_torch.engine.segscan import (
     SHORT_SEGMENT_MAX,
+    ShardGrid,
     ShardSeg,
     arrays_digest,
+    build_shard_grid,
     down_seg_step_shard,
-    down_seg_step_shard_plain,
+    down_seg_steps_shard,
+    down_shard_recursion,
     up_seg_step_shard,
-    up_seg_step_shard_plain,
+    up_seg_steps_shard,
+    up_shard_recursion,
 )
 from rca_tpu_torch.parallel.collectives import (
     all_gather,
@@ -222,10 +233,38 @@ def build_sharded_seg_layouts(graph: ShardedGraph) -> ShardedSegLayouts:
 
 # -- the device plan ----------------------------------------------------------
 
+def shard_steps_form(devices) -> str:
+    """The form of the ``kernels`` row's recursions over one ``dp`` row's
+    shard ``devices`` (``ShardPlan.steps_form``): ``shard_grid``, one
+    cooperative launch per recursion over every shard, where every shard
+    lies on one CUDA device (logical shards); ``step``, a launch a shard
+    and step between collectives, where they span cards or mix them, and
+    on the CPU (there both forms compute the same composition of plain
+    steps)."""
+    devs = {torch.device(d) for d in devices}
+    one = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    return "shard_grid" if one else "step"
+
+
+def shard_steps_note(sp: int, device) -> str:
+    """What a sharded ``kernels`` plan of ``sp`` logical shards of
+    ``device`` runs for its two recursions (:func:`shard_steps_form`)."""
+    if shard_steps_form([device] * sp) == "shard_grid":
+        return (f"shard_grid: {sp} logical shards of {device}, one "
+                f"cooperative launch per recursion over every shard "
+                f"(seg_up_steps_shard, seg_down_steps_shard); shards on "
+                f"distinct cards take step")
+    return (f"step: a launch a shard and step between collectives; on "
+            f"{device} the plan runs the plain steps")
+
+
 class ShardPlan(NamedTuple):
     """One ``dp`` row's staged graph: the engaged row (``kernels`` or
     ``torch``), the shards' devices, and per shard its two layouts and its
-    edge rows' destinations and mask (the degree count), on its device."""
+    edge rows' destinations and mask (the degree count), on its device;
+    and ``grid``, the shards' joined layouts on their card where the
+    recursions take the ``shard_grid`` form (only on the ``kernels`` row,
+    where :func:`shard_steps_form` gives it), else None."""
 
     kernel: str
     devices: Tuple[torch.device, ...]
@@ -235,9 +274,38 @@ class ShardPlan(NamedTuple):
     up: Tuple[ShardSeg, ...]
     dst_global: Tuple[torch.Tensor, ...]   # int64 [e_pad]
     mask: Tuple[torch.Tensor, ...]         # float32 [e_pad]
+    grid: Optional[ShardGrid] = None
+
+    @property
+    def steps_form(self) -> str:
+        """The recursions' form: ``shard_grid`` where the plan holds a
+        grid, else ``step``."""
+        return "step" if self.grid is None else "shard_grid"
 
 
 _EDGE_NAMES = ("dst_global", "mask")
+
+
+def _grid_on(entry: dict, device) -> ShardGrid:
+    """The graph's :class:`ShardGrid` on ``device`` (digest-cached with the
+    graph's layouts: built on the host once, moved once per device)."""
+    key = ("grid", str(device))
+    if key not in entry:
+        if "grid" not in entry:
+            lay = entry[None]
+            entry["grid"] = build_shard_grid(lay.up_offsets, lay.up_other,
+                                             lay.dn_offsets, lay.dn_other)
+        entry[key] = entry["grid"].to(device)
+    return entry[key]
+
+
+def _as_row(entry: dict, plan: ShardPlan, kernel: str) -> ShardPlan:
+    """``plan`` for the registry row ``kernel``, in the form it takes
+    there."""
+    on_grid = (kernel == "kernels"
+               and shard_steps_form(plan.devices) == "shard_grid")
+    return plan._replace(kernel=kernel, grid=_grid_on(
+        entry, plan.devices[0]) if on_grid else None)
 
 
 def _shard_seg(fields: dict, prefix: str, n_long: int) -> ShardSeg:
@@ -256,11 +324,11 @@ def shard_plans(mesh, graph: ShardedGraph, kernel: str) -> List[ShardPlan]:
     """The staged graph on every ``dp`` row of ``mesh`` for the registry
     row ``kernel`` (the tensors digest-cached per mesh): the layouts and
     edge rows placed by the rule table (``GRAPH_RULES``: each over
-    ``sp``)."""
+    ``sp``), and the recursions' form for the row."""
     entry = _cache_entry(graph)
     key = (tuple(str(d) for d in mesh.flat), mesh.shape["dp"])
     if key in entry:
-        return [plan._replace(kernel=kernel) for plan in entry[key]]
+        return [_as_row(entry, plan, kernel) for plan in entry[key]]
     layouts = entry[None]
     names = (*_EDGE_NAMES, *ShardedSegLayouts._fields)
     shard_fns = make_shard_fns(
@@ -283,7 +351,7 @@ def shard_plans(mesh, graph: ShardedGraph, kernel: str) -> List[ShardPlan]:
             dst_global=tuple(f["dst_global"][0].long() for f in per),
             mask=tuple(f["mask"][0] for f in per)))
     entry[key] = plans
-    return plans
+    return [_as_row(entry, plan, kernel) for plan in plans]
 
 
 def engaged_row(graph: ShardedGraph, devices, steps: int) -> str:
@@ -298,13 +366,21 @@ def engaged_row(graph: ShardedGraph, devices, steps: int) -> str:
 
 # -- the per-block propagation -------------------------------------------------
 
+def _blocks(full: torch.Tensor, block: int, sp: int) -> List[torch.Tensor]:
+    return [full[..., k * block:(k + 1) * block] for k in range(sp)]
+
+
 def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
                      n_live: int, aw, hw, params) -> List[torch.Tensor]:
     """The reference's ``_propagate_block`` for every shard of one ``dp``
     row, in its order: the front, the error-source contrast over the
     one-time ``e`` gather, the ``h`` / ``a`` gathers, the up-steps, the
     background excess over the gathered ``a``, the degree reduce-scatter,
-    the down-steps each with a reduce-scatter, ``combine_score``.
+    the down-steps, ``combine_score``.  The recursions run in the plan's
+    ``steps_form``: ``step``, each step an all-gather (and for the impact a
+    reduce-scatter) around a launch a shard; ``shard_grid``, one launch
+    per recursion over every shard of the card, the blocks views of one
+    ``[..., n_pad]`` vector.
 
     ``f_blks``: each shard's SANITIZED ``[block, C]`` (or ``[B, block,
     C]``) rows on its device; ``aw`` / ``hw``: the weights per shard.
@@ -314,6 +390,7 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
     kern = plan.kernel == "kernels"
     if plan.kernel not in ("kernels", "torch"):
         raise ValueError(f"unknown kernel row {plan.kernel!r}")
+    grid = plan.grid
     rows = evidence_front_rows if kern else evidence_front_rows_plain
     front = [rows(f, aw[k], hw[k]) for k, f in enumerate(f_blks)]
     a_blk = [r[0] for r in front]
@@ -327,12 +404,14 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
     h_full = all_gather(h_blk, devs)
     a_full = all_gather(a_blk, devs)
 
-    up = up_seg_step_shard if kern else up_seg_step_shard_plain
-    u_blk = [torch.zeros_like(a) for a in a_blk]
-    for _ in range(params.steps):
-        u_full = all_gather(u_blk, devs)
-        u_blk = [up(u_full[k], h_full[k], params.decay, plan.up[k],
-                    k * block) for k in range(sp)]
+    if grid is not None:
+        u_blk = _blocks(up_seg_steps_shard(h_full[0], params.decay,
+                                           params.steps, plan.up, grid),
+                        block, sp)
+    else:
+        u_blk = up_shard_recursion(h_full, params.decay, params.steps,
+                                   plan.up,
+                                   up_seg_step_shard if kern else None)
 
     # the background over the FULL gathered anomaly vector, so every shard
     # subtracts the dense path's global median; shards on one device share
@@ -348,16 +427,18 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
         [torch.zeros(plan.n_pad, dtype=torch.float32, device=d).index_add_(
             0, plan.dst_global[k], plan.mask[k])
          for k, d in enumerate(devs)], devs)
-    inv_deg_blk = [1.0 / torch.clamp(d, min=1.0) for d in deg_blk]
 
-    down = down_seg_step_shard if kern else down_seg_step_shard_plain
-    m_blk = [torch.zeros_like(a) for a in a_blk]
-    for _ in range(params.steps):
-        m_full = all_gather(m_blk, devs)
-        contrib = [down(m_full[k], a_ex_full[k], params.decay, plan.dn[k])
-                   for k in range(sp)]
-        m_blk = [c * inv for c, inv in zip(psum_scatter(contrib, devs),
-                                           inv_deg_blk)]
+    if grid is not None:
+        inv_deg = 1.0 / torch.clamp(torch.cat(deg_blk), min=1.0)
+        m_blk = _blocks(down_seg_steps_shard(a_ex_full[0], params.decay,
+                                             params.steps, plan.dn, grid,
+                                             inv_deg),
+                        block, sp)
+    else:
+        m_blk = down_shard_recursion(
+            a_ex_full, params.decay, params.steps, plan.dn,
+            [1.0 / torch.clamp(d, min=1.0) for d in deg_blk],
+            down_seg_step_shard if kern else None)
 
     return [torch.stack([a, u, m, combine_score(
         a, h, u, m, params.explain_strength, params.impact_bonus)], dim=-2)

@@ -405,7 +405,8 @@ def test_layouts_on_card_run_the_kernels(layout, monkeypatch):
                         "seg_down_step": 0, "evidence_front": 0,
                         "seg_contrast_step": 0, "seg_up_steps": fused,
                         "seg_down_steps": fused, "evidence_front_fused": 1,
-                        "seg_up_steps_grid": 0, "seg_down_steps_grid": 0}
+                        "seg_up_steps_grid": 0, "seg_down_steps_grid": 0,
+                        "seg_up_steps_shard": 0, "seg_down_steps_shard": 0}
     assert got.layout == layout
     cpu = GraphEngine(device="cpu", resident=False).analyze_arrays(
         feats, src, dst, names)

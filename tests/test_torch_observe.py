@@ -467,6 +467,10 @@ _SYMBOLS = {
     "::GridArgs)": "seg_up_steps_grid",
     "seg_grid_kernel<(anonymous namespace)::DownGrid>((anonymous namespace)"
     "::GridArgs)": "seg_down_steps_grid",
+    "seg_grid_kernel<(anonymous namespace)::UpShard>((anonymous namespace)"
+    "::GridArgs)": "seg_up_steps_shard",
+    "seg_shard_down_kernel((anonymous namespace)::ShardDown)":
+        "seg_down_steps_shard",
     "tile_scan_kernel<0>(float const*, float const*)": "segscan_sum",
     "tile_scan_kernel<1>(float const*, float const*)": "segscan_max",
     "aggregate_scan_kernel<0>(float*, int*, int)": "other",

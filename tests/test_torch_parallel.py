@@ -379,14 +379,19 @@ def test_a_and_u_are_bitwise_the_dense_engine(sp, kernel, env, ref_params):
 
 
 def test_collective_bytes_are_the_round5_budget(env, ref_params):
-    """Per analysis: 19 all-gathers (e, h, a, 8 up, 8 down) and 9
+    """Per analysis in the ``step`` form (the plan's form off the card and
+    over distinct cards): 19 all-gathers (e, h, a, 8 up, 8 down) and 9
     reduce-scatters (the degree, 8 down), each moving ``(sp - 1) * block
-    * 4`` bytes through every shard."""
+    * 4`` bytes through every shard.  (The ``shard_grid`` form's, logical
+    shards of one card, is test_torch_shard_steps.py::
+    test_shard_grid_moves_only_the_one_time_collectives.)"""
     case = ref_cascade(2047, n_roots=3, seed=0)
     sp = 8
     eng = ShardedGraphEngine(params=_port_params(ref_params),
                              mesh=_mesh(1, sp), resident=False)
     graph = eng._shard(case.n, case.dep_src, case.dep_dst)
+    (plan,) = shard_plans(_mesh(1, sp), graph, "kernels")
+    assert plan.steps_form == "step"
     reset_collectives()
     eng.analyze_case(case)
     per_shard = (sp - 1) * graph.block * 4
