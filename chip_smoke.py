@@ -36,8 +36,9 @@ CTA's shared memory) and ``seg_up_steps_grid`` / ``seg_down_steps_grid``
 above (``grid``: one cooperative launch over the card, at 10,000 and
 49,999), 1 / 1 / 1 either way; the per-step ``seg_up_step`` /
 ``seg_down_step`` and the front's two halves ``evidence_front`` /
-``seg_contrast_step`` only in the node-sharded engine, ``noisy_or_pair``
-and the flagged scans never (:func:`main_launches`).
+``seg_contrast_step`` only in the node-sharded engine's ``step`` form (over
+distinct cards), ``noisy_or_pair`` and the flagged scans never
+(:func:`main_launches`).
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rca_tpu_torch/csrc`` (one ``nvcc`` per
@@ -213,9 +214,11 @@ and the flagged scans never (:func:`main_launches`).
    device list repeats ``cuda:0``: logical shards, where the plan's
    ``steps_form`` is ``shard_grid`` and each recursion one cooperative
    launch over every shard of the card, ``seg_up_steps_shard`` /
-   ``seg_down_steps_shard`` (``csrc/segshard.cu``); with two cards or
-   more also ``sp = 2`` over distinct cards, the ``step`` form, else a
-   line saying the collectives were device-local): the per-shard entries
+   ``seg_down_steps_shard`` (``csrc/segshard.cu``), and the front one
+   cooperative launch over every shard's rows, ``evidence_front_shard``
+   (``csrc/frontshard.cu``); with two cards or more also ``sp = 2`` over
+   distinct cards, the ``step`` form, else a line saying the collectives
+   were device-local): the per-shard entries
    of ``seg_up_step`` / ``seg_contrast_step`` (bitwise) and
    ``seg_down_step`` (rtol 1e-5 / atol 1e-6) against their plain versions
    over the tiers' layouts, a star split across the shards and a hub cut
@@ -225,17 +228,23 @@ and the flagged scans never (:func:`main_launches`).
    rtol 1e-5 / atol 1e-6), twice each, at 2047 and 49,999 services on 4
    shards, at 49,999 on 8, on a dp = 2 row of 2 shards (4 and 8 lanes),
    on the star and the hub, at 0, 1, 8 and 13 steps over 1, 8 and 16
-   lanes (NaN and Inf in the last lane); the engine at 2047 and 49,999
+   lanes (NaN and Inf in the last lane); the sharded front
+   ``evidence_front_shard`` bitwise the per-shard composition it replaces
+   (the row pass a shard, the ``e`` gather, the contrast a shard: the
+   kernels, run on the card) and the plain version, twice each, over the
+   same layouts at 1, 8 and 16 lanes (2 rows of 4 and 8 on the dp = 2
+   row; NaN / Inf rows in the last lane; a flat front over resident
+   buffers' views, half of them at an unaligned base), at a contrast
+   weight of 0 and the packaged one; the engine at 2047 and 49,999
    services with ``sp = 4`` and at 49,999 with ``sp = 8``, restaged and
-   resident, each analysis counted from 0: ``evidence_front`` /
-   ``seg_contrast_step`` sp launches and ``seg_up_steps_shard`` /
-   ``seg_down_steps_shard`` one each, the per-shard steps none, the
-   collectives moving only the one-time gathers of ``e``, ``h`` and ``a``
-   and the degree reduce-scatter (``(sp - 1) * block * 4`` bytes a call
-   through every shard, the reference's round-5 formula); then the same
-   analysis in the ``step`` form in the same run (sp x 8 / 8 per-shard
-   steps, 19 gathers and 9 reduce-scatters) bitwise the ``shard_grid``
-   one; ``a`` / ``h`` / ``u`` bitwise the dense engine on the card, ``m``
+   resident, each analysis counted from 0: ``evidence_front_shard`` /
+   ``seg_up_steps_shard`` / ``seg_down_steps_shard`` one each, the
+   per-shard front and steps none, the collectives the degree's
+   reduce-scatter alone (``(sp - 1) * block * 4`` bytes through every
+   shard); then the same analysis in the ``step`` form in the same run
+   (``evidence_front`` / ``seg_contrast_step`` sp, sp x 8 / 8 per-shard
+   steps, 19 gathers and 9 reduce-scatters, the reference's round-5
+   formula) bitwise the ``shard_grid`` one; ``a`` / ``h`` / ``u`` bitwise the dense engine on the card, ``m``
    and scores within rtol 1e-5 / atol 1e-6, top-3 identical,
    ``sanitized_rows`` identical on NaN/Inf rows, a second run and every
    resident request bitwise restaging; ``analyze_batch`` on ``dp = 2, sp
@@ -249,9 +258,10 @@ and the flagged scans never (:func:`main_launches`).
    ladder to ``single-device``; then the sharded and dense
    ``analyze_arrays`` walls, device times, busy shares and launches, the
    tick walls, each per-shard kernel's card, call and plain time beside
-   its bound, the shard recursions' card, call and plain time beside
-   their bound and the per-step composition's in the same call (at sp 4
-   and, at 49,999, sp 8), the sp = 4 walls of the two forms and the dense
+   its bound (the row pass too), the sharded front's and the shard
+   recursions' card, call and plain time beside their bound and the
+   per-shard composition's in the same call (at sp 4 and, at 49,999, sp
+   8; the front beside the dense fused front over the same rows), the sp = 4 walls of the two forms and the dense
    engine in turns, and the allocator's peak over a 16-lane batch at
    49,999 on 8 shards in each form (alone with ``--sharded-only``);
 14. the serving scheduler (``rca_tpu_torch.serve``): ``serve_selftest``
@@ -275,9 +285,10 @@ and the flagged scans never (:func:`main_launches`).
    pool: every response ok, no double completion, every answer bitwise
    its own kind's solo engine, every dispatch sync-free and counted on
    its own (one lock over the replicas' device calls), each dense batch
-   the main path's counts and each sharded batch 1 / 1 launches of the
-   shard recursions ``seg_up_steps_shard`` / ``seg_down_steps_shard`` and
-   4 of the contrast, none of the per-shard steps;
+   the main path's counts and each sharded batch 1 / 1 / 1 launches of
+   the sharded front ``evidence_front_shard`` and the shard recursions
+   ``seg_up_steps_shard`` / ``seg_down_steps_shard``, none of the
+   per-shard front and steps;
 15. flight recording and replay (``rca_tpu_torch.replay``): 20 polls
    of the live mix over a 10,000-service cascade world at depth 2 on the
    columnar capture, recorded and unrecorded in turns (the record
@@ -730,9 +741,11 @@ def bound(work) -> tuple:
 FUSED_KERNELS = ("seg_up_steps", "seg_down_steps")
 GRID_KERNELS = ("seg_up_steps_grid", "seg_down_steps_grid")
 STEP_KERNELS = ("seg_up_step", "seg_down_step")
-#: the node-sharded engine's recursions over every shard of one card
-#: (csrc/segshard.cu), which replace the per-shard steps there
-SHARD_KERNELS = ("seg_up_steps_shard", "seg_down_steps_shard")
+#: the node-sharded engine's kernels over every shard of one card, which
+#: replace the per-shard launches there: the recursions (csrc/segshard.cu)
+#: and the front (csrc/frontshard.cu)
+SHARD_KERNELS = ("seg_up_steps_shard", "seg_down_steps_shard",
+                 "evidence_front_shard")
 #: the tiers the grid recursions are checked at, and timed at (the last
 #: two) beside the per-step launches
 GRID_TIERS = (2047, 10000, 49999)
@@ -763,7 +776,7 @@ def main_launches(services: int, times: int = 1) -> dict:
     ticks, device batches) of a graph of ``services`` on the ``kernels``
     row: ``evidence_front_fused`` once (the whole front; the row pass
     ``evidence_front`` and ``seg_contrast_step`` run only in the sharded
-    engine), then the two recursions once each, ``seg_up_steps`` and
+    engine's ``step`` form), then the two recursions once each, ``seg_up_steps`` and
     ``seg_down_steps`` where the plan fuses them into one CTA a lane,
     else ``seg_up_steps_grid`` and ``seg_down_steps_grid``; the per-step
     ``seg_up_step`` and ``seg_down_step`` never."""
@@ -1800,7 +1813,7 @@ def main(argv) -> int:
         }
         # the fused front, in turns with the two-launch front above
         fused_buf = pt.clone()
-        cap = front_cap(torch.cuda.current_device(), C, False)
+        cap = front_cap(torch.cuda.current_device(), C, "fused")
         t["evidence_front_fused"] = {
             "ms": cuda_ms(fused_front),
             "call_ms": cuda_ms(fused_front, queued=False),
@@ -2097,7 +2110,9 @@ def main(argv) -> int:
             # the recursions: beside the per-step composition they replace
             # (timed in the same call), at sp 8 too
             **{key: t[key] for key in ("composition_ms",
-                                       "composition_call_ms", "at_sp8")
+                                       "composition_call_ms", "at_sp8",
+                                       "dense_fused_ms",
+                                       "dense_fused_call_ms")
                if key in t},
             "sharded_launches": sharded["launches"],
             # per device batch of the dense + sharded pool's sharded
@@ -2115,6 +2130,11 @@ def main(argv) -> int:
         entry["sharded_launches"] = {
             key: counts[entry["name"]]
             for key, counts in sharded["all_launches"].items()}
+        if entry["name"] == "evidence_front":
+            # the row pass over the fullest of 4 logical shards, the step
+            # form's launch
+            entry["per_shard"] = {tier: sharded["times"][tier]["evidence_front"]
+                                  for tier in ("2047", str(big))}
 
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith("jax.") or mod == "rca_tpu" \
@@ -2651,8 +2671,9 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
     dense + sharded pool.  Every ok answer bitwise equal to its solo card
     analysis on its own kind's engine, every dense device batch 1 / 1 / 8
     / 8 launches and every sharded one (sp logical shards of the card)
-    1 / 1 launches of the shard recursions and sp of the contrast, none
-    of the per-shard steps, every dispatch sync-free, each batched launch held against
+    1 / 1 / 1 launches of the sharded front and the shard recursions, none
+    of the per-shard front and steps, every dispatch sync-free, each
+    batched launch held against
     its plain version and timed at 1, 2, 4 and 16 lanes."""
     import dataclasses
 
@@ -2664,8 +2685,8 @@ def serve_phase(engine, cases, shapes, aw, hw, params, smi: str) -> dict:
     from rca_tpu_torch.serve import serve_selftest
 
     t_phase = time.perf_counter()
-    # a sharded device batch: each recursion once over the card's sp
-    # logical shards, the contrast once a shard
+    # a sharded device batch: the front and each recursion once over the
+    # card's sp logical shards
     want_sharded = _shard_launches(SHARD_SP)
     want_shard = {name: want_sharded[name] for name in SHARD_SOURCES}
     out = {"nvidia_smi": smi, "selftest": {}, "widths": {}, "load": {},
@@ -5941,6 +5962,13 @@ SHARD_SOURCES = {
                              "rca_tpu/parallel/sharded.py:285 (pallas_segscan"
                              " per shard, 8 steps under lax.scan :280-289, "
                              "pl.pallas_call rca_tpu/engine/segscan.py:128)"),
+    "evidence_front_shard": ("rca_tpu_torch/csrc/frontshard.cu",
+                             "rca_tpu/parallel/sharded.py:225-242 (the "
+                             "per-device front: the noisy-OR pair, the "
+                             "dense path's pl.pallas_call rca_tpu/engine/"
+                             "pallas_kernels.py:63; the e gather :234, the "
+                             "masked scatter-max and fold_error_contrast "
+                             ":235-239, the h / a gathers :241-242)"),
 }
 
 
@@ -6182,13 +6210,14 @@ def observe_phase(engine, cases, shapes, times, kin, smi: str,
 
 def _shard_launches(sp: int, form: str = "shard_grid", dp: int = 1) -> dict:
     """The kernel launches of one sharded analysis over ``dp`` rows of
-    ``sp`` shards in the plan's recursion ``form``: the front's two halves
-    once a shard, then each recursion once a row (``shard_grid``, every
-    shard of the row on one card) or 8 per-shard steps a shard
+    ``sp`` shards in the plan's ``form``: the front and each recursion
+    once a row (``shard_grid``, every shard of the row on one card), or
+    the front's two halves once a shard and 8 per-shard steps a shard
     (``step``)."""
     grid = form == "shard_grid"
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
-            "evidence_front": dp * sp, "seg_contrast_step": dp * sp,
+            "evidence_front": 0 if grid else dp * sp,
+            "seg_contrast_step": 0 if grid else dp * sp,
             "seg_up_step": 0 if grid else 8 * dp * sp,
             "seg_down_step": 0 if grid else 8 * dp * sp,
             "seg_up_steps": 0, "seg_down_steps": 0,
@@ -6243,11 +6272,14 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     versions (the up-step and the contrast bitwise, the down-step at rtol
     1e-5 / atol 1e-6, each twice bitwise) over the tiers' layouts, a star
     split across the shards and a hub cut by a shard boundary;
-    ``ShardedGraphEngine`` at 2047 and 49,999 services with ``sp = 4`` and
-    at 49,999 with ``sp = 8``, restaged and resident, each analysis
-    launching ``evidence_front`` / ``seg_contrast_step`` / ``seg_up_step``
-    / ``seg_down_step`` sp x 1 / 1 / 8 / 8 times with its collectives
-    moving the reference's round-5 budget; ``a``, ``h`` and ``u`` bitwise
+    the shard recursions and the sharded front bitwise the per-shard
+    composition they replace; ``ShardedGraphEngine`` at 2047 and 49,999
+    services with ``sp = 4`` and at 49,999 with ``sp = 8``, restaged and
+    resident, each analysis launching the front and each recursion once
+    (``shard_grid``) and, in the ``step`` form, ``evidence_front`` /
+    ``seg_contrast_step`` / ``seg_up_step`` / ``seg_down_step`` sp x 1 /
+    1 / 8 / 8 times with its collectives moving the reference's round-5
+    budget; ``a``, ``h`` and ``u`` bitwise
     the dense engine on the card, ``m`` and the score within rtol 1e-5 /
     atol 1e-6, top-3 identical, ``sanitized_rows`` identical on NaN/Inf
     rows, a second run bitwise, resident requests bitwise restaged;
@@ -6268,6 +6300,9 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     )
     from rca_tpu_torch.engine.evidence import (
         evidence_front_rows,
+        evidence_front_rows_plain,
+        evidence_front_shard,
+        evidence_front_shard_plain,
         seg_contrast_step_shard,
         seg_contrast_step_shard_plain,
     )
@@ -6285,6 +6320,7 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         up_shard_recursion,
     )
     from rca_tpu_torch.engine.streaming import StreamingSession
+    from rca_tpu_torch.features.schema import SvcF
     from rca_tpu_torch.kernels import (
         LAUNCHES,
         SHARD_LAUNCHES,
@@ -6305,6 +6341,8 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
 
     params = GraphEngine(device="cpu").params
     decay, weight = params.decay, params.error_contrast
+    aw_d, hw_d = (torch.from_numpy(np.asarray(w)).to(dev)
+                  for w in params.weight_arrays())
     out = {"sp": SHARD_SP, "steps_form": shard_steps_note(SHARD_SP, dev)}
     phase("sharded_form", note=out["steps_form"])
     errs = {name: 0.0 for name in SHARD_SOURCES}
@@ -6358,6 +6396,60 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
               max_abs_err=dict(errs))
         return plan
 
+    # -- the front over every shard of the card, against the per-shard
+    #    composition (the row pass and the contrast kernels a shard around
+    #    the e gather, as the step form runs them) and the plain version --
+    def check_front(label, graph, sp, plan, lanes):
+        block, n_pad = plan.block, graph.n_pad
+        shape = (n_pad, C) if lanes == 1 else (lanes, n_pad, C)
+        f = np.zeros(shape, np.float32)
+        hot = rng.random(shape[:-1]) < 0.3
+        f[hot] = rng.uniform(-0.2, 1.2, (int(hot.sum()), C)).astype(
+            np.float32)
+        f[..., SvcF.ERROR_RATE] = np.where(
+            rng.random(shape[:-1]) < 0.5, rng.uniform(0, 1, shape[:-1]), 0.0)
+        # NaN / Inf rows in the last lane, one on a shard boundary
+        last = f if lanes == 1 else f[-1]
+        last[[7, block, n_pad - 5], [2, 6, 11]] = (np.nan, np.inf, -np.inf)
+        if lanes == 1:
+            # the resident sessions' [block + 1, C] buffers read through
+            # their first block rows; every other one one row in, at a
+            # base whose tiles take plain loads
+            f_blks = []
+            for k in range(sp):
+                buf = torch.zeros((block + 2, C), device=dev)
+                lo = k % 2
+                buf[lo:lo + block] = torch.from_numpy(
+                    f[k * block:(k + 1) * block]).to(dev)
+                f_blks.append(buf[lo:lo + block])
+        else:
+            f_blks = [torch.from_numpy(np.ascontiguousarray(
+                f[:, k * block:(k + 1) * block])).to(dev) for k in range(sp)]
+        for w in (0.0, weight):
+            k1, k2 = (evidence_front_shard(f_blks, aw_d, hw_d, w, plan.up,
+                                           plan.grid) for _ in range(2))
+            want = evidence_front_shard_plain(
+                f_blks, aw_d, hw_d, w, plan.up, rows=evidence_front_rows,
+                contrast=seg_contrast_step_shard)
+            ref = evidence_front_shard_plain(f_blks, aw_d, hw_d, w, plan.up)
+            torch.cuda.synchronize()
+            case_ = f"({label}, {lanes} lanes, weight {w})"
+            for part, got, again, comp, plain in zip("ah", k1, k2, want, ref):
+                if not torch.equal(_bits(got), _bits(again)):
+                    fail(f"evidence_front_shard {part} not deterministic "
+                         f"{case_}")
+                if not torch.equal(_bits(got), _bits(comp)):
+                    fail(f"evidence_front_shard {part} not bitwise the "
+                         f"per-shard composition {case_}")
+                if not torch.equal(_bits(got), _bits(plain)):
+                    fail(f"evidence_front_shard {part} not bitwise its "
+                         f"plain version {case_}")
+                if not torch.isfinite(got).all():
+                    fail(f"evidence_front_shard {part} not finite {case_}")
+                errs["evidence_front_shard"] = max(
+                    errs["evidence_front_shard"],
+                    float((got - plain).abs().max()))
+
     # -- the recursions over every shard of the card, against the per-step
     #    composition (the per-shard kernels between the collectives, as
     #    the step form runs them) and through it the plain version -------
@@ -6369,6 +6461,8 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
             fail(f"the plan over {sp} logical shards says "
                  f"{plan.steps_form!r} ({label})")
         block = plan.block
+        for lanes in lanes_list:
+            check_front(label, graph, sp, plan, lanes)
         real = graph.mask > 0
         deg = np.bincount(graph.dst_global[real], minlength=graph.n_pad)
         inv = torch.from_numpy((1.0 / np.maximum(deg, 1)).astype(
@@ -6467,6 +6561,7 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     configs = [(2047, 4), (49999, 4), (49999, 8)]
     out["engine"] = []
     counted = {}
+    dense_runs = {}   # (services, input): the dense analysis, run once
     for n, sp in configs:
         case = cases[n]
         eng = ShardedGraphEngine(mesh=mesh(sp), resident=False)
@@ -6475,8 +6570,10 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         bad = case.features.copy()
         bad[[5, 77, 901], [1, 4, 12]] = (np.nan, np.inf, -np.inf)
         for label, feats in (("clean", case.features), ("nan_inf", bad)):
-            want = dense.analyze_arrays(feats, case.dep_src, case.dep_dst,
-                                        case.names)
+            if (n, label) not in dense_runs:
+                dense_runs[n, label] = dense.analyze_arrays(
+                    feats, case.dep_src, case.dep_dst, case.names)
+            want = dense_runs[n, label]
             # the counted run: launches and collective bytes of one analysis
             eng.analyze_arrays(feats, case.dep_src, case.dep_dst, case.names)
             torch.cuda.synchronize()
@@ -6513,11 +6610,12 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
             counted[(n, sp)] = {"shard": shard_l, "all": launches,
                                 "step_form": step_l}
             # per call (sp - 1) * block * 4 bytes through every shard:
-            # shard_grid moves e, h and a once and the degree once, the
-            # step form also u and m each step and the contributions
+            # shard_grid moves the degree once (the front's one launch
+            # writes the joined a and h), the step form also e, h and a
+            # once, u and m each step and the contributions
             per_call = (sp - 1) * graph.block * 4
             for form, calls, moved, (n_ag, n_rs) in (
-                    ("shard_grid", ccalls, cbytes, (3, 1)),
+                    ("shard_grid", ccalls, cbytes, (0, 1)),
                     ("step", step_calls, step_bytes, (19, 9))):
                 budget = {"all_gather": n_ag * sp * per_call,
                           "reduce_scatter": n_rs * sp * per_call}
@@ -6837,6 +6935,11 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         up_out = torch.empty(graph.block, device=dev)
         dn_out = torch.empty(graph.n_pad, device=dev)
         e_k, b_k, np_k = e_real[k], graph.block, graph.n_pad
+        # the tier's own rows, sanitized and padded, as the engine stages
+        f_tier = np.zeros((graph.n_pad, C), np.float32)
+        f_tier[:n] = np.where(np.isfinite(case.features).all(
+            1, keepdims=True), case.features, 0.0)
+        f_own = torch.from_numpy(f_tier[base:base + b_k]).to(dev)
         # the bounds count each entry a step must read once, for this
         # shard's real edges: the CSR (endpoints, offsets, segment order),
         # the gathered vectors at the edges' distinct destinations (up,
@@ -6848,6 +6951,10 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
         n_dst_own = len(np.union1d(dsts, np.arange(base, base + b_k)))
         n_src = len(np.unique(graph.src_global[k][real]))
         runs = {
+            "evidence_front": (
+                lambda: evidence_front_rows(f_own, aw_d, hw_d),
+                lambda: evidence_front_rows_plain(f_own, aw_d, hw_d),
+                bound(cost.front_rows(b_k))),
             "seg_up_step": (
                 lambda: up_seg_step_shard(vec["u"], vec["h"], decay,
                                           plan.up[k], base, out=up_out),
@@ -6876,6 +6983,8 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
                        "plain_ms": cuda_ms(plain, reps=5, inner=2),
                        "library_ms": None, "bound": limit}
         t.update(_time_shard_recursions(graph, SHARD_SP, rng, decay))
+        t.update(_time_shard_front(graph, SHARD_SP, f_tier, aw_d, hw_d,
+                                   weight))
         if n == 49999:
             # 8 shards: the recursions (no plain version: the sp 4 rows
             # time it) and an analysis's launches and device time in
@@ -6885,6 +6994,9 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
             for name, row in _time_shard_recursions(g8, 8, rng, decay,
                                                     plain=False).items():
                 t[name]["at_sp8"] = row
+            t["evidence_front_shard"]["at_sp8"] = _time_shard_front(
+                g8, 8, f_tier, aw_d, hw_d, weight,
+                plain=False)["evidence_front_shard"]
             sh8 = ShardedGraphEngine(mesh=mesh(8), resident=False)
 
             def sp8_call():
@@ -7018,6 +7130,71 @@ def _time_shard_recursions(graph, sp: int, rng, decay: float,
                                   if plain else None),
                      "library_ms": None, "bound": limit}
     return out
+
+
+def _time_shard_front(graph, sp: int, f_tier, aw, hw, weight: float,
+                      plain: bool = True) -> dict:
+    """The sharded front over ``sp`` logical shards of ``cuda:0`` on the
+    tier's own padded rows ``f_tier`` at one lane and the contrast weight
+    ``weight``, as a sharded analysis runs it: card and call ms beside the
+    per-shard composition it replaces (the row pass and the contrast
+    kernels a shard around the ``e`` gather; in turns in the same call),
+    the dense fused front over the same rows and the real edges (the
+    target), the plain version (``plain``) and the bound of the function
+    (``cost.front_shard``)."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine.evidence import (
+        evidence_front,
+        evidence_front_rows,
+        evidence_front_shard,
+        evidence_front_shard_plain,
+        seg_contrast_step_shard,
+    )
+    from rca_tpu_torch.engine.segscan import build_seg_layouts
+    from rca_tpu_torch.kernels import cost
+    from rca_tpu_torch.parallel.mesh import make_mesh
+    from rca_tpu_torch.parallel.sharded import shard_plans
+
+    dev = torch.device("cuda", 0)
+    (plan,) = shard_plans(make_mesh([("dp", 1), ("sp", sp)], [dev] * sp),
+                          graph, "kernels")
+    block, n_pad = plan.block, graph.n_pad
+    real = graph.mask > 0
+    e = int(real.sum())
+    ft = torch.from_numpy(f_tier).to(dev)
+    f_blks = [ft[k * block:(k + 1) * block].clone() for k in range(sp)]
+    _, up = build_seg_layouts(n_pad, e, graph.src_global[real],
+                              graph.dst_global[real], device=dev)
+
+    def kernel():
+        evidence_front_shard(f_blks, aw, hw, weight, plan.up, plan.grid)
+
+    def composed():
+        evidence_front_shard_plain(f_blks, aw, hw, weight, plan.up,
+                                   rows=evidence_front_rows,
+                                   contrast=seg_contrast_step_shard)
+
+    def dense():
+        evidence_front(ft, aw, hw, weight, up)
+
+    # in turns: the composition, the kernel, the kernel, the composition
+    # (2 compositions a sample: 2 sp + 2 launches each)
+    comp = [cuda_ms(composed, reps=10, inner=2)]
+    ms = [cuda_ms(kernel), cuda_ms(kernel)]
+    comp.append(cuda_ms(composed, reps=10, inner=2))
+    return {"evidence_front_shard": {
+        "sp": sp, "edges": e, "ms": min(ms), "ms_runs": ms,
+        "call_ms": cuda_ms(kernel, queued=False),
+        "composition_ms": min(comp), "composition_runs": comp,
+        "composition_call_ms": cuda_ms(composed, reps=10, inner=2,
+                                       queued=False),
+        "dense_fused_ms": cuda_ms(dense),
+        "dense_fused_call_ms": cuda_ms(dense, queued=False),
+        "plain_ms": (cuda_ms(lambda: evidence_front_shard_plain(
+            f_blks, aw, hw, weight, plan.up), reps=5, inner=2)
+            if plain else None),
+        "library_ms": None, "bound": bound(cost.front_shard(n_pad, e))}}
 
 
 FED_WORKERS = 3

@@ -244,6 +244,8 @@ DTYPE_RULES = {
 #: RANKED_SIGNATURES, is interpreted for implicit promotions
 DEVICE_BODY_MODULES = DATAPLANE_MODULES | frozenset({
     "rca_tpu_torch/engine/propagate.py",
+    # the fronts: the dense fused front, the sharded front over every shard
+    # of one card, their halves and their plain versions
     "rca_tpu_torch/engine/evidence.py",
     # the seg steps, the one-launch, grid and shard recursions and their
     # plain versions

@@ -13,8 +13,9 @@ expressions (``_FRONTS[row]``, ``up = up_seg_step_shard if kern else
 ...``), so a REFERENCE to a target counts as a use, not only a call
 (imports do not).  Flagged inside ``rca_tpu_torch/``, outside the seam
 files: the CUDA kernels' wrappers (the front, its halves, the seg steps,
-the one-CTA and the grid recursions, the per-shard entries and the
-recursions over every shard of one card, the flagged scans), the shared propagation body (``propagate_core``), the layout
+the one-CTA and the grid recursions, the per-shard entries and the front
+and the recursions over every shard of one card, the flagged scans), the
+shared propagation body (``propagate_core``), the layout
 assembly (``build_seg_layouts``), the ``quantized`` and ``doubling``
 rows' bodies and layout gates, and the attribution executables.
 ``chip_smoke.py`` and the tests are out of scope: measurement code calls
@@ -37,6 +38,7 @@ TARGETS = frozenset({
     "evidence_front_rows",
     "seg_contrast_step",
     "seg_contrast_step_shard",
+    "evidence_front_shard",
     "up_seg_step",
     "down_seg_step",
     "up_seg_steps",
@@ -103,13 +105,15 @@ class KernelDispatchRule(Rule):
            "rely on")
     # the one layout-assembly step beside the registry (kernel_plan asks
     # the registry FIRST, then builds the winner's layouts), the sharded
-    # engine's per-shard body (it runs the row its ShardPlan carries, as
-    # propagate_core runs the dense plan's), and the causelens host
+    # engine's bodies, per shard and over every shard of one card (they
+    # run the row and the form their ShardPlan carries, as propagate_core
+    # runs the dense plan's), and the causelens host
     # wrapper (it asks the registry's attribution variant, then invokes
     # the executables it owns)
     allow = {
         "rca_tpu_torch/engine/runner.py": {"kernel_plan"},
-        "rca_tpu_torch/parallel/sharded.py": {"propagate_blocks"},
+        "rca_tpu_torch/parallel/sharded.py": {"propagate_blocks",
+                                              "_propagate_card"},
         "rca_tpu_torch/engine/attribution.py": {"compute_attribution"},
     }
 

@@ -394,8 +394,9 @@ def cmd_kernels(args) -> int:
     dense and the attribution rows of those graph sizes first;
     ``--explain`` prints every candidate per row: engaged, its
     eligibility reason, or the timing it lost with, and the form of a
-    dense or sharded row's recursions (``--sp``: over that many logical
-    shards of the device; with ``--json`` under ``shard_steps``)."""
+    dense row's recursions or of a sharded row's front and recursions
+    (``--sp``: over that many logical shards of the device; with
+    ``--json`` under ``shard_steps``)."""
     from rca_tpu_torch.config import KERNELS, RCAConfig, bucket_for
     from rca_tpu_torch.engine.registry import (
         get_registry,

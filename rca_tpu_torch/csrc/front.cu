@@ -79,21 +79,18 @@
 // Bound: bytes.  B*n_pad*C*4 in, 2*B*n_pad*4 out (a, h), the up layout's
 // offsets, edges and bins read once, the weights and the count: 0.16 MB
 // at the 2047-service tier, 4.0 MB at 49,999.  The scratch e stays in L2.
+//
+// The tile staging and the two segment reductions live in front.cuh,
+// shared with frontshard.cu, the node-sharded engine's front over every
+// shard of one card.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "front_row.cuh"
-
-namespace cg = cooperative_groups;
+#include "front.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;   // rows per tile, and segstep.cu's block
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct FrontArgs {
   float* features;            // [n_rows, C]; persisting: bad rows zeroed
@@ -119,106 +116,6 @@ struct FrontArgs {
   int bulk;                   // the features start 16-byte aligned
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// One thread: the copy of ``bytes`` (a multiple of 16, both addresses
-// 16-byte aligned) from device memory into the shared buffer ``dst``,
-// completing the transaction count of ``bar``.  The proxy fence orders the
-// threads' earlier reads of the buffer (a previous tile, ordered before
-// this thread by a __syncthreads) before the copy's writes.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Waits until the phase of ``bar`` with the given parity has completed.
-__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-
-struct Tile {
-  const float* src;
-  int count;        // floats
-  bool bulk;
-};
-
-__device__ __forceinline__ Tile tile_of(const FrontArgs& p, int t) {
-  const int rows = min(kThreads, p.n_rows - t * kThreads);
-  const int count = rows * p.n_channels;
-  return Tile{p.features + static_cast<size_t>(t) * kThreads * p.n_channels,
-              count, p.bulk && count % 4 == 0};
-}
-
-// Phase 2, one long segment s of one lane: all threads, segstep.cu's
-// reduction order.
-__device__ __forceinline__ void contrast_long(const FrontArgs& p, float* a,
-                                              const float* e, int s,
-                                              float* partial) {
-  const int end = __ldg(p.offsets + s + 1);
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int q = __ldg(p.offsets + s) + threadIdx.x; q < end; q += kThreads) {
-    acc = fmaxf(acc, e[__ldg(p.other + q)]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc = fmaxf(acc, __shfl_down_sync(kFull, acc, off));
-  }
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = partial[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) total = fmaxf(total, partial[w]);
-    a[s] = contrast_fold(a[s], e[s], total, p.weight);
-  }
-  __syncthreads();   // partial is rewritten by the next long segment
-}
-
-// Phase 2, one short segment s of one lane: one thread, in edge order,
-// four edges' loads in flight.
-__device__ __forceinline__ void contrast_short(const FrontArgs& p, float* a,
-                                               const float* e, int s) {
-  const int end = __ldg(p.offsets + s + 1);
-  int q = __ldg(p.offsets + s);
-  float acc = 0.0f;
-  for (; q + 4 <= end; q += 4) {
-    const float v0 = e[__ldg(p.other + q)];
-    const float v1 = e[__ldg(p.other + q + 1)];
-    const float v2 = e[__ldg(p.other + q + 2)];
-    const float v3 = e[__ldg(p.other + q + 3)];
-    acc = fmaxf(acc, v0);
-    acc = fmaxf(acc, v1);
-    acc = fmaxf(acc, v2);
-    acc = fmaxf(acc, v3);
-  }
-  for (; q < end; ++q) acc = fmaxf(acc, e[__ldg(p.other + q)]);
-  a[s] = contrast_fold(a[s], e[s], acc, p.weight);
-}
-
 template <bool kPersist>
 __global__ void __launch_bounds__(kThreads) front_kernel(FrontArgs p) {
   extern __shared__ __align__(128) float tile[];   // kThreads * C
@@ -229,32 +126,16 @@ __global__ void __launch_bounds__(kThreads) front_kernel(FrontArgs p) {
   __shared__ int partial_bad[kWarps];
   const int C = p.n_channels;
   const int n_tiles = (p.n_rows + kThreads - 1) / kThreads;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    wa[c] = p.anomaly_w[c];
-    wh[c] = p.hard_w[c];
-  }
-  if (threadIdx.x == 0) {
-    barrier_init(&full);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  front_setup(p.anomaly_w, p.hard_w, C, wa, wh, &full);
 
   // -- phase 1: the row pass, each tile staged through the TMA -----------
   uint32_t parity = 0;   // the phase of `full` to wait for
   int bad_rows = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const Tile cur = tile_of(p, t);
-    if (cur.bulk) {
-      // the tile's last readers passed the previous tile's barrier below
-      if (threadIdx.x == 0) bulk_load(tile, cur.src, cur.count * 4, &full);
-      barrier_wait(&full, parity);
-      parity ^= 1u;
-    } else {
-      for (int i = threadIdx.x; i < cur.count; i += kThreads) {
-        tile[i] = kPersist ? cur.src[i] : __ldg(cur.src + i);
-      }
-      __syncthreads();
-    }
+    const int count = min(kThreads, p.n_rows - t * kThreads) * C;
+    const float* src = p.features + static_cast<size_t>(t) * kThreads * C;
+    stage_tile<!kPersist>(tile, src, count, p.bulk && count % 4 == 0, &full,
+                          &parity);
     const int r = t * kThreads + threadIdx.x;
     bool bad = false;
     if (r < p.n_rows) {
@@ -303,10 +184,14 @@ __global__ void __launch_bounds__(kThreads) front_kernel(FrontArgs p) {
     float* a = p.a + off;
     const float* e = p.e + off;
     if (j < p.n_long) {
-      contrast_long(p, a, e, __ldg(p.long_ids + j), partial);
+      const int s = __ldg(p.long_ids + j);
+      contrast_long(p.offsets, p.other, s, s, p.weight, a, e, partial);
     } else {
       const int i = (j - p.n_long) * kThreads + static_cast<int>(threadIdx.x);
-      if (i < p.n_short) contrast_short(p, a, e, __ldg(p.short_ids + i));
+      if (i < p.n_short) {
+        const int s = __ldg(p.short_ids + i);
+        contrast_short(p.offsets, p.other, s, s, p.weight, a, e);
+      }
     }
   }
 }
@@ -316,12 +201,6 @@ void* kernel_for(int persist) {
                  : reinterpret_cast<void*>(&front_kernel<false>);
 }
 
-// the staged tile: at most 32 KB (C <= 32), under the 48 KB a launch
-// takes without an opt-in
-size_t smem_bytes(int n_channels) {
-  return sizeof(float) * kThreads * n_channels;
-}
-
 }  // namespace
 
 // *cap = the most CTAs of the front's kernel (persisting or not) that can
@@ -329,23 +208,7 @@ size_t smem_bytes(int n_channels) {
 // launch's grid must keep.  The wrapper caches it per device and width.
 extern "C" int rca_evidence_front_fused_cap(int n_channels, int persist,
                                             int* cap) {
-  if (n_channels < 1 || n_channels > kMaxChannels) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int device = 0;
-  int per_sm = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel_for(persist), kThreads, smem_bytes(n_channels));
-  }
-  *cap = per_sm * sms;
-  return static_cast<int>(err);
+  return front_co_resident(kernel_for(persist), n_channels, cap);
 }
 
 // One cooperative launch of the front over n_lanes lanes of n_pad rows
@@ -370,5 +233,5 @@ extern "C" int rca_evidence_front_fused(
   void* params[] = {&args};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       kernel_for(persist), dim3(grid), dim3(kThreads), params,
-      smem_bytes(n_channels), static_cast<cudaStream_t>(stream)));
+      tile_bytes(n_channels), static_cast<cudaStream_t>(stream)));
 }

@@ -16,12 +16,18 @@ evidence pair and the error-source contrast.
   :func:`evidence_front_plain`, the reference's composition of
   :func:`finite_mask_rows`, :func:`noisy_or_pair_plain`,
   :func:`error_source_excess` and :func:`fold_error_contrast`.
+- :func:`evidence_front_shard` is the node-sharded engine's front where
+  every shard of a ``dp`` row lies on one card: one cooperative launch
+  of ``csrc/frontshard.cu`` over the shards' separate row buffers and
+  their joined up layout, whose joined ``a`` / ``h`` take the place of
+  the per-shard launches and the gathers.  On CPU tensors it computes
+  :func:`evidence_front_shard_plain`, the per-shard composition.
 - The front's two halves stay as launches of their own: the row pass in
   ``csrc/evidence.cu`` (:func:`evidence_front_rows`) and the contrast
   step in ``csrc/segstep.cu`` (:func:`seg_contrast_step`,
   :func:`seg_contrast_step_shard`).  The node-sharded engine runs them
-  between its collectives, and the fused launch is bitwise equal to
-  the two in a row.
+  between its collectives where its shards span cards, and the fused
+  launches are bitwise equal to the two in a row.
 - :func:`noisy_or_pair` is the twin of the reference's public
   ``noisy_or_pair_pallas``: the pair alone, one kernel launch on a CUDA
   tensor, :func:`noisy_or_pair_plain` on a CPU tensor.  The engine does
@@ -329,17 +335,19 @@ def seg_contrast_step_shard(a_raw: torch.Tensor, e_full: torch.Tensor,
 
 
 def front_grid(n_rows: int, lanes: int, n_long: int, n_short: int,
-               fold: bool, cap: int) -> int:
-    """CTAs of the fused front's cooperative launch: as many as its work
-    has items, the row pass's tiles of ``n_rows`` rows or, where the
-    contrast runs (``fold``), its ``lanes`` x (the ``n_long`` long
-    segments + the blocks of ``n_short`` short ones) if there are more,
-    and never more than ``cap``, the CTAs that can be resident at once
-    (every CTA of a cooperative launch must be)."""
+               fold: bool, cap: int, shards: int = 1) -> int:
+    """CTAs of a fused front's cooperative launch: as many as its work
+    has items, the row pass's tiles of ``n_rows`` rows (counted per shard
+    of ``n_rows / shards`` rows: the sharded front's tiles never straddle
+    two shards' buffers) or, where the contrast runs (``fold``), its
+    ``lanes`` x (the ``n_long`` long segments + the blocks of ``n_short``
+    short ones) if there are more, and never more than ``cap``, the CTAs
+    that can be resident at once (every CTA of a cooperative launch must
+    be)."""
     if cap < 1:
         raise ValueError(f"evidence_front_fused: no CTA of the front fits "
                          f"the device (co-resident bound {cap})")
-    tiles = -(-n_rows // FRONT_TILE_ROWS)
+    tiles = shards * -(-(n_rows // shards) // FRONT_TILE_ROWS)
     segments = lanes * (n_long + -(-n_short // FRONT_TILE_ROWS)) if fold \
         else 0
     return min(max(tiles, segments, 1), cap)
@@ -348,18 +356,27 @@ def front_grid(n_rows: int, lanes: int, n_long: int, n_short: int,
 _ERR_COL = int(SvcF.ERROR_RATE)
 
 
+#: each front's co-resident bound query: its C entry and the arguments
+#: before the result (the fused front reading or persisting, the sharded
+#: front)
+_FRONT_CAPS = {"fused": ("rca_evidence_front_fused_cap", (0,)),
+               "persist": ("rca_evidence_front_fused_cap", (1,)),
+               "shard": ("rca_evidence_front_shard_cap", ())}
+
+
 @functools.lru_cache(maxsize=None)
-def front_cap(device_index: int, n_channels: int, persist: bool) -> int:
-    """The most CTAs of the fused front (``persist``: its persisting form)
+def front_cap(device_index: int, n_channels: int, kernel: str) -> int:
+    """The most CTAs of the front ``kernel`` (``"fused"``, the fused front;
+    ``"persist"``, its persisting form; ``"shard"``, the sharded front)
     that CUDA device ``device_index`` holds at once, from the kernel
-    library's occupancy query; read once per device and width."""
+    library's occupancy query; read once per device, width and kernel."""
     from rca_tpu_torch.kernels.build import check, library
 
+    entry, lead = _FRONT_CAPS[kernel]
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        check(library().rca_evidence_front_fused_cap(
-            n_channels, int(persist), ctypes.byref(out)),
-            "evidence_front_fused co-resident bound")
+        err = getattr(library(), entry)(n_channels, *lead, ctypes.byref(out))
+        check(err, f"evidence_front {kernel} co-resident bound")
     return out.value
 
 
@@ -411,7 +428,8 @@ def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
     n_short = up_seg.short_ids.shape[0]
     with torch.cuda.device(device):
         grid = front_grid(n_rows, n_rows // n_pad, n_long, n_short, fold,
-                          front_cap(device.index, n_channels, bool(persist)))
+                          front_cap(device.index, n_channels,
+                                    "persist" if persist else "fused"))
         counts = torch.empty(grid + 1, dtype=torch.int32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = library().rca_evidence_front_fused(
@@ -426,3 +444,121 @@ def evidence_front(features: torch.Tensor, anomaly_w: torch.Tensor,
     check(err, "evidence_front_fused")
     count_launch("evidence_front_fused", persist=bool(persist))
     return a, h, counts[0]
+
+
+# -- every shard of one card (csrc/frontshard.cu) -----------------------------
+
+#: the most shards one launch of the sharded front takes: its table of the
+#: shards' row pointers is a kernel parameter of fixed size
+MAX_FRONT_SHARDS = 64
+
+
+def evidence_front_shard_plain(f_blks, anomaly_w, hard_w,
+                               error_contrast: float, segs,
+                               rows=evidence_front_rows_plain,
+                               contrast=seg_contrast_step_shard_plain):
+    """``(a, h)`` joined over the shards, ``[..., sp * block]`` with shard
+    ``k``'s block at ``k * block``: the node-sharded engine's per-shard
+    front, :func:`evidence_front_rows_plain` per shard block ``f_blks[k]``
+    (``[block, C]`` or ``[B, block, C]``), then, unless ``error_contrast``
+    is 0, :func:`seg_contrast_step_shard_plain` per shard over the
+    concatenated ``e`` and the shard's up layout ``segs[k]``.  ``rows`` and
+    ``contrast`` take the place of the two halves when given (on the card:
+    their kernels, the composition the one launch replaces)."""
+    block = f_blks[0].shape[-2]
+    front = [rows(f, anomaly_w, hard_w) for f in f_blks]
+    a_blk = [r[0] for r in front]
+    if error_contrast:
+        e_full = torch.cat([r[2] for r in front], dim=-1)
+        a_blk = [contrast(a_blk[k], e_full, error_contrast, segs[k],
+                          k * block) for k in range(len(f_blks))]
+    return torch.cat(a_blk, dim=-1), torch.cat([r[1] for r in front], dim=-1)
+
+
+def _check_shard_front(f_blks, anomaly_w, hard_w, segs, grid):
+    """The sharded front's contract, held on every device; returns whether
+    the blocks are on a CUDA device."""
+    sp = len(f_blks)
+    if not 1 <= sp <= MAX_FRONT_SHARDS:
+        raise ValueError(f"evidence_front_shard: {sp} shards, the launch "
+                         f"takes 1 to {MAX_FRONT_SHARDS}")
+    if len(segs) != sp:
+        raise ValueError(f"evidence_front_shard: {len(segs)} layouts for "
+                         f"{sp} shards")
+    first = f_blks[0]
+    for k, f in enumerate(f_blks):
+        if f.device != first.device:
+            raise ValueError(f"evidence_front_shard: shard {k} on "
+                             f"{f.device}, shard 0 on {first.device}")
+        if f.shape != first.shape:
+            raise ValueError(f"evidence_front_shard: shard {k} is "
+                             f"{tuple(f.shape)}, shard 0 {tuple(first.shape)}")
+        if not f.is_contiguous():
+            raise ValueError(f"evidence_front_shard: shard {k}'s rows must "
+                             f"be contiguous")
+    on_card = _check_rows(first, anomaly_w, hard_w)
+    if not isinstance(grid.up_offsets, torch.Tensor):
+        raise TypeError("evidence_front_shard: the joined layout is on the "
+                        "host; move it with .to(device)")
+    if grid.up_offsets.device != first.device:
+        raise ValueError(f"evidence_front_shard: layout on "
+                         f"{grid.up_offsets.device}, rows on {first.device}")
+    n_pad = grid.up_offsets.shape[0] - 1
+    if n_pad != sp * first.shape[-2]:
+        raise ValueError(f"evidence_front_shard: a joined layout of {n_pad} "
+                         f"segments for {sp} blocks of {first.shape[-2]} "
+                         f"rows")
+    return on_card
+
+
+def evidence_front_shard(f_blks, anomaly_w: torch.Tensor,
+                         hard_w: torch.Tensor, error_contrast: float, segs,
+                         grid):
+    """``(a, h)`` of every shard of one device, joined ``[n_pad]`` (or
+    ``[B, n_pad]``) vectors with shard ``k``'s block at ``k * block``,
+    from the shards' RAW ``[block, C]`` (or ``[B, block, C]``) rows
+    ``f_blks``, contiguous, equal in shape, on one device: on CUDA tensors
+    one cooperative launch of the ``evidence_front_shard`` kernel over
+    every shard and lane (the row pass, one grid barrier, the contrast
+    over ``grid``'s joined up layout, a :class:`ShardGrid`; no fold where
+    ``error_contrast`` is 0), bitwise the per-shard composition; on CPU
+    tensors :func:`evidence_front_shard_plain` over the shards' up
+    layouts ``segs``.  ``a`` and ``h`` are views of one buffer.  A refused
+    launch raises: there is no per-shard form to fall back to."""
+    if not _check_shard_front(f_blks, anomaly_w, hard_w, segs, grid):
+        return evidence_front_shard_plain(f_blks, anomaly_w, hard_w,
+                                          error_contrast, segs)
+    from rca_tpu_torch.kernels.build import check, library
+
+    first = f_blks[0]
+    device = first.device
+    sp, block, n_channels = len(f_blks), first.shape[-2], first.shape[-1]
+    lanes = first.numel() // (block * n_channels)
+    out = torch.empty((3,) + first.shape[:-2] + (sp * block,),
+                      dtype=torch.float32, device=device)
+    a, h, e = out[0], out[1], out[2]
+    if lanes == 0:
+        return a, h
+    anomaly_w = anomaly_w.contiguous()
+    hard_w = hard_w.contiguous()
+    fold = bool(error_contrast)
+    n_long = grid.up_n_long
+    # the shards' row pointers, copied into the kernel's parameters
+    table = (ctypes.c_void_p * sp)(*(f.data_ptr() for f in f_blks))
+    with torch.cuda.device(device):
+        ctas = front_grid(sp * lanes * block, lanes, n_long,
+                          sp * block - n_long, fold,
+                          front_cap(device.index, n_channels, "shard"),
+                          shards=sp)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = library().rca_evidence_front_shard(
+            table, sp, block, lanes, anomaly_w.data_ptr(),
+            hard_w.data_ptr(), a.data_ptr(), h.data_ptr(),
+            e.data_ptr(), n_channels, _ERR_COL,
+            as_float32(error_contrast) if fold else 0.0, int(fold),
+            grid.up_seg.data_ptr(), grid.up_offsets.data_ptr(),
+            grid.up_other.data_ptr(), n_long, ctas, stream,
+        )
+    check(err, "evidence_front_shard")
+    count_launch("evidence_front_shard", shard=True)
+    return a, h

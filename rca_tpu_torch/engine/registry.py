@@ -42,9 +42,10 @@ ineligible with the reference's reasons.  The counterfactual sweep needs
 no gradient and runs the ``dense`` row.
 
 The ``sharded`` variant is the node-sharded engine's row, keyed by the
-padded node count and the per-shard edge tier: ``kernels`` (the seg
-steps' per-shard entries and the front's row pass, one launch per shard)
-on a CUDA card, ``torch`` (the per-shard plain versions) on the CPU and
+padded node count and the per-shard edge tier: ``kernels`` on a CUDA
+card (where every shard of a ``dp`` row shares one card, the front and
+each recursion one cooperative launch over every shard; over distinct
+cards the per-shard entries, a launch a shard and step), ``torch`` (the per-shard plain versions) on the CPU and
 under ``RCA_KERNEL=torch``; it is not raced (the reference's sharded row
 is not either), and its ``source`` says why (``sharded`` / ``cpu-default``
 / ``forced``).  ``quantized`` and ``doubling`` have no sharded form: a

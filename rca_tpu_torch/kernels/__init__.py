@@ -10,8 +10,9 @@ update would misreport a run.  :data:`PERSIST_LAUNCHES` counts, apart, the
 ``evidence_front`` and ``evidence_front_fused`` launches that persist the
 sanitize into their input,
 and :data:`SHARD_LAUNCHES` the launches of the node-sharded engine's
-kernels (the seg steps' per-shard entries and the recursions over every
-shard of one card), which count in :data:`LAUNCHES` too.
+kernels (the seg steps' per-shard entries, and the front and the
+recursions over every shard of one card), which count in
+:data:`LAUNCHES` too.
 """
 
 from rca_tpu_torch.util.threads import make_lock
@@ -21,11 +22,11 @@ LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_contrast_step": 0, "seg_up_steps": 0, "seg_down_steps": 0,
             "evidence_front_fused": 0, "seg_up_steps_grid": 0,
             "seg_down_steps_grid": 0, "seg_up_steps_shard": 0,
-            "seg_down_steps_shard": 0}
+            "seg_down_steps_shard": 0, "evidence_front_shard": 0}
 PERSIST_LAUNCHES = {"evidence_front": 0, "evidence_front_fused": 0}
 SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
                   "seg_contrast_step": 0, "seg_up_steps_shard": 0,
-                  "seg_down_steps_shard": 0}
+                  "seg_down_steps_shard": 0, "evidence_front_shard": 0}
 
 
 _LOCK = make_lock("kernels._LOCK")

@@ -59,6 +59,9 @@ _SIGNATURES = {
                                  _I, _F, _I, _I, _P, _P, _P, _I, _P, _I,
                                  _I, _P),
     "rca_evidence_front_fused_cap": (_I, _I, _P),
+    "rca_evidence_front_shard": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                                 _F, _I, _P, _P, _P, _I, _I, _P),
+    "rca_evidence_front_shard_cap": (_I, _P),
     "rca_seg_up_step_shard": (_P, _P, _F, _I, _I, _P, _P, _P, _I, _P, _I,
                               _I, _I, _P, _P),
     "rca_seg_down_step_shard": (_P, _P, _F, _I, _P, _P, _P, _I, _P, _I, _I,

@@ -99,6 +99,18 @@ def front(n_pad: int, e_pad: int, lanes: int = 1, channels: int = C) -> Cost:
             _noisy_ops(n_pad, lanes, channels) + lanes * (e_pad + 6 * n_pad))
 
 
+def front_shard(n_pad: int, e: int, lanes: int = 1,
+                channels: int = C) -> Cost:
+    """``evidence_front_shard``, the front of every shard of one card over
+    their ``n_pad`` joined rows and ``e`` real edges: the rows and weights
+    read, the joined up layout's CSR, ``a`` and ``h`` written; the
+    operations of :func:`front`.  No segment order (the launch's own
+    permutation of the work) and no bad-row count (it writes none)."""
+    return (lanes * n_pad * channels * 4 + 2 * channels * 4
+            + csr_bytes(n_pad, e) + 2 * lanes * n_pad * 4,
+            _noisy_ops(n_pad, lanes, channels) + lanes * (e + 6 * n_pad))
+
+
 def up_step(n_pad: int, e_pad: int, lanes: int = 1) -> Cost:
     """``seg_up_step``, one explain-away step: the CSR, ``u`` and ``h``
     read, the next ``u`` written; 3 operations an edge, 1 a node."""

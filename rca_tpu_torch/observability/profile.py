@@ -34,6 +34,7 @@ from rca_tpu_torch.observability.spans import (
 KERNEL_SYMBOLS = {
     "evidence_front_fused": re.compile(r"\bfront_kernel\b"),
     "evidence_front": re.compile(r"\bevidence_front(_persist)?_kernel\b"),
+    "evidence_front_shard": re.compile(r"\bfront_shard_kernel\b"),
     "noisy_or_pair": re.compile(r"\bnoisy_or_pair_kernel\b"),
     "seg_up_step": re.compile(r"\bseg_step_kernel<[\w\s():]*\bUpStep>"),
     "seg_down_step": re.compile(

@@ -23,11 +23,16 @@ shards), the plan's form is ``shard_grid``: each recursion is one
 cooperative launch over every shard of the card (``csrc/segshard.cu``),
 ``u`` and ``m`` one ``[..., n_pad]`` vector each whose blocks are the
 shards', and the exchange between steps a grid barrier, bitwise the
-``step`` form.  The front
-is ``evidence_front``'s row pass over the shard's ``[block, C]`` rows (one
-launch: the sanitize, ``a``, ``h``, ``e``) and the contrast's per-shard
-entry over the one-time ``e`` gather.  Hypothesis batches split over
-``dp``: each ``dp`` row of the mesh runs its lanes through its own shards.
+``step`` form.  The front in the ``step`` form is ``evidence_front``'s row
+pass over the shard's ``[block, C]`` rows (one launch: the sanitize,
+``a``, ``h``, ``e``) and the contrast's per-shard entry over the one-time
+``e`` gather, then the ``h`` / ``a`` gathers; in the ``shard_grid`` form
+it is one cooperative launch over every shard's rows
+(``csrc/frontshard.cu``) whose joined ``[..., n_pad]`` ``a`` and ``h`` are
+what the gathers would hand each shard, so the score and the stack run
+once over the joined vectors and each shard's stack is a view.
+Hypothesis batches split over ``dp``: each ``dp`` row of the mesh runs its
+lanes through its own shards.
 
 The shards' work runs in a Python loop, shard after shard, each on its own
 device's current stream; nothing here synchronizes with the host.  ``a``,
@@ -48,6 +53,7 @@ import torch
 from rca_tpu_torch.engine.evidence import (
     evidence_front_rows,
     evidence_front_rows_plain,
+    evidence_front_shard,
     seg_contrast_step_shard,
     seg_contrast_step_shard_plain,
 )
@@ -251,8 +257,9 @@ def shard_steps_note(sp: int, device) -> str:
     ``device`` runs for its two recursions (:func:`shard_steps_form`)."""
     if shard_steps_form([device] * sp) == "shard_grid":
         return (f"shard_grid: {sp} logical shards of {device}, one "
-                f"cooperative launch per recursion over every shard "
-                f"(seg_up_steps_shard, seg_down_steps_shard); shards on "
+                f"cooperative launch for the front and one per recursion "
+                f"over every shard (evidence_front_shard, "
+                f"seg_up_steps_shard, seg_down_steps_shard); shards on "
                 f"distinct cards take step")
     return (f"step: a launch a shard and step between collectives; on "
             f"{device} the plan runs the plain steps")
@@ -370,27 +377,65 @@ def _blocks(full: torch.Tensor, block: int, sp: int) -> List[torch.Tensor]:
     return [full[..., k * block:(k + 1) * block] for k in range(sp)]
 
 
+def _degree_blocks(plan: ShardPlan) -> List[torch.Tensor]:
+    """Each node's dependent count in its shard's block: the shards' local
+    counts reduce-scattered like the contributions (integer-valued,
+    exact)."""
+    return psum_scatter(
+        [torch.zeros(plan.n_pad, dtype=torch.float32, device=d).index_add_(
+            0, plan.dst_global[k], plan.mask[k])
+         for k, d in enumerate(plan.devices)], plan.devices)
+
+
+def _stack(a, h, u, m, params) -> torch.Tensor:
+    return torch.stack([a, u, m, combine_score(
+        a, h, u, m, params.explain_strength, params.impact_bonus)], dim=-2)
+
+
+def _propagate_card(f_blks, plan: ShardPlan, n_live: int, aw, hw,
+                    params) -> List[torch.Tensor]:
+    """:func:`propagate_blocks` in the ``shard_grid`` form: every shard of
+    the row on one card, so the front and each recursion are one launch
+    over all of them on joined ``[..., n_pad]`` vectors whose blocks are
+    the shards' (the front's joined ``a`` and ``h`` are what the gathers
+    would hand each shard; the weights are equal there), the degree's
+    reduce-scatter the one collective, and the score and the stack run
+    once (elementwise, so each block has the per-shard stack's bits)."""
+    grid = plan.grid
+    a, h = evidence_front_shard(f_blks, aw[0], hw[0], params.error_contrast,
+                                plan.up, grid)
+    u = up_seg_steps_shard(h, params.decay, params.steps, plan.up, grid)
+    # the background over the whole anomaly vector: the dense path's
+    # global median
+    a_ex = background_excess(a, n_live)
+    inv_deg = 1.0 / torch.clamp(torch.cat(_degree_blocks(plan)), min=1.0)
+    m = down_seg_steps_shard(a_ex, params.decay, params.steps, plan.dn, grid,
+                             inv_deg)
+    return _blocks(_stack(a, h, u, m, params), plan.block, len(plan.devices))
+
+
 def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
                      n_live: int, aw, hw, params) -> List[torch.Tensor]:
     """The reference's ``_propagate_block`` for every shard of one ``dp``
     row, in its order: the front, the error-source contrast over the
     one-time ``e`` gather, the ``h`` / ``a`` gathers, the up-steps, the
     background excess over the gathered ``a``, the degree reduce-scatter,
-    the down-steps, ``combine_score``.  The recursions run in the plan's
-    ``steps_form``: ``step``, each step an all-gather (and for the impact a
-    reduce-scatter) around a launch a shard; ``shard_grid``, one launch
-    per recursion over every shard of the card, the blocks views of one
-    ``[..., n_pad]`` vector.
+    the down-steps, ``combine_score``.  In the plan's ``steps_form``:
+    ``step``, the front's two halves a shard around the gathers and each
+    recursion step an all-gather (and for the impact a reduce-scatter)
+    around a launch a shard; ``shard_grid``, :func:`_propagate_card`.
 
     ``f_blks``: each shard's SANITIZED ``[block, C]`` (or ``[B, block,
     C]``) rows on its device; ``aw`` / ``hw``: the weights per shard.
     Returns each shard's ``[4, block]`` (or ``[B, 4, block]``) stack in the
-    dense engine's ``[a, u, m, score]`` order."""
-    devs, block, sp = plan.devices, plan.block, len(plan.devices)
-    kern = plan.kernel == "kernels"
+    dense engine's ``[a, u, m, score]`` order (in the ``shard_grid`` form
+    views of one joined stack)."""
     if plan.kernel not in ("kernels", "torch"):
         raise ValueError(f"unknown kernel row {plan.kernel!r}")
-    grid = plan.grid
+    if plan.grid is not None:
+        return _propagate_card(f_blks, plan, n_live, aw, hw, params)
+    devs, block, sp = plan.devices, plan.block, len(plan.devices)
+    kern = plan.kernel == "kernels"
     rows = evidence_front_rows if kern else evidence_front_rows_plain
     front = [rows(f, aw[k], hw[k]) for k, f in enumerate(f_blks)]
     a_blk = [r[0] for r in front]
@@ -403,15 +448,8 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
                           plan.up[k], k * block) for k in range(sp)]
     h_full = all_gather(h_blk, devs)
     a_full = all_gather(a_blk, devs)
-
-    if grid is not None:
-        u_blk = _blocks(up_seg_steps_shard(h_full[0], params.decay,
-                                           params.steps, plan.up, grid),
-                        block, sp)
-    else:
-        u_blk = up_shard_recursion(h_full, params.decay, params.steps,
-                                   plan.up,
-                                   up_seg_step_shard if kern else None)
+    u_blk = up_shard_recursion(h_full, params.decay, params.steps, plan.up,
+                               up_seg_step_shard if kern else None)
 
     # the background over the FULL gathered anomaly vector, so every shard
     # subtracts the dense path's global median; shards on one device share
@@ -420,29 +458,12 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
     for a, d in zip(a_full, devs):
         if d not in excess:
             excess[d] = background_excess(a, n_live)
-    a_ex_full = [excess[d] for d in devs]
-    # each node's dependent count in this shard's block: local counts
-    # reduce-scattered like the contributions (integer-valued, exact)
-    deg_blk = psum_scatter(
-        [torch.zeros(plan.n_pad, dtype=torch.float32, device=d).index_add_(
-            0, plan.dst_global[k], plan.mask[k])
-         for k, d in enumerate(devs)], devs)
-
-    if grid is not None:
-        inv_deg = 1.0 / torch.clamp(torch.cat(deg_blk), min=1.0)
-        m_blk = _blocks(down_seg_steps_shard(a_ex_full[0], params.decay,
-                                             params.steps, plan.dn, grid,
-                                             inv_deg),
-                        block, sp)
-    else:
-        m_blk = down_shard_recursion(
-            a_ex_full, params.decay, params.steps, plan.dn,
-            [1.0 / torch.clamp(d, min=1.0) for d in deg_blk],
-            down_seg_step_shard if kern else None)
-
-    return [torch.stack([a, u, m, combine_score(
-        a, h, u, m, params.explain_strength, params.impact_bonus)], dim=-2)
-        for a, h, u, m in zip(a_blk, h_blk, u_blk, m_blk)]
+    m_blk = down_shard_recursion(
+        [excess[d] for d in devs], params.decay, params.steps, plan.dn,
+        [1.0 / torch.clamp(d, min=1.0) for d in _degree_blocks(plan)],
+        down_seg_step_shard if kern else None)
+    return [_stack(a, h, u, m, params)
+            for a, h, u, m in zip(a_blk, h_blk, u_blk, m_blk)]
 
 
 class ShardedStack:

@@ -359,7 +359,7 @@ def test_dense_analysis_on_card_launches_the_fused_front(cuda_device,
 
 @pytest.mark.cuda
 def test_fused_front_grid_fits_the_card(cuda_device):
-    cap = port_evidence.front_cap(torch.cuda.current_device(), C, False)
+    cap = port_evidence.front_cap(torch.cuda.current_device(), C, "fused")
     assert cap >= torch.cuda.get_device_properties(
         cuda_device).multi_processor_count
     assert port_evidence.front_grid(16 * 53248, 16, 1, 53247, True,

@@ -1170,9 +1170,9 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 
     monkeypatch.delenv("CUDA_HOME", raising=False)
     sources = [p.name for p in build.sources()]
-    assert sources == ["evidence.cu", "front.cu", "seggrid.cu",
-                       "segscan.cu", "segshard.cu", "segstep.cu",
-                       "segsteps.cu"]
+    assert sources == ["evidence.cu", "front.cu", "frontshard.cu",
+                       "seggrid.cu", "segscan.cu", "segshard.cu",
+                       "segstep.cu", "segsteps.cu"]
     assert build.BUILD_DIR.name == "_build"
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("nvcc is present: the missing-compiler error does not "
@@ -1204,7 +1204,8 @@ def test_engine_on_card_runs_the_kernels_and_matches_cpu():
                         "seg_contrast_step": 0, "seg_up_steps": 1,
                         "seg_down_steps": 1, "evidence_front_fused": 1,
                         "seg_up_steps_grid": 0, "seg_down_steps_grid": 0,
-                        "seg_up_steps_shard": 0, "seg_down_steps_shard": 0}
+                        "seg_up_steps_shard": 0, "seg_down_steps_shard": 0,
+                        "evidence_front_shard": 0}
     ref = GraphEngine(device="cpu").analyze_case(case)
     assert got.top_components() == ref.top_components()
     assert np.array_equal(got.upstream, ref.upstream)

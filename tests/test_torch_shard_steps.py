@@ -603,10 +603,11 @@ def test_kernels_command_prints_the_sharded_form(capsys, env):
 # -- what moves between shards -----------------------------------------------------
 
 def test_shard_grid_moves_only_the_one_time_collectives(env, monkeypatch):
-    """In the ``shard_grid`` form a step moves nothing between shards: an
-    analysis runs the three one-time all-gathers (``e``, ``h``, ``a``)
-    and the degree reduce-scatter, each moving ``(sp - 1) * block * 4``
-    bytes through every shard.  (The ``step`` form's budget is
+    """In the ``shard_grid`` form a step moves nothing between shards, and
+    neither does the front, whose one launch writes the joined ``a`` and
+    ``h`` the gathers would hand each shard: an analysis runs no
+    all-gather and the degree reduce-scatter alone, moving ``(sp - 1) *
+    block * 4`` bytes through every shard.  (The ``step`` form's budget is
     ``test_torch_parallel.py::test_collective_bytes_are_the_round5_budget``.)
     The wrappers here stand in for the kernels, which move nothing."""
     env.setenv("RCA_KERNEL", "kernels")
@@ -622,9 +623,9 @@ def test_shard_grid_moves_only_the_one_time_collectives(env, monkeypatch):
     reset_collectives()
     eng.analyze_case(case)
     per_shard = (sp - 1) * graph.block * 4
-    assert COLLECTIVE_CALLS["all_gather"] == 3
+    assert COLLECTIVE_CALLS["all_gather"] == 0
     assert COLLECTIVE_CALLS["reduce_scatter"] == 1
-    assert COLLECTIVE_BYTES["all_gather"] == 3 * sp * per_shard
+    assert COLLECTIVE_BYTES["all_gather"] == 0
     assert COLLECTIVE_BYTES["reduce_scatter"] == 1 * sp * per_shard
     assert COLLECTIVE_CALLS["topk_gather"] == 3
 
@@ -694,7 +695,8 @@ def test_sharded_analysis_launches_each_recursion_once_on_card(cuda_device,
     reset_launches()
     eng.analyze_arrays(case.features, case.dep_src, case.dep_dst)
     assert SHARD_LAUNCHES == {"seg_up_step": 0, "seg_down_step": 0,
-                              "seg_contrast_step": 4,
+                              "seg_contrast_step": 0,
                               "seg_up_steps_shard": 1,
-                              "seg_down_steps_shard": 1}
-    assert LAUNCHES["evidence_front"] == 4
+                              "seg_down_steps_shard": 1,
+                              "evidence_front_shard": 1}
+    assert LAUNCHES["evidence_front"] == 0
