@@ -9,7 +9,7 @@
     python3 chip_smoke.py --sweep      # also time the seg steps per bin cut
     python3 chip_smoke.py --multi-card # two cards or more: the build, then
                                        # the sharded engine over distinct
-                                       # cards alone
+                                       # cards alone (the peer form)
     python3 chip_smoke.py --federation-only  # the build, then the
                                        # federation phase alone
     python3 chip_smoke.py --autoscale-only   # the build, then the
@@ -35,9 +35,10 @@ the plan names (``KernelPlan.steps_form``): ``seg_up_steps`` /
 CTA's shared memory) and ``seg_up_steps_grid`` / ``seg_down_steps_grid``
 above (``grid``: one cooperative launch over the card, at 10,000 and
 49,999), 1 / 1 / 1 either way; the per-step ``seg_up_step`` /
-``seg_down_step`` and the front's two halves ``evidence_front`` /
-``seg_contrast_step`` only in the node-sharded engine's ``step`` form (over
-distinct cards), ``noisy_or_pair`` and the flagged scans never
+``seg_down_step`` only in the node-sharded engine's ``step`` form (mixed
+placements, cards without peer access), the front's two halves
+``evidence_front`` / ``seg_contrast_step`` there and in its ``peer`` form
+(one shard a card), ``noisy_or_pair`` and the flagged scans never
 (:func:`main_launches`).
 
 1. the card's name and power limit (``nvidia-smi``);
@@ -114,7 +115,9 @@ distinct cards), ``noisy_or_pair`` and the flagged scans never
    equal, and each path's ``capture_ms``, ``features_ms`` and
    ``graph_ms`` beside each other with the card's name and power limit
    (the columnar path's first capture, which builds the master tables,
-   and its diff capture through a persisted mirror apart).  Then
+   and its diff capture through a persisted mirror apart).  Host work
+   alone, it runs in a process of its own (``--side-phase capture``)
+   beside phases 8-21 and is joined before phase 22.  Then
    ``python -m rca_tpu_torch analyze --compact`` with no fixture, no
    ``kubectl`` on the PATH and ``KUBECONFIG`` naming a missing file must
    exit 0 with the reference's report for an empty, unreachable cluster;
@@ -170,8 +173,10 @@ distinct cards), ``noisy_or_pair`` and the flagged scans never
    --compact`` must put the fixture's fault root first over a batch of 8.
    The commands of items 7, 8, 9, 12 and 17 (``analyze`` with no
    cluster, ``analyze --fixture 50svc``, ``hypotheses``, ``stream``,
-   ``train``) start together here as subprocesses and are each held to
-   their gate (:func:`commands_phase`): their start-ups overlap;
+   ``train``) start together as subprocesses at phase 7, beside the
+   phases between, and are each held to their gate here
+   (:func:`commands_start`, :func:`commands_finish`): their start-ups
+   overlap;
 10. resident sessions at both tiers: a seeded request sequence (first,
    identical, deltas of 1 / 8 / 64 rows with NaN and Inf rows, a delete,
    a delta wider than ``n_pad / 2``, the heal, identical again) through
@@ -216,9 +221,18 @@ distinct cards), ``noisy_or_pair`` and the flagged scans never
    launch over every shard of the card, ``seg_up_steps_shard`` /
    ``seg_down_steps_shard`` (``csrc/segshard.cu``), and the front one
    cooperative launch over every shard's rows, ``evidence_front_shard``
-   (``csrc/frontshard.cu``); with two cards or more also ``sp = 2`` over
-   distinct cards, the ``step`` form, else a line saying the collectives
-   were device-local): the per-shard entries
+   (``csrc/frontshard.cu``); with two cards or more also the ``peer``
+   form over distinct cards (:func:`multi_card_phase`), else a line
+   saying the collectives were device-local and the peer recursions'
+   rehearsal, started beside the capture phase in a process of its own:
+   ``seg_up_steps_peer`` / ``seg_down_steps_peer`` (``csrc/segpeer.cu``)
+   as two ranks of ``cuda:0``, one launch a rank on a stream of its own,
+   each grid at half the card's co-resident CTAs, bitwise the per-step
+   composition and the plain version at 2047 and 49,999 over 1 / 8 / 16
+   lanes, timed beside the composition (a sleep on every card, the
+   slowest card's span), launched back to back at different widths over
+   both graphs, then rank 0 alone, which must trap at its bounded wait):
+   the per-shard entries
    of ``seg_up_step`` / ``seg_contrast_step`` (bitwise) and
    ``seg_down_step`` (rtol 1e-5 / atol 1e-6) against their plain versions
    over the tiers' layouts, a star split across the shards and a hub cut
@@ -485,7 +499,9 @@ distinct cards), ``noisy_or_pair`` and the flagged scans never
    bitwise solo, ``fleet URL`` showing the bounds and a running
    controller) as subprocesses at once, and ``chaos --ticks 200``, which
    must observe ``process_kill``, ``worker_hang``,
-   ``coordinator_partition``, ``ingest_death`` and ``scaling_storm``.
+   ``coordinator_partition``, ``ingest_death`` and ``scaling_storm`` (it
+   counts no context: started at the phase's end, it runs beside phase 24
+   and is held to its gates after it).
 24. ``lint``: the analysis plane on the card (:func:`lint_phase`).
    ``python -m rca_tpu_torch lint --all --json`` starts as one
    subprocess (the rules, tracecheck, rsan and specsan in one
@@ -565,6 +581,7 @@ goes to ``DIR/chip_smoke.json``, every phase line as it prints to
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
@@ -662,6 +679,63 @@ def _phase_walls(walls: dict, t_run: float, record: dict) -> None:
           phase_sum=sum(walls.values()), wall=wall)
 
 
+def _side_start(*argv, env=None, script: bool = True, tmp=None) -> dict:
+    """Start ``python chip_smoke.py *argv`` (``script``; else ``python
+    *argv``) in a process of its own, its output to files in ``tmp`` (a
+    new temporary directory by default), so that it runs beside the
+    phases that follow; a run that fails before the join stops it too."""
+    import tempfile
+
+    tmp = tmp or tempfile.mkdtemp(prefix="chip_smoke_side_")
+    files = [open(os.path.join(tmp, name), "w")
+             for name in ("stdout.txt", "stderr.txt")]
+    head = [os.path.abspath(__file__)] if script else []
+    proc = subprocess.Popen([sys.executable, *head, *argv], env=env,
+                            stdout=files[0], stderr=files[1])
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "tmp": tmp, "files": files,
+            "t0": time.perf_counter()}
+
+
+def _side_wait(handle, timeout: float) -> tuple:
+    """``(exit code, stdout, stderr)`` of a started process (killed past
+    ``timeout`` seconds from now, its code then saying so), its files
+    removed; ``handle["seconds"]``: its wall from its start."""
+    import shutil
+
+    try:
+        code = handle["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        handle["proc"].kill()
+        handle["proc"].wait()
+        code = f"killed after {timeout} s"
+    handle["seconds"] = time.perf_counter() - handle["t0"]
+    for f in handle["files"]:
+        f.close()
+    with open(os.path.join(handle["tmp"], "stdout.txt")) as f:
+        stdout = f.read()
+    with open(os.path.join(handle["tmp"], "stderr.txt")) as f:
+        stderr = f.read()
+    shutil.rmtree(handle["tmp"], ignore_errors=True)
+    return code, stdout, stderr
+
+
+def _side_join(handle, key: str, timeout: float = 900) -> dict:
+    """The record under ``key`` in the last line of a started
+    ``chip_smoke.py`` process, its phase lines printed here as they
+    printed there; it must exit 0."""
+    code, stdout, stderr = _side_wait(handle, timeout)
+    lines = stdout.strip().splitlines()
+    if code != 0 or not lines:
+        fail(f"{' '.join(map(str, handle['proc'].args[2:4]))} exited {code}: "
+             f"{stderr[-3000:]}")
+    for line in lines[:-1]:
+        if line.startswith('{"phase"'):
+            fields = json.loads(line)
+            phase(fields.pop("phase"), **fields)
+    return json.loads(lines[-1])[key]
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -706,6 +780,53 @@ def cuda_ms(fn, reps: int = 20, inner: int = 10, queued: bool = True):
     return float(np.median(samples))
 
 
+def cards_ms(fn, devices, reps: int = 20, inner: int = 10) -> tuple:
+    """:func:`cuda_ms` (queued) over every card of ``devices``: each
+    sample puts a sleep kernel on every card's current stream, then
+    events on each card around the ``inner`` calls, and keeps the slowest
+    card's span, so the launch skew between the cards is in it.  Returns
+    the median of the slowest spans and the median of ``cuda:0``'s (or
+    the first card's), in ms per call."""
+    import numpy as np
+    import torch
+
+    cards = list(dict.fromkeys(devices))
+    for _ in range(3):
+        fn()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    for d in cards:
+        torch.cuda.synchronize(d)
+    spin_cycles = int(max(4 * enqueue_s, 1e-3) * 2e9)
+    slowest, first = [], []
+    for _ in range(reps):
+        events = []
+        for d in cards:
+            with torch.cuda.device(d):
+                torch.cuda._sleep(spin_cycles)
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                events.append([start])
+        for _ in range(inner):
+            fn()
+        for d, pair in zip(cards, events):
+            with torch.cuda.device(d):
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                pair.append(end)
+        spans = []
+        for start, end in events:
+            end.synchronize()
+            spans.append(start.elapsed_time(end) / inner)
+        slowest.append(max(spans))
+        first.append(spans[0])
+    return float(np.median(slowest)), float(np.median(first))
+
+
 def host_samples(fn, reps: int = 20) -> list:
     """Host walls in ms of ``reps`` calls of ``fn`` (which must end in a
     device sync) after 3 warm calls."""
@@ -746,6 +867,9 @@ STEP_KERNELS = ("seg_up_step", "seg_down_step")
 #: and the front (csrc/frontshard.cu)
 SHARD_KERNELS = ("seg_up_steps_shard", "seg_down_steps_shard",
                  "evidence_front_shard")
+#: its recursions over distinct cards, one cooperative launch a card
+#: (csrc/segpeer.cu)
+PEER_KERNELS = ("seg_up_steps_peer", "seg_down_steps_peer")
 #: the tiers the grid recursions are checked at, and timed at (the last
 #: two) beside the per-step launches
 GRID_TIERS = (2047, 10000, 49999)
@@ -785,7 +909,8 @@ def main_launches(services: int, times: int = 1) -> dict:
            "evidence_front_fused": times, "seg_up_step": 0,
            "seg_down_step": 0, **dict.fromkeys(FUSED_KERNELS, 0),
            **dict.fromkeys(GRID_KERNELS, 0),
-           **dict.fromkeys(SHARD_KERNELS, 0)}
+           **dict.fromkeys(SHARD_KERNELS, 0),
+           **dict.fromkeys(PEER_KERNELS, 0)}
     out.update(dict.fromkeys(whole_kernels(services), times))
     return out
 
@@ -1180,6 +1305,16 @@ def main(argv) -> int:
                              "sharded engine over distinct cards alone "
                              "(bitwise logical shards, the walls of "
                              "make_engine() beside the dense engine)")
+    parser.add_argument("--peer-rehearsal", metavar="EDGES", default=None,
+                        help="the peer recursions' rehearsal on one card "
+                             "over the tiers' edges in EDGES (.npz), "
+                             "printing its record; the sharded phase runs "
+                             "it in a process of its own (it ends in a "
+                             "trap that loses the context)")
+    parser.add_argument("--side-phase", choices=("capture",), default=None,
+                        help="one phase that needs no card, alone, printing "
+                             "its record last (the full run runs the "
+                             "capture phase so, beside the others)")
     parser.add_argument("--federation-only", action="store_true",
                         help="build, then run the federation phase alone")
     parser.add_argument("--autoscale-only", action="store_true",
@@ -1202,6 +1337,16 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device visible; the port's kernels run "
               "only on the card", file=sys.stderr)
         return 1
+    if args.peer_rehearsal:
+        print(json.dumps({"peer_rehearsal": peer_rehearsal(
+            args.peer_rehearsal)}, default=float), flush=True)
+        # the trap lost the context: leave without tearing it down
+        os._exit(0)
+    if args.side_phase:
+        print(json.dumps({"side": _timed({}, args.side_phase, capture_phase,
+                                          smi_line())}, default=float),
+              flush=True)
+        return 0
     from rca_tpu_torch.cluster.generator import synthetic_cascade_arrays
     from rca_tpu_torch.engine import GraphEngine
     from rca_tpu_torch.engine.evidence import (
@@ -1638,7 +1783,16 @@ def main(argv) -> int:
     phase_s["compare"] = time.perf_counter() - t_compare
 
     # -- 7. the capture layer: native scanners, columnar against dict -----
-    record["capture"] = _timed(phase_s, "capture", capture_phase, smi)
+    # (host work alone, in a process of its own beside phases 8-21, joined
+    # before the phases that count the card's contexts; on one card the
+    # peer recursions' rehearsal runs beside them too, in a process of its
+    # own on the card, and phase 13 joins it)
+    capture = _side_start("--side-phase", "capture")
+    rehearsal = (_peer_rehearsal_start(cases)
+                 if torch.cuda.device_count() < 2 else None)
+    # (phase 9's commands, subprocesses that need nothing of the phases
+    # between, start here too and are held to their gates there)
+    commands = commands_start()
 
     # -- 8. the snapshot path, through the kernels -------------------------
     record["snapshot"] = _timed(phase_s, "snapshot", snapshot_phase, smi,
@@ -1648,7 +1802,8 @@ def main(argv) -> int:
     record["attribution"] = _timed(
         phase_s, "attribution", attribution_phase, engine,
         cases[TIERS[-1][0]], args.profile, args.out)
-    record["commands"] = _timed(phase_s, "commands", commands_phase, smi)
+    record["commands"] = _timed(phase_s, "commands", commands_finish,
+                                commands, smi)
 
     # -- 10-12. resident sessions, streaming ticks, the live session ------
     record["resident"] = _timed(phase_s, "resident", resident_phase, cases,
@@ -1659,7 +1814,7 @@ def main(argv) -> int:
 
     # -- 13. the node-sharded engine ---------------------------------------
     record["sharded"] = _timed(phase_s, "sharded", sharded_phase, cases,
-                               shapes, args.profile, args.out)
+                               shapes, args.profile, args.out, rehearsal)
 
     # -- 14. the serving scheduler -----------------------------------------
     record["serve"] = _timed(phase_s, "serve", serve_phase, engine, cases,
@@ -1862,6 +2017,11 @@ def main(argv) -> int:
     record["observe"] = _timed(phase_s, "observe", observe_phase, engine,
                                cases, shapes, times, kin, smi)
 
+    # -- 7, joined: the capture phase's record; the wait for it here -----
+    t0 = time.perf_counter()
+    record["capture"] = _side_join(capture, "side")
+    phase_s["capture"] = time.perf_counter() - t0
+
     # -- 22. the cross-process plane: worker processes on the card -------
     # (its ``chaos --ticks 200 --no-autoscale`` is left to phase 23's
     # ``chaos --ticks 200``: the same legs and the storm)
@@ -1869,11 +2029,17 @@ def main(argv) -> int:
                                   cases, smi, chaos=False)
 
     # -- 23. the elastic fleet: the autoscaler's controller on the card ---
+    # (its closing ``chaos --ticks 200``, which counts no context, runs
+    # beside phase 24 and is held to its gates after it)
     record["autoscale"] = _timed(phase_s, "autoscale", autoscale_phase, cases,
-                                 smi)
+                                 smi, chaos_beside=True)
 
     # -- 24. the analysis plane: lint --all, specsan, rsan ----------------
     record["lint"] = _timed(phase_s, "lint", lint_phase, cases, smi)
+    t0 = time.perf_counter()
+    record["autoscale"]["commands"]["chaos"] = _chaos_finish(
+        record["autoscale"].pop("chaos"), smi, "autoscale")
+    phase_s["autoscale_chaos"] = time.perf_counter() - t0
 
     if args.sweep:
         record["sweep"] = sweep(cases, shapes, kin, decay)
@@ -2094,9 +2260,31 @@ def main(argv) -> int:
     # the node-sharded engine's kernels, their launches counted over one
     # sharded analysis at 49,999 services on 4 logical shards (the plan's
     # shard_grid form: the recursions over every shard of the card; the
-    # per-step entries run in the step form, over distinct cards)
+    # per-step entries run in the step form, the peer recursions one a
+    # card over distinct cards)
     sharded = record["sharded"]
     for name, (src, replaces) in SHARD_SOURCES.items():
+        if name in PEER_KERNELS:
+            # over distinct cards, or two ranks of one card: the launches
+            # of the 4-shard analysis (none on one card), the checks' and
+            # times' launches apart
+            peer = sharded["peer"]
+            t = peer["times"][str(big)][name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": sharded["launches"][f"{big}x{SHARD_SP}"][name],
+                "max_abs_err": peer["errs"][name], "ms": t["ms"],
+                "ms_cuda0": t["ms_cuda0"],
+                "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": None, "tier_services": big,
+                "ranks": t["ranks"], "composition_ms": t["composition_ms"],
+                "composition_call_ms": t["composition_call_ms"],
+                "at_2047": peer["times"]["2047"][name],
+                "check_launches": peer.get("launches", {}).get(name),
+                "sharded_launches": sharded["launches"]})
+            continue
         t = sharded["times"][str(big)][name]
         kernels.append({
             "name": name if name in SHARD_KERNELS else f"{name} (per shard)",
@@ -3026,7 +3214,7 @@ def attribution_phase(engine, big_case, profile_it: bool = False,
     return out
 
 
-def commands_phase(smi: str, device="cuda", cli=()) -> dict:
+def commands_start(cli=()) -> dict:
     """The port's commands that need nothing of the phases around them,
     started together as subprocesses on the card so that each pays its
     start-up (an interpreter, ``torch``, a CUDA context, the library)
@@ -3038,14 +3226,10 @@ def commands_phase(smi: str, device="cuda", cli=()) -> dict:
     empty, unreachable cluster; ``stream --fixture 50svc --ticks 10
     --pipeline-depth 2`` ranks it first after 10 undegraded lines; ``train
     --iters 20 --allow-unshippable`` writes a checkpoint that
-    ``GraphEngine()`` loads under ``RCA_WEIGHTS``.  ``device`` / ``cli``
-    rehearse it on the CPU (``"cpu"``, ``("--device", "cpu")``)."""
-    import shutil
+    ``GraphEngine()`` loads under ``RCA_WEIGHTS``.  Started here, beside
+    other phases; :func:`commands_finish` holds them to their gates.
+    ``cli`` rehearses it on the CPU (``("--device", "cpu")``)."""
     import tempfile
-
-    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
-    from rca_tpu_torch.engine import GraphEngine
-    from rca_tpu_torch.engine.train import load_params
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_commands_")
     weights = os.path.join(tmp, "weights.json")
@@ -3059,14 +3243,32 @@ def commands_phase(smi: str, device="cuda", cli=()) -> dict:
                    "--pipeline-depth", "2", "--interval", "0"],
         "train": ["train", "--iters", "20", "--out", weights,
                   "--allow-unshippable"]}
-    procs, stdout, done_s = {}, {}, {}
+    procs = {}
     t0 = time.perf_counter()
+    for label, argv in argvs.items():
+        procs[label] = subprocess.Popen(
+            [sys.executable, "-m", "rca_tpu_torch", *argv, *cli],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_no_kubectl_env(tmp) if label == "no_cluster" else None)
+        atexit.register(lambda p=procs[label]: p.poll() is None and p.kill())
+    return {"procs": procs, "argvs": argvs, "tmp": tmp, "weights": weights,
+            "t0": t0}
+
+
+def commands_finish(started: dict, smi: str, device="cuda") -> dict:
+    """The gates of the commands :func:`commands_start` started (``device``
+    ``"cpu"`` rehearses them on the CPU); ``done_s`` and ``seconds``
+    count from their start."""
+    import shutil
+
+    from rca_tpu_torch.cluster.generator import synthetic_cascade_world
+    from rca_tpu_torch.engine import GraphEngine
+    from rca_tpu_torch.engine.train import load_params
+
+    procs, argvs, tmp = started["procs"], started["argvs"], started["tmp"]
+    weights, t0 = started["weights"], started["t0"]
+    stdout, done_s = {}, {}
     try:
-        for label, argv in argvs.items():
-            procs[label] = subprocess.Popen(
-                [sys.executable, "-m", "rca_tpu_torch", *argv, *cli],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=_no_kubectl_env(tmp) if label == "no_cluster" else None)
         for label, proc in procs.items():
             stdout[label], err = proc.communicate(timeout=600)
             done_s[label] = time.perf_counter() - t0
@@ -3707,7 +3909,7 @@ def capture_phase(smi: str) -> dict:
     ``capture_ms`` / ``features_ms`` / ``graph_ms`` of each path beside
     each other (medians; the columnar path's first capture, which builds
     the master tables, and its diff capture through a persisted mirror
-    apart).  (``analyze`` with no cluster runs in :func:`commands_phase`.)"""
+    apart).  (``analyze`` with no cluster runs in :func:`commands_start`.)"""
     import dataclasses
 
     import numpy as np
@@ -4299,7 +4501,7 @@ def live_phase() -> dict:
     taken, no fault; the ranking equals the port's CPU run (components and
     order exact, scores within rtol 1e-5 / atol 1e-6).  The ladder on the
     card raises instead of taking the ``interpret`` rung.  (The
-    ``stream`` command runs in :func:`commands_phase`.)"""
+    ``stream`` command runs in :func:`commands_start`.)"""
     import numpy as np
     from rca_tpu_torch.cluster.generator import synthetic_cascade_world
 
@@ -5003,7 +5205,7 @@ def train_phase(smi: str) -> dict:
     ``shippability_report`` of the card's fitted weights on the card
     (``kernels`` row) equal as a dict to the same report on
     ``GraphEngine(device="cpu")``.  (The ``train`` command runs in
-    :func:`commands_phase`.)"""
+    :func:`commands_start`.)"""
     import dataclasses
 
     import numpy as np
@@ -5940,7 +6142,8 @@ SHARD_SP = 4
 SHARD_LANES = (1, 8, 16)
 #: the node-sharded engine's kernels, their sources and the TPU kernel each
 #: one replaces: the per-shard entries (the ``step`` form's, and the
-#: contrast) and the recursions over every shard of one card
+#: contrast), the recursions over every shard of one card and the
+#: recursions over distinct cards
 SHARD_SOURCES = {
     "seg_up_step": ("rca_tpu_torch/csrc/segstep.cu",
                     "rca_tpu/parallel/sharded.py:252 (pallas_segscan_max "
@@ -5969,6 +6172,17 @@ SHARD_SOURCES = {
                              "pallas_kernels.py:63; the e gather :234, the "
                              "masked scatter-max and fold_error_contrast "
                              ":235-239, the h / a gathers :241-242)"),
+    "seg_up_steps_peer": ("rca_tpu_torch/csrc/segpeer.cu",
+                          "rca_tpu/parallel/sharded.py:252 (pallas_segscan"
+                          "_max per device between lax.all_gather over sp, "
+                          "8 steps under lax.scan :246-254, pl.pallas_call "
+                          "rca_tpu/engine/segscan.py:128)"),
+    "seg_down_steps_peer": ("rca_tpu_torch/csrc/segpeer.cu",
+                            "rca_tpu/parallel/sharded.py:285 (pallas_segscan"
+                            " per device between lax.all_gather and "
+                            "psum_scatter over sp, 8 steps under lax.scan "
+                            ":280-289, pl.pallas_call rca_tpu/engine/"
+                            "segscan.py:128)"),
 }
 
 
@@ -6211,18 +6425,20 @@ def observe_phase(engine, cases, shapes, times, kin, smi: str,
 def _shard_launches(sp: int, form: str = "shard_grid", dp: int = 1) -> dict:
     """The kernel launches of one sharded analysis over ``dp`` rows of
     ``sp`` shards in the plan's ``form``: the front and each recursion
-    once a row (``shard_grid``, every shard of the row on one card), or
-    the front's two halves once a shard and 8 per-shard steps a shard
-    (``step``)."""
-    grid = form == "shard_grid"
+    once a row (``shard_grid``, every shard of the row on one card); the
+    front's two halves once a shard and each recursion once a card
+    (``peer``, one shard a card); or the front's two halves once a shard
+    and 8 per-shard steps a shard (``step``)."""
+    grid, peer = form == "shard_grid", form == "peer"
     return {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "evidence_front": 0 if grid else dp * sp,
             "seg_contrast_step": 0 if grid else dp * sp,
-            "seg_up_step": 0 if grid else 8 * dp * sp,
-            "seg_down_step": 0 if grid else 8 * dp * sp,
+            "seg_up_step": 0 if grid or peer else 8 * dp * sp,
+            "seg_down_step": 0 if grid or peer else 8 * dp * sp,
             "seg_up_steps": 0, "seg_down_steps": 0,
             "evidence_front_fused": 0, **dict.fromkeys(GRID_KERNELS, 0),
-            **dict.fromkeys(SHARD_KERNELS, dp if grid else 0)}
+            **dict.fromkeys(SHARD_KERNELS, dp if grid else 0),
+            **dict.fromkeys(PEER_KERNELS, dp * sp if peer else 0)}
 
 
 def _step_form():
@@ -6265,10 +6481,12 @@ def _star_case(n: int, seed: int):
 
 
 def sharded_phase(cases, shapes, profile_it: bool = False,
-                  out_dir=None) -> dict:
+                  out_dir=None, rehearsal=None) -> dict:
     """The node-sharded engine on the card, over logical shards (a mesh
     whose device list repeats ``cuda:0``) and, with two cards or more,
-    over distinct cards: the per-shard kernel entries against their plain
+    over distinct cards (:func:`multi_card_phase`; on one card the peer
+    recursions' rehearsal, :func:`peer_rehearsal`, joined here): the
+    per-shard kernel entries against their plain
     versions (the up-step and the contrast bitwise, the down-step at rtol
     1e-5 / atol 1e-6, each twice bitwise) over the tiers' layouts, a star
     split across the shards and a hub cut by a shard boundary;
@@ -6874,14 +7092,20 @@ def sharded_phase(cases, shapes, profile_it: bool = False,
     phase("sharded_stream", **out["stream"])
     phase("sharded_live", **out["live"])
 
-    # -- distinct cards ------------------------------------------------------
+    # -- distinct cards, or the peer recursions rehearsed on one -------------
     if torch.cuda.device_count() >= 2:
         out["multi_card"] = multi_card_phase(cases, big, dense)
+        out["peer"] = {key: out["multi_card"][key]
+                       for key in ("times", "errs", "checks")}
     else:
         out["multi_card"] = {"cards": 1, "collectives": "device-local",
                              "note": "one card: every shard on cuda:0, the "
-                                     "collectives are copies on its stream"}
+                                     "collectives are copies on its "
+                                     "stream; the peer recursions rehearsed "
+                                     "as two ranks of cuda:0"}
         phase("sharded_multi_card", **out["multi_card"])
+        out["peer"] = _peer_rehearsal_join(
+            rehearsal or _peer_rehearsal_start(cases))
 
     # -- times ---------------------------------------------------------------
     times = {}
@@ -7660,19 +7884,31 @@ def _chaos_command(env, smi, label: str, argv) -> dict:
     """``chaos --ticks 200`` as a subprocess (``argv`` adds its flags):
     exit 0, every fault class of its legs observed (``scaling_storm``
     too unless ``--no-autoscale``); a failure names each gate."""
-    t0 = time.perf_counter()
-    chaos = subprocess.run(
-        [sys.executable, "-m", "rca_tpu_torch", "chaos", "--ticks", "200",
-         "--compact", *argv], env=env, capture_output=True, text=True,
-        timeout=900)
+    return _chaos_finish(_chaos_start(env, argv), smi, label)
+
+
+def _chaos_start(env, argv) -> dict:
+    """Start ``chaos --ticks 200`` (``argv`` adds its flags), its output to
+    files; :func:`_chaos_finish` holds it to its gates."""
+    handle = _side_start("-m", "rca_tpu_torch", "chaos", "--ticks", "200",
+                         "--compact", *argv, env=env, script=False)
+    handle["argv"] = list(argv)
+    return handle
+
+
+def _chaos_finish(handle, smi, label: str) -> dict:
+    """The started ``chaos --ticks 200``'s gates (:func:`_chaos_command`),
+    ``seconds`` from its start."""
+    argv = handle["argv"]
+    code, stdout, stderr = _side_wait(handle, timeout=900)
     try:
-        report = json.loads(chaos.stdout.strip().splitlines()[-1])
+        report = json.loads(stdout.strip().splitlines()[-1])
     except (IndexError, ValueError):
         report = {}
     legs = [leg for leg in ("federation", "autoscale", "ingest")
             if leg in report]
     gates = {
-        "exit": chaos.returncode,
+        "exit": code,
         "uncaught_exceptions": report.get("uncaught_exceptions"),
         "parity_ok": report.get("parity_ok"),
         "all_classes_observed": report.get("all_classes_observed"),
@@ -7684,14 +7920,14 @@ def _chaos_command(env, smi, label: str, argv) -> dict:
                       for c in report[leg].get("fault_classes_observed", [])})
     want = set(CHAOS_CLASSES) | (
         set() if "--no-autoscale" in argv else {"scaling_storm"})
-    if chaos.returncode != 0 or not want <= set(classes):
+    if code != 0 or not want <= set(classes):
         fail(f"chaos --ticks 200 {' '.join(argv)} ({label}): {gates}, "
              f"observed {classes}; "
              + "; ".join(f"{leg}: {json.dumps(report[leg], default=str)[:1200]}"
                          for leg in legs if not report[leg].get("ok"))
-             + f" {chaos.stderr[-1500:]}")
+             + f" {stderr[-1500:]}")
     out = {
-        **gates, "seconds": time.perf_counter() - t0,
+        **gates, "seconds": handle["seconds"],
         "fault_classes_observed": classes,
         "federation": {k: report["federation"][k] for k in (
             "requests", "by_status", "double_completions",
@@ -8245,19 +8481,28 @@ def _autoscale_commands(case, device, smi, cli=()) -> dict:
                 p.communicate(timeout=30)
     out["together_s"] = time.perf_counter() - t0
     phase("autoscale", leg="commands", **out, smi=smi)
-    out["chaos"] = _chaos_command(env, smi, "autoscale", list(cli))
     return out
 
 
-def autoscale_phase(cases, smi: str, device="cuda", cli=()) -> dict:
+def autoscale_phase(cases, smi: str, device="cuda", cli=(),
+                    chaos_beside: bool = False) -> dict:
     """The elastic fleet on the card: the thread soak 2→8→2 and the
-    process fleet 2→4→2 at 2047, both storms, the commands."""
+    process fleet 2→4→2 at 2047, both storms, the commands, then ``chaos
+    --ticks 200`` (which counts no context: with ``chaos_beside`` it is
+    only started, ``out["chaos"]`` its handle, and the caller holds it to
+    its gates with :func:`_chaos_finish` after the phases it runs
+    beside)."""
     t_phase = time.perf_counter()
     case = cases[AUTOSCALE_SERVICES]
     out = {"thread": _autoscale_thread_leg(device, smi),
            "process": _autoscale_process_leg(case, device, smi),
            "storm": _autoscale_storms(device, smi),
            "commands": _autoscale_commands(case, device, smi, cli)}
+    chaos = _chaos_start({**os.environ, **FED_ENV}, list(cli))
+    if chaos_beside:
+        out["chaos"] = chaos
+    else:
+        out["commands"]["chaos"] = _chaos_finish(chaos, smi, "autoscale")
     out["seconds"] = time.perf_counter() - t_phase
     phase("autoscale", seconds=out["seconds"], smi=smi)
     return out
@@ -8597,59 +8842,615 @@ def _tick_walls(session, rng):
     return walls[3:]
 
 
+#: the peer rehearsal's bound of one barrier wait when rank 0 launches
+#: alone: the launch must trap past it
+PEER_TRAP_NS = 200_000_000
+
+
+def _sync_all(devices) -> None:
+    import torch
+
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
+def _peer_plan(graph, devices):
+    """The ``peer`` plan of ``graph``'s one ``dp`` row over ``devices``,
+    whatever form the devices elect: one shard a card elects it; two
+    ranks of one card (the rehearsal) take it here, the peer state
+    digest-cached with the graph's layouts as the election caches it,
+    each rank on a stream of its own."""
+    from rca_tpu_torch.parallel.mesh import make_mesh
+    from rca_tpu_torch.parallel.sharded import (
+        _cache_entry,
+        _peer_on,
+        shard_plans,
+    )
+
+    (plan,) = shard_plans(make_mesh([("dp", 1), ("sp", len(devices))],
+                                    devices), graph, "kernels")
+    if plan.peer is not None:
+        return plan
+    peer = _peer_on(_cache_entry(graph), devices)
+    _rehearsal_streams(peer.group)
+    return plan._replace(grid=None, peer=peer)
+
+
+def _rehearsal_streams(group) -> None:
+    """Ranks that share a card (the rehearsal) each launch on a stream of
+    their own: on the card's one peer stream the second rank's grid
+    would queue behind the first's, which waits for it."""
+    import torch
+
+    if len(set(group.devices)) < len(group.devices) and \
+            len({id(s) for s in group.streams}) < len(group.streams):
+        group.streams = [torch.cuda.Stream(device=d) for d in group.devices]
+
+
+def _peer_inputs(graph, devices, rng, lanes: int, poison: bool):
+    """Each card's full ``h`` and ``a_ex`` (the same values on every card,
+    as the gathers hand them; ``poison``: a NaN and an Inf in the last
+    lane) and its ``inv_deg`` block, the graph's own degrees."""
+    import numpy as np
+    import torch
+
+    n_pad, block = graph.n_pad, graph.block
+    shape = (n_pad,) if lanes == 1 else (lanes, n_pad)
+    h = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    a_ex = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    a_ex[..., rng.random(n_pad) < 0.6] = 0.0
+    if poison and lanes > 1:
+        h[-1, 11], a_ex[-1, 13], a_ex[-1, 17] = np.nan, np.nan, np.inf
+    real = graph.mask > 0
+    inv = (1.0 / np.maximum(np.bincount(graph.dst_global[real],
+                                        minlength=n_pad), 1)).astype(
+        np.float32)
+    h, a_ex, inv = (torch.from_numpy(x) for x in (h, a_ex, inv))
+    return ([h.to(d) for d in devices], [a_ex.to(d) for d in devices],
+            [inv[k * block:(k + 1) * block].to(d)
+             for k, d in enumerate(devices)])
+
+
+def _check_peer_recursions(label, graph, devices, rng, decay: float,
+                           lanes_list, steps_list, errs: dict) -> dict:
+    """The two peer recursions over ``devices`` (one shard a rank) against
+    the per-step composition they replace (the per-shard kernels between
+    the collectives, on the same cards) bitwise, twice each, and through
+    it the plain version on the finite lanes (``u`` bitwise, ``m`` at rtol
+    1e-5 / atol 1e-6)."""
+    import torch
+    from rca_tpu_torch.engine.segscan import (
+        down_seg_step_shard,
+        down_seg_steps_peer,
+        down_seg_steps_peer_plain,
+        down_shard_recursion,
+        up_seg_step_shard,
+        up_seg_steps_peer,
+        up_seg_steps_peer_plain,
+        up_shard_recursion,
+    )
+
+    plan = _peer_plan(graph, devices)
+    for lanes in lanes_list:
+        h_full, a_full, inv_blk = _peer_inputs(graph, devices, rng, lanes,
+                                               poison=True)
+        for steps in steps_list:
+            runs = {
+                "seg_up_steps_peer": (
+                    lambda: up_seg_steps_peer(h_full, decay, steps, plan),
+                    lambda: up_shard_recursion(h_full, decay, steps,
+                                               plan.up, up_seg_step_shard),
+                    lambda: up_seg_steps_peer_plain(h_full, decay, steps,
+                                                    plan)),
+                "seg_down_steps_peer": (
+                    lambda: down_seg_steps_peer(a_full, decay, steps, plan,
+                                                inv_blk),
+                    lambda: down_shard_recursion(a_full, decay, steps,
+                                                 plan.dn, inv_blk,
+                                                 down_seg_step_shard),
+                    lambda: down_seg_steps_peer_plain(a_full, decay, steps,
+                                                      plan, inv_blk)),
+            }
+            for name, (kernel, composed, plain) in runs.items():
+                got = [kernel(), kernel(), composed(), plain()]
+                _sync_all(devices)
+                k1, k2, want, ref = (torch.cat([b.to(devices[0]) for b in x],
+                                               dim=-1) for x in got)
+                case_ = f"({label}, {lanes} lanes, {steps} steps)"
+                if not torch.equal(_bits(k1), _bits(k2)):
+                    fail(f"{name} not deterministic {case_}")
+                if not torch.equal(_bits(k1), _bits(want)):
+                    fail(f"{name} not bitwise the per-step composition "
+                         f"{case_}")
+                if lanes > 1:
+                    k1, ref = k1[:-1], ref[:-1]
+                if name == "seg_up_steps_peer" and not torch.equal(
+                        _bits(k1), _bits(ref)):
+                    fail(f"{name} not bitwise its plain version {case_}")
+                if not torch.allclose(k1, ref, rtol=1e-5, atol=1e-6):
+                    fail(f"{name} disagrees with its plain version {case_}")
+                if ref.numel():
+                    errs[name] = max(errs[name], float(
+                        (k1 - ref).abs().max()))
+    row = {"layout": label, "ranks": [str(d) for d in devices],
+           "n_pad": graph.n_pad, "block": graph.block,
+           "pairs": [seg.n_seg for seg in plan.peer.dn],
+           "lanes": list(lanes_list), "steps": list(steps_list),
+           "runs_each": 2, "max_abs_err": dict(errs)}
+    phase("peer_recursions", **row)
+    return row
+
+
+def _peer_bound(graph, plan, link_rate) -> dict:
+    """Each peer recursion's bound over ``plan``'s ranks at one lane and 8
+    steps: the slowest card's (``cost.up_steps_peer`` /
+    ``down_steps_peer``), its pushes over ``link_rate``; ranks that share
+    a card (the rehearsal) add their bytes, the pushes landing in its own
+    memory."""
+    from rca_tpu_torch.kernels import cost
+
+    sp = len(plan.devices)
+    work = {"seg_up_steps_peer": [
+        cost.up_steps_peer(graph.n_pad, sp, int(graph.mask[k].sum()))
+        for k in range(sp)],
+        "seg_down_steps_peer": [
+        cost.down_steps_peer(graph.n_pad, sp, int(graph.mask[k].sum()),
+                             plan.peer.dn[k].n_seg) for k in range(sp)]}
+    if len(set(plan.devices)) == 1:
+        return {name: (*cost.bound_ms(sum(w[0] + w[1] for w in rows),
+                                      sum(w[2] for w in rows)),
+                       sum(w[0] + w[1] for w in rows))
+                for name, rows in work.items()}
+    return {name: max((*cost.bound_peer_ms(*w, link_rate=link_rate), w[1])
+                      for w in rows) for name, rows in work.items()}
+
+
+def _time_peer_recursions(graph, devices, rng, decay: float, link_rate,
+                          plain: bool = True) -> dict:
+    """The two peer recursions over ``devices`` at one lane and 8 steps:
+    card ms (:func:`cards_ms`: a sleep on every card, the slowest card's
+    span, ``cuda:0``'s beside it) and call ms beside the per-step
+    composition on the same cards, timed alike (in turns: composition,
+    kernel, kernel, composition), the plain version (``plain``) and the
+    bound (:func:`_peer_bound`)."""
+    from rca_tpu_torch.engine.segscan import (
+        down_seg_step_shard,
+        down_seg_steps_peer,
+        down_seg_steps_peer_plain,
+        down_shard_recursion,
+        up_seg_step_shard,
+        up_seg_steps_peer,
+        up_seg_steps_peer_plain,
+        up_shard_recursion,
+    )
+
+    plan = _peer_plan(graph, devices)
+    h_full, a_full, inv_blk = _peer_inputs(graph, devices, rng, 1,
+                                           poison=False)
+    bounds = _peer_bound(graph, plan, link_rate)
+    runs = {
+        "seg_up_steps_peer": (
+            lambda: up_seg_steps_peer(h_full, decay, 8, plan),
+            lambda: up_shard_recursion(h_full, decay, 8, plan.up,
+                                       up_seg_step_shard),
+            lambda: up_seg_steps_peer_plain(h_full, decay, 8, plan)),
+        "seg_down_steps_peer": (
+            lambda: down_seg_steps_peer(a_full, decay, 8, plan, inv_blk),
+            lambda: down_shard_recursion(a_full, decay, 8, plan.dn, inv_blk,
+                                         down_seg_step_shard),
+            lambda: down_seg_steps_peer_plain(a_full, decay, 8, plan,
+                                              inv_blk)),
+    }
+    out = {}
+    for name, (kernel, composed, plain_fn) in runs.items():
+        comp = [cards_ms(composed, devices, reps=10, inner=2)]
+        ms = [cards_ms(kernel, devices), cards_ms(kernel, devices)]
+        comp.append(cards_ms(composed, devices, reps=10, inner=2))
+        out[name] = {"ranks": [str(d) for d in devices],
+                     "edges": int(graph.mask.sum()),
+                     "pairs": [seg.n_seg for seg in plan.peer.dn],
+                     "ms": min(m[0] for m in ms),
+                     "ms_cuda0": min(m[1] for m in ms),
+                     "ms_runs": [m[0] for m in ms],
+                     "call_ms": cuda_ms(kernel, queued=False),
+                     "composition_ms": min(c[0] for c in comp),
+                     "composition_cuda0_ms": min(c[1] for c in comp),
+                     "composition_runs": [c[0] for c in comp],
+                     "composition_call_ms": cuda_ms(composed, reps=10,
+                                                    inner=2, queued=False),
+                     "plain_ms": (cuda_ms(plain_fn, reps=3, inner=1)
+                                  if plain else None),
+                     "library_ms": None, "bound": bounds[name]}
+    return out
+
+
+def _check_peer_widths(graphs, devices, rng, decay: float) -> dict:
+    """Peer launches of one kind back to back at different widths and over
+    two graphs on the same cards, enqueued with no sync between them: up
+    at 16 lanes then 1 on each graph, the same for down, then up / up /
+    down / down alternating the graphs as two serve threads would
+    interleave them; each result bitwise the per-step composition of its
+    own inputs.  The exchange buffers' halves sit at the group's
+    capacity, so a narrow launch's first push cannot land in what a
+    slower card still reads of the wide one before it."""
+    import torch
+    from rca_tpu_torch.engine.segscan import (
+        down_seg_step_shard,
+        down_seg_steps_peer,
+        down_shard_recursion,
+        up_seg_step_shard,
+        up_seg_steps_peer,
+        up_shard_recursion,
+    )
+
+    plans = [_peer_plan(g, devices) for g in graphs]
+    order = [("up", 0, 16), ("up", 0, 1), ("up", 1, 16), ("up", 1, 1),
+             ("down", 0, 16), ("down", 0, 1), ("down", 1, 16),
+             ("down", 1, 1),
+             ("up", 0, 16), ("up", 1, 1), ("down", 0, 16), ("down", 1, 1)]
+    inputs = [_peer_inputs(graphs[gi], devices, rng, lanes, poison=True)
+              for _, gi, lanes in order]
+    _sync_all(devices)
+    got = []
+    for (kind, gi, _), (h, a, inv) in zip(order, inputs):
+        got.append(up_seg_steps_peer(h, decay, 8, plans[gi]) if kind == "up"
+                   else down_seg_steps_peer(a, decay, 8, plans[gi], inv))
+    _sync_all(devices)
+    for (kind, gi, lanes), (h, a, inv), blocks in zip(order, inputs, got):
+        want = (up_shard_recursion(h, decay, 8, plans[gi].up,
+                                   up_seg_step_shard) if kind == "up"
+                else down_shard_recursion(a, decay, 8, plans[gi].dn, inv,
+                                          down_seg_step_shard))
+        k1, w = (torch.cat([b.to(devices[0]) for b in x], dim=-1)
+                 for x in (blocks, want))
+        if not torch.equal(_bits(k1), _bits(w)):
+            fail(f"seg_{kind}_steps_peer at {lanes} lanes on graph {gi} "
+                 f"({graphs[gi].n_pad} nodes), launched back to back with "
+                 f"other widths, is not bitwise the composition")
+    row = {"ranks": [str(d) for d in devices],
+           "n_pad": [g.n_pad for g in graphs],
+           "order": [f"{k}:{gi}:{lanes}" for k, gi, lanes in order],
+           "bitwise": True}
+    phase("peer_widths", **row)
+    return row
+
+
+def _peer_trap(plan) -> dict:
+    """Rank 0 of ``plan``'s up recursion launched alone (the wrapper's own
+    arguments, :func:`up_peer_args`), its barrier numbered past every flag
+    its peer can store, with the wait bounded at ``PEER_TRAP_NS``: the
+    launch must fail, its stream's synchronize raise, within a few
+    bounds.  The context is lost after it."""
+    import torch
+    from rca_tpu_torch.engine.segscan import (
+        grid_items,
+        peer_cap,
+        steps_grid,
+        up_peer_args,
+    )
+    from rca_tpu_torch.kernels.build import library
+
+    peer, dev = plan.peer, plan.devices[0]
+    seg, group = peer.up[0], peer.group
+    h = torch.rand(plan.n_pad, device=dev)
+    out = torch.empty(plan.block, device=dev)
+    stream = group.streams[0]
+    grid = steps_grid(max(1, grid_items(seg.n_seg, seg.n_long, seg.n_big)),
+                      1, peer_cap(dev.index, False))
+    group.ensure(plan.n_pad)
+    args = up_peer_args(plan, [h] * len(plan.devices), 0.7, 2, 1,
+                        wait_ns=PEER_TRAP_NS)(
+        0, (group.epoch + (1 << 20)) & 0xFFFFFFFF, 0)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    err = library().rca_seg_up_steps_peer(*args, out.data_ptr(), *grid,
+                                          stream.cuda_stream)
+    raised = None
+    try:
+        stream.synchronize()
+    except RuntimeError as exc:
+        raised = str(exc).splitlines()[0]
+    return {"launch_error": err, "raised": raised,
+            "wall_s": time.perf_counter() - t0,
+            "wait_bound_s": PEER_TRAP_NS / 1e9}
+
+
+def peer_rehearsal(edges_path: str) -> dict:
+    """Both peer recursions on one card: two ranks of ``cuda:0``, one
+    launch a rank on a stream of its own, each grid capped at half the
+    card's co-resident CTAs (``peer_cap`` halved in this process), the
+    bounded wait armed; over the tiers' edges (``edges_path``, an
+    ``.npz`` of ``src_<n>`` / ``dst_<n>``), checked bitwise the per-step
+    composition and the plain version at 1 / 8 / 16 lanes (at 2047 also 0
+    / 1 / 13 steps), twice each, and timed beside the composition; then
+    launches of one kind at different widths over both graphs back to
+    back (:func:`_check_peer_widths`); then rank 0 alone must trap
+    (:func:`_peer_trap`).  Runs in a process of its own: the trap loses
+    the context."""
+    import numpy as np
+    import torch
+    from rca_tpu_torch.engine import GraphEngine, ShardedGraphEngine, segscan
+    from rca_tpu_torch.kernels import LAUNCHES, build, cost, reset_launches
+    from rca_tpu_torch.parallel.mesh import make_mesh
+
+    build.library()
+    dev = torch.device("cuda", 0)
+    ranks = [dev, dev]
+    decay = GraphEngine(device="cpu").params.decay
+    edges = np.load(edges_path)
+    rng = np.random.default_rng(313)
+    errs = dict.fromkeys(PEER_KERNELS, 0.0)
+    out = {"ranks": 2, "checks": [], "times": {}, "seconds": {}}
+    full_cap = segscan.peer_cap
+    with mock.patch.object(segscan, "peer_cap",
+                           lambda index, down: full_cap(index, down) // 2):
+        reset_launches()
+        graphs = []
+        for n, _, _ in TIERS:
+            t0 = time.perf_counter()
+            graph = ShardedGraphEngine(mesh=make_mesh(
+                [("dp", 1), ("sp", 2)], ranks), resident=False)._shard(
+                n, edges[f"src_{n}"], edges[f"dst_{n}"])
+            graphs.append(graph)
+            out["checks"].append(_check_peer_recursions(
+                f"{n} services, 2 ranks of cuda:0", graph, ranks, rng, decay,
+                SHARD_LANES, CHECK_STEPS if n == 2047 else (8,), errs))
+            t1 = time.perf_counter()
+            out["times"][str(n)] = _time_peer_recursions(
+                graph, ranks, rng, decay, cost.NVLINK_BYTES_PER_S)
+            out["seconds"][str(n)] = {"check": t1 - t0,
+                                      "time": time.perf_counter() - t1}
+        out["launches"] = {name: LAUNCHES[name] for name in PEER_KERNELS}
+        t0 = time.perf_counter()
+        out["widths"] = _check_peer_widths(graphs, ranks, rng, decay)
+        out["seconds"]["widths"] = time.perf_counter() - t0
+        out["errs"] = errs
+        out["trap"] = _peer_trap(_peer_plan(graphs[-1], ranks))
+    return out
+
+
+def _peer_rehearsal_start(cases) -> dict:
+    """Start :func:`peer_rehearsal` in a process of its own
+    (``--peer-rehearsal``) over the tiers' edges; the full run starts it
+    beside the capture phase, which leaves the card idle, and the sharded
+    phase joins it."""
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_peer_")
+    path = os.path.join(tmp, "edges.npz")
+    np.savez(path, **{f"{k}_{n}": getattr(cases[n], f"dep_{k}")
+                      for n, _, _ in TIERS for k in ("src", "dst")})
+    return _side_start("--peer-rehearsal", path, tmp=tmp)
+
+
+def _peer_rehearsal_join(handle) -> dict:
+    """The started rehearsal's record, read from its last line: it must
+    pass, and rank 0 alone must have trapped within a few bounds."""
+    out = _side_join(handle, "peer_rehearsal", timeout=600)
+    trap = out["trap"]
+    if trap["launch_error"] != 0 or trap["raised"] is None or \
+            trap["wall_s"] > 20 * trap["wait_bound_s"]:
+        fail(f"rank 0 alone did not trap within its bound: {trap}")
+    out["parts_s"] = out.pop("seconds")
+    out["seconds"] = handle["seconds"]
+    phase("peer_rehearsal", **{k: out[k] for k in (
+        "launches", "errs", "trap", "seconds", "parts_s")},
+        times={n: {name: {key: t[key] for key in (
+            "ms", "ms_cuda0", "composition_ms", "call_ms", "plain_ms")}
+            for name, t in row.items()} for n, row in out["times"].items()})
+    return out
+
+
+def _nvlink_rate() -> tuple:
+    """``cuda:0``'s NVLink rate in one direction as ``nvidia-smi nvlink
+    -s`` reads it (the sum of its links' GB/s, in bytes/s; None where it
+    lists none), and the lines it printed."""
+    import re
+
+    proc = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"],
+                          capture_output=True, text=True, timeout=60)
+    lines = proc.stdout.strip().splitlines()
+    rates = [float(m) for m in re.findall(r"Link \d+: ([\d.]+) GB/s",
+                                          proc.stdout)]
+    return (sum(rates) * 1e9 if rates else None), lines
+
+
+def _peer_batch(case, lanes: int, rng):
+    """``lanes`` lanes of the case's features, every lane but the first
+    with 6 rows redrawn."""
+    import numpy as np
+
+    batch = np.repeat(case.features[None], lanes, axis=0)
+    for b in range(1, lanes):
+        batch[b, rng.integers(0, case.n, 6)] = rng.uniform(0, 1, (6, C))
+    return batch
+
+
 def multi_card_phase(cases, big, dense=None) -> dict:
-    """The sharded engine over distinct cards (two or more): ``sp = 2``
-    over two cards (the ``step`` form, 16 / 16 per-shard steps) bitwise
-    two logical shards of ``cuda:0`` (the ``shard_grid`` form; restaged,
-    at 49,999 services) and three sync-free streaming dispatches over them;
-    then what a multi-card host runs, ``make_engine()`` with ``RCA_SHARD``
-    unset (one shard on every card): its ``analyze_arrays`` wall
-    (restaged, median of 20) at each tier and its tick wall at 10,000
-    services (8-row deltas, median of 20), beside the same shards as
-    logical shards of ``cuda:0`` and the dense engine on ``cuda:0``."""
+    """The sharded engine over distinct cards (two or more), where the
+    plan takes the ``peer`` form (each recursion one cooperative launch a
+    card exchanging blocks through peer memory, ``csrc/segpeer.cu``):
+    the forms (two logical shards ``shard_grid``, two cards ``peer``, the
+    same cards under :func:`_step_form` ``step``); both peer recursions
+    bitwise the per-step composition on the same cards and the plain
+    version at 2047 and 49,999 services, at sp 2 and over every card, at
+    1 / 8 / 16 lanes (at 2047 also 0 / 1 / 13 steps), twice each, and on
+    the star and the hub over every card; the engine's full diagnostics
+    at the same sizes and lanes bitwise the logical shards' ``shard_grid``
+    run and the ``step`` form over the same cards, twice, each analysis's
+    launches (sp / sp peer launches, no per-shard step) and collectives,
+    and the ``step`` run's own (8 sp / 8 sp per-shard steps, 19 gathers
+    and 9 reduce-scatters); launches of one kind back to back at
+    different widths over both tiers' graphs (:func:`_check_peer_widths`);
+    three sync-free streaming dispatches over two cards; the recursions'
+    card, call and plain times beside the composition, and the NVLink
+    rate ``nvidia-smi`` reads; then what a multi-card host runs,
+    ``make_engine()`` with ``RCA_SHARD`` unset (one shard on every card):
+    its ``analyze_arrays`` wall (restaged, median of 20) at each tier and
+    its tick wall at 10,000 services (8-row deltas, median of 20), beside
+    the same mesh in the ``step`` form, the same shards as logical shards
+    of ``cuda:0`` and the dense engine on ``cuda:0``, and a profile of one
+    analysis over the cards and on ``cuda:0`` at each tier."""
     import numpy as np
     import torch
     from rca_tpu_torch.engine import GraphEngine, ShardedGraphEngine, make_engine
     from rca_tpu_torch.engine.streaming import StreamingSession
-    from rca_tpu_torch.kernels import LAUNCHES, reset_launches
+    from rca_tpu_torch.kernels import LAUNCHES, cost, reset_launches
+    from rca_tpu_torch.parallel import collectives
     from rca_tpu_torch.parallel.mesh import make_mesh
     from rca_tpu_torch.parallel.sharded import shard_plans
     from rca_tpu_torch.parallel.streaming import ShardedStreamingSession
 
+    t_phase = time.perf_counter()
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         fail(f"the multi-card phase needs two cards or more, found {n_cards}")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(909)
     dense = dense or GraphEngine(resident=False)
+    decay = dense.params.decay
 
     def mesh(sp, devices=None):
         return make_mesh([("dp", 1), ("sp", sp)], devices or [dev] * sp)
 
-    cards = [torch.device("cuda", i) for i in range(2)]
-    case = cases[49999]
-    # two logical shards run the shard_grid form, two cards the step form
-    over = ShardedGraphEngine(mesh=mesh(2, cards), resident=False)
-    graph = over._shard(case.n, case.dep_src, case.dep_dst)
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    sps = sorted({2, n_cards})
+    rate, smi_lines = _nvlink_rate()
+    out = {"cards": n_cards, "sps": sps,
+           "nvlink": {"bytes_per_s": rate,
+                      "model_bytes_per_s": cost.NVLINK_BYTES_PER_S,
+                      "nvidia_smi": smi_lines}}
+    phase("sharded_multi_card", leg="nvlink", **out["nvlink"])
+    link = rate or cost.NVLINK_BYTES_PER_S
+
+    # -- the forms ------------------------------------------------------------
+    case = cases[TIERS[-1][0]]
+    graph = ShardedGraphEngine(mesh=mesh(2, cards[:2]), resident=False)._shard(
+        case.n, case.dep_src, case.dep_dst)
     forms = {label: shard_plans(m, graph, "kernels")[0].steps_form
              for label, m in (("logical", mesh(2)),
-                              ("cards", mesh(2, cards)))}
-    if forms != {"logical": "shard_grid", "cards": "step"}:
+                              ("cards", mesh(2, cards[:2])))}
+    with _step_form():
+        forms["cards_step"] = shard_plans(mesh(2, cards[:2]), graph,
+                                          "kernels")[0].steps_form
+    if forms != {"logical": "shard_grid", "cards": "peer",
+                 "cards_step": "step"}:
         fail(f"the sharded plans' forms: {forms}")
-    a = ShardedGraphEngine(mesh=mesh(2), resident=False).analyze_arrays(
-        case.features, case.dep_src, case.dep_dst, case.names)
-    over.analyze_arrays(case.features, case.dep_src, case.dep_dst,
-                        case.names)
-    torch.cuda.synchronize()
-    reset_launches()
-    b = over.analyze_arrays(case.features, case.dep_src, case.dep_dst,
-                            case.names)
-    cards_l = dict(LAUNCHES)
-    if cards_l != _shard_launches(2, "step"):
-        fail(f"sp = 2 over two cards: launches {cards_l}")
-    if not np.array_equal(_f32bits(a.full_diagnostics()),
-                          _f32bits(b.full_diagnostics())):
-        fail("sp = 2 over two cards differs from two logical shards")
+    out["forms"] = forms
+
+    # -- the two kernels against the composition and the plain version --------
+    errs = dict.fromkeys(PEER_KERNELS, 0.0)
+    out["checks"] = []
+    for n in cases:
+        for sp in sps:
+            g = ShardedGraphEngine(mesh=mesh(sp, cards[:sp]),
+                                   resident=False)._shard(
+                n, cases[n].dep_src, cases[n].dep_dst)
+            out["checks"].append(_check_peer_recursions(
+                f"{n} services, {sp} cards", g, cards[:sp], rng, decay,
+                SHARD_LANES, CHECK_STEPS if n == 2047 else (8,), errs))
+    over_all = ShardedGraphEngine(mesh=mesh(n_cards, cards), resident=False)
+    block = over_all._shard(2047, np.zeros(0, np.int32),
+                            np.zeros(0, np.int32)).block
+    for label, edges in (("star", _star_case(2047, 3)),
+                         ("hub", _hub_case(2047, block, 4))):
+        out["checks"].append(_check_peer_recursions(
+            f"{label}, {n_cards} cards", over_all._shard(2047, *edges),
+            cards, rng, decay, (1, 16), (1, 8), errs))
+    out["errs"] = errs
+    out["widths"] = _check_peer_widths(
+        [over_all._shard(n, c.dep_src, c.dep_dst) for n, c in cases.items()],
+        cards, rng, decay)
+
+    # -- the engine: bitwise the logical shards and the step form --------------
+    out["engine"] = []
+    for n, c in cases.items():
+        for sp in sps:
+            over = ShardedGraphEngine(mesh=mesh(sp, cards[:sp]),
+                                      resident=False)
+            logical = ShardedGraphEngine(mesh=mesh(sp), resident=False)
+            g = over._shard(n, c.dep_src, c.dep_dst)
+            for lanes in SHARD_LANES:
+                if lanes == 1:
+                    def run(e, c=c):
+                        return [e.analyze_arrays(c.features, c.dep_src,
+                                                 c.dep_dst, c.names)]
+                else:
+                    batch = _peer_batch(c, lanes, rng)
+
+                    def run(e, c=c, batch=batch):
+                        return e.analyze_batch(batch, c.dep_src, c.dep_dst,
+                                               c.names)
+
+                run(over)
+                _sync_all(cards)
+                reset_launches()
+                collectives.reset_collectives()
+                got = run(over)
+                launches = dict(LAUNCHES)
+                calls = dict(collectives.COLLECTIVE_CALLS)
+                moved = dict(collectives.COLLECTIVE_BYTES)
+                if launches != _shard_launches(sp, "peer"):
+                    fail(f"peer launches at {n}, sp {sp}, {lanes} lanes: "
+                         f"{launches}")
+                # 3 gathers (e, h, a) and the degree's reduce-scatter from
+                # the host; the recursions' pushes: w 7 blocks a
+                # recursion, the contributions 8
+                per_call = (sp - 1) * g.block * 4 * lanes
+                budget = {"all_gather": (3 + 14) * sp * per_call,
+                          "reduce_scatter": sp * (sp - 1) * g.block * 4
+                          + 8 * sp * per_call}
+                if (calls["all_gather"], calls["reduce_scatter"]) != (3, 1) \
+                        or any(moved[k] != budget[k] for k in budget):
+                    fail(f"peer collectives at {n}, sp {sp}, {lanes} lanes: "
+                         f"{calls} {moved}, budget {budget}")
+                again = run(over)
+                want = run(logical)
+                # the step form over the same cards, its own launches and
+                # host collectives counted, so that the twin below is the
+                # composition and not the peer kernels again
+                reset_launches()
+                collectives.reset_collectives()
+                with _step_form():
+                    stepped = run(over)
+                step_launches = dict(LAUNCHES)
+                step_calls = dict(collectives.COLLECTIVE_CALLS)
+                if step_launches != _shard_launches(sp, "step") or (
+                        step_calls["all_gather"],
+                        step_calls["reduce_scatter"]) != (19, 9):
+                    fail(f"step form over the cards at {n}, sp {sp}, "
+                         f"{lanes} lanes: {step_launches} {step_calls}")
+                for label, other in (("again", again), ("logical", want),
+                                     ("step", stepped)):
+                    if not all(np.array_equal(
+                            _f32bits(a.full_diagnostics()),
+                            _f32bits(b.full_diagnostics()))
+                            for a, b in zip(got, other)):
+                        fail(f"peer diagnostics at {n}, sp {sp}, {lanes} "
+                             f"lanes differ from {label}")
+                    if [r.top_components() for r in got] != \
+                            [r.top_components() for r in other]:
+                        fail(f"peer top-k at {n}, sp {sp}, {lanes} lanes "
+                             f"differs from {label}")
+                if not all(np.isfinite(r.full_diagnostics()).all()
+                           for r in got):
+                    fail(f"non-finite peer diagnostics at {n}, sp {sp}")
+                row = {"services": n, "sp": sp, "lanes": lanes,
+                       "launches": {k: launches[k] for k in (
+                           *PEER_KERNELS, *STEP_KERNELS, "evidence_front",
+                           "seg_contrast_step")},
+                       "collective_calls": calls, "collective_bytes": moved,
+                       "step_launches": {k: step_launches[k] for k in (
+                           *PEER_KERNELS, *STEP_KERNELS)},
+                       "step_collective_calls": step_calls,
+                       "bitwise": ["again", "logical", "step"],
+                       "top": got[0].top_components()[:3]}
+                out["engine"].append(row)
+                phase("sharded_multi_card", leg="engine", **row)
+
+    # -- streaming over two cards: sync-free dispatches ------------------------
     n = big.features.shape[0]
     names = [f"svc-{i}" for i in range(n)]
 
@@ -8660,33 +9461,67 @@ def multi_card_phase(cases, big, dense=None) -> dict:
         s_.set_all(big.features)
         return s_
 
-    ss = session(ShardedGraphEngine(mesh=mesh(2, cards)))
+    ss = session(ShardedGraphEngine(mesh=mesh(2, cards[:2])))
+    if ss._plan.steps_form != "peer":
+        fail(f"the streaming session over two cards: {ss._plan.steps_form}")
     for _ in range(3):
         ss.update_rows(rng.choice(n, 8, replace=False),
                        rng.uniform(0, 1, (8, C)).astype(np.float32))
         ss.fetch(_no_sync(ss.dispatch))
+    out["sync_free_dispatches"] = 3
 
+    # -- the recursions' times over every card, beside the composition ---------
+    out["times"] = {}
+    for n_, c in cases.items():
+        g = over_all._shard(n_, c.dep_src, c.dep_dst)
+        out["times"][str(n_)] = _time_peer_recursions(
+            g, cards, rng, decay, link, plain=n_ == 2047)
+        phase("sharded_multi_card", leg="times", services=n_,
+              **out["times"][str(n_)])
+
+    # -- what a multi-card host runs --------------------------------------------
     auto = make_engine()
     over_cards = ShardedGraphEngine(mesh=auto.mesh, resident=False)
     sp = auto.mesh.shape["sp"]
     logical = ShardedGraphEngine(mesh=mesh(sp), resident=False)
     walls = {}
     for n_, c in cases.items():
-        walls[str(n_)] = {
-            label: host_ms(lambda e=e, c=c: e.analyze_arrays(
-                c.features, c.dep_src, c.dep_dst, c.names))
-            for label, e in (("cards", over_cards), ("logical", logical),
-                             ("dense", dense))}
-    walls["tick_10000"] = {
-        label: float(np.median(_tick_walls(session(e), rng)))
-        for label, e in (("cards", ShardedGraphEngine(mesh=auto.mesh)),
-                         ("logical", ShardedGraphEngine(mesh=mesh(sp))),
-                         ("dense", GraphEngine()))}
-    out = {"cards": n_cards, "sp": 2, "bitwise_logical": True,
-           "forms": forms, "launches_over_cards": cards_l,
-           "sync_free_dispatches": 3, "make_engine": auto.engine_tag,
-           "mesh": [str(d) for d in auto.mesh.flat], "walls_ms": walls}
-    phase("sharded_multi_card", **out)
+        def call(e, c=c):
+            return e.analyze_arrays(c.features, c.dep_src, c.dep_dst,
+                                    c.names)
+
+        walls[str(n_)] = {}
+        for label, e in (("cards", over_cards), ("cards_step", over_cards),
+                         ("logical", logical), ("dense", dense)):
+            ctx = (_step_form() if label == "cards_step"
+                   else contextlib.nullcontext())
+            with ctx:
+                walls[str(n_)][label] = host_ms(lambda e=e: call(e))
+    walls["tick_10000"] = {}
+    for label, make in (
+            ("cards", lambda: ShardedGraphEngine(mesh=auto.mesh)),
+            ("cards_step", lambda: ShardedGraphEngine(mesh=auto.mesh)),
+            ("logical", lambda: ShardedGraphEngine(mesh=mesh(sp))),
+            ("dense", GraphEngine)):
+        ctx = (_step_form() if label == "cards_step"
+               else contextlib.nullcontext())
+        with ctx:
+            walls["tick_10000"][label] = float(np.median(_tick_walls(
+                session(make()), rng)))
+    # where an analysis's wall goes over the cards and on one card
+    profiles = {}
+    for n_, c in cases.items():
+        for label, e in (("cards", over_cards), ("logical", logical)):
+            profiles[f"{label}_{n_}"] = device_profile(
+                lambda e=e, c=c: e.analyze_arrays(
+                    c.features, c.dep_src, c.dep_dst, c.names),
+                walls[str(n_)][label], None, f"multi_{label}_{n_}", calls=3,
+                warm=2)
+    out.update(make_engine=auto.engine_tag,
+               mesh=[str(d) for d in auto.mesh.flat], walls_ms=walls,
+               profiles=profiles, seconds=time.perf_counter() - t_phase)
+    phase("sharded_multi_card", leg="walls", make_engine=auto.engine_tag,
+          walls_ms=walls, seconds=out["seconds"])
     return out
 
 
@@ -8735,7 +9570,8 @@ def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
                    calls: int = 3, warm: int = 1) -> dict:
     """Device time, kernel launches, device kernels and the busy share of
     one ``fn`` call (``torch.profiler`` over ``calls`` calls after ``warm``
-    unprofiled ones), and the five device ops that take the most time; the
+    unprofiled ones), the five device ops that take the most time and the
+    eight host ops with the most self time (calls and µs a call); the
     table goes to ``out_dir/profile_<name>.txt`` when ``out_dir`` is given.
     The busy share divides the device time of one call by its unprofiled
     host wall time (the profiler's own start-up would swamp a profiled wall
@@ -8777,12 +9613,17 @@ def device_profile(fn, host_ms_per_call: float, out_dir, name: str,
             f.write(events.table(sort_by="self_cuda_time_total",
                                  row_limit=40))
     top = sorted(on_device, key=dev_us, reverse=True)[:5]
+    on_host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     return {"device_us_per_call": device_us,
             "launches_per_call": launches,
             "device_kernels_per_call": kernels,
             "host_ms_per_call": host_ms_per_call,
             "device_busy_share": device_us / 1e3 / host_ms_per_call,
-            "top_device_ops": [[e.key[:60], dev_us(e) / calls] for e in top]}
+            "top_device_ops": [[e.key[:60], dev_us(e) / calls] for e in top],
+            "top_host_ops": [[e.key[:60], e.count / calls,
+                              e.self_cpu_time_total / calls]
+                             for e in on_host]}
 
 
 def profile(engine, case, host_ms_per_analysis: float, out=None,

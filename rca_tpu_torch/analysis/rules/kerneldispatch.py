@@ -13,8 +13,9 @@ expressions (``_FRONTS[row]``, ``up = up_seg_step_shard if kern else
 ...``), so a REFERENCE to a target counts as a use, not only a call
 (imports do not).  Flagged inside ``rca_tpu_torch/``, outside the seam
 files: the CUDA kernels' wrappers (the front, its halves, the seg steps,
-the one-CTA and the grid recursions, the per-shard entries and the front
-and the recursions over every shard of one card, the flagged scans), the
+the one-CTA and the grid recursions, the per-shard entries, the front
+and the recursions over every shard of one card and the recursions over
+distinct cards, the flagged scans), the
 shared propagation body (``propagate_core``), the layout
 assembly (``build_seg_layouts``), the ``quantized`` and ``doubling``
 rows' bodies and layout gates, and the attribution executables.
@@ -49,6 +50,8 @@ TARGETS = frozenset({
     "down_seg_steps_shard",
     "up_seg_step_shard",
     "down_seg_step_shard",
+    "up_seg_steps_peer",
+    "down_seg_steps_peer",
     "segscan_sum",
     "segscan_max",
     # the shared propagation body and the layout assembly

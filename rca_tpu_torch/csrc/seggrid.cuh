@@ -1,6 +1,7 @@
 // The grid recursions' device code, shared by seggrid.cu (the dense
-// engine's recursions above one CTA) and segshard.cu (the node-sharded
-// engine's recursions over every shard of one card): the work items, the
+// engine's recursions above one CTA), segshard.cu (the node-sharded
+// engine's recursions over every shard of one card) and segpeer.cu (its
+// recursions over distinct cards, one launch a card): the work items, the
 // staging of a CTA's layout run, the three segment reductions and the
 // persistent cooperative kernel over one layout in item order.  seggrid.cu's
 // header says what the kernel computes, why it is one launch and why it is
@@ -81,6 +82,31 @@ struct DownGrid {
     if (__float_as_uint(v) != 0u) return false;
     *total = 0.0f;
     return true;
+  }
+};
+
+// Phase 1 of the shards' impact step (segshard.cu, segpeer.cu): a (shard,
+// destination) pair's unscaled sum of segstep.cu's DownSumStep values,
+// written to the pair's slot; the pair is no node, so it reads nothing of
+// its own and writes no gathered value.
+struct DownPart {
+  static constexpr bool kOwner = false;
+  static __device__ __forceinline__ float value(float gamma, float in,
+                                                float x) {
+    return __fadd_rn(in, __fmul_rn(gamma, x));
+  }
+  static __device__ __forceinline__ float combine(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  static __device__ __forceinline__ float finish(float total, float,
+                                                 float) {
+    return total;
+  }
+  static __device__ __forceinline__ float scale(const float*, int) {
+    return 1.0f;
+  }
+  static __device__ __forceinline__ bool pad_total(float, float*) {
+    return false;
   }
 };
 

@@ -87,30 +87,6 @@ namespace {
 // under a name of its own
 struct UpShard : UpGrid {};
 
-// Phase 1 of the impact step: a (shard, destination) pair's unscaled sum
-// of segstep.cu's DownSumStep values, written to the pair's slot; the pair
-// is no node, so it reads nothing of its own and writes no gathered value.
-struct DownPart {
-  static constexpr bool kOwner = false;
-  static __device__ __forceinline__ float value(float gamma, float in,
-                                                float x) {
-    return __fadd_rn(in, __fmul_rn(gamma, x));
-  }
-  static __device__ __forceinline__ float combine(float a, float b) {
-    return __fadd_rn(a, b);
-  }
-  static __device__ __forceinline__ float finish(float total, float,
-                                                 float) {
-    return total;
-  }
-  static __device__ __forceinline__ float scale(const float*, int) {
-    return 1.0f;
-  }
-  static __device__ __forceinline__ bool pad_total(float, float*) {
-    return false;
-  }
-};
-
 struct ShardDown {
   GridArgs g;                 // phase 1: in = a_ex, w, out = c, inv_deg
   const int* reach_offsets;   // [n_pad + 1]

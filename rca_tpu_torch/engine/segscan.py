@@ -19,13 +19,18 @@ and the evolving vector in its shared memory), above it
 :func:`down_seg_steps_grid` / :func:`up_seg_steps_grid`
 (``csrc/seggrid.cu``: one cooperative launch over the card, a grid
 barrier a step), both bitwise equal to the per-step launches; those stay
-for the node-sharded engine over distinct cards and as the yardstick.
+for the node-sharded engine's ``step`` form and as the yardstick.
 The node-sharded engine's shards on one card run
 :func:`up_seg_steps_shard` / :func:`down_seg_steps_shard` instead
 (``csrc/segshard.cu``: one cooperative launch per recursion over every
 shard, over the shards' joined layouts, :class:`ShardGrid`), bitwise the
 per-step composition of the per-shard entries and the collectives, whose
-plain form is their plain version.  On CPU
+plain form is their plain version; its shards one a card on distinct
+cards run :func:`up_seg_steps_peer` / :func:`down_seg_steps_peer`
+(``csrc/segpeer.cu``: one cooperative launch a card per recursion, the
+blocks stored into the peers' memory, a barrier across the cards on
+flags; :func:`launch_peer` enqueues the cards' launches back to back on
+dedicated streams under one lock), bitwise the same composition.  On CPU
 tensors the steps compute their plain versions
 (:func:`down_seg_step_plain` / :func:`up_seg_step_plain`): the
 reference's composition of a gather, a flagged inclusive segmented scan
@@ -1080,3 +1085,372 @@ def down_seg_steps_shard(a_ex, decay: float, steps: int, segs,
          grid.dn_seg.data_ptr(), grid.dn_offsets.data_ptr(),
          grid.dn_other.data_ptr(), pairs, grid.dn_n_long, grid.dn_n_big,
          grid.reach_offsets.data_ptr(), grid.reach.data_ptr()))
+
+
+# -- the recursions over distinct cards (csrc/segpeer.cu) ---------------------
+
+#: cards one peer launch reaches (``csrc/segpeer.cu``'s ``kMaxCards``)
+MAX_PEER_CARDS = 16
+#: the bound of one wait at the peer recursions' barrier across the cards:
+#: past it the kernel traps, the context is lost and the next CUDA call
+#: raises (a peer that never arrives cannot hang the caller)
+PEER_WAIT_NS = 2_000_000_000
+
+
+class PeerSeg(NamedTuple):
+    """One card's layout of one recursion in the grid recursions' item
+    order (:func:`item_layout`, real edges only): ``seg`` the positions'
+    segments as global node ids (up: the card's own sources; down: the
+    destinations its edges reach, one (card, destination) pair a
+    position), ``offsets`` / ``other`` their CSR, ``n_long`` long and the
+    first ``n_big`` big.  numpy on the host; :meth:`to` moves it."""
+
+    seg: np.ndarray        # int32 [n_seg]
+    offsets: np.ndarray    # int32 [n_seg + 1]
+    other: np.ndarray      # int32 [e_k]
+    n_long: int
+    n_big: int
+
+    @property
+    def n_seg(self) -> int:
+        return self.seg.shape[0]
+
+    def to(self, device) -> "PeerSeg":
+        return PeerSeg(*(torch.from_numpy(f).to(device)
+                         if isinstance(f, np.ndarray) else f for f in self))
+
+
+def build_peer_layouts(up_offsets, up_other, dn_offsets, dn_other) -> tuple:
+    """Each card's ``(up, down)`` :class:`PeerSeg` of ``sp`` shards, one a
+    card, from their per-shard CSR layouts (``ShardedSegLayouts``'
+    ``[sp, ...]`` fields): card ``k``'s part of :func:`build_shard_grid`'s
+    joined layouts, in the same item order."""
+    block = up_offsets.shape[1] - 1
+    out = []
+    for k in range(len(up_offsets)):
+        up = _joined_items(up_other[k][:up_offsets[k][-1]],
+                           np.diff(up_offsets[k]))
+        counts = np.diff(dn_offsets[k])
+        reached = np.flatnonzero(counts)
+        dn = _joined_items(dn_other[k][:dn_offsets[k][-1]], counts[reached])
+        out.append((PeerSeg((up[0] + k * block).astype(np.int32), *up[1:]),
+                    PeerSeg(reached[dn[0]].astype(np.int32), *dn[1:])))
+    return tuple(out)
+
+
+# The peer launches' streams and cards.  Every launch of the peer form is
+# enqueued under _PEER_LOCK on one dedicated stream per card, shared by
+# every thread, so the sp launches of one recursion sit back to back in
+# every card's queue and no card holds a peer launch behind another's that
+# waits for it.
+_PEER_LOCK = make_lock("segscan._PEER_LOCK")
+_PEER_STREAMS: dict = {}
+_PEER_GROUPS: dict = {}
+
+
+class PeerGroup:
+    """The cards of one peer row, one shard a card, shared by every graph
+    that runs on them: each card's dedicated launch stream; its flag words
+    (``MAX_PEER_CARDS`` int32, zeroed and synchronized once, before any
+    card stores into them) and the barrier count the next launch numbers
+    from; and the buffers the peers store into, each card's up copy of
+    ``w`` and inbox (two halves of ``floats`` each, ``floats`` the
+    capacity, so that the halves sit at the same place whatever a
+    launch's width) and impact copy of ``w`` (``floats``), with their
+    pointer tables and parities, which run on across launches.  Those
+    buffers come from an allocation stream of their own and are never
+    freed (an outgrown set is kept): memory that a peer may still write
+    is never handed to anything else.  Peer access is granted for every
+    ordered pair of cards through PyTorch's own copy path, which also
+    maps the caching allocator's segments for the peer."""
+
+    def __init__(self, devices):
+        self.devices = tuple(devices)
+        for i in self.devices:
+            for j in self.devices:
+                if i != j:
+                    torch.empty(1, device=j).copy_(torch.empty(1, device=i))
+        self.streams = []
+        for d in self.devices:
+            if d.index not in _PEER_STREAMS:
+                _PEER_STREAMS[d.index] = torch.cuda.Stream(device=d)
+            self.streams.append(_PEER_STREAMS[d.index])
+        self.alloc = [torch.cuda.Stream(device=d) for d in self.devices]
+        self.flags = []
+        for d, s in zip(self.devices, self.alloc):
+            with torch.cuda.stream(s):
+                self.flags.append(torch.zeros(MAX_PEER_CARDS,
+                                              dtype=torch.int32, device=d))
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+        self.flag_table = _pointers(self.flags)
+        self.epoch = 0
+        self.up_parity = 0
+        self.dn_parity = 0
+        self.floats = 0
+        self.retired: list = []
+
+    def ensure(self, floats: int) -> None:
+        """Exchange buffers for ``floats`` = lanes x n_pad (a power of two
+        at least that; under the peer lock)."""
+        if floats <= self.floats:
+            return
+        cap = 1 << (floats - 1).bit_length()
+        if self.floats:
+            self.retired.append((self.up_w, self.dn_w, self.inbox))
+        self.up_w, self.dn_w, self.inbox = [], [], []
+        for d, s in zip(self.devices, self.alloc):
+            with torch.cuda.stream(s):
+                self.up_w.append(torch.empty(2 * cap, device=d))
+                self.dn_w.append(torch.empty(cap, device=d))
+                self.inbox.append(torch.empty(2 * cap, device=d))
+        self.tables = {name: _pointers(getattr(self, name))
+                       for name in ("up_w", "dn_w", "inbox")}
+        self.floats = cap
+
+
+def _pointers(tensors):
+    return (ctypes.c_ulonglong * len(tensors))(*(t.data_ptr()
+                                                 for t in tensors))
+
+
+def peer_group(devices) -> PeerGroup:
+    """The :class:`PeerGroup` of one device list (made once, synchronizing
+    its cards once)."""
+    devices = tuple(torch.device(d) for d in devices)
+    key = tuple(str(d) for d in devices)
+    with _PEER_LOCK:
+        if key not in _PEER_GROUPS:
+            _PEER_GROUPS[key] = PeerGroup(devices)
+        return _PEER_GROUPS[key]
+
+
+class PeerGrid(NamedTuple):
+    """The ``peer`` form's state of one ``dp`` row of one graph, one shard
+    a card: each card's up and down :class:`PeerSeg` on its card; on CUDA
+    devices the cards' :class:`PeerGroup` and each card's dense impact
+    contributions (``contrib``, ``[B, n_pad]`` on its launch stream, zero
+    where the card reaches nothing, kept between launches and grown where
+    a call needs more lanes; only the card itself writes them).  The CPU
+    holds no group: the wrappers compute their plain versions there."""
+
+    up: tuple
+    dn: tuple
+    group: "PeerGroup | None" = None
+    contrib: "list | None" = None
+
+
+def peer_grid(layouts, devices) -> PeerGrid:
+    """The :class:`PeerGrid` of :func:`build_peer_layouts`' ``layouts`` on
+    ``devices`` (one a card)."""
+    devices = [torch.device(d) for d in devices]
+    up = tuple(lay[0].to(d) for lay, d in zip(layouts, devices))
+    dn = tuple(lay[1].to(d) for lay, d in zip(layouts, devices))
+    if devices[0].type != "cuda":
+        return PeerGrid(up, dn)
+    return PeerGrid(up, dn, peer_group(devices), [None] * len(devices))
+
+
+def _contrib(peer: PeerGrid, k: int, floats: int) -> torch.Tensor:
+    """Card ``k``'s contributions of at least ``floats`` (under the peer
+    lock)."""
+    have = peer.contrib[k]
+    if have is None or have.numel() < floats:
+        with torch.cuda.stream(peer.group.streams[k]):
+            peer.contrib[k] = torch.zeros(floats,
+                                          device=peer.group.devices[k])
+    return peer.contrib[k]
+
+
+@functools.lru_cache(maxsize=None)
+def peer_cap(device_index: int, down: bool) -> int:
+    """The most CTAs of the ``down`` (else up) peer recursion that CUDA
+    device ``device_index`` holds at once; read once per device."""
+    from rca_tpu_torch.kernels.build import check, library
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(library().rca_seg_steps_peer_cap(int(down), ctypes.byref(out)),
+              "seg_steps_peer co-resident bound")
+    return out.value
+
+
+def _peer_lanes(name: str, plan, vectors: dict, shared: dict = None) -> int:
+    """The peer wrappers' input contract, card by card (:func:`check_step`
+    with each card's block at ``k * block`` of its full vectors, the
+    ``shared`` ones ``[block]``): lanes as :func:`check_step` gives them,
+    equal on every card."""
+    got = set()
+    for k, seg in enumerate(plan.up):
+        lanes, n_val = check_step(
+            name, seg.offsets, None,
+            {key: v[k] for key, v in vectors.items()},
+            {key: v[k] for key, v in (shared or {}).items()},
+            base=k * (seg.offsets.shape[0] - 1))
+        got.add((lanes, n_val, tuple(next(iter(vectors.values()))[k].shape)))
+    if len(got) != 1 or next(iter(got))[1] != plan.n_pad:
+        raise ValueError(f"{name}: the cards' vectors differ or are not "
+                         f"[{plan.n_pad}] lanes: {sorted(got)}")
+    return next(iter(got))[0]
+
+
+def launch_peer(name: str, peer: PeerGrid, steps: int, lanes: int,
+                n_pad: int, outs, card_args):
+    """The cooperative launches of one peer recursion ``name``, one a card,
+    enqueued back to back under the peer lock on the cards' dedicated
+    streams, each after its card's current stream and before it again (no
+    host sync), each counted once.  ``card_args(k, epoch, parity)``: card
+    ``k``'s leading arguments (:func:`up_peer_args` /
+    :func:`down_peer_args`; the impact's contributions follow them).  A
+    refused launch raises: there is no other form to fall back to (the
+    launches already made then trap at their first barrier)."""
+    from rca_tpu_torch.kernels.build import check, library
+    from rca_tpu_torch.parallel.collectives import count_moved
+
+    entry = getattr(library(), f"rca_{name}")
+    down = name == "seg_down_steps_peer"
+    group = peer.group
+    segs = peer.dn if down else peer.up
+    grids = [steps_grid(max(1, grid_items(seg.n_seg, seg.n_long, seg.n_big)),
+                        lanes, peer_cap(d.index, down))
+             for seg, d in zip(segs, group.devices)]
+    floats = lanes * n_pad
+    with _PEER_LOCK:
+        group.ensure(floats)
+        epoch = group.epoch
+        parity = group.dn_parity if down else group.up_parity
+        for k, (d, stream) in enumerate(zip(group.devices, group.streams)):
+            stream.wait_stream(torch.cuda.current_stream(d))
+            args = card_args(k, epoch, parity)
+            if down:
+                args += (_contrib(peer, k, floats).data_ptr(),)
+            with torch.cuda.device(d):
+                err = entry(*args, outs[k].data_ptr(), *grids[k],
+                            stream.cuda_stream)
+            check(err, name)
+            count_launch(name, shard=True)
+        for d, stream in zip(group.devices, group.streams):
+            torch.cuda.current_stream(d).wait_stream(stream)
+        # the barriers the launches numbered, and the buffers they pushed
+        group.epoch = (epoch + (2 * steps - 1 if down else steps - 1)) \
+            & 0xFFFFFFFF
+        if down:
+            group.dn_parity += steps
+        else:
+            group.up_parity += steps - 1
+    # what the launches moved between the cards, under the collectives'
+    # kinds: each step's contributions as the reduce-scatter moves them,
+    # and each pushed block of w as the all-gather moves it
+    sp = len(group.devices)
+    per_push = (sp - 1) * lanes * n_pad * 4
+    count_moved("all_gather", (steps - 1) * per_push)
+    if down:
+        count_moved("reduce_scatter", steps * per_push)
+    return outs
+
+
+def up_seg_steps_peer_plain(h_full, decay: float, steps: int, plan):
+    """The explain-away recursion of the plan's shards in plain PyTorch:
+    the per-step composition, :func:`up_shard_recursion` with the plain
+    per-shard step.  Returns each shard's ``[..., block]`` block."""
+    return up_shard_recursion(h_full, decay, steps, plan.up)
+
+
+def down_seg_steps_peer_plain(a_ex_full, decay: float, steps: int, plan,
+                              inv_deg_blk):
+    """The impact recursion of the plan's shards in plain PyTorch:
+    :func:`down_shard_recursion` with the plain per-shard step."""
+    return down_shard_recursion(a_ex_full, decay, steps, plan.dn,
+                                inv_deg_blk)
+
+
+def up_seg_steps_peer(h_full, decay: float, steps: int, plan):
+    """The explain-away recursion of a ``peer`` plan's shards, one a card,
+    ``u_0 = 0``, ``u_{k+1}[s] = max(u_k[s], max over the shard's edges
+    (s, d) of max(h[d], decay*u_k[d]))``, from each card's full ``[n_pad]``
+    (or ``[B, n_pad]``) ``h_full[k]``, returning each card's ``[...,
+    block]`` block of ``u_steps``: on CUDA tensors one cooperative launch
+    of the ``seg_up_steps_peer`` kernel a card for every step and lane
+    (none for ``steps == 0``), the blocks exchanged through peer memory,
+    bitwise the per-step composition; on CPU tensors
+    :func:`up_seg_steps_peer_plain`."""
+    steps = _step_count("seg_up_steps_peer", steps)
+    lanes = _peer_lanes("seg_up_steps_peer", plan, {"h_full": h_full})
+    if not lanes:
+        return up_seg_steps_peer_plain(h_full, decay, steps, plan)
+    block = plan.block
+    outs = [h.new_empty(h.shape[:-1] + (block,)) for h in h_full]
+    if steps == 0:
+        return [o.zero_() for o in outs]
+    return launch_peer("seg_up_steps_peer", plan.peer, steps, lanes,
+                       plan.n_pad, outs,
+                       up_peer_args(plan, h_full, decay, steps, lanes))
+
+
+def up_peer_args(plan, h_full, decay: float, steps: int, lanes: int,
+                 wait_ns: int = PEER_WAIT_NS):
+    """``card_args(k, epoch, parity)``: card ``k``'s leading arguments of
+    ``rca_seg_up_steps_peer`` (through the barrier's wait bound) for
+    :func:`launch_peer`, read from the group under the peer lock."""
+    peer, sp, gamma = plan.peer, len(h_full), as_float32(decay)
+    group = peer.group
+
+    def card_args(k, epoch, parity):
+        seg = peer.up[k]
+        return (h_full[k].data_ptr(), gamma, steps, seg.seg.data_ptr(),
+                seg.offsets.data_ptr(), seg.other.data_ptr(), seg.n_seg,
+                seg.n_long, seg.n_big, lanes, plan.n_pad, k, sp,
+                ctypes.addressof(group.tables["up_w"]),
+                ctypes.addressof(group.flag_table), group.floats, epoch,
+                parity & 1, wait_ns)
+
+    return card_args
+
+
+def down_seg_steps_peer(a_ex_full, decay: float, steps: int, plan,
+                        inv_deg_blk):
+    """The impact recursion of a ``peer`` plan's shards, one a card, ``m_0
+    = 0``, ``m_{k+1}[i] = inv_deg[i] * (c_0[i] + c_1[i] + ... +
+    c_{sp-1}[i])`` with ``c_j[d]`` the sum over shard ``j``'s edges ``(s,
+    d)`` of ``a_ex[s] + decay*m_k[s]``, the shards added in that order,
+    from each card's full ``a_ex_full[k]`` and its ``[block]``
+    ``inv_deg_blk[k]``, returning each card's block of ``m_steps``: on
+    CUDA tensors one cooperative launch of the ``seg_down_steps_peer``
+    kernel a card (none for ``steps == 0``), bitwise the per-step
+    composition; on CPU tensors :func:`down_seg_steps_peer_plain`."""
+    steps = _step_count("seg_down_steps_peer", steps)
+    lanes = _peer_lanes("seg_down_steps_peer", plan,
+                        {"a_ex_full": a_ex_full}, {"inv_deg": inv_deg_blk})
+    if not lanes:
+        return down_seg_steps_peer_plain(a_ex_full, decay, steps, plan,
+                                         inv_deg_blk)
+    block = plan.block
+    outs = [a.new_empty(a.shape[:-1] + (block,)) for a in a_ex_full]
+    if steps == 0:
+        return [o.zero_() for o in outs]
+    return launch_peer("seg_down_steps_peer", plan.peer, steps, lanes,
+                       plan.n_pad, outs,
+                       down_peer_args(plan, a_ex_full, decay, steps, lanes,
+                                      inv_deg_blk))
+
+
+def down_peer_args(plan, a_ex_full, decay: float, steps: int, lanes: int,
+                   inv_deg_blk):
+    """``card_args(k, epoch, parity)``: card ``k``'s leading arguments of
+    ``rca_seg_down_steps_peer`` (through the barrier's wait bound) for
+    :func:`launch_peer`, read from the group under the peer lock."""
+    peer, sp, gamma = plan.peer, len(a_ex_full), as_float32(decay)
+    group = peer.group
+
+    def card_args(k, epoch, parity):
+        seg = peer.dn[k]
+        return (a_ex_full[k].data_ptr(), inv_deg_blk[k].data_ptr(), gamma,
+                steps, seg.seg.data_ptr(), seg.offsets.data_ptr(),
+                seg.other.data_ptr(), seg.n_seg, seg.n_long, seg.n_big,
+                lanes, plan.n_pad, k, sp,
+                ctypes.addressof(group.tables["dn_w"]),
+                ctypes.addressof(group.tables["inbox"]),
+                ctypes.addressof(group.flag_table), group.floats, epoch,
+                parity & 1, PEER_WAIT_NS)
+
+    return card_args

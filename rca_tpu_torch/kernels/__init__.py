@@ -22,11 +22,13 @@ LAUNCHES = {"noisy_or_pair": 0, "segscan_sum": 0, "segscan_max": 0,
             "seg_contrast_step": 0, "seg_up_steps": 0, "seg_down_steps": 0,
             "evidence_front_fused": 0, "seg_up_steps_grid": 0,
             "seg_down_steps_grid": 0, "seg_up_steps_shard": 0,
-            "seg_down_steps_shard": 0, "evidence_front_shard": 0}
+            "seg_down_steps_shard": 0, "evidence_front_shard": 0,
+            "seg_up_steps_peer": 0, "seg_down_steps_peer": 0}
 PERSIST_LAUNCHES = {"evidence_front": 0, "evidence_front_fused": 0}
 SHARD_LAUNCHES = {"seg_up_step": 0, "seg_down_step": 0,
                   "seg_contrast_step": 0, "seg_up_steps_shard": 0,
-                  "seg_down_steps_shard": 0, "evidence_front_shard": 0}
+                  "seg_down_steps_shard": 0, "evidence_front_shard": 0,
+                  "seg_up_steps_peer": 0, "seg_down_steps_peer": 0}
 
 
 _LOCK = make_lock("kernels._LOCK")

@@ -43,6 +43,8 @@ BUILD_SECONDS = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float   # without it ctypes passes a double
+_U = ctypes.c_uint
+_Q = ctypes.c_ulonglong
 _SIGNATURES = {
     "rca_noisy_or_pair": (_P, _P, _P, _P, _P, _I, _I, _P),
     "rca_segscan": (_P, _P, _P, _P, _P, _I, _I, _P),
@@ -82,6 +84,12 @@ _SIGNATURES = {
     "rca_seg_down_steps_shard": (_P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P,
                                  _P, _I, _I, _P, _P, _I, _I, _P),
     "rca_seg_steps_shard_cap": (_P,),
+    "rca_seg_up_steps_peer": (_P, _F, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _Q, _U, _I, _Q, _P, _I, _I, _P),
+    "rca_seg_down_steps_peer": (_P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _P, _P, _P, _Q, _U, _I, _Q, _P,
+                                _P, _I, _I, _P),
+    "rca_seg_steps_peer_cap": (_I, _P),
 }
 
 

@@ -30,6 +30,11 @@ from rca_tpu_torch.features.schema import NUM_SERVICE_FEATURES
 #: bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+#: one H100 SXM's NVLink rate in each direction, all its links together:
+#: 18 links at 26.562 GB/s each, as ``nvidia-smi nvlink -s`` reads them
+#: on a four-card host (``chip_smoke.py --multi-card`` records the
+#: reading); the data sheet's 900 GB/s counts both directions
+NVLINK_BYTES_PER_S = 18 * 26.562e9
 
 #: the service feature channels
 C = NUM_SERVICE_FEATURES
@@ -153,6 +158,51 @@ def down_steps(n_pad: int, e_pad: int, n_long: int, lanes: int = 1,
     order."""
     n_bytes, n_ops = _steps(n_pad, e_pad, n_long, lanes, steps, 1)
     return n_bytes, n_ops + lanes * steps * pairs
+
+
+PeerCost = Tuple[int, int, int]
+
+
+def bound_peer_ms(hbm_bytes: float, link_bytes: float, n_ops: float,
+                  link_rate: float = NVLINK_BYTES_PER_S) -> Tuple[float, str]:
+    """:func:`bound_ms` of a card that also pushes ``link_bytes`` into its
+    peers' memory: the larger of its own HBM bytes over the memory rate,
+    its pushed bytes over the NVLink rate in one direction, and its
+    operations over the float32 rate (``"bytes"`` for either bytes
+    term)."""
+    t, by = bound_ms(hbm_bytes, n_ops)
+    t_link = link_bytes / link_rate * 1e3
+    return (t_link, "bytes") if t_link > t else (t, by)
+
+
+def up_steps_peer(n_pad: int, sp: int, e_k: int, lanes: int = 1,
+                  steps: int = 8) -> PeerCost:
+    """``seg_up_steps_peer``, one card's launch of the explain-away
+    recursion over distinct cards, ``(hbm bytes, nvlink bytes,
+    operations)``: its up CSR over its ``block = n_pad / sp`` sources and
+    ``e_k`` real edges, its full ``h`` read, its block of ``u`` written;
+    pushed, its block of ``w`` to each of the ``sp - 1`` peers at every
+    step but the last; each step's operations over its edges."""
+    block = n_pad // sp
+    return ((block + 1 + e_k) * 4 + lanes * (n_pad + block) * 4,
+            (steps - 1) * (sp - 1) * lanes * block * 4,
+            lanes * steps * (3 * e_k + block))
+
+
+def down_steps_peer(n_pad: int, sp: int, e_k: int, pairs_k: int,
+                    lanes: int = 1, steps: int = 8) -> PeerCost:
+    """``seg_down_steps_peer``, one card's launch of the impact recursion
+    over distinct cards: its CSR over its ``pairs_k`` (card, destination)
+    pairs and ``e_k`` real edges, ``a_ex`` at its own sources and its
+    block of ``inv_deg`` read, its block of ``m`` written; pushed, every
+    step its contributions to the ``sp - 1`` other owners (the
+    reduce-scatter's volume, zeros included) and at every step but the
+    last its block of ``w`` to each peer; each step's operations over its
+    edges, the ``sp - 1`` adds and the multiply of each of its nodes."""
+    block = n_pad // sp
+    return ((pairs_k + 1 + e_k) * 4 + block * 4 + 2 * lanes * block * 4,
+            (2 * steps - 1) * (sp - 1) * lanes * block * 4,
+            lanes * steps * (3 * e_k + sp * block))
 
 
 def up_step_shard(e_k: int, b_k: int, n_dst: int, n_dst_own: int) -> Cost:

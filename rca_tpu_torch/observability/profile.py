@@ -51,6 +51,8 @@ KERNEL_SYMBOLS = {
     "seg_up_steps_shard": re.compile(
         r"\bseg_grid_kernel<[\w\s():]*\bUpShard>"),
     "seg_down_steps_shard": re.compile(r"\bseg_shard_down_kernel\b"),
+    "seg_up_steps_peer": re.compile(r"\bseg_peer_up_kernel\b"),
+    "seg_down_steps_peer": re.compile(r"\bseg_peer_down_kernel\b"),
     "segscan_sum": re.compile(r"\btile_scan_kernel<[^>]*\b0>"),
     "segscan_max": re.compile(r"\btile_scan_kernel<[^>]*\b1>"),
 }

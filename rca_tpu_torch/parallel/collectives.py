@@ -32,7 +32,10 @@ the reference's comm-volume budget: an all-gather brings each shard the
 other ``sp - 1`` blocks, ``(sp - 1) * block * 4`` bytes; a reduce-scatter
 sends each shard's ``sp - 1`` foreign blocks to their owners, ``(sp - 1)
 / sp * n_pad * 4`` bytes through each shard.  The top-k merge's
-candidate gather counts apart (``topk_gather``).
+candidate gather counts apart (``topk_gather``).  The recursions over
+distinct cards exchange their blocks inside their kernels
+(``engine/segscan.py::launch_peer``); what those move between the cards
+counts under the same kinds (:func:`count_moved`), with no call.
 """
 
 from __future__ import annotations
@@ -53,8 +56,14 @@ def reset_collectives() -> None:
 
 
 def _count(kind: str, n_bytes: int) -> None:
-    COLLECTIVE_BYTES[kind] += int(n_bytes)
+    count_moved(kind, n_bytes)
     COLLECTIVE_CALLS[kind] += 1
+
+
+def count_moved(kind: str, n_bytes: int) -> None:
+    """``n_bytes`` moved between shards under ``kind``, by a kernel's stores
+    into peer memory (no host call)."""
+    COLLECTIVE_BYTES[kind] += int(n_bytes)
 
 
 def gather_to(blocks: Sequence[torch.Tensor], device: torch.device,

@@ -18,15 +18,22 @@ entry on the card (``csrc/segstep.cu``; on the CPU its plain version),
 the reference's ``pallas_segscan_max`` (``sharded.py:252``) and
 ``pallas_segscan`` (``:285``) with the step bodies around them: the
 ``step`` form of the plan (:func:`shard_steps_form`), where the shards
-span cards.  Where every shard of a ``dp`` row lies on one card (logical
-shards), the plan's form is ``shard_grid``: each recursion is one
-cooperative launch over every shard of the card (``csrc/segshard.cu``),
-``u`` and ``m`` one ``[..., n_pad]`` vector each whose blocks are the
-shards', and the exchange between steps a grid barrier, bitwise the
-``step`` form.  The front in the ``step`` form is ``evidence_front``'s row
-pass over the shard's ``[block, C]`` rows (one launch: the sanitize,
-``a``, ``h``, ``e``) and the contrast's per-shard entry over the one-time
-``e`` gather, then the ``h`` / ``a`` gathers; in the ``shard_grid`` form
+mix cards or their cards do not reach each other's memory.  Where every
+shard of a ``dp`` row lies on one card (logical shards), the plan's form
+is ``shard_grid``: each recursion is one cooperative launch over every
+shard of the card (``csrc/segshard.cu``), ``u`` and ``m`` one ``[...,
+n_pad]`` vector each whose blocks are the shards', and the exchange
+between steps a grid barrier, bitwise the ``step`` form.  Where the
+shards lie one a card on cards that all reach each other's memory (the
+multi-card default), the form is ``peer``: each recursion is one
+cooperative launch a card (``csrc/segpeer.cu``) that stores its block
+into every peer's copy over NVLink and crosses a barrier of all the
+cards on flags in peer memory, bitwise the ``step`` form too; the front
+and its gathers stay as the ``step`` form runs them.  The front in the
+``step`` form is ``evidence_front``'s row pass over the shard's ``[block,
+C]`` rows (one launch: the sanitize, ``a``, ``h``, ``e``) and the
+contrast's per-shard entry over the one-time ``e`` gather, then the ``h``
+/ ``a`` gathers; in the ``shard_grid`` form
 it is one cooperative launch over every shard's rows
 (``csrc/frontshard.cu``) whose joined ``[..., n_pad]`` ``a`` and ``h`` are
 what the gathers would hand each shard, so the score and the stack run
@@ -62,15 +69,21 @@ from rca_tpu_torch.engine.propagate import background_excess, combine_score
 from rca_tpu_torch.engine.resident import ResidentSession
 from rca_tpu_torch.engine.runner import top_k, topk_diag
 from rca_tpu_torch.engine.segscan import (
+    MAX_PEER_CARDS,
     SHORT_SEGMENT_MAX,
+    PeerGrid,
     ShardGrid,
     ShardSeg,
     arrays_digest,
+    build_peer_layouts,
     build_shard_grid,
     down_seg_step_shard,
+    down_seg_steps_peer,
     down_seg_steps_shard,
     down_shard_recursion,
+    peer_grid,
     up_seg_step_shard,
+    up_seg_steps_peer,
     up_seg_steps_shard,
     up_shard_recursion,
 )
@@ -239,39 +252,76 @@ def build_sharded_seg_layouts(graph: ShardedGraph) -> ShardedSegLayouts:
 
 # -- the device plan ----------------------------------------------------------
 
+def _peer_reach(devs) -> bool:
+    """Whether every ordered pair of the distinct CUDA devices ``devs``
+    reaches the other's memory (``torch.cuda.can_device_access_peer``),
+    each a visible card, at most ``MAX_PEER_CARDS`` of them."""
+    index = [d.index for d in devs]
+    if len(devs) > MAX_PEER_CARDS or None in index or \
+            max(index) >= torch.cuda.device_count():
+        return False
+    return all(torch.cuda.can_device_access_peer(i, j)
+               for i in index for j in index if i != j)
+
+
 def shard_steps_form(devices) -> str:
     """The form of the ``kernels`` row's recursions over one ``dp`` row's
-    shard ``devices`` (``ShardPlan.steps_form``): ``shard_grid``, one
-    cooperative launch per recursion over every shard, where every shard
-    lies on one CUDA device (logical shards); ``step``, a launch a shard
-    and step between collectives, where they span cards or mix them, and
-    on the CPU (there both forms compute the same composition of plain
-    steps)."""
-    devs = {torch.device(d) for d in devices}
-    one = len(devs) == 1 and next(iter(devs)).type == "cuda"
-    return "shard_grid" if one else "step"
+    shard ``devices`` (``ShardPlan.steps_form``), from the hardware's
+    facts: ``shard_grid``, one cooperative launch per recursion over every
+    shard, where every shard lies on one CUDA device (logical shards);
+    ``peer``, one cooperative launch per card and recursion exchanging
+    blocks through peer memory, where the shards lie one a card on
+    distinct CUDA devices that all reach each other's memory; ``step``, a
+    launch a shard and step between collectives, elsewhere: mixed
+    placements, cards without peer access, and the CPU (there every form
+    computes the same composition of plain steps).  No form falls back to
+    another: a launch that fails raises."""
+    devs = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devs):
+        return "step"
+    if len(set(devs)) == 1:
+        return "shard_grid"
+    if len(set(devs)) == len(devs) and _peer_reach(devs):
+        return "peer"
+    return "step"
 
 
-def shard_steps_note(sp: int, device) -> str:
-    """What a sharded ``kernels`` plan of ``sp`` logical shards of
-    ``device`` runs for its two recursions (:func:`shard_steps_form`)."""
-    if shard_steps_form([device] * sp) == "shard_grid":
+def shard_steps_note(sp: int, device, devices=None) -> str:
+    """What a sharded ``kernels`` plan runs for its two recursions
+    (:func:`shard_steps_form`): over ``sp`` logical shards of ``device``,
+    or over the shard ``devices`` given."""
+    devices = list(devices) if devices else [device] * sp
+    form = shard_steps_form(devices)
+    if form == "shard_grid":
         return (f"shard_grid: {sp} logical shards of {device}, one "
                 f"cooperative launch for the front and one per recursion "
                 f"over every shard (evidence_front_shard, "
-                f"seg_up_steps_shard, seg_down_steps_shard); shards on "
-                f"distinct cards take step")
+                f"seg_up_steps_shard, seg_down_steps_shard); shards one a "
+                f"card on cards that reach each other's memory take peer, "
+                f"other placements step")
+    if form == "peer":
+        return (f"peer: {len(devices)} shards one a card on "
+                f"{', '.join(map(str, devices))}, one cooperative launch "
+                f"a card per recursion exchanging blocks through peer "
+                f"memory (seg_up_steps_peer, seg_down_steps_peer); the "
+                f"front per shard between the collectives")
+    where = ", ".join(map(str, dict.fromkeys(devices)))
     return (f"step: a launch a shard and step between collectives; on "
-            f"{device} the plan runs the plain steps")
+            f"{where} the plan runs the "
+            + ("per-shard kernels (mixed placements or cards without "
+               "peer access)" if torch.device(devices[0]).type == "cuda"
+               else "plain steps"))
 
 
 class ShardPlan(NamedTuple):
     """One ``dp`` row's staged graph: the engaged row (``kernels`` or
     ``torch``), the shards' devices, and per shard its two layouts and its
     edge rows' destinations and mask (the degree count), on its device;
-    and ``grid``, the shards' joined layouts on their card where the
-    recursions take the ``shard_grid`` form (only on the ``kernels`` row,
-    where :func:`shard_steps_form` gives it), else None."""
+    ``grid``, the shards' joined layouts on their card where the
+    recursions take the ``shard_grid`` form, and ``peer``, each card's
+    layouts, exchange buffers and flags where they take the ``peer`` form
+    (each only on the ``kernels`` row, where :func:`shard_steps_form`
+    gives it), else None."""
 
     kernel: str
     devices: Tuple[torch.device, ...]
@@ -282,12 +332,15 @@ class ShardPlan(NamedTuple):
     dst_global: Tuple[torch.Tensor, ...]   # int64 [e_pad]
     mask: Tuple[torch.Tensor, ...]         # float32 [e_pad]
     grid: Optional[ShardGrid] = None
+    peer: Optional[PeerGrid] = None
 
     @property
     def steps_form(self) -> str:
         """The recursions' form: ``shard_grid`` where the plan holds a
-        grid, else ``step``."""
-        return "step" if self.grid is None else "shard_grid"
+        grid, ``peer`` where it holds the peer state, else ``step``."""
+        if self.grid is not None:
+            return "shard_grid"
+        return "step" if self.peer is None else "peer"
 
 
 _EDGE_NAMES = ("dst_global", "mask")
@@ -306,13 +359,29 @@ def _grid_on(entry: dict, device) -> ShardGrid:
     return entry[key]
 
 
+def _peer_on(entry: dict, devices) -> PeerGrid:
+    """The graph's :class:`PeerGrid` on ``devices`` (digest-cached with the
+    graph's layouts: each card's layouts built on the host once, moved
+    once per device list)."""
+    key = ("peer", tuple(str(d) for d in devices))
+    if key not in entry:
+        lay = entry[None]
+        if "peer" not in entry:
+            entry["peer"] = build_peer_layouts(lay.up_offsets, lay.up_other,
+                                               lay.dn_offsets, lay.dn_other)
+        entry[key] = peer_grid(entry["peer"], devices)
+    return entry[key]
+
+
 def _as_row(entry: dict, plan: ShardPlan, kernel: str) -> ShardPlan:
     """``plan`` for the registry row ``kernel``, in the form it takes
     there."""
-    on_grid = (kernel == "kernels"
-               and shard_steps_form(plan.devices) == "shard_grid")
-    return plan._replace(kernel=kernel, grid=_grid_on(
-        entry, plan.devices[0]) if on_grid else None)
+    form = shard_steps_form(plan.devices) if kernel == "kernels" else "step"
+    return plan._replace(
+        kernel=kernel,
+        grid=_grid_on(entry, plan.devices[0]) if form == "shard_grid"
+        else None,
+        peer=_peer_on(entry, plan.devices) if form == "peer" else None)
 
 
 def _shard_seg(fields: dict, prefix: str, n_long: int) -> ShardSeg:
@@ -423,7 +492,10 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
     the down-steps, ``combine_score``.  In the plan's ``steps_form``:
     ``step``, the front's two halves a shard around the gathers and each
     recursion step an all-gather (and for the impact a reduce-scatter)
-    around a launch a shard; ``shard_grid``, :func:`_propagate_card`.
+    around a launch a shard; ``peer``, the same front and gathers, then
+    each recursion one launch a card exchanging blocks in the kernel
+    (:func:`up_seg_steps_peer`, :func:`down_seg_steps_peer`);
+    ``shard_grid``, :func:`_propagate_card`.
 
     ``f_blks``: each shard's SANITIZED ``[block, C]`` (or ``[B, block,
     C]``) rows on its device; ``aw`` / ``hw``: the weights per shard.
@@ -448,8 +520,12 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
                           plan.up[k], k * block) for k in range(sp)]
     h_full = all_gather(h_blk, devs)
     a_full = all_gather(a_blk, devs)
-    u_blk = up_shard_recursion(h_full, params.decay, params.steps, plan.up,
-                               up_seg_step_shard if kern else None)
+    if plan.peer is not None:
+        u_blk = up_seg_steps_peer(h_full, params.decay, params.steps, plan)
+    else:
+        u_blk = up_shard_recursion(h_full, params.decay, params.steps,
+                                   plan.up, up_seg_step_shard if kern
+                                   else None)
 
     # the background over the FULL gathered anomaly vector, so every shard
     # subtracts the dense path's global median; shards on one device share
@@ -458,10 +534,15 @@ def propagate_blocks(f_blks: Sequence[torch.Tensor], plan: ShardPlan,
     for a, d in zip(a_full, devs):
         if d not in excess:
             excess[d] = background_excess(a, n_live)
-    m_blk = down_shard_recursion(
-        [excess[d] for d in devs], params.decay, params.steps, plan.dn,
-        [1.0 / torch.clamp(d, min=1.0) for d in _degree_blocks(plan)],
-        down_seg_step_shard if kern else None)
+    a_ex = [excess[d] for d in devs]
+    inv_blk = [1.0 / torch.clamp(d, min=1.0) for d in _degree_blocks(plan)]
+    if plan.peer is not None:
+        m_blk = down_seg_steps_peer(a_ex, params.decay, params.steps, plan,
+                                    inv_blk)
+    else:
+        m_blk = down_shard_recursion(a_ex, params.decay, params.steps,
+                                     plan.dn, inv_blk,
+                                     down_seg_step_shard if kern else None)
     return [_stack(a, h, u, m, params)
             for a, h, u, m in zip(a_blk, h_blk, u_blk, m_blk)]
 

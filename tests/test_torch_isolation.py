@@ -1171,8 +1171,8 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     sources = [p.name for p in build.sources()]
     assert sources == ["evidence.cu", "front.cu", "frontshard.cu",
-                       "seggrid.cu", "segscan.cu", "segshard.cu",
-                       "segstep.cu", "segsteps.cu"]
+                       "seggrid.cu", "segpeer.cu", "segscan.cu",
+                       "segshard.cu", "segstep.cu", "segsteps.cu"]
     assert build.BUILD_DIR.name == "_build"
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("nvcc is present: the missing-compiler error does not "
@@ -1205,7 +1205,8 @@ def test_engine_on_card_runs_the_kernels_and_matches_cpu():
                         "seg_down_steps": 1, "evidence_front_fused": 1,
                         "seg_up_steps_grid": 0, "seg_down_steps_grid": 0,
                         "seg_up_steps_shard": 0, "seg_down_steps_shard": 0,
-                        "evidence_front_shard": 0}
+                        "evidence_front_shard": 0, "seg_up_steps_peer": 0,
+                        "seg_down_steps_peer": 0}
     ref = GraphEngine(device="cpu").analyze_case(case)
     assert got.top_components() == ref.top_components()
     assert np.array_equal(got.upstream, ref.upstream)
